@@ -7,9 +7,14 @@ Phases (any failure exits non-zero and prints no result line):
   1. card    — nvidia-smi name + power limit; TF32 off for matmul and cuDNN.
   2. build   — nvcc builds every CUDA source of the port from this checkout.
   3. kernels — each kernel's wrapper on card tensors vs its plain PyTorch
-               version on the same tensors (max_abs_err <= 1e-4), at a small
-               odd shape and at GPT-2-small decode shapes; kernel, plain
-               version and one PyTorch library call timed with CUDA events
+               version on the same tensors, at a small odd shape and at the
+               main path's shapes: paged attention at GPT-2-small decode
+               shapes (max_abs_err <= 1e-4); the GRU forward (hs, h_last
+               <= 1e-4) and backward (each of dproj, dW_zr, dW_c, db, dh0
+               <= 1e-3 x max(1, max|plain|)) in both directions at
+               T=7/B=5/H=24 and at the seq2seq encoder's T=50/B=128/H=512
+               with ragged lengths 30-50. Kernel, plain version and (where
+               one exists) one PyTorch library call timed with CUDA events
                (L2 flushed before each launch), beside the least time the
                card could take (bytes or f32 operations over its peaks).
   4. serve   — the serving engine at GPT-2 small's widths (12 layers,
@@ -23,7 +28,19 @@ Phases (any failure exits non-zero and prints no result line):
                over 16 decode-only steps: device busy time and share,
                launches and the top kernels per step. A small model's greedy
                tokens on the card must equal its tokens on the CPU.
-  5. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+  5. train   — seq2seq NMT training at the reference's headline widths
+               (bench.py:211-245: vocab 30000, embed = hidden = 512, batch
+               128, lengths 50; random weights from seed 0): SGDTrainer +
+               Adam(1e-3), f32, 2 warm-up + 10 timed steps on one batch.
+               Checks: 2 forward + 2 backward GRU launches per step (encoder
+               fw and bw), finite costs, the last below the first. Then
+               torch.profiler over 2 steps: device busy share, launches per
+               step, top kernels, the GRU kernels' share.
+  6. card vs CPU — the same model, batch 8 with ragged lengths: step-1 cost
+               (1e-5 relative) and all 22 gradients (rtol 1e-3, atol 1e-4)
+               on the card (kernels) vs the CPU (plain versions), same
+               parameters and batch.
+  7. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git)."""
@@ -53,6 +70,16 @@ PROMPT_LENS = (16, 40, 100, 128, 200, 350, 500, 700)
 NEW_TOKENS = 32
 KERNEL_TOL = 1e-4
 LOGITS_TOL = 1e-3
+# the reference's headline NMT training shape (bench.py:211-245, the
+# train.conf scale of demo/seqToseq): vocab 30k, embed = hidden = 512
+S2S = dict(vocab=30000, embed=512, hidden=512, batch=128, src_len=50, trg_len=50)
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+GRU_FWD_TOL = 1e-4
+# dW and db sum T*B = 6400 terms in another order than the plain version
+GRU_BWD_RTOL = 1e-3
+CPU_BATCH = 8
+CPU_COST_RTOL = 1e-5
+CPU_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 
 
 def fail(msg: str) -> None:
@@ -177,6 +204,115 @@ def kernel_phase(torch, flush, bw, f32_flops):
                  f"{err} > {KERNEL_TOL}")
         rows.append(row)
     return rows
+
+
+def gru_inputs(torch, seed, t, b, h, lengths, h0_scale):
+    """Time-major GRU inputs on the card: proj [T,B,3H], mask [T,B] from
+    `lengths`, smart-normal weights, bias, h0, and cotangents dhs, dh_last."""
+    g = torch.Generator().manual_seed(seed)
+    proj = torch.randn(t, b, 3 * h, generator=g)
+    lens = torch.as_tensor(lengths)
+    mask = (torch.arange(t)[:, None] < lens[None, :]).float()
+    w_hzr = torch.randn(h, 2 * h, generator=g) / h ** 0.5
+    w_hc = torch.randn(h, h, generator=g) / h ** 0.5
+    bias = 0.1 * torch.randn(3 * h, generator=g)
+    h0 = h0_scale * torch.randn(b, h, generator=g)
+    dhs = torch.randn(t, b, h, generator=g)
+    dh_last = torch.randn(b, h, generator=g)
+    return [x.cuda() for x in (proj, mask, w_hzr, w_hc, bias, h0, dhs, dh_last)]
+
+
+def gru_kernel_phase(torch, flush, bw, f32_flops):
+    """Both GRU kernels vs their plain versions on the card, both
+    directions, at a small odd shape and at the encoder's shape in the
+    seq2seq training step; kernel and plain times (CUDA events, L2 flushed)
+    beside the bound, at each shape in the forward direction."""
+    from paddle_tpu_torch.ops import rnn_kernels as K
+
+    g = torch.Generator().manual_seed(5)
+    main_lens = torch.randint(30, 51, (S2S["batch"],), generator=g)
+    main_lens[0] = S2S["src_len"]
+    shapes = (
+        # name, seed, T, B, H, lengths, h0 scale
+        ("small_odd", 11, 7, 5, 24, [7, 3, 1, 5, 6], 0.5),
+        ("s2s_encoder", 12, S2S["src_len"], S2S["batch"], S2S["hidden"],
+         main_lens.tolist(), 0.0),
+    )
+    rows = []
+    for name, seed, t, b, h, lens, h0_scale in shapes:
+        proj, mask, w_hzr, w_hc, bias, h0, dhs, dh_last = gru_inputs(
+            torch, seed, t, b, h, lens, h0_scale)
+        fwd_args = (proj, mask, w_hzr, w_hc, bias, h0)
+        row = dict(shape=name, T=t, B=b, H=h, lengths_min=min(lens),
+                   lengths_max=max(lens))
+        for reverse in (False, True):
+            hs, zrc = K.gru_seq_fwd(*fwd_args, reverse=reverse)
+            hs_ref, zrc_ref = K.gru_seq_fused_ref(*fwd_args, reverse=reverse)
+            last = 0 if reverse else -1
+            bwd_tail = (h0, mask, w_hzr, w_hc, dhs, dh_last)
+            got = K.gru_seq_bwd(zrc, hs, *bwd_tail, reverse=reverse)
+            want = K.gru_seq_bwd_ref(zrc_ref, hs_ref, *bwd_tail, reverse=reverse)
+            torch.cuda.synchronize()
+            d = "rev" if reverse else "fwd"
+            errs = {
+                "hs": float((hs - hs_ref).abs().max()),
+                "h_last": float((hs[last] - hs_ref[last]).abs().max()),
+                "zrc": float((zrc - zrc_ref).abs().max()),
+            }
+            row[f"fwd_err_{d}"] = errs
+            for k in ("hs", "h_last"):
+                if not errs[k] <= GRU_FWD_TOL:
+                    fail(f"gru_seq_fwd vs plain at {name} ({d}): {k} max_abs_err "
+                         f"{errs[k]} > {GRU_FWD_TOL}")
+            berrs = {}
+            for k, a, w in zip(("dproj", "dw_zr", "dw_c", "db", "dh0"), got, want):
+                scale = max(1.0, float(w.abs().max()))
+                err = float((a - w).abs().max())
+                berrs[k] = dict(max_abs_err=err, limit=GRU_BWD_RTOL * scale)
+                if not err <= GRU_BWD_RTOL * scale:
+                    fail(f"gru_seq_bwd vs plain at {name} ({d}): {k} max_abs_err "
+                         f"{err} > {GRU_BWD_RTOL} x {scale}")
+            row[f"bwd_err_{d}"] = berrs
+        hs, zrc = K.gru_seq_fwd(*fwd_args)
+        bwd_tail = (h0, mask, w_hzr, w_hc, dhs, dh_last)
+        row["fwd_kernel_ms"] = time_ms(torch, lambda: K.gru_seq_fwd(*fwd_args), flush)
+        row["fwd_plain_ms"] = time_ms(
+            torch, lambda: K.gru_seq_fused_ref(*fwd_args), flush, iters=10)
+        row["bwd_kernel_ms"] = time_ms(
+            torch, lambda: K.gru_seq_bwd(zrc, hs, *bwd_tail), flush)
+        row["bwd_plain_ms"] = time_ms(
+            torch, lambda: K.gru_seq_bwd_ref(zrc, hs, *bwd_tail), flush, iters=10)
+        # least work: the matrix products (forward 2*T*B*H*3H; backward the
+        # same for the recurrent W^T products plus as much for dW), each
+        # input read once and each output written once, f32
+        mm = 2 * t * b * h * 3 * h
+        f = 4
+        fwd_bytes = f * (t * b * 3 * h + t * b + 3 * h * h + 3 * h + b * h
+                         + t * b * h + t * b * 3 * h)
+        bwd_bytes = f * (t * b * 3 * h + t * b * h + b * h + t * b + 3 * h * h
+                         + t * b * h + b * h
+                         + t * b * 3 * h + 3 * h * h + 3 * h + b * h)
+        for leg, ops, nbytes in (("fwd", mm, fwd_bytes), ("bwd", 2 * mm, bwd_bytes)):
+            t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_flops * 1e3
+            row[f"{leg}_bound_ms"] = max(t_bytes, t_ops)
+            row[f"{leg}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row[f"{leg}_bytes"] = nbytes
+            row[f"{leg}_operations"] = ops
+        if name == "s2s_encoder":
+            row["note_torch_nn_gru_fwd_ms"] = torch_gru_ms(torch, t, b, h, flush)
+        print("gru_kernel", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def torch_gru_ms(torch, t, b, h, flush):
+    """torch.nn.GRU (cuDNN) forward at the same shape: a DIFFERENT function
+    (reset gate applied after the recurrent product, r*(W_hn h + b_hn), an
+    input projection of its own, no step mask), timed only as a note."""
+    gru = torch.nn.GRU(h, h).cuda()
+    x = torch.randn(t, b, h, device="cuda")
+    with torch.no_grad():
+        return time_ms(torch, lambda: gru(x), flush)
 
 
 def serve_phase(torch):
@@ -346,6 +482,172 @@ def small_tokens_phase(torch):
         fail("small model: greedy tokens on the card differ from the CPU")
 
 
+def s2s_batch(np, seed, b, ragged):
+    """A seq2seq batch drawn as bench.py:234-242 draws it (full lengths), or
+    with ragged lengths (first row full)."""
+    vocab, src_len, trg_len = S2S["vocab"], S2S["src_len"], S2S["trg_len"]
+    rs = np.random.RandomState(seed)
+    batch = {
+        "source_ids": rs.randint(2, vocab, (b, src_len)).astype(np.int32),
+        "source_ids.lengths": np.full(b, src_len, np.int32),
+        "target_ids": rs.randint(2, vocab, (b, trg_len)).astype(np.int32),
+        "target_ids.lengths": np.full(b, trg_len, np.int32),
+        "label_ids": rs.randint(2, vocab, (b, trg_len)).astype(np.int32),
+        "label_ids.lengths": np.full(b, trg_len, np.int32),
+    }
+    if ragged:
+        src_l = rs.randint(1, src_len + 1, b).astype(np.int32)
+        trg_l = rs.randint(1, trg_len + 1, b).astype(np.int32)
+        src_l[0], trg_l[0] = src_len, trg_len
+        batch["source_ids.lengths"] = src_l
+        batch["target_ids.lengths"] = batch["label_ids.lengths"] = trg_l
+    return batch
+
+
+def s2s_trainer(device):
+    from paddle_tpu_torch.models import Seq2SeqModel
+    from paddle_tpu_torch.nn.graph import reset_name_scope
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    reset_name_scope()
+    model = Seq2SeqModel(S2S["vocab"], S2S["vocab"], embed_dim=S2S["embed"],
+                         hidden_dim=S2S["hidden"])
+    return SGDTrainer(model.cost, Adam(learning_rate=1e-3), seed=0, device=device)
+
+
+def train_phase(torch):
+    """The seq2seq training step at the reference's headline widths on the
+    card: SGDTrainer + Adam(1e-3), the port's own init from seed 0, one
+    bench.py batch, 2 warm-up + 10 timed steps. GRU launch counts are set
+    to 0 just before these steps and read just after."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import rnn_kernels as K
+
+    t0 = time.perf_counter()
+    trainer = s2s_trainer("cuda")
+    batch = s2s_batch(np, 0, S2S["batch"], ragged=False)
+    trainer.init_state(batch)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.state["params"].values())
+
+    torch.cuda.reset_peak_memory_stats()
+    K.FWD_LAUNCHES = K.BWD_LAUNCHES = 0
+    costs, step_ms = [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t = time.perf_counter()
+        costs.append(float(trainer.step(batch)))  # the fetch synchronises
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    fwd, bwd = K.FWD_LAUNCHES, K.BWD_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    timed = step_ms[TRAIN_WARMUP:]
+    med = statistics.median(timed)
+    tokens = S2S["batch"] * S2S["trg_len"]
+    result = dict(
+        config=dict(S2S, optimizer="Adam(1e-3)", precision="f32, TF32 off",
+                    params=n_params),
+        setup_s=setup_s, steps=steps, costs=costs, step_ms=step_ms,
+        step_ms_median=med, step_ms_min=min(timed),
+        tokens_per_s=tokens / (med / 1e3), peak_memory_bytes=peak,
+        gru_fwd_launches=fwd, gru_bwd_launches=bwd,
+    )
+    print("train", json.dumps(result), flush=True)
+    if fwd != 2 * steps or bwd != 2 * steps:
+        fail(f"GRU kernels launched fwd {fwd} / bwd {bwd} times in {steps} "
+             f"steps, want 2 + 2 per step (encoder fw and bw)")
+    if not all(np.isfinite(costs)):
+        fail(f"non-finite training cost: {costs}")
+    if not costs[-1] < costs[0]:
+        fail(f"training cost did not fall: first {costs[0]}, last {costs[-1]}")
+    result["profile"] = profile_train(torch, trainer, batch)
+    return result
+
+
+def profile_train(torch, trainer, batch, steps: int = 2):
+    """Where a training step's time goes: torch.profiler over `steps`
+    steps. Device busy = summed kernel time over the window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = kernels.get(e.key, (0.0, 0))
+            kernels[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    gru_ms = sum(ms for k, (ms, _) in kernels.items() if "gru_" in k)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    out = dict(
+        steps=steps, wall_ms_per_step=wall_ms / steps,
+        device_busy_ms_per_step=busy_ms / steps,
+        device_busy_share=busy_ms / wall_ms,
+        kernel_launches_per_step=sum(c for _, c in kernels.values()) / steps,
+        gru_kernels_ms_per_step=gru_ms / steps,
+        gru_kernels_share_of_busy=gru_ms / busy_ms if busy_ms else 0.0,
+        gru_kernels={k[:60]: [ms / steps, c / steps]
+                     for k, (ms, c) in kernels.items() if "gru_" in k},
+        top_kernels_ms_per_step=[[k[:80], ms / steps, c / steps] for k, (ms, c) in top],
+    )
+    print("train_profile", json.dumps(out), flush=True)
+    if busy_ms <= 0:
+        fail("torch.profiler recorded no device time in the training steps")
+    return out
+
+
+def train_vs_cpu_phase(torch):
+    """Step-1 cost and all 22 gradients at the same widths, batch 8 with
+    ragged lengths, on the card (kernels) and on the CPU (plain versions),
+    from the same parameters."""
+    import numpy as np
+
+    batch = s2s_batch(np, 1, CPU_BATCH, ragged=True)
+    cpu = s2s_trainer("cpu")
+    cpu.init_state(batch)
+    card = s2s_trainer("cuda")
+    card.init_state(batch)
+    card.load_params(cpu.state["params"])
+    t0 = time.perf_counter()
+    c_card, g_card = card.cost_and_grads(batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_cpu, g_cpu = cpu.cost_and_grads(batch)
+    cpu_s = time.perf_counter() - t0
+    c_card, c_cpu = float(c_card), float(c_cpu)
+    grads = {}
+    bad = []
+    for k in sorted(g_cpu):
+        a, w = g_card[k].cpu(), g_cpu[k]
+        excess = float(((a - w).abs() - CPU_GRAD_TOL["rtol"] * w.abs()).max())
+        grads[k] = dict(max_abs_err=float((a - w).abs().max()),
+                        max_abs_grad=float(w.abs().max()), worst_excess=excess)
+        if not torch.allclose(a, w, **CPU_GRAD_TOL):
+            bad.append(k)
+    rel = abs(c_card - c_cpu) / abs(c_cpu)
+    out = dict(batch=CPU_BATCH, cost_card=c_card, cost_cpu=c_cpu, cost_rel_err=rel,
+               n_grads=len(grads), grads=grads, card_s=card_s, cpu_s=cpu_s,
+               src_lengths=batch["source_ids.lengths"].tolist(),
+               trg_lengths=batch["target_ids.lengths"].tolist())
+    print("train_vs_cpu", json.dumps(out), flush=True)
+    if len(grads) != 22:
+        fail(f"{len(grads)} gradients, want the model's 22 parameters")
+    if not rel <= CPU_COST_RTOL:
+        fail(f"step-1 cost card {c_card} vs CPU {c_cpu}: rel err {rel} > {CPU_COST_RTOL}")
+    if bad:
+        fail(f"gradients differ card vs CPU beyond {CPU_GRAD_TOL}: {bad}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -385,13 +687,20 @@ def main() -> int:
     # 3. kernels vs plain versions
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     rows = kernel_phase(torch, flush, bw, f32_flops)
+    gru_rows = gru_kernel_phase(torch, flush, bw, f32_flops)
     del flush
 
     # 4. the serving engine end to end (launches counted from 0 here)
     serve = serve_phase(torch)
     small_tokens_phase(torch)
 
-    # 5. lines
+    # 5. seq2seq training at the reference's widths (GRU launches from 0)
+    torch.cuda.empty_cache()
+    train = train_phase(torch)
+    # 6. the training step's cost and gradients, card vs CPU
+    train_vs_cpu = train_vs_cpu_phase(torch)
+
+    # 7. lines
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
     kernels = [{
         "name": "paged_attention_decode",
@@ -409,10 +718,40 @@ def main() -> int:
         "shape": main_row["shape"],
         "shapes": rows,
     }]
+    g_main = next(r for r in gru_rows if r["shape"] == "s2s_encoder")
+    no_library = ("none: no single PyTorch call computes this GRU (torch.nn.GRU "
+                  "applies the reset gate after the recurrent product and takes "
+                  "no step mask)")
+    for leg, replaces, launches, errs in (
+        ("fwd", "paddle_tpu/ops/pallas/rnn_kernels.py:378", train["gru_fwd_launches"],
+         [e[k] for r in gru_rows for d in ("fwd", "rev")
+          for e in [r[f"fwd_err_{d}"]] for k in ("hs", "h_last")]),
+        ("bwd", "paddle_tpu/ops/pallas/rnn_kernels.py:391", train["gru_bwd_launches"],
+         [v["max_abs_err"] for r in gru_rows for d in ("fwd", "rev")
+          for v in r[f"bwd_err_{d}"].values()]),
+    ):
+        kernels.append({
+            "name": f"gru_seq_fused_{leg}",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/gru_seq.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(errs),
+            "ms": g_main[f"{leg}_kernel_ms"],
+            "kernel_ms": g_main[f"{leg}_kernel_ms"],
+            "plain_ms": g_main[f"{leg}_plain_ms"],
+            "bound_ms": g_main[f"{leg}_bound_ms"],
+            "bound_by": g_main[f"{leg}_bound_by"],
+            "library_ms": None,
+            "library_note": no_library,
+            "shape": g_main["shape"],
+            "shapes": gru_rows,
+        })
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
-                   "serve": serve}, f, indent=1)
+                   "serve": serve, "train": train, "train_vs_cpu": train_vs_cpu},
+                  f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,241 @@
+"""Functional layer graph (counterpart of `paddle_tpu/nn/graph.py`).
+
+Layers are pure specs; `Network` orders them topologically once and runs
+each layer's `forward` once per call. Parameters are a plain dict of
+tensors keyed exactly as the JAX package keys them (`attr.name` or
+`f"{layer.name}.{pname}"`, e.g. `enc.fw.w_hzr`, `trg_emb_table`): the names
+hold dots and may be shared between layers through `ParamAttr(name=...)`,
+neither of which `nn.Module` attributes allow, and the same names let
+`nn/convert.py` move parameters to and from the JAX package unchanged.
+Backward is autograd over `Network.apply`, as it is `jax.grad` over the
+traced forward in the JAX package.
+
+Ragged sequences are padded [B, T, ...] tensors plus a [B] `lengths`
+tensor; a batch dict carries `<name>.lengths` beside each sequence slot."""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.device import DeviceLike, resolve_device
+from paddle_tpu_torch.nn import init as init_mod
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class Argument:
+    """Value flowing between layers.
+
+    value:   [B, ...] dense batch, or [B, T, ...] padded sequence batch.
+    lengths: [B] integer valid lengths when `value` is a sequence batch."""
+
+    value: torch.Tensor
+    lengths: Optional[torch.Tensor] = None
+
+    @property
+    def is_seq(self) -> bool:
+        return self.lengths is not None
+
+    def mask(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """[B, T] validity mask from lengths."""
+        assert self.lengths is not None
+        steps = torch.arange(self.value.shape[1], device=self.value.device)
+        return (steps[None, :] < self.lengths[:, None]).to(dtype)
+
+    def with_value(self, value: torch.Tensor) -> "Argument":
+        return Argument(value, self.lengths)
+
+
+@dataclasses.dataclass
+class ParamAttr:
+    """Per-parameter attributes: sharing name, init, lr scale, decay,
+    staticness, clipping (the reference's ParameterConfig knobs)."""
+
+    name: Optional[str] = None  # set -> parameter shared under this name
+    initial_std: Optional[float] = None  # set -> N(initial_mean, initial_std)
+    initial_mean: float = 0.0
+    learning_rate: float = 1.0
+    l1_decay: Optional[float] = None
+    l2_decay: Optional[float] = None
+    is_static: bool = False
+    gradient_clipping_threshold: Optional[float] = None
+
+
+class Context:
+    """Threaded through one forward run. mode='init' creates parameters on
+    first use (one generator per parameter, seeded from (seed, name), drawn
+    on the CPU); mode='apply' reads them from `params`."""
+
+    def __init__(self, mode: str, params: Params, seed: int = 0,
+                 device: Optional[torch.device] = None):
+        assert mode in ("init", "apply")
+        self.mode = mode
+        self.params = params
+        self.seed = seed
+        self.device = device
+        self.param_attrs: Dict[str, ParamAttr] = {}
+
+    def param(self, layer: "Layer", pname: str, shape: Sequence[int],
+              init: init_mod.Initializer,
+              attr: Optional[ParamAttr] = None) -> torch.Tensor:
+        attr = attr or ParamAttr()
+        full = attr.name or f"{layer.name}.{pname}"
+        if self.mode == "init" and full not in self.params:
+            initializer = init
+            if attr.initial_std is not None:
+                initializer = init_mod.normal(attr.initial_std, attr.initial_mean)
+            g = torch.Generator().manual_seed(
+                init_mod.param_seed(self.seed, _stable_hash(full)))
+            self.params[full] = initializer(g, tuple(shape)).to(self.device)
+            self.param_attrs[full] = attr
+        if full not in self.params:
+            raise KeyError(f"parameter {full!r} of layer {layer.name!r} missing")
+        got = tuple(self.params[full].shape)
+        if got != tuple(shape):
+            raise ValueError(
+                f"parameter {full!r} shape mismatch: {got} vs {tuple(shape)}")
+        return self.params[full]
+
+
+def _stable_hash(s: str) -> int:
+    h = 2166136261
+    for ch in s.encode():
+        h = ((h ^ ch) * 16777619) & 0x7FFFFFFF
+    return h
+
+
+_name_lock = threading.Lock()
+_name_counters: Dict[str, int] = {}
+
+
+def _auto_name(type_name: str) -> str:
+    with _name_lock:
+        idx = _name_counters.get(type_name, 0)
+        _name_counters[type_name] = idx + 1
+    return f"__{type_name}_{idx}__"
+
+
+def reset_name_scope() -> None:
+    """Reset auto-name counters (call between independently built graphs)."""
+    with _name_lock:
+        _name_counters.clear()
+
+
+class Layer:
+    """A pure layer spec. Subclasses implement `forward(ctx, ins)`; autograd
+    is the backward."""
+
+    type_name: str = "layer"
+    is_cost: bool = False
+
+    def __init__(self, inputs: Union[None, "Layer", Sequence["Layer"]] = None,
+                 name: Optional[str] = None):
+        if inputs is None:
+            inputs = []
+        elif isinstance(inputs, Layer):
+            inputs = [inputs]
+        inputs = list(inputs)
+        for i, layer in enumerate(inputs):
+            if not isinstance(layer, Layer):
+                raise TypeError(
+                    f"{type(self).__name__} input {i} is "
+                    f"{type(layer).__name__}, not a Layer")
+        self.inputs: List[Layer] = inputs
+        self.name = name or _auto_name(self.type_name)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        raise NotImplementedError
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__} {self.name}>"
+
+
+class Network:
+    """A layer DAG with `init` (create parameters from a sample batch) and
+    `apply` (forward over a batch)."""
+
+    def __init__(self, outputs: Union[Layer, Sequence[Layer]]):
+        self.outputs: List[Layer] = [outputs] if isinstance(outputs, Layer) else list(outputs)
+        self.layer_order = _topo_sort(self.outputs)
+        names: Dict[str, Layer] = {}
+        for layer in self.layer_order:
+            if names.setdefault(layer.name, layer) is not layer:
+                raise ValueError(f"duplicate layer name {layer.name!r}")
+        self.param_attrs: Dict[str, ParamAttr] = {}
+
+    def init(self, batch: Mapping[str, Any], seed: int = 0,
+             device: DeviceLike = None) -> Params:
+        """Create the parameters by running the forward once on `batch`
+        (without autograd). Returns {name: f32 tensor on `device`}."""
+        dev = resolve_device(device)
+        params: Params = {}
+        ctx = Context("init", params, seed, dev)
+        with torch.no_grad():
+            self._run(ctx, batch, dev)
+        self.param_attrs = dict(ctx.param_attrs)
+        return params
+
+    def apply(self, params: Params, batch: Mapping[str, Any]) -> Dict[str, Argument]:
+        """Forward over `batch` (moved to the parameters' device) ->
+        {output layer name: Argument}."""
+        dev = next(iter(params.values())).device
+        values = self._run(Context("apply", params, device=dev), batch, dev)
+        return {l.name: values[l.name] for l in self.outputs}
+
+    def _run(self, ctx: Context, batch: Mapping[str, Any],
+             device: torch.device) -> Dict[str, Argument]:
+        values: Dict[str, Argument] = {}
+        for layer in self.layer_order:
+            if layer.type_name == "data":
+                values[layer.name] = _feed_to_argument(batch, layer, device)
+                continue
+            out = layer.forward(ctx, [values[l.name] for l in layer.inputs])
+            if not isinstance(out, Argument):
+                raise TypeError(f"layer {layer.name} forward returned {type(out).__name__}")
+            values[layer.name] = out
+        return values
+
+
+def _topo_sort(outputs: Sequence[Layer]) -> List[Layer]:
+    order: List[Layer] = []
+    seen: Dict[int, int] = {}  # id -> 0 visiting, 1 done
+
+    def visit(layer: Layer) -> None:
+        state = seen.get(id(layer))
+        if state == 1:
+            return
+        if state == 0:
+            raise ValueError(f"cycle in layer graph at {layer.name}")
+        seen[id(layer)] = 0
+        for dep in layer.inputs:
+            visit(dep)
+        seen[id(layer)] = 1
+        order.append(layer)
+
+    for out in outputs:
+        visit(out)
+    return order
+
+
+def _to_tensor(v: Any, device: torch.device) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return torch.as_tensor(np.asarray(v)).to(device)
+
+
+def _feed_to_argument(batch: Mapping[str, Any], layer: Layer,
+                      device: torch.device) -> Argument:
+    if layer.name not in batch:
+        raise KeyError(f"data layer {layer.name!r} missing from batch; got {sorted(batch)}")
+    v = batch[layer.name]
+    if isinstance(v, Argument):
+        return v
+    lengths_key = layer.name + ".lengths"
+    lengths = _to_tensor(batch[lengths_key], device) if lengths_key in batch else None
+    return Argument(_to_tensor(v, device), lengths)
