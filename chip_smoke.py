@@ -13,7 +13,14 @@ Phases (any failure exits non-zero and prints no result line):
                <= 1e-4) and backward (each of dproj, dW_zr, dW_c, db, dh0
                <= 1e-3 x max(1, max|plain|)) in both directions at
                T=7/B=5/H=24 and at the seq2seq encoder's T=50/B=128/H=512
-               with ragged lengths 30-50. Kernel, plain version and (where
+               with ragged lengths 30-50; the LSTM forward (hs, h_last,
+               c_last <= 1e-4) and backward (dproj, dW, db, dh0, dc0, as
+               the GRU's) in both directions with non-zero h0 and c0 at
+               T=7/B=5/H=24, the text classifier's T=100/B=128/H=512 with
+               ragged lengths 60-100 and BASELINE's widest H=1280/B=64;
+               attention (<= 1e-4) at (B,Tq,Tk,D,Dv) = (3,5,7,8,6) with a
+               [B,1,Tk] and a [B,Tq,Tk] mask, each with a fully masked row,
+               and at (32,512,512,64,64). Kernel, plain version and (where
                one exists) one PyTorch library call timed with CUDA events
                (L2 flushed before each launch), beside the least time the
                card could take (bytes or f32 operations over its peaks).
@@ -40,7 +47,22 @@ Phases (any failure exits non-zero and prints no result line):
                (1e-5 relative) and all 22 gradients (rtol 1e-3, atol 1e-4)
                on the card (kernels) vs the CPU (plain versions), same
                parameters and batch.
-  7. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+  7. LSTM    — text classification training, the reference's RNN benchmark
+               (benchmarks/rnn_bench.py: vocab 10000, embed 128, 2 LSTM
+               layers, 2 classes, SGD(0.01)) at BASELINE.md's middle LSTM
+               row (hidden 512, batch 128, length 100; ids and labels from
+               RandomState(0) as rnn_bench draws them), peephole-free
+               layers, f32, 2 warm-up + 10 timed steps. Checks: 2 forward +
+               2 backward LSTM launches per step, finite costs, the last
+               below the first; torch.profiler over 2 steps. Then the same
+               model at batch 8 with ragged lengths: step-1 cost (1e-5
+               relative) and all 11 gradients (rtol 1e-3, atol 1e-4), card
+               vs CPU.
+  8. attention — `dot_product_attention` (its only path) at B=32,
+               Tq=Tk=512, D=Dv=64 with a per-row mask: forward (1e-4) and
+               q/k/v gradients (1e-4 x max(1, max|g|)) through the kernel vs
+               the plain body, launches counted from 0.
+  9. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git)."""
@@ -80,6 +102,18 @@ GRU_BWD_RTOL = 1e-3
 CPU_BATCH = 8
 CPU_COST_RTOL = 1e-5
 CPU_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+# the reference's RNN benchmark (benchmarks/rnn_bench.py: vocab 10000, embed
+# 128, 2 LSTM layers, 2 classes, SGD(0.01)) at BASELINE.md's middle LSTM
+# row (hidden 512, batch 128, sequence length 100), peephole-free layers
+LSTM = dict(vocab=10000, embed=128, hidden=512, layers=2, classes=2, batch=128,
+            seq_len=100)
+LSTM_FWD_TOL = 1e-4
+# dW and db sum up to T*B = 12800 terms in another order than the plain version
+LSTM_BWD_RTOL = 1e-3
+# attention: B, Tq, Tk, D, Dv of the large kernel shape
+ATTN_MAIN = (32, 512, 512, 64, 64)
+ATTN_TOL = 1e-4
+ATTN_GRAD_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -313,6 +347,232 @@ def torch_gru_ms(torch, t, b, h, flush):
     x = torch.randn(t, b, h, device="cuda")
     with torch.no_grad():
         return time_ms(torch, lambda: gru(x), flush)
+
+
+def lstm_inputs(torch, seed, t, b, h, lengths):
+    """Time-major LSTM inputs on the card: proj [T,B,4H], mask [T,B] from
+    `lengths`, a smart-normal W, bias, non-zero h0 and c0, and cotangents
+    dhs, dh_last, dc_last."""
+    g = torch.Generator().manual_seed(seed)
+    proj = torch.randn(t, b, 4 * h, generator=g)
+    lens = torch.as_tensor(lengths)
+    mask = (torch.arange(t)[:, None] < lens[None, :]).float()
+    w_hh = torch.randn(h, 4 * h, generator=g) / h ** 0.5
+    bias = 0.1 * torch.randn(4 * h, generator=g)
+    h0 = 0.5 * torch.randn(b, h, generator=g)
+    c0 = 0.5 * torch.randn(b, h, generator=g)
+    dhs = torch.randn(t, b, h, generator=g)
+    dh_last = torch.randn(b, h, generator=g)
+    dc_last = torch.randn(b, h, generator=g)
+    return [x.cuda() for x in (proj, mask, w_hh, bias, h0, c0, dhs, dh_last, dc_last)]
+
+
+def lstm_kernel_phase(torch, flush, bw, f32_flops):
+    """Both LSTM kernels vs their plain versions on the card, both
+    directions, non-zero h0 and c0, at a small odd shape, at the text
+    classifier's shape with ragged lengths and at BASELINE's widest row;
+    kernel and plain times (CUDA events, L2 flushed) beside the bound, at
+    each shape in the forward direction."""
+    from paddle_tpu_torch.ops import rnn_kernels as K
+
+    g = torch.Generator().manual_seed(6)
+    main_lens = torch.randint(60, LSTM["seq_len"] + 1, (LSTM["batch"],), generator=g)
+    main_lens[0] = LSTM["seq_len"]
+    wide_lens = torch.randint(60, LSTM["seq_len"] + 1, (64,), generator=g)
+    wide_lens[0] = LSTM["seq_len"]
+    shapes = (
+        # name, seed, T, B, H, lengths
+        ("small_odd", 21, 7, 5, 24, [7, 3, 1, 5, 6]),
+        ("text_cls", 22, LSTM["seq_len"], LSTM["batch"], LSTM["hidden"],
+         main_lens.tolist()),
+        ("wide_h1280", 23, LSTM["seq_len"], 64, 1280, wide_lens.tolist()),
+    )
+    rows = []
+    for name, seed, t, b, h, lens in shapes:
+        proj, mask, w_hh, bias, h0, c0, dhs, dh_last, dc_last = lstm_inputs(
+            torch, seed, t, b, h, lens)
+        fwd_args = (proj, mask, w_hh, bias, h0, c0)
+        bwd_tail = (h0, c0, mask, w_hh, dhs, dh_last, dc_last)
+        row = dict(shape=name, T=t, B=b, H=h, lengths_min=min(lens),
+                   lengths_max=max(lens), plan=K.lstm_seq_plan(h, b))
+        for reverse in (False, True):
+            hs, gates, ct, cs = K.lstm_seq_fwd(*fwd_args, reverse=reverse)
+            ref = K.lstm_seq_fused_ref(*fwd_args, reverse=reverse)
+            last = 0 if reverse else -1
+            got = K.lstm_seq_bwd(gates, ct, hs, cs, *bwd_tail, reverse=reverse)
+            want = K.lstm_seq_bwd_ref(ref[1], ref[2], ref[0], ref[3], *bwd_tail,
+                                      reverse=reverse)
+            torch.cuda.synchronize()
+            d = "rev" if reverse else "fwd"
+            errs = {
+                "hs": float((hs - ref[0]).abs().max()),
+                "h_last": float((hs[last] - ref[0][last]).abs().max()),
+                "c_last": float((cs[last] - ref[3][last]).abs().max()),
+                "gates": float((gates - ref[1]).abs().max()),
+            }
+            row[f"fwd_err_{d}"] = errs
+            for k in ("hs", "h_last", "c_last"):
+                if not errs[k] <= LSTM_FWD_TOL:
+                    fail(f"lstm_seq_fwd vs plain at {name} ({d}): {k} max_abs_err "
+                         f"{errs[k]} > {LSTM_FWD_TOL}")
+            berrs = {}
+            for k, a, w in zip(("dproj", "dw", "db", "dh0", "dc0"), got, want):
+                scale = max(1.0, float(w.abs().max()))
+                err = float((a - w).abs().max())
+                berrs[k] = dict(max_abs_err=err, limit=LSTM_BWD_RTOL * scale)
+                if not err <= LSTM_BWD_RTOL * scale:
+                    fail(f"lstm_seq_bwd vs plain at {name} ({d}): {k} max_abs_err "
+                         f"{err} > {LSTM_BWD_RTOL} x {scale}")
+            row[f"bwd_err_{d}"] = berrs
+        hs, gates, ct, cs = K.lstm_seq_fwd(*fwd_args)
+        saved = (gates, ct, hs, cs)
+        row["fwd_kernel_ms"] = time_ms(torch, lambda: K.lstm_seq_fwd(*fwd_args), flush)
+        row["fwd_plain_ms"] = time_ms(
+            torch, lambda: K.lstm_seq_fused_ref(*fwd_args), flush, iters=5)
+        row["bwd_kernel_ms"] = time_ms(
+            torch, lambda: K.lstm_seq_bwd(*saved, *bwd_tail), flush)
+        row["bwd_plain_ms"] = time_ms(
+            torch, lambda: K.lstm_seq_bwd_ref(*saved, *bwd_tail), flush, iters=5)
+        # least work: the recurrent products of the valid steps only (a
+        # masked step's state carries through, so its product is not
+        # needed) — forward 2*steps*H*4H, backward that for dh_prev plus as
+        # much for dW — each input read once and each output written once
+        steps = sum(lens)
+        mm = 2 * steps * h * 4 * h
+        f, tb = 4, t * b
+        fwd_bytes = f * (tb * 4 * h + tb + 4 * h * h + 4 * h + 2 * b * h
+                         + 3 * tb * h + tb * 4 * h)
+        bwd_bytes = f * (tb * 4 * h + 4 * tb * h + 2 * b * h + tb + 4 * h * h
+                         + 2 * b * h + tb * 4 * h + 4 * h * h + 4 * h + 2 * b * h)
+        for leg, ops, nbytes in (("fwd", mm, fwd_bytes), ("bwd", 2 * mm, bwd_bytes)):
+            t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_flops * 1e3
+            row[f"{leg}_bound_ms"] = max(t_bytes, t_ops)
+            row[f"{leg}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row[f"{leg}_bytes"] = nbytes
+            row[f"{leg}_operations"] = ops
+        if name == "text_cls":
+            row["note_torch_nn_lstm_fwd_ms"] = torch_lstm_ms(torch, t, b, h, flush)
+            # where the forward's time goes: per-step cost against the rows
+            by_batch = {}
+            for bb in (8, 32, b):
+                sub = [proj[:, :bb].contiguous(), mask[:, :bb].contiguous(), w_hh, bias,
+                       h0[:bb].contiguous(), c0[:bb].contiguous()]
+                by_batch[bb] = time_ms(torch, lambda: K.lstm_seq_fwd(*sub), flush, iters=10)
+            row["fwd_kernel_ms_by_batch"] = by_batch
+        print("lstm_kernel", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def torch_lstm_ms(torch, t, b, h, flush):
+    """torch.nn.LSTM (cuDNN) forward at the same shape: a DIFFERENT function
+    (an input projection of its own, two biases, no step mask), timed only
+    as a note."""
+    lstm = torch.nn.LSTM(h, h).cuda()
+    x = torch.randn(t, b, h, device="cuda")
+    with torch.no_grad():
+        return time_ms(torch, lambda: lstm(x), flush)
+
+
+def attn_inputs(torch, seed, b, tq, tk, d, dv, per_row):
+    """q, k, v and a 0/1 mask ([B,Tq,Tk] when `per_row`, else [B,1,Tk],
+    ~70 % kept) on the card, with one fully masked row."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, tq, d, generator=g)
+    k = torch.randn(b, tk, d, generator=g)
+    v = torch.randn(b, tk, dv, generator=g)
+    mask = (torch.rand(b, tq if per_row else 1, tk, generator=g) > 0.3).float()
+    mask[-1, -1, :] = 0.0
+    return [x.cuda() for x in (q, k, v, mask)]
+
+
+def attn_kernel_phase(torch, flush, bw, f32_flops):
+    """The attention kernel vs its plain version on the card at the JAX
+    tests' shape with both mask shapes and a fully masked row, and at
+    B=32, Tq=Tk=512, D=Dv=64; kernel, plain and F.scaled_dot_product_attention
+    (additive mask; never called by the port) timed at the large shape."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import rnn_kernels as K
+
+    shapes = (
+        # name, seed, B, Tq, Tk, D, Dv, per-row mask
+        ("small_kv_mask", 31, 3, 5, 7, 8, 6, False),
+        ("small_row_mask", 32, 3, 5, 7, 8, 6, True),
+        ("b32_t512", 33, *ATTN_MAIN, True),
+    )
+    rows = []
+    for name, seed, b, tq, tk, d, dv, per_row in shapes:
+        q, k, v, mask = attn_inputs(torch, seed, b, tq, tk, d, dv, per_row)
+        scale = 1.0 / d ** 0.5
+        got = K.attention_seq_fwd(q, k, v, mask, scale)
+        want = K.attention_seq_fused_ref(q, k, v, mask, scale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        masked_row_err = float((got[-1, -1] - want[-1, -1]).abs().max())
+        row = dict(shape=name, B=b, Tq=tq, Tk=tk, D=d, Dv=dv, Mq=mask.shape[1],
+                   max_abs_err=err, fully_masked_row_err=masked_row_err)
+        if not (err <= ATTN_TOL and bool(torch.isfinite(got).all())):
+            fail(f"attention_seq_fwd vs plain at {name}: max_abs_err {err} > {ATTN_TOL}")
+        if name == "b32_t512":
+            additive = torch.where(mask > 0, 0.0, -1e9)
+
+            def library():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=additive,
+                                                      scale=scale)
+
+            row["library_err"] = float((library() - want).abs().max())
+            row["kernel_ms"] = time_ms(
+                torch, lambda: K.attention_seq_fwd(q, k, v, mask, scale), flush)
+            row["plain_ms"] = time_ms(
+                torch, lambda: K.attention_seq_fused_ref(q, k, v, mask, scale), flush)
+            row["library_ms"] = time_ms(torch, library, flush)
+            ops = 2 * b * tq * tk * (d + dv)
+            nbytes = 4 * (b * tq * d + b * tk * d + b * tk * dv + mask.numel()
+                          + b * tq * dv)
+            t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_flops * 1e3
+            row.update(bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=nbytes, operations=ops)
+        print("attn_kernel", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def attn_path_phase(torch):
+    """`ops/attention.dot_product_attention`, the fused op's own path, at
+    B=32, Tq=Tk=512, D=Dv=64 with a per-row mask: forward and q/k/v
+    gradients with fused=None (the kernel; ATTN_LAUNCHES counted from 0)
+    against fused=False (the plain body) on the card."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import rnn_kernels as K
+
+    q, k, v, mask = attn_inputs(torch, 34, *ATTN_MAIN, True)
+    out = {}
+    for fused in (None, False):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        if fused is None:
+            K.ATTN_LAUNCHES = 0
+        o = A.dot_product_attention(*xs, mask=mask, fused=fused)
+        grads = torch.autograd.grad((o * o).sum(), xs)
+        torch.cuda.synchronize()
+        if fused is None:
+            launches = K.ATTN_LAUNCHES
+        out[fused] = (o.detach(), grads)
+    errs = {"out": float((out[None][0] - out[False][0]).abs().max())}
+    limits = {"out": ATTN_TOL}
+    for n, a, w in zip("qkv", out[None][1], out[False][1]):
+        errs[f"d{n}"] = float((a - w).abs().max())
+        limits[f"d{n}"] = ATTN_GRAD_RTOL * max(1.0, float(w.abs().max()))
+    res = dict(shape=list(ATTN_MAIN), launches=launches, errors_vs_plain_body=errs,
+               limits=limits)
+    print("attn_path", json.dumps(res), flush=True)
+    if launches < 1:
+        fail("dot_product_attention did not launch the attention kernel")
+    bad = [k for k in errs if not errs[k] <= limits[k]]
+    if bad:
+        fail(f"dot_product_attention fused vs plain body differ in {bad}: {errs}")
+    return res
 
 
 def serve_phase(torch):
@@ -566,9 +826,10 @@ def train_phase(torch):
     return result
 
 
-def profile_train(torch, trainer, batch, steps: int = 2):
+def profile_train(torch, trainer, batch, tag: str = "gru", steps: int = 2):
     """Where a training step's time goes: torch.profiler over `steps`
-    steps. Device busy = summed kernel time over the window's wall time."""
+    steps. Device busy = summed kernel time over the window's wall time;
+    the `<tag>_` kernels (the recurrence's) are summed apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -585,20 +846,21 @@ def profile_train(torch, trainer, batch, steps: int = 2):
             ms, n = kernels.get(e.key, (0.0, 0))
             kernels[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
     busy_ms = sum(ms for ms, _ in kernels.values())
-    gru_ms = sum(ms for k, (ms, _) in kernels.items() if "gru_" in k)
+    ours = {k: v for k, v in kernels.items() if f"{tag}_" in k}
+    rnn_ms = sum(ms for ms, _ in ours.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    out = dict(
-        steps=steps, wall_ms_per_step=wall_ms / steps,
-        device_busy_ms_per_step=busy_ms / steps,
-        device_busy_share=busy_ms / wall_ms,
-        kernel_launches_per_step=sum(c for _, c in kernels.values()) / steps,
-        gru_kernels_ms_per_step=gru_ms / steps,
-        gru_kernels_share_of_busy=gru_ms / busy_ms if busy_ms else 0.0,
-        gru_kernels={k[:60]: [ms / steps, c / steps]
-                     for k, (ms, c) in kernels.items() if "gru_" in k},
-        top_kernels_ms_per_step=[[k[:80], ms / steps, c / steps] for k, (ms, c) in top],
-    )
-    print("train_profile", json.dumps(out), flush=True)
+    out = {
+        "steps": steps, "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy_ms / steps,
+        "device_busy_share": busy_ms / wall_ms,
+        "kernel_launches_per_step": sum(c for _, c in kernels.values()) / steps,
+        f"{tag}_kernels_ms_per_step": rnn_ms / steps,
+        f"{tag}_kernels_share_of_busy": rnn_ms / busy_ms if busy_ms else 0.0,
+        f"{tag}_kernels": {k[:60]: [ms / steps, c / steps] for k, (ms, c) in ours.items()},
+        "top_kernels_ms_per_step": [[k[:80], ms / steps, c / steps] for k, (ms, c) in top],
+    }
+    print("train_profile" if tag == "gru" else f"{tag}_train_profile", json.dumps(out),
+          flush=True)
     if busy_ms <= 0:
         fail("torch.profiler recorded no device time in the training steps")
     return out
@@ -648,6 +910,136 @@ def train_vs_cpu_phase(torch):
     return out
 
 
+def lstm_trainer(device):
+    """SGDTrainer + SGD(0.01) over the text classifier's graph built from
+    the port's public layers with peephole-free LSTMs (the graph
+    `models.text_lstm` builds, minus the peepholes, which would take the
+    plain step loop)."""
+    from paddle_tpu_torch.nn import costs as C
+    from paddle_tpu_torch.nn import layers as L
+    from paddle_tpu_torch.nn.graph import reset_name_scope
+    from paddle_tpu_torch.nn.recurrent import simple_lstm
+    from paddle_tpu_torch.nn.seq_layers import SeqPool
+    from paddle_tpu_torch.optim import SGD
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    reset_name_scope()
+    ids = L.Data("word_ids", shape=(LSTM["vocab"],), is_seq=True)
+    label = L.Data("label", shape=())
+    x = L.Embedding(ids, LSTM["embed"], vocab_size=LSTM["vocab"], name="emb")
+    for i in range(LSTM["layers"]):
+        x = simple_lstm(x, LSTM["hidden"], name=f"lstm{i}", use_peephole=False)
+    pooled = SeqPool(x, "max", name="pool")
+    logits = L.Fc(pooled, LSTM["classes"], act=None, name="logits")
+    cost = C.ClassificationCost(logits, label, name="cost")
+    return SGDTrainer(cost, SGD(learning_rate=0.01), seed=0, device=device)
+
+
+def lstm_batch(np, seed, b, ragged):
+    """A batch drawn as rnn_bench.py:31-36 draws it (full lengths), or with
+    ragged lengths (first row full)."""
+    rs = np.random.RandomState(seed)
+    t, vocab = LSTM["seq_len"], LSTM["vocab"]
+    batch = {
+        "word_ids": rs.randint(0, vocab, (b, t)).astype(np.int32),
+        "word_ids.lengths": np.full(b, t, np.int32),
+        "label": rs.randint(0, 2, b),
+    }
+    if ragged:
+        lens = rs.randint(1, t + 1, b).astype(np.int32)
+        lens[0] = t
+        batch["word_ids.lengths"] = lens
+    return batch
+
+
+def lstm_train_phase(torch):
+    """The LSTM text classifier's training step at rnn_bench.py's widths and
+    BASELINE's middle row on the card: SGD(0.01), the port's own init from
+    seed 0, one rnn_bench batch, 2 warm-up + 10 timed steps. LSTM launch
+    counts are set to 0 just before these steps and read just after."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import rnn_kernels as K
+
+    t0 = time.perf_counter()
+    trainer = lstm_trainer("cuda")
+    batch = lstm_batch(np, 0, LSTM["batch"], ragged=False)
+    trainer.init_state(batch)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.state["params"].values())
+
+    torch.cuda.reset_peak_memory_stats()
+    K.LSTM_FWD_LAUNCHES = K.LSTM_BWD_LAUNCHES = 0
+    costs, step_ms = [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t = time.perf_counter()
+        costs.append(float(trainer.step(batch)))  # the fetch synchronises
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    fwd, bwd = K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    med = statistics.median(step_ms[TRAIN_WARMUP:])
+    result = dict(
+        config=dict(LSTM, optimizer="SGD(0.01)", precision="f32, TF32 off",
+                    peepholes=False, params=n_params),
+        setup_s=setup_s, steps=steps, costs=costs, step_ms=step_ms,
+        step_ms_median=med, step_ms_min=min(step_ms[TRAIN_WARMUP:]),
+        samples_per_s=LSTM["batch"] / (med / 1e3),
+        tokens_per_s=LSTM["batch"] * LSTM["seq_len"] / (med / 1e3),
+        peak_memory_bytes=peak, lstm_fwd_launches=fwd, lstm_bwd_launches=bwd,
+    )
+    print("lstm_train", json.dumps(result), flush=True)
+    want = LSTM["layers"] * steps
+    if fwd != want or bwd != want:
+        fail(f"LSTM kernels launched fwd {fwd} / bwd {bwd} times in {steps} steps, "
+             f"want {LSTM['layers']} + {LSTM['layers']} per step")
+    if not all(np.isfinite(costs)):
+        fail(f"non-finite LSTM training cost: {costs}")
+    if not costs[-1] < costs[0]:
+        fail(f"LSTM training cost did not fall: first {costs[0]}, last {costs[-1]}")
+    result["profile"] = profile_train(torch, trainer, batch, tag="lstm")
+    return result
+
+
+def lstm_vs_cpu_phase(torch):
+    """Step-1 cost and all gradients of the LSTM text classifier at the same
+    widths, batch 8 with ragged lengths, on the card (kernels) and on the
+    CPU (plain versions), from the same parameters."""
+    import numpy as np
+
+    batch = lstm_batch(np, 1, CPU_BATCH, ragged=True)
+    cpu = lstm_trainer("cpu")
+    cpu.init_state(batch)
+    card = lstm_trainer("cuda")
+    card.init_state(batch)
+    card.load_params(cpu.state["params"])
+    c_card, g_card = card.cost_and_grads(batch)
+    c_cpu, g_cpu = cpu.cost_and_grads(batch)
+    c_card, c_cpu = float(c_card), float(c_cpu)
+    grads, bad = {}, []
+    for k in sorted(g_cpu):
+        a, w = g_card[k].cpu(), g_cpu[k]
+        grads[k] = dict(max_abs_err=float((a - w).abs().max()),
+                        max_abs_grad=float(w.abs().max()))
+        if not torch.allclose(a, w, **CPU_GRAD_TOL):
+            bad.append(k)
+    rel = abs(c_card - c_cpu) / abs(c_cpu)
+    n_want = 3 + 4 * LSTM["layers"]
+    out = dict(batch=CPU_BATCH, cost_card=c_card, cost_cpu=c_cpu, cost_rel_err=rel,
+               n_grads=len(grads), grads=grads,
+               lengths=batch["word_ids.lengths"].tolist())
+    print("lstm_vs_cpu", json.dumps(out), flush=True)
+    if len(grads) != n_want:
+        fail(f"{len(grads)} LSTM-model gradients, want its {n_want} parameters")
+    if not rel <= CPU_COST_RTOL:
+        fail(f"LSTM step-1 cost card {c_card} vs CPU {c_cpu}: rel err {rel} > "
+             f"{CPU_COST_RTOL}")
+    if bad:
+        fail(f"LSTM-model gradients differ card vs CPU beyond {CPU_GRAD_TOL}: {bad}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -688,7 +1080,10 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     rows = kernel_phase(torch, flush, bw, f32_flops)
     gru_rows = gru_kernel_phase(torch, flush, bw, f32_flops)
+    lstm_rows = lstm_kernel_phase(torch, flush, bw, f32_flops)
+    attn_rows = attn_kernel_phase(torch, flush, bw, f32_flops)
     del flush
+    torch.cuda.empty_cache()
 
     # 4. the serving engine end to end (launches counted from 0 here)
     serve = serve_phase(torch)
@@ -700,7 +1095,15 @@ def main() -> int:
     # 6. the training step's cost and gradients, card vs CPU
     train_vs_cpu = train_vs_cpu_phase(torch)
 
-    # 7. lines
+    # 7. LSTM text classification training (LSTM launches from 0), then its
+    # cost and gradients card vs CPU
+    torch.cuda.empty_cache()
+    lstm_train = lstm_train_phase(torch)
+    lstm_vs_cpu = lstm_vs_cpu_phase(torch)
+    # 8. dot_product_attention, the fused op's own path (launches from 0)
+    attn_path = attn_path_phase(torch)
+
+    # 9. lines
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
     kernels = [{
         "name": "paged_attention_decode",
@@ -747,10 +1150,61 @@ def main() -> int:
             "shape": g_main["shape"],
             "shapes": gru_rows,
         })
+    l_main = next(r for r in lstm_rows if r["shape"] == "text_cls")
+    no_lstm_library = ("none: no single PyTorch call computes this LSTM (torch.nn.LSTM "
+                       "has an input projection of its own, two biases and no step "
+                       "mask)")
+    for leg, replaces, launches, errs in (
+        ("fwd", "paddle_tpu/ops/pallas/rnn_kernels.py:175",
+         lstm_train["lstm_fwd_launches"],
+         [e[k] for r in lstm_rows for d in ("fwd", "rev")
+          for e in [r[f"fwd_err_{d}"]] for k in ("hs", "h_last", "c_last")]),
+        ("bwd", "paddle_tpu/ops/pallas/rnn_kernels.py:191",
+         lstm_train["lstm_bwd_launches"],
+         [v["max_abs_err"] for r in lstm_rows for d in ("fwd", "rev")
+          for v in r[f"bwd_err_{d}"].values()]),
+    ):
+        kernels.append({
+            "name": f"lstm_seq_fused_{leg}",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/lstm_seq.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(errs),
+            "ms": l_main[f"{leg}_kernel_ms"],
+            "kernel_ms": l_main[f"{leg}_kernel_ms"],
+            "plain_ms": l_main[f"{leg}_plain_ms"],
+            "bound_ms": l_main[f"{leg}_bound_ms"],
+            "bound_by": l_main[f"{leg}_bound_by"],
+            "library_ms": None,
+            "library_note": no_lstm_library,
+            "shape": l_main["shape"],
+            "shapes": lstm_rows,
+        })
+    a_main = next(r for r in attn_rows if r["shape"] == "b32_t512")
+    kernels.append({
+        "name": "attention_seq_fused",
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/attention_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/rnn_kernels.py:534",
+        "launches": attn_path["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
+        "ms": a_main["kernel_ms"],
+        "kernel_ms": a_main["kernel_ms"],
+        "plain_ms": a_main["plain_ms"],
+        "bound_ms": a_main["bound_ms"],
+        "bound_by": a_main["bound_by"],
+        "library_ms": a_main["library_ms"],
+        "library_note": "F.scaled_dot_product_attention with the additive mask",
+        "shape": a_main["shape"],
+        "shapes": attn_rows,
+    })
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
-                   "serve": serve, "train": train, "train_vs_cpu": train_vs_cpu},
+                   "serve": serve, "train": train, "train_vs_cpu": train_vs_cpu,
+                   "lstm_train": lstm_train, "lstm_vs_cpu": lstm_vs_cpu,
+                   "attn_path": attn_path},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
 """The v1 layer graph of the port (counterpart of `paddle_tpu/nn/`), the
-parts the seq2seq training path uses: `graph.py` (Argument, ParamAttr,
+parts the ported training paths use: `graph.py` (Argument, ParamAttr,
 Layer, Network), `layers.py` (Data, Fc, Embedding, Concat), `costs.py`,
-`recurrent.py` (Gru, simple_gru, bidirectional_gru) and
+`activations.py`, `recurrent.py` (Lstm, simple_lstm, bidirectional_lstm,
+Gru, simple_gru, bidirectional_gru), `seq_layers.py` (SeqPool) and
 `attention_layers.py` (AttentionDecoder); `convert.py` moves parameter dicts
 to and from the JAX package."""

@@ -1,20 +1,44 @@
-"""Activations (counterpart of `paddle_tpu/nn/activations.py`), the ones the
-seq2seq path uses: linear (None), tanh, sigmoid."""
+"""Activations (counterpart of `paddle_tpu/nn/activations.py`): the
+reference's registered names (ActivationFunction.cpp:40-63) — linear,
+sigmoid, softmax, relu, brelu, tanh, stanh, softrelu, abs, square,
+exponential, log, sqrt, reciprocal — with the JAX package's clipping
+constants. Backward is autograd, as it is autodiff there."""
 
 from __future__ import annotations
 
 from typing import Callable, Union
 
 import torch
+import torch.nn.functional as F
 
 ActLike = Union[None, str, Callable[[torch.Tensor], torch.Tensor]]
 
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 _ACTS = {
-    "linear": lambda x: x,
-    "identity": lambda x: x,
-    "": lambda x: x,
-    "tanh": torch.tanh,
+    "linear": _identity,
+    "identity": _identity,
+    "": _identity,
     "sigmoid": torch.sigmoid,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "relu": torch.relu,
+    # bounded relu, clipped at 24 like the reference (BReluActivation)
+    "brelu": lambda x: torch.clamp(x, 0.0, 24.0),
+    "tanh": torch.tanh,
+    # scaled tanh 1.7159 * tanh(2/3 x) (STanhActivation)
+    "stanh": lambda x: 1.7159 * torch.tanh(2.0 / 3.0 * x),
+    # log(1 + exp(x)) with the input clipped to +-40 like the reference
+    "softrelu": lambda x: F.softplus(torch.clamp(x, -40.0, 40.0)),
+    "abs": torch.abs,
+    "square": torch.square,
+    "exponential": torch.exp,
+    "exp": torch.exp,
+    "log": torch.log,
+    "sqrt": torch.sqrt,
+    "reciprocal": torch.reciprocal,
 }
 
 

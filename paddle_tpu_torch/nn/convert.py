@@ -6,7 +6,11 @@ only the container: numpy or jax arrays one way, f32 tensors the other. A
 seq2seq model has 22 such names (`src_emb.w`, `trg_emb_table`, `out_w`,
 `out_b`, `enc.{fw,bw}.input_proj.{w,b}`, `enc.{fw,bw}.{w_hzr,w_hc,b}`,
 `decoder.att.{w_enc,w_dec,v}`, `decoder.w_in`, `decoder.w_init`,
-`decoder.gru.{w_hzr,w_hc,b}`)."""
+`decoder.gru.{w_hzr,w_hc,b}`). The LSTM text classifier (`text_lstm`, or
+the same graph with `use_peephole=False`) has `emb.w`, `logits.{w,b}` and
+per layer i `lstm{i}.input_proj.{w,b}` and `lstm{i}.{w_hh,b}` (W_hh
+[H, 4H] in gate blocks i, f, c, o), plus `lstm{i}.check_{i,f,o}` [H] with
+peepholes."""
 
 from __future__ import annotations
 

@@ -3,7 +3,7 @@ seq2seq path uses: Data, Fc, Embedding, Concat."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import Any, List, Optional, Sequence, Union
 
 import torch
 
@@ -11,6 +11,19 @@ from paddle_tpu_torch.nn import activations as act_mod
 from paddle_tpu_torch.nn import init as init_mod
 from paddle_tpu_torch.nn.graph import Argument, Context, Layer, ParamAttr
 from paddle_tpu_torch.ops import linalg
+
+
+def _attr(a: Any) -> Optional[ParamAttr]:
+    """A ParamAttr from None, a ParamAttr, a bool (a bias on/off toggle,
+    which carries no attributes), a dict of its fields, or a list of those
+    (one per input)."""
+    if a is None or isinstance(a, ParamAttr):
+        return a
+    if isinstance(a, bool):
+        return None
+    if isinstance(a, (list, tuple)):
+        return [_attr(x) for x in a]
+    return ParamAttr(**a)
 
 
 class Data(Layer):

@@ -1,19 +1,65 @@
-"""Recurrent layers (counterpart of `paddle_tpu/nn/recurrent.py`), the GRU
-the seq2seq encoder uses: `Gru` (grumemory), `simple_gru` (fc(3H) + Gru)
-and `bidirectional_gru` (forward and reverse simple_gru, concatenated).
+"""Recurrent layers (counterpart of `paddle_tpu/nn/recurrent.py`): `Lstm`
+(lstmemory), `simple_lstm` (fc(4H) + Lstm) and `bidirectional_lstm`;
+`Gru` (grumemory), `simple_gru` (fc(3H) + Gru) and `bidirectional_gru`
+(forward and reverse directions, concatenated).
 
-`Gru` computes the reference defaults only (sigmoid gates, tanh candidate),
-which is what the fused kernel computes; the JAX layer's other
+`Lstm` takes the JAX layer's options (activations, peepholes, param and
+bias attributes); with the defaults and `use_peephole=False` it runs the
+fused LSTM kernels, otherwise the plain step loop (`ops/rnn.lstm_scan`).
+`Gru` computes the reference defaults only (sigmoid gates, tanh
+candidate), which is what the fused kernel computes; the JAX layer's other
 activations and its named `param_attr` sharing are not ported yet."""
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, List, Optional
 
 from paddle_tpu_torch.nn import init as init_mod
 from paddle_tpu_torch.nn.graph import Argument, Context, Layer
-from paddle_tpu_torch.nn.layers import Concat, Fc
+from paddle_tpu_torch.nn.layers import Concat, Fc, _attr
 from paddle_tpu_torch.ops import rnn as rnn_ops
+
+
+class Lstm(Layer):
+    """lstmemory (LstmLayer.cpp): the input must be the 4H-wide projection.
+    `use_peephole` adds the 'check' weights of hl_lstm."""
+
+    type_name = "lstmemory"
+
+    def __init__(self, input: Layer, size: Optional[int] = None, reverse: bool = False,
+                 act: Any = "tanh", gate_act: Any = "sigmoid", state_act: Any = "tanh",
+                 use_peephole: bool = True, param_attr: Any = None, bias_attr: Any = None,
+                 name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.size = size
+        self.reverse = reverse
+        self.act = act
+        self.gate_act = gate_act
+        self.state_act = state_act
+        self.use_peephole = use_peephole
+        self.param_attr = _attr(param_attr)
+        self.bias_attr = _attr(bias_attr)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        arg = ins[0]
+        assert arg.is_seq, f"{self.name}: lstmemory needs a sequence input"
+        proj = arg.value
+        hdim = self.size or proj.shape[-1] // 4
+        if proj.shape[-1] != 4 * hdim:
+            raise ValueError(
+                f"{self.name}: input width {proj.shape[-1]} != 4*size ({4 * hdim})")
+        w_hh = ctx.param(self, "w_hh", (hdim, 4 * hdim), init_mod.smart_normal,
+                         self.param_attr)
+        bias = ctx.param(self, "b", (4 * hdim,), init_mod.zeros, self.bias_attr)
+        checks = (None, None, None)
+        if self.use_peephole:
+            checks = tuple(ctx.param(self, f"check_{g}", (hdim,), init_mod.zeros)
+                           for g in ("i", "f", "o"))
+        p = rnn_ops.LstmParams(w_hh, bias, *checks)
+        hs, _, _ = rnn_ops.lstm_scan(
+            proj, arg.mask(proj.dtype), p, reverse=self.reverse,
+            gate_act=self.gate_act, cell_act=self.act, state_act=self.state_act)
+        return Argument(hs, arg.lengths)
 
 
 class Gru(Layer):
@@ -41,6 +87,20 @@ class Gru(Layer):
         )
         hs, _ = rnn_ops.gru_scan(proj, arg.mask(proj.dtype), p, reverse=self.reverse)
         return Argument(hs, arg.lengths)
+
+
+def simple_lstm(input: Layer, size: int, reverse: bool = False, name: str = "lstm",
+                **lstm_kwargs: Any) -> Layer:
+    """fc(4H) + lstmemory (the simple_lstm helper of networks.py:553)."""
+    proj = Fc(input, 4 * size, act=None, name=f"{name}.input_proj")
+    return Lstm(proj, size=size, reverse=reverse, name=name, **lstm_kwargs)
+
+
+def bidirectional_lstm(input: Layer, size: int, name: str = "bilstm", **kw: Any) -> Layer:
+    """Concat of a forward and a reverse simple_lstm."""
+    fwd = simple_lstm(input, size, reverse=False, name=f"{name}.fw", **kw)
+    bwd = simple_lstm(input, size, reverse=True, name=f"{name}.bw", **kw)
+    return Concat([fwd, bwd], name=f"{name}.cat")
 
 
 def simple_gru(input: Layer, size: int, reverse: bool = False,

@@ -1,16 +1,23 @@
-"""Additive (Bahdanau) attention (counterpart of `additive_scores` and
-`additive_attention` in `paddle_tpu/ops/attention.py`). Plain PyTorch: the
-JAX package runs this per decoder step inside a `lax.scan`, with no Pallas
-kernel."""
+"""Attention ops (counterpart of `additive_scores`, `additive_attention` and
+`dot_product_attention` in `paddle_tpu/ops/attention.py`).
+
+Additive (Bahdanau) attention is plain PyTorch: the JAX package runs it per
+decoder step inside a `lax.scan`, with no Pallas kernel. Scaled dot-product
+attention dispatches to the fused op (`ops/rnn_kernels.attention_seq_fused`:
+the CUDA kernel for CUDA tensors, its plain version for CPU tensors)
+whenever the scale is static; the plain body below is the oracle and the
+source of the fused op's backward."""
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple, Union
 
 import torch
 
 from paddle_tpu_torch.ops import linalg
 from paddle_tpu_torch.ops import sequence as seq_ops
+from paddle_tpu_torch.ops.rnn_kernels import attention_seq_fused
 
 
 def additive_scores(
@@ -39,3 +46,42 @@ def additive_attention(
     weights = seq_ops.seq_softmax(scores, lengths)
     context = torch.einsum("btd,bt->bd", enc, weights)
     return context, weights
+
+
+def dot_product_attention(
+    q: torch.Tensor,                       # [B, Tq, D]
+    k: torch.Tensor,                       # [B, Tk, D]
+    v: torch.Tensor,                       # [B, Tk, Dv]
+    mask: Optional[torch.Tensor] = None,   # [B, Tq, Tk] or [B, 1, Tk], 0/1
+    scale: Union[None, float, torch.Tensor] = None,
+    fused: Optional[bool] = None,
+) -> torch.Tensor:
+    """Scaled dot-product attention -> [B, Tq, Dv] in v's dtype; scores are
+    kept where mask > 0 and replaced by NEG_INF elsewhere, the softmax is
+    f32.
+
+    `fused=None` takes the fused op whenever `scale` is static (None or a
+    Python number); a tensor scale runs the plain body. The JAX package's
+    VMEM budget (`PADDLE_TPU_FUSED_ATTN_MAX`) has no counterpart: the CUDA
+    kernel walks the keys in tiles. `fused=False` runs the plain body."""
+    d = q.shape[-1]
+    if fused is None:
+        fused = scale is None or isinstance(scale, (int, float))
+    if fused:
+        s = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+        m = (torch.ones((q.shape[0], 1, k.shape[1]), dtype=torch.float32, device=q.device)
+             if mask is None else mask)
+        return attention_seq_fused(q, k, v, m, s)
+    if scale is None:
+        scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
+    logits = torch.einsum("bqd,bkd->bqk", q, k)
+    if isinstance(scale, torch.Tensor):
+        # a tensor scale promotes as a strongly typed jnp scalar does (bf16
+        # scores times an f32 scale are f32); a Python number keeps the
+        # scores' dtype, as a weakly typed one does
+        logits = logits.to(torch.promote_types(logits.dtype, scale.dtype))
+    logits = logits * scale
+    if mask is not None:
+        logits = torch.where(mask > 0, logits, seq_ops.NEG_INF)
+    w = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+    return torch.einsum("bqk,bkv->bqv", w, v)

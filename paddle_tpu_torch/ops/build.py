@@ -30,7 +30,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "paddle_tpu_torch"
 
 # every CUDA source of the port, by stem; build() with no names builds all
-KERNELS = ("paged_attention", "gru_seq")
+KERNELS = ("paged_attention", "gru_seq", "lstm_seq", "attention_seq")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,26 +1,113 @@
-"""GRU cell and whole-sequence scan (counterpart of `GruParams`, `gru_step`
-and `gru_scan` in `paddle_tpu/ops/rnn.py`).
+"""LSTM and GRU cells and whole-sequence scans (counterpart of
+`LstmParams`, `lstm_step`, `lstm_scan`, `GruParams`, `gru_step` and
+`gru_scan` in `paddle_tpu/ops/rnn.py`).
 
-Gate order [update z, reset r, candidate c]; the reset gate multiplies the
-RECURRENT candidate term, c = tanh(p_c + (r*h) W_c) (GruCompute /
-hl_gpu_gru.cuh semantics). Masked steps carry h through.
+LSTM gate blocks [input i, forget f, cell candidate c, output o] (the JAX
+package's order, not the reference's [c, i, f, o]), optional peephole
+("check") weights. GRU gate order [update z, reset r, candidate c]; the
+reset gate multiplies the RECURRENT candidate term, c = tanh(p_c + (r*h)
+W_c) (GruCompute / hl_gpu_gru.cuh semantics). Masked steps carry the state
+through.
 
-`gru_scan` dispatches by device only: it always runs the fused whole-sequence
-op (`ops/rnn_kernels.gru_seq_fused`), whose CUDA kernels run for CUDA
-tensors and whose plain versions run for CPU tensors. The JAX package's
-`_use_fused` size limit (`PADDLE_TPU_FUSED_RNN_MAX_BH`) bounds TPU VMEM and
-has no counterpart here; its activation check has none either, because the
-port's GRU takes only the reference defaults (sigmoid gates, tanh
-candidate)."""
+Dispatch follows the JAX package's `_use_fused` activation test alone:
+  * `lstm_scan` runs the fused whole-sequence op
+    (`ops/rnn_kernels.lstm_seq_fused`: the CUDA kernels for CUDA tensors,
+    their plain versions for CPU tensors) for sigmoid gates, tanh cell and
+    state, no peepholes and no `return_cell_seq`; every other configuration
+    runs the plain step loop on either device, as the JAX package runs
+    `lax.scan` for it on the TPU.
+  * `gru_scan` always runs `gru_seq_fused`: the port's GRU takes only the
+    reference defaults (sigmoid gates, tanh candidate).
+The JAX package's VMEM limit (`PADDLE_TPU_FUSED_RNN_MAX_BH`) and its
+`pal.enabled()` switch have no counterpart: the CUDA kernels have no such
+limit, and a CUDA tensor never takes a plain version."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from paddle_tpu_torch.nn import activations as act_mod
 from paddle_tpu_torch.ops import linalg
-from paddle_tpu_torch.ops.rnn_kernels import gru_seq_fused
+from paddle_tpu_torch.ops.rnn_kernels import gru_seq_fused, lstm_seq_fused
+
+
+class LstmParams(NamedTuple):
+    w_hh: torch.Tensor  # [H, 4H] recurrent weights
+    bias: torch.Tensor  # [4H]
+    check_i: Optional[torch.Tensor] = None  # peephole [H] of the input gate
+    check_f: Optional[torch.Tensor] = None
+    check_o: Optional[torch.Tensor] = None
+
+
+def lstm_step(
+    proj_t: torch.Tensor,  # [B, 4H] (x_t already projected)
+    h: torch.Tensor,
+    c: torch.Tensor,
+    p: LstmParams,
+    gate_act: act_mod.ActLike = "sigmoid",
+    cell_act: act_mod.ActLike = "tanh",
+    state_act: act_mod.ActLike = "tanh",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step (hl_lstm semantics, peepholes included) -> (h, c)."""
+    gates = proj_t + linalg.matmul(h, p.w_hh) + p.bias
+    gi, gf, gc, go = torch.chunk(gates, 4, dim=-1)
+    ga = act_mod.get(gate_act)
+    if p.check_i is not None:
+        gi = gi + c * p.check_i
+        gf = gf + c * p.check_f
+    i = ga(gi)
+    f = ga(gf)
+    c_new = f * c + i * act_mod.get(cell_act)(gc)
+    if p.check_o is not None:
+        go = go + c_new * p.check_o
+    h_new = ga(go) * act_mod.get(state_act)(c_new)
+    return h_new, c_new
+
+
+def lstm_scan(
+    proj: torch.Tensor,  # [B, T, 4H]
+    mask: torch.Tensor,  # [B, T]
+    p: LstmParams,
+    h0: Optional[torch.Tensor] = None,
+    c0: Optional[torch.Tensor] = None,
+    reverse: bool = False,
+    gate_act: act_mod.ActLike = "sigmoid",
+    cell_act: act_mod.ActLike = "tanh",
+    state_act: act_mod.ActLike = "tanh",
+    return_cell_seq: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence LSTM -> (h_seq [B,T,H], h_last, c_last); masked steps
+    carry the previous state through. `return_cell_seq=True` returns
+    (h_seq, c_seq [B,T,H], h_last) instead (the fluid lstm_op contract) and
+    always takes the step loop, as in the JAX package."""
+    b, t_len, h4 = proj.shape
+    hdim = h4 // 4
+    if h0 is None:
+        h0 = torch.zeros((b, hdim), dtype=proj.dtype, device=proj.device)
+    if c0 is None:
+        c0 = torch.zeros((b, hdim), dtype=proj.dtype, device=proj.device)
+    standard = (gate_act == "sigmoid" and cell_act == "tanh" and state_act == "tanh"
+                and p.check_i is None and p.check_f is None and p.check_o is None)
+    if standard and not return_cell_seq:
+        hs, h_last, c_last = lstm_seq_fused(
+            proj.transpose(0, 1), mask.transpose(0, 1), p.w_hh, p.bias, h0, c0, reverse)
+        return (hs.transpose(0, 1).to(proj.dtype), h_last.to(proj.dtype),
+                c_last.to(proj.dtype))
+    h, c = h0, c0
+    hs: List[Optional[torch.Tensor]] = [None] * t_len
+    cs: List[Optional[torch.Tensor]] = [None] * t_len
+    steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
+    for t in steps:
+        h_new, c_new = lstm_step(proj[:, t], h, c, p, gate_act, cell_act, state_act)
+        m = mask[:, t, None].to(h_new.dtype)
+        h = m * h_new + (1 - m) * h
+        c = m * c_new + (1 - m) * c
+        hs[t], cs[t] = h, c
+    if return_cell_seq:
+        return torch.stack(hs, dim=1), torch.stack(cs, dim=1), h
+    return torch.stack(hs, dim=1), h, c
 
 
 class GruParams(NamedTuple):

@@ -1,6 +1,7 @@
 """Sequence ops over padded [B, T, ...] batches with per-example lengths
-(counterpart of `paddle_tpu/ops/sequence.py`, the parts the seq2seq
-training path uses)."""
+(counterpart of `paddle_tpu/ops/sequence.py`): masks, the masked softmax,
+the pooling reductions of SequencePoolLayer and the first/last instance
+picks."""
 
 from __future__ import annotations
 
@@ -28,6 +29,38 @@ def seq_softmax(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.softmax(x, dim=1) * m.to(x.dtype)
 
 
+def seq_sum(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Sum-pool [B, T, D] -> [B, D] over the valid steps."""
+    m = mask_from_lengths(lengths, x.shape[1], x.dtype)
+    return torch.einsum("btd,bt->bd", x, m)
+
+
+def seq_mean(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Average over the valid steps (a length-0 row divides by 1)."""
+    denom = lengths.clamp(min=1).to(x.dtype)[:, None]
+    return seq_sum(x, lengths) / denom
+
+
+def seq_max(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Max over the valid steps; padded steps read NEG_INF. `amax` splits
+    the gradient evenly between ties, as jnp.max's does."""
+    m = mask_from_lengths(lengths, x.shape[1], torch.bool)[:, :, None]
+    return torch.where(m, x, NEG_INF).amax(dim=1)
+
+
+def seq_sqrt_pool(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """sum / sqrt(len) (SequencePoolLayer 'sqrt' mode)."""
+    denom = torch.sqrt(lengths.clamp(min=1).to(x.dtype))[:, None]
+    return seq_sum(x, lengths) / denom
+
+
 def seq_first(x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """First step of each sequence, [B, T, ...] -> [B, ...]."""
     return x[:, 0]
+
+
+def seq_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Last valid step of each sequence, [B, T, ...] -> [B, ...]. The index
+    is clamped into [0, T) as XLA clamps the JAX package's gather."""
+    idx = (lengths.long() - 1).clamp(0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), idx]

@@ -1,0 +1,293 @@
+"""The port's whole-sequence LSTM (`paddle_tpu_torch/ops/rnn_kernels.py`,
+`ops/rnn.py`, `nn/recurrent.Lstm`) and activations against the JAX
+package's, on the CPU.
+
+Same numpy inputs on both sides (seeded): ragged masks with a length-1 row,
+non-zero h0 and c0, both directions.
+
+  * `lstm_scan` vs JAX `lstm_scan` on its lax.scan path
+    (PADDLE_TPU_PALLAS=0), without and with peepholes and with
+    `return_cell_seq`: values at rtol = atol = 1e-5, gradients of proj, W,
+    b, h0, c0 (and the check weights) at rtol 1e-4 / atol 1e-5 (f32 both
+    sides; only the summation order differs).
+  * The port's fused path vs JAX `lstm_scan` through the Pallas
+    `lstm_seq_fused` in interpret mode (PADDLE_TPU_PALLAS=interpret): atol
+    5e-4 on values, rtol 2e-3 / atol 5e-3 on gradients — the tolerances the
+    JAX package holds its own kernel to (tests/test_pallas_rnn.py).
+  * `lstm_seq_bwd_ref` vs torch.autograd through `lstm_seq_fused_ref`
+    (1e-5).
+  * Every ported activation vs the JAX package's (1e-6).
+  * On a card (marked `cuda`, skipped here): each CUDA kernel vs its plain
+    version. jax is imported inside the CPU tests only, so the `cuda` tests
+    run where jax is absent."""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.nn import activations as tact
+from paddle_tpu_torch.ops import rnn as trnn
+from paddle_tpu_torch.ops import rnn_kernels as K
+
+NAMES = ("w_hh", "bias", "proj", "h0", "c0")
+CHECKS = ("check_i", "check_f", "check_o")
+
+
+def _inputs(seed=0, b=5, t=7, h=6, lens=(7, 3, 1, 5, 6)):
+    """Batch-major numpy inputs: proj [B,T,4H], mask [B,T], W, b, h0, c0 and
+    peephole weights."""
+    rs = np.random.RandomState(seed)
+    arrs = dict(
+        w_hh=(rs.randn(h, 4 * h) * 0.3).astype(np.float32),
+        bias=(rs.randn(4 * h) * 0.1).astype(np.float32),
+        proj=rs.randn(b, t, 4 * h).astype(np.float32),
+        h0=rs.randn(b, h).astype(np.float32),
+        c0=rs.randn(b, h).astype(np.float32),
+    )
+    for name in CHECKS:
+        arrs[name] = (rs.randn(h) * 0.5).astype(np.float32)
+    mask = (np.arange(t)[None, :] < np.asarray(lens)[:, None]).astype(np.float32)
+    return arrs, mask
+
+
+def _grad_names(peep):
+    return NAMES + (CHECKS if peep else ())
+
+
+def _jax_scan(arrs, mask, reverse, flag, monkeypatch, peep=False, cell_seq=False):
+    """(outputs, grads) of the JAX package's lstm_scan under
+    PADDLE_TPU_PALLAS=flag; the loss weighs every output."""
+    import jax
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops import rnn as jrnn
+
+    monkeypatch.setenv("PADDLE_TPU_PALLAS", flag)
+    names = _grad_names(peep)
+
+    def loss(*xs):
+        a = dict(zip(names, xs))
+        checks = [a[c] for c in CHECKS] if peep else []
+        outs = jrnn.lstm_scan(a["proj"], jnp.asarray(mask),
+                              jrnn.LstmParams(a["w_hh"], a["bias"], *checks),
+                              h0=a["h0"], c0=a["c0"], reverse=reverse,
+                              return_cell_seq=cell_seq)
+        return _loss(outs, jnp), outs
+
+    (_, outs), grads = jax.value_and_grad(
+        loss, argnums=tuple(range(len(names))), has_aux=True)(
+            *[jnp.asarray(arrs[n]) for n in names])
+    return [np.asarray(o) for o in outs], [np.asarray(g) for g in grads]
+
+
+def _loss(outs, xp):
+    a, b, c = outs
+    return xp.sum(a ** 2) + xp.sum(0.5 * b * b + b) + xp.sum(c * c - c)
+
+
+def _torch_scan(arrs, mask, reverse, peep=False, cell_seq=False, device="cpu"):
+    names = _grad_names(peep)
+    ts = {n: torch.tensor(arrs[n], device=device, requires_grad=True) for n in names}
+    checks = [ts[c] for c in CHECKS] if peep else []
+    outs = trnn.lstm_scan(ts["proj"], torch.tensor(mask, device=device),
+                          trnn.LstmParams(ts["w_hh"], ts["bias"], *checks),
+                          h0=ts["h0"], c0=ts["c0"], reverse=reverse,
+                          return_cell_seq=cell_seq)
+    grads = torch.autograd.grad(_loss(outs, torch), [ts[n] for n in names])
+    return ([o.detach().cpu().numpy() for o in outs],
+            [g.cpu().numpy() for g in grads])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("peep,cell_seq", [(False, False), (True, False), (False, True)])
+def test_lstm_scan_matches_jax_scan(monkeypatch, peep, cell_seq, reverse):
+    arrs, mask = _inputs(0)
+    o_j, g_j = _jax_scan(arrs, mask, reverse, "0", monkeypatch, peep, cell_seq)
+    o_t, g_t = _torch_scan(arrs, mask, reverse, peep, cell_seq)
+    for a, b in zip(o_t, o_j):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    for name, a, b in zip(_grad_names(peep), g_t, g_j):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_fused_path_matches_jax_interpret_kernel(monkeypatch, reverse):
+    arrs, mask = _inputs(2)
+    o_j, g_j = _jax_scan(arrs, mask, reverse, "interpret", monkeypatch)
+    o_t, g_t = _torch_scan(arrs, mask, reverse)
+    for a, b in zip(o_t, o_j):
+        np.testing.assert_allclose(a, b, atol=5e-4)
+    for name, a, b in zip(NAMES, g_t, g_j):
+        np.testing.assert_allclose(a, b, rtol=2e-3, atol=5e-3, err_msg=name)
+
+
+def test_only_the_standard_config_takes_the_fused_op(monkeypatch):
+    """The fused op runs for sigmoid/tanh/tanh without peepholes and
+    without return_cell_seq, and nowhere else."""
+    arrs, mask = _inputs(3)
+    calls = []
+    real = trnn.lstm_seq_fused
+    monkeypatch.setattr(trnn, "lstm_seq_fused", lambda *a: calls.append(1) or real(*a))
+    _torch_scan(arrs, mask, False)
+    assert calls == [1]
+    _torch_scan(arrs, mask, False, peep=True)
+    _torch_scan(arrs, mask, False, cell_seq=True)
+    t = {n: torch.tensor(arrs[n]) for n in NAMES}
+    trnn.lstm_scan(t["proj"], torch.tensor(mask), trnn.LstmParams(t["w_hh"], t["bias"]),
+                   gate_act="relu")
+    assert calls == [1]
+
+
+def _tm(x):
+    return torch.from_numpy(np.ascontiguousarray(np.swapaxes(x, 0, 1)))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_bwd_ref_matches_autograd_of_plain_forward(reverse):
+    arrs, mask = _inputs(4)
+    ts = {n: torch.tensor(arrs[n], requires_grad=True) for n in NAMES}
+    fwd = (ts["proj"].transpose(0, 1), _tm(mask), ts["w_hh"], ts["bias"], ts["h0"], ts["c0"])
+    hs, gates, ct, cs = K.lstm_seq_fused_ref(*fwd, reverse)
+    last = 0 if reverse else -1
+    rs = np.random.RandomState(9)
+    dhs, dhl, dcl = (torch.from_numpy(rs.randn(*s).astype(np.float32))
+                     for s in (hs.shape, hs[last].shape, hs[last].shape))
+    want = torch.autograd.grad(
+        (hs * dhs).sum() + (hs[last] * dhl).sum() + (cs[last] * dcl).sum(),
+        [ts[n] for n in NAMES])
+    detached = [x.detach() for x in (gates, ct, hs, cs, ts["h0"], ts["c0"])]
+    dproj, dw, db, dh0, dc0 = K.lstm_seq_bwd_ref(
+        *detached, _tm(mask), ts["w_hh"].detach(), dhs, dhl, dcl, reverse)
+    got = (dw, db, dproj.transpose(0, 1), dh0, dc0)
+    for name, a, b in zip(NAMES, got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def test_cpu_path_launches_no_kernel():
+    arrs, mask = _inputs(5)
+    before = (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES)
+    _torch_scan(arrs, mask, True)
+    assert (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES) == before
+
+
+def test_kernel_wrappers_reject_cpu_tensors_and_bad_shapes():
+    arrs, mask = _inputs(6)
+    t = {n: torch.from_numpy(arrs[n]) for n in NAMES}
+    args = (_tm(arrs["proj"]), _tm(mask), t["w_hh"], t["bias"], t["h0"], t["c0"])
+    with pytest.raises(ValueError, match="CUDA"):
+        K.lstm_seq_fwd(*args)
+    with pytest.raises(ValueError, match="w_hh must be"):
+        K.check_lstm_inputs(args[0], args[1], args[2].T, args[3], args[4], args[5])
+    with pytest.raises(ValueError, match="4H"):
+        K.check_lstm_inputs(args[0][..., :-1], *args[1:])
+
+
+def test_lstm_layer_param_names_and_layouts():
+    from paddle_tpu_torch.nn import layers as L
+    from paddle_tpu_torch.nn.graph import Network, reset_name_scope
+    from paddle_tpu_torch.nn.recurrent import bidirectional_lstm, simple_lstm
+
+    reset_name_scope()
+    x = L.Data("x", shape=(5,), is_seq=True)
+    a = simple_lstm(x, 3, name="a")
+    bi = bidirectional_lstm(x, 2, name="bi", use_peephole=False)
+    rs = np.random.RandomState(0)
+    batch = {"x": rs.randn(2, 4, 5).astype(np.float32), "x.lengths": np.array([4, 2])}
+    params = Network([a, bi]).init(batch, device="cpu")
+    shapes = {k: tuple(v.shape) for k, v in params.items()}
+    assert shapes == {
+        "a.input_proj.w": (5, 12), "a.input_proj.b": (12,), "a.w_hh": (3, 12),
+        "a.b": (12,), "a.check_i": (3,), "a.check_f": (3,), "a.check_o": (3,),
+        **{f"bi.{d}.input_proj.w": (5, 8) for d in ("fw", "bw")},
+        **{f"bi.{d}.input_proj.b": (8,) for d in ("fw", "bw")},
+        **{f"bi.{d}.w_hh": (2, 8) for d in ("fw", "bw")},
+        **{f"bi.{d}.b": (8,) for d in ("fw", "bw")},
+    }
+
+
+_ACT_NAMES = ["linear", "identity", "", "sigmoid", "softmax", "relu", "brelu", "tanh",
+              "stanh", "softrelu", "abs", "square", "exponential", "exp", "log", "sqrt",
+              "reciprocal"]
+
+
+@pytest.mark.parametrize("name", _ACT_NAMES)
+def test_activation_matches_jax(name):
+    from paddle_tpu.nn import activations as jact
+
+    rs = np.random.RandomState(1)
+    x = (rs.randn(3, 7) * 20).astype(np.float32)
+    if name in ("log", "sqrt", "reciprocal"):
+        x = np.abs(x) + 0.5
+    want = np.asarray(jact.get(name)(x))
+    got = tact.get(name)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_unported_activation_raises_keyerror():
+    with pytest.raises(KeyError, match="not ported"):
+        tact.get("no_such_activation")
+
+
+# -- on the card ---------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+CARD_SHAPES = [  # b, t, h, lengths
+    (5, 7, 24, (7, 3, 1, 5, 6)),
+    (9, 13, 64, (13, 1, 8, 13, 2, 11, 5, 13, 7)),
+    # H not a multiple of 4 (4-byte staging) and more rows than one pass
+    # of a block covers
+    (600, 4, 30, tuple(1 + np.arange(600) % 4)),
+    # 2 units per block and a last block with fewer units
+    (7, 5, 130, (5, 4, 3, 2, 1, 5, 5)),
+    # BASELINE's hidden sizes at its largest batch: 2 and 4 units per block
+    (256, 3, 256, tuple(1 + np.arange(256) % 3)),
+    (256, 3, 512, tuple(1 + np.arange(256) % 3)),
+    # wide enough that each block's W slice is staged per k tile
+    (6, 3, 1280, (3, 1, 2, 3, 3, 2)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,t,h,lens", CARD_SHAPES)
+def test_cuda_kernels_match_plain_versions(cuda, b, t, h, lens, reverse):
+    arrs, mask = _inputs(7, b, t, h, lens)
+    args = [x.to(cuda) for x in (_tm(arrs["proj"]), _tm(mask))]
+    args += [torch.from_numpy(arrs[n]).to(cuda) for n in ("w_hh", "bias", "h0", "c0")]
+    before = (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES)
+    got_f = K.lstm_seq_fwd(*args, reverse=reverse)
+    want_f = K.lstm_seq_fused_ref(*args, reverse=reverse)
+    rs = np.random.RandomState(8)
+    dhs, dhl, dcl = (torch.from_numpy(rs.randn(*s).astype(np.float32)).to(cuda)
+                     for s in ((t, b, h), (b, h), (b, h)))
+    tail = (args[4], args[5], args[1], args[2], dhs, dhl, dcl)
+    got = K.lstm_seq_bwd(*got_f[1:3], got_f[0], got_f[3], *tail, reverse=reverse)
+    want = K.lstm_seq_bwd_ref(*want_f[1:3], want_f[0], want_f[3], *tail, reverse=reverse)
+    torch.cuda.synchronize()
+    assert (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for name, a, w in zip(("hs", "gates", "ct", "cs"), got_f, want_f):
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=0, msg=name)
+    for name, a, w in zip(("dproj", "dw", "db", "dh0", "dc0"), got, want):
+        tol = 1e-3 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(a, w, atol=tol, rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_scan_goes_through_the_kernels(cuda):
+    arrs, mask = _inputs(10)
+    before = (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES)
+    o_c, g_c = _torch_scan(arrs, mask, True, device=cuda)
+    torch.cuda.synchronize()
+    assert (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    o_p, g_p = _torch_scan(arrs, mask, True)
+    for a, b in zip(o_c, o_p):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    for name, a, b in zip(NAMES, g_c, g_p):
+        np.testing.assert_allclose(a, b, atol=1e-3 * max(1.0, np.abs(b).max()), err_msg=name)
