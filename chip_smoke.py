@@ -23,7 +23,12 @@ Phases (any failure exits non-zero and prints no result line):
                and at (32,512,512,64,64). Kernel, plain version and (where
                one exists) one PyTorch library call timed with CUDA events
                (L2 flushed before each launch), beside the least time the
-               card could take (bytes or f32 operations over its peaks).
+               card could take (bytes or f32 operations over its peaks;
+               the recurrences count valid steps only). For each
+               recurrent backward also its layout plan, its parts from
+               torch.profiler (walk, split-K dW GEMM with db folded in,
+               the pass over the splits) and, as a note, torch.mm of the
+               same dW sums in f32 with TF32 off.
   4. serve   — the serving engine at GPT-2 small's widths (12 layers,
                d_model 768, 12 heads, vocab 50257, max_len 1024; random
                weights from seed 0) answers 8 greedy requests of mixed prompt
@@ -278,7 +283,7 @@ def gru_kernel_phase(torch, flush, bw, f32_flops):
             torch, seed, t, b, h, lens, h0_scale)
         fwd_args = (proj, mask, w_hzr, w_hc, bias, h0)
         row = dict(shape=name, T=t, B=b, H=h, lengths_min=min(lens),
-                   lengths_max=max(lens))
+                   lengths_max=max(lens), plan=K.gru_seq_plan(h, b, t))
         for reverse in (False, True):
             hs, zrc = K.gru_seq_fwd(*fwd_args, reverse=reverse)
             hs_ref, zrc_ref = K.gru_seq_fused_ref(*fwd_args, reverse=reverse)
@@ -316,10 +321,20 @@ def gru_kernel_phase(torch, flush, bw, f32_flops):
             torch, lambda: K.gru_seq_bwd(zrc, hs, *bwd_tail), flush)
         row["bwd_plain_ms"] = time_ms(
             torch, lambda: K.gru_seq_bwd_ref(zrc, hs, *bwd_tail), flush, iters=10)
-        # least work: the matrix products (forward 2*T*B*H*3H; backward the
-        # same for the recurrent W^T products plus as much for dW), each
-        # input read once and each output written once, f32
-        mm = 2 * t * b * h * 3 * h
+        row["bwd_parts_ms"] = bwd_parts_ms(
+            torch, lambda: K.gru_seq_bwd(zrc, hs, *bwd_tail), "gru")
+        row["bwd_parts_note"] = BWD_PARTS_NOTE
+        dproj = K.gru_seq_bwd(zrc, hs, *bwd_tail)[0].reshape(t * b, 3 * h)
+        hp = K._h_prev_seq(hs, h0, False).reshape(t * b, h)
+        rh = zrc[..., h:2 * h].reshape(t * b, h) * hp
+        row["note_cublas_dw_ms"] = cublas_dw_ms(
+            torch, [(hp, dproj[:, :2 * h]), (rh, dproj[:, 2 * h:])], flush)
+        # least work: the recurrent products of the valid steps only (a
+        # masked step's state carries through, so its product is not
+        # needed) — forward 2*steps*H*3H, backward that for the W^T
+        # products plus as much for dW — each input read once and each
+        # output written once, f32
+        mm = 2 * sum(lens) * h * 3 * h
         f = 4
         fwd_bytes = f * (t * b * 3 * h + t * b + 3 * h * h + 3 * h + b * h
                          + t * b * h + t * b * 3 * h)
@@ -347,6 +362,45 @@ def torch_gru_ms(torch, t, b, h, flush):
     x = torch.randn(t, b, h, device="cuda")
     with torch.no_grad():
         return time_ms(torch, lambda: gru(x), flush)
+
+
+def bwd_parts_ms(torch, fn, tag, calls=3):
+    """Device ms per backward call by part, from torch.profiler over
+    `calls` calls: the walk (`<tag>_bwd_kernel`), the split-K dW GEMM with
+    db folded in (`<tag>_dw_kernel`) and its second pass over the splits
+    (`<tag>_dw_sum_kernel`, which also sums db); "other" is the list of
+    valid rows. Each kernel launches once per call: its mean over the
+    launches the profiler recorded is its part."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {f"{tag}_bwd_kernel": "walk", f"{tag}_dw_kernel": "dw",
+             f"{tag}_dw_sum_kernel": "dw_sum"}
+    parts = dict.fromkeys(list(names.values()) + ["other"], 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            part = next((v for k, v in names.items() if k in e.key), "other")
+            parts[part] += e.self_device_time_total / 1e3 / e.count
+    if parts["walk"] <= 0 or parts["dw"] <= 0:
+        fail(f"torch.profiler saw no {tag} backward kernels: {parts}")
+    return parts
+
+
+BWD_PARTS_NOTE = ("db is folded into dw (column sums of the staged dproj tiles) and "
+                  "dw_sum (the second pass over the splits)")
+
+
+def cublas_dw_ms(torch, pairs, flush):
+    """torch.mm of each (A, D) pair as A^T D in f32 with TF32 off: the same
+    sums as the dW reduction, a yardstick only (never called by the port)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return time_ms(torch, lambda: [torch.mm(a.T, d) for a, d in pairs], flush)
 
 
 def lstm_inputs(torch, seed, t, b, h, lengths):
@@ -394,7 +448,7 @@ def lstm_kernel_phase(torch, flush, bw, f32_flops):
         fwd_args = (proj, mask, w_hh, bias, h0, c0)
         bwd_tail = (h0, c0, mask, w_hh, dhs, dh_last, dc_last)
         row = dict(shape=name, T=t, B=b, H=h, lengths_min=min(lens),
-                   lengths_max=max(lens), plan=K.lstm_seq_plan(h, b))
+                   lengths_max=max(lens), plan=K.lstm_seq_plan(h, b, t))
         for reverse in (False, True):
             hs, gates, ct, cs = K.lstm_seq_fwd(*fwd_args, reverse=reverse)
             ref = K.lstm_seq_fused_ref(*fwd_args, reverse=reverse)
@@ -433,6 +487,12 @@ def lstm_kernel_phase(torch, flush, bw, f32_flops):
             torch, lambda: K.lstm_seq_bwd(*saved, *bwd_tail), flush)
         row["bwd_plain_ms"] = time_ms(
             torch, lambda: K.lstm_seq_bwd_ref(*saved, *bwd_tail), flush, iters=5)
+        row["bwd_parts_ms"] = bwd_parts_ms(
+            torch, lambda: K.lstm_seq_bwd(*saved, *bwd_tail), "lstm")
+        row["bwd_parts_note"] = BWD_PARTS_NOTE
+        dproj = K.lstm_seq_bwd(*saved, *bwd_tail)[0].reshape(t * b, 4 * h)
+        hp = K._h_prev_seq(hs, h0, False).reshape(t * b, h)
+        row["note_cublas_dw_ms"] = cublas_dw_ms(torch, [(hp, dproj)], flush)
         # least work: the recurrent products of the valid steps only (a
         # masked step's state carries through, so its product is not
         # needed) — forward 2*steps*H*4H, backward that for dh_prev plus as
@@ -690,7 +750,8 @@ def profile_decode(torch, sess, prompts, steps: int = 16):
     sess.step()  # admit + prefill + first decode, outside the window
     before = sess.decode_steps
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             sess.step()
@@ -834,7 +895,8 @@ def profile_train(torch, trainer, batch, tag: str = "gru", steps: int = 2):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             trainer.step(batch)
@@ -1147,6 +1209,9 @@ def main() -> int:
             "bound_by": g_main[f"{leg}_bound_by"],
             "library_ms": None,
             "library_note": no_library,
+            **({"bwd_parts_ms": g_main["bwd_parts_ms"],
+                "note_cublas_dw_ms": g_main["note_cublas_dw_ms"],
+                "plan": g_main["plan"]} if leg == "bwd" else {}),
             "shape": g_main["shape"],
             "shapes": gru_rows,
         })
@@ -1178,6 +1243,9 @@ def main() -> int:
             "bound_by": l_main[f"{leg}_bound_by"],
             "library_ms": None,
             "library_note": no_lstm_library,
+            **({"bwd_parts_ms": l_main["bwd_parts_ms"],
+                "note_cublas_dw_ms": l_main["note_cublas_dw_ms"],
+                "plan": l_main["plan"]} if leg == "bwd" else {}),
             "shape": l_main["shape"],
             "shapes": lstm_rows,
         })

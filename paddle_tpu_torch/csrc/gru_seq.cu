@@ -32,35 +32,42 @@
 // 227 KB of shared memory.
 //
 // Design:
-//   * Recurrence: one persistent cooperative launch (all blocks resident,
+//   * Forward: one persistent cooperative launch (all blocks resident,
 //     cudaLaunchCooperativeKernel) whose block j owns kUnits hidden units
-//     and keeps ITS columns of W_zr and W_c (the rows of W^T for the
-//     backward) in shared memory for the whole sequence: W is read from
-//     device memory once, not once per step. A step needs all of h (and
-//     of r*h, of the gate cotangents), so each phase stages the whole
+//     and keeps ITS columns of W_zr and W_c in shared memory for the whole
+//     sequence: W is read from device memory once, not once per step. A
+//     step needs all of h (and of r*h), so each phase stages the whole
 //     [B, H] operand from L2 through shared memory in 64-wide k tiles, and
-//     blocks meet at grid.sync() between phases (two per step). Operands
-//     written by other blocks during the launch are read with __ldcg
-//     (L2, never a stale L1 line).
-//   * Forward, per step: z and r of the block's units for all B rows (one
-//     thread per (row, gate)), r*h to a [B, H] scratch; sync; the candidate
-//     from the staged r*h and the masked update; sync.
-//   * Backward, per step (reverse walk): the elementwise cotangents of the
-//     block's units, dgc and dgz to a double-buffered scratch; sync;
-//     d(r*h) = dgc W_c^T and dgr; sync; dh_prev = dht (1-z) + d(r*h) r +
-//     dgzr W_zr^T + (1-m) dh, kept per block in shared memory. The scratch
-//     alternates between two buffers by step, so no third sync is needed.
-//   * dW_zr, dW_c and db are sums over all T*B rows. The TPU kernel keeps
-//     them in VMEM across its grid; here the recurrent walk only writes
-//     dproj, and after it a tiled reduction kernel (64x64 output tiles, a
-//     4x4 register tile per thread) computes h_prev^T dproj_zr and
-//     (r*h_prev)^T dproj_c over the [T*B]-deep row axis, reading h_prev
-//     from hs/h0 and r from zrc, and a column-sum kernel computes db. All
-//     three kernels launch from the one backward entry point.
+//     blocks meet at grid.sync() between phases (two per step). Per step:
+//     z and r of the block's units for all B rows (one thread per (row,
+//     gate)), r*h to a [B, H] scratch; sync; the candidate from the staged
+//     r*h and the masked update; sync. Operands written by other blocks
+//     during the launch are read with __ldcg (L2, never a stale L1 line).
+//   * Backward walk (reverse): bounded by the operands it re-reads every
+//     step (dgc [B,H] and dgzr [B,2H]) and by shared-memory loads per FMA.
+//     Block (row group, unit group) owns R rows x U units (U and R from
+//     the SM count and shared memory: 4 row groups of 32 rows x 32 groups
+//     of 16 units at B=128, H=512), keeps its units' rows of W_c and W_zr
+//     resident (96 KB at H=512; staged per k tile where they do not fit)
+//     and its cells' dh carries. dproj[t] is the exchange buffer. Per
+//     step: the elementwise cotangents of its cells (dgz, dgc); sync; d(r*h)
+//     = dgc W_c^T and dgr over the valid rows of its row group; sync;
+//     dh_prev = dht (1-z) + d(r*h) r + dgzr W_zr^T + (1-m) dh. The products
+//     run through rnn_walk.cuh (cp.async ring, register tiles, masked
+//     rows skipped: their dproj is exactly zero and dh passes through), so
+//     a block reads R rows of each operand, not B.
+//   * dW_zr = h_prev^T dproj[:, :2H], dW_c = (r*h_prev)^T dproj[:, 2H:]
+//     and db (the TPU kernel's VMEM sums over the T*B rows) come from the
+//     shared split-K f32 GEMM of rnn_reduce.cuh (both products in one
+//     launch, r*h_prev formed as its tiles land, a deterministic second
+//     pass over the splits, db folded in), from the same entry point.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "rnn_reduce.cuh"
+#include "rnn_walk.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -70,8 +77,6 @@ constexpr int kUnits = 4;                 // hidden units per recurrence block
 constexpr int kThreads = 256;             // recurrence block size
 constexpr int kKT = 64;                   // k per staged tile
 constexpr int kTileLd = kKT + 1;          // padded tile row (no bank conflicts)
-constexpr int kTile = 64;                 // dW output tile
-constexpr int kDepth = 16;                // rows of the T*B axis per dW stage
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -225,205 +230,157 @@ gru_fwd_kernel(const float* proj, const float* mask, const float* w_hzr,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One cell's inputs to the backward's elementwise step: h_prev, the gates
+// z, r, c and dhs of (t, b, n). None is written by the walk, so the walk
+// fetches them a step ahead.
+struct CellIn {
+  float hp, z, r, c, dhs;
+};
+
+__device__ __forceinline__ CellIn load_cell(const float* zrc, const float* hs,
+                                            const float* h0, const float* dhs, int t, int b,
+                                            int n, int T, int B, int H, int reverse) {
+  const size_t row = (size_t)t * B + b;
+  const float* g = zrc + row * 3 * H;
+  const float* hp = h_prev_of(hs, h0, t, T, B, H, reverse);
+  return CellIn{hp[(size_t)b * H + n], g[n], g[H + n], g[2 * H + n], dhs[row * H + n]};
+}
+
+// cells per thread whose inputs are fetched a step ahead (the rest, at
+// larger R x U, when the step needs them)
+constexpr int kAhead = 2;
+
+// The backward walk. Block (rg, ug) owns rows [b0, b0 + R) and units
+// [u0, u0 + U): their dh carries stay in shared memory, and so do the
+// units' rows of W_c and W_zr (or they are staged per k tile, kResW
+// false). dproj[t] is the exchange buffer: its dgz and dgc columns are
+// written in A, its dgr columns in B. Per step: A, the elementwise
+// cotangents of the block's cells; sync; B, d(r*h) of the cells = dgc
+// W_c^T over the valid rows of the row group, then dgr; sync; C, dh_prev
+// += dgzr W_zr^T over the same rows. kVec: H a multiple of 4 (16-byte
+// copies).
+template <int U, bool kResW, bool kVec>
+__global__ void __launch_bounds__(rnn::kWalkThreads, 1)
 gru_bwd_kernel(const float* zrc, const float* hs, const float* h0, const float* mask,
-               const float* w_hzr, const float* w_hc, const float* dhs,
-               const float* dh_last, float* dproj, float* dh0, float* scratch,
-               int T, int B, int H, int reverse) {
+               const float* w_hzr, const float* w_hc, const float* dhs, const float* dh_last,
+               float* dproj, float* dh0, int T, int B, int H, int R, int unit_groups,
+               int reverse) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H2 = 2 * H, H3 = 3 * H;
-  const int u0 = blockIdx.x * kUnits;
-  const int nu = min(kUnits, H - u0);
-  float* wc_t = smem;                       // [H][kUnits]:  W_c[n, k]
-  float* wzr_t = wc_t + H * kUnits;         // [2H][kUnits]: W_zr[n, j]
-  float* dh_c = wzr_t + H2 * kUnits;        // [B][kUnits] running dh carry
-  float* dh_f = dh_c + B * kUnits;          // [B][kUnits] dh of the step
-  float* drh_s = dh_f + B * kUnits;         // [B][kUnits] d(r*h)
-  float* tile = drh_s + B * kUnits;         // [kThreads][kTileLd]
-  // double-buffered cross-block operands: dgc [2][B][H], dgzr [2][B][2H]
-  float* dgc_g = scratch;
-  float* dzr_g = scratch + (size_t)2 * B * H;
+  const int ldc = rnn::res_ld(H), ldzr = rnn::res_ld(H2);
+  const int u0 = (blockIdx.x % unit_groups) * U, nu = min(U, H - u0);
+  const int b0 = (blockIdx.x / unit_groups) * R, nr = min(R, B - b0);
+  float* wc_s = smem;                                           // [U][ldc]  W_c rows
+  float* wzr_s = wc_s + U * ldc;                                // [U][ldzr] W_zr rows
+  float* ring = smem + (kResW ? U * (ldc + ldzr) : 0);
+  float* part = ring + rnn::kStages * rnn::stage_floats(U, R, kResW);
+  float* dh_c = part + rnn::kWalkThreads * rnn::kTR * rnn::kTU;  // [R][U] dh carry
+  float* r_s = dh_c + R * U;                                    // [R][U] reset gate
+  float* hp_s = r_s + R * U;                                    // [R][U] h_prev
+  float* m_s = hp_s + R * U;                                    // [R] mask of the step
+  int* rows_s = reinterpret_cast<int*>(m_s + R);                // [R] valid rows
+  int* nv_s = rows_s + R;
 
-  for (int i = threadIdx.x; i < 3 * H * kUnits; i += kThreads) {
-    const int j = i % kUnits, k = i / kUnits;  // k < H: W_c; else W_zr row
-    float w = 0.f;
-    if (j < nu) {
-      const int n = u0 + j;
-      w = k < H ? w_hc[(size_t)n * H + k] : w_hzr[(size_t)n * H2 + (k - H)];
+  if (kResW) {
+    for (int i = threadIdx.x; i < U * ldc; i += rnn::kWalkThreads) {
+      const int j = i / ldc, k = i % ldc;
+      wc_s[i] = j < nu && k < H ? w_hc[(size_t)(u0 + j) * H + k] : 0.f;
     }
-    wc_t[i] = w;  // wc_t and wzr_t are contiguous
+    for (int i = threadIdx.x; i < U * ldzr; i += rnn::kWalkThreads) {
+      const int j = i / ldzr, k = i % ldzr;
+      wzr_s[i] = j < nu && k < H2 ? w_hzr[(size_t)(u0 + j) * H2 + k] : 0.f;
+    }
   }
   // dh_last folds into the first step of the reverse walk (the TPU kernel
   // adds it to dhs[-1])
-  for (int i = threadIdx.x; i < B * kUnits; i += kThreads) {
-    const int b = i / kUnits, j = i % kUnits;
-    dh_c[i] = j < nu ? dh_last[(size_t)b * H + u0 + j] : 0.f;
+  for (int i = threadIdx.x; i < R * U; i += rnn::kWalkThreads) {
+    const int r = i / U, j = i % U;
+    dh_c[i] = r < nr && j < nu ? dh_last[(size_t)(b0 + r) * H + u0 + j] : 0.f;
   }
-  __syncthreads();
+
+  // the next step's mask and cell inputs, in registers: their loads are
+  // in flight during the grid syncs and the products
+  CellIn ahead[kAhead] = {};
+  float m_ahead = 0.f;
+  // A for cell i = (r, j) of the block at step t
+  auto cell = [&](int t, int i, const CellIn& v) {
+    const int r = i / U, j = i % U;
+    if (j >= nu) return;
+    const int n = u0 + j;
+    float* dp = dproj + ((size_t)t * B + b0 + r) * H3;
+    const float m = m_s[r];
+    const float dh = dh_c[i] + v.dhs;
+    const float dht = m * dh;
+    dp[n] = dht * (v.c - v.hp) * v.z * (1.f - v.z);  // dgz
+    dp[H2 + n] = dht * v.z * (1.f - v.c * v.c);     // dgc
+    if (m == 0.f) dp[H + n] = 0.f;                  // dgr: B skips masked rows
+    dh_c[i] = dht * (1.f - v.z) + (1.f - m) * dh;   // B and C add the products
+    r_s[i] = v.r;
+    hp_s[i] = v.hp;
+  };
+  {
+    const int ta = time_of(T - 1, T, reverse);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int i = threadIdx.x + k * rnn::kWalkThreads, j = i % U;
+      if (i < nr * U && j < nu)
+        ahead[k] = load_cell(zrc, hs, h0, dhs, ta, b0 + i / U, u0 + j, T, B, H, reverse);
+    }
+    if (threadIdx.x < nr) m_ahead = mask[(size_t)ta * B + b0 + threadIdx.x];
+  }
 
   for (int s = T - 1; s >= 0; --s) {
     const int t = time_of(s, T, reverse);
-    const float* hp = h_prev_of(hs, h0, t, T, B, H, reverse);
-    float* dgc_p = dgc_g + (size_t)(s & 1) * B * H;
-    float* dzr_p = dzr_g + (size_t)(s & 1) * B * H2;
-    // A: elementwise cotangents of the block's units
-    for (int i = threadIdx.x; i < B * kUnits; i += kThreads) {
-      const int b = i / kUnits, j = i % kUnits;
-      if (j >= nu) continue;
-      const int n = u0 + j;
-      const size_t row = (size_t)t * B + b;
-      const float h_prev = hp[(size_t)b * H + n];
-      const float z = zrc[row * H3 + n];
-      const float c = zrc[row * H3 + H2 + n];
-      const float dh = dh_c[i] + dhs[row * H + n];
-      const float dht = mask[row] * dh;
-      const float dz = dht * (c - h_prev);
-      const float dc = dht * z;
-      const float dgc = dc * (1.f - c * c);
-      const float dgz = dz * z * (1.f - z);
-      dh_f[i] = dh;
-      dgc_p[(size_t)b * H + n] = dgc;
-      dzr_p[(size_t)b * H2 + n] = dgz;
-      dproj[row * H3 + n] = dgz;
-      dproj[row * H3 + H2 + n] = dgc;
+    float* dp_t = dproj + (size_t)t * B * H3;
+    for (int r = threadIdx.x; r < nr; r += rnn::kWalkThreads)
+      m_s[r] = r == threadIdx.x ? m_ahead : mask[(size_t)t * B + b0 + r];
+    __syncthreads();
+    if (threadIdx.x < 32) rnn::compact_rows(m_s, b0, nr, rows_s, nv_s);
+    // A: elementwise cotangents of the block's cells
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int i = threadIdx.x + k * rnn::kWalkThreads;
+      if (i < nr * U) cell(t, i, ahead[k]);
+    }
+    for (int i = threadIdx.x + kAhead * rnn::kWalkThreads; i < nr * U; i += rnn::kWalkThreads)
+      cell(t, i, load_cell(zrc, hs, h0, dhs, t, b0 + i / U, u0 + i % U, T, B, H, reverse));
+    if (s > 0) {  // the next step's inputs
+      const int ta = time_of(s - 1, T, reverse);
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        const int i = threadIdx.x + k * rnn::kWalkThreads, j = i % U;
+        if (i < nr * U && j < nu)
+          ahead[k] = load_cell(zrc, hs, h0, dhs, ta, b0 + i / U, u0 + j, T, B, H, reverse);
+      }
+      if (threadIdx.x < nr) m_ahead = mask[(size_t)ta * B + b0 + threadIdx.x];
     }
     grid.sync();
+    const int nv = *nv_s;
     // B: d(r*h)[b, n] = sum_k dgc[b, k] W_c[n, k], then the reset gate
-    for (int b0 = 0; b0 < B; b0 += kThreads) {
-      const int b = b0 + threadIdx.x;
-      float acc[kUnits];
-      row_times_w(acc, tile, dgc_p, H, H, wc_t, b0, kThreads, B);
-      if (b < B) {
-        const size_t row = (size_t)t * B + b;
-        for (int j = 0; j < nu; ++j) {
-          const int n = u0 + j;
-          const float rg = zrc[row * H3 + H + n];
-          const float dgr = acc[j] * hp[(size_t)b * H + n] * rg * (1.f - rg);
-          drh_s[b * kUnits + j] = acc[j];
-          dzr_p[(size_t)b * H2 + H + n] = dgr;
-          dproj[row * H3 + H + n] = dgr;
-        }
-      }
-    }
+    rnn::group_product<U, kResW, kVec>(
+        rows_s, nv, dp_t + H2, H3, H, wc_s, ldc, w_hc, H, u0, nu, R, ring,
+        part, [&](int r, int j, float acc) {
+          const int b = rows_s[r], i = (b - b0) * U + j;
+          const float rg = r_s[i];
+          dp_t[(size_t)b * H3 + H + u0 + j] = acc * hp_s[i] * rg * (1.f - rg);
+          dh_c[i] += acc * rg;
+        });
     grid.sync();
-    // C: dh_prev = dht (1-z) + d(r*h) r + sum_j dgzr[b, j] W_zr[n, j] + (1-m) dh
-    for (int b0 = 0; b0 < B; b0 += kThreads) {
-      const int b = b0 + threadIdx.x;
-      float acc[kUnits];
-      row_times_w(acc, tile, dzr_p, H2, H2, wzr_t, b0, kThreads, B);
-      if (b < B) {
-        const size_t row = (size_t)t * B + b;
-        const float m = mask[row];
-        for (int j = 0; j < nu; ++j) {
-          const int n = u0 + j;
-          const float dh = dh_f[b * kUnits + j];
-          const float dht = m * dh;
-          const float z = zrc[row * H3 + n];
-          const float rg = zrc[row * H3 + H + n];
-          dh_c[b * kUnits + j] =
-              dht * (1.f - z) + drh_s[b * kUnits + j] * rg + acc[j] + (1.f - m) * dh;
-        }
-      }
-    }
-    __syncthreads();  // the next step's A reads dh_c by another mapping
+    // C: dh_prev[b, n] += sum_j dgzr[b, j] W_zr[n, j]
+    rnn::group_product<U, kResW, kVec>(
+        rows_s, nv, dp_t, H3, H2, wzr_s, ldzr, w_hzr, H2, u0, nu, R, ring,
+        part, [&](int r, int j, float acc) { dh_c[(rows_s[r] - b0) * U + j] += acc; });
+    __syncthreads();  // (nv == 0) the next step rewrites m_s and rows_s
   }
-  for (int i = threadIdx.x; i < B * kUnits; i += kThreads) {
-    const int j = i % kUnits;
-    if (j < nu) dh0[(size_t)(i / kUnits) * H + u0 + j] = dh_c[i];
+  for (int i = threadIdx.x; i < nr * U; i += rnn::kWalkThreads) {
+    const int j = i % U;
+    if (j < nu) dh0[(size_t)(b0 + i / U) * H + u0 + j] = dh_c[i];
   }
 }
 
-// dW over the [T*B]-deep row axis. blockIdx.z = 0: dW_zr [H, 2H] =
-// h_prev^T dproj[:, :2H]; blockIdx.z = 1: dW_c [H, H] = (r*h_prev)^T
-// dproj[:, 2H:]. One 64x64 output tile per block, 256 threads, 4x4 each.
-__global__ void __launch_bounds__(256)
-gru_dw_kernel(const float* __restrict__ zrc, const float* __restrict__ hs,
-              const float* __restrict__ h0, const float* __restrict__ dproj,
-              float* __restrict__ dwzr, float* __restrict__ dwc,
-              int T, int B, int H, int reverse) {
-  const int which = blockIdx.z;
-  const int ncols = which == 0 ? 2 * H : H;
-  const int col_off = which == 0 ? 0 : 2 * H;
-  const int n0 = blockIdx.x * kTile;
-  const int m0 = blockIdx.y * kTile;
-  if (n0 >= ncols) return;  // the dW_c grid is narrower
-  float* out = which == 0 ? dwzr : dwc;
-  const int H3 = 3 * H;
-  const int n_rows = T * B;
-
-  __shared__ __align__(16) float a_s[kDepth][kTile];
-  __shared__ __align__(16) float b_s[kDepth][kTile];
-  const int tx = threadIdx.x % 16;  // 4 output columns each
-  const int ty = threadIdx.x / 16;  // 4 output rows each
-  float acc[4][4] = {};
-
-  for (int base = 0; base < n_rows; base += kDepth) {
-    // stage kDepth rows of A (h_prev or r*h_prev) and of B (dproj)
-    for (int i = threadIdx.x; i < kDepth * kTile; i += 256) {
-      const int kk = i / kTile, c = i % kTile;
-      const int row = base + kk;
-      float a = 0.f, b = 0.f;
-      if (row < n_rows) {
-        const int t = row / B, bb = row % B;
-        const int m = m0 + c;
-        if (m < H) {
-          a = h_prev_of(hs, h0, t, T, B, H, reverse)[(size_t)bb * H + m];
-          if (which == 1) a *= zrc[(size_t)row * H3 + H + m];
-        }
-        const int n = n0 + c;
-        if (n < ncols) b = dproj[(size_t)row * H3 + col_off + n];
-      }
-      a_s[kk][c] = a;
-      b_s[kk][c] = b;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_s[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&b_s[kk][tx * 4]);
-      const float a[4] = {av.x, av.y, av.z, av.w};
-      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= H) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < ncols) out[(size_t)m * ncols + n] = acc[i][j];
-    }
-  }
-}
-
-// db[j] = sum over the T*B rows of dproj[:, j]: 32 columns per block, 32
-// row lanes, a shared-memory sum over the lanes
-__global__ void __launch_bounds__(1024)
-gru_db_kernel(const float* __restrict__ dproj, float* __restrict__ db,
-              int n_rows, int H3) {
-  __shared__ float part[32][33];
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (col < H3) {
-    for (int row = threadIdx.y; row < n_rows; row += 32) {
-      acc += dproj[(size_t)row * H3 + col];
-    }
-  }
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < H3) {
-    float s = 0.f;
-    for (int y = 0; y < 32; ++y) s += part[y][threadIdx.x];
-    db[col] = s;
-  }
-}
+// dW_zr, dW_c and db: the shared split-K reduction of rnn_reduce.cuh
+RNN_DW_KERNELS(gru_)
 
 bool bad_shape(int T, int B, int H) {
   return T <= 0 || B <= 0 || H <= 0 || (size_t)T * B * 3 * H >= (size_t)1 << 31;
@@ -431,27 +388,106 @@ bool bad_shape(int T, int B, int H) {
 
 // dynamic shared memory above 48 KB must be opted into per kernel
 cudaError_t set_smem(const void* fn, size_t bytes) {
-  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  if (bytes > rnn::kSmemMax) return cudaErrorInvalidValue;
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 size_t tile_bytes() { return (size_t)kThreads * kTileLd * sizeof(float); }
 
+size_t fwd_smem_bytes(int H, int B) {
+  return (size_t)(3 * H + B) * kUnits * sizeof(float) + tile_bytes();
+}
+
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// The backward walk's layout: W_c and W_zr rows per unit; dh carry, reset
+// gate and h_prev per cell; the mask and the valid-row list per row
+cudaError_t make_bwd_plan(int H, int B, rnn::WalkPlan* p) {
+  return rnn::make_walk_plan(H, B, rnn::res_ld(H) + rnn::res_ld(2 * H), 3, 2, p);
+}
+
+// dW_zr = h_prev^T dproj[:, :2H] (and db[:2H]); dW_c = (r * h_prev)^T
+// dproj[:, 2H:] (and db[2H:]), both over the valid (t, b) rows
+rnn::DwArgs dw_args(const float* zrc, const float* hs, const float* h0, const float* mask,
+                    const float* dproj, float* dwzr, float* dwc, float* db, int T, int B, int H,
+                    int reverse) {
+  rnn::DwArgs a{};
+  a.hs = hs;
+  a.h0 = h0;
+  a.mask = mask;
+  a.T = T;
+  a.B = B;
+  a.reverse = reverse;
+  a.n_problems = 2;
+  const int H3 = 3 * H;
+  a.p[0] = rnn::DwProblem{nullptr, 0, dproj, H3, H, 2 * H, dwzr, db, nullptr};
+  a.p[1] = rnn::DwProblem{zrc ? zrc + H : nullptr, H3, dproj ? dproj + 2 * H : nullptr, H3,
+                          H, H, dwc, db ? db + 2 * H : nullptr, nullptr};
+  return a;
+}
+
+template <int U, bool kResW>
+const void* bwd_fn(bool vec) {
+  return vec ? (const void*)gru_bwd_kernel<U, kResW, true>
+             : (const void*)gru_bwd_kernel<U, kResW, false>;
+}
+
+const void* pick_bwd(const rnn::WalkPlan& p, bool vec) {
+  switch (p.units * 2 + (p.w_res ? 1 : 0)) {
+    case 8: return bwd_fn<4, false>(vec);
+    case 9: return bwd_fn<4, true>(vec);
+    case 16: return bwd_fn<8, false>(vec);
+    case 17: return bwd_fn<8, true>(vec);
+    case 32: return bwd_fn<16, false>(vec);
+    case 33: return bwd_fn<16, true>(vec);
+    case 64: return bwd_fn<32, false>(vec);
+    default: return bwd_fn<32, true>(vec);
+  }
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). They launch on `stream`, do not
-// synchronise, and return the first CUDA error (a cooperative grid that
-// cannot be co-resident is refused with cudaErrorCooperativeLaunchTooLarge,
-// never run). Scratch buffers come from the caller: rh [B, H] for the
-// forward, 6 * B * H floats for the backward.
+// synchronise, and return the first CUDA error: a shape the plan cannot
+// lay out is cudaErrorInvalidValue, and a cooperative grid that cannot be
+// co-resident is refused with cudaErrorCooperativeLaunchTooLarge, never
+// run. Scratch buffers come from the caller: rh [B, H] for the forward,
+// and for the backward the dW reduction's partial sums and its list of
+// valid rows (gru_seq_plan's last number of floats).
+
+// The layouts chosen for (T, B, H), into out[10]: the forward's units per
+// block, blocks and W in shared memory (always 1); the backward walk's
+// units per block, row groups, rows per group, blocks and W resident (1)
+// or staged per k tile (0); the dW reduction's splits of the T*B rows; and
+// the floats of scratch the backward entry point takes.
+extern "C" int gru_seq_plan(int T, int B, int H, long long* out) {
+  if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
+  rnn::WalkPlan w;
+  int sms = 0;
+  cudaError_t err = make_bwd_plan(H, B, &w);
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  rnn::DwArgs a = dw_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                          T, B, H, 0);
+  const size_t scratch = rnn::dw_prepare(&a, nullptr, sms);
+  const long long v[10] = {kUnits, (H + kUnits - 1) / kUnits, 1, w.units,  w.row_groups,
+                           w.rows, w.blocks, w.w_res, a.splits, (long long)scratch};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return 0;
+}
 
 extern "C" int gru_seq_fwd_f32(const float* proj, const float* mask, const float* w_hzr,
                                const float* w_hc, const float* bias, const float* h0,
                                float* hs, float* zrc, float* rh, int T, int B, int H,
                                int reverse, void* stream) {
   if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(3 * H + B) * kUnits * sizeof(float) + tile_bytes();
+  const size_t smem = fwd_smem_bytes(H, B);
   cudaError_t err = set_smem((const void*)gru_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&proj, &mask, &w_hzr, &w_hc, &bias, &h0, &hs, &zrc, &rh,
@@ -470,22 +506,24 @@ extern "C" int gru_seq_bwd_f32(const float* zrc, const float* hs, const float* h
                                float* scratch, int T, int B, int H, int reverse,
                                void* stream) {
   if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(3 * H + 3 * B) * kUnits * sizeof(float) + tile_bytes();
-  cudaError_t err = set_smem((const void*)gru_bwd_kernel, smem);
+  rnn::WalkPlan w;
+  int sms = 0;
+  cudaError_t err = make_bwd_plan(H, B, &w);
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const void* fn = pick_bwd(w, (H & 3) == 0);
+  err = set_smem(fn, w.smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void* args[] = {&zrc, &hs, &h0, &mask, &w_hzr, &w_hc, &dhs, &dh_last, &dproj,
-                  &dh0, &scratch, &T, &B, &H, &reverse};
-  err = cudaLaunchCooperativeKernel((const void*)gru_bwd_kernel,
-                                    dim3((H + kUnits - 1) / kUnits), dim3(kThreads),
-                                    args, smem, st);
+  int R = w.rows, ug = w.unit_groups;
+  void* args[] = {&zrc,   &hs,  &h0, &mask, &w_hzr, &w_hc, &dhs, &dh_last,
+                  &dproj, &dh0, &T,  &B,    &H,     &R,    &ug,  &reverse};
+  err = cudaLaunchCooperativeKernel(fn, dim3(w.blocks), dim3(rnn::kWalkThreads), args, w.smem,
+                                    st);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 dw_grid((2 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile, 2);
-  gru_dw_kernel<<<dw_grid, 256, 0, st>>>(zrc, hs, h0, dproj, dwzr, dwc, T, B, H, reverse);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gru_db_kernel<<<(3 * H + 31) / 32, dim3(32, 32), 0, st>>>(dproj, db, T * B, 3 * H);
-  return (int)cudaGetLastError();
+  rnn::DwArgs a = dw_args(zrc, hs, h0, mask, dproj, dwzr, dwc, db, T, B, H, reverse);
+  rnn::dw_prepare(&a, scratch, sms);
+  return (int)gru_dw_launch(a, sms, st);
 }

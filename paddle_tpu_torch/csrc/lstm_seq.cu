@@ -34,13 +34,12 @@
 // fit in one block's 227 KB of shared memory.
 //
 // Design:
-//   * Recurrence: one persistent cooperative launch (all blocks resident,
+//   * Forward: one persistent cooperative launch (all blocks resident,
 //     cudaLaunchCooperativeKernel) whose block j owns U hidden units. U is
 //     the smallest power of two that keeps the grid within one block per
 //     SM (U=2 at H=256, U=4 at H=512 on 132 SMs). The block keeps its
-//     units' 4 gate columns of W (forward) or its units' rows of W (the
-//     columns of W^T, backward) in shared memory for the whole sequence —
-//     32 KB at H=512 — and its units' cell state (or dc carry) on chip.
+//     units' 4 gate columns of W in shared memory for the whole sequence
+//     — 32 KB at H=512 — and its units' cell state on chip.
 //     Where that slice does not fit beside the staging tile (H=1280:
 //     U=16, 327 KB), the block stages it through shared memory per k tile
 //     with the operand it multiplies (W then comes from L2 every step).
@@ -50,41 +49,46 @@
 //     thread (row, unit) forms the unit's four gate sums, the cell update
 //     and the masked outputs; then ONE grid.sync() (the GRU needs two, for
 //     r*h).
-//   * Backward, per step (reverse walk): the elementwise cotangents of the
-//     block's units go to dproj[t], dc is carried in shared memory; one
-//     grid.sync(); then dh_prev of the block's units = dproj[t] W^T over
-//     the staged [B, 4H] row + (1-m) dh. dproj[t] and hs[t] written by other
-//     blocks of the same launch are read with __ldcg (L2, never a stale L1
-//     line).
-//   * dW = h_prev^T dproj over the T*B rows and db (a column sum) are not
-//     carried across the walk as the TPU kernel's VMEM scratch is: after
-//     the walk a tiled reduction kernel (64x64 output tiles, 4x4 per
-//     thread, the next 32 rows prefetched) and a column-sum kernel compute
-//     them. All three kernels launch from the one backward entry point.
-//   * What still bounds the walks (PERF.md): each FMA of the recurrent
-//     products needs about a third of a 16-byte shared-memory load (a
+//   * Backward walk (reverse): bounded by the operand it
+//     re-reads every step and by shared-memory loads per FMA. Block (row
+//     group, unit group) owns R rows x U units (U and R from the SM count
+//     and shared memory: 4 row groups of 32 rows x 32 groups of 16 units
+//     at B=128, H=512), keeps its units' W rows resident (128 KB; staged
+//     per k tile where they do not fit, as at H=1280) and its cells' dh
+//     and dc carries. Per step: the elementwise cotangents of its cells to
+//     dproj[t]; ONE grid.sync(); then dh_prev of its cells = dproj[t] W^T
+//     over the valid rows of its row group only (rnn_walk.cuh: cp.async
+//     ring, register tiles, masked rows skipped, since their dproj is
+//     exactly zero and their carries pass through). A block reads R rows
+//     of dproj[t], not B: a quarter of the old L2 traffic at B=128.
+//   * dW = h_prev^T dproj over the T*B rows and db (the TPU kernel's VMEM
+//     sums) come from the shared split-K f32 GEMM of rnn_reduce.cuh (128 x
+//     128 tiles, 8x8 per thread, a deterministic second pass over the
+//     splits, db folded in), launched from the same entry point.
+//   * What still bounds the forward (PERF.md): each FMA of its recurrent
+//     product needs about a third of a 16-byte shared-memory load (a
 //     thread computes one row of one unit), and a grid sync per step: at
-//     H=512 the forward's time per step hardly changes from B=8 to B=128
+//     H=512 its time per step hardly changes from B=8 to B=128
 //     (chip_smoke.py's `fwd_kernel_ms_by_batch`).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "rnn_reduce.cuh"
+#include "rnn_walk.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;             // recurrence block size
+constexpr int kThreads = 512;             // forward block size
 // k per staged tile, so that a tile (kThreads / U rows x k) holds 8 float4
 // per thread in flight: 128 for U >= 4, 64 for U = 2, 32 for U = 1. Fewer,
 // wider tiles mean fewer round trips between loads and compute per step.
 __host__ __device__ constexpr int tile_k(int U) { return U >= 4 ? 128 : 32 * U; }
 // a staged tile's row stride: 16-byte rows, and 8 rows of float4 hit 32 banks
 __host__ __device__ constexpr int tile_ld(int kt) { return kt + 4; }
-constexpr int kTile = 64;                 // dW output tile
-constexpr int kDepth = 32;                // rows of the T*B axis per dW stage
-constexpr size_t kSmemMax = 227 * 1024;
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -178,46 +182,6 @@ struct FwdWTile {
   }
 };
 
-// The backward's slice of W for k tile kt of the 4H axis when it is not
-// resident: the block's U rows of W, columns [kt, kt + KT), laid out
-// [U][tile_ld(KT)] (padded: rows of different units hit different banks).
-// 16-byte loads (4H is a multiple of 4).
-template <int U, int KT>
-struct BwdWTile {
-  static constexpr int kQ = KT / 4;
-  static constexpr int kPer = (U * kQ + kThreads - 1) / kThreads;
-  float4 v[kPer];
-
-  __device__ __forceinline__ void load(const float* w_hh, int kt, int H, int u0, int nu) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int i = threadIdx.x + p * kThreads;
-      const int j = i / kQ, k = kt + (i % kQ) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < U * kQ && j < nu && k < 4 * H) {
-        x = __ldg(reinterpret_cast<const float4*>(w_hh + (size_t)(u0 + j) * 4 * H + k));
-      }
-      v[p] = x;
-    }
-  }
-
-  __device__ __forceinline__ void store(float* w) const {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int i = threadIdx.x + p * kThreads;
-      if (i < U * kQ) {
-        *reinterpret_cast<float4*>(w + (i / kQ) * tile_ld(KT) + (i % kQ) * 4) = v[p];
-      }
-    }
-  }
-};
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// leading dimension of the resident W^T rows in the backward: padded so
-// that rows of different units start in different banks
-__host__ __device__ constexpr int bwd_w_ld(int H) { return 4 * H + 4; }
-
 template <int U, bool kSmemW>
 __global__ void __launch_bounds__(kThreads)
 lstm_fwd_kernel(const float* proj, const float* mask, const float* w_hh, const float* bias,
@@ -228,7 +192,7 @@ lstm_fwd_kernel(const float* proj, const float* mask, const float* w_hh, const f
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H4 = 4 * H;
-  const int Hp = round_up(H, KT);
+  const int Hp = rnn::round_up(H, KT);
   const int u0 = blockIdx.x * U;
   const int nu = min(U, H - u0);
   float* w_s = smem;  // resident: [Hp][U][4]; else one k tile, [KT][U][4]
@@ -322,247 +286,207 @@ lstm_fwd_kernel(const float* proj, const float* mask, const float* w_hh, const f
   }
 }
 
-template <int U, bool kSmemW>
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_kernel(const float* gates, const float* ct, const float* hs, const float* cs,
-                const float* h0, const float* c0, const float* mask, const float* w_hh,
-                const float* dhs, const float* dh_last, const float* dc_last, float* dproj,
-                float* dh0, float* dc0, int T, int B, int H, int reverse) {
-  constexpr int R = kThreads / U;
-  constexpr int KT = tile_k(U), LD = tile_ld(KT);
+// One cell's inputs to the backward's elementwise step: the gates, c~,
+// c_prev and dhs of (t, b, n). None is written by the walk, so the walk
+// fetches them a step ahead.
+struct CellIn {
+  float ig, fg, gg, og, ct, cp, dhs;
+};
+
+__device__ __forceinline__ CellIn load_cell(const float* gates, const float* ct,
+                                            const float* cs, const float* c0, const float* dhs,
+                                            int t, int b, int n, int T, int B, int H,
+                                            int reverse) {
+  const size_t row = (size_t)t * B + b;
+  const float* g = gates + row * 4 * H;
+  const float* cp = prev_of(cs, c0, t, T, B, H, reverse);
+  return CellIn{g[n], g[H + n], g[2 * H + n], g[3 * H + n], ct[row * H + n],
+                cp[(size_t)b * H + n], dhs[row * H + n]};
+}
+
+// cells per thread whose inputs are fetched a step ahead (the rest, at
+// larger R x U, when the step needs them)
+constexpr int kAhead = 2;
+
+// The backward walk. Block (rg, ug) owns rows [b0, b0 + R) and units
+// [u0, u0 + U): their dh and dc carries stay in shared memory, and so do
+// the units' rows of W (or they are staged per k tile, kResW false).
+// Per step: A, the elementwise cotangents of the block's (rows, units) to
+// dproj[t] and the carries; one grid.sync(); B, dh_prev of the same cells
+// = dproj[t] W^T over the valid rows of the row group (rnn_walk.cuh) +
+// (1-m) dh.
+template <int U, bool kResW>
+__global__ void __launch_bounds__(rnn::kWalkThreads, 1)
+lstm_bwd_kernel(const float* gates, const float* ct, const float* cs, const float* c0,
+                const float* mask, const float* w_hh, const float* dhs, const float* dh_last,
+                const float* dc_last, float* dproj, float* dh0, float* dc0, int T, int B,
+                int H, int R, int unit_groups, int reverse) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H4 = 4 * H;
-  const int ldw = kSmemW ? bwd_w_ld(H) : LD;
-  const int u0 = blockIdx.x * U;
-  const int nu = min(U, H - u0);
-  float* w_t = smem;  // resident: [U][ldw] rows of W; else one k tile, [U][LD]
-  float* tile = smem + (size_t)U * ldw;                       // [R][LD]
-  float* dh_c = tile + R * LD;                                // [B][U] dh carry
-  float* dc_c = dh_c + B * U;                                 // [B][U] dc carry
-  float* dh_r = dc_c + B * U;                                 // [B][U] (1-m) dh of the step
+  const int ldw = rnn::res_ld(H4);
+  const int u0 = (blockIdx.x % unit_groups) * U, nu = min(U, H - u0);
+  const int b0 = (blockIdx.x / unit_groups) * R, nr = min(R, B - b0);
+  float* w_s = smem;                                            // [U][ldw] if kResW
+  float* ring = w_s + (kResW ? U * ldw : 0);
+  float* part = ring + rnn::kStages * rnn::stage_floats(U, R, kResW);
+  float* dh_c = part + rnn::kWalkThreads * rnn::kTR * rnn::kTU;  // [R][U] dh carry
+  float* dc_c = dh_c + R * U;                                   // [R][U] dc carry
+  float* m_s = dc_c + R * U;                                    // [R] mask of the step
+  int* rows_s = reinterpret_cast<int*>(m_s + R);                // [R] valid rows
+  int* nv_s = rows_s + R;
 
-  if (kSmemW) {
-    for (int i = threadIdx.x; i < U * H4; i += kThreads) {
-      const int j = i / H4, k = i % H4;
-      w_t[j * ldw + k] = j < nu ? w_hh[(size_t)(u0 + j) * H4 + k] : 0.f;
+  if (kResW) {
+    for (int i = threadIdx.x; i < U * ldw; i += rnn::kWalkThreads) {
+      const int j = i / ldw, k = i % ldw;
+      w_s[i] = j < nu && k < H4 ? w_hh[(size_t)(u0 + j) * H4 + k] : 0.f;
     }
   }
   // dh_last and dc_last are the carries into the first step of the walk
   // (the TPU kernel adds dh_last to dhs[-1] and starts dc from dc_last)
-  for (int i = threadIdx.x; i < B * U; i += kThreads) {
-    const int b = i / U, j = i % U;
-    dh_c[i] = j < nu ? dh_last[(size_t)b * H + u0 + j] : 0.f;
-    dc_c[i] = j < nu ? dc_last[(size_t)b * H + u0 + j] : 0.f;
+  for (int i = threadIdx.x; i < R * U; i += rnn::kWalkThreads) {
+    const int r = i / U, j = i % U;
+    const bool v = r < nr && j < nu;
+    dh_c[i] = v ? dh_last[(size_t)(b0 + r) * H + u0 + j] : 0.f;
+    dc_c[i] = v ? dc_last[(size_t)(b0 + r) * H + u0 + j] : 0.f;
   }
-  __syncthreads();
 
-  const int r = threadIdx.x / U, j = threadIdx.x % U;
-  RowTile<R, KT> dt;
-  BwdWTile<U, KT> wt;
+  // the next step's mask and cell inputs, in registers: their loads are
+  // in flight during the grid sync and the product
+  CellIn ahead[kAhead] = {};
+  float m_ahead = 0.f;
+  // A for cell i = (r, j) of the block
+  auto cell = [&](int t, int i, const CellIn& v) {
+    const int r = i / U, j = i % U;
+    if (j >= nu) return;
+    const int n = u0 + j;
+    const float m = m_s[r];
+    const float dh = dh_c[i] + v.dhs;
+    const float dc = dc_c[i];
+    const float tc = tanhf(v.ct);
+    const float dht = m * dh;
+    const float dct = m * dc + dht * v.og * (1.f - tc * tc);
+    float* dp = dproj + ((size_t)t * B + b0 + r) * H4;
+    dp[n] = dct * v.gg * v.ig * (1.f - v.ig);
+    dp[H + n] = dct * v.cp * v.fg * (1.f - v.fg);
+    dp[2 * H + n] = dct * v.ig * (1.f - v.gg * v.gg);
+    dp[3 * H + n] = dht * tc * v.og * (1.f - v.og);
+    dc_c[i] = dct * v.fg + (1.f - m) * dc;
+    dh_c[i] = (1.f - m) * dh;  // B adds dproj[t] W^T on valid rows
+  };
+  {
+    const int ta = time_of(T - 1, T, reverse);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int i = threadIdx.x + k * rnn::kWalkThreads, j = i % U;
+      if (i < nr * U && j < nu)
+        ahead[k] = load_cell(gates, ct, cs, c0, dhs, ta, b0 + i / U, u0 + j, T, B, H, reverse);
+    }
+    if (threadIdx.x < nr) m_ahead = mask[(size_t)ta * B + b0 + threadIdx.x];
+  }
+
   for (int s = T - 1; s >= 0; --s) {
     const int t = time_of(s, T, reverse);
-    const float* cp = prev_of(cs, c0, t, T, B, H, reverse);
-    // A: elementwise cotangents of the block's units
-    for (int i = threadIdx.x; i < B * U; i += kThreads) {
-      const int b = i / U, jj = i % U;
-      if (jj >= nu) continue;
-      const int nn = u0 + jj;
-      const size_t row = (size_t)t * B + b;
-      const float* g = gates + row * H4;
-      const float ig = g[nn], fg = g[H + nn], gg = g[2 * H + nn], og = g[3 * H + nn];
-      const float m = mask[row];
-      const float dh = dh_c[i] + dhs[row * H + nn];
-      const float dc = dc_c[i];
-      const float tc = tanhf(ct[row * H + nn]);
-      const float dht = m * dh;
-      const float dct = m * dc + dht * og * (1.f - tc * tc);
-      float* dp = dproj + row * H4;
-      dp[nn] = dct * gg * ig * (1.f - ig);
-      dp[H + nn] = dct * cp[(size_t)b * H + nn] * fg * (1.f - fg);
-      dp[2 * H + nn] = dct * ig * (1.f - gg * gg);
-      dp[3 * H + nn] = dht * tc * og * (1.f - og);
-      dc_c[i] = dct * fg + (1.f - m) * dc;
-      dh_r[i] = (1.f - m) * dh;
+    for (int r = threadIdx.x; r < nr; r += rnn::kWalkThreads)
+      m_s[r] = r == threadIdx.x ? m_ahead : mask[(size_t)t * B + b0 + r];
+    __syncthreads();
+    if (threadIdx.x < 32) rnn::compact_rows(m_s, b0, nr, rows_s, nv_s);
+    // A: elementwise cotangents of the block's cells
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int i = threadIdx.x + k * rnn::kWalkThreads;
+      if (i < nr * U) cell(t, i, ahead[k]);
+    }
+    for (int i = threadIdx.x + kAhead * rnn::kWalkThreads; i < nr * U; i += rnn::kWalkThreads)
+      cell(t, i, load_cell(gates, ct, cs, c0, dhs, t, b0 + i / U, u0 + i % U, T, B, H, reverse));
+    if (s > 0) {  // the next step's inputs
+      const int ta = time_of(s - 1, T, reverse);
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        const int i = threadIdx.x + k * rnn::kWalkThreads, j = i % U;
+        if (i < nr * U && j < nu)
+          ahead[k] = load_cell(gates, ct, cs, c0, dhs, ta, b0 + i / U, u0 + j, T, B, H, reverse);
+      }
+      if (threadIdx.x < nr) m_ahead = mask[(size_t)ta * B + b0 + threadIdx.x];
     }
     grid.sync();
-    // B: dh_prev[b, n] = sum_k dproj[t, b, k] W[n, k] + (1-m) dh
-    const float* dp_t = dproj + (size_t)t * B * H4;
-    for (int b0 = 0; b0 < B; b0 += R) {
-      const int b = b0 + r;
-      float acc = 0.f;
-      dt.load(dp_t, H4, H4, b0, 0, B);
-      if (!kSmemW) wt.load(w_hh, 0, H, u0, nu);
-      for (int kt = 0; kt < H4; kt += KT) {
-        dt.store(tile);
-        if (!kSmemW) wt.store(w_t);
-        __syncthreads();
-        if (kt + KT < H4) {  // the next tile is in flight during this one
-          dt.load(dp_t, H4, H4, b0, kt + KT, B);
-          if (!kSmemW) wt.load(w_hh, kt + KT, H, u0, nu);
-        }
-        const int kn = min(KT, H4 - kt);  // a multiple of 4
-        const float* trow = tile + r * LD;
-        const float* wrow = w_t + j * ldw + (kSmemW ? kt : 0);
-#pragma unroll 4
-        for (int kk = 0; kk < kn; kk += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(trow + kk);
-          const float4 w = *reinterpret_cast<const float4*>(wrow + kk);
-          acc = fmaf(a.x, w.x, acc);
-          acc = fmaf(a.y, w.y, acc);
-          acc = fmaf(a.z, w.z, acc);
-          acc = fmaf(a.w, w.w, acc);
-        }
-        __syncthreads();
-      }
-      if (b < B && j < nu) dh_c[b * U + j] = acc + dh_r[b * U + j];
-    }
-    __syncthreads();  // the next step's A reads dh_c by another mapping
+    // B: dh_prev[b, n] += sum_k dproj[t, b, k] W[n, k] over the valid rows
+    const int nv = *nv_s;
+    rnn::group_product<U, kResW, true>(
+        rows_s, nv, dproj + (size_t)t * B * H4, H4, H4, w_s, ldw, w_hh, H4, u0, nu, R, ring,
+        part, [&](int r, int j, float acc) { dh_c[(rows_s[r] - b0) * U + j] += acc; });
+    __syncthreads();  // (nv == 0) the next step rewrites m_s and rows_s
   }
-  for (int i = threadIdx.x; i < B * U; i += kThreads) {
-    const int b = i / U, jj = i % U;
-    if (jj < nu) {
-      dh0[(size_t)b * H + u0 + jj] = dh_c[i];
-      dc0[(size_t)b * H + u0 + jj] = dc_c[i];
+  for (int i = threadIdx.x; i < nr * U; i += rnn::kWalkThreads) {
+    const int r = i / U, j = i % U;
+    if (j < nu) {
+      dh0[(size_t)(b0 + r) * H + u0 + j] = dh_c[i];
+      dc0[(size_t)(b0 + r) * H + u0 + j] = dc_c[i];
     }
   }
 }
 
-// dW [H, 4H] = h_prev^T dproj over the [T*B]-deep row axis. One 64x64
-// output tile per block, 256 threads, 4x4 each; the next kDepth rows of
-// both operands are loaded into registers while the current ones are
-// multiplied.
-__global__ void __launch_bounds__(256)
-lstm_dw_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
-               const float* __restrict__ dproj, float* __restrict__ dw,
-               int T, int B, int H, int reverse) {
-  constexpr int kPer = kDepth * kTile / 256;
-  const int H4 = 4 * H;
-  const int n0 = blockIdx.x * kTile;
-  const int m0 = blockIdx.y * kTile;
-  const int n_rows = T * B;
+// dW [H, 4H] and db [4H]: the shared split-K reduction of rnn_reduce.cuh
+RNN_DW_KERNELS(lstm_)
 
-  __shared__ __align__(16) float a_s[kDepth][kTile];
-  __shared__ __align__(16) float b_s[kDepth][kTile];
-  const int tx = threadIdx.x % 16;  // 4 output columns each
-  const int ty = threadIdx.x / 16;  // 4 output rows each
-  float acc[4][4] = {};
-  float ra[kPer], rb[kPer];
-  // element p of this thread's share of a stage: row kk, column c
-  auto load = [&](int base) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int i = threadIdx.x + p * 256;
-      const int kk = i / kTile, c = i % kTile;
-      const int row = base + kk;
-      float a = 0.f, b = 0.f;
-      if (row < n_rows) {
-        const int t = row / B, bb = row % B;
-        const int m = m0 + c;
-        if (m < H) a = prev_of(hs, h0, t, T, B, H, reverse)[(size_t)bb * H + m];
-        const int n = n0 + c;
-        if (n < H4) b = dproj[(size_t)row * H4 + n];
-      }
-      ra[p] = a;
-      rb[p] = b;
-    }
-  };
-
-  load(0);
-  for (int base = 0; base < n_rows; base += kDepth) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int i = threadIdx.x + p * 256;
-      a_s[i / kTile][i % kTile] = ra[p];
-      b_s[i / kTile][i % kTile] = rb[p];
-    }
-    __syncthreads();
-    if (base + kDepth < n_rows) load(base + kDepth);
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_s[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&b_s[kk][tx * 4]);
-      const float a[4] = {av.x, av.y, av.z, av.w};
-      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(a[ii], b[jj], acc[ii][jj]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int m = m0 + ty * 4 + ii;
-    if (m >= H) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int n = n0 + tx * 4 + jj;
-      if (n < H4) dw[(size_t)m * H4 + n] = acc[ii][jj];
-    }
-  }
-}
-
-// db[j] = sum over the T*B rows of dproj[:, j]: 32 columns per block, 32
-// row lanes, a shared-memory sum over the lanes
-__global__ void __launch_bounds__(1024)
-lstm_db_kernel(const float* __restrict__ dproj, float* __restrict__ db, int n_rows, int H4) {
-  __shared__ float part[32][33];
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (col < H4) {
-    for (int row = threadIdx.y; row < n_rows; row += 32) acc += dproj[(size_t)row * H4 + col];
-  }
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < H4) {
-    float s = 0.f;
-    for (int y = 0; y < 32; ++y) s += part[y][threadIdx.x];
-    db[col] = s;
-  }
-}
-
-// How the recurrence is laid out for (H, B) on this device.
+// How the forward recurrence is laid out for (H, B) on this device.
 struct Plan {
   int units;        // hidden units per block (a power of two, <= 16)
   int blocks;       // ceil(H / units) <= the SM count: one block per SM
   bool smem_w;      // W slice in shared memory (else read through L1/L2)
-  size_t fwd_smem;  // dynamic shared memory of each launch
-  size_t bwd_smem;
+  size_t fwd_smem;  // dynamic shared memory of the launch
 };
 
 size_t fwd_smem_bytes(int U, int H, int B, bool smem_w) {
   const int kt = tile_k(U);
-  const size_t w = (size_t)(smem_w ? round_up(H, kt) : kt) * U * 4;
+  const size_t w = (size_t)(smem_w ? rnn::round_up(H, kt) : kt) * U * 4;
   return (w + (size_t)(kThreads / U) * tile_ld(kt) + (size_t)B * U) * sizeof(float);
 }
 
-size_t bwd_smem_bytes(int U, int H, int B, bool smem_w) {
-  const int kt = tile_k(U);
-  const size_t w = (size_t)U * (smem_w ? bwd_w_ld(H) : tile_ld(kt));
-  return (w + (size_t)(kThreads / U) * tile_ld(kt) + (size_t)3 * B * U) * sizeof(float);
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 cudaError_t make_plan(int H, int B, Plan* p) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   for (int U = 1; U <= 16; U *= 2) {
     const int blocks = (H + U - 1) / U;
     if (blocks > sms) continue;
-    const bool smem_w = fwd_smem_bytes(U, H, B, true) <= kSmemMax &&
-                        bwd_smem_bytes(U, H, B, true) <= kSmemMax;
+    const bool smem_w = fwd_smem_bytes(U, H, B, true) <= rnn::kSmemMax;
     p->units = U;
     p->blocks = blocks;
     p->smem_w = smem_w;
     p->fwd_smem = fwd_smem_bytes(U, H, B, smem_w);
-    p->bwd_smem = bwd_smem_bytes(U, H, B, smem_w);
-    if (p->fwd_smem > kSmemMax || p->bwd_smem > kSmemMax) return cudaErrorInvalidValue;
+    if (p->fwd_smem > rnn::kSmemMax) return cudaErrorInvalidValue;
     return cudaSuccess;
   }
   return cudaErrorInvalidValue;  // H > 16 units x the SM count
+}
+
+// The backward walk's layout: dh and dc carries per cell, the mask and the
+// valid-row list per row
+cudaError_t make_bwd_plan(int H, int B, rnn::WalkPlan* p) {
+  return rnn::make_walk_plan(H, B, rnn::res_ld(4 * H), 2, 2, p);
+}
+
+// dW and db as one reduction problem over the valid (t, b) rows
+rnn::DwArgs dw_args(const float* hs, const float* h0, const float* mask, const float* dproj,
+                    float* dw, float* db, int T, int B, int H, int reverse) {
+  rnn::DwArgs a{};
+  a.hs = hs;
+  a.h0 = h0;
+  a.mask = mask;
+  a.T = T;
+  a.B = B;
+  a.reverse = reverse;
+  a.n_problems = 1;
+  a.p[0] = rnn::DwProblem{nullptr, 0, dproj, 4 * H, H, 4 * H, dw, db, nullptr};
+  return a;
 }
 
 bool bad_shape(int T, int B, int H) {
@@ -575,10 +499,11 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-cudaError_t launch(const void* fn, const Plan& p, size_t smem, void** args, cudaStream_t st) {
+cudaError_t launch(const void* fn, int blocks, int threads, size_t smem, void** args,
+                   cudaStream_t st) {
   cudaError_t err = set_smem(fn, smem);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchCooperativeKernel(fn, dim3(p.blocks), dim3(kThreads), args, smem, st);
+  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args, smem, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -588,18 +513,27 @@ const void* fwd_fn(bool smem_w) {
   return smem_w ? (const void*)lstm_fwd_kernel<U, true> : (const void*)lstm_fwd_kernel<U, false>;
 }
 
-template <int U>
-const void* bwd_fn(bool smem_w) {
-  return smem_w ? (const void*)lstm_bwd_kernel<U, true> : (const void*)lstm_bwd_kernel<U, false>;
+const void* pick_fwd(const Plan& p) {
+  switch (p.units) {
+    case 1: return fwd_fn<1>(p.smem_w);
+    case 2: return fwd_fn<2>(p.smem_w);
+    case 4: return fwd_fn<4>(p.smem_w);
+    case 8: return fwd_fn<8>(p.smem_w);
+    default: return fwd_fn<16>(p.smem_w);
+  }
 }
 
-const void* pick(const Plan& p, bool fwd) {
+template <int U>
+const void* bwd_fn(bool w_res) {
+  return w_res ? (const void*)lstm_bwd_kernel<U, true> : (const void*)lstm_bwd_kernel<U, false>;
+}
+
+const void* pick_bwd(const rnn::WalkPlan& p) {
   switch (p.units) {
-    case 1: return fwd ? fwd_fn<1>(p.smem_w) : bwd_fn<1>(p.smem_w);
-    case 2: return fwd ? fwd_fn<2>(p.smem_w) : bwd_fn<2>(p.smem_w);
-    case 4: return fwd ? fwd_fn<4>(p.smem_w) : bwd_fn<4>(p.smem_w);
-    case 8: return fwd ? fwd_fn<8>(p.smem_w) : bwd_fn<8>(p.smem_w);
-    default: return fwd ? fwd_fn<16>(p.smem_w) : bwd_fn<16>(p.smem_w);
+    case 4: return bwd_fn<4>(p.w_res);
+    case 8: return bwd_fn<8>(p.w_res);
+    case 16: return bwd_fn<16>(p.w_res);
+    default: return bwd_fn<32>(p.w_res);
   }
 }
 
@@ -610,15 +544,25 @@ const void* pick(const Plan& p, bool fwd) {
 // out is cudaErrorInvalidValue, and a cooperative grid that cannot be
 // co-resident is refused (cudaErrorCooperativeLaunchTooLarge), never run.
 
-// The layout chosen for (H, B): units per block, blocks, and whether W's
-// slice lives in shared memory (1) or is read through L1/L2 (0).
-extern "C" int lstm_seq_plan(int H, int B, int* units, int* blocks, int* smem_w) {
+// The layouts chosen for (T, B, H), into out[10]: the forward's units per
+// block, blocks and W in shared memory (1) or read through L1/L2 (0); the
+// backward walk's units per block, row groups, rows per group, blocks and
+// W resident (1) or staged per k tile (0); the dW reduction's splits of
+// the T*B rows; and the floats of scratch the backward entry point takes.
+extern "C" int lstm_seq_plan(int T, int B, int H, long long* out) {
+  if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t err = make_plan(H, B, &p);
+  rnn::WalkPlan w;
+  int sms = 0;
+  cudaError_t err = make_plan(H, B, &p);
+  if (err == cudaSuccess) err = make_bwd_plan(H, B, &w);
+  if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
-  *units = p.units;
-  *blocks = p.blocks;
-  *smem_w = p.smem_w ? 1 : 0;
+  rnn::DwArgs a = dw_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, T, B, H, 0);
+  const size_t scratch = rnn::dw_prepare(&a, nullptr, sms);
+  const long long v[10] = {p.units, p.blocks, p.smem_w, w.units,  w.row_groups,
+                           w.rows,  w.blocks, w.w_res,  a.splits, (long long)scratch};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -632,28 +576,31 @@ extern "C" int lstm_seq_fwd_f32(const float* proj, const float* mask, const floa
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&proj, &mask, &w_hh, &bias, &h0, &c0, &hs, &gates, &ct, &cs,
                   &T, &B, &H, &reverse};
-  return (int)launch(pick(p, true), p, p.fwd_smem, args, static_cast<cudaStream_t>(stream));
+  return (int)launch(pick_fwd(p), p.blocks, kThreads, p.fwd_smem, args,
+                     static_cast<cudaStream_t>(stream));
 }
 
+// `scratch` holds the dW reduction's partial sums and its list of valid
+// rows: as many floats as lstm_seq_plan's last number.
 extern "C" int lstm_seq_bwd_f32(const float* gates, const float* ct, const float* hs,
                                 const float* cs, const float* h0, const float* c0,
                                 const float* mask, const float* w_hh, const float* dhs,
                                 const float* dh_last, const float* dc_last, float* dproj,
-                                float* dw, float* db, float* dh0, float* dc0, int T, int B,
-                                int H, int reverse, void* stream) {
+                                float* dw, float* db, float* dh0, float* dc0, float* scratch,
+                                int T, int B, int H, int reverse, void* stream) {
   if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
-  Plan p;
-  cudaError_t err = make_plan(H, B, &p);
+  rnn::WalkPlan w;
+  int sms = 0;
+  cudaError_t err = make_bwd_plan(H, B, &w);
+  if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void* args[] = {&gates, &ct, &hs, &cs, &h0, &c0, &mask, &w_hh, &dhs, &dh_last,
-                  &dc_last, &dproj, &dh0, &dc0, &T, &B, &H, &reverse};
-  err = launch(pick(p, false), p, p.bwd_smem, args, st);
+  int R = w.rows, ug = w.unit_groups;
+  void* args[] = {&gates, &ct,  &cs,  &c0, &mask, &w_hh, &dhs, &dh_last, &dc_last,
+                  &dproj, &dh0, &dc0, &T,  &B,    &H,    &R,   &ug,      &reverse};
+  err = launch(pick_bwd(w), w.blocks, rnn::kWalkThreads, w.smem, args, st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 dw_grid((4 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  lstm_dw_kernel<<<dw_grid, 256, 0, st>>>(hs, h0, dproj, dw, T, B, H, reverse);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  lstm_db_kernel<<<(4 * H + 31) / 32, dim3(32, 32), 0, st>>>(dproj, db, T * B, 4 * H);
-  return (int)cudaGetLastError();
+  rnn::DwArgs a = dw_args(hs, h0, mask, dproj, dw, db, T, B, H, reverse);
+  rnn::dw_prepare(&a, scratch, sms);
+  return (int)lstm_dw_launch(a, sms, st);
 }

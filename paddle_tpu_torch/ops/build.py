@@ -3,9 +3,9 @@
 Each `paddle_tpu_torch/csrc/<name>.cu` exposes a plain C entry point and is
 compiled on its own by nvcc into `build/paddle_tpu_torch/<name>-<hash>.so`
 next to the package, then loaded with ctypes (no PyTorch headers, so a
-build takes seconds rather than minutes). The hash covers the source bytes
-and the flags, so an edited source builds anew and an unchanged one is
-reused. Nothing builds at import: the first `load()` (or `build()`, which
+build takes seconds rather than minutes). The hash covers the source
+bytes, every shared header under `csrc/` (`*.cuh`) and the flags, so an
+edited source or header builds anew and an unchanged one is reused. Nothing builds at import: the first `load()` (or `build()`, which
 chip_smoke.py calls up front) does, on the machine with the card.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
@@ -64,9 +64,18 @@ def source_path(name: str) -> Path:
     return CSRC_DIR / f"{name}.cu"
 
 
+def headers() -> List[Path]:
+    """Every shared header a source may include (`csrc/*.cuh`), in name
+    order."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path(name: str) -> Path:
-    """Where `name`'s library lives, keyed by a hash of source + flags."""
+    """Where `name`'s library lives, keyed by a hash of its source, every
+    shared header and the flags: editing any of them builds anew."""
     h = hashlib.sha256(source_path(name).read_bytes())
+    for hdr in headers():
+        h.update(b"\0" + hdr.name.encode() + b"\0" + hdr.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

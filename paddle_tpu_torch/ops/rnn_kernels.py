@@ -209,6 +209,45 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+_PLAN_KEYS = ("units", "blocks", "w_in_smem", "bwd_units", "bwd_row_groups",
+              "bwd_rows_per_group", "bwd_blocks", "bwd_w_resident", "dw_split_k",
+              "scratch_floats")
+_plans: dict = {}
+
+
+def _plan(source: str, t: int, b: int, h: int, device=None) -> dict:
+    """The layouts `<source>_plan` chooses for (T, B, H) on `device`'s card:
+    the forward's hidden units per block, blocks (one per SM at most) and
+    whether W sits in shared memory; the backward walk's units per block,
+    row groups, rows per group, blocks and whether its W rows stay resident
+    (else they are staged per k tile); the dW reduction's split of the T*B
+    rows; and the scratch floats the backward takes. Raises where no layout
+    exists. Cached per (card, shape)."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (source, index, t, b, h)
+    plan = _plans.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+        fn = _entry(source, f"{source}_plan", 0, (_I, _I, _I, _P))
+        with torch.cuda.device(index):
+            rc = fn(t, b, h, out)
+        if rc != 0:
+            raise ValueError(f"the {source} kernels have no layout for T={t}, B={b}, H={h} "
+                             f"on this card (CUDA error {rc})")
+        plan = _plans[key] = {k: int(v) for k, v in zip(_PLAN_KEYS, out)}
+        for k in ("w_in_smem", "bwd_w_resident"):
+            plan[k] = bool(plan[k])
+    return dict(plan)
+
+
+def gru_seq_plan(h: int, b: int, t: int = 1, device=None) -> dict:
+    """How the GRU kernels lay out hidden size `h` at batch `b` (and `t`
+    steps) on the current card; see `_plan`. Raises where no layout
+    exists."""
+    return _plan("gru_seq", t, b, h, device)
+
+
 def gru_seq_fwd(proj, mask, w_hzr, w_hc, bias, h0, reverse: bool = False):
     """One launch of the forward kernel -> (hs [T,B,H], zrc [T,B,3H])."""
     global FWD_LAUNCHES
@@ -228,8 +267,8 @@ def gru_seq_fwd(proj, mask, w_hzr, w_hc, bias, h0, reverse: bool = False):
 
 
 def gru_seq_bwd(zrc, hs, h0, mask, w_hzr, w_hc, dhs, dh_last, reverse: bool = False):
-    """One launch of the backward entry point (recurrent walk, dW reduction
-    and db column sum) -> (dproj, dW_zr, dW_c, db, dh0)."""
+    """One call of the backward entry point (the recurrent walk, then the
+    split-K dW/db reduction) -> (dproj, dW_zr, dW_c, db, dh0)."""
     global BWD_LAUNCHES
     t, b, h3 = zrc.shape
     h = h3 // 3
@@ -244,8 +283,9 @@ def gru_seq_bwd(zrc, hs, h0, mask, w_hzr, w_hc, dhs, dh_last, reverse: bool = Fa
     dwc = torch.empty((h, h), dtype=torch.float32, device=dev)
     db = torch.empty((h3,), dtype=torch.float32, device=dev)
     dh0 = torch.empty((b, h), dtype=torch.float32, device=dev)
-    # double-buffered dgc [2, B, H] and dgzr [2, B, 2H]
-    scratch = torch.empty((6 * b * h,), dtype=torch.float32, device=dev)
+    # the dW reduction's partial sums and its list of valid rows
+    scratch = torch.empty((gru_seq_plan(h, b, t, dev)["scratch_floats"],),
+                          dtype=torch.float32, device=dev)
     rc = _entry("gru_seq", "gru_seq_bwd_f32", 14)(
         zrc.data_ptr(), hs.data_ptr(), h0.data_ptr(), mask.data_ptr(),
         w_hzr.data_ptr(), w_hc.data_ptr(), dhs.data_ptr(), dh_last.data_ptr(),
@@ -426,19 +466,11 @@ def check_lstm_inputs(proj, mask, w_hh, bias, h0, c0) -> Tuple[int, int, int]:
     return t, b, h
 
 
-def lstm_seq_plan(h: int, b: int, device=None) -> dict:
-    """How the LSTM kernels lay out hidden size `h` at batch `b` on the
-    current card: hidden units per block, blocks (one per SM at most), and
-    whether each block's slice of W sits in shared memory or is read
-    through L1/L2. Raises where no layout exists."""
-    units, blocks, smem_w = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    fn = _entry("lstm_seq", "lstm_seq_plan", 0, (_I, _I, _P, _P, _P))
-    with torch.cuda.device(device):
-        rc = fn(h, b, ctypes.byref(units), ctypes.byref(blocks), ctypes.byref(smem_w))
-    if rc != 0:
-        raise ValueError(f"the LSTM kernels have no layout for H={h}, B={b} on this "
-                         f"card (CUDA error {rc}): H is limited to 16 x the SM count")
-    return {"units": units.value, "blocks": blocks.value, "w_in_smem": bool(smem_w.value)}
+def lstm_seq_plan(h: int, b: int, t: int = 1, device=None) -> dict:
+    """How the LSTM kernels lay out hidden size `h` at batch `b` (and `t`
+    steps, for the dW reduction) on the current card; see `_plan`. Raises
+    where no layout exists."""
+    return _plan("lstm_seq", t, b, h, device)
 
 
 def lstm_seq_fwd(proj, mask, w_hh, bias, h0, c0, reverse: bool = False):
@@ -461,8 +493,8 @@ def lstm_seq_fwd(proj, mask, w_hh, bias, h0, c0, reverse: bool = False):
 
 def lstm_seq_bwd(gates, ct, hs, cs, h0, c0, mask, w_hh, dhs, dh_last, dc_last,
                  reverse: bool = False):
-    """One launch of the backward entry point (recurrent walk, dW reduction
-    and db column sum) -> (dproj, dW, db, dh0, dc0)."""
+    """One call of the backward entry point (the recurrent walk, then the
+    split-K dW/db reduction) -> (dproj, dW, db, dh0, dc0)."""
     global LSTM_BWD_LAUNCHES
     t, b, h4 = gates.shape
     h = h4 // 4
@@ -478,12 +510,15 @@ def lstm_seq_bwd(gates, ct, hs, cs, h0, c0, mask, w_hh, dhs, dh_last, dc_last,
     db = torch.empty((h4,), dtype=torch.float32, device=dev)
     dh0 = torch.empty(state, dtype=torch.float32, device=dev)
     dc0 = torch.empty(state, dtype=torch.float32, device=dev)
-    rc = _entry("lstm_seq", "lstm_seq_bwd_f32", 16)(
+    # the dW reduction's partial sums and its list of valid rows
+    scratch = torch.empty((lstm_seq_plan(h, b, t, dev)["scratch_floats"],),
+                          dtype=torch.float32, device=dev)
+    rc = _entry("lstm_seq", "lstm_seq_bwd_f32", 17)(
         gates.data_ptr(), ct.data_ptr(), hs.data_ptr(), cs.data_ptr(), h0.data_ptr(),
         c0.data_ptr(), mask.data_ptr(), w_hh.data_ptr(), dhs.data_ptr(),
         dh_last.data_ptr(), dc_last.data_ptr(), dproj.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), t, b, h, int(reverse),
-        _stream(gates),
+        db.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), scratch.data_ptr(), t, b, h,
+        int(reverse), _stream(gates),
     )
     if rc != 0:
         raise RuntimeError(f"lstm_seq backward kernel launch failed: CUDA error {rc}")

@@ -15,8 +15,14 @@ non-zero h0, both directions.
   * `gru_seq_bwd_ref` vs torch.autograd through `gru_seq_fused_ref` (1e-5)
     and vs jax.grad through the JAX scan (rtol 1e-4, atol 1e-5), for w_hzr,
     w_hc, bias, proj and h0.
+  * The identities the backward kernel relies on: a masked step's dproj
+    row is exactly 0 and dh passes through it (bit for bit, with the JAX
+    interpret-mode kernel's dproj 0 there too), and dW_zr, dW_c, db are
+    each one product (or sum) over the flattened T*B rows, held to the
+    plain walk (1e-5) and to the JAX kernel's VMEM sums (rtol 2e-3 / atol
+    5e-3).
   * On a card (marked `cuda`, skipped here): each CUDA kernel vs its plain
-    version. jax is imported inside the CPU tests only, so the `cuda` tests
+    version, and two backward calls give bit-identical dW and db. jax is imported inside the CPU tests only, so the `cuda` tests
     run where jax is absent."""
 
 import numpy as np
@@ -29,13 +35,13 @@ from paddle_tpu_torch.ops import rnn_kernels as K
 NAMES = ("w_hzr", "w_hc", "bias", "proj", "h0")
 
 
-def _inputs(seed=0, b=5, t=7, h=6, lens=(7, 3, 1, 5, 6)):
+def _inputs(seed=0, b=5, t=7, h=6, lens=(7, 3, 1, 5, 6), w_scale=0.3):
     """Batch-major numpy inputs: proj [B,T,3H], mask [B,T], weights, h0."""
     rs = np.random.RandomState(seed)
     proj = rs.randn(b, t, 3 * h).astype(np.float32)
     mask = (np.arange(t)[None, :] < np.asarray(lens)[:, None]).astype(np.float32)
-    w_hzr = (rs.randn(h, 2 * h) * 0.3).astype(np.float32)
-    w_hc = (rs.randn(h, h) * 0.3).astype(np.float32)
+    w_hzr = (rs.randn(h, 2 * h) * w_scale).astype(np.float32)
+    w_hc = (rs.randn(h, h) * w_scale).astype(np.float32)
     bias = (rs.randn(3 * h) * 0.1).astype(np.float32)
     h0 = rs.randn(b, h).astype(np.float32)
     return dict(w_hzr=w_hzr, w_hc=w_hc, bias=bias, proj=proj, h0=h0), mask
@@ -131,6 +137,79 @@ def test_bwd_ref_matches_jax_grad_of_scan(monkeypatch, reverse):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=name)
 
 
+def _tm_inputs(arrs, mask):
+    """Time-major torch tensors: proj, mask, w_hzr, w_hc, bias, h0."""
+    t = {n: torch.from_numpy(arrs[n]) for n in NAMES}
+    return _tm(arrs["proj"]), _tm(mask), t["w_hzr"], t["w_hc"], t["bias"], t["h0"]
+
+
+def _h_prev(hs, h0, reverse):
+    return torch.cat([hs[1:], h0[None]]) if reverse else torch.cat([h0[None], hs[:-1]])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_masked_steps_are_exact(monkeypatch, reverse):
+    """At a masked (t, b) the plain backward's dproj row is exactly 0 and
+    dh passes through: each row's backward equals, bit for bit, that of
+    its valid steps alone with the masked steps' dhs summed into the carry
+    (in walk order). The JAX interpret-mode kernel's dproj is 0 there too."""
+    lens = (6, 3, 1, 4, 6)
+    arrs, mask = _inputs(11, lens=lens)
+    _, _, g_j = _jax_scan(arrs, mask, reverse, "interpret", monkeypatch)
+    assert np.all(g_j[NAMES.index("proj")][mask == 0] == 0.0)
+    proj, m, w_hzr, w_hc, bias, h0 = _tm_inputs(arrs, mask)
+    rs = np.random.RandomState(12)
+    dhs = torch.from_numpy(rs.randn(*proj.shape[:2], 6).astype(np.float32))
+    dhl = torch.from_numpy(rs.randn(5, 6).astype(np.float32))
+    for b, n in enumerate(lens):
+        row = lambda x, k=None: x[:k, b:b + 1].contiguous()
+        hs, zrc = K.gru_seq_fused_ref(row(proj), row(m), w_hzr, w_hc, bias, h0[b:b + 1], reverse)
+        dproj, dwzr, dwc, db, dh0 = K.gru_seq_bwd_ref(
+            zrc, hs, h0[b:b + 1], row(m), w_hzr, w_hc, row(dhs), dhl[b:b + 1], reverse)
+        assert torch.all(dproj[n:] == 0.0)
+        carry = dhl[b:b + 1]
+        if not reverse:  # the masked tail comes first in the walk
+            for t in range(proj.shape[0] - 1, n - 1, -1):
+                carry = carry + dhs[t, b:b + 1]
+        hs_v, zrc_v = K.gru_seq_fused_ref(row(proj, n), row(m, n), w_hzr, w_hc, bias,
+                                          h0[b:b + 1], reverse)
+        got = K.gru_seq_bwd_ref(zrc_v, hs_v, h0[b:b + 1], row(m, n), w_hzr, w_hc,
+                                row(dhs, n), carry, reverse)
+        dh0_v = got[4]
+        if reverse:  # the masked tail comes last
+            for t in range(n, proj.shape[0]):
+                dh0_v = dh0_v + dhs[t, b:b + 1]
+        for name, a, w in zip(("dproj", "dw_zr", "dw_c", "db", "dh0"),
+                              (dproj[:n], dwzr, dwc, db, dh0), (*got[:4], dh0_v)):
+            assert torch.equal(a, w), name
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_weight_grads_are_one_product(monkeypatch, reverse):
+    """dW_zr = h_prev^T dgzr and dW_c = (r * h_prev)^T dgc, each ONE product
+    over the flattened [T*B] rows, and db = dproj summed over them: equal to
+    the plain walk's sums (1e-5) and to the JAX kernel's VMEM-accumulated
+    gradients in interpret mode (its own tolerances, rtol 2e-3 / atol
+    5e-3)."""
+    arrs, mask = _inputs(13)
+    _, _, g_j = _jax_scan(arrs, mask, reverse, "interpret", monkeypatch)
+    proj, m, w_hzr, w_hc, bias, h0 = _tm_inputs(arrs, mask)
+    hs, zrc = K.gru_seq_fused_ref(proj, m, w_hzr, w_hc, bias, h0, reverse)
+    h_last = hs[0] if reverse else hs[-1]
+    # the loss of _jax_scan: sum(hs^2) + sum(0.5 h_last^2 + h_last)
+    dproj, dwzr, dwc, db, _ = K.gru_seq_bwd_ref(zrc, hs, h0, m, w_hzr, w_hc, 2 * hs,
+                                                h_last + 1.0, reverse)
+    h = hs.shape[-1]
+    hp = _h_prev(hs, h0, reverse).reshape(-1, h)
+    d = dproj.reshape(-1, 3 * h)
+    one = (hp.T @ d[:, :2 * h], (zrc[..., h:2 * h].reshape(-1, h) * hp).T @ d[:, 2 * h:],
+           d.sum(dim=0))
+    for name, a, w, j in zip(("w_hzr", "w_hc", "bias"), one, (dwzr, dwc, db),
+                             (g_j[0], g_j[1], g_j[2])):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5, msg=name)
+        np.testing.assert_allclose(a.numpy(), j, rtol=2e-3, atol=5e-3, err_msg=name)
+
+
 def test_cpu_path_launches_no_kernel():
     arrs, mask = _inputs(5)
     before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
@@ -164,6 +243,11 @@ CARD_SHAPES = [  # b, t, h, lengths
     # H not a multiple of 4 (a block with fewer units, 4-byte staging) and
     # more rows than one block has threads
     (300, 4, 30, tuple(1 + np.arange(300) % 4)),
+    # the encoder's width at a short T (4 row groups x 32 groups of 16
+    # units), rows that do not fill a row group, and one row
+    (128, 6, 512, tuple(1 + np.arange(128) % 6)),
+    (37, 5, 512, tuple(1 + np.arange(37) % 5)),
+    (1, 4, 512, (3,)),
 ]
 
 
@@ -171,7 +255,9 @@ CARD_SHAPES = [  # b, t, h, lengths
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("b,t,h,lens", CARD_SHAPES)
 def test_cuda_kernels_match_plain_versions(cuda, b, t, h, lens, reverse):
-    arrs, mask = _inputs(7, b, t, h, lens)
+    # wide layers at a smart-normal scale: at 0.3 the H=512 pre-activations
+    # reach ~7 and f32 summation order alone moves hs by ~1e-4
+    arrs, mask = _inputs(7, b, t, h, lens, w_scale=0.3 * min(1.0, (64 / h) ** 0.5))
     args = [x.to(cuda) for x in (_tm(arrs["proj"]), _tm(mask))]
     args += [torch.from_numpy(arrs[n]).to(cuda) for n in ("w_hzr", "w_hc", "bias", "h0")]
     before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
@@ -183,8 +269,11 @@ def test_cuda_kernels_match_plain_versions(cuda, b, t, h, lens, reverse):
     common = (args[5], args[1], args[2], args[3], dhs, dhl)
     got = K.gru_seq_bwd(zrc, hs, *common, reverse=reverse)
     want = K.gru_seq_bwd_ref(zrc_ref, hs_ref, *common, reverse=reverse)
+    again = K.gru_seq_bwd(zrc, hs, *common, reverse=reverse)
     torch.cuda.synchronize()
-    assert (K.FWD_LAUNCHES, K.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (K.FWD_LAUNCHES, K.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    for name, a, b2 in zip(("dw_zr", "dw_c", "db"), got[1:4], again[1:4]):
+        assert torch.equal(a, b2), f"{name} differs between two calls"  # no atomics
     torch.testing.assert_close(hs, hs_ref, atol=1e-4, rtol=0)
     torch.testing.assert_close(zrc, zrc_ref, atol=1e-4, rtol=0)
     for name, a, w in zip(("dproj", "dw_zr", "dw_c", "db", "dh0"), got, want):
@@ -208,3 +297,13 @@ def test_cuda_gru_scan_goes_through_the_kernels(cuda):
     for name, g in zip(NAMES, g_c):
         np.testing.assert_allclose(ts[name].grad.cpu().numpy(), g,
                                    atol=1e-3 * max(1.0, np.abs(g).max()), err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_plan_splits_rows_and_units(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = K.gru_seq_plan(512, 128, 50)
+    assert plan["bwd_blocks"] == plan["bwd_row_groups"] * -(-512 // plan["bwd_units"])
+    assert plan["bwd_blocks"] <= sms and plan["bwd_row_groups"] > 1
+    assert plan["bwd_row_groups"] * plan["bwd_rows_per_group"] >= 128
+    assert plan["dw_split_k"] >= 1 and plan["scratch_floats"] > 0

@@ -17,8 +17,13 @@ non-zero h0 and c0, both directions.
   * `lstm_seq_bwd_ref` vs torch.autograd through `lstm_seq_fused_ref`
     (1e-5).
   * Every ported activation vs the JAX package's (1e-6).
+  * The identities the backward kernel relies on: a masked step's dproj
+    row is exactly 0 and dh, dc pass through it (bit for bit, with the JAX
+    interpret-mode kernel's dproj 0 there too), and dW, db are one product
+    (or sum) over the flattened T*B rows, held to the plain walk (1e-5) and
+    to the JAX kernel's VMEM sums (rtol 2e-3 / atol 5e-3).
   * On a card (marked `cuda`, skipped here): each CUDA kernel vs its plain
-    version. jax is imported inside the CPU tests only, so the `cuda` tests
+    version, and two backward calls give bit-identical dW and db. jax is imported inside the CPU tests only, so the `cuda` tests
     run where jax is absent."""
 
 import numpy as np
@@ -163,6 +168,77 @@ def test_bwd_ref_matches_autograd_of_plain_forward(reverse):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
 
 
+def _tm_inputs(arrs, mask):
+    """Time-major torch tensors: proj, mask, w_hh, bias, h0, c0."""
+    t = {n: torch.from_numpy(arrs[n]) for n in NAMES}
+    return _tm(arrs["proj"]), _tm(mask), t["w_hh"], t["bias"], t["h0"], t["c0"]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_masked_steps_are_exact(monkeypatch, reverse):
+    """At a masked (t, b) the plain backward's dproj row is exactly 0 and
+    the carries pass through (dh_prev = dh, dc_prev = dc): each row's
+    backward equals, bit for bit, that of its valid steps alone with the
+    masked steps' dhs summed into the dh carry (in walk order). The JAX
+    interpret-mode kernel's dproj is 0 there too."""
+    lens = (7, 3, 1, 5, 6)
+    arrs, mask = _inputs(11, lens=lens)
+    _, g_j = _jax_scan(arrs, mask, reverse, "interpret", monkeypatch)
+    assert np.all(g_j[NAMES.index("proj")][mask == 0] == 0.0)
+    proj, m, w_hh, bias, h0, c0 = _tm_inputs(arrs, mask)
+    t_len, h = proj.shape[0], w_hh.shape[0]
+    rs = np.random.RandomState(12)
+    dhs = torch.from_numpy(rs.randn(t_len, 5, h).astype(np.float32))
+    dhl, dcl = (torch.from_numpy(rs.randn(5, h).astype(np.float32)) for _ in range(2))
+
+    def walk(b, n, dh_last):
+        row = lambda x: x[:n, b:b + 1].contiguous()
+        st = (h0[b:b + 1], c0[b:b + 1])
+        hs, gates, ct, cs = K.lstm_seq_fused_ref(row(proj), row(m), w_hh, bias, *st, reverse)
+        return K.lstm_seq_bwd_ref(gates, ct, hs, cs, *st, row(m), w_hh, row(dhs), dh_last,
+                                  dcl[b:b + 1], reverse)
+
+    for b, n in enumerate(lens):
+        dproj, dw, db, dh0, dc0 = walk(b, t_len, dhl[b:b + 1])
+        assert torch.all(dproj[n:] == 0.0)
+        carry = dhl[b:b + 1]
+        if not reverse:  # the masked tail comes first in the walk
+            for t in range(t_len - 1, n - 1, -1):
+                carry = carry + dhs[t, b:b + 1]
+        got = walk(b, n, carry)
+        dh0_v = got[3]
+        if reverse:  # the masked tail comes last
+            for t in range(n, t_len):
+                dh0_v = dh0_v + dhs[t, b:b + 1]
+        for name, a, w in zip(("dproj", "dw", "db", "dh0", "dc0"),
+                              (dproj[:n], dw, db, dh0, dc0), (*got[:3], dh0_v, got[4])):
+            assert torch.equal(a, w), name
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_weight_grads_are_one_product(monkeypatch, reverse):
+    """dW = h_prev^T dproj as ONE product over the flattened [T*B] rows and
+    db = dproj summed over them: equal to the plain walk's sums (1e-5) and
+    to the JAX kernel's VMEM-accumulated gradients in interpret mode (its
+    own tolerances, rtol 2e-3 / atol 5e-3)."""
+    arrs, mask = _inputs(13)
+    _, g_j = _jax_scan(arrs, mask, reverse, "interpret", monkeypatch)
+    proj, m, w_hh, bias, h0, c0 = _tm_inputs(arrs, mask)
+    hs, gates, ct, cs = K.lstm_seq_fused_ref(proj, m, w_hh, bias, h0, c0, reverse)
+    last = 0 if reverse else -1
+    # the loss of _jax_scan: sum(hs^2) + sum(0.5 h_last^2 + h_last) + sum(c^2 - c)
+    dproj, dw, db, _, _ = K.lstm_seq_bwd_ref(gates, ct, hs, cs, h0, c0, m, w_hh, 2 * hs,
+                                             hs[last] + 1.0, 2 * cs[last] - 1.0, reverse)
+    h = hs.shape[-1]
+    hp = (torch.cat([hs[1:], h0[None]]) if reverse else torch.cat([h0[None], hs[:-1]]))
+    d = dproj.reshape(-1, 4 * h)
+    one = (hp.reshape(-1, h).T @ d, d.sum(dim=0))
+    for name, a, w in zip(("w_hh", "bias"), one, (dw, db)):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5, msg=name)
+        np.testing.assert_allclose(a.numpy(), g_j[NAMES.index(name)], rtol=2e-3, atol=5e-3,
+                                   err_msg=name)
+
+
 def test_cpu_path_launches_no_kernel():
     arrs, mask = _inputs(5)
     before = (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES)
@@ -251,6 +327,11 @@ CARD_SHAPES = [  # b, t, h, lengths
     (256, 3, 512, tuple(1 + np.arange(256) % 3)),
     # wide enough that each block's W slice is staged per k tile
     (6, 3, 1280, (3, 1, 2, 3, 3, 2)),
+    # the backward's row x unit layouts: rows that do not fill a row group,
+    # one row, and BASELINE's widest row (W rows staged per k tile)
+    (37, 4, 512, tuple(1 + np.arange(37) % 4)),
+    (1, 3, 512, (2,)),
+    (64, 3, 1280, tuple(1 + np.arange(64) % 3)),
 ]
 
 
@@ -270,8 +351,11 @@ def test_cuda_kernels_match_plain_versions(cuda, b, t, h, lens, reverse):
     tail = (args[4], args[5], args[1], args[2], dhs, dhl, dcl)
     got = K.lstm_seq_bwd(*got_f[1:3], got_f[0], got_f[3], *tail, reverse=reverse)
     want = K.lstm_seq_bwd_ref(*want_f[1:3], want_f[0], want_f[3], *tail, reverse=reverse)
+    again = K.lstm_seq_bwd(*got_f[1:3], got_f[0], got_f[3], *tail, reverse=reverse)
     torch.cuda.synchronize()
-    assert (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    for name, a, b2 in zip(("dw", "db"), got[1:3], again[1:3]):
+        assert torch.equal(a, b2), f"{name} differs between two calls"  # no atomics
     for name, a, w in zip(("hs", "gates", "ct", "cs"), got_f, want_f):
         torch.testing.assert_close(a, w, atol=1e-4, rtol=0, msg=name)
     for name, a, w in zip(("dproj", "dw", "db", "dh0", "dc0"), got, want):
@@ -291,3 +375,14 @@ def test_cuda_lstm_scan_goes_through_the_kernels(cuda):
         np.testing.assert_allclose(a, b, atol=1e-4)
     for name, a, b in zip(NAMES, g_c, g_p):
         np.testing.assert_allclose(a, b, atol=1e-3 * max(1.0, np.abs(b).max()), err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_plan_splits_rows_and_units(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = K.lstm_seq_plan(512, 128, 100)
+    assert plan["bwd_blocks"] == plan["bwd_row_groups"] * -(-512 // plan["bwd_units"])
+    assert plan["bwd_blocks"] <= sms and plan["bwd_row_groups"] > 1
+    assert plan["bwd_row_groups"] * plan["bwd_rows_per_group"] >= 128
+    assert plan["bwd_w_resident"] and plan["scratch_floats"] > 0
+    assert not K.lstm_seq_plan(1280, 64, 100)["bwd_w_resident"]
