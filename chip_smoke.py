@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no result line):
                shapes (max_abs_err <= 1e-4); the GRU forward (hs, h_last
                <= 1e-4) and backward (each of dproj, dW_zr, dW_c, db, dh0
                <= 1e-3 x max(1, max|plain|)) in both directions at
-               T=7/B=5/H=24 and at the seq2seq encoder's T=50/B=128/H=512
-               with ragged lengths 30-50; the LSTM forward (hs, h_last,
+               T=7/B=5/H=24, at the seq2seq encoder's T=50/B=128/H=512
+               with ragged lengths 30-50 and at T=50/B=64/H=1024 (lengths
+               30-50, wider than 4 units per SM); the LSTM forward (hs, h_last,
                c_last <= 1e-4) and backward (dproj, dW, db, dh0, dc0, as
                the GRU's) in both directions with non-zero h0 and c0 at
                T=7/B=5/H=24, the text classifier's T=100/B=128/H=512 with
@@ -23,8 +24,13 @@ Phases (any failure exits non-zero and prints no result line):
                and at (32,512,512,64,64). Kernel, plain version and (where
                one exists) one PyTorch library call timed with CUDA events
                (L2 flushed before each launch), beside the least time the
-               card could take (bytes or f32 operations over its peaks;
-               the recurrences count valid steps only). For each
+               card could take (bytes or f32 operations over its peaks; a
+               recurrent forward counts all T*B rows, since it writes every
+               row's gates, a backward the valid steps only). For each
+               recurrent forward also its time per step, the time of its
+               step loop's grid syncs alone at its own grid and T (the
+               library's sync probe) and its time at B = 8, 32 and the
+               main batch; for each
                recurrent backward also its layout plan, its parts from
                torch.profiler (walk, split-K dW GEMM with db folded in,
                the pass over the splits) and, as a note, torch.mm of the
@@ -271,11 +277,14 @@ def gru_kernel_phase(torch, flush, bw, f32_flops):
     g = torch.Generator().manual_seed(5)
     main_lens = torch.randint(30, 51, (S2S["batch"],), generator=g)
     main_lens[0] = S2S["src_len"]
+    wide_lens = torch.randint(30, 51, (64,), generator=g)
+    wide_lens[0] = S2S["src_len"]
     shapes = (
         # name, seed, T, B, H, lengths, h0 scale
         ("small_odd", 11, 7, 5, 24, [7, 3, 1, 5, 6], 0.5),
         ("s2s_encoder", 12, S2S["src_len"], S2S["batch"], S2S["hidden"],
          main_lens.tolist(), 0.0),
+        ("wide_h1024", 13, S2S["src_len"], 64, 1024, wide_lens.tolist(), 0.5),
     )
     rows = []
     for name, seed, t, b, h, lens, h0_scale in shapes:
@@ -299,7 +308,7 @@ def gru_kernel_phase(torch, flush, bw, f32_flops):
                 "zrc": float((zrc - zrc_ref).abs().max()),
             }
             row[f"fwd_err_{d}"] = errs
-            for k in ("hs", "h_last"):
+            for k in errs:
                 if not errs[k] <= GRU_FWD_TOL:
                     fail(f"gru_seq_fwd vs plain at {name} ({d}): {k} max_abs_err "
                          f"{errs[k]} > {GRU_FWD_TOL}")
@@ -315,6 +324,7 @@ def gru_kernel_phase(torch, flush, bw, f32_flops):
         hs, zrc = K.gru_seq_fwd(*fwd_args)
         bwd_tail = (h0, mask, w_hzr, w_hc, dhs, dh_last)
         row["fwd_kernel_ms"] = time_ms(torch, lambda: K.gru_seq_fwd(*fwd_args), flush)
+        fwd_steps(torch, row, lambda: K.gru_seq_fwd_sync(h, b, t), flush)
         row["fwd_plain_ms"] = time_ms(
             torch, lambda: K.gru_seq_fused_ref(*fwd_args), flush, iters=10)
         row["bwd_kernel_ms"] = time_ms(
@@ -329,29 +339,73 @@ def gru_kernel_phase(torch, flush, bw, f32_flops):
         rh = zrc[..., h:2 * h].reshape(t * b, h) * hp
         row["note_cublas_dw_ms"] = cublas_dw_ms(
             torch, [(hp, dproj[:, :2 * h]), (rh, dproj[:, 2 * h:])], flush)
-        # least work: the recurrent products of the valid steps only (a
-        # masked step's state carries through, so its product is not
-        # needed) — forward 2*steps*H*3H, backward that for the W^T
-        # products plus as much for dW — each input read once and each
-        # output written once, f32
+        # least work, each input read once and each output written once,
+        # f32. The forward writes every row's gates, masked ones too, but a
+        # masked step carries h through: h W_zr is needed at the valid steps
+        # and once after a row's last one (fwd_product_rows), (r*h) W_c at
+        # all T*B rows (r changes with x_t). The backward's products run
+        # over the valid steps only (a masked step's dproj is 0 and its dh
+        # carries through: 2*steps*H*3H for the W^T products, as much for
+        # dW). Notes: the forward over all T*B rows, and over valid steps.
         mm = 2 * sum(lens) * h * 3 * h
+        fwd_ops = 2 * fwd_product_rows(lens, t) * h * 2 * h + 2 * t * b * h * h
         f = 4
         fwd_bytes = f * (t * b * 3 * h + t * b + 3 * h * h + 3 * h + b * h
                          + t * b * h + t * b * 3 * h)
         bwd_bytes = f * (t * b * 3 * h + t * b * h + b * h + t * b + 3 * h * h
                          + t * b * h + b * h
                          + t * b * 3 * h + 3 * h * h + 3 * h + b * h)
-        for leg, ops, nbytes in (("fwd", mm, fwd_bytes), ("bwd", 2 * mm, bwd_bytes)):
-            t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_flops * 1e3
-            row[f"{leg}_bound_ms"] = max(t_bytes, t_ops)
-            row[f"{leg}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            row[f"{leg}_bytes"] = nbytes
-            row[f"{leg}_operations"] = ops
+        set_bounds(row, bw, f32_flops, fwd=(fwd_ops, fwd_bytes), bwd=(2 * mm, bwd_bytes),
+                   fwd_all_rows=(2 * t * b * h * 3 * h, fwd_bytes),
+                   fwd_valid_steps=(mm, fwd_bytes))
         if name == "s2s_encoder":
             row["note_torch_nn_gru_fwd_ms"] = torch_gru_ms(torch, t, b, h, flush)
+            row["fwd_kernel_ms_by_batch"] = fwd_by_batch(
+                torch, K.gru_seq_fwd, fwd_args, (0, 1), (5,), b, flush)
         print("gru_kernel", json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+def fwd_product_rows(lens, t):
+    """Rows of h_{t-1} W that a forward (time order) must compute: a row
+    of length l changes h at its l valid steps, so it needs the product at
+    step 0 and after each valid step before T: min(l + 1, T) steps."""
+    return sum(min(n + 1, t) for n in lens)
+
+
+def set_bounds(row, bw, f32_flops, **legs):
+    """row[<leg>_bound_ms] and its parts for legs = {leg: (f32
+    operations, bytes)}: the larger of the bytes over the card's memory
+    rate and the operations over its f32 peak."""
+    for leg, (ops, nbytes) in legs.items():
+        t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_flops * 1e3
+        row[f"{leg}_bound_ms"] = max(t_bytes, t_ops)
+        row[f"{leg}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row[f"{leg}_bytes"] = nbytes
+        row[f"{leg}_operations"] = ops
+
+
+def fwd_steps(torch, row, sync_probe, flush):
+    """A forward's time per step, and the part of it its grid syncs take
+    alone: the library's sync probe runs the same step loop with nothing
+    but the syncs, at the forward's own grid and T."""
+    t = row["T"]
+    row["fwd_us_per_step"] = row["fwd_kernel_ms"] * 1e3 / t
+    row["fwd_sync_us_per_step"] = time_ms(torch, sync_probe, flush) * 1e3 / t
+    row["fwd_sync_share"] = row["fwd_sync_us_per_step"] / row["fwd_us_per_step"]
+
+
+def fwd_by_batch(torch, fwd, args, seq, state, b, flush):
+    """The forward's ms at B = 8, 32 and b on the first rows of `args`
+    (args[i] is [T, B, ...] for i in `seq`, a [B, H] state for i in
+    `state`, else a weight): how its time per step moves with the rows."""
+    out = {}
+    for bb in (8, 32, b):
+        sub = [x[:, :bb].contiguous() if i in seq else x[:bb].contiguous() if i in state
+               else x for i, x in enumerate(args)]
+        out[bb] = time_ms(torch, lambda: fwd(*sub), flush, iters=10)
+    return out
 
 
 def torch_gru_ms(torch, t, b, h, flush):
@@ -370,23 +424,28 @@ def bwd_parts_ms(torch, fn, tag, calls=3):
     db folded in (`<tag>_dw_kernel`) and its second pass over the splits
     (`<tag>_dw_sum_kernel`, which also sums db); "other" is the list of
     valid rows. Each kernel launches once per call: its mean over the
-    launches the profiler recorded is its part."""
+    launches the profiler recorded is its part. The profiler now and then
+    records no device events at all; such a window is profiled again, up
+    to 3 windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     names = {f"{tag}_bwd_kernel": "walk", f"{tag}_dw_kernel": "dw",
              f"{tag}_dw_sum_kernel": "dw_sum"}
-    parts = dict.fromkeys(list(names.values()) + ["other"], 0.0)
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            part = next((v for k, v in names.items() if k in e.key), "other")
-            parts[part] += e.self_device_time_total / 1e3 / e.count
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        parts = dict.fromkeys(list(names.values()) + ["other"], 0.0)
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                part = next((v for k, v in names.items() if k in e.key), "other")
+                parts[part] += e.self_device_time_total / 1e3 / e.count
+        if any(parts.values()):
+            break
     if parts["walk"] <= 0 or parts["dw"] <= 0:
         fail(f"torch.profiler saw no {tag} backward kernels: {parts}")
     return parts
@@ -463,9 +522,11 @@ def lstm_kernel_phase(torch, flush, bw, f32_flops):
                 "h_last": float((hs[last] - ref[0][last]).abs().max()),
                 "c_last": float((cs[last] - ref[3][last]).abs().max()),
                 "gates": float((gates - ref[1]).abs().max()),
+                "ct": float((ct - ref[2]).abs().max()),
+                "cs": float((cs - ref[3]).abs().max()),
             }
             row[f"fwd_err_{d}"] = errs
-            for k in ("hs", "h_last", "c_last"):
+            for k in errs:
                 if not errs[k] <= LSTM_FWD_TOL:
                     fail(f"lstm_seq_fwd vs plain at {name} ({d}): {k} max_abs_err "
                          f"{errs[k]} > {LSTM_FWD_TOL}")
@@ -481,6 +542,7 @@ def lstm_kernel_phase(torch, flush, bw, f32_flops):
         hs, gates, ct, cs = K.lstm_seq_fwd(*fwd_args)
         saved = (gates, ct, hs, cs)
         row["fwd_kernel_ms"] = time_ms(torch, lambda: K.lstm_seq_fwd(*fwd_args), flush)
+        fwd_steps(torch, row, lambda: K.lstm_seq_fwd_sync(h, b, t), flush)
         row["fwd_plain_ms"] = time_ms(
             torch, lambda: K.lstm_seq_fused_ref(*fwd_args), flush, iters=5)
         row["bwd_kernel_ms"] = time_ms(
@@ -493,32 +555,27 @@ def lstm_kernel_phase(torch, flush, bw, f32_flops):
         dproj = K.lstm_seq_bwd(*saved, *bwd_tail)[0].reshape(t * b, 4 * h)
         hp = K._h_prev_seq(hs, h0, False).reshape(t * b, h)
         row["note_cublas_dw_ms"] = cublas_dw_ms(torch, [(hp, dproj)], flush)
-        # least work: the recurrent products of the valid steps only (a
-        # masked step's state carries through, so its product is not
-        # needed) — forward 2*steps*H*4H, backward that for dh_prev plus as
-        # much for dW — each input read once and each output written once
-        steps = sum(lens)
-        mm = 2 * steps * h * 4 * h
+        # least work, each input read once and each output written once,
+        # f32. The forward writes every row's gates, masked ones too, but a
+        # masked step carries h through, so h W is needed at the valid
+        # steps and once after a row's last one (fwd_product_rows). The
+        # backward's products run over the valid steps only (2*steps*H*4H
+        # for dh_prev, as much for dW). Notes: the forward over all T*B
+        # rows, and over valid steps.
+        mm = 2 * sum(lens) * h * 4 * h
+        fwd_ops = 2 * fwd_product_rows(lens, t) * h * 4 * h
         f, tb = 4, t * b
         fwd_bytes = f * (tb * 4 * h + tb + 4 * h * h + 4 * h + 2 * b * h
                          + 3 * tb * h + tb * 4 * h)
         bwd_bytes = f * (tb * 4 * h + 4 * tb * h + 2 * b * h + tb + 4 * h * h
                          + 2 * b * h + tb * 4 * h + 4 * h * h + 4 * h + 2 * b * h)
-        for leg, ops, nbytes in (("fwd", mm, fwd_bytes), ("bwd", 2 * mm, bwd_bytes)):
-            t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_flops * 1e3
-            row[f"{leg}_bound_ms"] = max(t_bytes, t_ops)
-            row[f"{leg}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            row[f"{leg}_bytes"] = nbytes
-            row[f"{leg}_operations"] = ops
+        set_bounds(row, bw, f32_flops, fwd=(fwd_ops, fwd_bytes), bwd=(2 * mm, bwd_bytes),
+                   fwd_all_rows=(2 * tb * h * 4 * h, fwd_bytes),
+                   fwd_valid_steps=(mm, fwd_bytes))
         if name == "text_cls":
             row["note_torch_nn_lstm_fwd_ms"] = torch_lstm_ms(torch, t, b, h, flush)
-            # where the forward's time goes: per-step cost against the rows
-            by_batch = {}
-            for bb in (8, 32, b):
-                sub = [proj[:, :bb].contiguous(), mask[:, :bb].contiguous(), w_hh, bias,
-                       h0[:bb].contiguous(), c0[:bb].contiguous()]
-                by_batch[bb] = time_ms(torch, lambda: K.lstm_seq_fwd(*sub), flush, iters=10)
-            row["fwd_kernel_ms_by_batch"] = by_batch
+            row["fwd_kernel_ms_by_batch"] = fwd_by_batch(
+                torch, K.lstm_seq_fwd, fwd_args, (0, 1), (4, 5), b, flush)
         print("lstm_kernel", json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -1190,7 +1247,7 @@ def main() -> int:
     for leg, replaces, launches, errs in (
         ("fwd", "paddle_tpu/ops/pallas/rnn_kernels.py:378", train["gru_fwd_launches"],
          [e[k] for r in gru_rows for d in ("fwd", "rev")
-          for e in [r[f"fwd_err_{d}"]] for k in ("hs", "h_last")]),
+          for e in [r[f"fwd_err_{d}"]] for k in e]),
         ("bwd", "paddle_tpu/ops/pallas/rnn_kernels.py:391", train["gru_bwd_launches"],
          [v["max_abs_err"] for r in gru_rows for d in ("fwd", "rev")
           for v in r[f"bwd_err_{d}"].values()]),
@@ -1210,8 +1267,12 @@ def main() -> int:
             "library_ms": None,
             "library_note": no_library,
             **({"bwd_parts_ms": g_main["bwd_parts_ms"],
-                "note_cublas_dw_ms": g_main["note_cublas_dw_ms"],
-                "plan": g_main["plan"]} if leg == "bwd" else {}),
+                "note_cublas_dw_ms": g_main["note_cublas_dw_ms"]} if leg == "bwd" else
+               {"us_per_step": g_main["fwd_us_per_step"],
+                "sync_us_per_step": g_main["fwd_sync_us_per_step"],
+                "bound_ms_all_rows": g_main["fwd_all_rows_bound_ms"],
+                "bound_ms_valid_steps": g_main["fwd_valid_steps_bound_ms"]}),
+            "plan": g_main["plan"],
             "shape": g_main["shape"],
             "shapes": gru_rows,
         })
@@ -1223,7 +1284,7 @@ def main() -> int:
         ("fwd", "paddle_tpu/ops/pallas/rnn_kernels.py:175",
          lstm_train["lstm_fwd_launches"],
          [e[k] for r in lstm_rows for d in ("fwd", "rev")
-          for e in [r[f"fwd_err_{d}"]] for k in ("hs", "h_last", "c_last")]),
+          for e in [r[f"fwd_err_{d}"]] for k in e]),
         ("bwd", "paddle_tpu/ops/pallas/rnn_kernels.py:191",
          lstm_train["lstm_bwd_launches"],
          [v["max_abs_err"] for r in lstm_rows for d in ("fwd", "rev")
@@ -1244,8 +1305,12 @@ def main() -> int:
             "library_ms": None,
             "library_note": no_lstm_library,
             **({"bwd_parts_ms": l_main["bwd_parts_ms"],
-                "note_cublas_dw_ms": l_main["note_cublas_dw_ms"],
-                "plan": l_main["plan"]} if leg == "bwd" else {}),
+                "note_cublas_dw_ms": l_main["note_cublas_dw_ms"]} if leg == "bwd" else
+               {"us_per_step": l_main["fwd_us_per_step"],
+                "sync_us_per_step": l_main["fwd_sync_us_per_step"],
+                "bound_ms_all_rows": l_main["fwd_all_rows_bound_ms"],
+                "bound_ms_valid_steps": l_main["fwd_valid_steps_bound_ms"]}),
+            "plan": l_main["plan"],
             "shape": l_main["shape"],
             "shapes": lstm_rows,
         })

@@ -17,11 +17,12 @@
 //   h' = m * ((1-z) h + z c) + (1-m) h
 //
 // Forward writes hs [T,B,H] and zrc [T,B,3H] (post-activation z, r, c: the
-// backward's residuals). Backward takes zrc, hs, h0, the mask, the weights,
-// dhs [T,B,H] and dh_last [B,H] and writes dproj [T,B,3H], dW_zr, dW_c, db
-// and dh0. `reverse` walks time T-1 .. 0 (the encoder's backward
-// direction); every array stays in original time order, which equals the
-// JAX package's flip-run-flip (_run_fused, paddle_tpu/ops/rnn.py:55).
+// backward's residuals, for every row, masked or not). Backward takes zrc,
+// hs, h0, the mask, the weights, dhs [T,B,H] and dh_last [B,H] and writes
+// dproj [T,B,3H], dW_zr, dW_c, db and dh0. `reverse` walks time T-1 .. 0
+// (the encoder's backward direction); every array stays in original time
+// order, which equals the JAX package's flip-run-flip (_run_fused,
+// paddle_tpu/ops/rnn.py:55).
 //
 // Bound: operations. At the seq2seq shape (T=50, B=128, H=512) the forward
 // does 2*T*B*H*3H = 10.1 GFLOP on ~95 MB, the backward twice that on ~112
@@ -31,31 +32,40 @@
 // blocks run in no order, and W (3 MB at H=512) does not fit in one block's
 // 227 KB of shared memory.
 //
-// Design:
-//   * Forward: one persistent cooperative launch (all blocks resident,
-//     cudaLaunchCooperativeKernel) whose block j owns kUnits hidden units
-//     and keeps ITS columns of W_zr and W_c in shared memory for the whole
-//     sequence: W is read from device memory once, not once per step. A
-//     step needs all of h (and of r*h), so each phase stages the whole
-//     [B, H] operand from L2 through shared memory in 64-wide k tiles, and
-//     blocks meet at grid.sync() between phases (two per step). Per step:
-//     z and r of the block's units for all B rows (one thread per (row,
-//     gate)), r*h to a [B, H] scratch; sync; the candidate from the staged
-//     r*h and the masked update; sync. Operands written by other blocks
-//     during the launch are read with __ldcg (L2, never a stale L1 line).
+// Design: both directions are one persistent cooperative launch each (all
+// blocks resident, cudaLaunchCooperativeKernel) whose block (row group,
+// unit group) owns R rows x U units, laid out by rnn::make_walk_plan from
+// the SM count and shared memory (4 row groups of 32 rows x 32 groups of
+// 16 units at B=128, H=512; every H whose unit groups fit the SMs), with
+// two grid syncs per step. Both run their recurrent products through
+// rnn_walk.cuh's group_product (cp.async ring, 4 x 4 register tiles fed
+// from shared memory, k slices summed in a fixed order), so a block reads
+// R rows of each operand per step, not B. Operands written by other blocks
+// during the launch are read through L2 only (cp.async.cg, __ldcg).
+//   * Forward: the block keeps its units' z, r and candidate columns of W
+//     resident in shared memory, transposed to rows [3U][K] (96 KB at
+//     U=16, H=512; staged per 128-wide k tile with the operand where they
+//     do not fit), and its cells' h. Per step: z and r sums = h_{t-1}[rows]
+//     W_zr[:, block's columns] (hs[t-1] is the exchange buffer) into a
+//     small shared buffer, for the rows of the group that were valid at
+//     the step before only (a masked step carries h through, so a row's
+//     sums stay those of its h; rows >= B are never computed), then per
+//     (row, unit) the gates and this block's slice of r*h to the [B, H]
+//     scratch; sync; the candidate sums = (r*h)[rows] W_c[:, block's
+//     columns] over every row of the group (r changes with x_t), then per
+//     (row, unit) the candidate and the masked update; sync. The cells'
+//     proj and mask for the next step are fetched into registers before
+//     the sync. What bounds it on the card (PERF.md): the two products;
+//     the two grid syncs take ~13 % of a step.
 //   * Backward walk (reverse): bounded by the operands it re-reads every
-//     step (dgc [B,H] and dgzr [B,2H]) and by shared-memory loads per FMA.
-//     Block (row group, unit group) owns R rows x U units (U and R from
-//     the SM count and shared memory: 4 row groups of 32 rows x 32 groups
-//     of 16 units at B=128, H=512), keeps its units' rows of W_c and W_zr
-//     resident (96 KB at H=512; staged per k tile where they do not fit)
-//     and its cells' dh carries. dproj[t] is the exchange buffer. Per
-//     step: the elementwise cotangents of its cells (dgz, dgc); sync; d(r*h)
-//     = dgc W_c^T and dgr over the valid rows of its row group; sync;
-//     dh_prev = dht (1-z) + d(r*h) r + dgzr W_zr^T + (1-m) dh. The products
-//     run through rnn_walk.cuh (cp.async ring, register tiles, masked
-//     rows skipped: their dproj is exactly zero and dh passes through), so
-//     a block reads R rows of each operand, not B.
+//     step (dgc [B,H] and dgzr [B,2H]). The block keeps its units' rows of
+//     W_c and W_zr resident (96 KB at H=512; staged per 256-wide k tile
+//     where they do not fit) and its cells' dh carries. dproj[t] is the
+//     exchange buffer. Per step: the elementwise cotangents of its cells
+//     (dgz, dgc); sync; d(r*h) = dgc W_c^T and dgr over the valid rows of
+//     its row group; sync; dh_prev = dht (1-z) + d(r*h) r + dgzr W_zr^T +
+//     (1-m) dh. Masked rows are skipped: their dproj is exactly zero and
+//     dh passes through.
 //   * dW_zr = h_prev^T dproj[:, :2H], dW_c = (r*h_prev)^T dproj[:, 2H:]
 //     and db (the TPU kernel's VMEM sums over the T*B rows) come from the
 //     shared split-K f32 GEMM of rnn_reduce.cuh (both products in one
@@ -72,11 +82,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kUnits = 4;                 // hidden units per recurrence block
-constexpr int kThreads = 256;             // recurrence block size
-constexpr int kKT = 64;                   // k per staged tile
-constexpr int kTileLd = kKT + 1;          // padded tile row (no bank conflicts)
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -95,138 +100,146 @@ __device__ __forceinline__ const float* h_prev_of(const float* hs, const float* 
   return hs + (size_t)(reverse ? t + 1 : t - 1) * B * H;
 }
 
-// stage rows [b0, b0 + rows) x columns [kt, kt + kKT) of a row-major
-// operand with leading dimension ld and width `width` into tile[rows][kTileLd];
-// out-of-range entries are 0. __ldcg: the operand may have been written by
-// another block of this launch. 16-byte loads when ld and width are
-// multiples of 4 (the caller keeps every base pointer 16-byte aligned).
-__device__ __forceinline__ void stage(float* tile, const float* src, int ld, int width,
-                                      int b0, int rows, int kt, int B) {
-  if ((ld & 3) == 0 && (width & 3) == 0) {
-    constexpr int q = kKT / 4;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < rows * q; i += kThreads) {
-      const int r = i / q, c4 = (i % q) * 4;
-      const int b = b0 + r, k = kt + c4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (b < B && k < width) {
-        v = __ldcg(reinterpret_cast<const float4*>(src + (size_t)b * ld + k));
-      }
-      float* d = tile + r * kTileLd + c4;
-      d[0] = v.x;
-      d[1] = v.y;
-      d[2] = v.z;
-      d[3] = v.w;
-    }
-    return;
-  }
-#pragma unroll 4
-  for (int i = threadIdx.x; i < rows * kKT; i += kThreads) {
-    const int r = i / kKT, kk = i % kKT;
-    const int b = b0 + r, k = kt + kk;
-    tile[r * kTileLd + kk] = (b < B && k < width) ? __ldcg(src + (size_t)b * ld + k) : 0.f;
-  }
+// One cell's inputs to the forward's epilogues: proj of its z, r and c
+// gates and the row's mask. None depends on a product, so the forward
+// fetches them a step ahead.
+struct FwdIn {
+  float pz, pr, pc, m;
+};
+
+__device__ __forceinline__ FwdIn load_fwd_in(const float* proj, const float* mask, int t,
+                                             int b, int n, int B, int H) {
+  const size_t row = (size_t)t * B + b;
+  const float* p = proj + row * 3 * H + n;
+  return FwdIn{p[0], p[H], p[2 * H], mask[row]};
 }
 
-// acc[j] += sum over the staged k tile of tile[row][kk] * w[(kt + kk) * kUnits + j]
-__device__ __forceinline__ void tile_dot(float (&acc)[kUnits], const float* trow,
-                                         const float* w, int kn) {
-#pragma unroll 8
-  for (int kk = 0; kk < kn; ++kk) {
-    const float v = trow[kk];
-    const float4 wv = *reinterpret_cast<const float4*>(w + kk * kUnits);
-    acc[0] = fmaf(v, wv.x, acc[0]);
-    acc[1] = fmaf(v, wv.y, acc[1]);
-    acc[2] = fmaf(v, wv.z, acc[2]);
-    acc[3] = fmaf(v, wv.w, acc[3]);
-  }
-}
+// cells per thread whose inputs are fetched a step ahead (the rest, at
+// larger R x U, when the step needs them)
+constexpr int kFwdAhead = 4;
 
-// acc = row `threadIdx.x % rows` of src[b0:b0+rows, 0:width] times
-// w[width][kUnits] (shared memory), streaming src through the tile
-__device__ __forceinline__ void row_times_w(float (&acc)[kUnits], float* tile,
-                                            const float* src, int ld, int width,
-                                            const float* w, int b0, int rows, int B) {
-#pragma unroll
-  for (int j = 0; j < kUnits; ++j) acc[j] = 0.f;
-  const float* trow = tile + (threadIdx.x % rows) * kTileLd;
-  for (int kt = 0; kt < width; kt += kKT) {
-    stage(tile, src, ld, width, b0, rows, kt, B);
-    __syncthreads();
-    tile_dot(acc, trow, w + (size_t)kt * kUnits, min(kKT, width - kt));
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gru_fwd_kernel(const float* proj, const float* mask, const float* w_hzr,
-               const float* w_hc, const float* bias, const float* h0, float* hs,
-               float* zrc, float* rh, int T, int B, int H, int reverse) {
+// The forward. Block (rg, ug) owns rows [b0, b0 + R) and units [u0, u0 +
+// U): their h stays in shared memory, and so do the units' columns of W
+// as rows [z: 0, U) [r: U, 2U) [c: 2U, 3U) (else they are staged per k
+// tile, kResW false). Per step: A, the z and r sums of the block's cells
+// = h_{t-1} W_zr over the group's rows that were valid at the step before
+// (rnn_walk.cuh), the gates and r*h; sync; B, the candidate sums = (r*h)
+// W_c over all of the group's rows, the candidate and the masked update;
+// sync. kVec: H a multiple of 4 (16-byte copies of h and r*h).
+template <int U, bool kResW, bool kVec>
+__global__ void __launch_bounds__(rnn::kWalkThreads, 1)
+gru_fwd_kernel(const float* proj, const float* mask, const float* w_hzr, const float* w_hc,
+               const float* bias, const float* h0, float* hs, float* zrc, float* rh, int T,
+               int B, int H, int R, int unit_groups, int reverse) {
+  constexpr int N2 = 2 * U;  // columns of the z and r product
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H2 = 2 * H, H3 = 3 * H;
-  const int u0 = blockIdx.x * kUnits;
-  const int nu = min(kUnits, H - u0);
-  float* w_s = smem;                        // [3][H][kUnits]: z, r, c columns
-  float* z_s = w_s + 3 * H * kUnits;        // [B][kUnits]
-  float* tile = z_s + B * kUnits;           // [kThreads][kTileLd]
+  const int ldw = rnn::res_ld(H, rnn::kFwdKT);
+  const int u0 = (blockIdx.x % unit_groups) * U, nu = min(U, H - u0);
+  const int b0 = (blockIdx.x / unit_groups) * R, nr = min(R, B - b0);
+  float* w_s = smem;                                                 // [3U][ldw] if kResW
+  float* ring = w_s + (kResW ? 3 * U * ldw : 0);
+  float* part = ring + rnn::kStages * rnn::stage_floats(N2, R, kResW, rnn::kFwdKT);
+  float* pre = part + rnn::kPartFloats;                              // [R][2U] z and r sums
+  float* pre_c = pre + R * N2;                                       // [R][U] candidate sums
+  float* h_c = pre_c + R * U;                                        // [R][U] h of the cells
+  float* z_s = h_c + R * U;                                          // [R][U] update gate
+  int* all_s = reinterpret_cast<int*>(z_s + R * U);                  // [R] the group's rows
+  int* rows_s = all_s + R;                                           // [2][R] rows for z, r
+  int* nv_s = rows_s + 2 * R;                                        // [2] their counts
 
-  for (int i = threadIdx.x; i < 3 * H * kUnits; i += kThreads) {
-    const int j = i % kUnits, k = (i / kUnits) % H, g = i / (kUnits * H);
-    float w = 0.f;
-    if (j < nu) {
-      w = g < 2 ? w_hzr[(size_t)k * H2 + g * H + u0 + j] : w_hc[(size_t)k * H + u0 + j];
-    }
-    w_s[i] = w;
+  if (kResW) {
+    rnn::load_cols<U>(w_s, ldw, N2, w_hzr, H2, H, u0, nu, H);
+    rnn::load_cols<U>(w_s + N2 * ldw, ldw, U, w_hc, H, H, u0, nu, H);
   }
-  __syncthreads();
+  for (int i = threadIdx.x; i < R * U; i += rnn::kWalkThreads) {
+    const int r = i / U, j = i % U;
+    h_c[i] = r < nr && j < nu ? h0[(size_t)(b0 + r) * H + u0 + j] : 0.f;
+  }
+  for (int r = threadIdx.x; r < nr; r += rnn::kWalkThreads) all_s[r] = rows_s[r] = b0 + r;
+  if (threadIdx.x == 0) nv_s[0] = nr;
 
-  const int half = kThreads / 2;
+  // every cell i = threadIdx.x + k * kWalkThreads of this thread has unit j
+  const int j = threadIdx.x % U, n = u0 + min(j, nu - 1);
+  const bool owns = j < nu;
+  const float bz = bias[n], br = bias[H + n], bc = bias[H2 + n];
+  FwdIn ahead[kFwdAhead] = {};
+  auto fetch = [&](int t) {
+#pragma unroll
+    for (int k = 0; k < kFwdAhead; ++k) {
+      const int i = threadIdx.x + k * rnn::kWalkThreads;
+      if (owns && i < nr * U) ahead[k] = load_fwd_in(proj, mask, t, b0 + i / U, n, B, H);
+    }
+  };
+  // A for cell i at step t: z, r and this cell's r*h
+  auto gates_zr = [&](int t, int i, const FwdIn& v) {
+    const float* a = pre + (i / U) * N2 + j;
+    const float z = sigmoidf_(v.pz + bz + a[0]);
+    const float r = sigmoidf_(v.pr + br + a[U]);
+    const int b = b0 + i / U;
+    float* g = zrc + ((size_t)t * B + b) * H3;
+    g[n] = z;
+    g[H + n] = r;
+    rh[(size_t)b * H + n] = r * h_c[i];
+    z_s[i] = z;
+  };
+  // B for cell i at step t: the candidate and the masked update
+  auto update = [&](int t, int i, const FwdIn& v) {
+    const float c = tanhf(v.pc + bc + pre_c[(i / U) * U + j]);
+    const float h = h_c[i], z = z_s[i];
+    const float h_new = v.m * ((1.f - z) * h + z * c) + (1.f - v.m) * h;
+    const size_t row = (size_t)t * B + b0 + i / U;
+    zrc[row * H3 + H2 + n] = c;
+    hs[row * H + n] = h_new;
+    h_c[i] = h_new;
+  };
+  // one cell pass over the block's cells, prefetched inputs first
+  auto cells = [&](int t, auto fn) {
+    if (!owns) return;
+#pragma unroll
+    for (int k = 0; k < kFwdAhead; ++k) {
+      const int i = threadIdx.x + k * rnn::kWalkThreads;
+      if (i < nr * U) fn(t, i, ahead[k]);
+    }
+    for (int i = threadIdx.x + kFwdAhead * rnn::kWalkThreads; i < nr * U; i += rnn::kWalkThreads)
+      fn(t, i, load_fwd_in(proj, mask, t, b0 + i / U, n, B, H));
+  };
+  fetch(time_of(0, T, reverse));
+  __syncthreads();  // W, the cells' state and the row list in place
+
   for (int s = 0; s < T; ++s) {
     const int t = time_of(s, T, reverse);
-    const float* hp = h_prev_of(hs, h0, t, T, B, H, reverse);
-    // z (threads [0, half)) and r (threads [half, kThreads)) of the block's
-    // units for `half` rows at a time
-    for (int b0 = 0; b0 < B; b0 += half) {
-      const int g = threadIdx.x / half;
-      const int b = b0 + threadIdx.x % half;
-      float acc[kUnits];
-      row_times_w(acc, tile, hp, H, H, w_s + (size_t)g * H * kUnits, b0, half, B);
-      if (b < B) {
-        const size_t row = (size_t)t * B + b;
-        for (int j = 0; j < nu; ++j) {
-          const int n = u0 + j;
-          const float gate = sigmoidf_(proj[row * H3 + g * H + n] + bias[g * H + n] + acc[j]);
-          zrc[row * H3 + g * H + n] = gate;
-          if (g == 0) {
-            z_s[b * kUnits + j] = gate;
-          } else {
-            rh[(size_t)b * H + n] = gate * __ldcg(hp + (size_t)b * H + n);
-          }
-        }
-      }
-    }
+    // A: z and r sums of the block's cells, h_{t-1}[rows] W_zr[:, columns],
+    // for the rows valid at the step before (all at the first): a masked
+    // step carries h through, so the other rows' sums in `pre` still hold
+    const int* rows = rows_s + (s & 1) * R;
+    rnn::group_product<N2, rnn::kFwdKT, kResW, kVec>(
+        rows, nv_s[s & 1], h_prev_of(hs, h0, t, T, B, H, reverse), H, H, w_s, ldw,
+        [&](float* dst, int k0) {
+          rnn::stage_cols<rnn::kFwdKT, N2, U>(dst, w_hzr, H2, H, u0, nu, k0, H);
+        },
+        R, ring, part, [&](int r, int c, float acc) { pre[(rows[r] - b0) * N2 + c] = acc; });
+    // the next step's rows, into the other list (read last before the
+    // previous grid sync): those valid at this step
+    if (s + 1 < T && threadIdx.x < 32)
+      rnn::compact_rows(mask + (size_t)t * B + b0, b0, nr, rows_s + ((s + 1) & 1) * R,
+                        nv_s + ((s + 1) & 1));
+    cells(t, gates_zr);
     grid.sync();
-    // the candidate from all of r*h, then the masked update, a row a thread
-    for (int b0 = 0; b0 < B; b0 += kThreads) {
-      const int b = b0 + threadIdx.x;
-      float acc[kUnits];
-      row_times_w(acc, tile, rh, H, H, w_s + (size_t)2 * H * kUnits, b0, kThreads, B);
-      if (b < B) {
-        const size_t row = (size_t)t * B + b;
-        const float m = mask[row];
-        for (int j = 0; j < nu; ++j) {
-          const int n = u0 + j;
-          const float c = tanhf(proj[row * H3 + H2 + n] + bias[H2 + n] + acc[j]);
-          const float z = z_s[b * kUnits + j];
-          const float h = __ldcg(hp + (size_t)b * H + n);
-          const float h_tilde = (1.f - z) * h + z * c;
-          zrc[row * H3 + H2 + n] = c;
-          hs[row * H + n] = m * h_tilde + (1.f - m) * h;
-        }
-      }
+    // B: candidate sums, (r*h)[rows] W_c[:, columns], for every row: r
+    // changes with x_t
+    rnn::group_product<U, rnn::kFwdKT, kResW, kVec>(
+        all_s, nr, rh, H, H, w_s + N2 * ldw, ldw,
+        [&](float* dst, int k0) {
+          rnn::stage_cols<rnn::kFwdKT, U, U>(dst, w_hc, H, H, u0, nu, k0, H);
+        },
+        R, ring, part, [&](int r, int c, float acc) { pre_c[r * U + c] = acc; });
+    cells(t, update);
+    if (s + 1 < T) {
+      fetch(time_of(s + 1, T, reverse));  // in flight during the sync
+      grid.sync();
     }
-    grid.sync();
   }
 }
 
@@ -268,14 +281,14 @@ gru_bwd_kernel(const float* zrc, const float* hs, const float* h0, const float* 
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H2 = 2 * H, H3 = 3 * H;
-  const int ldc = rnn::res_ld(H), ldzr = rnn::res_ld(H2);
+  const int ldc = rnn::res_ld(H, rnn::kKT), ldzr = rnn::res_ld(H2, rnn::kKT);
   const int u0 = (blockIdx.x % unit_groups) * U, nu = min(U, H - u0);
   const int b0 = (blockIdx.x / unit_groups) * R, nr = min(R, B - b0);
   float* wc_s = smem;                                           // [U][ldc]  W_c rows
   float* wzr_s = wc_s + U * ldc;                                // [U][ldzr] W_zr rows
   float* ring = smem + (kResW ? U * (ldc + ldzr) : 0);
-  float* part = ring + rnn::kStages * rnn::stage_floats(U, R, kResW);
-  float* dh_c = part + rnn::kWalkThreads * rnn::kTR * rnn::kTU;  // [R][U] dh carry
+  float* part = ring + rnn::kStages * rnn::stage_floats(U, R, kResW, rnn::kKT);
+  float* dh_c = part + rnn::kPartFloats;                        // [R][U] dh carry
   float* r_s = dh_c + R * U;                                    // [R][U] reset gate
   float* hp_s = r_s + R * U;                                    // [R][U] h_prev
   float* m_s = hp_s + R * U;                                    // [R] mask of the step
@@ -299,6 +312,14 @@ gru_bwd_kernel(const float* zrc, const float* hs, const float* h0, const float* 
     dh_c[i] = r < nr && j < nu ? dh_last[(size_t)(b0 + r) * H + u0 + j] : 0.f;
   }
 
+  // k tile [k0, k0 + kKT) of the units' rows of a [H, ld] weight, staged
+  // with the operand where they are not resident
+  auto stage_w = [&](const float* w, int ld) {
+    return [=](float* dst, int k0) {
+      rnn::stage_rows<rnn::kKT, kVec>(
+          dst, U, [=](int j) { return w + (size_t)(u0 + min(j, nu - 1)) * ld; }, k0, ld);
+    };
+  };
   // the next step's mask and cell inputs, in registers: their loads are
   // in flight during the grid syncs and the products
   CellIn ahead[kAhead] = {};
@@ -358,9 +379,10 @@ gru_bwd_kernel(const float* zrc, const float* hs, const float* h0, const float* 
     grid.sync();
     const int nv = *nv_s;
     // B: d(r*h)[b, n] = sum_k dgc[b, k] W_c[n, k], then the reset gate
-    rnn::group_product<U, kResW, kVec>(
-        rows_s, nv, dp_t + H2, H3, H, wc_s, ldc, w_hc, H, u0, nu, R, ring,
-        part, [&](int r, int j, float acc) {
+    rnn::group_product<U, rnn::kKT, kResW, kVec>(
+        rows_s, nv, dp_t + H2, H3, H, wc_s, ldc, stage_w(w_hc, H), R, ring, part,
+        [&](int r, int j, float acc) {
+          if (j >= nu) return;
           const int b = rows_s[r], i = (b - b0) * U + j;
           const float rg = r_s[i];
           dp_t[(size_t)b * H3 + H + u0 + j] = acc * hp_s[i] * rg * (1.f - rg);
@@ -368,9 +390,11 @@ gru_bwd_kernel(const float* zrc, const float* hs, const float* h0, const float* 
         });
     grid.sync();
     // C: dh_prev[b, n] += sum_j dgzr[b, j] W_zr[n, j]
-    rnn::group_product<U, kResW, kVec>(
-        rows_s, nv, dp_t, H3, H2, wzr_s, ldzr, w_hzr, H2, u0, nu, R, ring,
-        part, [&](int r, int j, float acc) { dh_c[(rows_s[r] - b0) * U + j] += acc; });
+    rnn::group_product<U, rnn::kKT, kResW, kVec>(
+        rows_s, nv, dp_t, H3, H2, wzr_s, ldzr, stage_w(w_hzr, H2), R, ring, part,
+        [&](int r, int j, float acc) {
+          if (j < nu) dh_c[(rows_s[r] - b0) * U + j] += acc;
+        });
     __syncthreads();  // (nv == 0) the next step rewrites m_s and rows_s
   }
   for (int i = threadIdx.x; i < nr * U; i += rnn::kWalkThreads) {
@@ -386,30 +410,18 @@ bool bad_shape(int T, int B, int H) {
   return T <= 0 || B <= 0 || H <= 0 || (size_t)T * B * 3 * H >= (size_t)1 << 31;
 }
 
-// dynamic shared memory above 48 KB must be opted into per kernel
-cudaError_t set_smem(const void* fn, size_t bytes) {
-  if (bytes > rnn::kSmemMax) return cudaErrorInvalidValue;
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-size_t tile_bytes() { return (size_t)kThreads * kTileLd * sizeof(float); }
-
-size_t fwd_smem_bytes(int H, int B) {
-  return (size_t)(3 * H + B) * kUnits * sizeof(float) + tile_bytes();
-}
-
-cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+// The forward's layout: z, r and candidate columns of W per unit (the
+// widest product has 2 columns per unit); z, r and candidate sums, h and
+// z per cell; three row lists per row
+cudaError_t make_fwd_plan(int H, int B, rnn::WalkPlan* p) {
+  return rnn::make_walk_plan(H, B, 2, rnn::kFwdKT, 3 * rnn::res_ld(H, rnn::kFwdKT), 5, 3, p);
 }
 
 // The backward walk's layout: W_c and W_zr rows per unit; dh carry, reset
 // gate and h_prev per cell; the mask and the valid-row list per row
 cudaError_t make_bwd_plan(int H, int B, rnn::WalkPlan* p) {
-  return rnn::make_walk_plan(H, B, rnn::res_ld(H) + rnn::res_ld(2 * H), 3, 2, p);
+  return rnn::make_walk_plan(H, B, 1, rnn::kKT,
+                             rnn::res_ld(H, rnn::kKT) + rnn::res_ld(2 * H, rnn::kKT), 3, 2, p);
 }
 
 // dW_zr = h_prev^T dproj[:, :2H] (and db[:2H]); dW_c = (r * h_prev)^T
@@ -432,24 +444,20 @@ rnn::DwArgs dw_args(const float* zrc, const float* hs, const float* h0, const fl
   return a;
 }
 
-template <int U, bool kResW>
-const void* bwd_fn(bool vec) {
-  return vec ? (const void*)gru_bwd_kernel<U, kResW, true>
-             : (const void*)gru_bwd_kernel<U, kResW, false>;
-}
-
-const void* pick_bwd(const rnn::WalkPlan& p, bool vec) {
-  switch (p.units * 2 + (p.w_res ? 1 : 0)) {
-    case 8: return bwd_fn<4, false>(vec);
-    case 9: return bwd_fn<4, true>(vec);
-    case 16: return bwd_fn<8, false>(vec);
-    case 17: return bwd_fn<8, true>(vec);
-    case 32: return bwd_fn<16, false>(vec);
-    case 33: return bwd_fn<16, true>(vec);
-    case 64: return bwd_fn<32, false>(vec);
-    default: return bwd_fn<32, true>(vec);
+// the kernels' instances, for rnn::pick_kernel
+struct FwdKernel {
+  template <int U, bool kResW, bool kVec>
+  const void* operator()(rnn::Inst<U, kResW, kVec>) const {
+    return (const void*)gru_fwd_kernel<U, kResW, kVec>;
   }
-}
+};
+
+struct BwdKernel {
+  template <int U, bool kResW, bool kVec>
+  const void* operator()(rnn::Inst<U, kResW, kVec>) const {
+    return (const void*)gru_bwd_kernel<U, kResW, kVec>;
+  }
+};
 
 }  // namespace
 
@@ -461,24 +469,26 @@ const void* pick_bwd(const rnn::WalkPlan& p, bool vec) {
 // and for the backward the dW reduction's partial sums and its list of
 // valid rows (gru_seq_plan's last number of floats).
 
-// The layouts chosen for (T, B, H), into out[10]: the forward's units per
-// block, blocks and W in shared memory (always 1); the backward walk's
-// units per block, row groups, rows per group, blocks and W resident (1)
-// or staged per k tile (0); the dW reduction's splits of the T*B rows; and
-// the floats of scratch the backward entry point takes.
+// The layouts chosen for (T, B, H), into out[12]: the forward's units per
+// block, row groups, rows per group, blocks and W resident (1) or staged
+// per k tile (0); the same five for the backward walk; the dW reduction's
+// splits of the T*B rows; and the floats of scratch the backward entry
+// point takes.
 extern "C" int gru_seq_plan(int T, int B, int H, long long* out) {
   if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
-  rnn::WalkPlan w;
+  rnn::WalkPlan f, w;
   int sms = 0;
-  cudaError_t err = make_bwd_plan(H, B, &w);
-  if (err == cudaSuccess) err = sm_count(&sms);
+  cudaError_t err = make_fwd_plan(H, B, &f);
+  if (err == cudaSuccess) err = make_bwd_plan(H, B, &w);
+  if (err == cudaSuccess) err = rnn::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   rnn::DwArgs a = dw_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                           T, B, H, 0);
   const size_t scratch = rnn::dw_prepare(&a, nullptr, sms);
-  const long long v[10] = {kUnits, (H + kUnits - 1) / kUnits, 1, w.units,  w.row_groups,
-                           w.rows, w.blocks, w.w_res, a.splits, (long long)scratch};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  const long long v[12] = {f.units,  f.row_groups, f.rows,   f.blocks,   f.w_res,
+                           w.units,  w.row_groups, w.rows,   w.blocks,   w.w_res,
+                           a.splits, (long long)scratch};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -487,16 +497,28 @@ extern "C" int gru_seq_fwd_f32(const float* proj, const float* mask, const float
                                float* hs, float* zrc, float* rh, int T, int B, int H,
                                int reverse, void* stream) {
   if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem_bytes(H, B);
-  cudaError_t err = set_smem((const void*)gru_fwd_kernel, smem);
+  rnn::WalkPlan p;
+  cudaError_t err = make_fwd_plan(H, B, &p);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&proj, &mask, &w_hzr, &w_hc, &bias, &h0, &hs, &zrc, &rh,
-                  &T, &B, &H, &reverse};
-  err = cudaLaunchCooperativeKernel((const void*)gru_fwd_kernel,
-                                    dim3((H + kUnits - 1) / kUnits), dim3(kThreads),
-                                    args, smem, static_cast<cudaStream_t>(stream));
+  int R = p.rows, ug = p.unit_groups;
+  void* args[] = {&proj, &mask, &w_hzr, &w_hc, &bias, &h0, &hs, &zrc,
+                  &rh,   &T,    &B,     &H,    &R,    &ug, &reverse};
+  return (int)rnn::launch(rnn::pick_kernel(p, (H & 3) == 0, FwdKernel{}), p.blocks, p.smem,
+                          args, static_cast<cudaStream_t>(stream));
+}
+
+// The forward's step loop with nothing but its grid syncs (two a step), at
+// the forward's own grid for (T, B, H): the synchronisation's share of a
+// forward step.
+extern "C" int gru_seq_fwd_sync_f32(int T, int B, int H, void* stream) {
+  if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
+  rnn::WalkPlan p;
+  cudaError_t err = make_fwd_plan(H, B, &p);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  int per_step = 2;
+  void* args[] = {&T, &per_step};
+  return (int)rnn::launch((const void*)rnn::sync_steps_kernel, p.blocks, p.smem, args,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gru_seq_bwd_f32(const float* zrc, const float* hs, const float* h0,
@@ -509,19 +531,14 @@ extern "C" int gru_seq_bwd_f32(const float* zrc, const float* hs, const float* h
   rnn::WalkPlan w;
   int sms = 0;
   cudaError_t err = make_bwd_plan(H, B, &w);
-  if (err == cudaSuccess) err = sm_count(&sms);
-  if (err != cudaSuccess) return (int)err;
-  const void* fn = pick_bwd(w, (H & 3) == 0);
-  err = set_smem(fn, w.smem);
+  if (err == cudaSuccess) err = rnn::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int R = w.rows, ug = w.unit_groups;
   void* args[] = {&zrc,   &hs,  &h0, &mask, &w_hzr, &w_hc, &dhs, &dh_last,
                   &dproj, &dh0, &T,  &B,    &H,     &R,    &ug,  &reverse};
-  err = cudaLaunchCooperativeKernel(fn, dim3(w.blocks), dim3(rnn::kWalkThreads), args, w.smem,
-                                    st);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
+  err = rnn::launch(rnn::pick_kernel(w, (H & 3) == 0, BwdKernel{}), w.blocks, w.smem, args,
+                    st);
   if (err != cudaSuccess) return (int)err;
   rnn::DwArgs a = dw_args(zrc, hs, h0, mask, dproj, dwzr, dwc, db, T, B, H, reverse);
   rnn::dw_prepare(&a, scratch, sms);

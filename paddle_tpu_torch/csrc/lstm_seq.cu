@@ -19,11 +19,12 @@
 //
 // Forward writes hs [T,B,H], gates [T,B,4H] (post-activation i, f, g, o),
 // ct [T,B,H] (c~, before the mask) and cs [T,B,H] (the masked c sequence):
-// the backward's residuals, as the TPU kernel saves them. Backward takes
-// them with h0, c0, the mask, W, dhs [T,B,H], dh_last and dc_last [B,H] and
-// writes dproj [T,B,4H], dW [H,4H], db [4H], dh0 and dc0. `reverse` walks
-// time T-1 .. 0 with every array in original time order, which equals the
-// JAX package's flip-run-flip (_run_fused, paddle_tpu/ops/rnn.py:55).
+// the backward's residuals, as the TPU kernel saves them, for every row,
+// masked or not. Backward takes them with h0, c0, the mask, W, dhs
+// [T,B,H], dh_last and dc_last [B,H] and writes dproj [T,B,4H], dW [H,4H],
+// db [4H], dh0 and dc0. `reverse` walks time T-1 .. 0 with every array in
+// original time order, which equals the JAX package's flip-run-flip
+// (_run_fused, paddle_tpu/ops/rnn.py:55).
 //
 // Bound: operations. At the text-classification shape (T=100, B=128,
 // H=512) the forward does 2*T*B*H*4H = 26.8 GFLOP (0.40 ms at 67 TFLOP/s
@@ -33,43 +34,40 @@
 // in VMEM; Hopper's blocks run in no order, and W (4 MB at H=512) does not
 // fit in one block's 227 KB of shared memory.
 //
-// Design:
-//   * Forward: one persistent cooperative launch (all blocks resident,
-//     cudaLaunchCooperativeKernel) whose block j owns U hidden units. U is
-//     the smallest power of two that keeps the grid within one block per
-//     SM (U=2 at H=256, U=4 at H=512 on 132 SMs). The block keeps its
-//     units' 4 gate columns of W in shared memory for the whole sequence
-//     — 32 KB at H=512 — and its units' cell state on chip.
-//     Where that slice does not fit beside the staging tile (H=1280:
-//     U=16, 327 KB), the block stages it through shared memory per k tile
-//     with the operand it multiplies (W then comes from L2 every step).
-//   * Forward, per step: all of h_{t-1} (hs[t-1] is the exchange buffer)
-//     is staged from L2 in k tiles (128 wide at U >= 4), each tile's loads
-//     issued at once into registers while the previous tile is computed;
-//     thread (row, unit) forms the unit's four gate sums, the cell update
-//     and the masked outputs; then ONE grid.sync() (the GRU needs two, for
-//     r*h).
-//   * Backward walk (reverse): bounded by the operand it
-//     re-reads every step and by shared-memory loads per FMA. Block (row
-//     group, unit group) owns R rows x U units (U and R from the SM count
-//     and shared memory: 4 row groups of 32 rows x 32 groups of 16 units
-//     at B=128, H=512), keeps its units' W rows resident (128 KB; staged
-//     per k tile where they do not fit, as at H=1280) and its cells' dh
-//     and dc carries. Per step: the elementwise cotangents of its cells to
-//     dproj[t]; ONE grid.sync(); then dh_prev of its cells = dproj[t] W^T
-//     over the valid rows of its row group only (rnn_walk.cuh: cp.async
-//     ring, register tiles, masked rows skipped, since their dproj is
-//     exactly zero and their carries pass through). A block reads R rows
-//     of dproj[t], not B: a quarter of the old L2 traffic at B=128.
+// Design: both directions are one persistent cooperative launch each (all
+// blocks resident, cudaLaunchCooperativeKernel) whose block (row group,
+// unit group) owns R rows x U units, laid out by rnn::make_walk_plan from
+// the SM count and shared memory (4 row groups of 32 rows x 32 groups of
+// 16 units at B=128, H=512; 3 of 22 rows x 40 of 32 units at B=64,
+// H=1280). Both run their recurrent product through rnn_walk.cuh's
+// group_product (cp.async ring, 4 x 4 register tiles fed from shared
+// memory, k slices summed in a fixed order), so a block reads R rows of
+// the operand per step, not B.
+//   * Forward: the block keeps its units' 4 gate columns of W resident in
+//     shared memory, transposed to rows [4U][K] (128 KB at H=512; staged
+//     per 128-wide k tile with the operand where they do not fit, as at
+//     H=1280), and its cells' h and c. Per step: the recurrent sums
+//     h_{t-1}[rows] W[:, block's columns] (hs[t-1] is the exchange buffer)
+//     into a small shared buffer, for the rows of the group that were
+//     valid at the step before only: a masked step carries h through, so
+//     a row's sums stay those of its h until it is valid again (rows >= B
+//     are never computed); then one pass per (row, unit) over every row:
+//     activations, cell update, mask and every store; ONE grid.sync(). The
+//     cells' proj and mask for the next step are fetched into registers
+//     before the sync. What bounds it on the card (PERF.md): the product,
+//     at about a third of the peak f32 FMA rate; the grid sync takes ~7 %
+//     of a step.
+//   * Backward walk (reverse): per step, the elementwise cotangents of the
+//     block's cells to dproj[t]; ONE grid.sync(); then dh_prev of its
+//     cells = dproj[t] W^T over the valid rows of its row group only
+//     (masked rows skipped, since their dproj is exactly zero and their
+//     carries pass through). The units' W rows stay resident (staged per
+//     256-wide k tile where they do not fit), and so do the dh and dc
+//     carries.
 //   * dW = h_prev^T dproj over the T*B rows and db (the TPU kernel's VMEM
 //     sums) come from the shared split-K f32 GEMM of rnn_reduce.cuh (128 x
 //     128 tiles, 8x8 per thread, a deterministic second pass over the
 //     splits, db folded in), launched from the same entry point.
-//   * What still bounds the forward (PERF.md): each FMA of its recurrent
-//     product needs about a third of a 16-byte shared-memory load (a
-//     thread computes one row of one unit), and a grid sync per step: at
-//     H=512 its time per step hardly changes from B=8 to B=128
-//     (chip_smoke.py's `fwd_kernel_ms_by_batch`).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -81,14 +79,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 512;             // forward block size
-// k per staged tile, so that a tile (kThreads / U rows x k) holds 8 float4
-// per thread in flight: 128 for U >= 4, 64 for U = 2, 32 for U = 1. Fewer,
-// wider tiles mean fewer round trips between loads and compute per step.
-__host__ __device__ constexpr int tile_k(int U) { return U >= 4 ? 128 : 32 * U; }
-// a staged tile's row stride: 16-byte rows, and 8 rows of float4 hit 32 banks
-__host__ __device__ constexpr int tile_ld(int kt) { return kt + 4; }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -106,183 +96,131 @@ __device__ __forceinline__ const float* prev_of(const float* seq, const float* x
   return seq + (size_t)(reverse ? t + 1 : t - 1) * B * H;
 }
 
-// One [ROWS x KT] tile of a row-major operand (leading dimension ld,
-// width `width`; rows [b0, b0 + ROWS), columns [kt, kt + KT)), held in
-// registers: `load` issues every load of the tile at once, so a tile is
-// fetched while the previous one is computed, and `store` writes it to
-// tile[ROWS][tile_ld(KT)]. Entries out of range are 0. __ldcg (L2): another
-// block of this launch may have written the operand. 16-byte loads when ld
-// and width are multiples of 4 (every base pointer is 16-byte aligned).
-template <int ROWS, int KT>
-struct RowTile {
-  static constexpr int kQ = KT / 4;
-  static constexpr int kPer = (ROWS * kQ + kThreads - 1) / kThreads;
-  float4 v[kPer];
-
-  __device__ __forceinline__ void load(const float* src, int ld, int width, int b0, int kt,
-                                       int B) {
-    const bool vec = ((ld | width) & 3) == 0;
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int i = threadIdx.x + p * kThreads;
-      const int b = b0 + i / kQ, k = kt + (i % kQ) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < ROWS * kQ && b < B) {
-        const float* s = src + (size_t)b * ld + k;
-        if (vec) {
-          if (k < width) x = __ldcg(reinterpret_cast<const float4*>(s));
-        } else {
-          if (k < width) x.x = __ldcg(s);
-          if (k + 1 < width) x.y = __ldcg(s + 1);
-          if (k + 2 < width) x.z = __ldcg(s + 2);
-          if (k + 3 < width) x.w = __ldcg(s + 3);
-        }
-      }
-      v[p] = x;
-    }
-  }
-
-  __device__ __forceinline__ void store(float* tile) const {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int i = threadIdx.x + p * kThreads;
-      if (i < ROWS * kQ) {
-        *reinterpret_cast<float4*>(tile + (i / kQ) * tile_ld(KT) + (i % kQ) * 4) = v[p];
-      }
-    }
-  }
+// One cell's inputs to the forward's epilogue: proj of its four gates and
+// the row's mask. Neither depends on the product, so the forward fetches
+// them a step ahead.
+struct FwdIn {
+  float p[4], m;
 };
 
-// The forward's slice of W for k tile kt when it is not resident: rows
-// [kt, kt + KT) of the block's U units' 4 gate columns, laid out
-// [KT][U][4] like the resident copy. Consecutive threads read consecutive
-// units (64-byte runs of one gate). W is never written: __ldg.
-template <int U, int KT>
-struct FwdWTile {
-  static constexpr int kN = KT * U * 4;
-  static constexpr int kPer = (kN + kThreads - 1) / kThreads;
-  float v[kPer];
+__device__ __forceinline__ FwdIn load_fwd_in(const float* proj, const float* mask, int t,
+                                             int b, int n, int B, int H) {
+  const size_t row = (size_t)t * B + b;
+  const float* p = proj + row * 4 * H + n;
+  return FwdIn{{p[0], p[H], p[2 * H], p[3 * H]}, mask[row]};
+}
 
-  __device__ __forceinline__ void load(const float* w_hh, int kt, int H, int u0, int nu) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int e = threadIdx.x + p * kThreads;
-      const int j = e % U, g = (e / U) & 3, k = kt + e / (4 * U);
-      v[p] = (e < kN && j < nu && k < H) ? __ldg(w_hh + (size_t)k * 4 * H + g * H + u0 + j)
-                                         : 0.f;
-    }
-  }
+// cells per thread whose inputs are fetched a step ahead (the rest, at
+// larger R x U, when the step needs them)
+constexpr int kFwdAhead = 4;
 
-  __device__ __forceinline__ void store(float* w) const {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int e = threadIdx.x + p * kThreads;
-      if (e < kN) w[((e / (4 * U)) * U + e % U) * 4 + ((e / U) & 3)] = v[p];
-    }
-  }
-};
-
-template <int U, bool kSmemW>
-__global__ void __launch_bounds__(kThreads)
+// The forward. Block (rg, ug) owns rows [b0, b0 + R) and units [u0, u0 +
+// U): their h and c stay in shared memory, and so do the units' gate
+// columns of W, as rows c = g * U + j (else they are staged per k tile,
+// kResW false). Per step: the recurrent gate sums of the block's cells =
+// h_{t-1} W over the group's rows that were valid at the step before
+// (rnn_walk.cuh), then the cell update of each (row, unit), then one
+// grid.sync(). kVec: H a multiple of 4 (16-byte copies of h).
+template <int U, bool kResW, bool kVec>
+__global__ void __launch_bounds__(rnn::kWalkThreads, 1)
 lstm_fwd_kernel(const float* proj, const float* mask, const float* w_hh, const float* bias,
                 const float* h0, const float* c0, float* hs, float* gates, float* ct,
-                float* cs, int T, int B, int H, int reverse) {
-  constexpr int R = kThreads / U;           // rows per pass
-  constexpr int KT = tile_k(U), LD = tile_ld(KT);
+                float* cs, int T, int B, int H, int R, int unit_groups, int reverse) {
+  constexpr int N = 4 * U;  // product columns: the units' i, f, c, o gates
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H4 = 4 * H;
-  const int Hp = rnn::round_up(H, KT);
-  const int u0 = blockIdx.x * U;
-  const int nu = min(U, H - u0);
-  float* w_s = smem;  // resident: [Hp][U][4]; else one k tile, [KT][U][4]
-  float* tile = smem + (size_t)(kSmemW ? Hp : KT) * U * 4;  // [R][LD]
-  float* c_s = tile + R * LD;                                 // [B][U] cell state
+  const int ldw = rnn::res_ld(H, rnn::kFwdKT);
+  const int u0 = (blockIdx.x % unit_groups) * U, nu = min(U, H - u0);
+  const int b0 = (blockIdx.x / unit_groups) * R, nr = min(R, B - b0);
+  float* w_s = smem;                                                 // [N][ldw] if kResW
+  float* ring = w_s + (kResW ? N * ldw : 0);
+  float* part = ring + rnn::kStages * rnn::stage_floats(N, R, kResW, rnn::kFwdKT);
+  float* pre = part + rnn::kPartFloats;                              // [R][N] gate sums
+  float* h_c = pre + R * N;                                          // [R][U] h of the cells
+  float* c_c = h_c + R * U;                                          // [R][U] c of the cells
+  int* rows_s = reinterpret_cast<int*>(c_c + R * U);                 // [2][R] rows to compute
+  int* nv_s = rows_s + 2 * R;                                        // [2] their counts
 
-  if (kSmemW) {
-    for (int i = threadIdx.x; i < Hp * U * 4; i += kThreads) {
-      const int g = i & 3, j = (i >> 2) % U, k = (i >> 2) / U;
-      w_s[i] = (k < H && j < nu) ? w_hh[(size_t)k * H4 + g * H + u0 + j] : 0.f;
+  if (kResW) rnn::load_cols<U>(w_s, ldw, N, w_hh, H4, H, u0, nu, H);
+  for (int i = threadIdx.x; i < R * U; i += rnn::kWalkThreads) {
+    const int r = i / U, j = i % U;
+    const bool v = r < nr && j < nu;
+    h_c[i] = v ? h0[(size_t)(b0 + r) * H + u0 + j] : 0.f;
+    c_c[i] = v ? c0[(size_t)(b0 + r) * H + u0 + j] : 0.f;
+  }
+  for (int r = threadIdx.x; r < nr; r += rnn::kWalkThreads) rows_s[r] = b0 + r;
+  if (threadIdx.x == 0) nv_s[0] = nr;
+
+  // every cell i = threadIdx.x + k * kWalkThreads of this thread has unit j
+  const int j = threadIdx.x % U, n = u0 + min(j, nu - 1);
+  const bool owns = j < nu;
+  const float bi = bias[n], bf = bias[H + n], bg = bias[2 * H + n], bo = bias[3 * H + n];
+  FwdIn ahead[kFwdAhead] = {};
+  auto fetch = [&](int t) {
+#pragma unroll
+    for (int k = 0; k < kFwdAhead; ++k) {
+      const int i = threadIdx.x + k * rnn::kWalkThreads;
+      if (owns && i < nr * U) ahead[k] = load_fwd_in(proj, mask, t, b0 + i / U, n, B, H);
     }
-  }
-  for (int i = threadIdx.x; i < B * U; i += kThreads) {
-    const int b = i / U, j = i % U;
-    c_s[i] = j < nu ? c0[(size_t)b * H + u0 + j] : 0.f;
-  }
-  __syncthreads();
+  };
+  auto cell = [&](int t, int i, const FwdIn& v) {
+    const float* a = pre + (i / U) * N + j;
+    const float ig = sigmoidf_(v.p[0] + bi + a[0]);
+    const float fg = sigmoidf_(v.p[1] + bf + a[U]);
+    const float gg = tanhf(v.p[2] + bg + a[2 * U]);
+    const float og = sigmoidf_(v.p[3] + bo + a[3 * U]);
+    const float c_prev = c_c[i], h_prev = h_c[i];
+    const float c_t = fg * c_prev + ig * gg;
+    const float h_t = og * tanhf(c_t);
+    const size_t row = (size_t)t * B + b0 + i / U;
+    float* gr = gates + row * H4;
+    gr[n] = ig;
+    gr[H + n] = fg;
+    gr[2 * H + n] = gg;
+    gr[3 * H + n] = og;
+    ct[row * H + n] = c_t;
+    const float c_new = v.m * c_t + (1.f - v.m) * c_prev;
+    const float h_new = v.m * h_t + (1.f - v.m) * h_prev;
+    cs[row * H + n] = c_new;
+    hs[row * H + n] = h_new;
+    c_c[i] = c_new;
+    h_c[i] = h_new;
+  };
+  fetch(time_of(0, T, reverse));
+  __syncthreads();  // W, the cells' state and the row list in place
 
-  const int r = threadIdx.x / U, j = threadIdx.x % U;
-  const int n = u0 + min(j, nu - 1);  // a valid unit; results of j >= nu are dropped
-  RowTile<R, KT> ht;
-  FwdWTile<U, KT> wt;
   for (int s = 0; s < T; ++s) {
     const int t = time_of(s, T, reverse);
-    const float* hp = prev_of(hs, h0, t, T, B, H, reverse);
-    for (int b0 = 0; b0 < B; b0 += R) {
-      const int b = b0 + r;
-      const bool mine = b < B && j < nu;
-      const size_t row = (size_t)t * B + min(b, B - 1);
-      ht.load(hp, H, H, b0, 0, B);
-      if (!kSmemW) wt.load(w_hh, 0, H, u0, nu);
-      // the epilogue's inputs do not depend on h: fetch them now
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;  // gate sums i, f, c, o
-      float m = 0.f, h_prev = 0.f;
-      if (mine) {
-        const float* pr = proj + row * H4;
-        a0 = pr[n] + bias[n];
-        a1 = pr[H + n] + bias[H + n];
-        a2 = pr[2 * H + n] + bias[2 * H + n];
-        a3 = pr[3 * H + n] + bias[3 * H + n];
-        m = mask[row];
-        h_prev = __ldcg(hp + (size_t)b * H + n);
-      }
-      for (int kt = 0; kt < H; kt += KT) {
-        ht.store(tile);
-        if (!kSmemW) wt.store(w_s);
-        __syncthreads();
-        if (kt + KT < H) {  // the next tile is in flight during this one
-          ht.load(hp, H, H, b0, kt + KT, B);
-          if (!kSmemW) wt.load(w_hh, kt + KT, H, u0, nu);
-        }
-        const float* trow = tile + r * LD;
-        const float4* w4 =
-            reinterpret_cast<const float4*>(w_s) + (size_t)(kSmemW ? kt : 0) * U + j;
-#pragma unroll 4
-        for (int kk = 0; kk < KT; kk += 4) {  // zero past H in both operands
-          const float4 hv = *reinterpret_cast<const float4*>(trow + kk);
-          const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
+    // the gate sums of the block's cells, h_{t-1}[rows] W[:, columns], for
+    // the rows valid at the step before (all at the first): a masked step
+    // carries h through, so the other rows' sums in `pre` still hold
+    const int* rows = rows_s + (s & 1) * R;
+    rnn::group_product<N, rnn::kFwdKT, kResW, kVec>(
+        rows, nv_s[s & 1], prev_of(hs, h0, t, T, B, H, reverse), H, H, w_s, ldw,
+        [&](float* dst, int k0) {
+          rnn::stage_cols<rnn::kFwdKT, N, U>(dst, w_hh, H4, H, u0, nu, k0, H);
+        },
+        R, ring, part, [&](int r, int c, float acc) { pre[(rows[r] - b0) * N + c] = acc; });
+    // the next step's rows, into the other list (read last before the
+    // previous grid sync): those valid at this step
+    if (s + 1 < T && threadIdx.x < 32)
+      rnn::compact_rows(mask + (size_t)t * B + b0, b0, nr, rows_s + ((s + 1) & 1) * R,
+                        nv_s + ((s + 1) & 1));
+    if (owns) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 w = w4[(kk + q) * U];
-            a0 = fmaf(hk[q], w.x, a0);
-            a1 = fmaf(hk[q], w.y, a1);
-            a2 = fmaf(hk[q], w.z, a2);
-            a3 = fmaf(hk[q], w.w, a3);
-          }
-        }
-        __syncthreads();
+      for (int k = 0; k < kFwdAhead; ++k) {
+        const int i = threadIdx.x + k * rnn::kWalkThreads;
+        if (i < nr * U) cell(t, i, ahead[k]);
       }
-      if (mine) {
-        const float ig = sigmoidf_(a0);
-        const float fg = sigmoidf_(a1);
-        const float gg = tanhf(a2);
-        const float og = sigmoidf_(a3);
-        const float c_prev = c_s[b * U + j];
-        const float c_t = fg * c_prev + ig * gg;
-        const float h_t = og * tanhf(c_t);
-        float* gr = gates + row * H4;
-        gr[n] = ig;
-        gr[H + n] = fg;
-        gr[2 * H + n] = gg;
-        gr[3 * H + n] = og;
-        ct[row * H + n] = c_t;
-        const float c_new = m * c_t + (1.f - m) * c_prev;
-        cs[row * H + n] = c_new;
-        hs[row * H + n] = m * h_t + (1.f - m) * h_prev;
-        c_s[b * U + j] = c_new;
-      }
+      for (int i = threadIdx.x + kFwdAhead * rnn::kWalkThreads; i < nr * U;
+           i += rnn::kWalkThreads)
+        cell(t, i, load_fwd_in(proj, mask, t, b0 + i / U, n, B, H));
     }
-    grid.sync();
+    if (s + 1 < T) {
+      fetch(time_of(s + 1, T, reverse));  // in flight during the sync
+      grid.sync();
+    }
   }
 }
 
@@ -324,13 +262,13 @@ lstm_bwd_kernel(const float* gates, const float* ct, const float* cs, const floa
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H4 = 4 * H;
-  const int ldw = rnn::res_ld(H4);
+  const int ldw = rnn::res_ld(H4, rnn::kKT);
   const int u0 = (blockIdx.x % unit_groups) * U, nu = min(U, H - u0);
   const int b0 = (blockIdx.x / unit_groups) * R, nr = min(R, B - b0);
   float* w_s = smem;                                            // [U][ldw] if kResW
   float* ring = w_s + (kResW ? U * ldw : 0);
-  float* part = ring + rnn::kStages * rnn::stage_floats(U, R, kResW);
-  float* dh_c = part + rnn::kWalkThreads * rnn::kTR * rnn::kTU;  // [R][U] dh carry
+  float* part = ring + rnn::kStages * rnn::stage_floats(U, R, kResW, rnn::kKT);
+  float* dh_c = part + rnn::kPartFloats;                        // [R][U] dh carry
   float* dc_c = dh_c + R * U;                                   // [R][U] dc carry
   float* m_s = dc_c + R * U;                                    // [R] mask of the step
   int* rows_s = reinterpret_cast<int*>(m_s + R);                // [R] valid rows
@@ -412,9 +350,15 @@ lstm_bwd_kernel(const float* gates, const float* ct, const float* cs, const floa
     grid.sync();
     // B: dh_prev[b, n] += sum_k dproj[t, b, k] W[n, k] over the valid rows
     const int nv = *nv_s;
-    rnn::group_product<U, kResW, true>(
-        rows_s, nv, dproj + (size_t)t * B * H4, H4, H4, w_s, ldw, w_hh, H4, u0, nu, R, ring,
-        part, [&](int r, int j, float acc) { dh_c[(rows_s[r] - b0) * U + j] += acc; });
+    rnn::group_product<U, rnn::kKT, kResW, true>(
+        rows_s, nv, dproj + (size_t)t * B * H4, H4, H4, w_s, ldw,
+        [&](float* dst, int k0) {
+          rnn::stage_rows<rnn::kKT, true>(
+              dst, U, [&](int j) { return w_hh + (size_t)(u0 + min(j, nu - 1)) * H4; }, k0, H4);
+        },
+        R, ring, part, [&](int r, int j, float acc) {
+          if (j < nu) dh_c[(rows_s[r] - b0) * U + j] += acc;
+        });
     __syncthreads();  // (nv == 0) the next step rewrites m_s and rows_s
   }
   for (int i = threadIdx.x; i < nr * U; i += rnn::kWalkThreads) {
@@ -429,49 +373,16 @@ lstm_bwd_kernel(const float* gates, const float* ct, const float* cs, const floa
 // dW [H, 4H] and db [4H]: the shared split-K reduction of rnn_reduce.cuh
 RNN_DW_KERNELS(lstm_)
 
-// How the forward recurrence is laid out for (H, B) on this device.
-struct Plan {
-  int units;        // hidden units per block (a power of two, <= 16)
-  int blocks;       // ceil(H / units) <= the SM count: one block per SM
-  bool smem_w;      // W slice in shared memory (else read through L1/L2)
-  size_t fwd_smem;  // dynamic shared memory of the launch
-};
-
-size_t fwd_smem_bytes(int U, int H, int B, bool smem_w) {
-  const int kt = tile_k(U);
-  const size_t w = (size_t)(smem_w ? rnn::round_up(H, kt) : kt) * U * 4;
-  return (w + (size_t)(kThreads / U) * tile_ld(kt) + (size_t)B * U) * sizeof(float);
-}
-
-cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-}
-
-cudaError_t make_plan(int H, int B, Plan* p) {
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  for (int U = 1; U <= 16; U *= 2) {
-    const int blocks = (H + U - 1) / U;
-    if (blocks > sms) continue;
-    const bool smem_w = fwd_smem_bytes(U, H, B, true) <= rnn::kSmemMax;
-    p->units = U;
-    p->blocks = blocks;
-    p->smem_w = smem_w;
-    p->fwd_smem = fwd_smem_bytes(U, H, B, smem_w);
-    if (p->fwd_smem > rnn::kSmemMax) return cudaErrorInvalidValue;
-    return cudaSuccess;
-  }
-  return cudaErrorInvalidValue;  // H > 16 units x the SM count
+// The forward's layout: 4 gate columns of W per unit; gate sums, h and c
+// per cell; two row lists per row
+cudaError_t make_fwd_plan(int H, int B, rnn::WalkPlan* p) {
+  return rnn::make_walk_plan(H, B, 4, rnn::kFwdKT, 4 * rnn::res_ld(H, rnn::kFwdKT), 6, 2, p);
 }
 
 // The backward walk's layout: dh and dc carries per cell, the mask and the
 // valid-row list per row
 cudaError_t make_bwd_plan(int H, int B, rnn::WalkPlan* p) {
-  return rnn::make_walk_plan(H, B, rnn::res_ld(4 * H), 2, 2, p);
+  return rnn::make_walk_plan(H, B, 1, rnn::kKT, rnn::res_ld(4 * H, rnn::kKT), 2, 2, p);
 }
 
 // dW and db as one reduction problem over the valid (t, b) rows
@@ -493,49 +404,20 @@ bool bad_shape(int T, int B, int H) {
   return T <= 0 || B <= 0 || H <= 0 || (size_t)T * B * 4 * H >= (size_t)1 << 31;
 }
 
-// dynamic shared memory above 48 KB must be opted into per kernel
-cudaError_t set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-cudaError_t launch(const void* fn, int blocks, int threads, size_t smem, void** args,
-                   cudaStream_t st) {
-  cudaError_t err = set_smem(fn, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args, smem, st);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-template <int U>
-const void* fwd_fn(bool smem_w) {
-  return smem_w ? (const void*)lstm_fwd_kernel<U, true> : (const void*)lstm_fwd_kernel<U, false>;
-}
-
-const void* pick_fwd(const Plan& p) {
-  switch (p.units) {
-    case 1: return fwd_fn<1>(p.smem_w);
-    case 2: return fwd_fn<2>(p.smem_w);
-    case 4: return fwd_fn<4>(p.smem_w);
-    case 8: return fwd_fn<8>(p.smem_w);
-    default: return fwd_fn<16>(p.smem_w);
+// the kernels' instances, for rnn::pick_kernel
+struct FwdKernel {
+  template <int U, bool kResW, bool kVec>
+  const void* operator()(rnn::Inst<U, kResW, kVec>) const {
+    return (const void*)lstm_fwd_kernel<U, kResW, kVec>;
   }
-}
+};
 
-template <int U>
-const void* bwd_fn(bool w_res) {
-  return w_res ? (const void*)lstm_bwd_kernel<U, true> : (const void*)lstm_bwd_kernel<U, false>;
-}
-
-const void* pick_bwd(const rnn::WalkPlan& p) {
-  switch (p.units) {
-    case 4: return bwd_fn<4>(p.w_res);
-    case 8: return bwd_fn<8>(p.w_res);
-    case 16: return bwd_fn<16>(p.w_res);
-    default: return bwd_fn<32>(p.w_res);
+struct BwdKernel {  // no kVec: 4H is a multiple of 4
+  template <int U, bool kResW, bool kVec>
+  const void* operator()(rnn::Inst<U, kResW, kVec>) const {
+    return (const void*)lstm_bwd_kernel<U, kResW>;
   }
-}
+};
 
 }  // namespace
 
@@ -544,25 +426,25 @@ const void* pick_bwd(const rnn::WalkPlan& p) {
 // out is cudaErrorInvalidValue, and a cooperative grid that cannot be
 // co-resident is refused (cudaErrorCooperativeLaunchTooLarge), never run.
 
-// The layouts chosen for (T, B, H), into out[10]: the forward's units per
-// block, blocks and W in shared memory (1) or read through L1/L2 (0); the
-// backward walk's units per block, row groups, rows per group, blocks and
-// W resident (1) or staged per k tile (0); the dW reduction's splits of
-// the T*B rows; and the floats of scratch the backward entry point takes.
+// The layouts chosen for (T, B, H), into out[12]: the forward's units per
+// block, row groups, rows per group, blocks and W resident (1) or staged
+// per k tile (0); the same five for the backward walk; the dW reduction's
+// splits of the T*B rows; and the floats of scratch the backward entry
+// point takes.
 extern "C" int lstm_seq_plan(int T, int B, int H, long long* out) {
   if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
-  Plan p;
-  rnn::WalkPlan w;
+  rnn::WalkPlan f, w;
   int sms = 0;
-  cudaError_t err = make_plan(H, B, &p);
+  cudaError_t err = make_fwd_plan(H, B, &f);
   if (err == cudaSuccess) err = make_bwd_plan(H, B, &w);
-  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err == cudaSuccess) err = rnn::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   rnn::DwArgs a = dw_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, T, B, H, 0);
   const size_t scratch = rnn::dw_prepare(&a, nullptr, sms);
-  const long long v[10] = {p.units, p.blocks, p.smem_w, w.units,  w.row_groups,
-                           w.rows,  w.blocks, w.w_res,  a.splits, (long long)scratch};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  const long long v[12] = {f.units,  f.row_groups, f.rows,   f.blocks,   f.w_res,
+                           w.units,  w.row_groups, w.rows,   w.blocks,   w.w_res,
+                           a.splits, (long long)scratch};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -571,13 +453,28 @@ extern "C" int lstm_seq_fwd_f32(const float* proj, const float* mask, const floa
                                 float* hs, float* gates, float* ct, float* cs, int T, int B,
                                 int H, int reverse, void* stream) {
   if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
-  Plan p;
-  cudaError_t err = make_plan(H, B, &p);
+  rnn::WalkPlan p;
+  cudaError_t err = make_fwd_plan(H, B, &p);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&proj, &mask, &w_hh, &bias, &h0, &c0, &hs, &gates, &ct, &cs,
-                  &T, &B, &H, &reverse};
-  return (int)launch(pick_fwd(p), p.blocks, kThreads, p.fwd_smem, args,
-                     static_cast<cudaStream_t>(stream));
+  int R = p.rows, ug = p.unit_groups;
+  void* args[] = {&proj, &mask, &w_hh, &bias, &h0, &c0, &hs, &gates, &ct,
+                  &cs,   &T,    &B,    &H,    &R,  &ug, &reverse};
+  return (int)rnn::launch(rnn::pick_kernel(p, (H & 3) == 0, FwdKernel{}), p.blocks, p.smem,
+                          args, static_cast<cudaStream_t>(stream));
+}
+
+// The forward's step loop with nothing but its grid syncs (one a step),
+// at the forward's own grid for (T, B, H): the synchronisation's share of
+// a forward step.
+extern "C" int lstm_seq_fwd_sync_f32(int T, int B, int H, void* stream) {
+  if (bad_shape(T, B, H)) return (int)cudaErrorInvalidValue;
+  rnn::WalkPlan p;
+  cudaError_t err = make_fwd_plan(H, B, &p);
+  if (err != cudaSuccess) return (int)err;
+  int per_step = 1;
+  void* args[] = {&T, &per_step};
+  return (int)rnn::launch((const void*)rnn::sync_steps_kernel, p.blocks, p.smem, args,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // `scratch` holds the dW reduction's partial sums and its list of valid
@@ -592,13 +489,13 @@ extern "C" int lstm_seq_bwd_f32(const float* gates, const float* ct, const float
   rnn::WalkPlan w;
   int sms = 0;
   cudaError_t err = make_bwd_plan(H, B, &w);
-  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err == cudaSuccess) err = rnn::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int R = w.rows, ug = w.unit_groups;
   void* args[] = {&gates, &ct,  &cs,  &c0, &mask, &w_hh, &dhs, &dh_last, &dc_last,
                   &dproj, &dh0, &dc0, &T,  &B,    &H,    &R,   &ug,      &reverse};
-  err = launch(pick_bwd(w), w.blocks, rnn::kWalkThreads, w.smem, args, st);
+  err = rnn::launch(rnn::pick_kernel(w, true, BwdKernel{}), w.blocks, w.smem, args, st);
   if (err != cudaSuccess) return (int)err;
   rnn::DwArgs a = dw_args(hs, h0, mask, dproj, dw, db, T, B, H, reverse);
   rnn::dw_prepare(&a, scratch, sms);

@@ -19,8 +19,12 @@ Dispatch follows the JAX package's `_use_fused` activation test alone:
   * `gru_scan` always runs `gru_seq_fused`: the port's GRU takes only the
     reference defaults (sigmoid gates, tanh candidate).
 The JAX package's VMEM limit (`PADDLE_TPU_FUSED_RNN_MAX_BH`) and its
-`pal.enabled()` switch have no counterpart: the CUDA kernels have no such
-limit, and a CUDA tensor never takes a plain version."""
+`pal.enabled()` switch have no counterpart, and a CUDA tensor never takes a
+plain version. The CUDA kernels' only limit is their layout plan's: every
+block holds up to 32 hidden units of a row group, one block per SM (H up
+to 32 x the SM count), with the row group's state in shared memory;
+`rnn_kernels.gru_seq_plan` / `lstm_seq_plan` report the layout of a shape
+and raise where none exists."""
 
 from __future__ import annotations
 

@@ -32,7 +32,9 @@ back in the primals' dtypes.
 
 `FWD_LAUNCHES` / `BWD_LAUNCHES` (GRU), `LSTM_FWD_LAUNCHES` /
 `LSTM_BWD_LAUNCHES` and `ATTN_LAUNCHES` count entry-point launches (never
-plain-version calls)."""
+plain-version calls). `gru_seq_plan` / `lstm_seq_plan` report the kernels'
+layouts on the card, and `gru_seq_fwd_sync` / `lstm_seq_fwd_sync` run a
+forward's grid syncs alone (a measuring probe, on no model's path)."""
 
 from __future__ import annotations
 
@@ -209,20 +211,29 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-_PLAN_KEYS = ("units", "blocks", "w_in_smem", "bwd_units", "bwd_row_groups",
-              "bwd_rows_per_group", "bwd_blocks", "bwd_w_resident", "dw_split_k",
-              "scratch_floats")
+_PLAN_KEYS = ("fwd_units", "fwd_row_groups", "fwd_rows_per_group", "fwd_blocks",
+              "fwd_w_resident", "bwd_units", "bwd_row_groups", "bwd_rows_per_group",
+              "bwd_blocks", "bwd_w_resident", "dw_split_k", "scratch_floats")
 _plans: dict = {}
 
 
+def _plan_dict(values) -> dict:
+    """`<source>_plan`'s numbers by name, the W-resident flags as bools."""
+    plan = {k: int(v) for k, v in zip(_PLAN_KEYS, values, strict=True)}
+    for k in ("fwd_w_resident", "bwd_w_resident"):
+        plan[k] = bool(plan[k])
+    return plan
+
+
 def _plan(source: str, t: int, b: int, h: int, device=None) -> dict:
-    """The layouts `<source>_plan` chooses for (T, B, H) on `device`'s card:
-    the forward's hidden units per block, blocks (one per SM at most) and
-    whether W sits in shared memory; the backward walk's units per block,
-    row groups, rows per group, blocks and whether its W rows stay resident
-    (else they are staged per k tile); the dW reduction's split of the T*B
-    rows; and the scratch floats the backward takes. Raises where no layout
-    exists. Cached per (card, shape)."""
+    """The layouts `<source>_plan` chooses for (T, B, H) on `device`'s card.
+    The forward and the backward walk are each a grid of (row group, unit
+    group) blocks, one per SM at most: units per block, row groups, rows
+    per group, blocks and whether the block's W stays resident in shared
+    memory (else it is staged per k tile), as `fwd_*` and `bwd_*`; then
+    the dW reduction's split of the T*B rows and the scratch floats the
+    backward takes. Raises where no layout exists. Cached per (card,
+    shape)."""
     dev = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     key = (source, index, t, b, h)
@@ -235,10 +246,23 @@ def _plan(source: str, t: int, b: int, h: int, device=None) -> dict:
         if rc != 0:
             raise ValueError(f"the {source} kernels have no layout for T={t}, B={b}, H={h} "
                              f"on this card (CUDA error {rc})")
-        plan = _plans[key] = {k: int(v) for k, v in zip(_PLAN_KEYS, out)}
-        for k in ("w_in_smem", "bwd_w_resident"):
-            plan[k] = bool(plan[k])
+        plan = _plans[key] = _plan_dict(out)
     return dict(plan)
+
+
+def _fwd_sync(source: str, t: int, b: int, h: int, device=None) -> None:
+    """Launch `<source>_fwd_sync_f32`: the forward's step loop for (T, B, H)
+    with nothing but its grid syncs, on the forward's own grid, on the
+    current stream of `device`'s card. A measuring probe (chip_smoke.py
+    times it beside the forward), never on a model's path."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise ValueError(f"the {source} sync probe runs on a CUDA device, got {dev}")
+    fn = _entry(source, f"{source}_fwd_sync_f32", 0, (_I, _I, _I, _P))
+    with torch.cuda.device(dev):
+        rc = fn(t, b, h, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{source} sync probe launch failed: CUDA error {rc}")
 
 
 def gru_seq_plan(h: int, b: int, t: int = 1, device=None) -> dict:
@@ -246,6 +270,12 @@ def gru_seq_plan(h: int, b: int, t: int = 1, device=None) -> dict:
     steps) on the current card; see `_plan`. Raises where no layout
     exists."""
     return _plan("gru_seq", t, b, h, device)
+
+
+def gru_seq_fwd_sync(h: int, b: int, t: int, device=None) -> None:
+    """The GRU forward's two grid syncs per step alone, T steps at its grid
+    for (H, B); see `_fwd_sync`."""
+    _fwd_sync("gru_seq", t, b, h, device)
 
 
 def gru_seq_fwd(proj, mask, w_hzr, w_hc, bias, h0, reverse: bool = False):
@@ -471,6 +501,12 @@ def lstm_seq_plan(h: int, b: int, t: int = 1, device=None) -> dict:
     steps, for the dW reduction) on the current card; see `_plan`. Raises
     where no layout exists."""
     return _plan("lstm_seq", t, b, h, device)
+
+
+def lstm_seq_fwd_sync(h: int, b: int, t: int, device=None) -> None:
+    """The LSTM forward's one grid sync per step alone, T steps at its grid
+    for (H, B); see `_fwd_sync`."""
+    _fwd_sync("lstm_seq", t, b, h, device)
 
 
 def lstm_seq_fwd(proj, mask, w_hh, bias, h0, c0, reverse: bool = False):

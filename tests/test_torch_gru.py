@@ -22,7 +22,12 @@ non-zero h0, both directions.
     plain walk (1e-5) and to the JAX kernel's VMEM sums (rtol 2e-3 / atol
     5e-3).
   * On a card (marked `cuda`, skipped here): each CUDA kernel vs its plain
-    version, and two backward calls give bit-identical dW and db. jax is imported inside the CPU tests only, so the `cuda` tests
+    version (hs and h_last at 1e-4, zrc at every row, masked ones too),
+    also with steps masked between valid ones (the forward keeps a row's
+    sums across them; the plain version carries h through them bit for
+    bit), two forward calls give bit-identical hs and zrc and two backward calls
+    bit-identical dW and db, gru_scan launches at H=1024, and the plans
+    lay both legs out as (row group, unit group) grids within the SMs. jax is imported inside the CPU tests only, so the `cuda` tests
     run where jax is absent."""
 
 import numpy as np
@@ -147,6 +152,30 @@ def _h_prev(hs, h0, reverse):
     return torch.cat([hs[1:], h0[None]]) if reverse else torch.cat([h0[None], hs[:-1]])
 
 
+def _holes_mask(b, t):
+    """[B, T] mask with masked steps between valid ones: a row masked
+    throughout, one valid throughout, one alternating, the rest random."""
+    mask = (np.random.RandomState(3).rand(b, t) < 0.6).astype(np.float32)
+    mask[0], mask[1], mask[2] = 0.0, 1.0, np.arange(t) % 2
+    return mask
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_masked_steps_carry_h_bit_for_bit(reverse):
+    """What the CUDA forward's skipped products rest on: at a masked step h
+    is h_prev exactly, so h_prev W_zr equals the product of the last step
+    at which the row was computed. Steps masked between valid ones."""
+    b, t = 6, 9
+    arrs, _ = _inputs(13, b, t, 8, (t,) * b)
+    mask = _holes_mask(b, t)
+    hs, _ = K.gru_seq_fused_ref(_tm(arrs["proj"]), _tm(mask), *(
+        torch.from_numpy(arrs[n]) for n in ("w_hzr", "w_hc", "bias", "h0")), reverse=reverse)
+    prev = torch.cat([hs[1:], torch.from_numpy(arrs["h0"])[None]]) if reverse else \
+        torch.cat([torch.from_numpy(arrs["h0"])[None], hs[:-1]])
+    masked = torch.from_numpy(mask.T == 0)
+    assert masked.any() and torch.equal(hs[masked], prev[masked])
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_masked_steps_are_exact(monkeypatch, reverse):
     """At a masked (t, b) the plain backward's dproj row is exactly 0 and
@@ -217,6 +246,11 @@ def test_cpu_path_launches_no_kernel():
     assert (K.FWD_LAUNCHES, K.BWD_LAUNCHES) == before
 
 
+def test_sync_probe_runs_only_on_a_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        K.gru_seq_fwd_sync(512, 128, 5, device="cpu")
+
+
 def test_kernel_wrappers_reject_cpu_tensors_and_bad_shapes():
     arrs, mask = _inputs(6)
     t = {n: torch.from_numpy(arrs[n]) for n in NAMES}
@@ -248,6 +282,13 @@ CARD_SHAPES = [  # b, t, h, lengths
     (128, 6, 512, tuple(1 + np.arange(128) % 6)),
     (37, 5, 512, tuple(1 + np.arange(37) % 5)),
     (1, 4, 512, (3,)),
+    # wider than one block per SM holds at 4 units (the forward's plan)
+    (64, 12, 1024, tuple(1 + np.arange(64) % 12)),
+    # lengths None: steps masked between valid ones (_holes_mask), across
+    # which the forward keeps a row's sums of h W_zr
+    (5, 9, 24, None),
+    (37, 9, 512, None),
+    (64, 6, 1024, None),
 ]
 
 
@@ -257,11 +298,14 @@ CARD_SHAPES = [  # b, t, h, lengths
 def test_cuda_kernels_match_plain_versions(cuda, b, t, h, lens, reverse):
     # wide layers at a smart-normal scale: at 0.3 the H=512 pre-activations
     # reach ~7 and f32 summation order alone moves hs by ~1e-4
-    arrs, mask = _inputs(7, b, t, h, lens, w_scale=0.3 * min(1.0, (64 / h) ** 0.5))
+    arrs, mask = _inputs(7, b, t, h, lens or (t,) * b, w_scale=0.3 * min(1.0, (64 / h) ** 0.5))
+    if lens is None:
+        mask = _holes_mask(b, t)
     args = [x.to(cuda) for x in (_tm(arrs["proj"]), _tm(mask))]
     args += [torch.from_numpy(arrs[n]).to(cuda) for n in ("w_hzr", "w_hc", "bias", "h0")]
     before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
     hs, zrc = K.gru_seq_fwd(*args, reverse=reverse)
+    hs2, zrc2 = K.gru_seq_fwd(*args, reverse=reverse)
     hs_ref, zrc_ref = K.gru_seq_fused_ref(*args, reverse=reverse)
     rs = np.random.RandomState(8)
     dhs = torch.from_numpy(rs.randn(t, b, h).astype(np.float32)).to(cuda)
@@ -271,10 +315,14 @@ def test_cuda_kernels_match_plain_versions(cuda, b, t, h, lens, reverse):
     want = K.gru_seq_bwd_ref(zrc_ref, hs_ref, *common, reverse=reverse)
     again = K.gru_seq_bwd(zrc, hs, *common, reverse=reverse)
     torch.cuda.synchronize()
-    assert (K.FWD_LAUNCHES, K.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
-    for name, a, b2 in zip(("dw_zr", "dw_c", "db"), got[1:4], again[1:4]):
+    assert (K.FWD_LAUNCHES, K.BWD_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    for name, a, b2 in zip(("hs", "zrc", "dw_zr", "dw_c", "db"), (hs, zrc, *got[1:4]),
+                           (hs2, zrc2, *again[1:4])):
         assert torch.equal(a, b2), f"{name} differs between two calls"  # no atomics
+    last = 0 if reverse else -1
     torch.testing.assert_close(hs, hs_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(hs[last], hs_ref[last], atol=1e-4, rtol=0)
+    # every row's gates, masked rows included: the backward reads them
     torch.testing.assert_close(zrc, zrc_ref, atol=1e-4, rtol=0)
     for name, a, w in zip(("dproj", "dw_zr", "dw_c", "db", "dh0"), got, want):
         tol = 1e-3 * max(1.0, float(w.abs().max()))
@@ -300,10 +348,46 @@ def test_cuda_gru_scan_goes_through_the_kernels(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_gru_plan_splits_rows_and_units(cuda):
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_gru_scan_launches_at_h1024(cuda, reverse):
+    """The forward at H=1024, B=64 (wider than one block per SM holds at
+    4 units) launches, and gru_scan through both kernels matches the plain
+    path on the CPU."""
+    b, t, h = 64, 12, 1024
+    arrs, mask = _inputs(14, b, t, h, tuple(1 + np.arange(b) % t),
+                         w_scale=0.3 * (64 / h) ** 0.5)
+    ts = {n: torch.tensor(arrs[n], device=cuda, requires_grad=True) for n in NAMES}
+    before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
+    hs, hl = trnn.gru_scan(ts["proj"], torch.tensor(mask, device=cuda),
+                           trnn.GruParams(ts["w_hzr"], ts["w_hc"], ts["bias"]),
+                           h0=ts["h0"], reverse=reverse)
+    _loss_torch(hs, hl).backward()
+    torch.cuda.synchronize()
+    assert (K.FWD_LAUNCHES, K.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    hs_c, hl_c, g_c = _torch_scan(arrs, mask, reverse)
+    np.testing.assert_allclose(hs.detach().cpu().numpy(), hs_c, atol=1e-4)
+    np.testing.assert_allclose(hl.detach().cpu().numpy(), hl_c, atol=1e-4)
+    for name, g in zip(NAMES, g_c):
+        np.testing.assert_allclose(ts[name].grad.cpu().numpy(), g,
+                                   atol=1e-3 * max(1.0, np.abs(g).max()), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,b", [(512, 128), (1024, 64)])
+def test_cuda_gru_plan_splits_rows_and_units(cuda, h, b):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    plan = K.gru_seq_plan(512, 128, 50)
-    assert plan["bwd_blocks"] == plan["bwd_row_groups"] * -(-512 // plan["bwd_units"])
-    assert plan["bwd_blocks"] <= sms and plan["bwd_row_groups"] > 1
-    assert plan["bwd_row_groups"] * plan["bwd_rows_per_group"] >= 128
+    plan = K.gru_seq_plan(h, b, 50)
+    for leg in ("fwd", "bwd"):
+        assert plan[f"{leg}_blocks"] == plan[f"{leg}_row_groups"] * -(-h // plan[f"{leg}_units"])
+        assert plan[f"{leg}_blocks"] <= sms
+        assert plan[f"{leg}_row_groups"] * plan[f"{leg}_rows_per_group"] >= b
+    if h == 512:  # the encoder's shape: rows split, W resident
+        assert plan["fwd_row_groups"] > 1 and plan["bwd_row_groups"] > 1
+        assert plan["fwd_w_resident"] and plan["bwd_w_resident"]
     assert plan["dw_split_k"] >= 1 and plan["scratch_floats"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_gru_sync_probe_runs(cuda):
+    K.gru_seq_fwd_sync(512, 128, 5)
+    torch.cuda.synchronize()

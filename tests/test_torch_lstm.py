@@ -23,7 +23,12 @@ non-zero h0 and c0, both directions.
     (or sum) over the flattened T*B rows, held to the plain walk (1e-5) and
     to the JAX kernel's VMEM sums (rtol 2e-3 / atol 5e-3).
   * On a card (marked `cuda`, skipped here): each CUDA kernel vs its plain
-    version, and two backward calls give bit-identical dW and db. jax is imported inside the CPU tests only, so the `cuda` tests
+    version (hs, gates, ct, cs at every row, masked ones too, and the last
+    h and c at 1e-4), also with steps masked between valid ones (the
+    forward keeps a row's sums across them; the plain version carries h
+    and c through them bit for bit), two forward calls give bit-identical
+    outputs and two backward calls bit-identical dW and db, and the plans
+    lay both legs out as (row group, unit group) grids within the SMs. jax is imported inside the CPU tests only, so the `cuda` tests
     run where jax is absent."""
 
 import numpy as np
@@ -174,6 +179,34 @@ def _tm_inputs(arrs, mask):
     return _tm(arrs["proj"]), _tm(mask), t["w_hh"], t["bias"], t["h0"], t["c0"]
 
 
+def _holes_mask(b, t):
+    """[B, T] mask with masked steps between valid ones: a row masked
+    throughout, one valid throughout, one alternating, the rest random."""
+    mask = (np.random.RandomState(3).rand(b, t) < 0.6).astype(np.float32)
+    mask[0], mask[1], mask[2] = 0.0, 1.0, np.arange(t) % 2
+    return mask
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_masked_steps_carry_state_bit_for_bit(reverse):
+    """What the CUDA forward's skipped products rest on: at a masked step h
+    and c are the previous step's exactly, so h_prev W equals the product
+    of the last step at which the row was computed. Steps masked between
+    valid ones."""
+    b, t = 6, 9
+    arrs, _ = _inputs(13, b, t, 8, (t,) * b)
+    mask = _holes_mask(b, t)
+    h0, c0 = (torch.from_numpy(arrs[n]) for n in ("h0", "c0"))
+    hs, _, _, cs = K.lstm_seq_fused_ref(
+        _tm(arrs["proj"]), _tm(mask), torch.from_numpy(arrs["w_hh"]),
+        torch.from_numpy(arrs["bias"]), h0, c0, reverse=reverse)
+    masked = torch.from_numpy(mask.T == 0)
+    assert masked.any()
+    for seq, x0 in ((hs, h0), (cs, c0)):
+        prev = torch.cat([seq[1:], x0[None]]) if reverse else torch.cat([x0[None], seq[:-1]])
+        assert torch.equal(seq[masked], prev[masked])
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_masked_steps_are_exact(monkeypatch, reverse):
     """At a masked (t, b) the plain backward's dproj row is exactly 0 and
@@ -244,6 +277,23 @@ def test_cpu_path_launches_no_kernel():
     before = (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES)
     _torch_scan(arrs, mask, True)
     assert (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES) == before
+
+
+def test_plan_dict_names_every_number():
+    """`<source>_plan`'s numbers map to their keys in order; the two
+    W-resident flags become bools, and a count that differs raises."""
+    plan = K._plan_dict([4, 2, 3, 8, 1, 16, 4, 32, 128, 0, 5, 999])
+    assert list(plan) == list(K._PLAN_KEYS)
+    assert plan["fwd_units"] == 4 and plan["fwd_blocks"] == 8 and plan["bwd_units"] == 16
+    assert plan["fwd_w_resident"] is True and plan["bwd_w_resident"] is False
+    assert plan["dw_split_k"] == 5 and plan["scratch_floats"] == 999
+    with pytest.raises(ValueError):
+        K._plan_dict(range(len(K._PLAN_KEYS) - 2))
+
+
+def test_sync_probe_runs_only_on_a_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        K.lstm_seq_fwd_sync(512, 128, 5, device="cpu")
 
 
 def test_kernel_wrappers_reject_cpu_tensors_and_bad_shapes():
@@ -332,6 +382,13 @@ CARD_SHAPES = [  # b, t, h, lengths
     (37, 4, 512, tuple(1 + np.arange(37) % 4)),
     (1, 3, 512, (2,)),
     (64, 3, 1280, tuple(1 + np.arange(64) % 3)),
+    # the text classifier's width and batch (4 row groups x 32 unit groups)
+    (128, 5, 512, tuple(1 + np.arange(128) % 5)),
+    # lengths None: steps masked between valid ones (_holes_mask), across
+    # which the forward keeps a row's sums of h W
+    (5, 9, 24, None),
+    (37, 9, 512, None),
+    (64, 3, 1280, None),
 ]
 
 
@@ -339,11 +396,14 @@ CARD_SHAPES = [  # b, t, h, lengths
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("b,t,h,lens", CARD_SHAPES)
 def test_cuda_kernels_match_plain_versions(cuda, b, t, h, lens, reverse):
-    arrs, mask = _inputs(7, b, t, h, lens)
+    arrs, mask = _inputs(7, b, t, h, lens or (t,) * b)
+    if lens is None:
+        mask = _holes_mask(b, t)
     args = [x.to(cuda) for x in (_tm(arrs["proj"]), _tm(mask))]
     args += [torch.from_numpy(arrs[n]).to(cuda) for n in ("w_hh", "bias", "h0", "c0")]
     before = (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES)
     got_f = K.lstm_seq_fwd(*args, reverse=reverse)
+    again_f = K.lstm_seq_fwd(*args, reverse=reverse)
     want_f = K.lstm_seq_fused_ref(*args, reverse=reverse)
     rs = np.random.RandomState(8)
     dhs, dhl, dcl = (torch.from_numpy(rs.randn(*s).astype(np.float32)).to(cuda)
@@ -353,11 +413,16 @@ def test_cuda_kernels_match_plain_versions(cuda, b, t, h, lens, reverse):
     want = K.lstm_seq_bwd_ref(*want_f[1:3], want_f[0], want_f[3], *tail, reverse=reverse)
     again = K.lstm_seq_bwd(*got_f[1:3], got_f[0], got_f[3], *tail, reverse=reverse)
     torch.cuda.synchronize()
-    assert (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
-    for name, a, b2 in zip(("dw", "db"), got[1:3], again[1:3]):
+    assert (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    for name, a, b2 in zip(("hs", "gates", "ct", "cs", "dw", "db"), (*got_f, *got[1:3]),
+                           (*again_f, *again[1:3])):
         assert torch.equal(a, b2), f"{name} differs between two calls"  # no atomics
+    # every row, masked rows included: the backward reads their residuals
     for name, a, w in zip(("hs", "gates", "ct", "cs"), got_f, want_f):
         torch.testing.assert_close(a, w, atol=1e-4, rtol=0, msg=name)
+    last = 0 if reverse else -1
+    for name, a, w in (("h_last", got_f[0], want_f[0]), ("c_last", got_f[3], want_f[3])):
+        torch.testing.assert_close(a[last], w[last], atol=1e-4, rtol=0, msg=name)
     for name, a, w in zip(("dproj", "dw", "db", "dh0", "dc0"), got, want):
         tol = 1e-3 * max(1.0, float(w.abs().max()))
         torch.testing.assert_close(a, w, atol=tol, rtol=0, msg=name)
@@ -380,9 +445,19 @@ def test_cuda_lstm_scan_goes_through_the_kernels(cuda):
 @pytest.mark.cuda
 def test_cuda_lstm_plan_splits_rows_and_units(cuda):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    plan = K.lstm_seq_plan(512, 128, 100)
-    assert plan["bwd_blocks"] == plan["bwd_row_groups"] * -(-512 // plan["bwd_units"])
-    assert plan["bwd_blocks"] <= sms and plan["bwd_row_groups"] > 1
-    assert plan["bwd_row_groups"] * plan["bwd_rows_per_group"] >= 128
-    assert plan["bwd_w_resident"] and plan["scratch_floats"] > 0
-    assert not K.lstm_seq_plan(1280, 64, 100)["bwd_w_resident"]
+    for h, b in ((512, 128), (1280, 64)):
+        plan = K.lstm_seq_plan(h, b, 100)
+        for leg in ("fwd", "bwd"):
+            assert plan[f"{leg}_blocks"] == (plan[f"{leg}_row_groups"]
+                                             * -(-h // plan[f"{leg}_units"]))
+            assert plan[f"{leg}_blocks"] <= sms and plan[f"{leg}_row_groups"] > 1
+            assert plan[f"{leg}_row_groups"] * plan[f"{leg}_rows_per_group"] >= b
+        # W resident at the text classifier's width, staged per k tile at 1280
+        assert plan["fwd_w_resident"] == plan["bwd_w_resident"] == (h == 512)
+        assert plan["scratch_floats"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_sync_probe_runs(cuda):
+    K.lstm_seq_fwd_sync(512, 128, 5)
+    torch.cuda.synchronize()
