@@ -9,7 +9,11 @@ Phases (any failure exits non-zero and prints no result line):
   3. kernels — each kernel's wrapper on card tensors vs its plain PyTorch
                version on the same tensors, at a small odd shape and at the
                main path's shapes: paged attention at GPT-2-small decode
-               shapes (max_abs_err <= 1e-4); the GRU forward (hs, h_last
+               shapes, S = 8 and 32 with ragged positions, S = 8 at the
+               decode profile's contexts of 16-34 tokens and S = 1 at
+               position 1023 (max_abs_err <= 1e-4, two calls
+               bit-identical, achieved TB/s, the wrapper's host µs per
+               call); the GRU forward (hs, h_last
                <= 1e-4) and backward (each of dproj, dW_zr, dW_c, db, dh0
                <= 1e-3 x max(1, max|plain|)) in both directions at
                T=7/B=5/H=24, at the seq2seq encoder's T=50/B=128/H=512
@@ -23,7 +27,8 @@ Phases (any failure exits non-zero and prints no result line):
                [B,1,Tk] and a [B,Tq,Tk] mask, each with a fully masked row,
                and at (32,512,512,64,64). Kernel, plain version and (where
                one exists) one PyTorch library call timed with CUDA events
-               (L2 flushed before each launch), beside the least time the
+               (L2 flushed and the card given a ~0.5 ms head start
+               before each launch), beside the least time the
                card could take (bytes or f32 operations over its peaks; a
                recurrent forward counts all T*B rows, since it writes every
                row's gates, a backward the valid steps only). For each
@@ -73,7 +78,15 @@ Phases (any failure exits non-zero and prints no result line):
                Tq=Tk=512, D=Dv=64 with a per-row mask: forward (1e-4) and
                q/k/v gradients (1e-4 x max(1, max|g|)) through the kernel vs
                the plain body, launches counted from 0.
-  9. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+  9. route   — the shapes the kernels do not take compute through the
+               plain routes and launch no kernel: lstm_scan at T=1, B=207,
+               H=1280 and gru_scan at T=3, B=249, H=1280 (no layout; vs
+               the CPU, 1e-4 and 1e-3 x max(1, max|g|)),
+               dot_product_attention(fused=None) at D=512/Dv=64 and Dv=257
+               (no fit; vs the plain body on the CPU, 1e-4 and 1e-4 x
+               max(1, max|g|)), fused=True raising there; and the first B
+               without a layout for each RNN at H = 512, 1024, 1280.
+ 10. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git)."""
@@ -146,16 +159,41 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_SLEEP_CYCLES = []
+
+
+def head_start_cycles(torch, ms: float = 0.5) -> int:
+    """GPU clock cycles of `torch.cuda._sleep` that take about `ms`
+    (measured once with CUDA events)."""
+    if not _SLEEP_CYCLES:
+        torch.cuda._sleep(1000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(1_000_000)
+        b.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES.append(int(ms * 1_000_000 / a.elapsed_time(b)))
+    return _SLEEP_CYCLES[0]
+
+
 def time_ms(torch, fn, flush, iters: int = 30) -> float:
     """Mean device ms per call: CUDA events around each call, with L2
     flushed (a 64 MiB write) before it, as a decode step that has read the
-    other layers' pages in between finds it."""
+    other layers' pages in between finds it. The card then spins ~0.5 ms
+    (`torch.cuda._sleep`) before the first event, so the host has queued
+    the call by the time the card reaches it: the interval holds the
+    card's time, not the wrapper's host overhead (a call whose host work
+    outlasts the card's, as a plain version's loop of small ops may, still
+    shows its host time). `host_us` reads the host's side."""
+    cycles = head_start_cycles(torch)
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -166,10 +204,34 @@ def time_ms(torch, fn, flush, iters: int = 30) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def paged_inputs(torch, seed, s, h, hd, ps, pmax, max_pos, dump_slot):
-    """Random ragged decode inputs on the card: shuffled physical pages,
-    partly filled last pages, unused table entries on dump page 0, and
-    (when `dump_slot`) a last slot at position 0 with an all-dump row."""
+def host_us(torch, fn, calls: int = 100, loops: int = 10):
+    """The host's side of a call, without flush or head start: µs to issue
+    one call (`calls` back to back, no sync), and wall µs per call of the
+    same loop run to its end (synchronised) — the larger of the host's and
+    the card's time a call, as a host-bound decode step meets it. Each the
+    least of `loops` loops: the host is shared, and other work only adds
+    (its CPU-time clock ticks too coarsely to read one call)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    issue, wall = [], []
+    for _ in range(loops):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        issue.append((t1 - t0) / calls * 1e6)
+        wall.append((t2 - t0) / calls * 1e6)
+    return min(issue), min(wall)
+
+
+def paged_inputs(torch, seed, s, h, hd, ps, pmax, min_pos, max_pos, dump_slot):
+    """Random ragged decode inputs on the card: positions drawn in
+    min_pos..max_pos, shuffled physical pages, partly filled last pages,
+    unused table entries on dump page 0, and (when `dump_slot`) a last slot
+    at position 0 with an all-dump row."""
     g = torch.Generator().manual_seed(seed)
     kd = h * hd
     n_pages = 1 + s * pmax
@@ -180,31 +242,69 @@ def paged_inputs(torch, seed, s, h, hd, ps, pmax, max_pos, dump_slot):
     bt = torch.zeros(s, pmax, dtype=torch.int32)
     pos = torch.zeros(s, dtype=torch.int32)
     for i in range(s - 1 if dump_slot else s):
-        p = int(torch.randint(0, max_pos + 1, (1,), generator=g))
+        p = int(torch.randint(min_pos, max_pos + 1, (1,), generator=g))
         n = p // ps + 1
         bt[i, :n] = torch.tensor([free.pop() for _ in range(n)], dtype=torch.int32)
         pos[i] = p
     return [t.cuda() for t in (q, kp, vp, bt, pos)]
 
 
+def paged_parts_ms(torch, fn, flush, calls: int = 10):
+    """Device ms per paged-attention call by kernel, from torch.profiler over
+    `calls` calls with L2 flushed before each: the split grid and the merge
+    grid (a design with one kernel shows it as the split). Profiled again,
+    up to 3 windows, when the profiler records no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(calls):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        parts = {"split": 0.0, "merge": 0.0}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "paged_decode" in e.key:
+                part = "merge" if "merge" in e.key else "split"
+                parts[part] += e.self_device_time_total / 1e3 / calls
+        if parts["split"] > 0:
+            return parts
+    return None
+
+
+PAGED_SHAPES = (
+    # name, seed, S, H, hd, PS, P, positions drawn in min..max, dump slot
+    ("small_odd", 0, 5, 2, 8, 4, 7, 0, 27, True),
+    ("gpt2_small_s8", 1, 8, 12, 64, 16, 64, 0, 1023, False),
+    ("gpt2_small_s32", 2, 32, 12, 64, 16, 64, 0, 1023, False),
+    # one long request: the fewest slots to spread over the card
+    ("gpt2_small_s1_long", 3, 1, 12, 64, 16, 64, 1023, 1023, False),
+    # the decode profile's contexts (16-34 tokens): one run a slot
+    ("gpt2_small_s8_short", 4, 8, 12, 64, 16, 64, 15, 33, False),
+)
+
+
 def kernel_phase(torch, flush, bw, f32_flops):
+    """Paged attention vs its plain version at PAGED_SHAPES (1e-4, and two
+    calls bit-identical), timed beside the plain version, SDPA + gather and
+    the byte bound, with the achieved TB/s and the wrapper's host µs per
+    call. Uses the wrapper's public calls only, so it times any checkout's
+    package put first on sys.path."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    shapes = (
-        # name, seed, S, H, hd, PS, P, max position, dump slot
-        ("small_odd", 0, 5, 2, 8, 4, 7, 27, True),
-        ("gpt2_small_s8", 1, 8, 12, 64, 16, 64, 1023, False),
-        ("gpt2_small_s32", 2, 32, 12, 64, 16, 64, 1023, False),
-    )
     rows = []
-    for name, seed, s, h, hd, ps, pmax, max_pos, dump in shapes:
+    for name, seed, s, h, hd, ps, pmax, min_pos, max_pos, dump in PAGED_SHAPES:
         q, kp, vp, bt, pos = paged_inputs(torch, seed, s, h, hd, ps, pmax,
-                                          max_pos, dump)
+                                          min_pos, max_pos, dump)
         scale = 1.0 / hd ** 0.5
         kw = dict(scale=scale, n_heads=h)
         got = pa.paged_attention_decode(q, kp, vp, bt, pos, **kw)
+        again = pa.paged_attention_decode(q, kp, vp, bt, pos, **kw)
         want = pa.paged_attention_decode_ref(q, kp, vp, bt, pos, **kw)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -228,6 +328,10 @@ def kernel_phase(torch, flush, bw, f32_flops):
             lambda: pa.paged_attention_decode_ref(q, kp, vp, bt, pos, **kw),
             flush)
         library_ms = time_ms(torch, library, flush)
+        parts = paged_parts_ms(
+            torch, lambda: pa.paged_attention_decode(q, kp, vp, bt, pos, **kw), flush)
+        issue_us, loop_us = host_us(
+            torch, lambda: pa.paged_attention_decode(q, kp, vp, bt, pos, **kw))
         # least work: each visible K and V row read once, q/table/positions
         # read and out written once; 4 flops per visible token per KD element
         tokens = int((pos.long() + 1).clamp(max=t_ctx).sum())
@@ -238,15 +342,20 @@ def kernel_phase(torch, flush, bw, f32_flops):
         row = dict(
             shape=name, S=s, H=h, hd=hd, PS=ps, P=pmax,
             visible_tokens=tokens, max_abs_err=err, library_err=lib_err,
+            bit_identical=bool(torch.equal(got, again)),
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            parts_ms=parts, host_issue_us=issue_us, loop_us=loop_us,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
+            achieved_tb_s=nbytes / (kernel_ms * 1e-3) / 1e12,
             bytes=nbytes, operations=ops,
         )
         print("kernel", json.dumps(row), flush=True)
         if not err <= KERNEL_TOL:
             fail(f"paged_attention_decode vs plain at {name}: max_abs_err "
                  f"{err} > {KERNEL_TOL}")
+        if not row["bit_identical"]:
+            fail(f"paged_attention_decode at {name}: two calls differ")
         rows.append(row)
     return rows
 
@@ -689,6 +798,113 @@ def attn_path_phase(torch):
     bad = [k for k in errs if not errs[k] <= limits[k]]
     if bad:
         fail(f"dot_product_attention fused vs plain body differ in {bad}: {errs}")
+    return res
+
+
+def first_b_without_layout(fits, h: int, t: int = 1, hi: int = 4096):
+    """The smallest batch in [1, hi] whose (T, B, H) the kernels' plan cannot
+    lay out (None if it lays out all), by bisection: a larger batch only
+    needs more of a block's shared memory."""
+    if fits(h, hi, t):
+        return None
+    lo = 0  # fits(h, lo) holds (vacuously at 0)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(h, mid, t) else (lo, mid)
+    return hi
+
+
+def route_phase(torch):
+    """The shapes where the kernels have no layout or no fit compute on the
+    card through the plain routes and launch no recurrent or attention
+    kernel: lstm_scan at T=1, B=207, H=1280 and gru_scan at T=3, B=249,
+    H=1280 (outputs and every gradient vs the plain path on the CPU:
+    1e-4, and 1e-3 x max(1, max|g|)), dot_product_attention(fused=None) at
+    q, k [1,1,512] / v [1,1,64] and at Dv=257 (output and gradients vs the
+    plain body on the CPU: 1e-4, and 1e-4 x max(1, max|g|)), where
+    fused=True raises ValueError. Also where each plan
+    runs out on this card: the first B without a layout at H = 512, 1024,
+    1280."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import rnn as R
+    from paddle_tpu_torch.ops import rnn_kernels as K
+
+    def counters():
+        return (K.FWD_LAUNCHES, K.BWD_LAUNCHES, K.LSTM_FWD_LAUNCHES,
+                K.LSTM_BWD_LAUNCHES, K.ATTN_LAUNCHES)
+
+    res = {"first_b_without_layout": {
+        name: {h: first_b_without_layout(fits, h) for h in (512, 1024, 1280)}
+        for name, fits in (("lstm", K.lstm_seq_fits), ("gru", K.gru_seq_fits))}}
+    errs, limits = {}, {}
+    before = counters()
+
+    def rnn_case(name, t, b, h, gates, run):
+        g = torch.Generator().manual_seed(b + h)
+        x = {"proj": torch.randn(b, t, gates * h, generator=g),
+             "w": torch.randn(h, gates * h, generator=g) * (0.3 * (64 / h) ** 0.5),
+             "bias": torch.randn(gates * h, generator=g) * 0.1,
+             "h0": torch.randn(b, h, generator=g)}
+        mask = (torch.arange(t)[None, :] < 1 + torch.arange(b)[:, None] % t).float()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            xs = {k: v.to(dev).requires_grad_(True) for k, v in x.items()}
+            hs, h_last = run(xs, mask.to(dev))
+            grads = torch.autograd.grad((hs * hs).sum() + h_last.sum(), list(xs.values()))
+            out[dev] = [hs.detach().cpu(), h_last.detach().cpu()] + [gr.cpu() for gr in grads]
+        for i, (a, w) in enumerate(zip(out["cuda"], out["cpu"])):
+            key = f"{name}_{('hs', 'h_last', *x)[i]}"
+            errs[key] = float((a - w).abs().max())
+            limits[key] = KERNEL_TOL if i < 2 else 1e-3 * max(1.0, float(w.abs().max()))
+
+    def lstm(xs, mask):
+        hs, h_last, _ = R.lstm_scan(xs["proj"], mask, R.LstmParams(xs["w"], xs["bias"]),
+                                    h0=xs["h0"], c0=torch.zeros_like(xs["h0"]))
+        return hs, h_last
+
+    def gru(xs, mask):
+        h = xs["h0"].shape[1]
+        p = R.GruParams(xs["w"][:, :2 * h], xs["w"][:, 2 * h:], xs["bias"])
+        return R.gru_scan(xs["proj"], mask, p, h0=xs["h0"], reverse=True)
+
+    res["lstm_b207_h1280_fits"] = K.lstm_seq_fits(1280, 207, 1)
+    res["gru_b249_h1280_fits"] = K.gru_seq_fits(1280, 249, 3)
+    rnn_case("lstm", 1, 207, 1280, 4, lstm)
+    rnn_case("gru", 3, 249, 1280, 3, gru)
+    raised = {}
+    for name, (b, tq, tk, d, dv) in (("attn_d512", (1, 1, 1, 512, 64)),
+                                     ("attn_dv257", (2, 5, 9, 16, 257))):
+        q, k, v, mask = attn_inputs(torch, 35, b, tq, tk, d, dv, True)
+        outs = {}
+        # the route on the card against the plain body on the CPU
+        for dev, fused in (("cuda", None), ("cpu", False)):
+            xs = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+            o = A.dot_product_attention(*xs, mask=mask.to(dev), fused=fused)
+            outs[dev] = [t.cpu() for t in
+                         [o.detach()] + list(torch.autograd.grad((o * o).sum(), xs))]
+        for i, part in enumerate(("out", "dq", "dk", "dv")):
+            a, w = outs["cuda"][i], outs["cpu"][i]
+            errs[f"{name}_{part}"] = float((a - w).abs().max())
+            limits[f"{name}_{part}"] = ATTN_TOL * (1.0 if i == 0 else
+                                                   max(1.0, float(w.abs().max())))
+        try:
+            A.dot_product_attention(q, k, v, mask=mask, fused=True)
+            raised[name] = None
+        except ValueError as e:
+            raised[name] = str(e)
+    torch.cuda.synchronize()
+    res.update(kernel_launches=[a - b for a, b in zip(counters(), before)],
+               errors=errs, limits=limits, fused_true_raised=raised)
+    print("route", json.dumps(res), flush=True)
+    if res["lstm_b207_h1280_fits"] or res["gru_b249_h1280_fits"]:
+        fail(f"the fault shapes now have a layout: {res}")
+    if any(res["kernel_launches"]):
+        fail(f"the plain routes launched kernels: {res['kernel_launches']}")
+    bad = [k for k in errs if not errs[k] <= limits[k]]
+    if bad:
+        fail(f"plain routes on the card differ from their references in {bad}: {errs}")
+    if not all(raised.values()):
+        fail(f"dot_product_attention(fused=True) did not raise: {raised}")
     return res
 
 
@@ -1221,8 +1437,12 @@ def main() -> int:
     lstm_vs_cpu = lstm_vs_cpu_phase(torch)
     # 8. dot_product_attention, the fused op's own path (launches from 0)
     attn_path = attn_path_phase(torch)
+    # 9. the plain routes where the kernels have no layout or no fit
+    route = route_phase(torch)
 
-    # 9. lines
+    # 10. lines
+    from paddle_tpu_torch.ops import paged_attention as pa
+
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
     kernels = [{
         "name": "paged_attention_decode",
@@ -1237,6 +1457,10 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "achieved_tb_s": main_row["achieved_tb_s"],
+        "plan": pa.split_plan(
+            *(main_row[k] for k in ("S", "H", "hd", "PS", "P")),
+            torch.cuda.get_device_properties(0).multi_processor_count)._asdict(),
         "shape": main_row["shape"],
         "shapes": rows,
     }]
@@ -1337,7 +1561,7 @@ def main() -> int:
         json.dump({"nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
                    "serve": serve, "train": train, "train_vs_cpu": train_vs_cpu,
                    "lstm_train": lstm_train, "lstm_vs_cpu": lstm_vs_cpu,
-                   "attn_path": attn_path},
+                   "attn_path": attn_path, "route": route},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

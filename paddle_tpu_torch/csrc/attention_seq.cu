@@ -198,6 +198,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 
 }  // namespace
 
+// The shared memory the kernel takes at (D, Dv), for the wrapper's fit test
+// (ops/rnn_kernels.attention_seq_smem_bytes is its copy, held equal by the
+// cuda tests).
+extern "C" int attention_seq_smem_bytes(int D, int Dv) { return (int)smem_bytes(D, Dv); }
+
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
 // synchronise, returns the first CUDA error. Dv above 256, or D and Dv
 // whose tiles exceed 227 KB of shared memory, are cudaErrorInvalidValue.

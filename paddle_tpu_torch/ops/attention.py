@@ -5,8 +5,8 @@ Additive (Bahdanau) attention is plain PyTorch: the JAX package runs it per
 decoder step inside a `lax.scan`, with no Pallas kernel. Scaled dot-product
 attention dispatches to the fused op (`ops/rnn_kernels.attention_seq_fused`:
 the CUDA kernel for CUDA tensors, its plain version for CPU tensors)
-whenever the scale is static; the plain body below is the oracle and the
-source of the fused op's backward."""
+where the scale is static and the kernel takes the shape; the plain body
+below is the oracle and the source of the fused op's backward."""
 
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import torch
 
 from paddle_tpu_torch.ops import linalg
 from paddle_tpu_torch.ops import sequence as seq_ops
-from paddle_tpu_torch.ops.rnn_kernels import attention_seq_fused
+from paddle_tpu_torch.ops.rnn_kernels import (
+    attention_seq_fits, attention_seq_fused, attention_seq_misfit)
 
 
 def additive_scores(
@@ -60,13 +61,24 @@ def dot_product_attention(
     kept where mask > 0 and replaced by NEG_INF elsewhere, the softmax is
     f32.
 
-    `fused=None` takes the fused op whenever `scale` is static (None or a
-    Python number); a tensor scale runs the plain body. The JAX package's
-    VMEM budget (`PADDLE_TPU_FUSED_ATTN_MAX`) has no counterpart: the CUDA
-    kernel walks the keys in tiles. `fused=False` runs the plain body."""
+    `fused=None` takes the fused op where `scale` is static (None or a
+    Python number) and the kernel takes the shape
+    (`rnn_kernels.attention_seq_fits`: Dv <= 256, its tiles at (D, Dv)
+    within a block's 227 KB of shared memory, B <= 65535), on either
+    device; otherwise the plain body, as the JAX package's `_attn_fuse_ok`
+    sends what its kernel cannot hold to the jnp body. That test takes the
+    place of the JAX package's VMEM budget (`PADDLE_TPU_FUSED_ATTN_MAX`),
+    which has no counterpart: the kernel walks the keys in tiles, so Tq and
+    Tk are free. `fused=True` raises a ValueError naming the limit on a
+    shape the kernel does not take; `fused=False` runs the plain body."""
     d = q.shape[-1]
     if fused is None:
-        fused = scale is None or isinstance(scale, (int, float))
+        fused = ((scale is None or isinstance(scale, (int, float)))
+                 and attention_seq_fits(q.shape[0], d, v.shape[-1]))
+    elif fused:
+        misfit = attention_seq_misfit(q.shape[0], d, v.shape[-1])
+        if misfit:
+            raise ValueError(f"dot_product_attention(fused=True): {misfit}")
     if fused:
         s = float(scale) if scale is not None else 1.0 / math.sqrt(d)
         m = (torch.ones((q.shape[0], 1, k.shape[1]), dtype=torch.float32, device=q.device)

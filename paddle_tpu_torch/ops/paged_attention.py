@@ -5,20 +5,28 @@ Counterpart of `paddle_tpu/ops/pallas/paged_attention.py`. The serving
 decode step attends, for every slot at once, over the slot's own pages of
 the paged KV cache: block-table row s maps logical page j to a physical
 page, and slot s sees logical tokens 0..positions[s] (sequence length is
-data, never shape). The kernel (`csrc/paged_attention.cu`) walks each
-slot's pages through its block-table row with an online f32 softmax and
-never builds the dense [S, P*PS, KD] gather; the plain version below is
-that dense gather + masked softmax, line for line the JAX package's oracle
-(`paddle_tpu/serving/model.py:617-627`).
+data, never shape). The kernel (`csrc/paged_attention.cu`) splits each
+slot's pages into runs (flash-decoding): a block copies one run's K/V rows
+for a group of heads into a shared-memory ring and keeps an online f32
+softmax, and a second small grid merges a slot's runs in a fixed order. It
+never builds the dense [S, P*PS, KD] gather. `split_plan` below lays the
+launch out from the shapes and the card's SM count alone; the kernel reads
+the positions on the device, so the host never waits on them. The plain
+version below is that dense gather + masked softmax, line for line the JAX
+package's oracle (`paddle_tpu/serving/model.py:617-627`).
 
 Dispatch is by where the tensors lie, nothing else: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise. `LAUNCHES` counts
 kernel launches (never plain-version calls), so a run can show that its
-decode steps went through the kernel."""
+decode steps went through the kernel (one per call, whatever the number
+of grids)."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -34,6 +42,68 @@ MAX_HEAD_DIM = 256
 LAUNCHES = 0
 
 _SOURCE = "paged_attention"
+
+# a block reads at most this many floats of a token's row (HG heads x hd)
+MAX_BLOCK_WIDTH = 256
+# tokens of a ring stage: about 32 KB of K and V rows, 8 to 64 tokens (the
+# kernel's ring holds 2 stages: one in flight while the block computes the
+# other; at hd=64 its 68 KB leave room for 3 blocks an SM)
+_TILE_BYTES = 32 * 1024
+# tokens of a run at most (the kernel keeps their pool rows on chip)
+_MAX_RUN = 2048
+# split blocks aimed at per SM, counting every table page as visible (about
+# half are at a typical decode step, which leaves ~2 resident blocks an SM)
+_BLOCKS_PER_SM = 4
+
+
+class SplitPlan(NamedTuple):
+    heads_per_block: int  # HG: a block's heads, a divisor of H
+    pages_per_split: int  # CP: logical pages of one run
+    tile_tokens: int      # TT: tokens of a ring stage
+    n_splits: int         # NC: runs of a slot, NC * CP >= P > (NC - 1) * CP
+
+    def scratch_floats(self, s: int, kd: int, n_heads: int) -> int:
+        """Each run's partial accumulator [S, NC, KD] and (max, sum) [S, NC, H, 2]."""
+        return s * self.n_splits * (kd + 2 * n_heads)
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(s: int, n_heads: int, head_dim: int, page_size: int,
+               pages_per_seq: int, sms: int) -> SplitPlan:
+    """How the kernel lays out S slots of H heads x hd over P pages of PS
+    tokens on a card of `sms` SMs: the most heads a block can hold (its row
+    of HG*hd floats at most 256), a tile of ~32 KB of K and V, and runs of
+    pages short enough that S x head groups x runs is about 4 blocks per SM
+    (at S=1 that is one page a run): with about half the table visible,
+    the active blocks fit on the card at once. Depends on shapes only,
+    never on the positions."""
+    hg = max(d for d in range(1, n_heads + 1)
+             if n_heads % d == 0 and d * head_dim <= MAX_BLOCK_WIDTH)
+    width = hg * head_dim
+    tile = 1 << max(0, (_TILE_BYTES // (8 * width)).bit_length() - 1)
+    tile = min(64, max(4, tile))
+    units = s * (n_heads // hg)
+    splits = min(pages_per_seq, max(1, math.ceil(_BLOCKS_PER_SM * sms / units)))
+    # a run's tokens keep their pool rows in shared memory: at most 2048
+    per = min(math.ceil(pages_per_seq / splits), max(1, _MAX_RUN // page_size))
+    return SplitPlan(hg, per, tile, math.ceil(pages_per_seq / per))
+
+
+def split_pages(plan: SplitPlan, pages_per_seq: int) -> List[Tuple[int, int]]:
+    """The [first, end) logical pages of each run, in the kernel's order."""
+    cp = plan.pages_per_split
+    return [(c * cp, min((c + 1) * cp, pages_per_seq)) for c in range(plan.n_splits)]
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = torch.cuda.current_device() if device.index is None else device.index
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
 
 
 def paged_attention_decode_ref(
@@ -87,8 +157,8 @@ def check_inputs(q, k_pages, v_pages, block_table, positions, n_heads) -> None:
         raise ValueError(f"KD={kd} is not a multiple of n_heads={n_heads}")
     if kd // n_heads > MAX_HEAD_DIM:
         raise ValueError(
-            f"head_dim {kd // n_heads} > {MAX_HEAD_DIM}: the kernel keeps a "
-            "head's query in 8 registers per lane"
+            f"head_dim {kd // n_heads} > {MAX_HEAD_DIM}: a kernel block reads "
+            "at most 256 floats of a token's row"
         )
     for name, t, dt in (
         ("q", q, torch.float32), ("k_pages", k_pages, torch.float32),
@@ -111,7 +181,7 @@ def load_kernel():
     fn = build.load(_SOURCE).paged_attention_decode_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p] * 7 + [i] * 9 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -128,7 +198,8 @@ def paged_attention_decode(
 ) -> torch.Tensor:
     """One decode step of ragged paged attention for all slots -> [S, KD]
     f32. CPU tensors: the plain version. CUDA tensors: the kernel, launched
-    on the current stream, or an error — never the plain version."""
+    on the current stream with `split_plan`'s layout for these shapes and
+    this card, or an error — never the plain version."""
     global LAUNCHES
     if q.device.type == "cpu":
         return paged_attention_decode_ref(
@@ -142,12 +213,18 @@ def paged_attention_decode(
         )
     check_inputs(q, k_pages, v_pages, block_table, positions, n_heads)
     s, kd = q.shape
-    out = torch.empty((s, kd), dtype=torch.float32, device=q.device)
+    hd, ps, pmax = kd // n_heads, k_pages.shape[1], block_table.shape[1]
+    plan = split_plan(s, n_heads, hd, ps, pmax, _sm_count(q.device))
+    # one allocation: the output's S rows, then rows for the runs' partials
+    # (16-byte aligned wherever the kernel copies 16 bytes: KD % 4 == 0)
+    buf = torch.empty((s + -(-plan.scratch_floats(s, kd, n_heads) // kd), kd),
+                      dtype=torch.float32, device=q.device)
+    out = buf[:s]
     rc = load_kernel()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        s, n_heads, kd // n_heads, k_pages.shape[1], block_table.shape[1],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        buf.data_ptr() + 4 * s * kd, s, n_heads, hd, ps, pmax, *plan, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(

@@ -9,32 +9,49 @@ reset gate multiplies the RECURRENT candidate term, c = tanh(p_c + (r*h)
 W_c) (GruCompute / hl_gpu_gru.cuh semantics). Masked steps carry the state
 through.
 
-Dispatch follows the JAX package's `_use_fused` activation test alone:
-  * `lstm_scan` runs the fused whole-sequence op
-    (`ops/rnn_kernels.lstm_seq_fused`: the CUDA kernels for CUDA tensors,
-    their plain versions for CPU tensors) for sigmoid gates, tanh cell and
-    state, no peepholes and no `return_cell_seq`; every other configuration
-    runs the plain step loop on either device, as the JAX package runs
-    `lax.scan` for it on the TPU.
-  * `gru_scan` always runs `gru_seq_fused`: the port's GRU takes only the
-    reference defaults (sigmoid gates, tanh candidate).
-The JAX package's VMEM limit (`PADDLE_TPU_FUSED_RNN_MAX_BH`) and its
-`pal.enabled()` switch have no counterpart, and a CUDA tensor never takes a
-plain version. The CUDA kernels' only limit is their layout plan's: every
-block holds up to 32 hidden units of a row group, one block per SM (H up
-to 32 x the SM count), with the row group's state in shared memory;
-`rnn_kernels.gru_seq_plan` / `lstm_seq_plan` report the layout of a shape
-and raise where none exists."""
+Dispatch mirrors the JAX package's `_use_fused`: the activation test first,
+then a shape test.
+  * `lstm_scan` takes the fused whole-sequence op
+    (`ops/rnn_kernels.lstm_seq_fused`) for sigmoid gates, tanh cell and
+    state, no peepholes and no `return_cell_seq`; `gru_scan` (the port's GRU
+    takes only the reference defaults: sigmoid gates, tanh candidate)
+    always passes this test. Every other LSTM runs the plain step loop
+    (`lstm_step_loop`) on either device, as the JAX package runs `lax.scan`
+    for it on the TPU.
+  * CPU tensors that pass take the fused op's plain versions. CUDA tensors
+    that pass take the fused op's kernels where the kernels' static layout
+    plan has a layout for (T, B, H) (`rnn_kernels.lstm_seq_fits` /
+    `gru_seq_fits`, the return code of the C plan entry points, read once
+    per shape), and the step loop (`lstm_step_loop` / `gru_step_loop`:
+    masked carry, autograd for the gradient) where it has none. The plan
+    keeps a row group's per-cell state in shared memory, one block per SM,
+    so on a 132-SM card it runs out at large B*H: the first batch without
+    a layout is, at H = 512 / 1024 / 1280, 1266 / 574 / 207 for the LSTM
+    forward and 1333 / 638 / 249 for the GRU backward (the GRU forward and
+    the LSTM backward go further; either leg without a layout routes both).
+    This takes the place of the JAX package's B*H budget
+    (`PADDLE_TPU_FUSED_RNN_MAX_BH`, a TPU VMEM number), which has no
+    counterpart, nor has its `pal.enabled()` switch: the route reads no
+    environment and never catches a kernel's error."""
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from paddle_tpu_torch.nn import activations as act_mod
-from paddle_tpu_torch.ops import linalg
+from paddle_tpu_torch.ops import linalg, rnn_kernels
 from paddle_tpu_torch.ops.rnn_kernels import gru_seq_fused, lstm_seq_fused
+
+
+def takes_fused(device: torch.device, fits: Callable[..., bool], hdim: int, b: int,
+                t: int) -> bool:
+    """The shape test of the route: tensors off the card always take the
+    fused op (on the CPU its plain versions); on a CUDA device it is taken
+    where `fits` (the kernels' layout plan) says the kernels lay out
+    (T, B, H) on that card."""
+    return device.type != "cuda" or fits(hdim, b, t, device)
 
 
 class LstmParams(NamedTuple):
@@ -94,11 +111,32 @@ def lstm_scan(
         c0 = torch.zeros((b, hdim), dtype=proj.dtype, device=proj.device)
     standard = (gate_act == "sigmoid" and cell_act == "tanh" and state_act == "tanh"
                 and p.check_i is None and p.check_f is None and p.check_o is None)
-    if standard and not return_cell_seq:
+    if (standard and not return_cell_seq
+            and takes_fused(proj.device, rnn_kernels.lstm_seq_fits, hdim, b, t_len)):
         hs, h_last, c_last = lstm_seq_fused(
             proj.transpose(0, 1), mask.transpose(0, 1), p.w_hh, p.bias, h0, c0, reverse)
         return (hs.transpose(0, 1).to(proj.dtype), h_last.to(proj.dtype),
                 c_last.to(proj.dtype))
+    return lstm_step_loop(proj, mask, p, h0, c0, reverse, gate_act, cell_act, state_act,
+                          return_cell_seq)
+
+
+def lstm_step_loop(
+    proj: torch.Tensor,  # [B, T, 4H]
+    mask: torch.Tensor,  # [B, T]
+    p: LstmParams,
+    h0: torch.Tensor,
+    c0: torch.Tensor,
+    reverse: bool = False,
+    gate_act: act_mod.ActLike = "sigmoid",
+    cell_act: act_mod.ActLike = "tanh",
+    state_act: act_mod.ActLike = "tanh",
+    return_cell_seq: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`lstm_scan` as a loop of `lstm_step` over time (the JAX package's
+    `lax.scan` branch); masked steps carry (h, c). Autograd gives the
+    gradient."""
+    t_len = proj.shape[1]
     h, c = h0, c0
     hs: List[Optional[torch.Tensor]] = [None] * t_len
     cs: List[Optional[torch.Tensor]] = [None] * t_len
@@ -140,12 +178,35 @@ def gru_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence GRU -> (h_seq [B, T, H], h_last [B, H]). Batch-major in
     and out, time-major inside the fused op."""
-    b, _, h3 = proj.shape
+    b, t_len, h3 = proj.shape
     hdim = h3 // 3
     if h0 is None:
         h0 = torch.zeros((b, hdim), dtype=proj.dtype, device=proj.device)
+    if not takes_fused(proj.device, rnn_kernels.gru_seq_fits, hdim, b, t_len):
+        return gru_step_loop(proj, mask, p, h0, reverse)
     hs, h_last = gru_seq_fused(
         proj.transpose(0, 1), mask.transpose(0, 1), p.w_hzr, p.w_hc, p.bias,
         h0, reverse,
     )
     return hs.transpose(0, 1).to(proj.dtype), h_last.to(proj.dtype)
+
+
+def gru_step_loop(
+    proj: torch.Tensor,  # [B, T, 3H]
+    mask: torch.Tensor,  # [B, T]
+    p: GruParams,
+    h0: torch.Tensor,
+    reverse: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`gru_scan` as a loop of `gru_step` over time (the JAX package's
+    `lax.scan` branch); masked steps carry h. Autograd gives the gradient."""
+    t_len = proj.shape[1]
+    h = h0
+    hs: List[Optional[torch.Tensor]] = [None] * t_len
+    steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
+    for t in steps:
+        h_new = gru_step(proj[:, t], h, p)
+        m = mask[:, t, None].to(h_new.dtype)
+        h = m * h_new + (1 - m) * h
+        hs[t] = h
+    return torch.stack(hs, dim=1), h

@@ -39,7 +39,7 @@ forward's grid syncs alone (a measuring probe, on no model's path)."""
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,8 +54,11 @@ ATTN_LAUNCHES = 0
 
 # masked attention scores are replaced by this (ops/sequence.NEG_INF)
 _ATTN_NEG_INF = -1e9
-# the attention kernel keeps a query row's Dv accumulators in registers
+# the attention kernel's limits: a query row's Dv accumulators live in
+# registers, its tiles in one block's shared memory, the batch on grid y
 ATTN_MAX_DV = 256
+ATTN_MAX_SMEM = 227 * 1024
+ATTN_MAX_B = 65535
 
 
 # -- plain versions -----------------------------------------------------------
@@ -225,6 +228,34 @@ def _plan_dict(values) -> dict:
     return plan
 
 
+# cudaErrorInvalidValue: what a plan entry point returns for a shape it
+# cannot lay out
+_NO_LAYOUT = 1
+
+
+def _call_plan(source: str, index: int, t: int, b: int, h: int):
+    """One call of the C entry point `<source>_plan` on card `index` ->
+    (return code, its numbers)."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    fn = _entry(source, f"{source}_plan", 0, (_I, _I, _I, _P))
+    with torch.cuda.device(index):
+        rc = fn(t, b, h, out)
+    return rc, out
+
+
+def _plan_entry(source: str, t: int, b: int, h: int, device=None):
+    """(return code, numbers or None) of `<source>_plan` for (T, B, H) on
+    `device`'s card, read once per (card, shape)."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (source, index, t, b, h)
+    got = _plans.get(key)
+    if got is None:
+        rc, out = _call_plan(source, index, t, b, h)
+        got = _plans[key] = (rc, _plan_dict(out) if rc == 0 else None)
+    return got
+
+
 def _plan(source: str, t: int, b: int, h: int, device=None) -> dict:
     """The layouts `<source>_plan` chooses for (T, B, H) on `device`'s card.
     The forward and the backward walk are each a grid of (row group, unit
@@ -234,20 +265,23 @@ def _plan(source: str, t: int, b: int, h: int, device=None) -> dict:
     the dW reduction's split of the T*B rows and the scratch floats the
     backward takes. Raises where no layout exists. Cached per (card,
     shape)."""
-    dev = torch.device("cuda" if device is None else device)
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    key = (source, index, t, b, h)
-    plan = _plans.get(key)
-    if plan is None:
-        out = (ctypes.c_longlong * len(_PLAN_KEYS))()
-        fn = _entry(source, f"{source}_plan", 0, (_I, _I, _I, _P))
-        with torch.cuda.device(index):
-            rc = fn(t, b, h, out)
-        if rc != 0:
-            raise ValueError(f"the {source} kernels have no layout for T={t}, B={b}, H={h} "
-                             f"on this card (CUDA error {rc})")
-        plan = _plans[key] = _plan_dict(out)
+    rc, plan = _plan_entry(source, t, b, h, device)
+    if rc != 0:
+        raise ValueError(f"the {source} kernels have no layout for T={t}, B={b}, H={h} "
+                         f"on this card (CUDA error {rc})")
     return dict(plan)
+
+
+def _seq_fits(source: str, h: int, b: int, t: int, device=None) -> bool:
+    """Whether both `<source>` kernels (forward and backward) have a layout
+    for (T, B, H) on `device`'s card: the return code of `<source>_plan`,
+    cached as `_plan` is. False where the plan has no layout (a row group's
+    per-cell state outgrows a block's shared memory at large B*H); any
+    other CUDA error raises."""
+    rc, _ = _plan_entry(source, t, b, h, device)
+    if rc not in (0, _NO_LAYOUT):
+        raise RuntimeError(f"{source}_plan failed: CUDA error {rc}")
+    return rc == 0
 
 
 def _fwd_sync(source: str, t: int, b: int, h: int, device=None) -> None:
@@ -270,6 +304,12 @@ def gru_seq_plan(h: int, b: int, t: int = 1, device=None) -> dict:
     steps) on the current card; see `_plan`. Raises where no layout
     exists."""
     return _plan("gru_seq", t, b, h, device)
+
+
+def gru_seq_fits(h: int, b: int, t: int = 1, device=None) -> bool:
+    """Whether the GRU kernels lay out (T, B, H) on the card; see
+    `_seq_fits`. `ops/rnn.gru_scan` routes a CUDA tensor by it."""
+    return _seq_fits("gru_seq", h, b, t, device)
 
 
 def gru_seq_fwd_sync(h: int, b: int, t: int, device=None) -> None:
@@ -503,6 +543,12 @@ def lstm_seq_plan(h: int, b: int, t: int = 1, device=None) -> dict:
     return _plan("lstm_seq", t, b, h, device)
 
 
+def lstm_seq_fits(h: int, b: int, t: int = 1, device=None) -> bool:
+    """Whether the LSTM kernels lay out (T, B, H) on the card; see
+    `_seq_fits`. `ops/rnn.lstm_scan` routes a CUDA tensor by it."""
+    return _seq_fits("lstm_seq", h, b, t, device)
+
+
 def lstm_seq_fwd_sync(h: int, b: int, t: int, device=None) -> None:
     """The LSTM forward's one grid sync per step alone, T steps at its grid
     for (H, B); see `_fwd_sync`."""
@@ -621,6 +667,35 @@ def attention_seq_fused_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bqk,bkv->bqv", w, v)
 
 
+def attention_seq_smem_bytes(d: int, dv: int) -> int:
+    """The attention kernel's shared memory for head dims (D, Dv): a copy of
+    `smem_bytes` in `csrc/attention_seq.cu` (64 query rows of q, a tile of
+    64 keys of k with an odd row stride and of v, the 64 x 65 scores and 3
+    floats a query row); the `cuda` tests hold the two equal through the
+    library's `attention_seq_smem_bytes`."""
+    return 4 * (64 * d + 64 * (d | 1) + 64 * dv + 64 * 65 + 3 * 64)
+
+
+def attention_seq_misfit(b: int, d: int, dv: int) -> Optional[str]:
+    """None where the attention kernel takes q [B,Tq,D], v [B,Tk,Dv]; else
+    the limit that the shape breaks."""
+    if dv > ATTN_MAX_DV:
+        return f"the attention kernel takes Dv <= {ATTN_MAX_DV}, got {dv}"
+    smem = attention_seq_smem_bytes(d, dv)
+    if smem > ATTN_MAX_SMEM:
+        return (f"the attention kernel's tiles at D={d}, Dv={dv} take {smem} bytes of "
+                f"shared memory, over a block's {ATTN_MAX_SMEM}")
+    if b > ATTN_MAX_B:
+        return f"the attention kernel takes B <= {ATTN_MAX_B}, got {b}"
+    return None
+
+
+def attention_seq_fits(b: int, d: int, dv: int) -> bool:
+    """Whether the attention kernel takes batch B and head dims (D, Dv):
+    `ops/attention.dot_product_attention(fused=None)` routes by it."""
+    return attention_seq_misfit(b, d, dv) is None
+
+
 def attention_seq_fwd(q, k, v, mask, scale: float) -> torch.Tensor:
     """One launch of the forward kernel on f32 tensors -> out [B,Tq,Dv]
     f32. q [B,Tq,D], k [B,Tk,D], v [B,Tk,Dv], mask [B,Mq,Tk], Mq in
@@ -635,8 +710,9 @@ def attention_seq_fwd(q, k, v, mask, scale: float) -> torch.Tensor:
     if mq not in (1, tq):
         raise ValueError(f"mask must be [B, 1, Tk] or [B, Tq, Tk], got {list(mask.shape)}")
     _check_shapes(k=(k, (b, tk, d)), v=(v, (b, tk, dv)), mask=(mask, (b, mq, tk)))
-    if dv > ATTN_MAX_DV:
-        raise ValueError(f"the attention kernel takes Dv <= {ATTN_MAX_DV}, got {dv}")
+    misfit = attention_seq_misfit(b, d, dv)
+    if misfit:
+        raise ValueError(misfit)
     _check_tensors("attention", q=q, k=k, v=v, mask=mask)
     out = torch.empty((b, tq, dv), dtype=torch.float32, device=q.device)
     rc = _entry("attention_seq", "attention_seq_fwd_f32", 5,

@@ -13,9 +13,18 @@ Same numpy inputs on both sides (seeded), (B, Tq, Tk, D, Dv) = (3, 5, 7, 8,
     JAX package's: rtol 1e-4 / atol 1e-5.
   * bf16 inputs: the output stays bf16 and tracks the JAX function within
     atol 2e-2 (bf16 resolution; the softmax is f32 on both sides).
+  * The route: `fused=None` takes the fused op only where the kernel takes
+    the shape (`attention_seq_fits`: Dv <= 256, its tiles within 227 KB of
+    shared memory, B <= 65535); at D=40, Dv=300 both `fused=None` and
+    `fused=False` run the plain body and match the JAX body (1e-5, grads
+    rtol 1e-4 / atol 1e-5); `fused=True` there raises a ValueError that
+    names the limit.
   * On a card (marked `cuda`, skipped here): the CUDA kernel vs its plain
-    version (1e-4), including a fully masked row. jax is imported inside
-    the CPU tests only."""
+    version (1e-4), including a fully masked row; the shapes the kernel
+    does not take (q, k [1,1,512] with v [1,1,64]; Dv=257) through
+    `fused=None` launch nothing and match the plain body; the shared-memory
+    copy equals the library's. jax is imported inside the CPU tests
+    only."""
 
 import numpy as np
 import pytest
@@ -32,7 +41,7 @@ def _inputs(seed=7, b=3, tq=5, tk=7, d=8, dv=6):
     v = rs.randn(b, tk, dv).astype(np.float32)
     mask_kv = (rs.rand(b, 1, tk) > 0.3).astype(np.float32)
     mask_full = (rs.rand(b, tq, tk) > 0.3).astype(np.float32)
-    mask_full[1, 2, :] = 0.0  # a fully masked row
+    mask_full[min(1, b - 1), min(2, tq - 1), :] = 0.0  # a fully masked row
     return q, k, v, mask_kv, mask_full
 
 
@@ -142,6 +151,58 @@ def test_dispatch_and_launch_count(monkeypatch):
     assert calls == [1, 1] and K.ATTN_LAUNCHES == before
 
 
+@pytest.mark.parametrize("fused", [None, False])
+def test_wide_value_dims_take_the_plain_body(monkeypatch, fused):
+    """D=40, Dv=300: past the kernel's Dv, so fused=None runs the plain
+    body, as the JAX package's `_attn_fuse_ok` sends it to the jnp body."""
+    q, k, v, mkv, mfull = _inputs(14, b=2, tq=3, tk=9, d=40, dv=300)
+    calls = []
+    real = tatt.attention_seq_fused
+    monkeypatch.setattr(tatt, "attention_seq_fused", lambda *a: calls.append(1) or real(*a))
+    for kw in ({"mask": mfull}, {"mask": mkv, "scale": 0.5}):
+        want = _jax(q, k, v, kw, False, monkeypatch)
+        np.testing.assert_allclose(_torch(q, k, v, kw, fused), want, rtol=1e-5, atol=1e-5)
+    g_j = _jax(q, k, v, {"mask": mfull}, False, monkeypatch, grads=True)
+    g_t = _torch(q, k, v, {"mask": mfull}, fused, grads=True)
+    for a, b in zip(g_t, g_j):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    assert calls == []
+
+
+@pytest.mark.parametrize("b,d,dv,fits,limit", [
+    (3, 8, 6, True, None),
+    (1, 64, 256, True, None),
+    (1, 512, 64, False, "shared memory"),  # tiles of 296 192 bytes
+    (1, 16, 257, False, "Dv <= 256"),
+    (65536, 8, 8, False, "B <= 65535"),
+])
+def test_fit_names_the_limit(b, d, dv, fits, limit):
+    assert K.attention_seq_fits(b, d, dv) is fits
+    misfit = K.attention_seq_misfit(b, d, dv)
+    assert (misfit is None) is fits
+    if limit:
+        assert limit in misfit
+    assert K.attention_seq_smem_bytes(512, 64) == 296192
+
+
+@pytest.mark.parametrize("fits", [True, False])
+def test_fused_none_routes_by_the_fit(monkeypatch, fits):
+    q, k, v, mkv, _ = _inputs(15)
+    calls, asked = [], []
+    real = tatt.attention_seq_fused
+    monkeypatch.setattr(tatt, "attention_seq_fused", lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(tatt, "attention_seq_fits", lambda *a: asked.append(a) or fits)
+    _torch(q, k, v, {"mask": mkv}, None)
+    assert asked == [(3, 8, 6)] and calls == ([1] if fits else [])
+
+
+@pytest.mark.parametrize("d,dv", [(512, 64), (16, 257)])
+def test_fused_true_raises_where_the_kernel_does_not_fit(d, dv):
+    q, k, v, mkv, _ = _inputs(16, b=1, tq=1, tk=1, d=d, dv=dv)
+    with pytest.raises(ValueError, match="fused=True.*(shared memory|Dv <= 256)"):
+        _torch(q, k, v, {"mask": mkv}, True)
+
+
 def test_kernel_wrapper_rejects_cpu_tensors_and_bad_shapes():
     q, k, v, mkv, _ = _inputs(12)
     tq, tk, tv, tm = (torch.tensor(x) for x in (q, k, v, mkv))
@@ -191,6 +252,34 @@ def test_cuda_kernel_matches_plain_version(cuda, b, tq, tk, d, dv, per_row):
     assert K.ATTN_LAUNCHES == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,d,dv", [(1, 1, 1, 512, 64), (2, 5, 9, 16, 257)])
+def test_cuda_shapes_without_a_fit_take_the_plain_body(cuda, b, tq, tk, d, dv):
+    """Where the kernel does not take the shape, fused=None computes through
+    the plain body (no launch) and fused=True raises before any launch."""
+    q, k, v, mkv, mfull = _inputs(17, b, tq, tk, d, dv)
+    before = K.ATTN_LAUNCHES
+    got = _torch(q, k, v, {"mask": mfull}, None, grads=True, device=cuda)
+    out = _torch(q, k, v, {"mask": mkv}, None, device=cuda)
+    torch.cuda.synchronize()
+    assert K.ATTN_LAUNCHES == before
+    want = _torch(q, k, v, {"mask": mfull}, False, grads=True)
+    for a, b2 in zip(got, want):
+        np.testing.assert_allclose(a, b2, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out, _torch(q, k, v, {"mask": mkv}, False), atol=1e-4)
+    with pytest.raises(ValueError, match="fused=True"):
+        _torch(q, k, v, {"mask": mkv}, True, device=cuda)
+    assert K.ATTN_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_smem_copy_matches_the_library(cuda):
+    fn = K._entry("attention_seq", "attention_seq_smem_bytes", 0, (K._I, K._I))
+    for d in (1, 8, 17, 64, 255, 256, 512, 1000):
+        for dv in (1, 6, 64, 200, 256):
+            assert fn(d, dv) == K.attention_seq_smem_bytes(d, dv), (d, dv)
 
 
 @pytest.mark.cuda

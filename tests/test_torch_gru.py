@@ -27,8 +27,15 @@ non-zero h0, both directions.
     sums across them; the plain version carries h through them bit for
     bit), two forward calls give bit-identical hs and zrc and two backward calls
     bit-identical dW and db, gru_scan launches at H=1024, and the plans
-    lay both legs out as (row group, unit group) grids within the SMs. jax is imported inside the CPU tests only, so the `cuda` tests
-    run where jax is absent."""
+    lay both legs out as (row group, unit group) grids within the SMs.
+  * The route: `gru_step_loop` (the CUDA route where the kernels' plan has
+    no layout) vs JAX `gru_scan` on its lax.scan path, forward (1e-5) and
+    gradients (rtol 1e-4, atol 1e-5), both directions; `gru_seq_fits`
+    answers from the plan's return code alone (a stand-in plan here), and
+    on a card gru_scan at B=249, H=1280 (no backward layout) takes the
+    step loop, launches no kernel and matches the plain path on the CPU.
+jax is imported inside the CPU tests only, so the `cuda` tests run where
+jax is absent."""
 
 import numpy as np
 import pytest
@@ -239,6 +246,56 @@ def test_weight_grads_are_one_product(monkeypatch, reverse):
         np.testing.assert_allclose(a.numpy(), j, rtol=2e-3, atol=5e-3, err_msg=name)
 
 
+def _step_loop(arrs, mask, reverse):
+    ts = {n: torch.tensor(arrs[n], requires_grad=True) for n in NAMES}
+    hs, hl = trnn.gru_step_loop(ts["proj"], torch.tensor(mask),
+                                trnn.GruParams(ts["w_hzr"], ts["w_hc"], ts["bias"]),
+                                ts["h0"], reverse=reverse)
+    grads = torch.autograd.grad(_loss_torch(hs, hl), [ts[n] for n in NAMES])
+    return hs.detach().numpy(), hl.detach().numpy(), [g.numpy() for g in grads]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("seed", [3, 4])
+def test_step_loop_matches_jax_scan(monkeypatch, seed, reverse):
+    arrs, mask = _inputs(seed)
+    hs_j, hl_j, g_j = _jax_scan(arrs, mask, reverse, "0", monkeypatch)
+    hs_t, hl_t, g_t = _step_loop(arrs, mask, reverse)
+    np.testing.assert_allclose(hs_t, hs_j, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(hl_t, hl_j, rtol=1e-5, atol=1e-5)
+    for name, a, b in zip(NAMES, g_t, g_j):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("rc,fits", [(0, True), (1, False)])
+def test_fits_answers_from_the_plan(monkeypatch, rc, fits):
+    """`gru_seq_fits` reads `gru_seq_plan`'s return code once per (card,
+    shape); 1 (cudaErrorInvalidValue) is "no layout"; another code raises."""
+    calls = []
+
+    def plan(source, index, t, b, h):
+        calls.append((source, index, t, b, h))
+        return rc, [1] * len(K._PLAN_KEYS)
+
+    monkeypatch.setattr(K, "_call_plan", plan)
+    monkeypatch.setattr(K, "_plans", {})
+    dev = torch.device("cuda", 0)
+    assert K.gru_seq_fits(1280, 249, 3, dev) is fits
+    assert K.gru_seq_fits(1280, 249, 3, dev) is fits
+    assert calls == [("gru_seq", 0, 3, 249, 1280)]
+    assert trnn.takes_fused(dev, K.gru_seq_fits, 1280, 249, 3) is fits
+    monkeypatch.setattr(K, "_call_plan", lambda *a: (719, [0] * len(K._PLAN_KEYS)))
+    with pytest.raises(RuntimeError, match="719"):
+        K.gru_seq_fits(1280, 250, 3, dev)
+
+
+def test_route_off_the_card_never_asks_the_plan():
+    def no(*a):
+        raise AssertionError("the plan was asked")
+
+    assert trnn.takes_fused(torch.device("cpu"), no, 1280, 249, 3)
+
+
 def test_cpu_path_launches_no_kernel():
     arrs, mask = _inputs(5)
     before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
@@ -364,6 +421,32 @@ def test_cuda_gru_scan_launches_at_h1024(cuda, reverse):
     _loss_torch(hs, hl).backward()
     torch.cuda.synchronize()
     assert (K.FWD_LAUNCHES, K.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    hs_c, hl_c, g_c = _torch_scan(arrs, mask, reverse)
+    np.testing.assert_allclose(hs.detach().cpu().numpy(), hs_c, atol=1e-4)
+    np.testing.assert_allclose(hl.detach().cpu().numpy(), hl_c, atol=1e-4)
+    for name, g in zip(NAMES, g_c):
+        np.testing.assert_allclose(ts[name].grad.cpu().numpy(), g,
+                                   atol=1e-3 * max(1.0, np.abs(g).max()), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_gru_scan_without_a_layout_takes_the_step_loop(cuda, reverse):
+    """B=249, H=1280: the backward has no layout on a 132-SM card, so
+    gru_scan takes the step loop (no kernel launch) and its forward and
+    gradients match the plain path on the CPU."""
+    b, t, h = 249, 3, 1280
+    assert not K.gru_seq_fits(h, b, t, cuda)
+    arrs, mask = _inputs(15, b, t, h, tuple(1 + np.arange(b) % t),
+                         w_scale=0.3 * (64 / h) ** 0.5)
+    ts = {n: torch.tensor(arrs[n], device=cuda, requires_grad=True) for n in NAMES}
+    before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
+    hs, hl = trnn.gru_scan(ts["proj"], torch.tensor(mask, device=cuda),
+                           trnn.GruParams(ts["w_hzr"], ts["w_hc"], ts["bias"]),
+                           h0=ts["h0"], reverse=reverse)
+    _loss_torch(hs, hl).backward()
+    torch.cuda.synchronize()
+    assert (K.FWD_LAUNCHES, K.BWD_LAUNCHES) == before
     hs_c, hl_c, g_c = _torch_scan(arrs, mask, reverse)
     np.testing.assert_allclose(hs.detach().cpu().numpy(), hs_c, atol=1e-4)
     np.testing.assert_allclose(hl.detach().cpu().numpy(), hl_c, atol=1e-4)

@@ -28,8 +28,16 @@ non-zero h0 and c0, both directions.
     forward keeps a row's sums across them; the plain version carries h
     and c through them bit for bit), two forward calls give bit-identical
     outputs and two backward calls bit-identical dW and db, and the plans
-    lay both legs out as (row group, unit group) grids within the SMs. jax is imported inside the CPU tests only, so the `cuda` tests
-    run where jax is absent."""
+    lay both legs out as (row group, unit group) grids within the SMs.
+  * The route: `lstm_step_loop` (the CUDA route where the kernels' plan has
+    no layout) vs JAX `lstm_scan` on its lax.scan path at the standard
+    config, forward (1e-5) and gradients (rtol 1e-4, atol 1e-5), both
+    directions; `lstm_seq_fits` answers from the plan's return code alone
+    (a stand-in plan here), and on a card lstm_scan at T=1, B=207, H=1280
+    (no forward layout) takes the step loop, launches no kernel and
+    matches the plain path on the CPU.
+jax is imported inside the CPU tests only, so the `cuda` tests run where
+jax is absent."""
 
 import numpy as np
 import pytest
@@ -279,6 +287,51 @@ def test_cpu_path_launches_no_kernel():
     assert (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES) == before
 
 
+def _step_loop(arrs, mask, reverse):
+    ts = {n: torch.tensor(arrs[n], requires_grad=True) for n in NAMES}
+    outs = trnn.lstm_step_loop(ts["proj"], torch.tensor(mask),
+                               trnn.LstmParams(ts["w_hh"], ts["bias"]),
+                               ts["h0"], ts["c0"], reverse=reverse)
+    grads = torch.autograd.grad(_loss(outs, torch), [ts[n] for n in NAMES])
+    return [o.detach().numpy() for o in outs], [g.numpy() for g in grads]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_step_loop_matches_jax_scan_at_the_standard_config(monkeypatch, reverse):
+    """The step loop the fused config takes on the card where the kernels
+    have no layout, vs the JAX package's lax.scan branch."""
+    arrs, mask = _inputs(4)
+    o_j, g_j = _jax_scan(arrs, mask, reverse, "0", monkeypatch)
+    o_t, g_t = _step_loop(arrs, mask, reverse)
+    for a, b in zip(o_t, o_j):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    for name, a, b in zip(NAMES, g_t, g_j):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("rc,fits", [(0, True), (1, False)])
+def test_fits_answers_from_the_plan(monkeypatch, rc, fits):
+    """`lstm_seq_fits` reads `lstm_seq_plan`'s return code once per (card,
+    shape), and `lstm_seq_plan` raises where `fits` is False."""
+    calls = []
+
+    def plan(source, index, t, b, h):
+        calls.append((source, index, t, b, h))
+        return rc, list(range(len(K._PLAN_KEYS)))
+
+    monkeypatch.setattr(K, "_call_plan", plan)
+    monkeypatch.setattr(K, "_plans", {})
+    dev = torch.device("cuda", 1)
+    assert K.lstm_seq_fits(1280, 207, 1, dev) is fits
+    assert trnn.takes_fused(dev, K.lstm_seq_fits, 1280, 207, 1) is fits
+    assert calls == [("lstm_seq", 1, 1, 207, 1280)]
+    if fits:
+        assert K.lstm_seq_plan(1280, 207, 1, dev)["fwd_blocks"] == 3
+    else:
+        with pytest.raises(ValueError, match="no layout"):
+            K.lstm_seq_plan(1280, 207, 1, dev)
+
+
 def test_plan_dict_names_every_number():
     """`<source>_plan`'s numbers map to their keys in order; the two
     W-resident flags become bools, and a count that differs raises."""
@@ -440,6 +493,28 @@ def test_cuda_lstm_scan_goes_through_the_kernels(cuda):
         np.testing.assert_allclose(a, b, atol=1e-4)
     for name, a, b in zip(NAMES, g_c, g_p):
         np.testing.assert_allclose(a, b, atol=1e-3 * max(1.0, np.abs(b).max()), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_lstm_scan_without_a_layout_takes_the_step_loop(cuda, reverse):
+    """T=1, B=207, H=1280: the forward has no layout on a 132-SM card, so
+    lstm_scan takes the step loop (no kernel launch) and its outputs and
+    gradients match the plain path on the CPU."""
+    b, t, h = 207, 1, 1280
+    assert not K.lstm_seq_fits(h, b, t, cuda)
+    arrs, mask = _inputs(16, b, t, h, (1,) * b)
+    arrs["w_hh"] *= (64 / h) ** 0.5
+    before = (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES)
+    o_c, g_c = _torch_scan(arrs, mask, reverse, device=cuda)
+    torch.cuda.synchronize()
+    assert (K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES) == before
+    o_p, g_p = _torch_scan(arrs, mask, reverse)
+    for a, b2 in zip(o_c, o_p):
+        np.testing.assert_allclose(a, b2, atol=1e-4)
+    for name, a, b2 in zip(NAMES, g_c, g_p):
+        np.testing.assert_allclose(a, b2, atol=1e-3 * max(1.0, np.abs(b2).max()),
+                                   err_msg=name)
 
 
 @pytest.mark.cuda

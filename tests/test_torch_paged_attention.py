@@ -9,9 +9,12 @@
     all-dump table.
   * The wrapper takes the plain version for CPU tensors only, without
     counting a launch, and never for tensors elsewhere.
-  * The wrapper's input checks and the nvcc build recipe.
+  * The wrapper's input checks, the split plan (every page in exactly one
+    run) and the nvcc build recipe.
   * On a card (marked `cuda`, skipped here): the CUDA kernel vs the plain
-    version on the same tensors."""
+    version on the same tensors, over head dims, page sizes and slot
+    counts, with a dump slot and positions past the table's reach; two
+    calls bit-identical."""
 
 import numpy as np
 import pytest
@@ -136,6 +139,31 @@ def test_kernel_rejects_head_dim_over_256():
     pa.check_inputs(q, kp, kp, bt, pos, 2)  # head_dim 256 is fine
 
 
+@pytest.mark.parametrize("s,h,hd,ps,pmax,sms", [
+    (8, 12, 64, 16, 64, 132), (32, 12, 64, 16, 64, 132), (1, 12, 64, 16, 64, 132),
+    (5, 2, 8, 4, 7, 132), (5, 6, 40, 1, 96, 132), (3, 2, 256, 32, 3, 132),
+    (7, 5, 48, 8, 37, 16), (64, 16, 128, 16, 128, 132), (1, 1, 6, 3, 1, 8),
+])
+def test_split_plan_covers_every_page_once(s, h, hd, ps, pmax, sms):
+    plan = pa.split_plan(s, h, hd, ps, pmax, sms)
+    hg = plan.heads_per_block
+    assert h % hg == 0 and hg * hd <= pa.MAX_BLOCK_WIDTH
+    # the largest head group that fits: one more head would not
+    assert all(h % d or d * hd > pa.MAX_BLOCK_WIDTH for d in range(hg + 1, h + 1))
+    tt = plan.tile_tokens
+    assert 8 <= tt <= 64 and tt & (tt - 1) == 0  # a power of two
+    assert plan.pages_per_split * ps <= 2048  # a run's pool rows fit on chip
+    runs = pa.split_pages(plan, pmax)
+    assert len(runs) == plan.n_splits
+    assert all(a < b for a, b in runs)  # no empty run
+    pages = [p for a, b in runs for p in range(a, b)]
+    assert pages == list(range(pmax))  # every page once, in order
+    # the grid aims at ~4 blocks an SM, or one page a run when that is fewer
+    blocks = s * (h // hg) * plan.n_splits
+    assert blocks >= min(4 * sms, s * (h // hg) * pmax)
+    assert plan.scratch_floats(s, h * hd, h) == s * plan.n_splits * (h * hd + 2 * h)
+
+
 def test_build_recipe():
     cmd = build.nvcc_command("nvcc", "paged_attention", build.BUILD_DIR / "x.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
@@ -168,10 +196,9 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed,ps,pmax", CASES)
-def test_cuda_kernel_matches_plain_version(cuda, seed, ps, pmax):
-    q, kp, vp, bt, positions, scale, h = _inputs(seed, ps, pmax)
+def _check_cuda(cuda, q, kp, vp, bt, positions, scale, h):
+    """Kernel vs plain version on the card (one launch counted), and a
+    second call bit-identical to the first."""
     t = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, bt, positions)]
     before = pa.LAUNCHES
     got = pa.paged_attention_decode(*t, scale=scale, n_heads=h)
@@ -179,3 +206,40 @@ def test_cuda_kernel_matches_plain_version(cuda, seed, ps, pmax):
     torch.cuda.synchronize()
     assert pa.LAUNCHES == before + 1
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    again = pa.paged_attention_decode(*t, scale=scale, n_heads=h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,ps,pmax", CASES)
+def test_cuda_kernel_matches_plain_version(cuda, seed, ps, pmax):
+    _check_cuda(cuda, *_inputs(seed, ps, pmax))
+
+
+# head dims (with H so that a block holds one to several heads, and hd=6
+# for the 4-byte copies of rows that are not 16-byte aligned) x page sizes;
+# the slot count cycles through 1, 5, 8, 32
+_HEADS = {6: 3, 8: 4, 40: 6, 64: 12, 128: 4, 256: 2}
+_SPLIT_CASES = [(hd, ps, (1, 5, 8, 32)[i % 4])
+                for i, (hd, ps) in enumerate((hd, ps) for hd in _HEADS
+                                             for ps in (1, 4, 16, 32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,ps,s", _SPLIT_CASES)
+def test_cuda_split_kernel_matches_plain_version(cuda, hd, ps, s):
+    pmax = max(2, 96 // ps)  # up to 96 tokens: several runs and tiles
+    _check_cuda(cuda, *_inputs(hd + ps + s, ps, pmax, S=s, H=_HEADS[hd], HD=hd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 5, 8, 32])
+def test_cuda_positions_past_the_tables_reach(cuda, s):
+    """Every slot but the dump slot has a full table and a position past its
+    reach: it sees all P*PS tokens, as the plain version's mask does."""
+    q, kp, vp, bt, positions, scale, h = _inputs(s, 16, 8, S=s + 1, H=12, HD=64)
+    n_pages = kp.shape[0]
+    bt[:s] = np.arange(1, 1 + s * 8, dtype=np.int32).reshape(s, 8) % (n_pages - 1) + 1
+    positions[:s] = 8 * 16 + np.arange(s)
+    _check_cuda(cuda, q, kp, vp, bt, positions, scale, h)
