@@ -25,13 +25,16 @@ Phases (any failure exits non-zero and prints no result line):
                ragged lengths 60-100 and BASELINE's widest H=1280/B=64;
                attention (<= 1e-4) at (B,Tq,Tk,D,Dv) = (3,5,7,8,6) with a
                [B,1,Tk] and a [B,Tq,Tk] mask, each with a fully masked row,
-               and at (32,512,512,64,64). Kernel, plain version and (where
+               at (2,5,9,16,257), and timed at (32,512,512,64,64),
+               (8,1024,1024,128,128) with a [B,1,Tk] mask and
+               (2,512,512,512,300). Kernel, plain version and (where
                one exists) one PyTorch library call timed with CUDA events
                (L2 flushed and the card given a ~0.5 ms head start
                before each launch), beside the least time the
-               card could take (bytes or f32 operations over its peaks; a
-               recurrent forward counts all T*B rows, since it writes every
-               row's gates, a backward the valid steps only). For each
+               card could take (bytes or operations over its peaks: f32
+               for the recurrences, three TF32 passes on the tensor cores
+               for attention's 3xTF32 products; a recurrent forward counts
+               the rows it must compute, a backward the valid steps only). For each
                recurrent forward also its time per step, the time of its
                step loop's grid syncs alone at its own grid and T (the
                library's sync probe) and its time at B = 8, 32 and the
@@ -78,14 +81,15 @@ Phases (any failure exits non-zero and prints no result line):
                Tq=Tk=512, D=Dv=64 with a per-row mask: forward (1e-4) and
                q/k/v gradients (1e-4 x max(1, max|g|)) through the kernel vs
                the plain body, launches counted from 0.
-  9. route   — the shapes the kernels do not take compute through the
-               plain routes and launch no kernel: lstm_scan at T=1, B=207,
-               H=1280 and gru_scan at T=3, B=249, H=1280 (no layout; vs
-               the CPU, 1e-4 and 1e-3 x max(1, max|g|)),
-               dot_product_attention(fused=None) at D=512/Dv=64 and Dv=257
-               (no fit; vs the plain body on the CPU, 1e-4 and 1e-4 x
-               max(1, max|g|)), fused=True raising there; and the first B
-               without a layout for each RNN at H = 512, 1024, 1280.
+  9. route   — the shapes the recurrent kernels do not lay out compute
+               through the plain step loops and launch no recurrent kernel:
+               lstm_scan at T=1, B=207, H=1280 and gru_scan at T=3, B=249,
+               H=1280 (vs the CPU, 1e-4 and 1e-3 x max(1, max|g|)); the
+               first B without a layout for each RNN at H = 512, 1024,
+               1280. dot_product_attention at D=512/Dv=64 and Dv=257, with
+               fused=None and fused=True, launches the attention kernel (it
+               tiles D and Dv) and matches the plain body on the CPU (1e-4
+               and 1e-4 x max(1, max|g|)).
  10. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
@@ -102,13 +106,13 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100/H200 data-sheet peaks (SXM parts unless named): memory bytes/s and
-# f32 FLOP/s outside the tensor cores
+# H100/H200 data-sheet peaks (SXM parts unless named): memory bytes/s, f32
+# FLOP/s outside the tensor cores, and dense TF32 FLOP/s on them
 _PEAKS = (
-    ("H200", 4.8e12, 67e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100", 3.35e12, 67e12),
+    ("H200", 4.8e12, 67e12, 495e12),
+    ("H100 NVL", 3.9e12, 60e12, 417.5e12),
+    ("H100 PCIe", 2.0e12, 51e12, 378e12),
+    ("H100", 3.35e12, 67e12, 495e12),
 )
 
 GPT2_SMALL = dict(vocab=50257, n_layers=12, d_model=768, n_heads=12)
@@ -145,9 +149,10 @@ def fail(msg: str) -> None:
 
 
 def peaks(name: str):
-    for key, bw, flops in _PEAKS:
+    """(bytes/s, f32 FLOP/s, dense TF32 FLOP/s) of the card."""
+    for key, *rates in _PEAKS:
         if key in name:
-            return bw, flops
+            return tuple(rates)
     fail(f"no data-sheet peaks for {name!r}")
 
 
@@ -282,7 +287,7 @@ PAGED_SHAPES = (
     ("gpt2_small_s32", 2, 32, 12, 64, 16, 64, 0, 1023, False),
     # one long request: the fewest slots to spread over the card
     ("gpt2_small_s1_long", 3, 1, 12, 64, 16, 64, 1023, 1023, False),
-    # the decode profile's contexts (16-34 tokens): one run a slot
+    # the decode profile's contexts (16-34 tokens): a slot's tiles one to a split
     ("gpt2_small_s8_short", 4, 8, 12, 64, 16, 64, 15, 33, False),
 )
 
@@ -712,23 +717,37 @@ def attn_inputs(torch, seed, b, tq, tk, d, dv, per_row):
     return [x.cuda() for x in (q, k, v, mask)]
 
 
-def attn_kernel_phase(torch, flush, bw, f32_flops):
+ATTN_SHAPES = (
+    # name, seed, B, Tq, Tk, D, Dv, per-row mask, timed
+    ("small_kv_mask", 31, 3, 5, 7, 8, 6, False, False),
+    ("small_row_mask", 32, 3, 5, 7, 8, 6, True, False),
+    ("d16_dv257", 36, 2, 5, 9, 16, 257, True, False),
+    ("b32_t512", 33, *ATTN_MAIN, True, True),
+    ("b8_t1024_d128", 37, 8, 1024, 1024, 128, 128, False, True),
+    ("b2_d512_dv300", 38, 2, 512, 512, 512, 300, True, True),
+)
+
+
+def attn_kernel_phase(torch, flush, bw, f32_flops, tf32_flops, names=None):
     """The attention kernel vs its plain version on the card at the JAX
-    tests' shape with both mask shapes and a fully masked row, and at
-    B=32, Tq=Tk=512, D=Dv=64; kernel, plain and F.scaled_dot_product_attention
-    (additive mask; never called by the port) timed at the large shape."""
+    tests' shape with both mask shapes and a fully masked row, at a wide v
+    (Dv=257), and timed at B=32, Tq=Tk=512, D=Dv=64 (per-row mask), at
+    B=8, Tq=Tk=1024, D=Dv=128 ([B,1,Tk] mask) and at B=2, Tq=Tk=512,
+    D=512, Dv=300: kernel, plain and F.scaled_dot_product_attention
+    (additive mask; never called by the port) beside the least time: the
+    bytes, or the products as the kernel issues them, three TF32 passes on
+    the tensor cores (the f32 SIMT figure kept as a note). `names` picks
+    rows of ATTN_SHAPES (all by default); the phase uses the wrapper's
+    public calls only, so it times any checkout's package put first on
+    sys.path."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import rnn_kernels as K
 
-    shapes = (
-        # name, seed, B, Tq, Tk, D, Dv, per-row mask
-        ("small_kv_mask", 31, 3, 5, 7, 8, 6, False),
-        ("small_row_mask", 32, 3, 5, 7, 8, 6, True),
-        ("b32_t512", 33, *ATTN_MAIN, True),
-    )
     rows = []
-    for name, seed, b, tq, tk, d, dv, per_row in shapes:
+    for name, seed, b, tq, tk, d, dv, per_row, timed in ATTN_SHAPES:
+        if names is not None and name not in names:
+            continue
         q, k, v, mask = attn_inputs(torch, seed, b, tq, tk, d, dv, per_row)
         scale = 1.0 / d ** 0.5
         got = K.attention_seq_fwd(q, k, v, mask, scale)
@@ -737,10 +756,11 @@ def attn_kernel_phase(torch, flush, bw, f32_flops):
         err = float((got - want).abs().max())
         masked_row_err = float((got[-1, -1] - want[-1, -1]).abs().max())
         row = dict(shape=name, B=b, Tq=tq, Tk=tk, D=d, Dv=dv, Mq=mask.shape[1],
-                   max_abs_err=err, fully_masked_row_err=masked_row_err)
+                   max_abs_err=err, fully_masked_row_err=masked_row_err,
+                   tensor_core="3xTF32")
         if not (err <= ATTN_TOL and bool(torch.isfinite(got).all())):
             fail(f"attention_seq_fwd vs plain at {name}: max_abs_err {err} > {ATTN_TOL}")
-        if name == "b32_t512":
+        if timed:
             additive = torch.where(mask > 0, 0.0, -1e9)
 
             def library():
@@ -756,10 +776,11 @@ def attn_kernel_phase(torch, flush, bw, f32_flops):
             ops = 2 * b * tq * tk * (d + dv)
             nbytes = 4 * (b * tq * d + b * tk * d + b * tk * dv + mask.numel()
                           + b * tq * dv)
-            t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_flops * 1e3
+            t_bytes, t_ops = nbytes / bw * 1e3, 3 * ops / tf32_flops * 1e3
             row.update(bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       bytes=nbytes, operations=ops)
+                       bytes=nbytes, operations=ops, tensor_core_operations=3 * ops,
+                       bound_ms_f32_simt=max(t_bytes, ops / f32_flops * 1e3))
         print("attn_kernel", json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -815,23 +836,23 @@ def first_b_without_layout(fits, h: int, t: int = 1, hi: int = 4096):
 
 
 def route_phase(torch):
-    """The shapes where the kernels have no layout or no fit compute on the
-    card through the plain routes and launch no recurrent or attention
-    kernel: lstm_scan at T=1, B=207, H=1280 and gru_scan at T=3, B=249,
-    H=1280 (outputs and every gradient vs the plain path on the CPU:
-    1e-4, and 1e-3 x max(1, max|g|)), dot_product_attention(fused=None) at
-    q, k [1,1,512] / v [1,1,64] and at Dv=257 (output and gradients vs the
-    plain body on the CPU: 1e-4, and 1e-4 x max(1, max|g|)), where
-    fused=True raises ValueError. Also where each plan
-    runs out on this card: the first B without a layout at H = 512, 1024,
-    1280."""
+    """The shapes where the recurrent kernels have no layout compute on the
+    card through the plain step loops and launch no recurrent kernel:
+    lstm_scan at T=1, B=207, H=1280 and gru_scan at T=3, B=249, H=1280
+    (outputs and every gradient vs the plain path on the CPU: 1e-4, and
+    1e-3 x max(1, max|g|)). The attention shapes that once had no fit, q, k
+    [1,1,512] / v [1,1,64] and Dv=257, now launch the attention kernel with
+    dot_product_attention(fused=None) and fused=True (output and gradients
+    vs the plain body on the CPU: 1e-4, and 1e-4 x max(1, max|g|)). Also
+    where each recurrent plan runs out on this card: the first B without a
+    layout at H = 512, 1024, 1280."""
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops import rnn as R
     from paddle_tpu_torch.ops import rnn_kernels as K
 
     def counters():
         return (K.FWD_LAUNCHES, K.BWD_LAUNCHES, K.LSTM_FWD_LAUNCHES,
-                K.LSTM_BWD_LAUNCHES, K.ATTN_LAUNCHES)
+                K.LSTM_BWD_LAUNCHES)
 
     res = {"first_b_without_layout": {
         name: {h: first_b_without_layout(fits, h) for h in (512, 1024, 1280)}
@@ -871,40 +892,41 @@ def route_phase(torch):
     res["gru_b249_h1280_fits"] = K.gru_seq_fits(1280, 249, 3)
     rnn_case("lstm", 1, 207, 1280, 4, lstm)
     rnn_case("gru", 3, 249, 1280, 3, gru)
-    raised = {}
+    rnn_launches = [a - b for a, b in zip(counters(), before)]
+    attn_launches = {}
     for name, (b, tq, tk, d, dv) in (("attn_d512", (1, 1, 1, 512, 64)),
                                      ("attn_dv257", (2, 5, 9, 16, 257))):
         q, k, v, mask = attn_inputs(torch, 35, b, tq, tk, d, dv, True)
-        outs = {}
-        # the route on the card against the plain body on the CPU
-        for dev, fused in (("cuda", None), ("cpu", False)):
-            xs = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
-            o = A.dot_product_attention(*xs, mask=mask.to(dev), fused=fused)
-            outs[dev] = [t.cpu() for t in
-                         [o.detach()] + list(torch.autograd.grad((o * o).sum(), xs))]
-        for i, part in enumerate(("out", "dq", "dk", "dv")):
-            a, w = outs["cuda"][i], outs["cpu"][i]
-            errs[f"{name}_{part}"] = float((a - w).abs().max())
-            limits[f"{name}_{part}"] = ATTN_TOL * (1.0 if i == 0 else
-                                                   max(1.0, float(w.abs().max())))
-        try:
-            A.dot_product_attention(q, k, v, mask=mask, fused=True)
-            raised[name] = None
-        except ValueError as e:
-            raised[name] = str(e)
+        for fused in (None, True):
+            key = f"{name}_{'none' if fused is None else 'true'}"
+            outs = {}
+            # the kernel on the card against the plain body on the CPU
+            for dev, how in (("cuda", fused), ("cpu", False)):
+                xs = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+                n0 = K.ATTN_LAUNCHES
+                o = A.dot_product_attention(*xs, mask=mask.to(dev), fused=how)
+                outs[dev] = [t.cpu() for t in
+                             [o.detach()] + list(torch.autograd.grad((o * o).sum(), xs))]
+                if dev == "cuda":
+                    attn_launches[key] = K.ATTN_LAUNCHES - n0
+            for i, part in enumerate(("out", "dq", "dk", "dv")):
+                a, w = outs["cuda"][i], outs["cpu"][i]
+                errs[f"{key}_{part}"] = float((a - w).abs().max())
+                limits[f"{key}_{part}"] = ATTN_TOL * (1.0 if i == 0 else
+                                                      max(1.0, float(w.abs().max())))
     torch.cuda.synchronize()
-    res.update(kernel_launches=[a - b for a, b in zip(counters(), before)],
-               errors=errs, limits=limits, fused_true_raised=raised)
+    res.update(rnn_kernel_launches=rnn_launches, attn_kernel_launches=attn_launches,
+               errors=errs, limits=limits)
     print("route", json.dumps(res), flush=True)
     if res["lstm_b207_h1280_fits"] or res["gru_b249_h1280_fits"]:
         fail(f"the fault shapes now have a layout: {res}")
-    if any(res["kernel_launches"]):
-        fail(f"the plain routes launched kernels: {res['kernel_launches']}")
+    if any(rnn_launches):
+        fail(f"the plain step loops launched recurrent kernels: {rnn_launches}")
+    if not all(n >= 1 for n in attn_launches.values()):
+        fail(f"dot_product_attention did not launch the attention kernel: {attn_launches}")
     bad = [k for k in errs if not errs[k] <= limits[k]]
     if bad:
-        fail(f"plain routes on the card differ from their references in {bad}: {errs}")
-    if not all(raised.values()):
-        fail(f"dot_product_attention(fused=True) did not raise: {raised}")
+        fail(f"routes on the card differ from their references in {bad}: {errs}")
     return res
 
 
@@ -1391,13 +1413,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    bw, f32_flops = peaks(name)
+    bw, f32_flops, tf32_flops = peaks(name)
     print(json.dumps({
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "device": name,
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "peak_bytes_per_s": bw, "peak_f32_flops": f32_flops,
+        "peak_tf32_flops": tf32_flops,
     }), flush=True)
 
     # 2. build
@@ -1416,7 +1439,7 @@ def main() -> int:
     rows = kernel_phase(torch, flush, bw, f32_flops)
     gru_rows = gru_kernel_phase(torch, flush, bw, f32_flops)
     lstm_rows = lstm_kernel_phase(torch, flush, bw, f32_flops)
-    attn_rows = attn_kernel_phase(torch, flush, bw, f32_flops)
+    attn_rows = attn_kernel_phase(torch, flush, bw, f32_flops, tf32_flops)
     del flush
     torch.cuda.empty_cache()
 
@@ -1553,6 +1576,8 @@ def main() -> int:
         "bound_by": a_main["bound_by"],
         "library_ms": a_main["library_ms"],
         "library_note": "F.scaled_dot_product_attention with the additive mask",
+        "tensor_core": "3xTF32",
+        "bound_ms_f32_simt": a_main["bound_ms_f32_simt"],
         "shape": a_main["shape"],
         "shapes": attn_rows,
     })

@@ -18,25 +18,36 @@
 // f32 ridge, so the least time is the visible K/V bytes over the card's
 // memory rate. The kernel's task is to keep enough bytes in flight.
 //
-// Design (the plan — heads per block, pages per split, tokens per tile and
-// the number of splits — comes from the wrapper, ops/paged_attention.py
-// split_plan, a static function of S, H, hd, PS, P and the SM count):
+// Design (the plan — heads per block, tiles per split at most, tokens per
+// tile and the number of splits — comes from the wrapper,
+// ops/paged_attention.py split_plan, a static function of S, H, hd, PS, P
+// and the SM count; which tiles a split walks follows from the positions,
+// on the device):
 //   * split kernel, grid (head groups, slots, splits): a block owns HG heads
-//     of one slot over one run of CP consecutive logical pages. The split is
-//     the slowest grid index, so the blocks of every slot's first run are
-//     dispatched first: at short contexts they are the only ones with work.
-//     A block reads the slot's position on the device (with the run's page
-//     ids and its query, all three loads in flight together) and exits at
-//     once when its run starts past the last visible token, so the host
-//     never reads positions and a decode step keeps one launch shape.
+//     of one slot. A slot's visible tokens fall into ceil(n_tok / TT) tiles
+//     of TT tokens. A short slot, of at most min(RT, NC) tiles, gives one
+//     tile to each of its first splits; a longer one gives split c the run
+//     of tiles c * RT .. c * RT + RT - 1, so ceil(tiles / RT) splits are
+//     live. At the decode profile's contexts (16-34 tokens, 2-3 tiles) a
+//     slot's tiles thus go to as many blocks; at long contexts the runs are
+//     the plan's. The split is the slowest grid index, so the live blocks
+//     (the first splits of every slot) are dispatched first. The tiles a
+//     split may walk are fixed (its run and its short tile), so a block
+//     loads their pool rows (page ids from the block table) beside the
+//     slot's position and its query, all in flight together, and exits
+//     once the position shows it has no tile; the host never reads
+//     positions and a decode step keeps one launch shape. (Dealing every
+//     slot's tiles round-robin over all NC splits, so that mid contexts
+//     spread too, measured 13-15 % slower at S = 8 and 32: PERF.md §6.)
 //   * a tile is TT consecutive tokens of the run; a token's HG*hd floats are
 //     contiguous in the pool (one row of a page), so a tile of K and V is
-//     2*TT row copies. Warp 0 issues them as 1-D TMA copies
-//     (cp.async.bulk, HG*hd*4 bytes each) into a 2-stage ring, each stage
-//     with an mbarrier that counts the bytes in; while the block computes
-//     a tile, the next is in flight (at hd=64: HG=4, TT=16, a stage of
-//     32 KB, so 3 blocks an SM; deeper rings measured no faster, PERF.md
-//     §6, PR 6). Rows that are not 16-byte aligned take 4-byte cp.async.
+//     2*TT row copies into a 2-stage ring; while the block computes a
+//     tile, the next is in flight (at hd=64: HG=4, TT=16, a stage of 32 KB,
+//     so 3 blocks an SM; deeper rings measured no faster, PERF.md §6).
+//     Every thread copies its share of the rows by cp.async, 16 bytes a
+//     copy where rows are aligned, else 4 (1-D TMA row copies, one
+//     cp.async.bulk a row on a stage mbarrier, measured no faster at 1 KB
+//     rows and slower at 64-byte rows: PERF.md §6).
 //     One barrier a tile frees the older stage for the next copy, another
 //     publishes the scores.
 //   * per tile: the HG*TT scores from shared memory (LPT lanes per score,
@@ -48,22 +59,27 @@
 //     column share the head's running max, so they add up exactly at the
 //     end. A token's pool row is computed once per block (no division in
 //     the copy loop).
-//   * a slot whose visible tokens fit one split gets its output from that
-//     block. Otherwise each block writes its split's (m, l, acc) per head
-//     to scratch; the merge kernel, grid (H, S), weighs a slot's splits in
-//     shared memory and sums them in a fixed order (G interleaved groups of
-//     splits per column, then the G partial sums); it is launched as a
-//     programmatic dependent of the split kernel, so its launch overlaps
-//     the split kernel's tail, and every merge block waits for the split
-//     grid before it reads or exits, so the merge's end implies the split
-//     kernel's writes are visible. No atomics: two calls on the same inputs
-//     give bit-identical outputs. (Merging in the split kernel's last
-//     block, by an atomic ticket, measured slower: every block then pays a
-//     device-wide fence, and one block merges a long slot's splits alone.)
+//   * a slot with one live split gets its output from that block. Otherwise
+//     each block writes its split's (m, l, acc) per head to scratch; the
+//     merge kernel, grid (H, S), works out the same live split count from
+//     the same position, weighs the splits in shared memory and sums them
+//     in a fixed order (G interleaved groups of splits per column, then the
+//     G partial sums). It is launched as a programmatic dependent of the
+//     split kernel, so its launch overlaps the split kernel's tail, and
+//     every merge block waits for the split grid before it reads or exits,
+//     so the merge's end implies the split kernel's writes are visible. A
+//     plan of one split launches no merge. No atomics: two calls on the
+//     same inputs give bit-identical outputs. (Measured no faster: letting
+//     the merge launch as the split blocks start; the default carveout; a
+//     merge thread per column with no shared memory, which is slower at 64
+//     splits: PERF.md §6. Merging in the split kernel's last block, by an
+//     atomic ticket, measured slower: every block then pays a device-wide
+//     fence, and one block merges a long slot's splits alone.)
 //   q is scaled before the dot, as the TPU kernel does; the plain version
 //   scales the scores after, so the two agree to float tolerance.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -75,7 +91,7 @@ constexpr int kMaxWidth = 256;    // floats of a block's row: HG * hd
 constexpr int kMinTile = 4;       // tokens of a tile
 constexpr int kMaxTile = 64;
 constexpr int kMaxSplits = 4096;  // the merge keeps a slot's weights in shared memory
-constexpr int kMaxRun = 2048;     // tokens of a split: their pool rows stay in shared memory
+constexpr int kMaxRun = 2048;     // tokens of a split at most: their pool rows stay in shared memory
 constexpr size_t kSmemMax = 227 * 1024;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -84,10 +100,10 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 struct Split {
   int S, H, hd, PS, P, KD;
   int HG;   // heads of a block
-  int CP;   // logical pages of a split
+  int RT;   // tiles of a split at most
   int TT;   // tokens of a tile, a power of two
   int TT_LOG;
-  int NC;   // splits of a slot (NC * CP >= P)
+  int NC;   // splits of a slot (NC * RT >= the table's tiles)
   int NV;   // vectors of a head's row (hd / VEC)
   int LPT;  // lanes of a score
   int ROW;  // floats of a ring row (HG * hd, padded)
@@ -106,11 +122,11 @@ inline int pow2_floor(int x) {
 // no thread idle over a tile's HG*TT scores, at most a row's vectors. Rows
 // are padded so that the scores read in one shared-memory phase fall on
 // disjoint banks.
-Split make_split(int S, int H, int hd, int PS, int P, int HG, int CP, int TT, int NC,
+Split make_split(int S, int H, int hd, int PS, int P, int HG, int RT, int TT, int NC,
                  int vec, float scale) {
   Split g{};
   g.S = S, g.H = H, g.hd = hd, g.PS = PS, g.P = P, g.KD = H * hd;
-  g.HG = HG, g.CP = CP, g.TT = TT, g.NC = NC, g.scale = scale;
+  g.HG = HG, g.RT = RT, g.TT = TT, g.NC = NC, g.scale = scale;
   g.TT_LOG = 0;
   while ((1 << g.TT_LOG) < TT) ++g.TT_LOG;
   g.NV = hd / vec;
@@ -132,11 +148,14 @@ __host__ __device__ inline size_t ring_floats(const Split& g) {
 // the block's closing sums reuse the ring: [TS][C] vectors
 size_t reduce_floats(const Split& g, int vec) { return (size_t)g.TS * g.C * vec; }
 
+// pool rows a split block keeps: its run's RT tiles, then its short tile
+__host__ __device__ inline int row_slots(const Split& g) { return (g.RT + 1) * g.TT; }
+
 size_t split_smem_bytes(const Split& g) {
   // ring [kStages][K, V][TT][ROW], scores [HG][TT], q [HG*hd], (m, l, alpha)
-  // [3][HG]; page ids [CP], pool rows [CP*PS]
+  // [3][HG]; pool rows of the split's tiles [RT*TT]
   return (ring_floats(g) + (size_t)g.HG * g.TT + (size_t)g.HG * g.hd + 3 * (size_t)g.HG) *
-             sizeof(float) + ((size_t)g.CP + (size_t)g.CP * g.PS) * sizeof(int);
+             sizeof(float) + (size_t)row_slots(g) * sizeof(int);
 }
 
 template <int VEC> struct VecOf;
@@ -183,43 +202,23 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-// 1-D TMA (cp.async.bulk) into shared memory, completing on an mbarrier
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // visible tokens of slot s: logical 0..position, kept inside the table's
 // reach (token 0 is visible to every slot, so at least 1)
 __device__ __forceinline__ int visible_tokens(const int* positions, int s, int max_tok) {
   const int n = positions[s] + 1;
   return n < 1 ? 1 : (n > max_tok ? max_tok : n);
+}
+
+// whether a slot of `tiles` visible tiles is short: one tile to a split
+__host__ __device__ inline bool short_slot(int tiles, const Split& g) {
+  return tiles <= (g.RT < g.NC ? g.RT : g.NC);
+}
+
+// live splits of a slot with n_tok visible tokens: one a tile when the slot
+// is short, else one a run of RT tiles
+__host__ __device__ inline int live_splits(int n_tok, const Split& g) {
+  const int tiles = cdiv(n_tok, g.TT);
+  return short_slot(tiles, g) ? tiles : cdiv(tiles, g.RT);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -240,8 +239,8 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_page
                    const int* __restrict__ positions, float* __restrict__ out,
                    float* __restrict__ part, Split g) {
   using V = typename VecOf<VEC>::T;
-  // the ring starts on a 128-byte line: after the mbarriers' 16 static
-  // bytes instead, the kernel measured 10-15 % slower (PERF.md §6, PR 6)
+  // the ring starts on a 128-byte line: 16 bytes past one, the kernel
+  // measured 10-15 % slower (PERF.md §6, PR 6)
   extern __shared__ __align__(128) float smem[];
   const int grp = blockIdx.x, s = blockIdx.y, c = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -254,69 +253,47 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_page
   float* s_m = s_q + width;                              // [HG] running max
   float* s_l = s_m + g.HG;                               // [HG] running denominator
   float* s_alpha = s_l + g.HG;                           // [HG] this tile's rescale
-  int* s_page = reinterpret_cast<int*>(s_alpha + g.HG);  // [CP]
-  int* s_row = s_page + g.CP;                            // [CP * PS] pool row of a token
+  int* s_row = reinterpret_cast<int*>(s_alpha + g.HG);  // [(RT + 1) * TT] pool rows
 
-  // the query and the run's page ids (once per page) are loaded beside the
-  // position, whose value decides whether the block has any work: three
-  // loads in flight together; then each token's row in the pool is worked
-  // out once
+  // the query and the pool rows of the tiles this split may walk (its run,
+  // the slot's tiles c * RT .. c * RT + RT - 1, and its short tile c) are
+  // loaded beside the position, whose value decides which of them it walks:
+  // the loads are in flight together
   const float q_own = tid < width ? q[(size_t)s * g.KD + col0 + tid] : 0.f;  // width <= kThreads
-  const int n_tok = visible_tokens(positions, s, g.P * g.PS);
-  const int* bt = block_table + (size_t)s * g.P + (size_t)c * g.CP;
-  const int run_pages = min(g.CP, g.P - c * g.CP);
-  for (int i = tid; i < run_pages; i += kThreads) s_page[i] = bt[i];
-  if (tid < width) s_q[tid] = q_own * g.scale;
-  const int t_begin = c * g.CP * g.PS;  // a whole number of pages
-  if (t_begin >= n_tok) return;         // this split sees nothing: exit
-  const int len = min(n_tok - t_begin, g.CP * g.PS);
-  for (int i = tid; i < g.HG; i += kThreads) s_m[i] = -INFINITY, s_l[i] = 0.f;
-  __shared__ unsigned long long s_bar[kStages];  // VEC == 4: a ring stage's copies landed
-  if constexpr (VEC == 4) {
-    if (tid == 0) {
-      for (int k = 0; k < kStages; ++k) mbar_init(&s_bar[k], 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
+  const int max_tok = g.P * g.PS;
+  const int n_tok = visible_tokens(positions, s, max_tok);
+  const int* bt = block_table + (size_t)s * g.P;
+  for (int u = tid; u < row_slots(g); u += kThreads) {
+    const int k = u >> g.TT_LOG;
+    const int tile = k < g.RT ? c * g.RT + k : c;
+    const int t = tile * g.TT + (u & (g.TT - 1));
+    s_row[u] = t < max_tok ? bt[t / g.PS] * g.PS + t % g.PS : 0;
   }
-  __syncthreads();
-  for (int t = tid; t < len; t += kThreads) s_row[t] = s_page[t / g.PS] * g.PS + t % g.PS;
+  if (tid < width) s_q[tid] = q_own * g.scale;
+  const int slot_tiles = cdiv(n_tok, g.TT);
+  const int n_split = live_splits(n_tok, g);
+  if (c >= n_split) return;  // this split has no tile: exit
+  for (int i = tid; i < g.HG; i += kThreads) s_m[i] = -INFINITY, s_l[i] = 0.f;
   __syncthreads();
 
-  const int n_tiles = cdiv(len, g.TT);
+  const bool short_run = short_slot(slot_tiles, g);
+  const int n_tiles = short_run ? 1 : min(g.RT, slot_tiles - c * g.RT);
+  auto tile_of = [&](int j) { return short_run ? c : c * g.RT + j; };
+  auto row_base = [&](int j) { return short_run ? g.RT * g.TT : j * g.TT; };
+  // tokens of the split's tile j, cut at n_tok
+  auto tile_rows = [&](int j) { return min(g.TT, n_tok - tile_of(j) * g.TT); };
   const size_t tile_floats = (size_t)g.TT * g.ROW;
-  // VEC == 4: warp 0 copies tile j into stage j % kStages, a 1-D TMA copy per
-  // K and V row (HG*hd*4 contiguous bytes), lane 0 first telling the
-  // stage's mbarrier how many bytes to expect. The rest of the block issues
-  // nothing, so its shared-memory and shuffle traffic never queues behind
-  // copies waiting on memory.
-  auto issue_bulk = [&](int j) {
-    if (j < n_tiles && warp == 0) {
-      const int t0 = j * g.TT;
-      const int rows = min(g.TT, len - t0);
-      float* k_st = ring + (size_t)(j % kStages) * 2 * tile_floats;
-      float* v_st = k_st + tile_floats;
-      unsigned long long* bar = &s_bar[j % kStages];
-      const unsigned row_bytes = width * sizeof(float);
-      if (lane == 0) mbar_expect_tx(bar, 2 * rows * row_bytes);
-      __syncwarp();
-      for (int r = lane; r < rows; r += 32) {
-        const size_t src = (size_t)s_row[t0 + r] * g.KD + col0;
-        bulk_copy(k_st + r * g.ROW, k_pages + src, row_bytes, bar);
-        bulk_copy(v_st + r * g.ROW, v_pages + src, row_bytes, bar);
-      }
-    }
-  };
-  // VEC == 1 (rows not 16-byte aligned): every thread copies vectors tid,
-  // tid + kThreads, ... of a tile's rows x vpr with 4-byte cp.async, walked
+  // tile j into stage j % kStages: every thread copies vectors tid,
+  // tid + kThreads, ... of the tile's K and V rows x vpr by cp.async, walked
   // without a division; one commit group per call, empty past the last
   // tile, so the wait below counts tiles
   const int vpr = width / VEC;
   const int r_first = tid / vpr, v_first = tid - r_first * vpr;
   const int dr = kThreads / vpr, dv = kThreads - dr * vpr;
-  auto issue_async = [&](int j) {
+  auto issue = [&](int j) {
     if (j < n_tiles) {
-      const int t0 = j * g.TT;
-      const int rows = min(g.TT, len - t0);
+      const int t0 = row_base(j);  // in s_row
+      const int rows = tile_rows(j);
       float* k_st = ring + (size_t)(j % kStages) * 2 * tile_floats;
       float* v_st = k_st + tile_floats;
       int r = r_first, v = v_first;
@@ -330,13 +307,6 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_page
       }
     }
     cp_async_commit();
-  };
-  auto issue = [&](int j) {
-    if constexpr (VEC == 4) {
-      issue_bulk(j);
-    } else {
-      issue_async(j);
-    }
   };
   for (int j = 0; j < kStages - 1; ++j) issue(j);
 
@@ -355,18 +325,14 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_page
   zero(acc);
 
   for (int j = 0; j < n_tiles; ++j) {
-    if constexpr (VEC == 4) {
-      mbar_wait(&s_bar[j % kStages], (j / kStages) & 1);  // tile j landed
-    } else {
-      cp_async_wait<kStages - 2>();  // this thread's copies of tile j landed
-    }
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile j landed
     // everyone's did, and everyone is done with tile j - 1: its stage and
     // the weights are free again
     __syncthreads();
     issue(j + kStages - 1);  // into tile j - 1's stage
     const float* k_st = ring + (size_t)(j % kStages) * 2 * tile_floats;
     const float* v_st = k_st + tile_floats;
-    const int rows = min(g.TT, len - j * g.TT);
+    const int rows = tile_rows(j);
 
     for (int it = 0; it < dot_iters; ++it) {  // warp-uniform trip count
       const int i = dgrp + it * n_dgrp;
@@ -414,25 +380,25 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_page
         axpy(w[t], reinterpret_cast<const V*>(v_st + t * g.ROW)[col], acc);
     }
   }
-  if constexpr (VEC == 1) cp_async_wait<0>();  // only empty groups are left
+  cp_async_wait<0>();  // only empty groups are left
   __syncthreads();  // the ring becomes scratch
 
-  // sum the token splits in order; a slot whose visible tokens fit one
-  // split has its output here, any other gets this split's (m, l, acc)
+  // sum the token splits in order; a slot with one live split has its
+  // output here, any other gets this split's (m, l, acc)
   V* red = reinterpret_cast<V*>(ring);  // [TS][C]
   if (acc_thread) red[ts * g.C + col] = acc;
   __syncthreads();
   if (tid < g.C) {  // ts == 0, col == tid
     V sum = red[tid];
     for (int k = 1; k < g.TS; ++k) add(sum, red[k * g.C + tid]);
-    if (n_tok <= g.CP * g.PS) {
+    if (n_split == 1) {
       scale_by(sum, 1.f / s_l[h]);
       reinterpret_cast<V*>(out + (size_t)s * g.KD + col0)[tid] = sum;
     } else {
       float* p_acc = part + ((size_t)s * g.NC + c) * g.KD + col0;
       reinterpret_cast<V*>(p_acc)[tid] = sum;
     }
-    if (tid % g.NV == 0 && n_tok > g.CP * g.PS) {
+    if (tid % g.NV == 0 && n_split > 1) {
       float* p_ml = part + (size_t)g.S * g.NC * g.KD +
                     (((size_t)s * g.NC + c) * g.H + (size_t)grp * g.HG + h) * 2;
       p_ml[0] = s_m[h];
@@ -457,7 +423,7 @@ paged_decode_merge(const float* __restrict__ part, const int* __restrict__ posit
   // kernel has finished and its writes are visible, in every block, so the
   // merge's end implies the split's, whatever the slot needs
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const int n_split = cdiv(n_tok, g.CP * g.PS);
+  const int n_split = live_splits(n_tok, g);
   if (n_split == 1) return;  // the split kernel wrote this slot's output
   const float* ml = part + (size_t)g.S * g.NC * g.KD + ((size_t)s * g.NC * g.H + h) * 2;
   float mx = -INFINITY;  // split 0 always sees token 0, so the max is finite
@@ -493,32 +459,22 @@ paged_decode_merge(const float* __restrict__ part, const int* __restrict__ posit
   }
 }
 
-// Once per card: let the split kernel take all of a block's 227 KB of
-// shared memory that its static part (the mbarriers) leaves, and ask for
-// the largest shared-memory carveout, so that as many blocks fit on an SM
-// as their shared memory allows. *dynamic_max: the dynamic bytes allowed.
+// Once per card: let the split kernel take a block's 227 KB of shared
+// memory and ask for the largest shared-memory carveout, so that as many
+// blocks fit on an SM as their shared memory allows.
 template <int VEC>
-cudaError_t prepare(size_t* dynamic_max) {
+cudaError_t prepare() {
   constexpr int kCards = 64;
-  static size_t allowed[kCards] = {};
+  static bool done[kCards] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kCards && allowed[dev]) {
-    *dynamic_max = allowed[dev];
-    return cudaSuccess;
-  }
+  if (err != cudaSuccess || (dev < kCards && done[dev])) return err;
   const void* fn = (const void*)paged_decode_split<VEC>;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return err;
-  *dynamic_max = kSmemMax - attr.sharedSizeBytes;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)*dynamic_max);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && dev < kCards) allowed[dev] = *dynamic_max;
+  if (err == cudaSuccess && dev < kCards) done[dev] = true;
   return err;
 }
 
@@ -527,14 +483,13 @@ cudaError_t launch(const float* q, const float* k_pages, const float* v_pages,
                    const int* block_table, const int* positions, float* out, float* part,
                    const Split& g, cudaStream_t st) {
   const size_t smem = split_smem_bytes(g);
-  size_t smem_max = 0;
-  cudaError_t err = prepare<VEC>(&smem_max);
+  if (smem > kSmemMax || reduce_floats(g, VEC) > ring_floats(g)) return cudaErrorInvalidValue;
+  cudaError_t err = prepare<VEC>();
   if (err != cudaSuccess) return err;
-  if (smem > smem_max || reduce_floats(g, VEC) > ring_floats(g)) return cudaErrorInvalidValue;
   paged_decode_split<VEC><<<dim3(g.H / g.HG, g.S, g.NC), kThreads, smem, st>>>(
       q, k_pages, v_pages, block_table, positions, out, part, g);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || g.NC == 1) return err;  // one split: nothing to merge
   // the merge may launch while the split kernel's last blocks run, and
   // waits for them at griddepcontrol.wait: its launch latency hides behind
   // their tail
@@ -555,23 +510,28 @@ cudaError_t launch(const float* q, const float* k_pages, const float* v_pages,
 
 // Plain C entry point (bound with ctypes). Launches the split kernel and the
 // merge kernel on `stream`, does not synchronise, and returns the first CUDA
-// error, so a refused launch surfaces. `heads_per_block`, `pages_per_split`,
+// error, so a refused launch surfaces. `heads_per_block`, `tiles_per_split`,
 // `tile_tokens` and `n_splits` are the wrapper's plan; `scratch` holds
-// S * n_splits * (KD + 2H) floats. A plan that does not cover the table or
-// does not fit the block is cudaErrorInvalidValue.
+// S * n_splits * (KD + 2H) floats. A plan that does not cover the table's
+// tiles, has a split that no position makes live, or does not fit the
+// block is cudaErrorInvalidValue.
 extern "C" int paged_attention_decode_f32(
     const float* q, const float* k_pages, const float* v_pages, const int* block_table,
     const int* positions, float* out, float* scratch, int n_slots, int n_heads,
     int head_dim, int page_size, int pages_per_seq, int heads_per_block,
-    int pages_per_split, int tile_tokens, int n_splits, float scale, void* stream) {
+    int tiles_per_split, int tile_tokens, int n_splits, float scale, void* stream) {
   if (n_slots <= 0 || n_slots > 65535 || n_heads <= 0 || head_dim <= 0 ||
       head_dim > kMaxWidth || page_size <= 0 || pages_per_seq <= 0 ||
       heads_per_block <= 0 || n_heads % heads_per_block ||
       heads_per_block * head_dim > kMaxWidth ||
       tile_tokens < kMinTile || tile_tokens > kMaxTile || (tile_tokens & (tile_tokens - 1)) ||
-      pages_per_split <= 0 || pages_per_split * page_size > kMaxRun || n_splits <= 0 ||
-      n_splits > kMaxSplits || (long long)n_splits * pages_per_split < pages_per_seq ||
-      (long long)(n_splits - 1) * pages_per_split >= pages_per_seq) {
+      (long long)pages_per_seq * page_size > INT_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long table_tiles = ((long long)pages_per_seq * page_size + tile_tokens - 1) / tile_tokens;
+  if (tiles_per_split <= 0 || tiles_per_split * tile_tokens > kMaxRun || n_splits <= 0 ||
+      n_splits > kMaxSplits || n_splits > table_tiles ||
+      (long long)n_splits * tiles_per_split < table_tiles) {
     return (int)cudaErrorInvalidValue;
   }
   // 16-byte row copies need 16-byte aligned rows: hd a multiple of 4 and
@@ -581,7 +541,7 @@ extern "C" int paged_attention_decode_f32(
                       reinterpret_cast<uintptr_t>(scratch) | reinterpret_cast<uintptr_t>(out)) &
                      15) == 0;
   const Split g = make_split(n_slots, n_heads, head_dim, page_size, pages_per_seq,
-                             heads_per_block, pages_per_split, tile_tokens, n_splits,
+                             heads_per_block, tiles_per_split, tile_tokens, n_splits,
                              vec4 ? 4 : 1, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =

@@ -5,8 +5,8 @@ Additive (Bahdanau) attention is plain PyTorch: the JAX package runs it per
 decoder step inside a `lax.scan`, with no Pallas kernel. Scaled dot-product
 attention dispatches to the fused op (`ops/rnn_kernels.attention_seq_fused`:
 the CUDA kernel for CUDA tensors, its plain version for CPU tensors)
-where the scale is static and the kernel takes the shape; the plain body
-below is the oracle and the source of the fused op's backward."""
+wherever the scale is static; the plain body below is the oracle and the
+source of the fused op's backward."""
 
 from __future__ import annotations
 
@@ -17,8 +17,7 @@ import torch
 
 from paddle_tpu_torch.ops import linalg
 from paddle_tpu_torch.ops import sequence as seq_ops
-from paddle_tpu_torch.ops.rnn_kernels import (
-    attention_seq_fits, attention_seq_fused, attention_seq_misfit)
+from paddle_tpu_torch.ops.rnn_kernels import attention_seq_fused
 
 
 def additive_scores(
@@ -62,23 +61,14 @@ def dot_product_attention(
     f32.
 
     `fused=None` takes the fused op where `scale` is static (None or a
-    Python number) and the kernel takes the shape
-    (`rnn_kernels.attention_seq_fits`: Dv <= 256, its tiles at (D, Dv)
-    within a block's 227 KB of shared memory, B <= 65535), on either
-    device; otherwise the plain body, as the JAX package's `_attn_fuse_ok`
-    sends what its kernel cannot hold to the jnp body. That test takes the
-    place of the JAX package's VMEM budget (`PADDLE_TPU_FUSED_ATTN_MAX`),
-    which has no counterpart: the kernel walks the keys in tiles, so Tq and
-    Tk are free. `fused=True` raises a ValueError naming the limit on a
-    shape the kernel does not take; `fused=False` runs the plain body."""
+    Python number), on either device, and the plain body for a tensor
+    scale. The kernel tiles D, Dv, Tq and Tk, so it takes every shape: the
+    JAX package's `_attn_fuse_ok` VMEM budget (`PADDLE_TPU_FUSED_ATTN_MAX`)
+    has no counterpart. `fused=True` takes the fused op (a tensor scale is
+    read as a number); `fused=False` runs the plain body."""
     d = q.shape[-1]
     if fused is None:
-        fused = ((scale is None or isinstance(scale, (int, float)))
-                 and attention_seq_fits(q.shape[0], d, v.shape[-1]))
-    elif fused:
-        misfit = attention_seq_misfit(q.shape[0], d, v.shape[-1])
-        if misfit:
-            raise ValueError(f"dot_product_attention(fused=True): {misfit}")
+        fused = scale is None or isinstance(scale, (int, float))
     if fused:
         s = float(scale) if scale is not None else 1.0 / math.sqrt(d)
         m = (torch.ones((q.shape[0], 1, k.shape[1]), dtype=torch.float32, device=q.device)

@@ -6,12 +6,15 @@ decode step attends, for every slot at once, over the slot's own pages of
 the paged KV cache: block-table row s maps logical page j to a physical
 page, and slot s sees logical tokens 0..positions[s] (sequence length is
 data, never shape). The kernel (`csrc/paged_attention.cu`) splits each
-slot's pages into runs (flash-decoding): a block copies one run's K/V rows
-for a group of heads into a shared-memory ring and keeps an online f32
-softmax, and a second small grid merges a slot's runs in a fixed order. It
-never builds the dense [S, P*PS, KD] gather. `split_plan` below lays the
-launch out from the shapes and the card's SM count alone; the kernel reads
-the positions on the device, so the host never waits on them. The plain
+slot's visible tokens over several blocks (flash-decoding): a block copies
+its tiles' K/V rows for a group of heads into a shared-memory ring and
+keeps an online f32 softmax, and a second small grid merges a slot's
+splits in a fixed order. It never builds the dense [S, P*PS, KD] gather.
+`split_plan` below lays the launch out from the shapes and the card's SM
+count alone; the blocks read the positions on the device and deal each
+slot's visible tiles among its splits (`split_tiles` is that rule in
+Python: one tile a split for a short slot, runs of the plan's length
+otherwise), so the host never waits on them. The plain
 version below is that dense gather + masked softmax, line for line the JAX
 package's oracle (`paddle_tpu/serving/model.py:617-627`).
 
@@ -49,18 +52,18 @@ MAX_BLOCK_WIDTH = 256
 # kernel's ring holds 2 stages: one in flight while the block computes the
 # other; at hd=64 its 68 KB leave room for 3 blocks an SM)
 _TILE_BYTES = 32 * 1024
-# tokens of a run at most (the kernel keeps their pool rows on chip)
+# tokens a split walks at most (the kernel keeps their pool rows on chip)
 _MAX_RUN = 2048
-# split blocks aimed at per SM, counting every table page as visible (about
+# split blocks aimed at per SM, counting every table tile as visible (about
 # half are at a typical decode step, which leaves ~2 resident blocks an SM)
 _BLOCKS_PER_SM = 4
 
 
 class SplitPlan(NamedTuple):
     heads_per_block: int  # HG: a block's heads, a divisor of H
-    pages_per_split: int  # CP: logical pages of one run
-    tile_tokens: int      # TT: tokens of a ring stage
-    n_splits: int         # NC: runs of a slot, NC * CP >= P > (NC - 1) * CP
+    tiles_per_split: int  # RT: tiles a split walks at most
+    tile_tokens: int      # TT: tokens of a tile (a ring stage)
+    n_splits: int         # NC: splits of a slot, NC * RT >= the table's tiles >= NC
 
     def scratch_floats(self, s: int, kd: int, n_heads: int) -> int:
         """Each run's partial accumulator [S, NC, KD] and (max, sum) [S, NC, H, 2]."""
@@ -72,27 +75,40 @@ def split_plan(s: int, n_heads: int, head_dim: int, page_size: int,
                pages_per_seq: int, sms: int) -> SplitPlan:
     """How the kernel lays out S slots of H heads x hd over P pages of PS
     tokens on a card of `sms` SMs: the most heads a block can hold (its row
-    of HG*hd floats at most 256), a tile of ~32 KB of K and V, and runs of
-    pages short enough that S x head groups x runs is about 4 blocks per SM
-    (at S=1 that is one page a run): with about half the table visible,
-    the active blocks fit on the card at once. Depends on shapes only,
-    never on the positions."""
+    of HG*hd floats at most 256), a tile of ~32 KB of K and V, and as many
+    splits a slot as make S x head groups x splits about 4 blocks per SM
+    (at most one a tile of the table: at S=1 a split walks one tile), each
+    walking a run of at most RT tiles. That much is fixed by the shapes;
+    which tiles a split walks, and how many splits are live, the blocks
+    work out from the positions (`split_tiles`)."""
     hg = max(d for d in range(1, n_heads + 1)
              if n_heads % d == 0 and d * head_dim <= MAX_BLOCK_WIDTH)
     width = hg * head_dim
     tile = 1 << max(0, (_TILE_BYTES // (8 * width)).bit_length() - 1)
     tile = min(64, max(4, tile))
+    tiles = math.ceil(pages_per_seq * page_size / tile)
     units = s * (n_heads // hg)
-    splits = min(pages_per_seq, max(1, math.ceil(_BLOCKS_PER_SM * sms / units)))
-    # a run's tokens keep their pool rows in shared memory: at most 2048
-    per = min(math.ceil(pages_per_seq / splits), max(1, _MAX_RUN // page_size))
-    return SplitPlan(hg, per, tile, math.ceil(pages_per_seq / per))
+    splits = min(tiles, max(1, math.ceil(_BLOCKS_PER_SM * sms / units)))
+    # a split's tokens keep their pool rows in shared memory: at most 2048
+    per = min(math.ceil(tiles / splits), _MAX_RUN // tile)
+    return SplitPlan(hg, per, tile, math.ceil(tiles / per))
 
 
-def split_pages(plan: SplitPlan, pages_per_seq: int) -> List[Tuple[int, int]]:
-    """The [first, end) logical pages of each run, in the kernel's order."""
-    cp = plan.pages_per_split
-    return [(c * cp, min((c + 1) * cp, pages_per_seq)) for c in range(plan.n_splits)]
+def split_tiles(plan: SplitPlan, n_tok: int) -> List[List[Tuple[int, int]]]:
+    """The kernel's rule, for a slot of `n_tok` visible tokens (1 up to the
+    table's reach): the [first, end) tokens of each tile that split c walks,
+    in its order. A short slot, of at most min(RT, NC) tiles of TT tokens,
+    gives one tile to each of its first splits; a longer one gives split c
+    the run of tiles c*RT .. c*RT + RT - 1. A split with no tile exits, and
+    the merge sums the live ones in split order."""
+    tt, rt, nc = plan.tile_tokens, plan.tiles_per_split, plan.n_splits
+    tiles = -(-n_tok // tt)
+    if tiles <= min(rt, nc):
+        runs = [[c] for c in range(tiles)]
+    else:
+        runs = [list(range(c * rt, min((c + 1) * rt, tiles))) for c in range(-(-tiles // rt))]
+    runs += [[] for _ in range(nc - len(runs))]
+    return [[(i * tt, min((i + 1) * tt, n_tok)) for i in r] for r in runs]
 
 
 _sm_counts: Dict[int, int] = {}

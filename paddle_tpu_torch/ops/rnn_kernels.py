@@ -39,7 +39,7 @@ forward's grid syncs alone (a measuring probe, on no model's path)."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -54,11 +54,6 @@ ATTN_LAUNCHES = 0
 
 # masked attention scores are replaced by this (ops/sequence.NEG_INF)
 _ATTN_NEG_INF = -1e9
-# the attention kernel's limits: a query row's Dv accumulators live in
-# registers, its tiles in one block's shared memory, the batch on grid y
-ATTN_MAX_DV = 256
-ATTN_MAX_SMEM = 227 * 1024
-ATTN_MAX_B = 65535
 
 
 # -- plain versions -----------------------------------------------------------
@@ -198,7 +193,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _RNN_TAIL = (_I, _I, _I, _I, _P)
 
 
-def _entry(source: str, name: str, n_ptrs: int, tail=_RNN_TAIL):
+def _entry(source: str, name: str, n_ptrs: int, tail=_RNN_TAIL, restype=ctypes.c_int):
     """A built, loaded entry point with every argument type declared:
     pointers and the stream c_void_p, sizes and flags c_int, a scale
     c_float (undeclared, ctypes would cut pointers to 32 bits and fail on
@@ -206,7 +201,7 @@ def _entry(source: str, name: str, n_ptrs: int, tail=_RNN_TAIL):
     fn = getattr(build.load(source), name)
     if fn.argtypes is None:
         fn.argtypes = [_P] * n_ptrs + list(tail)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn
 
 
@@ -667,39 +662,10 @@ def attention_seq_fused_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bqk,bkv->bqv", w, v)
 
 
-def attention_seq_smem_bytes(d: int, dv: int) -> int:
-    """The attention kernel's shared memory for head dims (D, Dv): a copy of
-    `smem_bytes` in `csrc/attention_seq.cu` (64 query rows of q, a tile of
-    64 keys of k with an odd row stride and of v, the 64 x 65 scores and 3
-    floats a query row); the `cuda` tests hold the two equal through the
-    library's `attention_seq_smem_bytes`."""
-    return 4 * (64 * d + 64 * (d | 1) + 64 * dv + 64 * 65 + 3 * 64)
-
-
-def attention_seq_misfit(b: int, d: int, dv: int) -> Optional[str]:
-    """None where the attention kernel takes q [B,Tq,D], v [B,Tk,Dv]; else
-    the limit that the shape breaks."""
-    if dv > ATTN_MAX_DV:
-        return f"the attention kernel takes Dv <= {ATTN_MAX_DV}, got {dv}"
-    smem = attention_seq_smem_bytes(d, dv)
-    if smem > ATTN_MAX_SMEM:
-        return (f"the attention kernel's tiles at D={d}, Dv={dv} take {smem} bytes of "
-                f"shared memory, over a block's {ATTN_MAX_SMEM}")
-    if b > ATTN_MAX_B:
-        return f"the attention kernel takes B <= {ATTN_MAX_B}, got {b}"
-    return None
-
-
-def attention_seq_fits(b: int, d: int, dv: int) -> bool:
-    """Whether the attention kernel takes batch B and head dims (D, Dv):
-    `ops/attention.dot_product_attention(fused=None)` routes by it."""
-    return attention_seq_misfit(b, d, dv) is None
-
-
 def attention_seq_fwd(q, k, v, mask, scale: float) -> torch.Tensor:
     """One launch of the forward kernel on f32 tensors -> out [B,Tq,Dv]
     f32. q [B,Tq,D], k [B,Tk,D], v [B,Tk,Dv], mask [B,Mq,Tk], Mq in
-    {1, Tq}."""
+    {1, Tq}; any sizes (the kernel tiles D, Dv, Tq and Tk)."""
     global ATTN_LAUNCHES
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or mask.dim() != 3:
         raise ValueError("q, k, v and mask must be 3-d: [B,Tq,D], [B,Tk,D], "
@@ -710,16 +676,20 @@ def attention_seq_fwd(q, k, v, mask, scale: float) -> torch.Tensor:
     if mq not in (1, tq):
         raise ValueError(f"mask must be [B, 1, Tk] or [B, Tq, Tk], got {list(mask.shape)}")
     _check_shapes(k=(k, (b, tk, d)), v=(v, (b, tk, dv)), mask=(mask, (b, mq, tk)))
-    misfit = attention_seq_misfit(b, d, dv)
-    if misfit:
-        raise ValueError(misfit)
     _check_tensors("attention", q=q, k=k, v=v, mask=mask)
     out = torch.empty((b, tq, dv), dtype=torch.float32, device=q.device)
-    rc = _entry("attention_seq", "attention_seq_fwd_f32", 5,
-                (_I, _I, _I, _I, _I, _I, _F, _P))(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        b, tq, tk, d, dv, mq, float(scale), _stream(q),
-    )
+    with torch.cuda.device(q.device):
+        n = _entry("attention_seq", "attention_seq_scratch_floats", 0,
+                   (_I, _I, _I, _I, _I, _I), ctypes.c_longlong)(b, tq, tk, d, dv, mq)
+        if n < 0:
+            raise RuntimeError(f"attention_seq launch plan failed: CUDA error {-n}")
+        # the key splits' partials, where the kernel splits the keys
+        scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else out
+        rc = _entry("attention_seq", "attention_seq_fwd_f32", 6,
+                    (ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _F, _P))(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), n, b, tq, tk, d, dv, mq, float(scale), _stream(q),
+        )
     if rc != 0:
         raise RuntimeError(f"attention_seq forward kernel launch failed: CUDA error {rc}")
     ATTN_LAUNCHES += 1

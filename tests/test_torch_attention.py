@@ -13,18 +13,18 @@ Same numpy inputs on both sides (seeded), (B, Tq, Tk, D, Dv) = (3, 5, 7, 8,
     JAX package's: rtol 1e-4 / atol 1e-5.
   * bf16 inputs: the output stays bf16 and tracks the JAX function within
     atol 2e-2 (bf16 resolution; the softmax is f32 on both sides).
-  * The route: `fused=None` takes the fused op only where the kernel takes
-    the shape (`attention_seq_fits`: Dv <= 256, its tiles within 227 KB of
-    shared memory, B <= 65535); at D=40, Dv=300 both `fused=None` and
-    `fused=False` run the plain body and match the JAX body (1e-5, grads
-    rtol 1e-4 / atol 1e-5); `fused=True` there raises a ValueError that
-    names the limit.
+  * The route: `fused=None` takes the fused op for every static scale (the
+    kernel tiles D and Dv: no shape limit is left, B past 65535 included);
+    at D=512/Dv=64, D=16/Dv=257 and D=40/Dv=300 both `fused=None` and
+    `fused=True` go through it and match the JAX jnp body (1e-5, grads
+    rtol 1e-4 / atol 1e-5) and the JAX Pallas kernel in interpret mode
+    (1e-5).
   * On a card (marked `cuda`, skipped here): the CUDA kernel vs its plain
-    version (1e-4), including a fully masked row; the shapes the kernel
-    does not take (q, k [1,1,512] with v [1,1,64]; Dv=257) through
-    `fused=None` launch nothing and match the plain body; the shared-memory
-    copy equals the library's. jax is imported inside the CPU tests
-    only."""
+    version (1e-4) at D in {8, 64, 100, 512} x Dv in {6, 64, 257, 300},
+    Tq and Tk no multiples of a tile, fully masked rows, both mask shapes,
+    and at B = 65536; scores of order 10, where 3xTF32 holds 1e-4 and one
+    TF32 pass does not; `dot_product_attention` through the kernel,
+    gradients included. jax is imported inside the CPU tests only."""
 
 import numpy as np
 import pytest
@@ -151,11 +151,18 @@ def test_dispatch_and_launch_count(monkeypatch):
     assert calls == [1, 1] and K.ATTN_LAUNCHES == before
 
 
-@pytest.mark.parametrize("fused", [None, False])
-def test_wide_value_dims_take_the_plain_body(monkeypatch, fused):
-    """D=40, Dv=300: past the kernel's Dv, so fused=None runs the plain
-    body, as the JAX package's `_attn_fuse_ok` sends it to the jnp body."""
-    q, k, v, mkv, mfull = _inputs(14, b=2, tq=3, tk=9, d=40, dv=300)
+# head dims the kernel takes since it tiles D and Dv (the JAX package's
+# _attn_fuse_ok takes them too at these sizes): b, tq, tk, d, dv
+WIDE = [(1, 2, 3, 512, 64), (2, 5, 9, 16, 257), (2, 3, 9, 40, 300)]
+
+
+@pytest.mark.parametrize("fused", [None, True])
+@pytest.mark.parametrize("b,tq,tk,d,dv", WIDE)
+def test_wide_head_dims_take_the_fused_op(monkeypatch, b, tq, tk, d, dv, fused):
+    """D=512 or Dv=257/300 go through the fused op with fused=None and
+    fused=True, and match the JAX package's jnp body (outputs 1e-5, grads
+    rtol 1e-4 / atol 1e-5)."""
+    q, k, v, mkv, mfull = _inputs(14, b, tq, tk, d, dv)
     calls = []
     real = tatt.attention_seq_fused
     monkeypatch.setattr(tatt, "attention_seq_fused", lambda *a: calls.append(1) or real(*a))
@@ -164,43 +171,42 @@ def test_wide_value_dims_take_the_plain_body(monkeypatch, fused):
         np.testing.assert_allclose(_torch(q, k, v, kw, fused), want, rtol=1e-5, atol=1e-5)
     g_j = _jax(q, k, v, {"mask": mfull}, False, monkeypatch, grads=True)
     g_t = _torch(q, k, v, {"mask": mfull}, fused, grads=True)
-    for a, b in zip(g_t, g_j):
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
-    assert calls == []
+    for name, a, w in zip("qkv", g_t, g_j):
+        np.testing.assert_allclose(a, w, rtol=1e-4, atol=1e-5, err_msg=f"d{name}")
+    assert calls == [1, 1, 1]
 
 
-@pytest.mark.parametrize("b,d,dv,fits,limit", [
-    (3, 8, 6, True, None),
-    (1, 64, 256, True, None),
-    (1, 512, 64, False, "shared memory"),  # tiles of 296 192 bytes
-    (1, 16, 257, False, "Dv <= 256"),
-    (65536, 8, 8, False, "B <= 65535"),
+@pytest.mark.parametrize("case", ["kv", "full"])
+@pytest.mark.parametrize("b,tq,tk,d,dv", WIDE)
+def test_wide_head_dims_match_the_jax_kernel(monkeypatch, b, tq, tk, d, dv, case):
+    """The same shapes against the JAX package's Pallas kernel in interpret
+    mode, which its `_attn_fuse_ok` takes at these sizes (1e-5)."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.attention import _attn_fuse_ok
+
+    q, k, v, mkv, mfull = _inputs(18, b, tq, tk, d, dv)
+    monkeypatch.setenv("PADDLE_TPU_PALLAS", "interpret")
+    assert _attn_fuse_ok(*(jnp.asarray(x) for x in (q, k, v)), None)
+    kw = _kw(case, mkv, mfull)
+    want = _jax(q, k, v, kw, True, monkeypatch)
+    np.testing.assert_allclose(_torch(q, k, v, kw, True), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,d,dv", [
+    (3, 8, 6), (1, 64, 256), (1, 512, 64), (1, 16, 257), (65536, 8, 8),
 ])
-def test_fit_names_the_limit(b, d, dv, fits, limit):
-    assert K.attention_seq_fits(b, d, dv) is fits
-    misfit = K.attention_seq_misfit(b, d, dv)
-    assert (misfit is None) is fits
-    if limit:
-        assert limit in misfit
-    assert K.attention_seq_smem_bytes(512, 64) == 296192
-
-
-@pytest.mark.parametrize("fits", [True, False])
-def test_fused_none_routes_by_the_fit(monkeypatch, fits):
-    q, k, v, mkv, _ = _inputs(15)
-    calls, asked = [], []
+def test_fused_none_takes_the_fused_op_for_every_static_scale(monkeypatch, b, d, dv):
+    """No shape limit is left: fused=None sends every static scale to the
+    fused op, B past 65535 included, and it matches the plain body."""
+    tq, tk = (1, 2) if b > 1000 else (3, 5)
+    q, k, v, mkv, _ = _inputs(15, b, tq, tk, d, dv)
+    calls = []
     real = tatt.attention_seq_fused
     monkeypatch.setattr(tatt, "attention_seq_fused", lambda *a: calls.append(1) or real(*a))
-    monkeypatch.setattr(tatt, "attention_seq_fits", lambda *a: asked.append(a) or fits)
-    _torch(q, k, v, {"mask": mkv}, None)
-    assert asked == [(3, 8, 6)] and calls == ([1] if fits else [])
-
-
-@pytest.mark.parametrize("d,dv", [(512, 64), (16, 257)])
-def test_fused_true_raises_where_the_kernel_does_not_fit(d, dv):
-    q, k, v, mkv, _ = _inputs(16, b=1, tq=1, tk=1, d=d, dv=dv)
-    with pytest.raises(ValueError, match="fused=True.*(shared memory|Dv <= 256)"):
-        _torch(q, k, v, {"mask": mkv}, True)
+    got = _torch(q, k, v, {"mask": mkv}, None)
+    assert calls == [1]
+    np.testing.assert_allclose(got, _torch(q, k, v, {"mask": mkv}, False), atol=1e-5)
 
 
 def test_kernel_wrapper_rejects_cpu_tensors_and_bad_shapes():
@@ -212,8 +218,9 @@ def test_kernel_wrapper_rejects_cpu_tensors_and_bad_shapes():
         K.attention_seq_fwd(tq, tk, tv, tm[:, :, :3].expand(-1, 2, -1), 0.5)
     with pytest.raises(ValueError, match="v must be"):
         K.attention_seq_fwd(tq, tk, tv[:, :3], tm, 0.5)
-    wide = torch.zeros(tv.shape[:2] + (K.ATTN_MAX_DV + 1,))
-    with pytest.raises(ValueError, match="Dv <= 256"):
+    # no head dim is too wide: a wide v is refused only for lying on the CPU
+    wide = torch.zeros(tv.shape[:2] + (300,))
+    with pytest.raises(ValueError, match="CUDA"):
         K.attention_seq_fwd(tq, tk, wide, tm, 0.5)
 
 
@@ -231,7 +238,10 @@ CARD_SHAPES = [  # b, tq, tk, d, dv
     (3, 5, 7, 8, 6),
     (2, 70, 130, 17, 33),   # ragged q and key tiles, odd widths
     (4, 64, 64, 64, 64),
-    (2, 40, 90, 24, 200),   # four column chunks of the accumulator
+    (2, 40, 90, 24, 200),   # four Dv blocks (3 x 64 + 8 columns)
+    (1, 70, 130, 512, 1000),  # Dv blocks of several chunks each, key splits
+    (140, 64, 40, 64, 130),   # three chunks a block, a grid that needs no split
+    (1, 64, 1000, 64, 64),    # one block's keys split 16 ways
 ]
 
 
@@ -252,34 +262,85 @@ def test_cuda_kernel_matches_plain_version(cuda, b, tq, tk, d, dv, per_row):
     assert K.ATTN_LAUNCHES == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    # the key splits merge in a fixed order: a second call is bit-identical
+    assert torch.equal(got, K.attention_seq_fwd(q, k, v, mask, 0.37))
+
+
+def _card_inputs(cuda, seed, b, tq, tk, d, dv, per_row, qk_std=1.0):
+    g = torch.Generator().manual_seed(seed)
+    q, k = (torch.randn(s, generator=g) * qk_std for s in ((b, tq, d), (b, tk, d)))
+    v = torch.randn((b, tk, dv), generator=g)
+    mask = (torch.rand((b, tq if per_row else 1, tk), generator=g) > 0.3).float()
+    mask[-1, -1, :] = 0.0  # a fully masked row (or every row of the last batch row)
+    return [x.to(cuda) for x in (q, k, v, mask)]
+
+
+def _kernel_vs_plain(q, k, v, mask, scale):
+    before = K.ATTN_LAUNCHES
+    got = K.attention_seq_fwd(q, k, v, mask, scale)
+    want = K.attention_seq_fused_ref(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    assert K.ATTN_LAUNCHES == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("dv", [6, 64, 257, 300])
+@pytest.mark.parametrize("d", [8, 64, 100, 512])
+def test_cuda_any_head_dims_match_plain_version(cuda, d, dv, per_row):
+    """D and Dv tiled: q/k chunks of 64 columns (q resident up to D=256,
+    streamed past it), Dv chunks of up to 64 columns; Tq=70 and Tk=130 are
+    no multiples of a tile (64), a row is fully masked, and the small grid
+    splits the key tiles over blocks."""
+    q, k, v, mask = _card_inputs(cuda, d + dv, 2, 70, 130, d, dv, per_row)
+    _kernel_vs_plain(q, k, v, mask, 1.0 / d ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True])
+def test_cuda_batch_past_65535(cuda, per_row):
+    """B is folded into grid x: B = 65536 at tiny Tq/Tk/D."""
+    q, k, v, mask = _card_inputs(cuda, 5, 65536, 2, 3, 4, 5, per_row)
+    _kernel_vs_plain(q, k, v, mask, 0.5)
+
+
+@pytest.mark.cuda
+def test_cuda_3xtf32_holds_large_scores(cuda):
+    """Scores of order 10 (q, k scaled by 3.2 at D=64, scale 1/8): the
+    kernel's 3xTF32 products hold 1e-4, where one TF32 pass of the same
+    products (the plain version with TF32 matmuls) misses it."""
+    q, k, v, mask = _card_inputs(cuda, 41, 4, 200, 200, 64, 64, True, qk_std=3.2)
+    got, want = _kernel_vs_plain(q, k, v, mask, 0.125)
+    scores = torch.einsum("bqd,bkd->bqk", q, k) * 0.125
+    assert float(scores.abs().mean()) > 5.0
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = K.attention_seq_fused_ref(q, k, v, mask, 0.125)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert float((one_pass - want).abs().max()) > 1e-4
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,tq,tk,d,dv", [(1, 1, 1, 512, 64), (2, 5, 9, 16, 257)])
-def test_cuda_shapes_without_a_fit_take_the_plain_body(cuda, b, tq, tk, d, dv):
-    """Where the kernel does not take the shape, fused=None computes through
-    the plain body (no launch) and fused=True raises before any launch."""
+def test_cuda_former_route_shapes_launch_the_kernel(cuda, b, tq, tk, d, dv):
+    """Shapes that once went to the plain body (D=512 at Dv=64, Dv=257)
+    launch the kernel with fused=None and fused=True; forward and
+    gradients match the plain body on the CPU."""
     q, k, v, mkv, mfull = _inputs(17, b, tq, tk, d, dv)
     before = K.ATTN_LAUNCHES
     got = _torch(q, k, v, {"mask": mfull}, None, grads=True, device=cuda)
-    out = _torch(q, k, v, {"mask": mkv}, None, device=cuda)
+    out = _torch(q, k, v, {"mask": mkv}, True, device=cuda)
     torch.cuda.synchronize()
-    assert K.ATTN_LAUNCHES == before
+    assert K.ATTN_LAUNCHES == before + 2
     want = _torch(q, k, v, {"mask": mfull}, False, grads=True)
     for a, b2 in zip(got, want):
         np.testing.assert_allclose(a, b2, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(out, _torch(q, k, v, {"mask": mkv}, False), atol=1e-4)
-    with pytest.raises(ValueError, match="fused=True"):
-        _torch(q, k, v, {"mask": mkv}, True, device=cuda)
-    assert K.ATTN_LAUNCHES == before
-
-
-@pytest.mark.cuda
-def test_cuda_smem_copy_matches_the_library(cuda):
-    fn = K._entry("attention_seq", "attention_seq_smem_bytes", 0, (K._I, K._I))
-    for d in (1, 8, 17, 64, 255, 256, 512, 1000):
-        for dv in (1, 6, 64, 200, 256):
-            assert fn(d, dv) == K.attention_seq_smem_bytes(d, dv), (d, dv)
 
 
 @pytest.mark.cuda

@@ -9,12 +9,15 @@
     all-dump table.
   * The wrapper takes the plain version for CPU tensors only, without
     counting a launch, and never for tensors elsewhere.
-  * The wrapper's input checks, the split plan (every page in exactly one
-    run) and the nvcc build recipe.
+  * The wrapper's input checks, the split plan and its run choice
+    (`split_tiles`: every visible token in exactly one split, live splits
+    that follow the position, at contexts of 1 to P*PS tokens and S = 1, 5,
+    8, 32) and the nvcc build recipe.
   * On a card (marked `cuda`, skipped here): the CUDA kernel vs the plain
     version on the same tensors, over head dims, page sizes and slot
-    counts, with a dump slot and positions past the table's reach; two
-    calls bit-identical."""
+    counts, with a dump slot and positions past the table's reach, and at
+    GPT-2 small's decode shapes at short (16-34 tokens) and full contexts;
+    two calls bit-identical."""
 
 import numpy as np
 import pytest
@@ -152,16 +155,47 @@ def test_split_plan_covers_every_page_once(s, h, hd, ps, pmax, sms):
     assert all(h % d or d * hd > pa.MAX_BLOCK_WIDTH for d in range(hg + 1, h + 1))
     tt = plan.tile_tokens
     assert 8 <= tt <= 64 and tt & (tt - 1) == 0  # a power of two
-    assert plan.pages_per_split * ps <= 2048  # a run's pool rows fit on chip
-    runs = pa.split_pages(plan, pmax)
-    assert len(runs) == plan.n_splits
-    assert all(a < b for a, b in runs)  # no empty run
-    pages = [p for a, b in runs for p in range(a, b)]
-    assert pages == list(range(pmax))  # every page once, in order
-    # the grid aims at ~4 blocks an SM, or one page a run when that is fewer
+    assert plan.tiles_per_split * tt <= 2048  # a split's pool rows fit on chip
+    tiles = -(-pmax * ps // tt)
+    assert plan.n_splits <= tiles <= plan.n_splits * plan.tiles_per_split
+    # at the table's reach every split is live, and every page's tokens are
+    # walked once: each page once
+    runs = pa.split_tiles(plan, pmax * ps)
+    assert all(runs) and all(len(r) <= plan.tiles_per_split for r in runs)
+    tokens = sorted(t for r in runs for a, b in r for t in range(a, b))
+    assert tokens == list(range(pmax * ps))
+    # the grid aims at ~4 blocks an SM, or one tile a split when that is fewer
     blocks = s * (h // hg) * plan.n_splits
-    assert blocks >= min(4 * sms, s * (h // hg) * pmax)
+    assert blocks >= min(4 * sms, s * (h // hg) * tiles)
     assert plan.scratch_floats(s, h * hd, h) == s * plan.n_splits * (h * hd + 2 * h)
+
+
+_GPT2 = dict(n_heads=12, head_dim=64, page_size=16, pages_per_seq=64, sms=132)
+
+
+@pytest.mark.parametrize("n_tok", [1, 16, 17, 25, 34, 48, 200, 1024])
+@pytest.mark.parametrize("s", [1, 5, 8, 32])
+def test_split_tiles_cover_every_visible_token_once(s, n_tok):
+    """The kernel's run choice (mirrored by `split_tiles`): at any context
+    every visible token is walked by exactly one split, in tiles of TT, in
+    order; the live splits are the first ones and follow the position: one
+    a tile for a short slot (at most min(RT, NC) tiles: at S = 8 and 32 the
+    decode profile's 16-34 tokens), else ceil(tiles / RT) runs of at most
+    RT tiles."""
+    plan = pa.split_plan(s, **_GPT2)
+    tt, rt, nc = plan.tile_tokens, plan.tiles_per_split, plan.n_splits
+    runs = pa.split_tiles(plan, n_tok)
+    assert len(runs) == nc
+    tokens = [t for r in runs for a, b in r for t in range(a, b)]
+    assert tokens == list(range(n_tok))
+    assert all(b - a <= tt and a % tt == 0 for r in runs for a, b in r)
+    tiles = -(-n_tok // tt)
+    short = tiles <= min(rt, nc)
+    live = [c for c, r in enumerate(runs) if r]
+    assert live == list(range(tiles if short else -(-tiles // rt)))
+    assert all(len(r) <= (1 if short else rt) for r in runs)
+    if s in (8, 32) and n_tok <= 34:
+        assert short
 
 
 def test_build_recipe():
@@ -242,4 +276,21 @@ def test_cuda_positions_past_the_tables_reach(cuda, s):
     n_pages = kp.shape[0]
     bt[:s] = np.arange(1, 1 + s * 8, dtype=np.int32).reshape(s, 8) % (n_pages - 1) + 1
     positions[:s] = 8 * 16 + np.arange(s)
+    _check_cuda(cuda, q, kp, vp, bt, positions, scale, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("context", ["short", "long"])
+@pytest.mark.parametrize("s", [1, 5, 8, 32])
+def test_cuda_short_and_long_contexts(cuda, s, context):
+    """GPT-2 small's decode shapes (H=12, hd=64, PS=16, P=64): positions
+    15-33 (a slot's tiles one to a split) or 960-1023 (every split live)."""
+    q, kp, vp, bt, positions, scale, h = _inputs(40 + s, 16, 64, S=s, H=12, HD=64)
+    lo, hi = (15, 33) if context == "short" else (960, 1023)
+    rng = np.random.RandomState(s)
+    n_pages = kp.shape[0]
+    for i in range(s):
+        n = hi // 16 + 1
+        bt[i, :n] = rng.permutation(np.arange(1, n_pages))[:n]
+        positions[i] = rng.randint(lo, hi + 1)
     _check_cuda(cuda, q, kp, vp, bt, positions, scale, h)
