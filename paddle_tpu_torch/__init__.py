@@ -13,9 +13,10 @@ raises when no CUDA device is present — the CPU runs only when the caller
 passes `device="cpu"`, as the tests do.
 
 Ported so far: the paged-KV serving engine (`serving/`), driven in process
-through `ServingSession.submit` + `run_until_idle`; seq2seq NMT training
-and LSTM text-classification training (`nn/`, `optim/`, `trainer/`,
-`models/`); the fused attention op (`ops/attention.dot_product_attention`).
+through `ServingSession.submit` + `run_until_idle`; seq2seq NMT, LSTM
+text-classification, ResNet-50 and LeNet training (`nn/`, `optim/`,
+`trainer/`, `models/`, with the bf16 policy of `core/dtypes.py`); the fused
+attention op (`ops/attention.dot_product_attention`).
 Every Pallas kernel of the JAX package has its CUDA counterpart."""
 
 from paddle_tpu_torch.device import resolve_device

@@ -1,2 +1,2 @@
-"""Host-side runtime pieces of the port (counters, fault injection): the
-counterparts of the jax-free parts of `paddle_tpu/core/`."""
+"""Runtime pieces of the port (counters, fault injection, the dtype policy):
+the counterparts of parts of `paddle_tpu/core/`."""

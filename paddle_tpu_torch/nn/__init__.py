@@ -1,7 +1,8 @@
 """The v1 layer graph of the port (counterpart of `paddle_tpu/nn/`), the
 parts the ported training paths use: `graph.py` (Argument, ParamAttr,
-Layer, Network), `layers.py` (Data, Fc, Embedding, Concat), `costs.py`,
+Layer, Network, states), `layers.py` (Data, Fc, Embedding, Concat, Conv2D,
+Pool2D, BatchNorm, Addto, GlobalPool, Reshape), `costs.py`,
 `activations.py`, `recurrent.py` (Lstm, simple_lstm, bidirectional_lstm,
 Gru, simple_gru, bidirectional_gru), `seq_layers.py` (SeqPool) and
-`attention_layers.py` (AttentionDecoder); `convert.py` moves parameter dicts
-to and from the JAX package."""
+`attention_layers.py` (AttentionDecoder); `convert.py` moves parameter and
+state dicts to and from the JAX package."""

@@ -10,7 +10,9 @@ seq2seq model has 22 such names (`src_emb.w`, `trg_emb_table`, `out_w`,
 the same graph with `use_peephole=False`) has `emb.w`, `logits.{w,b}` and
 per layer i `lstm{i}.input_proj.{w,b}` and `lstm{i}.{w_hh,b}` (W_hh
 [H, 4H] in gate blocks i, f, c, o), plus `lstm{i}.check_{i,f,o}` [H] with
-peepholes."""
+peepholes. Conv weights are HWIO in both packages. State dicts (batch
+norm's `<layer>.moving_mean` / `.moving_var`, f32 [C]) move through the same
+two functions: ResNet-50 has 161 parameters and 106 states."""
 
 from __future__ import annotations
 
@@ -24,15 +26,16 @@ from paddle_tpu_torch.device import DeviceLike, resolve_device
 
 def params_from_jax(params: Mapping[str, object],
                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """JAX parameter dict (numpy or jax arrays) -> {name: f32 tensor on
-    `device`} (None means CUDA, as everywhere in the port)."""
+    """JAX parameter or state dict (numpy or jax arrays) -> {name: f32
+    tensor on `device`} (None means CUDA, as everywhere in the port)."""
     dev = resolve_device(device)
     return {name: torch.from_numpy(np.array(value, dtype=np.float32)).to(dev)
             for name, value in params.items()}
 
 
 def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """The port's parameter dict -> {name: f32 numpy array}, the JAX
-    package's layout and names."""
+    """The port's parameter or state dict -> {name: f32 numpy array}, the
+    JAX package's layout and names."""
     return {name: value.detach().to("cpu", torch.float32).numpy().copy()
             for name, value in params.items()}
+

@@ -8,7 +8,11 @@ hold dots and may be shared between layers through `ParamAttr(name=...)`,
 neither of which `nn.Module` attributes allow, and the same names let
 `nn/convert.py` move parameters to and from the JAX package unchanged.
 Backward is autograd over `Network.apply`, as it is `jax.grad` over the
-traced forward in the JAX package.
+traced forward in the JAX package. Non-trainable states (batch norm's
+moving statistics) are a second dict keyed `f"{layer.name}.{name}"`:
+`init(..., with_states=True)` returns them beside the parameters, and
+`apply(params, batch, states, train=...)` returns the new ones beside the
+outputs. Both run under the dtype policy they are given (`core/dtypes.py`).
 
 Ragged sequences are padded [B, T, ...] tensors plus a [B] `lengths`
 tensor; a batch dict carries `<name>.lengths` beside each sequence slot."""
@@ -22,6 +26,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.nn import init as init_mod
 
@@ -70,15 +75,26 @@ class ParamAttr:
 class Context:
     """Threaded through one forward run. mode='init' creates parameters on
     first use (one generator per parameter, seeded from (seed, name), drawn
-    on the CPU); mode='apply' reads them from `params`."""
+    on the CPU) and states from their initial values; mode='apply' reads
+    both from the given dicts. State updates (batch norm's moving
+    statistics, the functional form of the reference's mutable
+    movingMean_/movingVar_) collect in `state_updates`; nothing given is
+    changed in place. `train` selects batch statistics over moving ones;
+    `policy` is the trace's dtype policy."""
 
     def __init__(self, mode: str, params: Params, seed: int = 0,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 states: Optional[Params] = None, train: bool = False,
+                 policy: Optional[dtypes.Policy] = None):
         assert mode in ("init", "apply")
         self.mode = mode
         self.params = params
         self.seed = seed
         self.device = device
+        self.states: Params = {} if states is None else states
+        self.train = train
+        self.policy = policy or dtypes.current()
+        self.state_updates: Params = {}
         self.param_attrs: Dict[str, ParamAttr] = {}
 
     def param(self, layer: "Layer", pname: str, shape: Sequence[int],
@@ -101,6 +117,21 @@ class Context:
             raise ValueError(
                 f"parameter {full!r} shape mismatch: {got} vs {tuple(shape)}")
         return self.params[full]
+
+    def state(self, layer: "Layer", sname: str, shape: Sequence[int],
+              init_value: float = 0.0) -> torch.Tensor:
+        """A non-trainable f32 state `f"{layer.name}.{sname}"`, created at
+        `init_value` in init mode."""
+        full = f"{layer.name}.{sname}"
+        if self.mode == "init" and full not in self.states:
+            self.states[full] = torch.full(tuple(shape), float(init_value),
+                                           dtype=torch.float32, device=self.device)
+        if full not in self.states:
+            raise KeyError(f"state {full!r} of layer {layer.name!r} missing")
+        return self.states[full]
+
+    def update_state(self, layer: "Layer", sname: str, value: torch.Tensor) -> None:
+        self.state_updates[f"{layer.name}.{sname}"] = value
 
 
 def _stable_hash(s: str) -> int:
@@ -170,23 +201,48 @@ class Network:
         self.param_attrs: Dict[str, ParamAttr] = {}
 
     def init(self, batch: Mapping[str, Any], seed: int = 0,
-             device: DeviceLike = None) -> Params:
-        """Create the parameters by running the forward once on `batch`
-        (without autograd). Returns {name: f32 tensor on `device`}."""
+             device: DeviceLike = None, *, policy: Optional[dtypes.Policy] = None,
+             with_states: bool = False):
+        """Create the parameters (and the states: batch norm's moving
+        statistics) by running the forward once on `batch` in train mode,
+        without autograd. Returns {name: f32 tensor on `device`}, or
+        (params, states) with `with_states=True`."""
         dev = resolve_device(device)
         params: Params = {}
-        ctx = Context("init", params, seed, dev)
-        with torch.no_grad():
+        states: Params = {}
+        policy = policy or dtypes.current()
+        ctx = Context("init", params, seed, dev, states=states, train=True,
+                      policy=policy)
+        with torch.no_grad(), dtypes.policy_scope(policy):
             self._run(ctx, batch, dev)
         self.param_attrs = dict(ctx.param_attrs)
-        return params
+        return (params, states) if with_states else params
 
-    def apply(self, params: Params, batch: Mapping[str, Any]) -> Dict[str, Argument]:
+    def apply(self, params: Params, batch: Mapping[str, Any],
+              states: Optional[Params] = None, *, train: bool = False,
+              policy: Optional[dtypes.Policy] = None):
         """Forward over `batch` (moved to the parameters' device) ->
-        {output layer name: Argument}."""
-        dev = next(iter(params.values())).device
-        values = self._run(Context("apply", params, device=dev), batch, dev)
-        return {l.name: values[l.name] for l in self.outputs}
+        {output layer name: Argument}; with `states` given, ->
+        (outputs, new states), the updated ones replacing their entries in
+        a new dict. `train` selects batch statistics (and state updates)
+        over the moving ones."""
+        known = next(iter(params.values()), None)
+        if known is None and states:
+            known = next(iter(states.values()))
+        if known is None:
+            raise ValueError("apply needs a parameter or a state to take the "
+                             "device from")
+        dev = known.device
+        policy = policy or dtypes.current()
+        ctx = Context("apply", params, device=dev,
+                      states={} if states is None else states, train=train,
+                      policy=policy)
+        with dtypes.policy_scope(policy):
+            values = self._run(ctx, batch, dev)
+        outs = {l.name: values[l.name] for l in self.outputs}
+        if states is None:
+            return outs
+        return outs, {**states, **ctx.state_updates}
 
     def _run(self, ctx: Context, batch: Mapping[str, Any],
              device: torch.device) -> Dict[str, Argument]:

@@ -33,6 +33,10 @@ def zeros(g: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
     return torch.zeros(tuple(shape), dtype=torch.float32)
 
 
+def ones(g: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    return torch.ones(tuple(shape), dtype=torch.float32)
+
+
 def normal(std: float = 1.0, mean: float = 0.0) -> Initializer:
     def init(g: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
         return mean + std * torch.randn(tuple(shape), generator=g)
@@ -52,4 +56,11 @@ def _fan_in(shape: Sequence[int]) -> int:
 def smart_normal(g: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
     """N(0, 1/sqrt(fan_in)) — the reference's 'initial_smart' default."""
     std = 1.0 / math.sqrt(max(1, _fan_in(shape)))
+    return std * torch.randn(tuple(shape), generator=g)
+
+
+def he_normal(g: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """N(0, sqrt(2/fan_in)), the conv layers' default (fan_in of an HWIO
+    kernel is kh * kw * in)."""
+    std = math.sqrt(2.0 / max(1, _fan_in(shape)))
     return std * torch.randn(tuple(shape), generator=g)

@@ -1,16 +1,20 @@
 """Core layers (counterpart of `paddle_tpu/nn/layers.py`), the ones the
-seq2seq path uses: Data, Fc, Embedding, Concat."""
+ported paths use: Data, Fc, Embedding, Concat (seq2seq), and the image
+layers of ResNet and LeNet: Conv2D, Pool2D, BatchNorm, Addto, GlobalPool,
+Reshape. Image activations are NHWC, conv weights HWIO."""
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from paddle_tpu_torch.nn import activations as act_mod
 from paddle_tpu_torch.nn import init as init_mod
 from paddle_tpu_torch.nn.graph import Argument, Context, Layer, ParamAttr
+from paddle_tpu_torch.ops import conv as conv_ops
 from paddle_tpu_torch.ops import linalg
+from paddle_tpu_torch.ops import normalization as norm_ops
 
 
 def _attr(a: Any) -> Optional[ParamAttr]:
@@ -45,7 +49,8 @@ class Fc(Layer):
     """Fully connected. Several inputs each get their own weight (`w.0`,
     `w.1`, ...; `param_attr` may be a list, one per input), summed before
     bias and activation. Sequence inputs apply per step; a flat input mixed
-    with sequence inputs broadcasts over time."""
+    with sequence inputs broadcasts over time; a non-sequence input of more
+    than two axes (a feature map) is flattened to [B, -1] first."""
 
     type_name = "fc"
 
@@ -65,13 +70,15 @@ class Fc(Layer):
         any_seq = any(a.is_seq for a in ins)
         for i, arg in enumerate(ins):
             x = arg.value
+            if not arg.is_seq and x.dim() > 2:
+                x = x.reshape(x.shape[0], -1)
             suffix = "" if len(ins) == 1 else f".{i}"
             pa = self.param_attr
             if isinstance(pa, list):
                 pa = pa[i] if i < len(pa) else None
             w = ctx.param(self, "w" + suffix, (x.shape[-1], self.size),
                           init_mod.smart_normal, pa)
-            y = linalg.matmul(x, w)
+            y = linalg.matmul(x, w, ctx.policy)
             if any_seq and y.dim() == 2:
                 y = y[:, None]
             total = y if total is None else total + y
@@ -109,3 +116,190 @@ class Concat(Layer):
 
     def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
         return ins[0].with_value(torch.cat([a.value for a in ins], dim=-1))
+
+
+class Conv2D(Layer):
+    """2-D convolution, NHWC input, HWIO weight (`he_normal`), optional bias
+    and activation."""
+
+    type_name = "conv"
+
+    def __init__(self, input: Layer, num_filters: int,
+                 filter_size: Union[int, Tuple[int, int]],
+                 stride: Union[int, Tuple[int, int]] = 1,
+                 padding: Union[int, Tuple[int, int]] = 0,
+                 dilation: Union[int, Tuple[int, int]] = 1, groups: int = 1,
+                 act: act_mod.ActLike = None, bias: bool = True,
+                 param_attr: Optional[ParamAttr] = None,
+                 bias_attr: Optional[ParamAttr] = None, name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.num_filters = num_filters
+        self.filter_size = filter_size
+        self.stride = stride
+        self.padding = padding
+        self.dilation = dilation
+        self.groups = groups
+        self.act = act
+        self.bias = bias
+        self.param_attr = _attr(param_attr)
+        self.bias_attr = _attr(bias_attr)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        x = ins[0].value
+        if x.dim() != 4:
+            raise ValueError(f"conv {self.name}: expects NHWC input, got "
+                             f"{tuple(x.shape)}")
+        kh, kw = conv_ops._pair(self.filter_size)
+        w = ctx.param(self, "w", (kh, kw, x.shape[-1] // self.groups,
+                                  self.num_filters),
+                      init_mod.he_normal, self.param_attr)
+        out = conv_ops.conv2d(x, w, self.stride, self.padding, self.dilation,
+                              self.groups, ctx.policy)
+        if self.bias:
+            out = out + ctx.param(self, "b", (self.num_filters,), init_mod.zeros,
+                                  self.bias_attr)
+        return ins[0].with_value(act_mod.apply(self.act, out))
+
+
+class Pool2D(Layer):
+    """Max or average pooling, NHWC. `ceil_mode=True` (the v1 default output
+    size, ceil((I + 2p - f) / s) + 1) pads the bottom and right further so
+    the partial windows at the edge survive; average pooling divides by
+    the cells inside the image."""
+
+    type_name = "pool"
+
+    def __init__(self, input: Layer, pool_size: Union[int, Tuple[int, int]],
+                 pool_type: str = "max",
+                 stride: Optional[Union[int, Tuple[int, int]]] = None,
+                 padding: Union[int, Tuple[int, int]] = 0, ceil_mode: bool = False,
+                 name: Optional[str] = None):
+        super().__init__(input, name=name)
+        if pool_type not in ("max", "avg"):
+            raise ValueError(f"pool {name}: pool_type {pool_type!r} is not max/avg")
+        self.pool_size = pool_size
+        self.pool_type = pool_type
+        self.stride = stride
+        self.padding = padding
+        self.ceil_mode = ceil_mode
+
+    def _pads(self, x: torch.Tensor):
+        if not self.ceil_mode:
+            return self.padding
+        fh, fw = conv_ops._pair(self.pool_size)
+        sh, sw = conv_ops._pair(self.stride if self.stride is not None
+                                else self.pool_size)
+        ph, pw = conv_ops._pair(self.padding)
+        out = []
+        for size, f, s, p in ((x.shape[1], fh, sh, ph), (x.shape[2], fw, sw, pw)):
+            n_out = -(-(size + 2 * p - f) // s) + 1  # ceil division
+            extra = max(0, (n_out - 1) * s + f - size - 2 * p)
+            out.append((p, p + extra))
+        return tuple(out)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        x = ins[0].value
+        pool = conv_ops.max_pool2d if self.pool_type == "max" else conv_ops.avg_pool2d
+        return ins[0].with_value(pool(x, self.pool_size, self.stride, self._pads(x)))
+
+
+class BatchNorm(Layer):
+    """Batch normalization over every axis but the last ([B, D] or NHWC).
+    Parameters `scale` (ones) and `bias` (zeros); states `moving_mean` (0)
+    and `moving_var` (1), moved by `moving_average_fraction` in train mode
+    only. Batch statistics in train mode, the moving ones otherwise or
+    with `use_global_stats=True`."""
+
+    type_name = "batch_norm"
+
+    def __init__(self, input: Layer, act: act_mod.ActLike = None,
+                 epsilon: float = 1e-5, moving_average_fraction: float = 0.9,
+                 use_global_stats: Optional[bool] = None,
+                 param_attr: Optional[ParamAttr] = None,
+                 bias_attr: Optional[ParamAttr] = None, name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.act = act
+        self.epsilon = epsilon
+        self.maf = moving_average_fraction
+        self.use_global_stats = use_global_stats
+        self.param_attr = _attr(param_attr)
+        self.bias_attr = _attr(bias_attr)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        x = ins[0].value
+        c = x.shape[-1]
+        gamma = ctx.param(self, "scale", (c,), init_mod.ones, self.param_attr)
+        beta = ctx.param(self, "bias", (c,), init_mod.zeros, self.bias_attr)
+        moving_mean = ctx.state(self, "moving_mean", (c,), 0.0)
+        moving_var = ctx.state(self, "moving_var", (c,), 1.0)
+        use_global = (self.use_global_stats if self.use_global_stats is not None
+                      else not ctx.train)
+        if use_global:
+            out = norm_ops.batch_norm_inference(x, gamma, beta, moving_mean,
+                                                moving_var, self.epsilon)
+        else:
+            out, mean, var = norm_ops.batch_norm_train(x, gamma, beta, self.epsilon)
+            ctx.update_state(self, "moving_mean",
+                             self.maf * moving_mean + (1 - self.maf) * mean)
+            ctx.update_state(self, "moving_var",
+                             self.maf * moving_var + (1 - self.maf) * var)
+        return ins[0].with_value(act_mod.apply(self.act, out))
+
+
+class Addto(Layer):
+    """Elementwise sum of N inputs (+ optional bias), then the activation:
+    ResNet's residual join."""
+
+    type_name = "addto"
+
+    def __init__(self, input: Sequence[Layer], act: act_mod.ActLike = None,
+                 bias: bool = False, bias_attr: Optional[ParamAttr] = None,
+                 name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.act = act
+        self.bias = bias
+        self.bias_attr = _attr(bias_attr)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        out = ins[0].value
+        for other in ins[1:]:
+            out = out + other.value
+        if self.bias:
+            out = out + ctx.param(self, "b", (out.shape[-1],), init_mod.zeros,
+                                  self.bias_attr)
+        return ins[0].with_value(act_mod.apply(self.act, out))
+
+
+class GlobalPool(Layer):
+    """Global spatial pooling NHWC -> [B, C] (avg or max)."""
+
+    type_name = "global_pool"
+
+    def __init__(self, input: Layer, pool_type: str = "avg",
+                 name: Optional[str] = None):
+        super().__init__(input, name=name)
+        if pool_type not in ("avg", "max"):
+            raise ValueError(f"global_pool {name}: pool_type {pool_type!r} "
+                             f"is not avg/max")
+        self.pool_type = pool_type
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        x = ins[0].value
+        if self.pool_type == "avg":
+            return ins[0].with_value(conv_ops.global_avg_pool2d(x))
+        return ins[0].with_value(x.amax(dim=(1, 2)))
+
+
+class Reshape(Layer):
+    """Reinterpret each example's features as `shape` (one entry may be
+    -1); the result is a non-sequence batch."""
+
+    type_name = "reshape"
+
+    def __init__(self, input: Layer, shape: Sequence[int], name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.shape = tuple(shape)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        x = ins[0].value
+        return Argument(x.reshape((x.shape[0],) + self.shape))

@@ -1,15 +1,22 @@
 """Dense linear algebra of the port (counterpart of `paddle_tpu/ops/linalg.py`).
 
-The JAX package casts dot inputs to its policy's compute dtype and
-accumulates in f32 at `Precision.HIGHEST`. The port runs f32 only (the bf16
-policy waits, ROADMAP.md): a float32 `torch.matmul`, which on the card is
-full f32 as long as `torch.backends.cuda.matmul.allow_tf32` stays False."""
+The inputs go through the policy's cast. Under the f32 policy that is a
+float32 `torch.matmul`, full f32 on the card as long as TF32 stays off
+(the trainer turns it off). Under the bf16 policy both inputs are bf16 and
+so is the product, as in the JAX package (its `_BF16` accumulates into
+bf16); a following f32 bias add promotes the result back to f32."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from paddle_tpu_torch.core import dtypes
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b over the last axis of a and the first axis of b, in f32."""
-    return torch.matmul(a.float(), b.float())
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           policy: Optional[dtypes.Policy] = None) -> torch.Tensor:
+    """a @ b over the last axis of a and the first axis of b."""
+    p = policy or dtypes.current()
+    return torch.matmul(p.cast(a), p.cast(b))

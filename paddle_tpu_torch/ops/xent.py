@@ -2,8 +2,9 @@
 `paddle_tpu/ops/xent.py`).
 
 The JAX package hand-writes the VJP so that no f32 copy of the [N, V]
-logits exists under its bf16 policy. The port runs f32, where that saving
-does not arise, so autograd of the plain form below is the backward. The
+logits exists under its bf16 policy. The port's logits reach here in f32
+under both policies (an f32 bias add promotes a bf16 product), where that
+saving does not arise, so autograd of the plain form below is the backward. The
 reductions are f32, as in the JAX package: lse = m + log(sum(exp(x - m)))."""
 
 from __future__ import annotations
