@@ -13,7 +13,10 @@ Phases (any failure exits non-zero and prints no result line):
                decode profile's contexts of 16-34 tokens and S = 1 at
                position 1023 (max_abs_err <= 1e-4, two calls
                bit-identical, achieved TB/s, the wrapper's host µs per
-               call); the GRU forward (hs, h_last
+               call, and the split + merge pair's time inside a CUDA graph
+               of 20 back-to-back calls, L2 flushed before each in the graph
+               and the flushes' own graph time subtracted, as the decode
+               step's graph holds them); the GRU forward (hs, h_last
                <= 1e-4) and backward (each of dproj, dW_zr, dW_c, db, dh0
                <= 1e-3 x max(1, max|plain|)) in both directions at
                T=7/B=5/H=24, at the seq2seq encoder's T=50/B=128/H=512
@@ -46,14 +49,38 @@ Phases (any failure exits non-zero and prints no result line):
   4. serve   — the serving engine at GPT-2 small's widths (12 layers,
                d_model 768, 12 heads, vocab 50257, max_len 1024; random
                weights from seed 0) answers 8 greedy requests of mixed prompt
-               length, one chunked past the largest bucket. Checks: every
-               request finished, no page leaked, one decode signature, the
-               decode kernel launched n_layers times per decode step, and the
-               first decode step's logits agree with the CPU plain path at
-               the same weights and pool (atol 1e-3). Then torch.profiler
-               over 16 decode-only steps: device busy time and share,
-               launches and the top kernels per step. A small model's greedy
-               tokens on the card must equal its tokens on the CPU.
+               length, one chunked past the largest bucket; its first decode
+               step runs eagerly, then the step is one captured CUDA graph,
+               replayed. Checks: every request finished, no page leaked, one
+               decode signature, one capture, the decode kernel launched
+               n_layers times per decode step (replays count the calls they
+               hold), and the first REPLAYED step's logits, read from the
+               graph's static buffers, agree with the CPU plain path at the
+               same weights and pool (atol 1e-3). Graph vs eager: the same
+               inputs through a replay and through the eager step, logits
+               within 1e-5 relative (bitwise recorded), greedy identical.
+               Then 16 decode-only steps unprofiled (host ms a step, the
+               graph's device time by CUDA events) and under torch.profiler
+               (busy time and share, kernels and the top kernels a step). A
+               small model's greedy tokens on the card must equal its
+               tokens on the CPU.
+ 4b. wire    — the port's ServingServer on 127.0.0.1 port 0 over a
+               serve_forever session of phase 4's configuration: phase 4's
+               8 prompts through a framed ServingClient give phase 4's
+               tokens exactly; then serving/workload.run_closed_loop_rpc,
+               16 requests of 16-128 prompt tokens and 32 new, at
+               concurrency 8 and 1 (tokens/s, TTFT p50/p99, inter-token
+               p50/p99). Checks: no page leak, one decode signature,
+               launches = decode steps x n_layers.
+ 4c. speculation — speculate_k=4 against 0 on 8 repetitive prompts, in
+               process: identical tokens, one verify and one decode
+               signature, free pages back where they started; acceptance
+               rate and spec_effective_k printed.
+ 4d. recovery — the supervised engine under decode_raise:step=8 and then
+               engine_stall:step=6 (stall 3 s past a 1 s watchdog): every
+               request completes with phase 4's tokens exactly, one
+               restart, the graph captured twice (the re-capture after
+               recovery), no page leak.
   5. train   — seq2seq NMT training at the reference's headline widths
                (bench.py:211-245: vocab 30000, embed = hidden = 512, batch
                128, lengths 50; random weights from seed 0): SGDTrainer +
@@ -148,6 +175,7 @@ PROMPT_LENS = (16, 40, 100, 128, 200, 350, 500, 700)
 NEW_TOKENS = 32
 KERNEL_TOL = 1e-4
 LOGITS_TOL = 1e-3
+GRAPH_RTOL = 1e-5
 # the reference's headline NMT training shape (bench.py:211-245, the
 # train.conf scale of demo/seqToseq): vocab 30k, embed = hidden = 512
 S2S = dict(vocab=30000, embed=512, hidden=512, batch=128, src_len=50, trg_len=50)
@@ -311,6 +339,48 @@ def paged_inputs(torch, seed, s, h, hd, ps, pmax, min_pos, max_pos, dump_slot):
     return [t.cuda() for t in (q, kp, vp, bt, pos)]
 
 
+def graph_ms(torch, fn, flush, calls: int = 20, replays: int = 10):
+    """Device ms per call with `calls` calls captured back to back in one
+    CUDA graph, as the decode step's graph holds them (no host launch
+    between kernels): (cold, warm). Cold: the graph flushes L2 (a 64 MiB
+    write) before each call, and a graph of the flushes alone is timed and
+    subtracted. Warm: the calls alone, back to back. Each is the median of
+    `replays` replays timed with CUDA events after a ~0.5 ms head start."""
+    cycles = head_start_cycles(torch)
+    fn()
+    torch.cuda.synchronize()
+
+    def capture(body):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                body()
+        return g
+
+    def replay_ms(g):
+        g.replay()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(replays):
+            torch.cuda._sleep(cycles)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.replay()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+    flushes = capture(flush.zero_)
+    both = capture(lambda: (flush.zero_(), fn()))
+    warm = capture(fn)
+    cold_ms = (replay_ms(both) - replay_ms(flushes)) / calls
+    warm_ms = replay_ms(warm) / calls
+    del flushes, both, warm
+    return cold_ms, warm_ms
+
+
 def paged_parts_ms(torch, fn, flush, calls: int = 10):
     """Device ms per paged-attention call by kernel, from torch.profiler over
     `calls` calls with L2 flushed before each: the split grid and the merge
@@ -394,6 +464,9 @@ def kernel_phase(torch, flush, bw, f32_flops):
             torch, lambda: pa.paged_attention_decode(q, kp, vp, bt, pos, **kw), flush)
         issue_us, loop_us = host_us(
             torch, lambda: pa.paged_attention_decode(q, kp, vp, bt, pos, **kw))
+        g_cold, g_warm = graph_ms(
+            torch, lambda: pa.paged_attention_decode(q, kp, vp, bt, pos, **kw),
+            flush)
         # least work: each visible K and V row read once, q/table/positions
         # read and out written once; 4 flops per visible token per KD element
         tokens = int((pos.long() + 1).clamp(max=t_ctx).sum())
@@ -406,6 +479,7 @@ def kernel_phase(torch, flush, bw, f32_flops):
             visible_tokens=tokens, max_abs_err=err, library_err=lib_err,
             bit_identical=bool(torch.equal(got, again)),
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            graph_ms=g_cold, graph_warm_ms=g_warm,
             parts_ms=parts, host_issue_us=issue_us, loop_us=loop_us,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -987,17 +1061,36 @@ def route_phase(torch):
     return res
 
 
+SERVE = dict(GPT2_SMALL, max_len=1024, max_slots=8, page_size=16,
+             prefill_buckets=(64, 128, 256, 512), max_new_limit=64,
+             prefill_chunk=128, seed=0)
+
+
+def gpt2_session(**kw):
+    """Phase 4's configuration on the card: GPT-2 small's widths, random
+    weights from seed 0 (the same weights in every phase)."""
+    from paddle_tpu_torch.serving import make_demo_session
+
+    return make_demo_session(**{**SERVE, **kw}, device="cuda")
+
+
+def release(torch) -> None:
+    """Return the memory of sessions the caller dropped (their pools, decode
+    graphs and the graphs' memory pools) before the next one is built."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def serve_phase(torch):
     from paddle_tpu_torch.ops import paged_attention as pa
-    from paddle_tpu_torch.serving import make_demo_session
+    from paddle_tpu_torch.serving.decode_graph import DecodeGraph
     from paddle_tpu_torch.serving.model import ServableLM
 
     t0 = time.perf_counter()
-    sess = make_demo_session(
-        **GPT2_SMALL, max_len=1024, max_slots=8, page_size=16,
-        prefill_buckets=(64, 128, 256, 512), max_new_limit=64,
-        prefill_chunk=128, seed=0, device="cuda",
-    )
+    sess = gpt2_session()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     model = sess.model
@@ -1008,28 +1101,31 @@ def serve_phase(torch):
         for n in PROMPT_LENS
     ]
 
-    # the first decode step's inputs and logits, for the CPU reference
+    # the first REPLAYED decode step's inputs (read back from the graph's
+    # static buffers), its pools before the step and its logits, for the
+    # CPU reference
     first = {}
-    orig_logits = model.decode_logits
+    orig_replay = DecodeGraph.replay
 
-    def spy(k_pages, v_pages, *args):
+    def spy(graph, *host):
         if first:
-            return orig_logits(k_pages, v_pages, *args)
+            return orig_replay(graph, *host)
         # copies: the step and the later ones update the pools in place
-        first["pools"] = tuple(t.to("cpu", copy=True) for t in (k_pages, v_pages))
-        first["args"] = [a.to("cpu", copy=True) for a in args]
-        out = orig_logits(k_pages, v_pages, *args)
-        first["logits"] = out.to("cpu", copy=True)
-        return out
+        first["pools"] = tuple(t.to("cpu", copy=True)
+                               for t in (graph.k_pages, graph.v_pages))
+        logits, greedy = orig_replay(graph, *host)
+        first["args"] = [t.to("cpu", copy=True) for t in graph.inputs]
+        first["logits"] = logits.to("cpu", copy=True)
+        return logits, greedy
 
-    model.decode_logits = spy
+    DecodeGraph.replay = spy
     step_ms = []
     orig_decode = sess._decode_once
 
-    def timed_decode():
+    def timed_decode(skip=frozenset()):
         before = sess.decode_steps
         t = time.perf_counter()
-        orig_decode()  # ends in the step's token fetch: synchronised
+        orig_decode(skip)  # ends in the step's token fetch: synchronised
         if sess.decode_steps != before:
             step_ms.append((time.perf_counter() - t) * 1e3)
 
@@ -1044,20 +1140,25 @@ def serve_phase(torch):
     wall_s = time.perf_counter() - t0
     launches = pa.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
-    del model.decode_logits
+    DecodeGraph.replay = orig_replay
     del sess._decode_once
 
     n_tok = sum(len(h.tokens) for h in handles)
     st = sess.stats()
     result = dict(
-        config=dict(GPT2_SMALL, max_len=1024, max_slots=8, page_size=16,
-                    prefill_buckets=[64, 128, 256, 512], prefill_chunk=128,
+        config=dict(SERVE, prefill_buckets=list(SERVE["prefill_buckets"]),
                     prompt_lens=list(PROMPT_LENS), new_tokens=NEW_TOKENS),
         setup_s=setup_s, wall_s=wall_s, tokens=n_tok,
         tokens_per_s=n_tok / wall_s,
         decode_steps=sess.decode_steps,
         decode_step_ms_median=statistics.median(step_ms),
         decode_step_ms_min=min(step_ms),
+        # the first decode step runs eagerly (the capture's warm-up and the
+        # capture itself); the rest replay the graph
+        decode_step_ms_first=step_ms[0],
+        decode_step_ms_median_replayed=statistics.median(step_ms[1:]),
+        decode_graph_captures=sess.decode_graph_captures,
+        graph_kernel_calls=sess._decode_graph.kernel_calls,
         prefill_chunks=sess.prefill_chunks_committed,
         launches=launches, peak_memory_bytes=peak,
         finish=[h.finish_reason for h in handles],
@@ -1074,9 +1175,12 @@ def serve_phase(torch):
     if launches != want:
         fail(f"decode kernel launched {launches} times, want decode_steps x "
              f"n_layers = {want}")
+    if sess.decode_graph_captures != 1 or "logits" not in first:
+        fail(f"the decode step was captured {sess.decode_graph_captures} "
+             f"times, want 1 (and replayed)")
 
-    # the first decode step again on the CPU: plain paged attention, same
-    # weights, same pool and inputs
+    # the first replayed decode step again on the CPU: plain paged
+    # attention, same weights, same pool and inputs
     cpu_model = ServableLM(model.cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     kp, vp = first["pools"]
@@ -1086,33 +1190,106 @@ def serve_phase(torch):
     print("serve", json.dumps(result), flush=True)
     if not err <= LOGITS_TOL:
         fail(f"first decode step logits differ from the CPU path by {err}")
+    result["graph_vs_eager"] = graph_vs_eager_phase(torch, sess)
     result["decode_profile"] = profile_decode(torch, sess, prompts)
+    result["tokens"] = [h.tokens for h in handles]
+    result["prompts"] = prompts
+    del sess, model, cpu_model, first, kp, vp, ref
+    release(torch)
     return result
 
 
+def graph_vs_eager_phase(torch, sess):
+    """The same decode inputs through the graph replay and through the
+    eager `decode_logits` (on a copy of the pools taken before the replay):
+    logits within 1e-5 relative (bitwise where the same kernels run in the
+    same order: recorded), greedy tokens identical."""
+    g = sess._decode_graph
+    s, p = g.block_table.shape
+    ps = sess.cache.page_size
+    rng = torch.Generator().manual_seed(2)
+    pos = torch.randint(0, p * ps, (s,), generator=rng, dtype=torch.int32)
+    pages = torch.randperm(sess.cache.num_pages - 1, generator=rng)[: s * p] + 1
+    bt = pages.reshape(s, p).to(torch.int32)
+    tokens = torch.randint(3, sess.cfg.vocab, (s,), generator=rng, dtype=torch.int32)
+    active = torch.ones(s, dtype=torch.bool)
+    kp, vp = sess.k_pages.clone(), sess.v_pages.clone()
+    logits, greedy = g.replay(tokens.numpy(), pos.numpy(), active.numpy(), bt.numpy())
+    logits, greedy = logits.clone(), greedy.clone()
+    eager = sess.model.decode_logits(kp, vp, *(t.cuda() for t in (tokens, pos, active, bt)))
+    torch.cuda.synchronize()
+    rel = float((logits - eager).abs().max() / eager.abs().max())
+    out = dict(
+        bitwise=bool(torch.equal(logits, eager)),
+        max_abs_err=float((logits - eager).abs().max()),
+        max_rel_err=rel,
+        greedy_equal=bool(torch.equal(greedy, eager.argmax(-1))),
+        pools_after_max_abs_err=max(float((kp - sess.k_pages).abs().max()),
+                                    float((vp - sess.v_pages).abs().max())),
+    )
+    print("graph_vs_eager", json.dumps(out), flush=True)
+    if not rel <= GRAPH_RTOL or not out["greedy_equal"]:
+        fail(f"the decode graph disagrees with the eager step: {out}")
+    return out
+
+
 def profile_decode(torch, sess, prompts, steps: int = 16):
-    """Where a steady decode step's time goes: torch.profiler over `steps`
-    decode-only engine steps of 8 slots (admission and prefill run before
-    the window). Device busy = summed kernel time over the window's wall
-    time; the rest is the card idle while the host launches."""
+    """Where a steady decode step's time goes, over `steps` decode-only
+    engine steps of 8 slots (admission and prefill run before each window),
+    twice: unprofiled, the host clock per step and CUDA events around each
+    graph replay (the graph's device time, its four input copies included);
+    then under torch.profiler, the kernels by name. Device busy share =
+    the profiled kernels' time over the unprofiled step's wall time (the
+    profiler's own overhead stretches its window's wall); the rest is the
+    card idle while the host runs the engine step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    hs = [sess.submit(p[:16], steps + 2) for p in prompts]
-    sess.step()  # admit + prefill + first decode, outside the window
-    before = sess.decode_steps
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            sess.step()
+    from paddle_tpu_torch.serving.decode_graph import DecodeGraph
+
+    events = []
+    orig_replay = DecodeGraph.replay
+
+    def timed_replay(graph, *host):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig_replay(graph, *host)
+        b.record()
+        events.append((a, b))
+        return out
+
+    def window(profiled: bool):
+        hs = [sess.submit(p[:16], steps + 2) for p in prompts]
+        sess.step()  # admit + prefill + first decode, outside the window
+        before = sess.decode_steps
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    n = sess.decode_steps - before
-    sess.run_until_idle()
-    if not all(h.done for h in hs) or sess.cache.pages_in_use:
-        fail("profiled requests did not finish cleanly")
+        prof = None
+        if profiled:
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                           acc_events=True)
+            prof.__enter__()
+        else:
+            DecodeGraph.replay = timed_replay
+        try:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                sess.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            DecodeGraph.replay = orig_replay
+            if prof is not None:
+                prof.__exit__(None, None, None)
+        n = sess.decode_steps - before
+        sess.run_until_idle()
+        if not all(h.done for h in hs) or sess.cache.pages_in_use:
+            fail("profiled requests did not finish cleanly")
+        return n, wall_ms, prof
+
+    n_plain, wall_plain, _ = window(False)
+    graph_ms = sum(a.elapsed_time(b) for a, b in events) / max(1, len(events))
+    n, wall_ms, prof = window(True)
     kernels = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
@@ -1122,10 +1299,14 @@ def profile_decode(torch, sess, prompts, steps: int = 16):
     busy_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     out = dict(
-        decode_steps=n, wall_ms_per_step=wall_ms / n,
+        decode_steps=n, wall_ms_per_step=wall_plain / n_plain,
+        graph_device_ms_per_step=graph_ms,
+        graph_replays_per_step=len(events) / n_plain,
         device_busy_ms_per_step=busy_ms / n,
-        device_busy_share=busy_ms / wall_ms,
-        kernel_launches_per_step=sum(c for _, c in kernels.values()) / n,
+        device_busy_share=(busy_ms / n) / (wall_plain / n_plain),
+        profiled_wall_ms_per_step=wall_ms / n,
+        profiled_busy_share=busy_ms / wall_ms,
+        kernels_per_step=sum(c for _, c in kernels.values()) / n,
         paged_attention_ms_per_step=sum(
             ms for k, (ms, _) in kernels.items() if "paged_decode" in k) / n,
         top_kernels_ms_per_step=[[k[:80], ms / n, c / n] for k, (ms, c) in top],
@@ -1133,6 +1314,149 @@ def profile_decode(torch, sess, prompts, steps: int = 16):
     print("profile", json.dumps(out), flush=True)
     if busy_ms <= 0:
         fail("torch.profiler recorded no device time")
+    if len(events) != n_plain:
+        fail(f"{len(events)} graph replays in {n_plain} decode steps")
+    return out
+
+
+def wire_phase(torch, serve):
+    """The port's ServingServer on 127.0.0.1, port 0, over a serve_forever
+    session on the card: phase 4's 8 prompts through a framed
+    ServingClient (greedy tokens identical to phase 4's, in process), then
+    workload.run_closed_loop_rpc at concurrency 8 and 1."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import ServingClient, ServingServer
+    from paddle_tpu_torch.serving.workload import make_prompts, run_closed_loop_rpc
+
+    sess = gpt2_session()
+    srv = ServingServer(sess, host="127.0.0.1", port=0).start()
+    out = {}
+    try:
+        pa.LAUNCHES = 0
+        client = ServingClient(srv.address, wire="frames")
+        got = [client.generate(p, NEW_TOKENS, timeout_s=300.0)["tokens"]
+               for p in serve["prompts"]]
+        out["framed"] = client.wire_framed
+        client.close()
+        out["tokens_equal_in_process"] = got == serve["tokens"]
+        prompts = make_prompts(16, PROMPT_LENS[:4], GPT2_SMALL["vocab"], 1, seed=3)
+        for c in (8, 1):
+            r = run_closed_loop_rpc(
+                lambda: ServingClient(srv.address, wire="frames"),
+                prompts, NEW_TOKENS, concurrency=c)
+            r.pop("results")
+            out[f"closed_loop_c{c}"] = r
+        st = sess.stats()
+        out.update(decode_steps=st["decode_steps"], launches=pa.LAUNCHES,
+                   decode_graph_captures=st["decode_graph_captures"],
+                   pages_in_use=st["pages_in_use"],
+                   decode_shape_signatures=st["decode_shape_signatures"])
+    finally:
+        srv.stop()
+    print("wire", json.dumps(out), flush=True)
+    if not (out["framed"] and out["tokens_equal_in_process"]):
+        fail(f"wire: greedy tokens over the framed wire differ from the "
+             f"in-process tokens (framed={out['framed']})")
+    if out["pages_in_use"] or out["decode_shape_signatures"] != 1:
+        fail(f"wire: {out['pages_in_use']} pages leaked, "
+             f"{out['decode_shape_signatures']} decode signatures")
+    if out["launches"] != out["decode_steps"] * GPT2_SMALL["n_layers"]:
+        fail(f"wire: {out['launches']} decode kernel launches in "
+             f"{out['decode_steps']} decode steps")
+    del srv, sess
+    release(torch)
+    return out
+
+
+def speculation_phase(torch):
+    """speculate_k=4 on repetitive prompts, in process: tokens identical to
+    speculate_k=0, one verify and one decode signature, no page leak."""
+    from paddle_tpu_torch.serving.workload import make_repetitive_prompts
+
+    prompts = make_repetitive_prompts(8, 4, 8, GPT2_SMALL["vocab"], 1, seed=4)
+    out = {}
+    toks = {}
+    for k in (0, 4):
+        sess = gpt2_session(speculate_k=k)
+        free0 = sess.cache.free_pages
+        t0 = time.perf_counter()
+        hs = [sess.submit(p, NEW_TOKENS) for p in prompts]
+        sess.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = sess.stats()
+        toks[k] = [h.tokens for h in hs]
+        out[f"k{k}"] = dict(
+            wall_s=wall, tokens_per_s=sum(map(len, toks[k])) / wall,
+            decode_steps=st["decode_steps"], spec_rounds=st["spec_rounds"],
+            spec_acceptance_rate=st["spec_acceptance_rate"],
+            spec_effective_k=st["spec_effective_k"],
+            spec_pages_trimmed=st["spec_pages_trimmed"],
+            verify_shape_signatures=st["verify_shape_signatures"],
+            decode_shape_signatures=st["decode_shape_signatures"],
+            free_pages_start=free0, free_pages_end=sess.cache.free_pages,
+        )
+        del sess, hs
+        release(torch)
+    out["tokens_equal"] = toks[0] == toks[4]
+    print("speculation", json.dumps(out), flush=True)
+    k4 = out["k4"]
+    if not out["tokens_equal"]:
+        fail("speculation: speculate_k=4 tokens differ from speculate_k=0")
+    if k4["spec_rounds"] < 1 or k4["verify_shape_signatures"] != 1:
+        fail(f"speculation: {k4['spec_rounds']} rounds, "
+             f"{k4['verify_shape_signatures']} verify signatures")
+    for k in ("k0", "k4"):
+        if out[k]["decode_shape_signatures"] != 1:
+            fail(f"speculation {k}: {out[k]['decode_shape_signatures']} "
+                 "decode signatures")
+        if out[k]["free_pages_end"] != out[k]["free_pages_start"]:
+            fail(f"speculation {k}: pages leaked")
+    return out
+
+
+def recovery_phase(torch, serve):
+    """The supervised engine on the card under seeded faults: decode_raise
+    mid-run, then an engine_stall past engine_stall_timeout_s. Every request
+    completes with tokens bitwise equal to phase 4's fault-free run, one
+    restart each, and the decode graph re-captured after it."""
+    from paddle_tpu_torch.core import faults
+
+    os.environ["PADDLE_TPU_SERVING_STALL_S"] = "3"
+    out = {}
+    for site, spec in (("decode_raise", "decode_raise:step=8"),
+                       ("engine_stall", "engine_stall:step=6")):
+        sess = gpt2_session(engine_restart_max=2, engine_stall_timeout_s=1.0)
+        free0 = sess.cache.free_pages
+        t0 = time.perf_counter()
+        with faults.inject(spec) as inj:
+            sess.serve_forever()
+            hs = [sess.submit(p, NEW_TOKENS) for p in serve["prompts"]]
+            done = all(h._event.wait(300) for h in hs)
+            fired = dict(inj.fired)
+        sess.stop()
+        st = sess.stats()
+        row = dict(
+            spec=spec, fired=fired.get(site, 0), wall_s=time.perf_counter() - t0,
+            engine_restarts=st["engine_restarts"],
+            decode_graph_captures=st["decode_graph_captures"],
+            finish=[h.finish_reason for h in hs],
+            tokens_equal=done and [h.tokens for h in hs] == serve["tokens"],
+            pages_leaked=free0 - sess.cache.free_pages,
+        )
+        out[site] = row
+        print("recovery", json.dumps(row), flush=True)
+        if not done or not row["tokens_equal"]:
+            fail(f"recovery {site}: tokens differ from the fault-free run: {row}")
+        if row["fired"] != 1 or row["engine_restarts"] != 1:
+            fail(f"recovery {site}: fired {row['fired']}, "
+                 f"{row['engine_restarts']} restarts")
+        if row["decode_graph_captures"] != 2 or row["pages_leaked"]:
+            fail(f"recovery {site}: {row['decode_graph_captures']} captures "
+                 f"(want 2: the first and the re-capture), "
+                 f"{row['pages_leaked']} pages leaked")
+        del sess, hs
+        release(torch)
     return out
 
 
@@ -1787,9 +2111,14 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
 
-    # 4. the serving engine end to end (launches counted from 0 here)
+    # 4. the serving engine end to end (launches counted from 0 here), the
+    # decode graph against the eager step, then 4b-4d: the server and its
+    # wire, speculation, recovery
     serve = serve_phase(torch)
     small_tokens_phase(torch)
+    wire = wire_phase(torch, serve)
+    speculation = speculation_phase(torch)
+    recovery = recovery_phase(torch, serve)
 
     # 5. seq2seq training at the reference's widths (GRU launches from 0)
     torch.cuda.empty_cache()
@@ -1832,6 +2161,7 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "graph_ms": main_row["graph_ms"],
         "achieved_tb_s": main_row["achieved_tb_s"],
         "plan": pa.split_plan(
             *(main_row[k] for k in ("S", "H", "hd", "PS", "P")),
@@ -1936,7 +2266,8 @@ def main() -> int:
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
-                   "serve": serve, "train": train, "train_vs_cpu": train_vs_cpu,
+                   "serve": serve, "wire": wire, "speculation": speculation,
+                   "recovery": recovery, "train": train, "train_vs_cpu": train_vs_cpu,
                    "lstm_train": lstm_train, "lstm_vs_cpu": lstm_vs_cpu,
                    "attn_path": attn_path, "route": route, "resnet": resnet,
                    "resnet_vs_cpu": resnet_vs_cpu, "lenet": lenet},

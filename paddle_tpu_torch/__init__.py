@@ -12,8 +12,10 @@ Device policy (`device.py`): entry points take `device=`; None means CUDA and
 raises when no CUDA device is present — the CPU runs only when the caller
 passes `device="cpu"`, as the tests do.
 
-Ported so far: the paged-KV serving engine (`serving/`), driven in process
-through `ServingSession.submit` + `run_until_idle`; seq2seq NMT, LSTM
+Ported so far: the paged-KV serving engine (`serving/`), in process
+(`ServingSession.submit` + `run_until_idle`) or behind its RPC server
+(`serving/server.py` over `runtime/`, `python -m paddle_tpu_torch serve`),
+with speculative decoding and the supervised engine thread; seq2seq NMT, LSTM
 text-classification, ResNet-50 and LeNet training (`nn/`, `optim/`,
 `trainer/`, `models/`, with the bf16 policy of `core/dtypes.py`); the fused
 attention op (`ops/attention.dot_product_attention`).

@@ -13,8 +13,18 @@ where `value` is one of
     step=37     fire exactly once, on the site's 37th hit (0-based)
 
 Sites the ported code polls (hooks live next to the code they sabotage):
-    decode_raise   serving engine raises mid-decode          (serving.session._decode_once)
+    decode_raise   serving engine raises mid-decode or mid-   (serving.session._decode_once,
+                   speculation — the supervisor restarts the   serving.session._speculate)
+                   engine, re-initialises the page pools and
+                   replays in-flight requests
     page_exhaust   KV page pool fails at admission           (serving.session._admit)
+    engine_stall   serving engine thread wedges between      (serving.session._engine_loop)
+                   steps — the supervisor's stall watchdog
+                   must supersede it; stall length via
+                   PADDLE_TPU_SERVING_STALL_S (default 300)
+    conn_reset     the RPC client's socket resets after      (runtime.master.MasterClient)
+                   connect; the reconnect/failover path
+                   must absorb it
 
 Seeding: `PADDLE_TPU_FAULTS_SEED` (or the `seed` argument). Each site gets
 its own `random.Random(f"{seed}:{site}")` stream, so the fire pattern of one
@@ -23,15 +33,21 @@ site is independent of how often the others are polled."""
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 import random
 import re
 import threading
+import time
 from typing import Dict, Iterator, Optional
 
 
 class InjectedFault(RuntimeError):
     """A fault raised on purpose by the chaos harness."""
+
+
+class InjectedKill(InjectedFault):
+    """Simulated process death (SIGKILL analog)."""
 
 
 _DURATION_RE = re.compile(r"^(\d+(?:\.\d+)?)(ms|s)$")
@@ -162,6 +178,26 @@ ACTIVE = FaultInjector(os.environ.get("PADDLE_TPU_FAULTS", ""))
 
 def get() -> FaultInjector:
     return ACTIVE
+
+
+def maybe_stall(
+    site: str,
+    env: str = "PADDLE_TPU_SERVING_STALL_S",
+    default_s: float = 300.0,
+) -> bool:
+    """Wedge-the-thread hook of the stall sites: when `site` fires, sleep
+    for `$env` seconds (default `default_s`) — long enough for the watchdog
+    that owns this thread (the serving supervisor) to supersede it — then
+    return True."""
+    if not (ACTIVE.active and ACTIVE.fire(site)):
+        return False
+    stall_s = float(os.environ.get(env, str(default_s)))
+    logging.getLogger("paddle_tpu_torch.faults").warning(
+        "chaos: %s fired — wedging %.0fs (no progress; the owning watchdog "
+        "must supersede this thread)", site, stall_s,
+    )
+    time.sleep(stall_s)
+    return True
 
 
 @contextlib.contextmanager

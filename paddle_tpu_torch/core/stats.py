@@ -50,6 +50,11 @@ class EventCounter:
             return dict(self._counts)
 
 
+# fault-tolerance events: RPC client reconnects and endpoint failovers,
+# tenant-lease evictions
+FT_EVENTS = EventCounter("ft")
+
+
 def tensor_bytes(tensors: Iterable) -> int:
     """Bytes the given tensors hold on their device (one card: no shards)."""
     return sum(int(t.numel()) * t.element_size() for t in tensors)

@@ -19,6 +19,7 @@ __all__ = [
     "REGISTRY",
     "Sample",
     "observe_deadline_miss",
+    "observe_engine_restart",
     "observe_pages_recycled",
     "observe_prefix_cow",
     "observe_prefix_evictions",
@@ -201,6 +202,15 @@ def observe_shed(reason: str) -> None:
         "paddle_tpu_serving_shed_total",
         "serving requests shed at admission, by named reason",
     ).inc(reason=reason)
+
+
+def observe_engine_restart(cause: str) -> None:
+    """The serving supervisor restarted the decode engine; cause is 'fault'
+    (engine thread raised) or 'stall' (no step progress past the watchdog)."""
+    REGISTRY.counter(
+        "paddle_tpu_serving_engine_restarts_total",
+        "serving engine restarts by the session supervisor, by cause",
+    ).inc(cause=cause)
 
 
 def observe_pages_recycled(n: int) -> None:

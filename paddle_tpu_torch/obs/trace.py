@@ -304,6 +304,33 @@ def activate(ctx) -> _Activation:
     return _Activation((ctx[0], ctx[1]))
 
 
+def server_span(name: str, wire_ctx, **attrs: Any):
+    """RPC-handler helper: adopt the caller's wire context (when present) and
+    open a span under it — `with server_span("rpc.submit", req.get("_trace"))`.
+    Disabled: the shared no-op CM."""
+    if not TRACER.enabled:
+        return _NULL_SPAN
+    return _ServerSpan(name, wire_ctx, attrs or None)
+
+
+class _ServerSpan:
+    __slots__ = ("_act", "_span")
+
+    def __init__(self, name, wire_ctx, attrs):
+        self._act = activate(wire_ctx)
+        self._span = _LiveSpan(name, attrs)
+
+    def __enter__(self):
+        self._act.__enter__()
+        return self._span.__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return self._span.__exit__(*exc)
+        finally:
+            self._act.__exit__(*exc)
+
+
 # -- export ------------------------------------------------------------------
 
 

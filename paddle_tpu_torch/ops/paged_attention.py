@@ -22,7 +22,11 @@ Dispatch is by where the tensors lie, nothing else: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise. `LAUNCHES` counts
 kernel launches (never plain-version calls), so a run can show that its
 decode steps went through the kernel (one per call, whatever the number
-of grids)."""
+of grids). A call made while the current stream is capturing a CUDA graph
+launches nothing: it records the kernel into the graph and counts it in
+`CAPTURED` instead; whoever replays the graph adds the number of calls it
+captured to `LAUNCHES` on each replay (`note_replay`), since a replay runs
+no Python."""
 
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ MAX_HEAD_DIM = 256
 
 # kernel launches since import (or since a caller last set it to 0)
 LAUNCHES = 0
+# calls recorded into CUDA graphs under capture (launched by their replays)
+CAPTURED = 0
 
 _SOURCE = "paged_attention"
 
@@ -215,8 +221,13 @@ def paged_attention_decode(
     """One decode step of ragged paged attention for all slots -> [S, KD]
     f32. CPU tensors: the plain version. CUDA tensors: the kernel, launched
     on the current stream with `split_plan`'s layout for these shapes and
-    this card, or an error — never the plain version."""
-    global LAUNCHES
+    this card, or an error — never the plain version. Under stream capture
+    the same launch is recorded into the graph (the merge grid's
+    programmatic dependency becomes a programmatic edge) and counted in
+    `CAPTURED`, not `LAUNCHES`. The host work here — the checks, the plan,
+    building the kernel — is cached or cheap, so a capture needs only one
+    warm-up call first (the kernel's one-time attribute setup)."""
+    global LAUNCHES, CAPTURED
     if q.device.type == "cpu":
         return paged_attention_decode_ref(
             q, k_pages, v_pages, block_table, positions,
@@ -246,5 +257,15 @@ def paged_attention_decode(
         raise RuntimeError(
             f"paged_attention_decode kernel launch failed: CUDA error {rc}"
         )
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return out
+
+
+def note_replay(captured_calls: int) -> None:
+    """A CUDA graph holding `captured_calls` calls of this kernel was
+    replayed: each of them launched its kernel once."""
+    global LAUNCHES
+    LAUNCHES += captured_calls

@@ -33,7 +33,7 @@ committed full page into the new slot's block table read-only (+1 ref each
 fresh pages only for the uncached suffix. Committed prompt pages register
 into the index (the index holds its own +1 ref), so they outlive their
 request and serve later ones; a page only returns to the free list when its
-LAST reference drops — a slot releasing, or an LRU eviction of an
+LAST reference drops — a slot releasing, a trim, or an LRU eviction of an
 unreferenced cached page under pool pressure. Copy-on-write falls out of
 page granularity: only FULL immutable prompt pages are ever shared, and the
 first divergent page is a fresh private page the request's own chunked
@@ -279,6 +279,26 @@ class PagedKVCache:
             evicted += 1
         return evicted
 
+    def trim(self, slot: int, total_len: int) -> int:
+        """Release the slot's surplus tail pages beyond what `total_len`
+        tokens need (speculative-decode rollback): admission reserves
+        `speculate_k` tokens of headroom so a verify chunk can always
+        scatter its K+1 positions, and once the request's remaining budget
+        can no longer use that headroom the surplus recycles here instead of
+        riding to retirement. Tail pages are always private (aliased prefix
+        pages sit at the FRONT and registration never reaches past the
+        prompt), so the decref frees them physically. Returns how many
+        pages were freed; idempotent."""
+        pages = self._slot_pages[slot]
+        keep = self.pages_needed(total_len)
+        if not pages or keep >= len(pages):
+            return 0
+        surplus = pages[keep:]
+        self._slot_pages[slot] = pages[:keep]
+        freed = sum(1 for p in surplus if self._decref(p))
+        self._table[slot, keep:] = 0
+        return freed
+
     def release(self, slot: int) -> int:
         """Drop the slot's references (KV recycling); returns how many pages
         PHYSICALLY returned to the free list — a page another slot still
@@ -344,6 +364,24 @@ class PagedKVCache:
         d["prefix_cache_enabled"] = True
         d["prefix_cache_pages_cap"] = self.prefix_cache_pages
         return d
+
+    def reset(self) -> None:
+        """Rebuild the allocator to its just-constructed state (engine crash
+        recovery): every page free, every slot empty, table zeroed — and the
+        prefix index INVALIDATED, because replayed requests re-commit their
+        K/V into the re-initialised pools. The device pools are not touched
+        here: the session re-initialises them in place (`zero_()`), so the
+        captured decode graph's pointers stay valid."""
+        self._free = list(range(self.num_pages - 1, 0, -1))
+        self._refcount = [0] * self.num_pages
+        self._slot_pages = [[] for _ in range(self.max_slots)]
+        self._slot_hit = [0] * self.max_slots
+        self._slot_reg = [0] * self.max_slots
+        self._slot_node = [0] * self.max_slots
+        self._table[:] = 0
+        if self.prefix is not None:
+            with self._prefix_lock:
+                self.prefix.drop_all()
 
     def block_table(self) -> np.ndarray:
         """The [max_slots, max_pages_per_seq] int32 table (live view — the

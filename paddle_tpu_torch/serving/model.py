@@ -16,7 +16,13 @@ the same serving split:
                       write the step K/V into each slot's current page, then
                       ragged paged attention up to each slot's own position
                       through the CUDA kernel (ops/paged_attention.py; its
-                      plain version on CPU tensors).
+                      plain version on CPU tensors). Its forward,
+                      `decode_logits`, is what the session captures as one
+                      CUDA graph on the card.
+  * `verify_chunk`  — speculative decoding: scores [last token, K drafts] in
+                      ONE chunk-shaped call through `_chunk_forward` (the
+                      chunk path's gather attention, as the JAX package's)
+                      and commits all K+1 positions' K/V.
 
 Pre-RMSNorm multi-head attention, a 4*d GELU MLP (tanh approximation, as
 `jax.nn.gelu` defaults to), learned positions, untied unembed. Parameters
@@ -41,8 +47,7 @@ Differences from the JAX package, each on purpose:
     greedy tokens match the JAX package.
 
 Parameters and pools are f32. Tensor parallelism (the JAX package's mesh,
-`shard_params` and `shard_map` seam) and `verify_chunk` (speculative
-decoding) are not ported yet (ROADMAP.md)."""
+`shard_params` and `shard_map` seam) is not ported yet (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -204,17 +209,21 @@ class ServableLM(nn.Module):
         steps: np.ndarray,     # [B] int32 token index within the request (host)
         temps: np.ndarray,     # [B] f32; 0 = greedy argmax (host)
         top_ks: np.ndarray,    # [B] int32; 0 = no top-k truncation (host)
+        greedy: Optional[torch.Tensor] = None,  # [B] argmax, when computed
     ) -> torch.Tensor:
         """Per-slot token choice -> [B] int64 on the logits' device.
 
-        Greedy is argmax (first index on ties, as jnp.argmax). Whether any
+        Greedy is argmax (first index on ties, as jnp.argmax); a caller that
+        already has it (the decode graph computes it on the card) passes it
+        as `greedy`. Whether any
         slot samples is read from the host-side `temps`, so an all-greedy
         batch — the default serving config — never syncs and never runs the
         sampled branch. A sampled slot keeps logits >= its k-th largest
         (ties kept), divides by its temperature and takes the gumbel-max
         with noise from its own generator seeded by (seed, step): its token
         depends on its own row and identity only."""
-        greedy = logits.argmax(-1)
+        if greedy is None:
+            greedy = logits.argmax(-1)
         temps = np.asarray(temps, np.float32)
         sampled = np.flatnonzero(temps > 0.0)
         if sampled.size == 0:
@@ -389,6 +398,55 @@ class ServableLM(nn.Module):
             x = x + ctx @ blk.wo
             x = self._mlp(blk, x)
         return x, torch.stack(kcs), torch.stack(vcs)
+
+    # -- speculative decoding -----------------------------------------------
+    @torch.no_grad()
+    def verify_chunk(
+        self,
+        k_pages: torch.Tensor,     # [L, NP, PS, KD] — chunk K/V commits here
+        v_pages: torch.Tensor,
+        tokens: torch.Tensor,      # [1, K+1] int: last committed token + K drafts
+        starts: torch.Tensor,      # [1] int — position of the last committed token
+        block_rows: torch.Tensor,  # [1, max_pages_per_seq] int — the slot's row
+        seeds: np.ndarray,         # [1] uint32 — the request's sampling seed
+        steps0: np.ndarray,        # [1] int32 — emitted-token index of sampled[0]
+        temps: np.ndarray,         # [1] f32
+        top_ks: np.ndarray,        # [1] int32
+    ) -> torch.Tensor:
+        """Score K drafted tokens in ONE chunk-shaped call (prompt-lookup
+        speculative decoding). The chunk is [last_token, draft_1..K] at
+        positions [starts .. starts+K]: the logits at chunk position i are
+        what a sequential decode would see after emitting drafts 1..i, so
+        `sampled[i]` is the token the model WOULD emit there — the host
+        accepts draft_{i+1} while sampled[i] == draft_{i+1} and takes the
+        first divergent token free.
+
+        Position i samples with the emitted-token index `steps0 + i` — the
+        index the plain decode loop would use, never the engine step — so a
+        replay regenerates bitwise-identical tokens at temperature > 0 too.
+
+        All K+1 positions' K/V commit into the slot's pages (in place).
+        Positions past the slot's reserved pages fall through the row's zero
+        entries into dump page 0; rejected positions leave stale K/V that
+        every mask excludes until the next step rewrites them. Returns
+        sampled [K+1] int64 on the device."""
+        b, c = tokens.shape
+        x, kc, vc = self._chunk_forward(
+            k_pages, v_pages, tokens, starts, block_rows
+        )
+        lane = np.arange(c, dtype=np.int32)
+        sampled = self._sample(
+            self._logits(x)[0],                          # [K+1, V]
+            np.broadcast_to(np.asarray(seeds, np.uint32), (c,)),
+            np.asarray(steps0, np.int32) + lane,         # emitted-token index
+            np.broadcast_to(np.asarray(temps, np.float32), (c,)),
+            np.broadcast_to(np.asarray(top_ks, np.int32), (c,)),
+        )
+        # commit every chunk position (lengths = starts + K + 1)
+        self.commit_prefill(
+            k_pages, v_pages, kc, vc, starts + c, block_rows, starts,
+        )
+        return sampled
 
     # -- page pool plumbing -------------------------------------------------
     @torch.no_grad()

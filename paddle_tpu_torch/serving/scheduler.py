@@ -10,8 +10,8 @@ The host-side half of the serving runtime. A request's life:
 and every exit from that pipeline is *named*: a request that
 cannot make its deadline is shed at the front door (`overload`, with a
 `retry_after_ms` hint), expires in the queue or at a decode-step boundary
-(`deadline`), or is cancelled by its abandoning client (`client_timeout`) —
-never silently dropped, and
+(`deadline`), is cancelled by its abandoning client (`client_timeout`), or
+is failed by a dead engine (`engine_error`) — never silently dropped, and
 its KV pages are recycled the moment it leaves.
 
 The defining property of continuous batching is that admissions and
@@ -53,6 +53,7 @@ class FinishReason:
     CANCELLED = "cancelled"
     DEADLINE = "deadline"          # total-latency deadline expired
     CLIENT_TIMEOUT = "client_timeout"  # result(timeout=) abandoned the work
+    ENGINE_ERROR = "engine_error"  # engine died past its restart budget
 
 
 class RequestHandle:
@@ -178,7 +179,7 @@ class ActiveSeq:
     already-decoding slots."""
 
     __slots__ = ("handle", "prompt", "last_token", "next_pos", "generated",
-                 "t_started", "prefill_pos", "prefix_hit")
+                 "t_started", "prefill_pos", "engine_steps", "prefix_hit")
 
     def __init__(self, handle: RequestHandle, prompt: List[int]):
         self.handle = handle
@@ -193,6 +194,11 @@ class ActiveSeq:
         # the aliased pages' KV is already committed — and the retire-time
         # EWMA prices the prefill by the remaining suffix only
         self.prefix_hit: int = 0
+        # engine steps this sequence actually consumed (one per decode step
+        # it rode, one per verify round): with speculative decoding emitting
+        # >1 token per step, `generated` stops being a step count — the
+        # retire-time EWMA prices steps off THIS when speculation is on
+        self.engine_steps: int = 0
 
     @property
     def prefilling(self) -> bool:
@@ -230,6 +236,7 @@ class Scheduler:
         quotas: Optional[TenantQuotas] = None,
         prefill_chunk: Optional[int] = None,
         largest_bucket: Optional[int] = None,
+        speculate_k: int = 0,
     ):
         self.cache = cache
         self.max_queue = max_queue
@@ -241,6 +248,12 @@ class Scheduler:
         # every bucket chunks even when it fits one chunk)
         self.prefill_chunk = prefill_chunk
         self.largest_bucket = largest_bucket
+        # speculative decoding: admission reserves K extra tokens of page
+        # headroom per request so a verify chunk's K+1 scatter always has
+        # pages behind it; the session trims the surplus back to the free
+        # list once a request's remaining budget can no longer use it
+        # (kv_cache.trim). 0 = the exact reservation.
+        self.speculate_k = max(0, int(speculate_k))
         self.lock = threading.Lock()
         self.waiting: Deque[_Waiting] = collections.deque()
         self.slots: List[Optional[ActiveSeq]] = [None] * cache.max_slots
@@ -398,7 +411,9 @@ class Scheduler:
         if svc is None:
             return 0.0
         free_slot = any(a is None for a in self.slots)
-        fits_now = free_slot and self.cache.can_reserve(total_len)
+        fits_now = free_slot and self.cache.can_reserve(
+            total_len + self.speculate_k
+        )
         depth = len(self.waiting)
         step_s = self._ewma_step_s or 0.0
         c = self.prefill_chunk
@@ -467,7 +482,7 @@ class Scheduler:
     def _finalize(self, handle: RequestHandle, reason: str,
                   refund_tokens: int, freed_pages: int) -> None:
         """The ONE completion path for every cancellation exit (queued
-        cancel, reap expiry, doomed-at-admission): refund the
+        cancel, reap expiry, doomed-at-admission, crash requeue): refund the
         tenant quota, emit the page-recycle / deadline-miss metrics, wake
         the caller. Must run OUTSIDE self.lock (quota has its own lock and
         _complete wakes waiters)."""
@@ -590,7 +605,9 @@ class Scheduler:
                 if self.slots[slot] is not None:
                     continue
                 w = self.waiting[0]
-                total = w.handle.prompt_len + w.handle.max_new_tokens
+                # +K speculative headroom (0 when speculation is off)
+                total = (w.handle.prompt_len + w.handle.max_new_tokens
+                         + self.speculate_k)
                 if not self.cache.can_reserve(total):
                     break  # FIFO: do not starve the head by skipping it
                 self.waiting.popleft()
@@ -628,9 +645,13 @@ class Scheduler:
         svc = act.handle.t_done - (act.t_started or act.handle.t_submit)
         # engine steps this request actually occupied: its decode steps plus
         # the prefill chunks it ACTUALLY ran (a prefix hit skipped the cached
-        # pages) — prices one chunk for the load estimate
-        steps = max(1, act.generated + self._chunk_steps(act.handle.prompt_len,
-                                                         act.prefix_hit))
+        # pages) — prices one chunk for the load estimate. With speculation
+        # on, `generated` over-counts steps (a verify round commits several
+        # tokens in ONE step), so the EWMA prices off the real step count
+        # (+1 for the prefill step that emitted the first token)
+        occupied = act.engine_steps + 1 if self.speculate_k else act.generated
+        steps = max(1, occupied + self._chunk_steps(act.handle.prompt_len,
+                                                    act.prefix_hit))
         with self.lock:
             a = self.SERVICE_EWMA_ALPHA
             self._ewma_service_s = (
@@ -666,6 +687,53 @@ class Scheduler:
             self.waiting = keep
             self.cancelled += n
         return n
+
+    # -- engine crash recovery ----------------------------------------------
+    def requeue_active(self, now: Optional[float] = None) -> Tuple[int, int]:
+        """Engine recovery: push every RUNNING sequence back to the FRONT of
+        the queue in original submit order with its progress reset. Decode
+        is deterministic (greedy trivially; sampled requests replay through
+        the same per-request seed and token indices), so the replay
+        regenerates bitwise-identical tokens and the restart is
+        result-transparent. Requests already past their total deadline fail
+        now with the named reason. Slots are emptied but the page free list
+        is NOT touched: the caller resets the whole allocator
+        (cache.reset()) and re-initialises the pools. Returns
+        (requeued, expired)."""
+        now = time.monotonic() if now is None else now
+        requeued = 0
+        expired: List[Tuple[RequestHandle, str, int]] = []
+        with self.lock:
+            active = [(i, a) for i, a in enumerate(self.slots)
+                      if a is not None]
+            for i, _ in active:
+                self.slots[i] = None
+            # appendleft in descending id order -> queue head ends up in
+            # ascending (original) order, ahead of not-yet-admitted work
+            for _, act in sorted(
+                active, key=lambda t: t[1].handle.request_id, reverse=True,
+            ):
+                h = act.handle
+                reason = self._cancel_req.pop(h.request_id, None)
+                if reason is None and h.t_deadline is not None \
+                        and now >= h.t_deadline:
+                    reason = FinishReason.DEADLINE
+                if reason is not None:
+                    self.cancelled += 1
+                    if reason == FinishReason.DEADLINE:
+                        self.deadline_misses += 1
+                    expired.append(
+                        (h, reason, max(0, h.max_new_tokens - act.generated))
+                    )
+                    continue
+                h.tokens = []
+                h.t_first_token = None
+                h.status = RequestHandle.QUEUED
+                self.waiting.appendleft(_Waiting(h, act.prompt))
+                requeued += 1
+        for h, reason, refund in expired:
+            self._finalize(h, reason, refund, 0)
+        return requeued, len(expired)
 
     # -- views --------------------------------------------------------------
     def active_slots(self) -> List[Tuple[int, ActiveSeq]]:
