@@ -84,11 +84,35 @@ Phases (any failure exits non-zero and prints no result line):
   5. train   — seq2seq NMT training at the reference's headline widths
                (bench.py:211-245: vocab 30000, embed = hidden = 512, batch
                128, lengths 50; random weights from seed 0): SGDTrainer +
-               Adam(1e-3), f32, 2 warm-up + 10 timed steps on one batch.
-               Checks: 2 forward + 2 backward GRU launches per step (encoder
-               fw and bw), finite costs, the last below the first. Then
-               torch.profiler over 2 steps: device busy share, launches per
-               step, top kernels, the GRU kernels' share.
+               Adam(1e-3), f32, 14 steps on one batch; the first runs
+               eagerly and captures the step as one CUDA graph, the other
+               13 replay it (10 timed). Checks: one graph and 13 replays;
+               2 forward + 2 backward GRU launches per step (encoder fw
+               and bw; a replay counts the calls it holds); the first 4
+               steps against an eager twin from the same parameters (costs
+               within 1e-6 relative, parameters within 1e-6 relative L2,
+               bitwise printed); finite costs, the last below the first.
+               Then the graph's device time a step (CUDA events over 5
+               back-to-back steps), torch.profiler over 2 steps (busy
+               share, launches per step, top kernels, the GRU kernels'
+               share) and the eager twin's step time.
+ 5b. checkpoint — at that width (53.7 M parameters + Adam's slots): sync
+               save time; async save's training-thread stall (twice: the
+               second into the kept pinned buffers), the steps run while
+               it writes, the wait; the async pass bitwise the sync pass;
+               load into a fresh trainer (time; state bitwise the pass);
+               3 passes of 2 ragged batches killed in pass 1 (the `kill`
+               fault) and auto-resumed from pass 0, bitwise equal to a
+               never-stopped run (or, if two never-stopped runs differ,
+               within twice their spread).
+ 5c. generation — the copy task (vocab 12) trained on the card through
+               `train(reader.batch(...), feeder=DataFeeder(...))`
+               reproduces >= 3 of 4 sequences by beam search; at full
+               width on phase 5's trainer, 16 sources of 50 tokens
+               (RandomState(0)), beam 4, max_len 50: each row's best score
+               within 1e-3 of the CPU path's, the share of identical best
+               ids printed; ms per call, kernels per generated step, 2 GRU
+               forward launches per call.
   6. card vs CPU — the same model, batch 8 with ragged lengths: step-1 cost
                (1e-5 relative) and all 22 gradients (rtol 1e-3, atol 1e-4)
                on the card (kernels) vs the CPU (plain versions), same
@@ -98,9 +122,11 @@ Phases (any failure exits non-zero and prints no result line):
                layers, 2 classes, SGD(0.01)) at BASELINE.md's middle LSTM
                row (hidden 512, batch 128, length 100; ids and labels from
                RandomState(0) as rnn_bench draws them), peephole-free
-               layers, f32, 2 warm-up + 10 timed steps. Checks: 2 forward +
-               2 backward LSTM launches per step, finite costs, the last
-               below the first; torch.profiler over 2 steps. Then the same
+               layers, f32, 2 warm-up + 10 timed steps (the first eager and
+               captured, the rest replays). Checks: one graph, 11 replays,
+               2 forward + 2 backward LSTM launches per step, finite costs,
+               the last below the first; the graph's device time,
+               torch.profiler over 2 steps, eager steps timed. Then the same
                model at batch 8 with ragged lengths: step-1 cost (1e-5
                relative) and all 11 gradients (rtol 1e-3, atol 1e-4), card
                vs CPU.
@@ -121,7 +147,9 @@ Phases (any failure exits non-zero and prints no result line):
                reference: 224x224, batch 256, 1000 classes, the bf16
                policy, SGD(0.1, momentum 0.9), 8 stacked batches a
                `multi_step` call (BENCH_SCAN), images and labels from
-               RandomState(0); 1 warm-up and 2 timed calls. Prints
+               RandomState(0); 1 warm-up call (eager, then its 8 steps
+               captured as one CUDA graph) and 2 timed calls (replays;
+               checked: one graph, 2 replays). Prints
                bench.py's fields (resnet50_images_per_sec_per_chip,
                ms_per_step, mfu over the card's dense bf16 peak with
                bench.py's 3 x 8.18 GFLOP an image, platform, device_kind,
@@ -148,7 +176,14 @@ Phases (any failure exits non-zero and prints no result line):
  13. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
-Details also go to build/chip_smoke.json (ignored by git)."""
+Details also go to build/chip_smoke.json (ignored by git).
+
+    python3 chip_smoke.py --train-of DIR
+
+runs only the training phases 5, 7 and 10 of the chip_smoke.py in DIR (a
+checkout of another commit, e.g. `git archive` of the parent unpacked under
+build/) on DIR's own package, and prints one `train_of` summary line: the
+way to compare two commits' training steps in one chip call."""
 
 from __future__ import annotations
 
@@ -157,6 +192,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -180,6 +216,17 @@ GRAPH_RTOL = 1e-5
 # train.conf scale of demo/seqToseq): vocab 30k, embed = hidden = 512
 S2S = dict(vocab=30000, embed=512, hidden=512, batch=128, src_len=50, trg_len=50)
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# the training step as a CUDA graph: the first REPLAY_CHECK_STEPS steps (one
+# eager + capture, then replays) against an eager twin from the same
+# parameters, costs and parameters within REPLAY_RTOL relative; the eager
+# twin's step time from TRAIN_EAGER_STEPS steps (the first dropped)
+REPLAY_CHECK_STEPS = 4
+REPLAY_RTOL = 1e-6
+TRAIN_EAGER_STEPS = 6
+# generation at full width on phase 5's parameters (16 sources of 50 tokens,
+# beam 4, max_len 50); best-beam scores card vs CPU within GEN_SCORE_TOL
+GEN = dict(batch=16, src_len=50, beam=4, max_len=50)
+GEN_SCORE_TOL = 1e-3
 GRU_FWD_TOL = 1e-4
 # dW and db sum T*B = 6400 terms in another order than the plain version
 GRU_BWD_RTOL = 1e-3
@@ -1513,11 +1560,61 @@ def s2s_trainer(device):
     return SGDTrainer(model.cost, Adam(learning_rate=1e-3), seed=0, device=device)
 
 
+def eager_steps(trainer, batch, n, k=1):
+    """n dispatches of k steps through the eager body a graph captures, on
+    the card, with no graph (the warm-up's path) -> their costs (device)."""
+    costs = []
+    for _ in range(n):
+        first = batch if k == 1 else {key: v[0] for key, v in batch.items()}
+        bs = len(next(iter(first.values())))
+        costs.extend(trainer._eager(batch, k, trainer._lrs(k, bs)))
+        trainer.state["samples"] += k * bs
+    return costs
+
+
+def timed_calls(torch, call, n):
+    """n calls of `call`, each ending in the fetch of its costs -> (costs,
+    host ms of each call)."""
+    costs, ms = [], []
+    for _ in range(n):
+        t = time.perf_counter()
+        out = call()
+        costs.extend([float(out)] if out.dim() == 0 else out.tolist())  # the fetch syncs
+        ms.append((time.perf_counter() - t) * 1e3)
+    return costs, ms
+
+
+def device_ms_per_call(torch, call, n=5):
+    """Device ms per call: CUDA events around n calls issued back to back
+    with no fetch between them (the host queues replays far faster than the
+    card runs them, so the interval is the card's time)."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        call()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def rel_l2_max(torch, got, want):
+    """Largest relative L2 distance over the tensors of two name->tensor
+    dicts, and whether every tensor is bitwise equal."""
+    worst = max(rel_l2(torch, got[k], v) for k, v in want.items())
+    return worst, all(torch.equal(got[k], v) for k, v in want.items())
+
+
 def train_phase(torch):
     """The seq2seq training step at the reference's headline widths on the
     card: SGDTrainer + Adam(1e-3), the port's own init from seed 0, one
-    bench.py batch, 2 warm-up + 10 timed steps. GRU launch counts are set
-    to 0 just before these steps and read just after."""
+    bench.py batch. The first step runs eagerly and captures the step as a
+    CUDA graph; every later step replays it. 4 steps, held against an eager
+    twin from the same parameters (costs within 1e-6 relative, parameters
+    within 1e-6 relative L2; bitwise printed), then 10 timed steps; GRU
+    launch counts are set to 0 just before these 14 steps and read just
+    after. Then the graph's device time a step, torch.profiler over 2
+    steps, and the eager twin's step time (the path without the graph)."""
     import numpy as np
 
     from paddle_tpu_torch.ops import rnn_kernels as K
@@ -1526,47 +1623,285 @@ def train_phase(torch):
     trainer = s2s_trainer("cuda")
     batch = s2s_batch(np, 0, S2S["batch"], ragged=False)
     trainer.init_state(batch)
+    eager = s2s_trainer("cuda")
+    eager.init_state(batch)
+    eager.load_params(trainer.state["params"])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in trainer.state["params"].values())
 
     torch.cuda.reset_peak_memory_stats()
     K.FWD_LAUNCHES = K.BWD_LAUNCHES = 0
-    costs, step_ms = [], []
-    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
-        t = time.perf_counter()
-        costs.append(float(trainer.step(batch)))  # the fetch synchronises
-        step_ms.append((time.perf_counter() - t) * 1e3)
+    step = lambda: trainer.step(batch)  # noqa: E731
+    costs, step_ms = timed_calls(torch, step, REPLAY_CHECK_STEPS)
+    after_check = {k: v.clone() for k, v in trainer.state["params"].items()}
+    more, more_ms = timed_calls(torch, step, TRAIN_STEPS)
+    costs, step_ms = costs + more, step_ms + more_ms
     fwd, bwd = K.FWD_LAUNCHES, K.BWD_LAUNCHES
+    steps = len(costs)
+    graphs = list(trainer.graphs.values())
+    replays = graphs[0].replays if graphs else 0
     peak = torch.cuda.max_memory_allocated()
-    steps = TRAIN_WARMUP + TRAIN_STEPS
-    timed = step_ms[TRAIN_WARMUP:]
-    med = statistics.median(timed)
+    device_ms = device_ms_per_call(torch, step)
+    med = statistics.median(more_ms)
     tokens = S2S["batch"] * S2S["trg_len"]
+
+    eager_costs = [float(c) for c in eager_steps(eager, batch, REPLAY_CHECK_STEPS)]
+    cost_err = max(abs(a - b) / abs(b) for a, b in zip(costs, eager_costs))
+    param_err, bitwise = rel_l2_max(torch, after_check, eager.state["params"])
+    _, eager_ms = timed_calls(torch, lambda: eager_steps(eager, batch, 1)[0], TRAIN_EAGER_STEPS)
+    eager_med = statistics.median(eager_ms[1:])
     result = dict(
         config=dict(S2S, optimizer="Adam(1e-3)", precision="f32, TF32 off",
                     params=n_params),
         setup_s=setup_s, steps=steps, costs=costs, step_ms=step_ms,
-        step_ms_median=med, step_ms_min=min(timed),
+        step_ms_median=med, step_ms_min=min(more_ms),
         tokens_per_s=tokens / (med / 1e3), peak_memory_bytes=peak,
         gru_fwd_launches=fwd, gru_bwd_launches=bwd,
+        graphs=len(graphs), replays=replays,
+        graph_device_ms_per_step=device_ms, busy_share_graph=device_ms / med,
+        replay_vs_eager=dict(steps=REPLAY_CHECK_STEPS, graph_costs=costs[:REPLAY_CHECK_STEPS],
+                             eager_costs=eager_costs, cost_rel_err=cost_err,
+                             param_rel_l2_max=param_err, bitwise=bitwise),
+        eager_step_ms_median=eager_med, eager_tokens_per_s=tokens / (eager_med / 1e3),
+        python_threads=threading.active_count(),
     )
     print("train", json.dumps(result), flush=True)
     if fwd != 2 * steps or bwd != 2 * steps:
         fail(f"GRU kernels launched fwd {fwd} / bwd {bwd} times in {steps} "
              f"steps, want 2 + 2 per step (encoder fw and bw)")
+    if len(graphs) != 1 or replays != steps - 1:
+        fail(f"{len(graphs)} step graphs, {replays} replays in {steps} steps: "
+             f"want one graph, every step after the first a replay")
+    if not (cost_err <= REPLAY_RTOL and param_err <= REPLAY_RTOL):
+        fail(f"replayed steps vs eager: costs {cost_err}, parameters {param_err} "
+             f"(relative, want <= {REPLAY_RTOL})")
     if not all(np.isfinite(costs)):
         fail(f"non-finite training cost: {costs}")
     if not costs[-1] < costs[0]:
         fail(f"training cost did not fall: first {costs[0]}, last {costs[-1]}")
-    result["profile"] = profile_train(torch, trainer, batch)
-    return result
+    result["profile"] = profile_train(torch, step)
+    result["eager_profile"] = profile_train(torch, lambda: eager_steps(eager, batch, 1),
+                                            label="train_eager_profile")
+    del eager
+    return result, trainer
 
 
-def profile_train(torch, trainer, batch, tag: str = "gru", steps: int = 2):
-    """Where a training step's time goes: torch.profiler over `steps`
-    steps. Device busy = summed kernel time over the window's wall time;
-    the `<tag>_` kernels (the recurrence's) are summed apart."""
+def checkpoint_phase(torch, trainer):
+    """Checkpoints at seq2seq's full width (53.7 M parameters and Adam's two
+    slots), from phase 5's trainer: a sync save; an async save (the
+    training thread's stall, then 3 steps while the writer writes, then
+    the wait); a second async save into the kept pinned buffers; the
+    async pass read back equal to the sync pass (bitwise); a load into a
+    fresh trainer, whose state must equal the sync pass bitwise. Then a run
+    of 3 passes of 2 batches killed (the `kill` fault) in pass 1 and
+    auto-resumed from its pass-0 checkpoint, against two runs never
+    stopped: bitwise equal to the first, or (where the card's step is not
+    bitwise repeatable) within twice their spread."""
+    import shutil
+
+    import numpy as np
+
+    from paddle_tpu_torch.core import faults
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    root = os.path.join(REPO, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    batch = s2s_batch(np, 0, S2S["batch"], ragged=False)
+    n_bytes = sum(v.numel() * v.element_size() for tree in trainer._trees().values()
+                  for v in tree.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save(os.path.join(root, "sync"), 0)
+    sync_s = time.perf_counter() - t0
+    stalls = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        trainer.save(os.path.join(root, f"async{i}"), 0, async_=True)
+        stalls.append(time.perf_counter() - t0)
+        if i == 0:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                float(trainer.step(batch))
+            steps_during_write_ms = (time.perf_counter() - t0) * 1e3 / 3
+        t0 = time.perf_counter()
+        trainer.checkpoint_wait()
+        if i == 0:
+            wait_s = time.perf_counter() - t0
+    sync_pass = ckpt.load_pass(os.path.join(root, "sync"))
+    async_pass = ckpt.load_pass(os.path.join(root, "async0"))
+    async_equal = all(
+        sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in zip(sync_pass[:3], async_pass[:3]))
+
+    fresh = s2s_trainer("cuda")
+    fresh.init_state(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.load(os.path.join(root, "sync"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want = {f"{name}/{k}": v for name, flat in zip(("params", "states", "opt"), sync_pass[:3])
+            for k, v in flat.items()}
+    got = {f"{name}/{k}": v for name, tree in fresh._trees().items() for k, v in tree.items()}
+    load_bitwise = (sorted(got) == sorted(want) and all(
+        np.array_equal(got[k].cpu().numpy(), want[k]) for k in want)
+        and fresh.state["samples"] == sync_pass[3]["extra"]["samples"])
+    del fresh
+
+    def reader():
+        return iter([s2s_batch(np, seed, S2S["batch"], ragged=True) for seed in (11, 12)])
+
+    def run(save_dir=None, resume=False):
+        tr = s2s_trainer("cuda")
+        tr.train(reader, num_passes=3, save_dir=save_dir, auto_resume=resume)
+        out = {k: v.clone() for k, v in tr._trees()["params"].items()}
+        out.update({f"opt/{k}": v.clone() for k, v in tr._trees()["opt"].items()})
+        return out, tr.state["samples"]
+
+    unbroken, samples_u = run()
+    unbroken2, _ = run()
+    torch.cuda.empty_cache()
+    kill_dir = os.path.join(root, "killed")
+    killed = False
+    try:
+        # dispatches 0-1 are pass 0 (checkpointed), 2-3 pass 1: die at 3
+        with faults.inject("kill:step=3"):
+            run(kill_dir)
+    except faults.InjectedKill:
+        killed = True
+    resumed_from = ckpt.find_latest_valid_pass(kill_dir)
+    resumed, samples_r = run(kill_dir, resume=True)
+    spread, repeatable = rel_l2_max(torch, unbroken2, unbroken)
+    err, resume_bitwise = rel_l2_max(torch, resumed, unbroken)
+    shutil.rmtree(root, ignore_errors=True)
+    out = dict(state_bytes=n_bytes, sync_save_s=sync_s, async_stall_s=stalls,
+               async_write_wait_s=wait_s, steps_during_write_ms=steps_during_write_ms,
+               async_equals_sync=async_equal, load_s=load_s, load_bitwise=load_bitwise,
+               killed=killed, resumed_from_pass=resumed_from,
+               samples=[samples_u, samples_r], resume_bitwise=resume_bitwise,
+               resume_rel_l2_max=err, unbroken_repeatable=repeatable,
+               unbroken_spread_rel_l2_max=spread)
+    print("checkpoint", json.dumps(out), flush=True)
+    if not async_equal:
+        fail("the async checkpoint differs from the sync one")
+    if not load_bitwise:
+        fail("a fresh trainer's state after load differs from the checkpoint")
+    if not (killed and resumed_from == 0 and samples_u == samples_r):
+        fail(f"kill / resume did not run as set up: killed {killed}, resumed from "
+             f"{resumed_from}, samples {samples_u} / {samples_r}")
+    if not (resume_bitwise or (not repeatable and err <= 2 * spread)):
+        fail(f"the resumed run differs from the unbroken one by {err} (relative L2); "
+             f"two unbroken runs differ by {spread}")
+    return out
+
+
+def generation_phase(torch, trainer):
+    """Beam-search generation on the card. The JAX package's copy task
+    (vocab 12, embed 24, hidden 32; 160 samples, batches of 32 through
+    `reader.batch` and a `DataFeeder` with seq_bucket [8], Adam(0.01), 30
+    passes) trained with `train(..., feeder=)` on the card reproduces at
+    least 3 of 4 sequences (beam 3, max_len 8). Then at full width on
+    phase 5's parameters: 16 sources of 50 tokens from RandomState(0), beam
+    4, max_len 50, on the card and on the CPU: each row's best-beam score
+    within GEN_SCORE_TOL of the CPU's; the share of rows with identical
+    best ids is printed, not held (random weights make near-ties). The
+    card's ms per call (median of 3 after one warm-up), its GRU forward
+    launches per call (2: the encoder) and its kernels per generated step
+    (torch.profiler over one call)."""
+    import numpy as np
+
+    from paddle_tpu_torch.data import DataFeeder, InputSpec
+    from paddle_tpu_torch.data import reader as rd
+    from paddle_tpu_torch.models import Seq2SeqModel
+    from paddle_tpu_torch.nn.graph import reset_name_scope
+    from paddle_tpu_torch.ops import rnn_kernels as K
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    vocab = 12
+    rs = np.random.RandomState(1)
+    samples = []
+    for _ in range(160):
+        toks = rs.randint(2, vocab, size=rs.randint(2, 5)).tolist()
+        samples.append({"source_ids": toks, "target_ids": [0] + toks,
+                        "label_ids": toks + [1]})
+    reset_name_scope()
+    copy = Seq2SeqModel(vocab, vocab, embed_dim=24, hidden_dim=32)
+    tr = SGDTrainer(copy.cost, Adam(learning_rate=0.01), seed=0, device="cuda")
+    feeder = DataFeeder({n: InputSpec("index_seq", vocab, seq_bucket=[8])
+                         for n in ("source_ids", "target_ids", "label_ids")})
+    t0 = time.perf_counter()
+    tr.train(rd.batch(lambda: iter(samples), 32, drop_last=True), num_passes=30,
+             feeder=feeder)
+    copy_train_s = time.perf_counter() - t0
+    src = np.zeros((4, 8), np.int32)
+    for i, smp in enumerate(samples[:4]):
+        src[i, :len(smp["source_ids"])] = smp["source_ids"]
+    lens = np.array([len(smp["source_ids"]) for smp in samples[:4]], np.int32)
+    seqs, _ = copy.build_generator(beam_size=3, max_len=8)(tr.state["params"], {}, src, lens)
+    copied = 0
+    for i, smp in enumerate(samples[:4]):
+        top = seqs[i, 0].tolist()
+        copied += (top[:top.index(1) + 1] if 1 in top else top) == smp["source_ids"] + [1]
+    copy_graphs = len(tr.graphs)
+    del tr
+
+    reset_name_scope()
+    model = Seq2SeqModel(S2S["vocab"], S2S["vocab"], embed_dim=S2S["embed"],
+                         hidden_dim=S2S["hidden"])
+    gen = model.build_generator(beam_size=GEN["beam"], max_len=GEN["max_len"])
+    rs = np.random.RandomState(0)
+    src = rs.randint(2, S2S["vocab"], (GEN["batch"], GEN["src_len"])).astype(np.int32)
+    lens = np.full(GEN["batch"], GEN["src_len"], np.int32)
+    params = trainer.state["params"]
+    gen(params, {}, src, lens)  # warm-up
+    K.FWD_LAUNCHES = 0
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ids, scores = gen(params, {}, src, lens)
+        ids, scores = ids.cpu().numpy(), scores.cpu().numpy()  # the fetch syncs
+        ms.append((time.perf_counter() - t0) * 1e3)
+    gru_fwd_per_call = K.FWD_LAUNCHES / 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gen(params, {}, src, lens)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    t0 = time.perf_counter()
+    cpu_ids, cpu_scores = gen({k: v.cpu() for k, v in params.items()}, {}, src, lens)
+    cpu_s = time.perf_counter() - t0
+    cpu_ids, cpu_scores = cpu_ids.numpy(), cpu_scores.numpy()
+    best_err = float(np.abs(scores[:, 0] - cpu_scores[:, 0]).max())
+    same_ids = float(np.mean([np.array_equal(ids[i, 0], cpu_ids[i, 0])
+                              for i in range(GEN["batch"])]))
+    out = dict(copy_task=dict(reproduced=int(copied), of=4, train_s=copy_train_s,
+                              graphs=copy_graphs),
+               config=GEN, ms_per_call=statistics.median(ms), ms_calls=ms,
+               ms_per_generated_step=statistics.median(ms) / GEN["max_len"],
+               kernels_per_call=kernels, kernels_per_generated_step=kernels / GEN["max_len"],
+               device_busy_ms_per_call=busy_ms, gru_fwd_launches_per_call=gru_fwd_per_call,
+               best_score_max_abs_err_vs_cpu=best_err, best_ids_same_share=same_ids,
+               cpu_s=cpu_s, best_scores=scores[:, 0].tolist())
+    print("generation", json.dumps(out), flush=True)
+    if copied < 3:
+        fail(f"the copy task trained on the card reproduced {copied} of 4 sequences")
+    if not best_err <= GEN_SCORE_TOL:
+        fail(f"best-beam scores differ card vs CPU by {best_err} > {GEN_SCORE_TOL}")
+    if gru_fwd_per_call != 2:
+        fail(f"{gru_fwd_per_call} GRU forward launches a generate call, want 2 (the encoder)")
+    return out
+
+
+def profile_train(torch, step, tag: str = "gru", steps: int = 2, label=None):
+    """Where a training step's time goes: torch.profiler over `steps` calls
+    of `step`. Device busy = summed kernel time over the window's wall
+    time; the `<tag>_` kernels (the recurrence's) are summed apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1575,7 +1910,7 @@ def profile_train(torch, trainer, batch, tag: str = "gru", steps: int = 2):
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            trainer.step(batch)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -1597,8 +1932,8 @@ def profile_train(torch, trainer, batch, tag: str = "gru", steps: int = 2):
         f"{tag}_kernels": {k[:60]: [ms / steps, c / steps] for k, (ms, c) in ours.items()},
         "top_kernels_ms_per_step": [[k[:80], ms / steps, c / steps] for k, (ms, c) in top],
     }
-    print("train_profile" if tag == "gru" else f"{tag}_train_profile", json.dumps(out),
-          flush=True)
+    label = label or ("train_profile" if tag == "gru" else f"{tag}_train_profile")
+    print(label, json.dumps(out), flush=True)
     if busy_ms <= 0:
         fail("torch.profiler recorded no device time in the training steps")
     return out
@@ -1693,8 +2028,12 @@ def lstm_batch(np, seed, b, ragged):
 def lstm_train_phase(torch):
     """The LSTM text classifier's training step at rnn_bench.py's widths and
     BASELINE's middle row on the card: SGD(0.01), the port's own init from
-    seed 0, one rnn_bench batch, 2 warm-up + 10 timed steps. LSTM launch
-    counts are set to 0 just before these steps and read just after."""
+    seed 0, one rnn_bench batch, 2 warm-up + 10 timed steps; the first
+    step runs eagerly and captures the step graph, the others replay it.
+    LSTM launch counts are set to 0 just before these steps and read just
+    after. Then the graph's device time a step, torch.profiler over 2
+    steps, and eager steps of the same trainer (the path without the
+    graph) timed."""
     import numpy as np
 
     from paddle_tpu_torch.ops import rnn_kernels as K
@@ -1717,7 +2056,13 @@ def lstm_train_phase(torch):
     fwd, bwd = K.LSTM_FWD_LAUNCHES, K.LSTM_BWD_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     steps = TRAIN_WARMUP + TRAIN_STEPS
+    graphs = list(trainer.graphs.values())
+    replays = graphs[0].replays if graphs else 0
     med = statistics.median(step_ms[TRAIN_WARMUP:])
+    device_ms = device_ms_per_call(torch, lambda: trainer.step(batch))
+    _, eager_ms = timed_calls(torch, lambda: eager_steps(trainer, batch, 1)[0],
+                              TRAIN_EAGER_STEPS)
+    eager_med = statistics.median(eager_ms[1:])
     result = dict(
         config=dict(LSTM, optimizer="SGD(0.01)", precision="f32, TF32 off",
                     peepholes=False, params=n_params),
@@ -1726,17 +2071,24 @@ def lstm_train_phase(torch):
         samples_per_s=LSTM["batch"] / (med / 1e3),
         tokens_per_s=LSTM["batch"] * LSTM["seq_len"] / (med / 1e3),
         peak_memory_bytes=peak, lstm_fwd_launches=fwd, lstm_bwd_launches=bwd,
+        graphs=len(graphs), replays=replays,
+        graph_device_ms_per_step=device_ms, busy_share_graph=device_ms / med,
+        eager_step_ms_median=eager_med,
+        eager_tokens_per_s=LSTM["batch"] * LSTM["seq_len"] / (eager_med / 1e3),
     )
     print("lstm_train", json.dumps(result), flush=True)
     want = LSTM["layers"] * steps
     if fwd != want or bwd != want:
         fail(f"LSTM kernels launched fwd {fwd} / bwd {bwd} times in {steps} steps, "
              f"want {LSTM['layers']} + {LSTM['layers']} per step")
+    if len(graphs) != 1 or replays != steps - 1:
+        fail(f"{len(graphs)} LSTM step graphs, {result['replays']} replays in {steps} "
+             f"steps: want one graph, every step after the first a replay")
     if not all(np.isfinite(costs)):
         fail(f"non-finite LSTM training cost: {costs}")
     if not costs[-1] < costs[0]:
         fail(f"LSTM training cost did not fall: first {costs[0]}, last {costs[-1]}")
-    result["profile"] = profile_train(torch, trainer, batch, tag="lstm")
+    result["profile"] = profile_train(torch, lambda: trainer.step(batch), tag="lstm")
     return result
 
 
@@ -1823,8 +2175,11 @@ def kernel_group(name: str) -> str:
 def resnet_phase(torch):
     """ResNet-50 training as bench.py's run_bench drives the reference:
     224x224, batch 256, 1000 classes, bf16, SGD(0.1, momentum 0.9), 8
-    stacked batches a `multi_step` call; 1 warm-up and 2 timed calls, each
-    ending in the fetch of its 8 costs. Then torch.profiler over one call."""
+    stacked batches a `multi_step` call; 1 warm-up call (eager, then the 8
+    steps captured as one CUDA graph) and 2 timed calls (replays), each
+    ending in the fetch of its 8 costs. Then the graph's device time, one
+    eager call of the same 8 steps (the path without the graph) timed, and
+    torch.profiler over one call."""
     import numpy as np
 
     cfg = RESNET
@@ -1841,13 +2196,15 @@ def resnet_phase(torch):
     n_params = sum(p.numel() for p in trainer.state["params"].values())
 
     torch.cuda.reset_peak_memory_stats()
-    costs, dispatch_ms = [], []
-    for _ in range(cfg["warmup"] + cfg["dispatches"]):
-        t = time.perf_counter()
-        costs.extend(trainer.multi_step(stacked).tolist())  # the fetch synchronises
-        dispatch_ms.append((time.perf_counter() - t) * 1e3)
+    costs, dispatch_ms = timed_calls(torch, lambda: trainer.multi_step(stacked),
+                                     cfg["warmup"] + cfg["dispatches"])
     peak = torch.cuda.max_memory_allocated()
+    graphs = list(trainer.graphs.values())
+    replays = graphs[0].replays if graphs else 0
     timed = dispatch_ms[cfg["warmup"]:]
+    device_ms = device_ms_per_call(torch, lambda: trainer.multi_step(stacked), n=2) / k
+    _, eager_ms = timed_calls(torch, lambda: torch.stack(eager_steps(trainer, stacked, 1, k)),
+                              1)
     ms_per_step = statistics.median(timed) / k
     images_per_s = cfg["batch"] / (ms_per_step / 1e3)
     name = torch.cuda.get_device_name(0)
@@ -1868,9 +2225,17 @@ def resnet_phase(torch):
         n_params=len(trainer.state["params"]), n_states=len(states),
         draw_s=draw_s, setup_s=setup_s, dispatch_ms=dispatch_ms,
         ms_per_step_min=min(timed) / k, costs=costs, peak_memory_bytes=peak,
-        states_unmoved=unmoved,
+        states_unmoved=unmoved, graphs=len(graphs), replays=replays,
+        graph_device_ms_per_step=device_ms,
+        busy_share_graph=device_ms / (statistics.median(timed) / k),
+        eager_ms_per_step=eager_ms[0] / k,
+        eager_images_per_sec=cfg["batch"] / (eager_ms[0] / k / 1e3),
     )
     print("resnet", json.dumps(result), flush=True)
+    if len(graphs) != 1 or replays != cfg["dispatches"]:
+        fail(f"{len(graphs)} ResNet-50 step graphs, {replays} replays in "
+             f"{cfg['warmup'] + cfg['dispatches']} calls: want one graph, every call "
+             f"after the first a replay")
     if not all(np.isfinite(costs)):
         fail(f"non-finite ResNet-50 training cost: {costs}")
     if unmoved:
@@ -2065,6 +2430,45 @@ def lenet_phase(torch):
     return out
 
 
+def train_of(torch, tree: str) -> int:
+    """`--train-of TREE`: the training phases (5, 7 and 10) of the
+    chip_smoke.py in TREE, a checkout of this repository (an earlier
+    commit's, to compare in one call), run on TREE's own package; prints
+    one summary line. Not part of the smoke run."""
+    import importlib.util
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke",
+                                                  os.path.join(tree, "chip_smoke.py"))
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    from paddle_tpu_torch.ops import build
+
+    if not os.path.abspath(build.__file__).startswith(tree + os.sep):
+        fail(f"--train-of {tree} imported the package at {build.__file__}")
+    print(nvidia_smi_line(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    out = {"tree": tree}
+    for name in ("train_phase", "lstm_train_phase", "resnet_phase"):
+        r = getattr(other, name)(torch)
+        r = r[0] if isinstance(r, tuple) else r
+        prof = r.get("profile", {})
+        out[name] = {k: r.get(k) for k in (
+            "step_ms_median", "tokens_per_s", "ms_per_step", "images_per_s",
+            "resnet50_images_per_sec_per_chip", "graph_device_ms_per_step",
+            "eager_step_ms_median", "eager_ms_per_step", "gru_fwd_launches",
+            "lstm_fwd_launches", "peak_memory_bytes") if k in r}
+        out[name].update({k: prof.get(k) for k in (
+            "device_busy_ms_per_step", "device_busy_share", "kernel_launches_per_step",
+            "wall_ms_per_step")})
+        torch.cuda.empty_cache()
+    print("train_of", json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2072,6 +2476,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--train-of"]:
+        return train_of(torch, sys.argv[2])
     sys.path.insert(0, REPO)
     from paddle_tpu_torch.ops import build
 
@@ -2120,9 +2526,14 @@ def main() -> int:
     speculation = speculation_phase(torch)
     recovery = recovery_phase(torch, serve)
 
-    # 5. seq2seq training at the reference's widths (GRU launches from 0)
+    # 5. seq2seq training at the reference's widths as a CUDA graph (GRU
+    # launches from 0), 5b. its checkpoints, 5c. generation
     torch.cuda.empty_cache()
-    train = train_phase(torch)
+    train, s2s = train_phase(torch)
+    checkpoint = checkpoint_phase(torch, s2s)
+    generation = generation_phase(torch, s2s)
+    del s2s
+    torch.cuda.empty_cache()
     # 6. the training step's cost and gradients, card vs CPU
     train_vs_cpu = train_vs_cpu_phase(torch)
 
@@ -2267,7 +2678,8 @@ def main() -> int:
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
                    "serve": serve, "wire": wire, "speculation": speculation,
-                   "recovery": recovery, "train": train, "train_vs_cpu": train_vs_cpu,
+                   "recovery": recovery, "train": train, "checkpoint": checkpoint,
+                   "generation": generation, "train_vs_cpu": train_vs_cpu,
                    "lstm_train": lstm_train, "lstm_vs_cpu": lstm_vs_cpu,
                    "attn_path": attn_path, "route": route, "resnet": resnet,
                    "resnet_vs_cpu": resnet_vs_cpu, "lenet": lenet},

@@ -17,7 +17,9 @@ Ported so far: the paged-KV serving engine (`serving/`), in process
 (`serving/server.py` over `runtime/`, `python -m paddle_tpu_torch serve`),
 with speculative decoding and the supervised engine thread; seq2seq NMT, LSTM
 text-classification, ResNet-50 and LeNet training (`nn/`, `optim/`,
-`trainer/`, `models/`, with the bf16 policy of `core/dtypes.py`); the fused
+`trainer/`, `models/`, with the bf16 policy of `core/dtypes.py`), the step
+as one CUDA graph on the card, readers and the feeder (`data/`),
+checkpoints and resume, and seq2seq beam-search generation; the fused
 attention op (`ops/attention.dot_product_attention`).
 Every Pallas kernel of the JAX package has its CUDA counterpart."""
 

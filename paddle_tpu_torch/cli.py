@@ -15,8 +15,9 @@ lines, plus `--device` (default `cuda`; the tests pass `cpu`):
 
 It prints `{"role": "serve", "address": [host, port]}` once listening and,
 on SIGTERM or SIGINT, `{"final_stats": {...}}` before it exits 0. Not ported
-yet: `--tp > 1` (ROADMAP.md queue 1 item 6) and `--config` (item 3.3); both
-raise a named NotImplementedError. The router and fleet flags wait for the
+yet: `--tp > 1` (ROADMAP.md queue 1 item 6) and `--config` (item 3.3: a
+v1-config `GenerationSession` over the ported beam search, which waits for
+the v1 config pipeline of item 7); both raise a named NotImplementedError. The router and fleet flags wait for the
 router's slice."""
 
 from __future__ import annotations
@@ -132,7 +133,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     if args.config:
         raise NotImplementedError(_NOT_PORTED.format(
             what="serving a v1 config (--config, generate_config)",
-            item="3.3, generation"))
+            item="3.3, GenerationSession, after the v1 config pipeline of item 7"))
     quotas = None
     if args.tenant_tokens_per_s > 0 and args.tenant_tokens <= 0:
         # a refill rate without a bucket capacity is a no-op; saying nothing

@@ -25,6 +25,10 @@ Sites the ported code polls (hooks live next to the code they sabotage):
     conn_reset     the RPC client's socket resets after      (runtime.master.MasterClient)
                    connect; the reconnect/failover path
                    must absorb it
+    kill           the training loop raises InjectedKill     (trainer.trainer.SGDTrainer.train)
+                   before a dispatch (a SIGKILL analog;
+                   auto_resume must continue the run)
+    ckpt_truncate  torn write: truncate an .npz post-rename  (trainer.checkpoint.save_pass)
 
 Seeding: `PADDLE_TPU_FAULTS_SEED` (or the `seed` argument). Each site gets
 its own `random.Random(f"{seed}:{site}")` stream, so the fire pattern of one

@@ -4,5 +4,6 @@ Layer, Network, states), `layers.py` (Data, Fc, Embedding, Concat, Conv2D,
 Pool2D, BatchNorm, Addto, GlobalPool, Reshape), `costs.py`,
 `activations.py`, `recurrent.py` (Lstm, simple_lstm, bidirectional_lstm,
 Gru, simple_gru, bidirectional_gru), `seq_layers.py` (SeqPool) and
-`attention_layers.py` (AttentionDecoder); `convert.py` moves parameter and
+`attention_layers.py` (AttentionDecoder), `beam_core.py` and
+`beam_search.py` (beam-search generation); `convert.py` moves parameter and
 state dicts to and from the JAX package."""

@@ -1,12 +1,14 @@
 """Attention decoder (counterpart of `AttentionDecoder` in
-`paddle_tpu/nn/attention_layers.py`), the teacher-forced training path.
+`paddle_tpu/nn/attention_layers.py`): the teacher-forced training path
+(`forward`) and the step that beam-search generation drives
+(`initial_state`, `step`; `nn/beam_search.py`), on the same parameters.
 
 Step t attends over the encoder with the PREVIOUS hidden state (additive
-attention), then runs a GRU step on [emb_t, context_t]. The teacher-forced
-half of the GRU input projection, emb @ w_in[:Demb], is hoisted out of the
-loop as one [B, T, Demb] x [Demb, 3H] product. The loop over target steps
-is plain PyTorch: the JAX package runs it as a `lax.scan` with no Pallas
-kernel.
+attention), then runs a GRU step on [emb_t, context_t] (`_step_proj`). The
+teacher-forced half of the GRU input projection, emb @ w_in[:Demb], is
+hoisted out of the loop as one [B, T, Demb] x [Demb, 3H] product. The loop
+over target steps is plain PyTorch: the JAX package runs it as a `lax.scan`
+with no Pallas kernel.
 
 No remat: the JAX package checkpoints the scan step so autodiff does not
 keep each step's [B, Ts, A] attention tensors; at the reference's width
@@ -63,24 +65,45 @@ class AttentionDecoder(Layer):
             w_init=ctx.param(self, "w_init", (d_enc, h), sn),
         )
 
+    def initial_state(self, p: DecoderParams, enc_value: torch.Tensor,
+                      enc_lengths: torch.Tensor) -> torch.Tensor:
+        """h0 = tanh(first encoder step @ W_init): the reference seeds the
+        decoder from the encoder's first backward state."""
+        return torch.tanh(linalg.matmul(seq_ops.seq_first(enc_value), p.w_init))
+
+    def step(self, p: DecoderParams, enc_value: torch.Tensor, enc_proj: torch.Tensor,
+             enc_lengths: torch.Tensor, emb_t: torch.Tensor, h: torch.Tensor
+             ) -> torch.Tensor:
+        """One decoder step from the embedding of the previous token,
+        emb_t [B, Demb] -> the new hidden state [B, H]."""
+        d_emb = emb_t.shape[-1]
+        proj_emb = linalg.matmul(emb_t, p.w_in[:d_emb])
+        return self._step_proj(p, enc_value, enc_proj, enc_lengths, proj_emb, h, d_emb)
+
+    def _step_proj(self, p: DecoderParams, enc_value: torch.Tensor,
+                   enc_proj: torch.Tensor, enc_lengths: torch.Tensor,
+                   proj_emb_t: torch.Tensor, h: torch.Tensor, d_emb: int
+                   ) -> torch.Tensor:
+        """One decoder step given the pre-projected embedding input
+        proj_emb_t = emb_t @ w_in[:Demb]."""
+        context, _ = attn_ops.additive_attention(
+            enc_value, enc_proj, h, p.w_dec, p.v, enc_lengths)
+        proj = proj_emb_t + linalg.matmul(context, p.w_in[d_emb:])
+        return rnn_ops.gru_step(proj, h, p.gru)
+
     def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
         enc, emb = ins
         assert enc.is_seq and emb.is_seq
         d_emb = emb.value.shape[-1]
         p = self._params(ctx, enc.value.shape[-1], d_emb)
         enc_proj = linalg.matmul(enc.value, p.w_enc)
-        # h0 = tanh(first encoder step @ W_init): the reference seeds the
-        # decoder from the encoder's first backward state
-        h = torch.tanh(linalg.matmul(seq_ops.seq_first(enc.value), p.w_init))
+        h = self.initial_state(p, enc.value, enc.lengths)
         mask = emb.mask(h.dtype)
         proj_emb = linalg.matmul(emb.value, p.w_in[:d_emb])
-        w_ctx = p.w_in[d_emb:]
         hs = []
         for t in range(proj_emb.shape[1]):
-            context, _ = attn_ops.additive_attention(
-                enc.value, enc_proj, h, p.w_dec, p.v, enc.lengths)
-            h_new = rnn_ops.gru_step(proj_emb[:, t] + linalg.matmul(context, w_ctx),
-                                     h, p.gru)
+            h_new = self._step_proj(p, enc.value, enc_proj, enc.lengths, proj_emb[:, t],
+                                    h, d_emb)
             m = mask[:, t, None]
             h = m * h_new + (1 - m) * h
             hs.append(h)

@@ -32,7 +32,11 @@ back in the primals' dtypes.
 
 `FWD_LAUNCHES` / `BWD_LAUNCHES` (GRU), `LSTM_FWD_LAUNCHES` /
 `LSTM_BWD_LAUNCHES` and `ATTN_LAUNCHES` count entry-point launches (never
-plain-version calls). `gru_seq_plan` / `lstm_seq_plan` report the kernels'
+plain-version calls). A call made while its stream is capturing a CUDA
+graph (the training step's, `trainer/step_graph.py`) launches nothing: it
+is counted in `CAPTURED` under the same name, and whoever replays the graph
+adds what it captured to the counters on each replay (`note_replay`), since
+a replay runs no Python. `gru_seq_plan` / `lstm_seq_plan` report the kernels'
 layouts on the card, and `gru_seq_fwd_sync` / `lstm_seq_fwd_sync` run a
 forward's grid syncs alone (a measuring probe, on no model's path)."""
 
@@ -51,6 +55,9 @@ BWD_LAUNCHES = 0
 LSTM_FWD_LAUNCHES = 0
 LSTM_BWD_LAUNCHES = 0
 ATTN_LAUNCHES = 0
+# calls recorded into CUDA graphs under capture, by counter name
+CAPTURED = {"FWD_LAUNCHES": 0, "BWD_LAUNCHES": 0, "LSTM_FWD_LAUNCHES": 0,
+            "LSTM_BWD_LAUNCHES": 0, "ATTN_LAUNCHES": 0}
 
 # masked attention scores are replaced by this (ops/sequence.NEG_INF)
 _ATTN_NEG_INF = -1e9
@@ -209,6 +216,24 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _count(name: str) -> None:
+    """One entry-point call of the kernel counted as `name`: a launch, or a
+    captured call where the current stream is capturing a graph (the
+    autograd thread runs a backward on its forward's stream)."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        globals()[name] += 1
+
+
+def note_replay(captured_calls: dict) -> None:
+    """A CUDA graph holding `captured_calls` ({counter name: calls}, the
+    growth of `CAPTURED` over its capture) was replayed: each of those
+    calls launched its kernel once."""
+    for name, n in captured_calls.items():
+        globals()[name] += n
+
+
 _PLAN_KEYS = ("fwd_units", "fwd_row_groups", "fwd_rows_per_group", "fwd_blocks",
               "fwd_w_resident", "bwd_units", "bwd_row_groups", "bwd_rows_per_group",
               "bwd_blocks", "bwd_w_resident", "dw_split_k", "scratch_floats")
@@ -315,7 +340,6 @@ def gru_seq_fwd_sync(h: int, b: int, t: int, device=None) -> None:
 
 def gru_seq_fwd(proj, mask, w_hzr, w_hc, bias, h0, reverse: bool = False):
     """One launch of the forward kernel -> (hs [T,B,H], zrc [T,B,3H])."""
-    global FWD_LAUNCHES
     t, b, h = check_inputs(proj, mask, w_hzr, w_hc, bias, h0)
     hs = torch.empty((t, b, h), dtype=torch.float32, device=proj.device)
     zrc = torch.empty((t, b, 3 * h), dtype=torch.float32, device=proj.device)
@@ -327,14 +351,13 @@ def gru_seq_fwd(proj, mask, w_hzr, w_hc, bias, h0, reverse: bool = False):
     )
     if rc != 0:
         raise RuntimeError(f"gru_seq forward kernel launch failed: CUDA error {rc}")
-    FWD_LAUNCHES += 1
+    _count("FWD_LAUNCHES")
     return hs, zrc
 
 
 def gru_seq_bwd(zrc, hs, h0, mask, w_hzr, w_hc, dhs, dh_last, reverse: bool = False):
     """One call of the backward entry point (the recurrent walk, then the
     split-K dW/db reduction) -> (dproj, dW_zr, dW_c, db, dh0)."""
-    global BWD_LAUNCHES
     t, b, h3 = zrc.shape
     h = h3 // 3
     _check_shapes(hs=(hs, (t, b, h)), h0=(h0, (b, h)), mask=(mask, (t, b)),
@@ -359,7 +382,7 @@ def gru_seq_bwd(zrc, hs, h0, mask, w_hzr, w_hc, dhs, dh_last, reverse: bool = Fa
     )
     if rc != 0:
         raise RuntimeError(f"gru_seq backward kernel launch failed: CUDA error {rc}")
-    BWD_LAUNCHES += 1
+    _count("BWD_LAUNCHES")
     return dproj, dwzr, dwc, db, dh0
 
 
@@ -552,7 +575,6 @@ def lstm_seq_fwd_sync(h: int, b: int, t: int, device=None) -> None:
 
 def lstm_seq_fwd(proj, mask, w_hh, bias, h0, c0, reverse: bool = False):
     """One launch of the forward kernel -> (hs, gates, ct, cs)."""
-    global LSTM_FWD_LAUNCHES
     t, b, h = check_lstm_inputs(proj, mask, w_hh, bias, h0, c0)
     dev = proj.device
     hs, ct, cs = (torch.empty((t, b, h), dtype=torch.float32, device=dev) for _ in range(3))
@@ -564,7 +586,7 @@ def lstm_seq_fwd(proj, mask, w_hh, bias, h0, c0, reverse: bool = False):
     )
     if rc != 0:
         raise RuntimeError(f"lstm_seq forward kernel launch failed: CUDA error {rc}")
-    LSTM_FWD_LAUNCHES += 1
+    _count("LSTM_FWD_LAUNCHES")
     return hs, gates, ct, cs
 
 
@@ -572,7 +594,6 @@ def lstm_seq_bwd(gates, ct, hs, cs, h0, c0, mask, w_hh, dhs, dh_last, dc_last,
                  reverse: bool = False):
     """One call of the backward entry point (the recurrent walk, then the
     split-K dW/db reduction) -> (dproj, dW, db, dh0, dc0)."""
-    global LSTM_BWD_LAUNCHES
     t, b, h4 = gates.shape
     h = h4 // 4
     seq, state = (t, b, h), (b, h)
@@ -599,7 +620,7 @@ def lstm_seq_bwd(gates, ct, hs, cs, h0, c0, mask, w_hh, dhs, dh_last, dc_last,
     )
     if rc != 0:
         raise RuntimeError(f"lstm_seq backward kernel launch failed: CUDA error {rc}")
-    LSTM_BWD_LAUNCHES += 1
+    _count("LSTM_BWD_LAUNCHES")
     return dproj, dw, db, dh0, dc0
 
 
@@ -666,7 +687,6 @@ def attention_seq_fwd(q, k, v, mask, scale: float) -> torch.Tensor:
     """One launch of the forward kernel on f32 tensors -> out [B,Tq,Dv]
     f32. q [B,Tq,D], k [B,Tk,D], v [B,Tk,Dv], mask [B,Mq,Tk], Mq in
     {1, Tq}; any sizes (the kernel tiles D, Dv, Tq and Tk)."""
-    global ATTN_LAUNCHES
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or mask.dim() != 3:
         raise ValueError("q, k, v and mask must be 3-d: [B,Tq,D], [B,Tk,D], "
                          "[B,Tk,Dv], [B,Mq,Tk]")
@@ -692,7 +712,7 @@ def attention_seq_fwd(q, k, v, mask, scale: float) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"attention_seq forward kernel launch failed: CUDA error {rc}")
-    ATTN_LAUNCHES += 1
+    _count("ATTN_LAUNCHES")
     return out
 
 

@@ -189,7 +189,8 @@ def test_resnet50_two_sgd_steps_match_jax(jax_resnet):
     b0, b1 = jax_resnet["batches"]
     c0 = float(tr.step(b0))
     moved = {k: tr.state["params"][k].numpy() - p0[k] for k in p0}
-    states1 = tr.state["states"]
+    # the step writes the states in their own storage: keep step 1's values
+    states1 = {k: v.clone() for k, v in tr.state["states"].items()}
     c1 = float(tr.step(b1))
     assert tr.state["samples"] == jax_resnet["samples"] == 2 * BATCH
     j0, j1 = jax_resnet["step_costs"]
