@@ -173,7 +173,43 @@ Phases (any failure exits non-zero and prints no result line):
  12. lenet   — LeNet at 28x28, batch 8, f32: step-1 cost (1e-5 relative),
                all gradients (rtol 1e-3, atol 1e-4 x max(1, max|g|)) and
                the parameters after two SGD steps (atol 1e-5), card vs CPU.
- 13. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 13. ctr     — CTR wide&deep (BASELINE config #4) at the JAX package's
+               default widths: wide 1000, slots (1000, 1000, 500, 100),
+               embed 32, hidden (128, 64); batch 4096 from RandomState(0),
+               a click for every even slot-0 id (tests/test_models.py's
+               pattern); f32, SGD(0.5), 2 warm-up + 10 timed steps (the first
+               eager and captured as the step graph, the rest replays).
+               Checks: one graph, 11 replays, no ported kernel launched
+               (counters from 0: the path holds none), finite costs, the
+               last below the first. Prints ms/step, examples/s, the
+               graph's device ms a step and busy share, peak memory, eager
+               steps timed, and torch.profiler over 2 steps (busy share,
+               kernels a step, time by kernel group, top kernels). Then
+               card vs CPU at tests/test_models.py:89-103's config (wide
+               32, slots (16, 16), embed 8, hidden (16,), batch 32): step-1
+               cost (1e-5 relative), every gradient (rtol 1e-3, atol 1e-4 x
+               max(1, max|g|)), the parameters after two steps (1e-5).
+ 14. ocr     — OCR CRNN + CTC (BASELINE config #5) at the JAX package's
+               default widths: 32x128x1 images, 80 classes, hidden 96, so 32
+               frames of 512 features into a peephole bi-LSTM (the plain
+               step loop, as in the JAX package); batch 128, labels of 4-16
+               ids in [1, 80]; f32, SGD(0.01), steps, checks and prints as
+               for ctr, plus both batch-norm moving statistics moved (inside
+               the graph). Then card vs CPU at tests/test_models.py:121-137's
+               config (32x64, 10 classes, hidden 16, batch 2): step-1 cost
+               (1e-5 relative), every gradient (rtol 1e-3, atol 1e-4 x max(1,
+               max|g|)), parameters and states after two steps (1e-4).
+ 15. struct ops — ctc_loss at OCR's shape (logits [128, 32, 81], frames
+               25-32, labels 4-12): values (1e-5 relative) and gradients
+               (1e-5 x max(1, max|g|)) card vs CPU, and against
+               torch.nn.functional.ctc_loss(reduction="none") on the card
+               (1e-4), with the times of forward + backward (the port eager
+               and inside one CUDA graph, torch's); crf_nll at B=128, T=50,
+               32 tags: values (1e-5 relative) and gradients (1e-4 x max(1,
+               max|g|)) card vs CPU, crf_decode's tags equal; gru_scan
+               with act="relu" at T=50, B=128, H=512: the step loop, no
+               GRU kernel launch, card vs CPU.
+ 16. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -266,6 +302,34 @@ RESNET_BF16_LAYER_TIGHT = 1e-3
 RESNET_BF16_RELU_FLIPS = 2
 # LeNet (BASELINE config #1) at MNIST's 28x28, batch 8
 LENET_BATCH = 8
+# CTR wide&deep (BASELINE config #4) at the JAX package's default widths
+# (paddle_tpu/models/ctr.py:20-26); no bench in the repo drives config #4,
+# so the batch is this script's choice; SGD(0.5), the test's rate
+CTR = dict(wide_dim=1000, slot_vocab_sizes=(1000, 1000, 500, 100), embed_dim=32,
+           hidden_dims=(128, 64))
+CTR_BATCH = 4096
+CTR_LR = 0.5
+# and at tests/test_models.py:89-103's config, card vs CPU
+CTR_SMALL = dict(wide_dim=32, slot_vocab_sizes=(16, 16), embed_dim=8, hidden_dims=(16,))
+CTR_SMALL_BATCH = 32
+# OCR CRNN + CTC (BASELINE config #5) at the JAX package's default widths
+# (paddle_tpu/models/ocr_crnn.py:16-22: 32x128x1, 80 classes, hidden 96, so
+# 32 frames of 512 features), batch 128 (this script's choice), labels of
+# 4-16 ids in [1, 80], SGD(0.01)
+OCR = dict(image_height=32, image_width=128, num_channels=1, num_classes=80, rnn_hidden=96)
+OCR_BATCH = 128
+OCR_LABELS = (4, 16)
+OCR_LR = 0.01
+# and at tests/test_models.py:121-137's config, card vs CPU
+OCR_SMALL = dict(image_height=32, image_width=64, num_classes=10, rnn_hidden=16)
+MODEL_WARMUP, MODEL_STEPS = 2, 10
+# CTC at OCR's shape with ragged frames (25-32) and labels (4-12); CRF at a
+# sequence-tagging shape of this script's choice: B=128, T=50, 32 tags;
+# Gru(act="relu") at the seq2seq encoder's T=50, B=128, H=512
+CTC_SHAPE = dict(b=OCR_BATCH, t=32, c=OCR["num_classes"] + 1, l=12)
+CRF_SHAPE = dict(b=128, t=50, c=32)
+STRUCT_RTOL = 1e-5
+TORCH_CTC_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1922,11 +1986,17 @@ def profile_train(torch, step, tag: str = "gru", steps: int = 2, label=None):
     ours = {k: v for k, v in kernels.items() if f"{tag}_" in k}
     rnn_ms = sum(ms for ms, _ in ours.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    groups = {}
+    for key, (ms, n) in kernels.items():
+        g = groups.setdefault(train_kernel_group(key), [0.0, 0.0])
+        g[0] += ms / steps
+        g[1] += n / steps
     out = {
         "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps,
         "device_busy_share": busy_ms / wall_ms,
         "kernel_launches_per_step": sum(c for _, c in kernels.values()) / steps,
+        "groups_ms_and_launches_per_step": groups,
         f"{tag}_kernels_ms_per_step": rnn_ms / steps,
         f"{tag}_kernels_share_of_busy": rnn_ms / busy_ms if busy_ms else 0.0,
         f"{tag}_kernels": {k[:60]: [ms / steps, c / steps] for k, (ms, c) in ours.items()},
@@ -1937,6 +2007,26 @@ def profile_train(torch, step, tag: str = "gru", steps: int = 2, label=None):
     if busy_ms <= 0:
         fail("torch.profiler recorded no device time in the training steps")
     return out
+
+
+# kernel-name fragments of each group in a training step's profile
+_TRAIN_GROUPS = (
+    ("gemm", ("gemm", "cutlass", "xmma", "sm90_", "sm80_", "ampere", "cublas")),
+    ("conv", ("conv", "cudnn", "implicit", "dgrad", "wgrad", "fprop", "im2col", "col2im")),
+    ("index", ("index", "gather", "scatter", "embedding", "take")),
+    ("reduce", ("reduce", "softmax", "norm", "cumsum", "scan")),
+    ("pool", ("pool",)),
+    ("copy", ("copy", "cat", "memcpy", "memset", "fill")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def train_kernel_group(name: str) -> str:
+    low = name.lower()
+    for group, keys in _TRAIN_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
 
 
 def train_vs_cpu_phase(torch):
@@ -2430,6 +2520,385 @@ def lenet_phase(torch):
     return out
 
 
+def rnn_counts():
+    """Every recurrent and attention kernel's launch counter."""
+    from paddle_tpu_torch.ops import rnn_kernels as K
+
+    return {name: getattr(K, name) for name in (
+        "FWD_LAUNCHES", "BWD_LAUNCHES", "LSTM_FWD_LAUNCHES", "LSTM_BWD_LAUNCHES",
+        "ATTN_LAUNCHES")}
+
+
+def zero_rnn_counts() -> None:
+    from paddle_tpu_torch.ops import rnn_kernels as K
+
+    for name in rnn_counts():
+        setattr(K, name, 0)
+
+
+def ctr_batch(np, cfg, b, seed):
+    """A CTR batch drawn as tests/test_models.py:96-103 draws it: a click
+    for every even slot-0 id, multi-hot wide features in [0, 0.1)."""
+    rs = np.random.RandomState(seed)
+    vocabs = cfg["slot_vocab_sizes"]
+    slot0 = rs.randint(0, vocabs[0], b)
+    batch = {"wide_features": rs.rand(b, cfg["wide_dim"]).astype(np.float32) * 0.1,
+             "slot0_id": slot0}
+    for i, v in enumerate(vocabs[1:], start=1):
+        batch[f"slot{i}_id"] = rs.randint(0, v, b)
+    batch["click"] = (slot0 % 2).astype(np.float32)[:, None]
+    return batch
+
+
+def ctr_trainer(device, cfg, lr):
+    from paddle_tpu_torch.models import ctr_wide_deep
+    from paddle_tpu_torch.nn.graph import reset_name_scope
+    from paddle_tpu_torch.optim import SGD
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    reset_name_scope()
+    return SGDTrainer(ctr_wide_deep(**cfg)[3], SGD(learning_rate=lr), seed=0, device=device)
+
+
+def ocr_batch(np, cfg, b, seed, labels=OCR_LABELS):
+    """An OCR batch: randn images, label strings of labels[0]..labels[1]
+    ids in [1, num_classes] (0 is the CTC blank)."""
+    rs = np.random.RandomState(seed)
+    lo, hi = labels
+    return {"image": rs.randn(b, cfg["image_height"], cfg["image_width"],
+                              cfg.get("num_channels", 1)).astype(np.float32),
+            "label": rs.randint(1, cfg["num_classes"] + 1, (b, hi)).astype(np.int32),
+            "label.lengths": rs.randint(lo, hi + 1, b).astype(np.int32)}
+
+
+def ocr_trainer(device, cfg, lr):
+    from paddle_tpu_torch.models import ocr_crnn
+    from paddle_tpu_torch.nn.graph import reset_name_scope
+    from paddle_tpu_torch.optim import SGD
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    reset_name_scope()
+    return SGDTrainer(ocr_crnn(**cfg)[3], SGD(learning_rate=lr), seed=0, device=device)
+
+
+def model_train_phase(torch, name, trainer, batch, examples, config):
+    """A model's training step at full width on the card: MODEL_WARMUP +
+    MODEL_STEPS steps on one batch (moved to the card once: set-up), the
+    first eager and captured as the step graph, the others replays. The
+    kernel counters are set to 0 just before these steps and read just
+    after: this path holds no ported TPU kernel, so each must stay 0. Then
+    the graph's device time a step, eager steps timed, torch.profiler over
+    2 steps."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    trainer.init_state(batch)
+    dev_batch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.state["params"].values())
+    states0 = {k: v.clone() for k, v in trainer.state["states"].items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_rnn_counts()
+    steps = MODEL_WARMUP + MODEL_STEPS
+    costs, step_ms = timed_calls(torch, lambda: trainer.step(dev_batch), steps)
+    launches = rnn_counts()
+    peak = torch.cuda.max_memory_allocated()
+    graphs = list(trainer.graphs.values())
+    replays = graphs[0].replays if graphs else 0
+    med = statistics.median(step_ms[MODEL_WARMUP:])
+    device_ms = device_ms_per_call(torch, lambda: trainer.step(dev_batch))
+    _, eager_ms = timed_calls(torch, lambda: eager_steps(trainer, dev_batch, 1)[0],
+                              TRAIN_EAGER_STEPS)
+    eager_med = statistics.median(eager_ms[1:])
+    unmoved = [k for k, v in trainer.state["states"].items() if torch.equal(v, states0[k])]
+    result = dict(
+        config=config, params=n_params, setup_s=setup_s, steps=steps, costs=costs,
+        step_ms=step_ms, step_ms_median=med, step_ms_min=min(step_ms[MODEL_WARMUP:]),
+        examples_per_s=examples / (med / 1e3), peak_memory_bytes=peak,
+        kernel_launches=launches, graphs=len(graphs), replays=replays,
+        graph_device_ms_per_step=device_ms, busy_share_graph=device_ms / med,
+        eager_step_ms_median=eager_med, eager_examples_per_s=examples / (eager_med / 1e3),
+        states=sorted(states0), states_unmoved=unmoved,
+    )
+    print(name, json.dumps(result), flush=True)
+    if len(graphs) != 1 or replays != steps - 1:
+        fail(f"{len(graphs)} {name} step graphs, {replays} replays in {steps} steps: want "
+             f"one graph, every step after the first a replay")
+    if any(launches.values()):
+        fail(f"the {name} step launched ported kernels it does not run: {launches}")
+    if not all(np.isfinite(costs)):
+        fail(f"non-finite {name} training cost: {costs}")
+    if not costs[-1] < costs[0]:
+        fail(f"{name} training cost did not fall: first {costs[0]}, last {costs[-1]}")
+    if unmoved:
+        fail(f"{name}: states never moved from their start: {unmoved}")
+    result["profile"] = profile_train(torch, lambda: trainer.step(dev_batch), tag=name,
+                                      label=f"{name}_profile")
+    return result
+
+
+def model_vs_cpu_phase(torch, name, make_trainer, batches, cost_rtol=CPU_COST_RTOL,
+                       grad_tol=CPU_GRAD_TOL, param_atol=1e-5):
+    """A model at its test config on the card and on the CPU from the same
+    parameters: the step-1 cost (`cost_rtol` relative), every gradient
+    (rtol, atol x max(1, max|g|)), and the parameters and states after one
+    step per batch (`param_atol`; the card's first step eager and captured,
+    the others replays)."""
+    cpu, card = make_trainer("cpu"), make_trainer("cuda")
+    cpu.init_state(batches[0])
+    card.init_state(batches[0])
+    card.load_params(cpu.state["params"])
+    c_card, g_card = card.cost_and_grads(batches[0])
+    c_cpu, g_cpu = cpu.cost_and_grads(batches[0])
+    grads, bad = {}, []
+    for k, g in sorted(g_cpu.items()):
+        a = g_card[k].cpu()
+        atol = grad_tol["atol"] * max(1.0, float(g.abs().max()))
+        grads[k] = dict(max_abs_err=float((a - g).abs().max()), max_abs_grad=float(g.abs().max()))
+        if not torch.allclose(a, g, rtol=grad_tol["rtol"], atol=atol):
+            bad.append(k)
+    for b in batches:
+        card.step(b)
+        cpu.step(b)
+    after = {f"{kind}:{k}": float((card.state[kind][k].cpu() - v).abs().max())
+             for kind in ("params", "states") for k, v in cpu.state[kind].items()}
+    rel = abs(float(c_card) - float(c_cpu)) / abs(float(c_cpu))
+    graphs = list(card.graphs.values())
+    out = dict(batch=len(next(iter(batches[0].values()))), cost_card=float(c_card),
+               cost_cpu=float(c_cpu), cost_rel_err=rel, n_grads=len(grads),
+               grads_outside_tol=bad, grads=grads, steps=len(batches),
+               replays=graphs[0].replays if graphs else 0,
+               max_abs_err_after_steps=max(after.values()), worst_after=max(after, key=after.get))
+    print(f"{name}_vs_cpu", json.dumps(out), flush=True)
+    if not rel <= cost_rtol:
+        fail(f"{name} step-1 cost card {float(c_card)} vs CPU {float(c_cpu)}: rel err {rel}")
+    if bad:
+        fail(f"{name} gradients differ card vs CPU beyond {grad_tol}: {bad}")
+    if not out["max_abs_err_after_steps"] <= param_atol:
+        fail(f"{name} parameters or states after {len(batches)} steps differ card vs CPU by "
+             f"{out['max_abs_err_after_steps']} ({out['worst_after']})")
+    return out
+
+
+def ctr_phase(torch):
+    """CTR wide&deep at the JAX package's default widths, batch 4096 (see
+    `model_train_phase`), then card vs CPU at tests/test_models.py's
+    config: step-1 cost, every gradient, the parameters after two steps."""
+    import numpy as np
+
+    cfg = CTR
+    trainer = ctr_trainer("cuda", cfg, CTR_LR)
+    batch = ctr_batch(np, cfg, CTR_BATCH, 0)
+    res = model_train_phase(torch, "ctr", trainer, batch, CTR_BATCH,
+                            dict(cfg, batch=CTR_BATCH, optimizer=f"SGD({CTR_LR})",
+                                 precision="f32, TF32 off"))
+    del trainer
+    torch.cuda.empty_cache()
+    res["vs_cpu"] = model_vs_cpu_phase(
+        torch, "ctr", lambda dev: ctr_trainer(dev, CTR_SMALL, CTR_LR),
+        [ctr_batch(np, CTR_SMALL, CTR_SMALL_BATCH, s) for s in (1, 2)])
+    return res
+
+
+def ocr_phase(torch):
+    """OCR CRNN + CTC at the JAX package's default widths, batch 128 (see
+    `model_train_phase`; the batch norm's moving statistics move inside
+    the graph), then card vs CPU at tests/test_models.py's config: step-1
+    cost, every gradient, the parameters and states after two steps."""
+    import numpy as np
+
+    cfg = OCR
+    trainer = ocr_trainer("cuda", cfg, OCR_LR)
+    batch = ocr_batch(np, cfg, OCR_BATCH, 0)
+    frames = cfg["image_width"] // 4
+    res = model_train_phase(torch, "ocr", trainer, batch, OCR_BATCH,
+                            dict(cfg, batch=OCR_BATCH, frames=frames,
+                                 frame_features=128 * cfg["image_height"] // 8,
+                                 labels=OCR_LABELS, optimizer=f"SGD({OCR_LR})",
+                                 precision="f32, TF32 off", peepholes=True))
+    res["images_per_s"] = res["examples_per_s"]
+    if len(res["states"]) != 2:
+        fail(f"OCR states {res['states']}: want bn3's moving mean and variance")
+    del trainer
+    torch.cuda.empty_cache()
+    res["vs_cpu"] = model_vs_cpu_phase(
+        torch, "ocr", lambda dev: ocr_trainer(dev, OCR_SMALL, OCR_LR),
+        [ocr_batch(np, OCR_SMALL, 2, s, labels=(4, 6)) for s in (1, 2)],
+        grad_tol=dict(rtol=1e-3, atol=1e-4), param_atol=1e-4)
+    return res
+
+
+def events_ms(torch, fn, n=10):
+    """Device ms per call by CUDA events around n calls after 2 warm-ups."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def graph_of(torch, fn):
+    """`fn` captured as a CUDA graph after a side-stream warm-up -> (the
+    graph, its static outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def struct_ops_phase(torch):
+    """CTC and CRF on the card against their CPU run, and Gru(act="relu")
+    on the step loop.
+
+    ctc_loss at OCR's shape ([128, 32, 81] logits, frames 25-32, labels
+    4-12): values (STRUCT_RTOL relative) and the logits' gradient (1e-5 x
+    max(1, max|g|)) card vs CPU; as an independent check
+    torch.nn.functional.ctc_loss(reduction="none", blank=0) on the card
+    (TORCH_CTC_RTOL, values and gradients); times of forward + backward:
+    the port's eager, the port's inside one CUDA graph, and torch's.
+    crf_nll at B=128, T=50, 32 tags, ragged: values card vs CPU as for
+    CTC, both gradients within 1e-4 x max(1, max|g|) (marginals of
+    log-space sums that reach hundreds over 50 steps, where an f32 ulp is
+    ~1e-5; the weight's entries sum 6400 terms each); crf_decode's tags
+    equal. gru_scan with act="relu" at
+    T=50, B=128, H=512: the step loop, no GRU kernel launch, outputs 1e-4
+    and gradients 1e-3 x max(1, max|g|) card vs CPU (outputs 1e-4 x
+    max(1, max|h|): a relu candidate is not bounded)."""
+    import numpy as np
+
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import crf as crf_ops
+    from paddle_tpu_torch.ops import ctc as ctc_ops
+    from paddle_tpu_torch.ops import rnn as R
+
+    res, errs, limits = {}, {}, {}
+
+    def hold(key, got, want, rtol=None, scale=None):
+        """rtol: each value within rtol of its own size; scale: within
+        scale x max(1, max|want|)."""
+        got, want = got.detach().cpu().double(), want.detach().cpu().double()
+        if rtol is not None:
+            errs[key] = float(((got - want).abs() / want.abs()).max())
+            limits[key] = rtol
+        else:
+            errs[key] = float((got - want).abs().max())
+            limits[key] = scale * max(1.0, float(want.abs().max()))
+
+    # CTC
+    sh = CTC_SHAPE
+    rs = np.random.RandomState(0)
+    logits = torch.from_numpy(rs.randn(sh["b"], sh["t"], sh["c"]).astype(np.float32) * 2)
+    labels = torch.from_numpy(rs.randint(1, sh["c"], (sh["b"], sh["l"])).astype(np.int32))
+    fl = torch.from_numpy(rs.randint(25, sh["t"] + 1, sh["b"]).astype(np.int32))
+    ll = torch.from_numpy(rs.randint(4, sh["l"] + 1, sh["b"]).astype(np.int32))
+
+    def ctc(dev):
+        x = logits.to(dev).requires_grad_(True)
+        nll = ctc_ops.ctc_loss(x, fl.to(dev), labels.to(dev), ll.to(dev))
+        return (nll.detach(),) + torch.autograd.grad(nll.sum(), x)
+
+    card, cpu = ctc("cuda"), ctc("cpu")
+    hold("ctc_nll", card[0], cpu[0], rtol=STRUCT_RTOL)
+    hold("ctc_grad", card[1], cpu[1], scale=1e-5)
+    xs = logits.cuda()
+    args = (fl.cuda(), labels.cuda(), ll.cuda())
+
+    def torch_ctc():
+        x = xs.detach().requires_grad_(True)
+        nll = F.ctc_loss(torch.log_softmax(x, -1).transpose(0, 1), args[1].long(),
+                         args[0].long(), args[2].long(), blank=0, reduction="none")
+        return (nll.detach(),) + torch.autograd.grad(nll.sum(), x)
+
+    ref = torch_ctc()
+    hold("ctc_nll_vs_torch", card[0], ref[0], rtol=TORCH_CTC_RTOL)
+    hold("ctc_grad_vs_torch", card[1], ref[1], scale=TORCH_CTC_RTOL)
+
+    def ours():
+        x = xs.detach().requires_grad_(True)
+        return torch.autograd.grad(ctc_ops.ctc_loss(x, *args).sum(), x)[0]
+
+    graph, _ = graph_of(torch, ours)
+    res["ctc"] = dict(shape=sh, ms_eager=events_ms(torch, ours),
+                      ms_graph=events_ms(torch, graph.replay),
+                      torch_ctc_loss_ms=events_ms(torch, torch_ctc))
+
+    # CRF
+    sh = CRF_SHAPE
+    rs = np.random.RandomState(1)
+    emissions = torch.from_numpy(rs.randn(sh["b"], sh["t"], sh["c"]).astype(np.float32) * 2)
+    tags = torch.from_numpy(rs.randint(0, sh["c"], (sh["b"], sh["t"])).astype(np.int32))
+    lens = torch.from_numpy(rs.randint(1, sh["t"] + 1, sh["b"]).astype(np.int32))
+    w = torch.from_numpy(rs.randn(sh["c"] + 2, sh["c"]).astype(np.float32) * 0.5)
+
+    def crf(dev):
+        e, ww = emissions.to(dev).requires_grad_(True), w.to(dev).requires_grad_(True)
+        nll = crf_ops.crf_nll(e, lens.to(dev), tags.to(dev), ww)
+        ge, gw = torch.autograd.grad(nll.sum(), (e, ww))
+        return nll.detach(), ge, gw, crf_ops.crf_decode(e.detach(), lens.to(dev), ww.detach())
+
+    card, cpu = crf("cuda"), crf("cpu")
+    hold("crf_nll", card[0], cpu[0], rtol=STRUCT_RTOL)
+    # the gradients are marginals exp(alpha + beta - log Z) of log-space sums
+    # that reach hundreds over 50 steps, where an f32 ulp is ~1e-5; each of
+    # w's entries also sums B*T = 6400 terms, in another order on the card
+    hold("crf_grad_emissions", card[1], cpu[1], scale=1e-4)
+    hold("crf_grad_w", card[2], cpu[2], scale=1e-4)
+    decode_equal = bool(torch.equal(card[3].cpu(), cpu[3]))
+    e_dev, w_dev, lens_dev, tags_dev = (emissions.cuda(), w.cuda(), lens.cuda(), tags.cuda())
+
+    def crf_step():
+        e, ww = e_dev.detach().requires_grad_(True), w_dev.detach().requires_grad_(True)
+        return torch.autograd.grad(crf_ops.crf_nll(e, lens_dev, tags_dev, ww).sum(), (e, ww))
+
+    res["crf"] = dict(shape=sh, decode_equal=decode_equal, ms_eager=events_ms(torch, crf_step),
+                      decode_ms_eager=events_ms(
+                          torch, lambda: crf_ops.crf_decode(e_dev, lens_dev, w_dev)))
+
+    # Gru(act="relu") takes the step loop
+    t, b, h = 50, 128, 512
+    g = torch.Generator().manual_seed(7)
+    x = {"proj": torch.randn(b, t, 3 * h, generator=g) * 0.5,
+         "w": torch.randn(h, 3 * h, generator=g) * (0.3 * (64 / h) ** 0.5),
+         "bias": torch.randn(3 * h, generator=g) * 0.1}
+    mask = (torch.arange(t)[None, :] < 30 + torch.arange(b)[:, None] % 21).float()
+    out = {}
+    zero_rnn_counts()
+    for dev in ("cuda", "cpu"):
+        xs_ = {k: v.to(dev).requires_grad_(True) for k, v in x.items()}
+        p = R.GruParams(xs_["w"][:, :2 * h], xs_["w"][:, 2 * h:], xs_["bias"])
+        hs, h_last = R.gru_scan(xs_["proj"], mask.to(dev), p, cand_act="relu")
+        grads = torch.autograd.grad((hs * hs).sum() + h_last.sum(), list(xs_.values()))
+        out[dev] = [hs.detach(), h_last.detach()] + list(grads)
+    torch.cuda.synchronize()
+    gru_launches = rnn_counts()
+    for i, part in enumerate(("hs", "h_last", "dproj", "dw", "dbias")):
+        hold(f"gru_relu_{part}", out["cuda"][i], out["cpu"][i], scale=1e-4 if i < 2 else 1e-3)
+    res.update(gru_relu=dict(shape=dict(t=t, b=b, h=h), kernel_launches=gru_launches),
+               errors=errs, limits=limits)
+    print("struct_ops", json.dumps(res), flush=True)
+    bad = [k for k in errs if not errs[k] <= limits[k]]
+    if bad:
+        fail(f"CTC / CRF / GRU(relu) on the card differ beyond their limits in {bad}: {errs}")
+    if not decode_equal:
+        fail("crf_decode's tags on the card differ from the CPU's")
+    if any(gru_launches.values()):
+        fail(f"gru_scan(act='relu') launched kernels: {gru_launches}")
+    return res
+
+
 def train_of(torch, tree: str) -> int:
     """`--train-of TREE`: the training phases (5, 7 and 10) of the
     chip_smoke.py in TREE, a checkout of this repository (an earlier
@@ -2555,7 +3024,17 @@ def main() -> int:
     resnet_vs_cpu = resnet_vs_cpu_phase(torch)
     lenet = lenet_phase(torch)
 
-    # 13. lines
+    # 13. CTR wide&deep and 14. OCR CRNN training at full width (kernel
+    # counters from 0 in each), each then card vs CPU; 15. CTC, CRF and a
+    # relu GRU on the card against the CPU
+    torch.cuda.empty_cache()
+    ctr = ctr_phase(torch)
+    torch.cuda.empty_cache()
+    ocr = ocr_phase(torch)
+    torch.cuda.empty_cache()
+    struct_ops = struct_ops_phase(torch)
+
+    # 16. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -2682,7 +3161,8 @@ def main() -> int:
                    "generation": generation, "train_vs_cpu": train_vs_cpu,
                    "lstm_train": lstm_train, "lstm_vs_cpu": lstm_vs_cpu,
                    "attn_path": attn_path, "route": route, "resnet": resnet,
-                   "resnet_vs_cpu": resnet_vs_cpu, "lenet": lenet},
+                   "resnet_vs_cpu": resnet_vs_cpu, "lenet": lenet, "ctr": ctr,
+                   "ocr": ocr, "struct_ops": struct_ops},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

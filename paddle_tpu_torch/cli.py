@@ -15,10 +15,10 @@ lines, plus `--device` (default `cuda`; the tests pass `cpu`):
 
 It prints `{"role": "serve", "address": [host, port]}` once listening and,
 on SIGTERM or SIGINT, `{"final_stats": {...}}` before it exits 0. Not ported
-yet: `--tp > 1` (ROADMAP.md queue 1 item 6) and `--config` (item 3.3: a
+yet: `--tp > 1` (TP serving, ROADMAP.md §1 item 8) and `--config` (a
 v1-config `GenerationSession` over the ported beam search, which waits for
-the v1 config pipeline of item 7); both raise a named NotImplementedError. The router and fleet flags wait for the
-router's slice."""
+the v1 config pipeline, §1 item 5); both raise a named NotImplementedError.
+The router and fleet flags wait for the router's slice (§1 item 7)."""
 
 from __future__ import annotations
 
@@ -29,8 +29,7 @@ import threading
 from typing import List, Optional
 
 _NOT_PORTED = (
-    "{what} is not ported to paddle_tpu_torch yet (ROADMAP.md, queue 1, "
-    "item {item})"
+    "{what} is not ported to paddle_tpu_torch yet (ROADMAP.md §1 item {item})"
 )
 
 
@@ -129,11 +128,11 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
     if args.tp and args.tp > 1:
         raise NotImplementedError(_NOT_PORTED.format(
-            what="tensor-parallel serving (--tp > 1)", item="6, TP serving"))
+            what="tensor-parallel serving (--tp > 1)", item="8, TP serving"))
     if args.config:
         raise NotImplementedError(_NOT_PORTED.format(
             what="serving a v1 config (--config, generate_config)",
-            item="3.3, GenerationSession, after the v1 config pipeline of item 7"))
+            item="5, the v1 config pipeline and GenerationSession"))
     quotas = None
     if args.tenant_tokens_per_s > 0 and args.tenant_tokens <= 0:
         # a refill rate without a bucket capacity is a no-op; saying nothing

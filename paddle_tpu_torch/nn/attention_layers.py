@@ -45,12 +45,14 @@ class AttentionDecoder(Layer):
     type_name = "attention_decoder"
 
     def __init__(self, enc: Layer, target_emb: Layer, size: int,
-                 name: Optional[str] = None):
+                 attention_size: int = 0, name: Optional[str] = None):
         super().__init__([enc, target_emb], name=name)
         self.size = size
+        self.attention_size = attention_size
 
     def _params(self, ctx: Context, d_enc: int, d_emb: int) -> DecoderParams:
-        h = a = self.size  # attention width = hidden width (the JAX default)
+        h = self.size
+        a = self.attention_size or h  # attention width, the hidden one by default
         sn = init_mod.smart_normal
         return DecoderParams(
             w_enc=ctx.param(self, "att.w_enc", (d_enc, a), sn),

@@ -15,7 +15,10 @@ moving statistics) are a second dict keyed `f"{layer.name}.{name}"`:
 outputs. Both run under the dtype policy they are given (`core/dtypes.py`).
 
 Ragged sequences are padded [B, T, ...] tensors plus a [B] `lengths`
-tensor; a batch dict carries `<name>.lengths` beside each sequence slot."""
+tensor; a batch dict carries `<name>.lengths` beside each sequence slot.
+Nested sequences are [B, S, T, ...] with `lengths` [B] counting the valid
+subsequences and `sub_lengths` [B, S] the valid steps of each, fed as
+`<name>.sub_lengths`."""
 
 from __future__ import annotations
 
@@ -38,14 +41,22 @@ class Argument:
     """Value flowing between layers.
 
     value:   [B, ...] dense batch, or [B, T, ...] padded sequence batch.
-    lengths: [B] integer valid lengths when `value` is a sequence batch."""
+    lengths: [B] integer valid lengths when `value` is a sequence batch.
+    sub_lengths: [B, S] integer valid lengths of each subsequence when
+             `value` is a nested [B, S, T, ...] batch."""
 
     value: torch.Tensor
     lengths: Optional[torch.Tensor] = None
+    sub_lengths: Optional[torch.Tensor] = None
 
     @property
     def is_seq(self) -> bool:
         return self.lengths is not None
+
+    @property
+    def max_len(self) -> int:
+        assert self.is_seq
+        return self.value.shape[1]
 
     def mask(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """[B, T] validity mask from lengths."""
@@ -54,7 +65,7 @@ class Argument:
         return (steps[None, :] < self.lengths[:, None]).to(dtype)
 
     def with_value(self, value: torch.Tensor) -> "Argument":
-        return Argument(value, self.lengths)
+        return Argument(value, self.lengths, self.sub_lengths)
 
 
 @dataclasses.dataclass
@@ -293,5 +304,8 @@ def _feed_to_argument(batch: Mapping[str, Any], layer: Layer,
     if isinstance(v, Argument):
         return v
     lengths_key = layer.name + ".lengths"
-    lengths = _to_tensor(batch[lengths_key], device) if lengths_key in batch else None
-    return Argument(_to_tensor(v, device), lengths)
+    if lengths_key not in batch:
+        return Argument(_to_tensor(v, device))
+    sub_key = layer.name + ".sub_lengths"
+    sub = _to_tensor(batch[sub_key], device) if sub_key in batch else None
+    return Argument(_to_tensor(v, device), _to_tensor(batch[lengths_key], device), sub)

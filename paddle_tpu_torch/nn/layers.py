@@ -1,7 +1,8 @@
 """Core layers (counterpart of `paddle_tpu/nn/layers.py`), the ones the
-ported paths use: Data, Fc, Embedding, Concat (seq2seq), and the image
+ported paths use: Data, Fc, Embedding, Concat (seq2seq, CTR), the image
 layers of ResNet and LeNet: Conv2D, Pool2D, BatchNorm, Addto, GlobalPool,
-Reshape. Image activations are NHWC, conv weights HWIO."""
+Reshape, and BlockExpand (OCR's image-to-sequence). Image activations are
+NHWC, conv weights HWIO."""
 
 from __future__ import annotations
 
@@ -89,21 +90,47 @@ class Fc(Layer):
 
 
 class Embedding(Layer):
-    """Embedding lookup: integer ids [B] or [B, T] -> rows of the table."""
+    """Embedding lookup: integer ids [B] or [B, T] -> rows of the table.
+    Without `vocab_size` the vocabulary is the input Data's `shape[0]`.
+
+    Ids read as the JAX package's `jnp.take` reads them (its "fill" mode):
+    an id in [-V, 0) counts from the end, as Python indexing does, and an
+    id outside [-V, V) reads a row of NaN. The lookup reads a clamped index
+    and puts the NaN in with `torch.where`, so a bad id raises no device
+    assert and the op reads nothing back to the host (it stays capturable
+    in the step graph); its rows get no gradient."""
 
     type_name = "embedding"
 
-    def __init__(self, input: Layer, size: int, vocab_size: int,
+    def __init__(self, input: Layer, size: int, vocab_size: Optional[int] = None,
                  param_attr: Optional[ParamAttr] = None, name: Optional[str] = None):
         super().__init__(input, name=name)
         self.size = size
         self.vocab_size = vocab_size
-        self.param_attr = param_attr
+        self.param_attr = _attr(param_attr)
 
     def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
-        table = ctx.param(self, "w", (self.vocab_size, self.size),
-                          init_mod.smart_normal, self.param_attr)
-        return ins[0].with_value(table[ins[0].value.long()])
+        vocab = self.vocab_size
+        if vocab is None:
+            shape = getattr(self.inputs[0], "shape", ())
+            vocab = shape[0] if shape else None
+            if vocab is None:
+                raise ValueError(f"embedding {self.name}: vocab_size not set and "
+                                 f"input has no shape")
+        table = ctx.param(self, "w", (vocab, self.size), init_mod.smart_normal,
+                          self.param_attr)
+        return ins[0].with_value(take_rows(table, ins[0].value))
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`table[ids]` with `jnp.take`'s fill mode: ids in [-V, 0) wrap, ids
+    outside [-V, V) read NaN."""
+    v = table.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + v, ids)
+    valid = (ids >= 0) & (ids < v)
+    rows = table[ids.clamp(0, v - 1)]
+    return torch.where(valid[..., None], rows, rows.new_full((), float("nan")))
 
 
 class Concat(Layer):
@@ -303,3 +330,35 @@ class Reshape(Layer):
     def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
         x = ins[0].value
         return Argument(x.reshape((x.shape[0],) + self.shape))
+
+
+class BlockExpand(Layer):
+    """Image -> sequence of flattened blocks (BlockExpandLayer, im2col as a
+    layer; OCR's CRNN reads its feature map through it). NHWC [B, H, W, C]
+    -> [B, T, C * block_y * block_x] with T = out_h * out_w in row-major
+    order, every row of length T. Each step's features run channel
+    slowest, (C, block_y, block_x), as the JAX package's
+    `conv_general_dilated_patches` lays them out. The blocks are windows
+    of `Tensor.unfold` over H and W (a view; the reshape is one copy and
+    the backward one kernel), not `nn.functional.unfold`, whose CUDA path
+    launches one im2col kernel per image."""
+
+    type_name = "block_expand"
+
+    def __init__(self, input: Layer, block_x: int, block_y: int,
+                 stride_x: int = 0, stride_y: int = 0,
+                 padding_x: int = 0, padding_y: int = 0, name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.block = (block_y, block_x)
+        self.stride = (stride_y or block_y, stride_x or block_x)
+        self.padding = (padding_y, padding_x)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        x = ins[0].value
+        (by, bx), (sy, sx), (py, px) = self.block, self.stride, self.padding
+        x = torch.nn.functional.pad(x, (0, 0, px, px, py, py))
+        blocks = x.unfold(1, by, sy).unfold(2, bx, sx)  # [B, oh, ow, C, by, bx]
+        b, oh, ow = blocks.shape[:3]
+        seq = blocks.reshape(b, oh * ow, -1)
+        lengths = torch.full((b,), oh * ow, dtype=torch.int32, device=x.device)
+        return Argument(seq, lengths)

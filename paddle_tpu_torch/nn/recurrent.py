@@ -6,12 +6,15 @@
 `Lstm` takes the JAX layer's options (activations, peepholes, param and
 bias attributes); with the defaults and `use_peephole=False` it runs the
 fused LSTM kernels, otherwise the plain step loop (`ops/rnn.lstm_scan`).
-`Gru` computes the reference defaults only (sigmoid gates, tanh
-candidate), which is what the fused kernel computes; the JAX layer's other
-activations and its named `param_attr` sharing are not ported yet."""
+`Gru` takes them too (`act` the candidate's, `gate_act` the gates'); with
+the defaults (sigmoid gates, tanh candidate) it runs the fused GRU
+kernels, otherwise the plain step loop (`ops/rnn.gru_scan`). A named
+`param_attr` shares `w_hzr` under its name and `w_hc` under the name +
+".c", as in the JAX package (the two differ in shape)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, List, Optional
 
 from paddle_tpu_torch.nn import init as init_mod
@@ -68,10 +71,16 @@ class Gru(Layer):
     type_name = "grumemory"
 
     def __init__(self, input: Layer, size: Optional[int] = None,
-                 reverse: bool = False, name: Optional[str] = None):
+                 reverse: bool = False, act: Any = "tanh", gate_act: Any = "sigmoid",
+                 param_attr: Any = None, bias_attr: Any = None,
+                 name: Optional[str] = None):
         super().__init__(input, name=name)
         self.size = size
         self.reverse = reverse
+        self.act = act
+        self.gate_act = gate_act
+        self.param_attr = _attr(param_attr)
+        self.bias_attr = _attr(bias_attr)
 
     def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
         arg = ins[0]
@@ -80,12 +89,17 @@ class Gru(Layer):
         hdim = self.size or proj.shape[-1] // 3
         if proj.shape[-1] != 3 * hdim:
             raise ValueError(f"{self.name}: input width {proj.shape[-1]} != 3*size")
+        c_attr = self.param_attr
+        if c_attr is not None and c_attr.name:
+            c_attr = dataclasses.replace(c_attr, name=c_attr.name + ".c")
         p = rnn_ops.GruParams(
-            w_hzr=ctx.param(self, "w_hzr", (hdim, 2 * hdim), init_mod.smart_normal),
-            w_hc=ctx.param(self, "w_hc", (hdim, hdim), init_mod.smart_normal),
-            bias=ctx.param(self, "b", (3 * hdim,), init_mod.zeros),
+            w_hzr=ctx.param(self, "w_hzr", (hdim, 2 * hdim), init_mod.smart_normal,
+                            self.param_attr),
+            w_hc=ctx.param(self, "w_hc", (hdim, hdim), init_mod.smart_normal, c_attr),
+            bias=ctx.param(self, "b", (3 * hdim,), init_mod.zeros, self.bias_attr),
         )
-        hs, _ = rnn_ops.gru_scan(proj, arg.mask(proj.dtype), p, reverse=self.reverse)
+        hs, _ = rnn_ops.gru_scan(proj, arg.mask(proj.dtype), p, reverse=self.reverse,
+                                 gate_act=self.gate_act, cand_act=self.act)
         return Argument(hs, arg.lengths)
 
 
@@ -104,13 +118,14 @@ def bidirectional_lstm(input: Layer, size: int, name: str = "bilstm", **kw: Any)
 
 
 def simple_gru(input: Layer, size: int, reverse: bool = False,
-               name: str = "gru") -> Layer:
-    """fc(3H) + grumemory."""
+               name: str = "gru", **kw: Any) -> Layer:
+    """fc(3H) + grumemory; `kw` goes to `Gru`."""
     proj = Fc(input, 3 * size, act=None, name=f"{name}.input_proj")
-    return Gru(proj, size=size, reverse=reverse, name=name)
+    return Gru(proj, size=size, reverse=reverse, name=name, **kw)
 
 
-def bidirectional_gru(input: Layer, size: int, name: str = "bigru") -> Layer:
-    fwd = simple_gru(input, size, reverse=False, name=f"{name}.fw")
-    bwd = simple_gru(input, size, reverse=True, name=f"{name}.bw")
+def bidirectional_gru(input: Layer, size: int, name: str = "bigru", **kw: Any) -> Layer:
+    """Concat of a forward and a reverse simple_gru."""
+    fwd = simple_gru(input, size, reverse=False, name=f"{name}.fw", **kw)
+    bwd = simple_gru(input, size, reverse=True, name=f"{name}.bw", **kw)
     return Concat([fwd, bwd], name=f"{name}.cat")

@@ -13,11 +13,11 @@ Dispatch mirrors the JAX package's `_use_fused`: the activation test first,
 then a shape test.
   * `lstm_scan` takes the fused whole-sequence op
     (`ops/rnn_kernels.lstm_seq_fused`) for sigmoid gates, tanh cell and
-    state, no peepholes and no `return_cell_seq`; `gru_scan` (the port's GRU
-    takes only the reference defaults: sigmoid gates, tanh candidate)
-    always passes this test. Every other LSTM runs the plain step loop
-    (`lstm_step_loop`) on either device, as the JAX package runs `lax.scan`
-    for it on the TPU.
+    state, no peepholes and no `return_cell_seq`; `gru_scan` takes
+    `gru_seq_fused` for sigmoid gates and a tanh candidate, the only
+    activations its kernels compute. Every other LSTM or GRU runs the plain
+    step loop (`lstm_step_loop` / `gru_step_loop`) on either device, as the
+    JAX package runs `lax.scan` for it on the TPU.
   * CPU tensors that pass take the fused op's plain versions. CUDA tensors
     that pass take the fused op's kernels where the kernels' static layout
     plan has a layout for (T, B, H) (`rnn_kernels.lstm_seq_fits` /
@@ -158,14 +158,17 @@ class GruParams(NamedTuple):
     bias: torch.Tensor   # [3H]
 
 
-def gru_step(proj_t: torch.Tensor, h: torch.Tensor, p: GruParams) -> torch.Tensor:
+def gru_step(proj_t: torch.Tensor, h: torch.Tensor, p: GruParams,
+             gate_act: act_mod.ActLike = "sigmoid",
+             cand_act: act_mod.ActLike = "tanh") -> torch.Tensor:
     """One GRU step: proj_t [B, 3H] (x_t already projected), h [B, H]."""
     hdim = h.shape[-1]
     pz, pr, pc = torch.split(proj_t + p.bias, hdim, dim=-1)
     rz = linalg.matmul(h, p.w_hzr)
-    z = torch.sigmoid(pz + rz[:, :hdim])
-    r = torch.sigmoid(pr + rz[:, hdim:])
-    c = torch.tanh(pc + linalg.matmul(r * h, p.w_hc))
+    ga = act_mod.get(gate_act)
+    z = ga(pz + rz[:, :hdim])
+    r = ga(pr + rz[:, hdim:])
+    c = act_mod.get(cand_act)(pc + linalg.matmul(r * h, p.w_hc))
     return (1.0 - z) * h + z * c
 
 
@@ -175,6 +178,8 @@ def gru_scan(
     p: GruParams,
     h0: Optional[torch.Tensor] = None,
     reverse: bool = False,
+    gate_act: act_mod.ActLike = "sigmoid",
+    cand_act: act_mod.ActLike = "tanh",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence GRU -> (h_seq [B, T, H], h_last [B, H]). Batch-major in
     and out, time-major inside the fused op."""
@@ -182,8 +187,10 @@ def gru_scan(
     hdim = h3 // 3
     if h0 is None:
         h0 = torch.zeros((b, hdim), dtype=proj.dtype, device=proj.device)
-    if not takes_fused(proj.device, rnn_kernels.gru_seq_fits, hdim, b, t_len):
-        return gru_step_loop(proj, mask, p, h0, reverse)
+    standard = gate_act == "sigmoid" and cand_act == "tanh"
+    if not (standard and takes_fused(proj.device, rnn_kernels.gru_seq_fits, hdim, b,
+                                     t_len)):
+        return gru_step_loop(proj, mask, p, h0, reverse, gate_act, cand_act)
     hs, h_last = gru_seq_fused(
         proj.transpose(0, 1), mask.transpose(0, 1), p.w_hzr, p.w_hc, p.bias,
         h0, reverse,
@@ -197,6 +204,8 @@ def gru_step_loop(
     p: GruParams,
     h0: torch.Tensor,
     reverse: bool = False,
+    gate_act: act_mod.ActLike = "sigmoid",
+    cand_act: act_mod.ActLike = "tanh",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`gru_scan` as a loop of `gru_step` over time (the JAX package's
     `lax.scan` branch); masked steps carry h. Autograd gives the gradient."""
@@ -205,7 +214,7 @@ def gru_step_loop(
     hs: List[Optional[torch.Tensor]] = [None] * t_len
     steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
     for t in steps:
-        h_new = gru_step(proj[:, t], h, p)
+        h_new = gru_step(proj[:, t], h, p, gate_act, cand_act)
         m = mask[:, t, None].to(h_new.dtype)
         h = m * h_new + (1 - m) * h
         hs[t] = h

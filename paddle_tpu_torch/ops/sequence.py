@@ -1,7 +1,8 @@
 """Sequence ops over padded [B, T, ...] batches with per-example lengths
 (counterpart of `paddle_tpu/ops/sequence.py`): masks, the masked softmax,
-the pooling reductions of SequencePoolLayer and the first/last instance
-picks."""
+the pooling reductions of SequencePoolLayer, the first/last instance
+picks, the context projection's sliding window and the expansion of a
+batch across time."""
 
 from __future__ import annotations
 
@@ -64,3 +65,27 @@ def seq_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     is clamped into [0, T) as XLA clamps the JAX package's gather."""
     idx = (lengths.long() - 1).clamp(0, x.shape[1] - 1)
     return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+def context_projection(x: torch.Tensor, lengths: torch.Tensor, context_start: int,
+                       context_len: int) -> torch.Tensor:
+    """Sliding-window concat of neighbouring steps (ContextProjection):
+    [B, T, D] -> [B, T, context_len * D], column block k holding step
+    t + context_start + k; steps outside [0, length) read zero."""
+    t = x.shape[1]
+    xm = x * mask_from_lengths(lengths, t, x.dtype)[:, :, None]
+    cols = []
+    for offset in range(context_start, context_start + context_len):
+        if offset == 0:
+            cols.append(xm)
+        elif offset < 0:
+            cols.append(torch.nn.functional.pad(xm, (0, 0, -offset, 0))[:, :t])
+        else:
+            cols.append(torch.nn.functional.pad(xm, (0, 0, 0, offset))[:, offset:])
+    return torch.cat(cols, dim=-1)
+
+
+def expand_to_seq(x: torch.Tensor, like_lengths: Optional[torch.Tensor],
+                  max_len: int) -> torch.Tensor:
+    """[B, D] -> [B, T, D] broadcast across time (ExpandLayer)."""
+    return x[:, None, :].expand(x.shape[0], max_len, x.shape[1])

@@ -19,8 +19,8 @@ so either package's client talks to either package's server:
 Methods: register | heartbeat | deregister | submit | poll | poll_many |
 cancel | stream | generate (blocking submit+wait) | stats | metrics |
 trace_export. `generate_config` (a v1-config `GenerationSession` beside the
-token engine) needs beam search, which is not ported yet: it answers an RPC
-error naming ROADMAP.md's item.
+token engine) waits for the v1 config pipeline (ROADMAP.md §1 item 5): it
+answers an RPC error naming that item.
 
 Threads: the handler threads parse, queue and read handles; they never touch
 the device. Only the session's engine thread does."""
@@ -53,8 +53,8 @@ log = logging.getLogger("paddle_tpu_torch.serving")
 
 GENERATE_CONFIG_NOT_PORTED = (
     "generate_config is not ported to paddle_tpu_torch yet: it serves a "
-    "v1-config GenerationSession, which needs beam search (ROADMAP.md, "
-    "queue 1, item 3.3: generation)"
+    "v1-config GenerationSession, which waits for the v1 config pipeline "
+    "(ROADMAP.md §1 item 5)"
 )
 
 
@@ -466,8 +466,8 @@ class ServingServer:
             # the router pump's batch poll: ONE round trip answers
             # for every in-flight request on this replica, so result delivery
             # never costs an RPC per request per cycle ("RPC Considered
-            # Harmful" — and the shape ROADMAP item 4's batched control
-            # plane generalizes). Per-item tenancy: the router is a proxy
+            # Harmful" — and the shape a batched control plane
+            # generalizes). Per-item tenancy: the router is a proxy
             # for many tenants, so each item names the tenant it polls as.
             out = []
             for it in req.get("items", []):

@@ -73,8 +73,7 @@ TTFT_HISTOGRAM = obs_metrics.REGISTRY.histogram(
 )
 
 _NOT_PORTED = (
-    "{what} is not ported to paddle_tpu_torch yet (ROADMAP.md, queue 1: "
-    "{item})"
+    "{what} is not ported to paddle_tpu_torch yet (ROADMAP.md §1 {item})"
 )
 
 
@@ -979,7 +978,7 @@ def make_demo_session(
     None means CUDA and raises without it."""
     if tp and int(tp) > 1:
         raise NotImplementedError(_NOT_PORTED.format(
-            what="tensor-parallel serving (tp > 1)", item="TP serving",
+            what="tensor-parallel serving (tp > 1)", item="item 8, TP serving",
         ))
     dev = resolve_device(device)
     buckets = session_kw.pop("prefill_buckets", (16, 32, 64))

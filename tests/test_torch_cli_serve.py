@@ -85,8 +85,8 @@ def test_cli_serve_quota_flag_warnings(flags, warning):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--tp", "2"], "item 6"),
-    (["--config", "conf.py"], "item 3.3"),
+    (["--tp", "2"], "§1 item 8"),
+    (["--config", "conf.py"], "§1 item 5"),
 ])
 def test_cli_serve_unported_flags_raise_named(argv, item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as ei:

@@ -1,0 +1,269 @@
+"""Arguments and behaviours of the JAX package's layers that the port
+rejected or differed on, each against the JAX package on the CPU.
+
+  * `Embedding` without `vocab_size` takes the vocabulary from the input
+    Data's `shape[0]` (and raises ValueError without one); ids read as
+    `jnp.take` reads them: [-V, 0) from the end, everything else outside
+    [0, V) a NaN row with no gradient. Values bitwise (NaN where NaN), the
+    table's gradient under a random cotangent within 1e-6.
+  * `AttentionDecoder(attention_size=A)`: the attention projections are A
+    wide; the decoder's sum-cost and every gradient within 1e-5 relative /
+    rtol 1e-4 / atol 1e-5 (the JAX scan's tolerance in
+    tests/test_torch_gru.py).
+  * `Gru(act=, gate_act=, param_attr=, bias_attr=)` and `simple_gru` /
+    `bidirectional_gru(**kw)`: a named `param_attr` shares `w_hzr` under
+    the name and `w_hc` under the name + ".c"; activations other than
+    the defaults take the step loop (the kernels compute sigmoid and tanh
+    only). Same tolerances.
+  * The "not ported" messages name ROADMAP.md's items by their numbers
+    there (§1 item 5, the v1 config pipeline; item 8, TP serving).
+  * On a card (marked `cuda`, skipped here): a `Gru(act="relu")` graph on
+    the card takes the step loop (no GRU kernel launch) and matches the
+    CPU; out-of-range ids read NaN rows on the card with no device assert.
+jax is imported inside the CPU tests only."""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.nn import costs as TC
+from paddle_tpu_torch.nn import graph as tgraph
+from paddle_tpu_torch.nn import layers as TL
+from paddle_tpu_torch.nn import recurrent as TR
+from paddle_tpu_torch.nn.attention_layers import AttentionDecoder as TAttentionDecoder
+from paddle_tpu_torch.nn.convert import params_from_jax
+from paddle_tpu_torch.ops import rnn_kernels as K
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _jax_params(cost, batch):
+    import jax
+
+    from paddle_tpu.nn.graph import Network
+
+    net = Network([cost])
+    params, states = net.init(jax.random.PRNGKey(0), batch)
+    return net, params, states
+
+
+def _compare_sum_cost(build, batch, monkeypatch):
+    """build(pkg) -> cost layer, pkg a dict of either package's modules:
+    the JAX package's cost and gradients against the port's at the JAX
+    parameters."""
+    import jax
+
+    from paddle_tpu.nn import costs as JC
+    from paddle_tpu.nn import graph as jgraph
+    from paddle_tpu.nn import layers as JL
+    from paddle_tpu.nn import recurrent as JR
+    from paddle_tpu.nn.attention_layers import AttentionDecoder as JAttentionDecoder
+
+    monkeypatch.setenv("PADDLE_TPU_PALLAS", "0")
+    jgraph.reset_name_scope()
+    jcost = build(dict(L=JL, C=JC, R=JR, A=JAttentionDecoder, P=jgraph.ParamAttr))
+    net, params, states = _jax_params(jcost, batch)
+    cj, gj = jax.value_and_grad(
+        lambda p: net.apply(p, states, batch, train=True)[0][jcost.name].value)(params)
+    tgraph.reset_name_scope()
+    tcost = build(dict(L=TL, C=TC, R=TR, A=TAttentionDecoder, P=tgraph.ParamAttr))
+    tnet = tgraph.Network([tcost])
+    own = tnet.init(batch, device="cpu")
+    assert {k: tuple(v.shape) for k, v in own.items()} == {
+        k: tuple(v.shape) for k, v in params.items()}
+    tp = {k: v.requires_grad_(True) for k, v in params_from_jax(params, "cpu").items()}
+    ct = tnet.apply(tp, batch)[tcost.name].value
+    names = sorted(tp)
+    gt = dict(zip(names, torch.autograd.grad(ct, [tp[k] for k in names])))
+    assert abs(float(ct.detach()) - float(cj)) <= 1e-5 * abs(float(cj))
+    for k in names:
+        np.testing.assert_allclose(gt[k].numpy(), np.asarray(gj[k]), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    return sorted(params)
+
+
+# -- Embedding ---------------------------------------------------------------
+
+
+def test_embedding_takes_vocab_from_the_input_shape():
+    tgraph.reset_name_scope()
+    emb = TL.Embedding(TL.Data("ids", shape=(10,), is_seq=True), 4, name="emb")
+    batch = {"ids": np.array([[1, 2, 9]]), "ids.lengths": np.array([3])}
+    params = tgraph.Network([emb]).init(batch, device="cpu")
+    assert tuple(params["emb.w"].shape) == (10, 4)
+    bare = TL.Embedding(TL.Data("ids2", shape=()), 4, name="emb2")
+    with pytest.raises(ValueError, match="vocab_size"):
+        tgraph.Network([bare]).init({"ids2": np.array([1])}, device="cpu")
+
+
+def test_embedding_out_of_range_ids_match_jnp_take():
+    import jax
+    import jax.numpy as jnp
+
+    from paddle_tpu.nn import graph as jgraph
+    from paddle_tpu.nn import layers as JL
+
+    ids = np.array([[1, -1, 4, -4, -5], [3, 7, 0, -2, 2]], np.int32)
+    batch = {"ids": ids, "ids.lengths": np.array([5, 4], np.int32)}
+    jgraph.reset_name_scope()
+    jemb = JL.Embedding(JL.Data("ids", shape=(4,), is_seq=True), 3, name="emb")
+    net, params, states = _jax_params(jemb, batch)
+    want, vjp = jax.vjp(lambda p: net.apply(p, states, batch)[0]["emb"].value, params)
+    cot = np.random.RandomState(0).randn(*want.shape).astype(np.float32)
+    (want_g,) = vjp(jnp.asarray(cot))
+
+    tgraph.reset_name_scope()
+    temb = TL.Embedding(TL.Data("ids", shape=(4,), is_seq=True), 3, name="emb")
+    table = params_from_jax(params, "cpu")["emb.w"].requires_grad_(True)
+    got = tgraph.Network([temb]).apply({"emb.w": table}, batch)["emb"].value
+    (got_g,) = torch.autograd.grad(got, table, torch.from_numpy(cot))
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    assert np.isnan(got.detach().numpy()[[0, 1], [4, 1]]).all()
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g["emb.w"]), atol=1e-6)
+
+
+# -- AttentionDecoder(attention_size=) -----------------------------------------
+
+
+def test_attention_decoder_takes_attention_size(monkeypatch):
+    rs = np.random.RandomState(1)
+    batch = {"enc": rs.randn(3, 4, 5).astype(np.float32),
+             "enc.lengths": np.array([4, 2, 3], np.int32),
+             "emb": rs.randn(3, 3, 6).astype(np.float32),
+             "emb.lengths": np.array([3, 3, 1], np.int32)}
+
+    def build(m):
+        enc = m["L"].Data("enc", shape=(5,), is_seq=True)
+        emb = m["L"].Data("emb", shape=(6,), is_seq=True)
+        dec = m["A"](enc, emb, 8, attention_size=4, name="dec")
+        return m["C"].SumCost(dec, name="cost")
+
+    names = _compare_sum_cost(build, batch, monkeypatch)
+    assert "dec.att.v" in names
+    tgraph.reset_name_scope()
+    dec = TAttentionDecoder(TL.Data("enc", shape=(5,), is_seq=True),
+                            TL.Data("emb", shape=(6,), is_seq=True), 8, attention_size=4,
+                            name="dec")
+    params = tgraph.Network([dec]).init(batch, device="cpu")
+    assert tuple(params["dec.att.w_enc"].shape) == (5, 4)
+    assert tuple(params["dec.att.w_dec"].shape) == (8, 4)
+    assert tuple(params["dec.att.v"].shape) == (4,)
+    assert tuple(params["dec.gru.w_hc"].shape) == (8, 8)
+
+
+# -- Gru's arguments -----------------------------------------------------------
+
+
+def gru_batch(seed=2):
+    rs = np.random.RandomState(seed)
+    return {"x": rs.randn(3, 5, 4).astype(np.float32) * 0.5,
+            "x.lengths": np.array([5, 1, 3], np.int32)}
+
+
+def gru_cost(m, act="relu", gate_act="sigmoid", shared=True):
+    x = m["L"].Data("x", shape=(4,), is_seq=True)
+    kw = dict(act=act, gate_act=gate_act)
+    if shared:
+        kw.update(param_attr=m["P"](name="gru_w"), bias_attr=m["P"](name="gru_b"))
+    h = m["R"].bidirectional_gru(x, 6, name="bigru", **kw)
+    return m["C"].SumCost(h, name="cost")
+
+
+@pytest.mark.parametrize("act,gate_act,shared", [
+    ("relu", "sigmoid", True),
+    ("tanh", "sigmoid", True),
+    ("tanh", "relu", False),
+])
+def test_gru_takes_the_reference_arguments(monkeypatch, act, gate_act, shared):
+    names = _compare_sum_cost(lambda m: gru_cost(m, act, gate_act, shared), gru_batch(),
+                              monkeypatch)
+    if shared:
+        assert {"gru_w", "gru_w.c", "gru_b"} <= set(names)
+        assert not any(n.startswith("bigru.fw.w_") for n in names)
+
+
+def test_non_default_gru_takes_the_step_loop(monkeypatch):
+    from paddle_tpu_torch.ops import rnn as trnn
+
+    calls = []
+    real = trnn.gru_seq_fused
+    monkeypatch.setattr(trnn, "gru_seq_fused", lambda *a: calls.append(1) or real(*a))
+    batch = gru_batch()
+    for act, want in (("relu", 0), ("tanh", 2)):
+        tgraph.reset_name_scope()
+        net = tgraph.Network([gru_cost(dict(L=TL, C=TC, R=TR, P=tgraph.ParamAttr), act)])
+        params = net.init(batch, device="cpu")
+        calls.clear()
+        net.apply(params, batch)
+        assert len(calls) == want, act
+
+
+# -- the "not ported" messages -------------------------------------------------
+
+
+def _roadmap_item(n: int) -> str:
+    text = (REPO / "ROADMAP.md").read_text()
+    section = text[text.index("### 1. Modules to port"):text.index("### 2.")]
+    return re.search(rf"^{n}\. \*\*(.+?)\*\*", section, re.M | re.S).group(1)
+
+
+def test_not_ported_messages_name_the_roadmap_items():
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.serving import server
+
+    assert "v1 config pipeline" in _roadmap_item(5)
+    assert "TP serving" in _roadmap_item(8)
+    assert "§1 item 5" in server.GENERATE_CONFIG_NOT_PORTED
+    assert "beam search" not in server.GENERATE_CONFIG_NOT_PORTED
+    serve = ["serve", "--device", "cpu", "--demo"]
+    for argv, item in ((["--tp", "2"], "§1 item 8"), (["--config", "c.py"], "§1 item 5")):
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main(serve + argv)
+    stale = re.compile(r"queue 1|item 3\.3|item 6, TP|pipeline of item 7")
+    for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
+        assert not stale.search(path.read_text()), path
+
+
+# -- on the card -------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_relu_gru_takes_the_step_loop_and_matches_cpu(cuda):
+    batch = gru_batch()
+    mods = dict(L=TL, C=TC, R=TR, P=tgraph.ParamAttr)
+    tgraph.reset_name_scope()
+    net = tgraph.Network([gru_cost(mods)])
+    params = net.init(batch, device="cpu")
+    before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
+    results = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        c = net.apply(p, batch)["cost"].value
+        names = sorted(p)
+        grads = torch.autograd.grad(c, [p[k] for k in names])
+        results[str(dev)] = (float(c.detach()), {k: g.cpu() for k, g in zip(names, grads)})
+    torch.cuda.synchronize()
+    assert (K.FWD_LAUNCHES, K.BWD_LAUNCHES) == before
+    (c_cpu, g_cpu), (c_card, g_card) = results["cpu"], results[str(cuda)]
+    assert abs(c_card - c_cpu) <= 1e-5 * abs(c_cpu)
+    for k in g_cpu:
+        torch.testing.assert_close(g_card[k], g_cpu[k], rtol=1e-4, atol=1e-5, msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_out_of_range_ids_read_nan(cuda):
+    table = torch.arange(12, dtype=torch.float32, device=cuda).reshape(4, 3)
+    got = TL.take_rows(table, torch.tensor([[-1, -5, 4, 2]], device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0, 0], table[3]) and torch.equal(got[0, 3], table[2])
+    assert torch.isnan(got[0, 1:3]).all()

@@ -293,7 +293,7 @@ def test_generate_config_answers_named_error(port_server):
     try:
         resp = c._client.call("generate_config", batch={})
         assert "generate_config is not ported" in resp["err"]
-        assert "ROADMAP.md" in resp["err"] and "3.3" in resp["err"]
+        assert "ROADMAP.md" in resp["err"] and "§1 item 5" in resp["err"]
         assert "unknown method" in c._client.call("outstanding")["err"]
     finally:
         c.close()

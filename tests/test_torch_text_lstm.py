@@ -17,7 +17,7 @@ name (`nn/convert.params_from_jax`).
   * Two SGD(0.01) steps through both SGDTrainers: costs within 1e-5
     relative, parameters within 1e-6 after.
   * `SeqPool` in each pool type, on a sequence and a non-sequence input,
-    values and gradients (1e-6); `agg_level="seq"` and `stride` raise.
+    values and gradients (1e-6); an unknown pool type raises.
   * On a card (marked `cuda`, skipped here): the peephole-free network's
     cost and gradients on the card (kernels) vs the CPU (plain versions)."""
 
@@ -245,11 +245,12 @@ def test_seq_pool_matches_jax(pool, is_seq):
 
 
 def test_seq_pool_unported_modes_raise():
+    """Both modes that raised here are ported now (held against the JAX
+    package in tests/test_torch_seq_layers.py); an unknown pool type still
+    raises."""
     x = TL.Data("x", shape=(3,), is_seq=True)
-    with pytest.raises(NotImplementedError, match="agg_level='seq'"):
-        TS.SeqPool(x, "sum", agg_level="seq")
-    with pytest.raises(NotImplementedError, match="stride"):
-        TS.SeqPool(x, "max", stride=2)
+    assert TS.SeqPool(x, "sum", agg_level="seq").agg_level == "seq"
+    assert TS.SeqPool(x, "max", stride=2).stride == 2
     with pytest.raises(ValueError, match="pool_type"):
         TS.SeqPool(x, "median")
 
