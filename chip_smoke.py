@@ -209,7 +209,45 @@ Phases (any failure exits non-zero and prints no result line):
                max|g|)) card vs CPU, crf_decode's tags equal; gru_scan
                with act="relu" at T=50, B=128, H=512: the step loop, no
                GRU kernel launch, card vs CPU.
- 16. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 16. vgg     — VGG-19 (BASELINE.md:21) at 224x224, batch 64, 1000 classes,
+               bf16, Momentum(0.9) with the discexp schedule after a
+               2-step warmup, a ModelAverage, Dropout on jax's threefry
+               bits; one batch drawn as bench.py draws images; one eager
+               step, its capture and 11 replays (each step's lr, Dropout
+               keys and average inside the graph). Prints images/s,
+               ms/step, the graph's device ms and busy share, MFU (the
+               convs' and fcs' 3 x 2 x multiply-adds over the dense bf16
+               peak) and peak memory. Checks: one graph, 11 replays, finite
+               costs that fall, two more replays whose drop6 outputs are
+               nonzero only where jax's mask for their step keeps and whose
+               masks differ, test() on the averaged parameters;
+               torch.profiler over 2 steps (kernel groups). Then the
+               tiny VGG-19 of tests/test_torch_vgg.py card vs CPU in f32:
+               costs (1e-6 relative), gradients (1e-5 relative L2), the
+               parameters and averages after 3 steps (1e-5 x max(1,
+               max|p|)).
+ 17. prefetch — phase 16's step over 12 distinct host batches through a
+               DevicePrefetcher (pinned memory, a copy stream, 2 ahead)
+               against the same batches placed on the card, in turns
+               (placed, prefetcher twice, placed): ms a step of each pass;
+               every step a replay of the one graph.
+ 18. remat   — phase 10's ResNet-50 step (one step a dispatch) without
+               remat and under remat="conv_only": ms/step, graph device
+               ms and peak memory of each; the updates equal within 1e-6
+               relative L2 (or twice the spread of two runs without remat).
+ 19. guard   — on phase 5's seq2seq trainer (GRU launches from 0): a
+               `nan_loss` batch under skip_batch leaves the state of a run
+               without that batch (bitwise, or within twice the spread of
+               two clean runs); rollback restores pass 0 and halves
+               lr_scale; a `preempt` drain mid-pass and its auto-resume end
+               where an unbroken run ends; the replayed step's ms with the
+               guard and without it.
+ 20. optim   — the seven optimizers on phase 7's LSTM trainer (LSTM
+               launches from 0): one eager step, its capture and 3 replays
+               at full width, then card vs CPU at batch 8 over 4 ragged
+               batches (costs 1e-5 relative, parameters and slots 1e-3
+               relative L2).
+ 21. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -330,6 +368,31 @@ CTC_SHAPE = dict(b=OCR_BATCH, t=32, c=OCR["num_classes"] + 1, l=12)
 CRF_SHAPE = dict(b=128, t=50, c=32)
 STRUCT_RTOL = 1e-5
 TORCH_CTC_RTOL = 1e-4
+# VGG-19 (BASELINE.md:21, "VGG-19 train, images/sec @ bs 64/128/256") at
+# 224x224, batch 64, 1000 classes, the bf16 policy, Momentum(0.9) with the
+# discexp schedule (x0.5 every 8 steps) after a 2-step warmup, and a
+# ModelAverage; one eager step, its capture and 11 replays
+VGG = dict(image_size=224, batch=64, classes=1000, fc_dim=4096, lr=0.005, decay_a=0.5,
+           decay_b=8 * 64, warmup=2 * 64, steps=12)
+# and at tests/test_torch_vgg.py's config, card vs CPU in f32, held to that
+# test's tolerances: costs 1e-6 relative, gradients 1e-5 relative L2; the
+# parameters and averages after 3 steps within 1e-5 x max(1, max|p|), as
+# LeNet's (the conv biases start at 0 and stay near 1e-4, where a relative
+# L2 reads the reduction order of their gradients' sums)
+VGG_SMALL = dict(image_size=32, batch=4, classes=10, fc_dim=64)
+VGG_COST_RTOL, VGG_REL_L2, VGG_PARAM_ATOL = 1e-6, 1e-5, 1e-5
+# remat on phase 10's ResNet-50 (224x224, batch 256, bf16, one step a
+# dispatch): one eager step and its capture, 3 timed replays, 2 replays
+# under CUDA events; updates within tests/test_torch_remat.py's 1e-6, or
+# within twice the spread of two runs without remat where those differ
+REMAT_STEPS, REMAT_RTOL = 4, 1e-6
+# the seven optimizers of paddle_tpu/optim/optimizers.py on phase 7's LSTM
+# trainer: one eager step, its capture and 3 replays at full width, then
+# card vs CPU at batch 8 over 4 ragged batches (costs 1e-5 relative,
+# parameters and slots 1e-3 relative L2: an adaptive step divides by |g|)
+OPT_STEPS, OPT_COST_RTOL, OPT_REL_L2 = 4, 1e-5, 1e-3
+# the prefetcher phase: 12 distinct VGG batches a pass, 2 batches ahead
+PREFETCH_BATCHES, PREFETCH_DEPTH = 12, 2
 
 
 def fail(msg: str) -> None:
@@ -1612,7 +1675,7 @@ def s2s_batch(np, seed, b, ragged):
     return batch
 
 
-def s2s_trainer(device):
+def s2s_trainer(device, **kw):
     from paddle_tpu_torch.models import Seq2SeqModel
     from paddle_tpu_torch.nn.graph import reset_name_scope
     from paddle_tpu_torch.optim import Adam
@@ -1621,7 +1684,7 @@ def s2s_trainer(device):
     reset_name_scope()
     model = Seq2SeqModel(S2S["vocab"], S2S["vocab"], embed_dim=S2S["embed"],
                          hidden_dim=S2S["hidden"])
-    return SGDTrainer(model.cost, Adam(learning_rate=1e-3), seed=0, device=device)
+    return SGDTrainer(model.cost, Adam(learning_rate=1e-3), seed=0, device=device, **kw)
 
 
 def eager_steps(trainer, batch, n, k=1):
@@ -1629,10 +1692,7 @@ def eager_steps(trainer, batch, n, k=1):
     the card, with no graph (the warm-up's path) -> their costs (device)."""
     costs = []
     for _ in range(n):
-        first = batch if k == 1 else {key: v[0] for key, v in batch.items()}
-        bs = len(next(iter(first.values())))
-        costs.extend(trainer._eager(batch, k, trainer._lrs(k, bs)))
-        trainer.state["samples"] += k * bs
+        costs.extend(trainer._eager(batch, k)[0])
     return costs
 
 
@@ -1810,7 +1870,7 @@ def checkpoint_phase(torch, trainer):
     got = {f"{name}/{k}": v for name, tree in fresh._trees().items() for k, v in tree.items()}
     load_bitwise = (sorted(got) == sorted(want) and all(
         np.array_equal(got[k].cpu().numpy(), want[k]) for k in want)
-        and fresh.state["samples"] == sync_pass[3]["extra"]["samples"])
+        and int(fresh.state["samples"]) == sync_pass[3]["extra"]["samples"])
     del fresh
 
     def reader():
@@ -1821,7 +1881,7 @@ def checkpoint_phase(torch, trainer):
         tr.train(reader, num_passes=3, save_dir=save_dir, auto_resume=resume)
         out = {k: v.clone() for k, v in tr._trees()["params"].items()}
         out.update({f"opt/{k}": v.clone() for k, v in tr._trees()["opt"].items()})
-        return out, tr.state["samples"]
+        return out, int(tr.state["samples"])
 
     unbroken, samples_u = run()
     unbroken2, _ = run()
@@ -2073,7 +2133,7 @@ def train_vs_cpu_phase(torch):
     return out
 
 
-def lstm_trainer(device):
+def lstm_trainer(device, optimizer=None):
     """SGDTrainer + SGD(0.01) over the text classifier's graph built from
     the port's public layers with peephole-free LSTMs (the graph
     `models.text_lstm` builds, minus the peepholes, which would take the
@@ -2095,7 +2155,7 @@ def lstm_trainer(device):
     pooled = SeqPool(x, "max", name="pool")
     logits = L.Fc(pooled, LSTM["classes"], act=None, name="logits")
     cost = C.ClassificationCost(logits, label, name="cost")
-    return SGDTrainer(cost, SGD(learning_rate=0.01), seed=0, device=device)
+    return SGDTrainer(cost, optimizer or SGD(learning_rate=0.01), seed=0, device=device)
 
 
 def lstm_batch(np, seed, b, ragged):
@@ -2231,7 +2291,7 @@ def resnet_batches(np, size, b, k, classes):
     return batch, stacked
 
 
-def resnet_trainer(device, precision, size, classes, lr=0.1):
+def resnet_trainer(device, precision, size, classes, lr=0.1, remat=None):
     from paddle_tpu_torch.models import resnet50
     from paddle_tpu_torch.nn.graph import reset_name_scope
     from paddle_tpu_torch.optim import SGD
@@ -2240,7 +2300,7 @@ def resnet_trainer(device, precision, size, classes, lr=0.1):
     reset_name_scope()
     cost = resnet50(num_classes=classes, image_size=size)[3]
     return SGDTrainer(cost, SGD(learning_rate=lr, momentum=0.9), seed=0, device=device,
-                      precision=precision)
+                      precision=precision, remat=remat)
 
 
 # kernel-name fragments of each group in the ResNet-50 profile
@@ -2899,6 +2959,463 @@ def struct_ops_phase(torch):
     return res
 
 
+def vgg_train_flops(size, batch, classes, fc_dim, depth=19):
+    """FLOPs of one training step (forward, and the backward's two products
+    a layer) from VGG's convs and fcs: 3 x 2 x the multiply-adds."""
+    from paddle_tpu_torch.models.vgg import BLOCKS, CHANNELS
+
+    macs, side, cin = 0, size, 3
+    for n, ch in zip(BLOCKS[depth], CHANNELS):
+        for _ in range(n):
+            macs += side * side * 9 * cin * ch
+            cin = ch
+        side //= 2
+    macs += side * side * 512 * fc_dim + fc_dim * fc_dim + fc_dim * classes
+    return 3 * 2 * macs * batch
+
+
+def vgg_trainer(device, precision, cfg, extras=False):
+    """SGDTrainer over VGG-19 with Momentum(0.9), discexp after a warmup and
+    a ModelAverage; `extras` hands drop6's output to every step's extras."""
+    from paddle_tpu_torch.models import vgg
+    from paddle_tpu_torch.nn.graph import Network, reset_name_scope
+    from paddle_tpu_torch.optim import ModelAverage, Momentum, schedules
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    reset_name_scope()
+    cost = vgg(19, num_classes=cfg["classes"], image_size=cfg["image_size"],
+               fc_dim=cfg["fc_dim"])[3]
+    extra = [x for x in Network(cost).layer_order if x.name == "drop6"] if extras else []
+    lr = VGG["lr"]
+    return SGDTrainer(
+        cost, Momentum(learning_rate=lr, momentum=0.9), seed=0, device=device,
+        precision=precision, extra_outputs=extra,
+        schedule=schedules.build(lr, "discexp", decay_a=VGG["decay_a"],
+                                 decay_b=VGG["decay_b"], warmup_samples=VGG["warmup"]),
+        model_average=ModelAverage(0.5))
+
+
+def vgg_phase(torch):
+    """VGG-19 training at 224x224, batch 64, bf16, Momentum(0.9) + discexp +
+    warmup + ModelAverage: one eager step, its capture and 11 replays (the
+    last 11 timed), each the whole step including the schedule, the
+    Dropout keys and the average, on one batch drawn as bench.py draws
+    images. Then the graph's device time, two more replays whose drop6
+    outputs must be nonzero only where jax's mask for that step keeps and
+    must differ from each other, and test() on the averaged parameters."""
+    import numpy as np
+
+    from paddle_tpu_torch.core import prng
+    from paddle_tpu_torch.nn.graph import _stable_hash
+
+    cfg = VGG
+    t0 = time.perf_counter()
+    batch, _ = resnet_batches(np, cfg["image_size"], cfg["batch"], 1, cfg["classes"])
+    trainer = vgg_trainer("cuda", "bf16", cfg, extras=True)
+    trainer.init_state(batch)
+    dev = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.state["params"].values())
+
+    torch.cuda.reset_peak_memory_stats()
+    costs, step_ms = timed_calls(torch, lambda: trainer.step(dev), cfg["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    graphs = list(trainer.graphs.values())
+    replays = graphs[0].replays if graphs else 0
+    med = statistics.median(step_ms[1:])
+    device_ms = device_ms_per_call(torch, lambda: trainer.step(dev), n=3)
+    flops = vgg_train_flops(cfg["image_size"], cfg["batch"], cfg["classes"], cfg["fc_dim"])
+    name = torch.cuda.get_device_name(0)
+    masks = []
+    for _ in range(2):
+        key = prng.fold_in(trainer.state["rng"], trainer.state["samples"])
+        want = prng.bernoulli(prng.fold_in(prng.fold_in(key, _stable_hash("drop6")), 1),
+                              0.5, (cfg["batch"], cfg["fc_dim"]))
+        _, extras = trainer._dispatch(dev, 1)
+        masks.append((extras["drop6"] != 0, want))
+    outside = [int((kept & ~want).sum()) for kept, want in masks]
+    fresh = not torch.equal(masks[0][1], masks[1][1]) and not torch.equal(masks[0][0],
+                                                                         masks[1][0])
+    kept_share = [float(kept.float().mean()) for kept, _ in masks]
+    test_cost = trainer.test(lambda: iter([dev]))["cost"]
+    with torch.no_grad():
+        raw_cost = float(trainer._cost(trainer.state["params"], dev, train=False)[0])
+    result = dict(
+        config=dict(cfg, precision=trainer.precision, optimizer="Momentum(0.9)",
+                    schedule="discexp + warmup", model_average="ModelAverage(0.5)"),
+        params=n_params, setup_s=setup_s, steps=cfg["steps"], costs=costs, step_ms=step_ms,
+        step_ms_median=med, step_ms_min=min(step_ms[1:]),
+        images_per_s=cfg["batch"] / (med / 1e3), peak_memory_bytes=peak,
+        graphs=len(graphs), replays=replays, graph_device_ms_per_step=device_ms,
+        busy_share_graph=device_ms / med, train_flops_per_step=flops,
+        mfu=flops / (med / 1e3) / bf16_peak(name), peak_tflops_bf16=bf16_peak(name) / 1e12,
+        drop6_kept_outside_mask=outside, drop6_masks_differ=fresh,
+        drop6_kept_share=kept_share, samples=int(trainer.state["samples"]),
+        lr_scale=float(trainer.state["lr_scale"]),
+        average_n=float(trainer.state["avg"]["n"]), test_cost_averaged=test_cost,
+        cost_raw_params=raw_cost,
+    )
+    print("vgg", json.dumps(result), flush=True)
+    if len(graphs) != 1 or replays != cfg["steps"] - 1:
+        fail(f"{len(graphs)} VGG step graphs, {replays} replays in {cfg['steps']} steps: "
+             f"want one graph, every step after the first a replay")
+    if not all(np.isfinite(costs)):
+        fail(f"non-finite VGG-19 training cost: {costs}")
+    if not statistics.median(costs[-3:]) < costs[0]:
+        fail(f"VGG-19 training cost did not fall: first {costs[0]}, last three {costs[-3:]}")
+    if any(outside) or not fresh:
+        fail(f"drop6's replayed masks: {outside} values kept outside jax's mask, "
+             f"masks differ between replays: {fresh}")
+    if not (np.isfinite(test_cost) and result["average_n"] == cfg["steps"] + 5):
+        fail(f"test() on the averaged parameters: cost {test_cost}, average over "
+             f"{result['average_n']} steps")
+    result["profile"] = profile_train(torch, lambda: trainer.step(dev), tag="vgg",
+                                      label="vgg_profile")
+    result["vs_cpu"] = vgg_vs_cpu_phase(torch)
+    return result, trainer, dev
+
+
+def vgg_vs_cpu_phase(torch):
+    """The tiny VGG-19 of tests/test_torch_vgg.py (image 32, fc 64, 10
+    classes, batch 4) in f32 on the card and on the CPU from the same
+    parameters: the first step's cost and gradients at the same key, then 3
+    steps (the card's first eager and captured, then replays), parameters
+    and averages after them."""
+    import numpy as np
+
+    cfg = VGG_SMALL
+
+    def batch(seed):
+        rs = np.random.RandomState(seed)
+        return {"image": rs.rand(cfg["batch"], cfg["image_size"], cfg["image_size"], 3)
+                .astype(np.float32),
+                "label": rs.randint(0, cfg["classes"], cfg["batch"]).astype(np.int32)}
+
+    cpu, card = vgg_trainer("cpu", "f32", cfg), vgg_trainer("cuda", "f32", cfg)
+    cpu.init_state(batch(0))
+    card.init_state(batch(0))
+    card.load_params(cpu.state["params"])
+    c_card, g_card = card.cost_and_grads(batch(1))
+    c_cpu, g_cpu = cpu.cost_and_grads(batch(1))
+    cost_err = abs(float(c_card) - float(c_cpu)) / abs(float(c_cpu))
+    grad_err = {k: rel_l2(torch, g_card[k].cpu(), v) for k, v in g_cpu.items()}
+    costs_card = [float(card.step(batch(s))) for s in (1, 2, 3)]
+    costs_cpu = [float(cpu.step(batch(s))) for s in (1, 2, 3)]
+    step_cost_err = max(abs(a - b) / abs(b) for a, b in zip(costs_card, costs_cpu))
+    after = {**{k: (card.state["params"][k].cpu(), v) for k, v in cpu.state["params"].items()},
+             **{f"avg/{k}": (card.state["avg"]["avg"][k].cpu(), v)
+                for k, v in cpu.state["avg"]["avg"].items()}}
+    after_err = {k: float((a - w).abs().max()) / max(1.0, float(w.abs().max()))
+                 for k, (a, w) in after.items()}
+    after_rel_l2 = {k: rel_l2(torch, a, w) for k, (a, w) in after.items()}
+    replays = sum(g.replays for g in card.graphs.values())
+    out = dict(config=cfg, cost_rel_err=cost_err, grad_rel_l2_max=max(grad_err.values()),
+               step_costs_card=costs_card, step_costs_cpu=costs_cpu,
+               step_cost_rel_err=step_cost_err,
+               after_steps_max_abs_err_scaled=max(after_err.values()),
+               after_steps_rel_l2_max=max(after_rel_l2.values()),
+               after_steps_rel_l2_worst=max(after_rel_l2, key=after_rel_l2.get),
+               replays=replays, tolerances=dict(cost=VGG_COST_RTOL, grad_rel_l2=VGG_REL_L2,
+                                                after_steps_atol=VGG_PARAM_ATOL))
+    print("vgg_vs_cpu", json.dumps(out), flush=True)
+    if replays != 2:
+        fail(f"tiny VGG-19 on the card: {replays} replays in 3 steps, want 2")
+    if not (cost_err <= VGG_COST_RTOL and step_cost_err <= VGG_COST_RTOL):
+        fail(f"tiny VGG-19 cost card vs CPU: {cost_err}, steps {step_cost_err} "
+             f"(relative, want <= {VGG_COST_RTOL})")
+    bad = ([k for k, e in grad_err.items() if not e <= VGG_REL_L2]
+           + [k for k, e in after_err.items() if not e <= VGG_PARAM_ATOL])
+    if bad:
+        fail(f"tiny VGG-19 card vs CPU: gradients beyond {VGG_REL_L2} relative L2 or "
+             f"parameters / averages beyond {VGG_PARAM_ATOL} x max(1, max|p|): {bad[:6]}")
+    return out
+
+
+def remat_phase(torch):
+    """Phase 10's ResNet-50 step (224x224, batch 256, bf16, one step a
+    dispatch) without remat and under remat="conv_only" from the same
+    parameters: ms a step, the graph's device ms and the peak memory of
+    each (reset before the eager step, so the eager step and the capture
+    both count), and the parameters after the same steps."""
+    import numpy as np
+
+    cfg = RESNET
+    batch, _ = resnet_batches(np, cfg["image_size"], cfg["batch"], 1, cfg["classes"])
+    dev = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+    out, params = {}, {}
+
+    def run(label, policy):
+        torch.cuda.empty_cache()
+        trainer = resnet_trainer("cuda", "bf16", cfg["image_size"], cfg["classes"],
+                                 remat=policy)
+        trainer.init_state(batch)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        costs, ms = timed_calls(torch, lambda: trainer.step(dev), REMAT_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        device_ms = device_ms_per_call(torch, lambda: trainer.step(dev), n=2)
+        replays = sum(g.replays for g in trainer.graphs.values())
+        params[label] = {k: v.clone() for k, v in trainer.state["params"].items()}
+        out[label] = dict(remat=policy, costs=costs, ms_per_step=statistics.median(ms[1:]),
+                          graph_device_ms_per_step=device_ms, peak_memory_bytes=peak,
+                          state_bytes=resident, peak_above_state_bytes=peak - resident,
+                          replays=replays)
+        del trainer
+        torch.cuda.empty_cache()
+
+    run("none", None)
+    run("conv_only", "conv_only")
+    err, bitwise = rel_l2_max(torch, params["conv_only"], params["none"])
+    spread = 0.0
+    if err > REMAT_RTOL:  # is the step itself deterministic on this card?
+        run("none_again", None)
+        spread, _ = rel_l2_max(torch, params["none_again"], params["none"])
+    out.update(update_rel_l2_max=err, bitwise=bitwise, none_spread_rel_l2_max=spread,
+               peak_memory_ratio=(out["conv_only"]["peak_memory_bytes"]
+                                  / out["none"]["peak_memory_bytes"]))
+    print("remat", json.dumps(out), flush=True)
+    for label in ("none", "conv_only"):
+        if out[label]["replays"] != REMAT_STEPS + 1:
+            fail(f"remat {label}: {out[label]['replays']} replays, want {REMAT_STEPS + 1}")
+        if not all(np.isfinite(out[label]["costs"])):
+            fail(f"remat {label}: non-finite costs {out[label]['costs']}")
+    if not err <= max(REMAT_RTOL, 2 * spread):
+        fail(f"remat='conv_only' changed the updates: {err} relative L2 (two runs without "
+             f"remat differ by {spread})")
+    return out
+
+
+def guard_phase(torch):
+    """The divergence guard and the preemption drain on phase 5's seq2seq
+    trainer (the GRU kernels), batches of 128 with ragged lengths, on the
+    card: a `nan_loss` batch under skip_batch against a run without it;
+    rollback (2 passes of 2 batches, the poisoned batch the first of pass 1,
+    a poll every step); a `preempt` drain mid-pass and its auto-resume
+    against an unbroken run; the replayed step's ms with the guard and
+    without it. GRU launch counts from 0 over the phase."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.core import faults, preempt, stats
+    from paddle_tpu_torch.trainer import Preempted
+
+    dev = [{k: torch.as_tensor(v).to("cuda") for k, v in
+            s2s_batch(np, 30 + i, S2S["batch"], ragged=True).items()} for i in range(3)]
+    root = tempfile.mkdtemp(prefix="guard-", dir=os.path.join(REPO, "build"))
+
+    def run(batches, policy=None, passes=1, spec=None, save_dir=None, resume=False,
+            every=2):
+        tr = s2s_trainer("cuda", divergence_policy=policy, guard_check_every=every)
+        with faults.inject(spec) if spec else contextlib.nullcontext():
+            tr.train(lambda: iter(batches), num_passes=passes, save_dir=save_dir,
+                     auto_resume=resume)
+        return tr
+
+    def snapshot(tr):
+        flat = {f"{n}/{k}": v.clone() for n, t in tr._trees().items() for k, v in t.items()}
+        flat.update({k: tr.state[k].clone() for k in ("samples", "lr_scale", "rng")})
+        return flat
+
+    def release(*trainers):
+        for tr in trainers:
+            tr.graphs.clear()
+        torch.cuda.empty_cache()
+
+    def compare(got, want, again):
+        """(rel L2 max, bitwise, spread of two runs of `want`'s set-up when
+        got and want differ)."""
+        err, bitwise = rel_l2_max(torch, got, want)
+        spread = rel_l2_max(torch, again(), want)[0] if not bitwise else 0.0
+        return err, bitwise, spread
+
+    zero_rnn_counts()
+    stats.FT_EVENTS._counts.clear()
+    t0 = time.perf_counter()
+    guarded = run(dev, "skip_batch", spec="nan_loss:step=1")
+    g_state, diverged = snapshot(guarded), int(guarded.state["diverged"])
+    release(guarded)
+    clean = snapshot(run([dev[0], dev[2]], "skip_batch"))
+    skip_err, skip_bitwise, skip_spread = compare(
+        g_state, clean, lambda: snapshot(run([dev[0], dev[2]], "skip_batch")))
+    release()
+    roll_dir = os.path.join(root, "roll")
+    roll = run(dev[:2], "rollback", passes=2, spec="nan_loss:step=2", save_dir=roll_dir,
+               every=1)
+    lr_scale, rolled = float(roll.state["lr_scale"]), stats.FT_EVENTS.get("divergence_rollback")
+    roll_finite = all(bool(torch.isfinite(v).all()) for v in roll.state["params"].values())
+    release(roll)
+    unbroken = snapshot(run(dev, passes=2))
+    release()
+    pre_dir = os.path.join(root, "preempt")
+    drained = None
+    try:
+        run(dev, passes=2, spec="preempt:step=1", save_dir=pre_dir)
+    except Preempted as p:
+        drained = [p.pass_id, p.batches_done, p.checkpoint_dir is not None]
+    finally:
+        preempt.reset()
+    release()
+    resumed = snapshot(run(dev, passes=2, save_dir=pre_dir, resume=True))
+    pre_err, pre_bitwise, pre_spread = compare(resumed, unbroken,
+                                               lambda: snapshot(run(dev, passes=2)))
+    release()
+    guard_s = time.perf_counter() - t0
+    timing = {}
+    for label, policy in (("no_guard", None), ("skip_batch", "skip_batch")):
+        tr = s2s_trainer("cuda", divergence_policy=policy, guard_check_every=16)
+        tr.init_state(dev[0])
+        _, ms = timed_calls(torch, lambda: tr.step(dev[0]), TRAIN_WARMUP + TRAIN_STEPS)
+        timing[label] = dict(step_ms_median=statistics.median(ms[TRAIN_WARMUP:]),
+                             graph_device_ms_per_step=device_ms_per_call(
+                                 torch, lambda: tr.step(dev[0])))
+        release(tr)
+        del tr
+    launches = rnn_counts()
+    shutil.rmtree(root, ignore_errors=True)
+    out = dict(skip=dict(diverged=diverged, rel_l2_max=skip_err, bitwise=skip_bitwise,
+                         clean_spread=skip_spread),
+               rollback=dict(lr_scale=lr_scale, rollbacks=rolled, finite=roll_finite),
+               preempt=dict(drained=drained, rel_l2_max=pre_err, bitwise=pre_bitwise,
+                            unbroken_spread=pre_spread),
+               phase_s=guard_s, step_timing=timing,
+               guard_overhead_ms=(timing["skip_batch"]["graph_device_ms_per_step"]
+                                  - timing["no_guard"]["graph_device_ms_per_step"]),
+               gru_launches=launches)
+    print("guard", json.dumps(out), flush=True)
+    if diverged != 1 or not (skip_bitwise or skip_err <= 2 * skip_spread):
+        fail(f"skip_batch: {diverged} divergences, state vs a run without the batch "
+             f"{skip_err} relative L2 (bitwise {skip_bitwise}, clean spread {skip_spread})")
+    if lr_scale != 0.5 or rolled != 1 or not roll_finite:
+        fail(f"rollback: lr_scale {lr_scale}, {rolled} rollbacks, finite {roll_finite}")
+    if drained != [0, 2, True] or not (pre_bitwise or pre_err <= 2 * pre_spread):
+        fail(f"preempt: drained {drained}, resumed vs unbroken {pre_err} relative L2 "
+             f"(bitwise {pre_bitwise}, spread {pre_spread})")
+    if not launches["FWD_LAUNCHES"] or not launches["BWD_LAUNCHES"]:
+        fail(f"the guarded seq2seq steps launched no GRU kernel: {launches}")
+    return out
+
+
+def optim_phase(torch):
+    """The seven optimizers of paddle_tpu/optim/optimizers.py (SGD, AdaGrad,
+    DecayedAdaGrad, AdaDelta, RMSProp, Adam, AdaMax) on phase 7's LSTM
+    trainer: at full width one eager step, its capture and 3 replays (ms a
+    replay), then at batch 8 over 4 ragged batches card vs CPU from the
+    same parameters (costs, parameters and slots). LSTM launch counts from
+    0 over the phase."""
+    import numpy as np
+
+    from paddle_tpu_torch import optim as O
+
+    makers = {
+        "SGD": lambda: O.SGD(0.01), "AdaGrad": lambda: O.AdaGrad(0.001),
+        "DecayedAdaGrad": lambda: O.DecayedAdaGrad(0.001),
+        "AdaDelta": lambda: O.AdaDelta(1.0), "RMSProp": lambda: O.RMSProp(0.001),
+        "Adam": lambda: O.Adam(0.001), "AdaMax": lambda: O.AdaMax(0.002),
+    }
+    full = lstm_batch(np, 0, LSTM["batch"], ragged=False)
+    full_dev = {k: torch.as_tensor(v).to("cuda") for k, v in full.items()}
+    small = [lstm_batch(np, 40 + i, CPU_BATCH, ragged=True) for i in range(OPT_STEPS)]
+    zero_rnn_counts()
+    out, bad, card_steps, card_inits = {}, [], 0, 0
+    for name, make in makers.items():
+        tr = lstm_trainer("cuda", make())
+        tr.init_state(full)
+        costs, ms = timed_calls(torch, lambda: tr.step(full_dev), OPT_STEPS)
+        replays = sum(g.replays for g in tr.graphs.values())
+        del tr
+        cpu, card = lstm_trainer("cpu", make()), lstm_trainer("cuda", make())
+        cpu.init_state(small[0])
+        card.init_state(small[0])
+        card.load_params(cpu.state["params"])
+        c_card = [float(card.step(b)) for b in small]
+        c_cpu = [float(cpu.step(b)) for b in small]
+        card_steps += 2 * OPT_STEPS
+        card_inits += 2  # Network.init runs the forward once on the card
+        got, want = card._trees()["opt"], cpu._trees()["opt"]
+        cost_err = max(abs(a - b) / abs(b) for a, b in zip(c_card, c_cpu))
+        param_err = max(rel_l2(torch, card.state["params"][k].cpu(), v)
+                        for k, v in cpu.state["params"].items())
+        slot_err = max([rel_l2(torch, got[k].cpu().float(), v.float())
+                        for k, v in want.items() if k != "opt/t"] or [0.0])
+        out[name] = dict(costs=costs, ms_per_replay=statistics.median(ms[1:]),
+                         replays=replays, cpu_cost_rel_err=cost_err,
+                         cpu_param_rel_l2_max=param_err, cpu_slot_rel_l2_max=slot_err,
+                         t=int(card.state["opt"]["t"]))
+        if (replays != OPT_STEPS - 1 or not all(np.isfinite(costs))
+                or not cost_err <= OPT_COST_RTOL or not param_err <= OPT_REL_L2
+                or not slot_err <= OPT_REL_L2 or out[name]["t"] != OPT_STEPS):
+            bad.append(name)
+        del cpu, card
+        torch.cuda.empty_cache()
+    launches = rnn_counts()
+    out["lstm_launches"] = launches
+    print("optim", json.dumps(out), flush=True)
+    if bad:
+        fail(f"optimizers failing on the card (replays, finite costs, or card vs CPU "
+             f"beyond {OPT_COST_RTOL} / {OPT_REL_L2}): {bad}")
+    fwd, bwd = 2 * (card_steps + card_inits), 2 * card_steps
+    if launches["LSTM_FWD_LAUNCHES"] != fwd or launches["LSTM_BWD_LAUNCHES"] != bwd:
+        fail(f"LSTM kernels launched {launches} times in {card_steps} steps and "
+             f"{card_inits} inits, want 2 + 2 a step and 2 forward an init")
+    return out
+
+
+def prefetch_phase(torch, trainer, dev):
+    """Phase 16's VGG-19 step fed a pass of distinct host batches through
+    a DevicePrefetcher (pinned memory, its copy stream, 2 batches ahead)
+    against a pass of the same batches already on the card: ms a step of
+    each pass (host clock, the pass ending in its cost fetch), in turns:
+    placed, prefetcher (its first pass allocates the pinned blocks),
+    prefetcher again, placed again; every step a replay of the one
+    graph."""
+    import numpy as np
+
+    from paddle_tpu_torch.data import DevicePrefetcher
+
+    cfg = VGG
+    host = []
+    for i in range(PREFETCH_BATCHES):
+        rs = np.random.RandomState(100 + i)
+        host.append({"image": rs.randn(cfg["batch"], cfg["image_size"], cfg["image_size"], 3)
+                     .astype(np.float32),
+                     "label": rs.randint(0, cfg["classes"], cfg["batch"])})
+    placed = [{k: torch.as_tensor(v).to("cuda") for k, v in b.items()} for b in host]
+    first = next(iter(DevicePrefetcher(lambda: iter(host[:1]))))
+    landed = all(torch.equal(first[k].cpu(), torch.as_tensor(v)) for k, v in host[0].items())
+    graph = next(iter(trainer.graphs.values()))
+    replays0 = graph.replays
+    out = {}
+    prefetcher = DevicePrefetcher(lambda: iter(host), prefetch_depth=PREFETCH_DEPTH)
+    runs = (("placed", lambda: iter(placed)), ("prefetcher", prefetcher),
+            ("prefetcher_again", prefetcher), ("placed_again", lambda: iter(placed)))
+    for label, reader in runs:
+        passes = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(reader, num_passes=1,
+                      event_handler=lambda e: passes.append(e.metrics)
+                      if type(e).__name__ == "EndPass" else None)
+        out[label] = dict(ms_per_step=(time.perf_counter() - t0) * 1e3 / PREFETCH_BATCHES,
+                          avg_cost=passes[0]["avg_cost"])
+    out.update(batches=PREFETCH_BATCHES, depth=PREFETCH_DEPTH, landed_equal=landed,
+               replays=graph.replays - replays0, graphs=len(trainer.graphs),
+               bytes_per_batch=int(sum(v.nbytes for v in host[0].values())))
+    print("prefetch", json.dumps(out), flush=True)
+    if not landed:
+        fail("a DevicePrefetcher batch differs from its host batch")
+    if out["replays"] != len(runs) * PREFETCH_BATCHES or out["graphs"] != 1:
+        fail(f"the prefetched and placed passes ran {out['replays']} replays of "
+             f"{out['graphs']} graphs, want {len(runs) * PREFETCH_BATCHES} of one")
+    if not all(np.isfinite(out[label]["avg_cost"]) for label, _ in runs):
+        fail(f"non-finite pass cost: {out}")
+    return out
+
+
 def train_of(torch, tree: str) -> int:
     """`--train-of TREE`: the training phases (5, 7 and 10) of the
     chip_smoke.py in TREE, a checkout of this repository (an earlier
@@ -3034,7 +3551,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     struct_ops = struct_ops_phase(torch)
 
-    # 16. lines
+    # 16. VGG-19 with Dropout, the schedule and the average, then card vs
+    # CPU; 17. its step fed by the prefetcher; 18. remat on ResNet-50; 19.
+    # the guard and the drain on seq2seq (GRU launches from 0); 20. the
+    # seven optimizers on the LSTM model (LSTM launches from 0)
+    torch.cuda.empty_cache()
+    vgg, vgg_tr, vgg_batch = vgg_phase(torch)
+    prefetch = prefetch_phase(torch, vgg_tr, vgg_batch)
+    del vgg_tr, vgg_batch
+    torch.cuda.empty_cache()
+    remat = remat_phase(torch)
+    torch.cuda.empty_cache()
+    guard = guard_phase(torch)
+    torch.cuda.empty_cache()
+    optim = optim_phase(torch)
+
+    # 21. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -3162,7 +3694,8 @@ def main() -> int:
                    "lstm_train": lstm_train, "lstm_vs_cpu": lstm_vs_cpu,
                    "attn_path": attn_path, "route": route, "resnet": resnet,
                    "resnet_vs_cpu": resnet_vs_cpu, "lenet": lenet, "ctr": ctr,
-                   "ocr": ocr, "struct_ops": struct_ops},
+                   "ocr": ocr, "struct_ops": struct_ops, "vgg": vgg, "remat": remat,
+                   "guard": guard, "optim": optim, "prefetch": prefetch},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,6 +29,12 @@ Sites the ported code polls (hooks live next to the code they sabotage):
                    before a dispatch (a SIGKILL analog;
                    auto_resume must continue the run)
     ckpt_truncate  torn write: truncate an .npz post-rename  (trainer.checkpoint.save_pass)
+    nan_loss       poison a float batch slot with NaN        (trainer.SGDTrainer.train)
+                   before a dispatch (the divergence guard
+                   must revert that step)
+    preempt        simulated preemption notice: sets the     (trainer.SGDTrainer.train)
+                   core.preempt drain flag (SIGTERM analog);
+                   the next dispatch boundary drains
 
 Seeding: `PADDLE_TPU_FAULTS_SEED` (or the `seed` argument). Each site gets
 its own `random.Random(f"{seed}:{site}")` stream, so the fire pattern of one

@@ -1,0 +1,300 @@
+"""PyDataProvider2 (the port's copy of `paddle_tpu/data/provider.py`): the
+`@provider` decorator and its settings, `MultiDataProvider`'s ratio mixing,
+the `DoubleBuffer` background prefetch of converted batches, and
+`DataProviderConverter` (input types and names to a DataFeeder). The
+shuffles use `random.Random` with the same seeds, so the same samples come
+out in the same order as from the JAX package's providers.
+
+Parity targets: the `@provider` decorator and input types
+(python/paddle/trainer/PyDataProvider2.py:365), DataProvider.h:249
+`DoubleBuffer`, and gserver/dataproviders/MultiDataProvider.cpp.
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+import random
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
+
+import numpy as np
+
+from paddle_tpu_torch.data.feeder import DataFeeder
+from paddle_tpu_torch.data.pipeline import iter_async
+
+log = logging.getLogger("paddle_tpu_torch.provider")
+
+
+class CacheType:
+    NO_CACHE = 0
+    CACHE_PASS_IN_MEM = 1
+
+
+class Settings:
+    """The `settings` object handed to user providers (PyDataProvider2.py's
+    DataProviderSettings): carries input_types plus anything init_hook sets."""
+
+    def __init__(self, input_types=None, **kwargs):
+        self.input_types = input_types
+        self.logger = log
+        for k, v in kwargs.items():
+            setattr(self, k, v)
+
+    # the reference exposes the same field under both names; init_hooks in the
+    # wild assign either `settings.slots = [...]` or `settings.input_types`
+    @property
+    def slots(self):
+        return self.input_types
+
+    @slots.setter
+    def slots(self, value):
+        self.input_types = value
+
+
+class DataProviderWrapper:
+    """Result of @provider: callable over file list(s), exposing the reader
+    protocol (`__call__(obj, *files) -> iterator of samples`) plus metadata."""
+
+    def __init__(
+        self,
+        generator: Callable,
+        input_types=None,
+        should_shuffle: Optional[bool] = None,
+        pool_size: int = -1,
+        min_pool_size: int = -1,
+        can_over_batch_size: bool = True,
+        calc_batch_size: Optional[Callable] = None,
+        cache: int = CacheType.NO_CACHE,
+        init_hook: Optional[Callable] = None,
+        check: bool = False,
+        check_fail_continue: bool = False,
+    ):
+        self.generator = generator
+        self.input_types = input_types
+        # None keeps the reference semantics: shuffle during training only
+        # (PyDataProvider2.py provider(): should_shuffle=None → train-only)
+        self.should_shuffle = should_shuffle
+        self.pool_size = pool_size
+        self.min_pool_size = min_pool_size
+        self.can_over_batch_size = can_over_batch_size
+        self.calc_batch_size = calc_batch_size
+        self.cache = cache
+        self.init_hook = init_hook
+        self.check = check
+        self.check_fail_continue = check_fail_continue
+        # pass cache keyed by file_list so train/test calls don't cross-serve
+        self._pass_cache: Dict[tuple, List[Any]] = {}
+        self._epoch = 0  # reshuffle differently each pass, like the reference
+        functools.wraps(generator)(self)
+
+    # -- settings -----------------------------------------------------------
+    def make_settings(self, obj=None, file_list: Sequence[str] = (), **kwargs) -> Settings:
+        settings = Settings(input_types=self.input_types)
+        if self.init_hook is not None:
+            self.init_hook(settings, obj=obj, file_list=list(file_list), **kwargs)
+        return settings
+
+    # -- iteration ----------------------------------------------------------
+    def __call__(
+        self,
+        obj=None,
+        file_list: Union[str, Sequence[str], None] = None,
+        is_train: bool = True,
+        **kwargs,
+    ):
+        """Returns an iterator over samples from all files (shuffle-pooled like
+        the reference's pool_size window shuffle). `is_train=False` (test /
+        inference readers) disables the default shuffle, matching the
+        reference's should_shuffle=None train-only semantics."""
+        if isinstance(file_list, str):
+            file_list = [file_list]
+        file_list = list(file_list or [None])
+        settings = self.make_settings(obj=obj, file_list=file_list, **kwargs)
+        cache_key = tuple(file_list)
+
+        def iter_all():
+            cached = self._pass_cache.get(cache_key)
+            if self.cache == CacheType.CACHE_PASS_IN_MEM and cached is not None:
+                yield from cached
+                return
+            collected = [] if self.cache == CacheType.CACHE_PASS_IN_MEM else None
+            for fname in file_list:
+                gen = (
+                    self.generator(settings, fname)
+                    if fname is not None
+                    else self.generator(settings)
+                )
+                for sample in gen:
+                    if self.check and not _check_sample(settings.input_types, sample):
+                        if self.check_fail_continue:
+                            continue
+                        raise ValueError(f"sample fails input_types check: {sample!r}")
+                    if collected is not None:
+                        collected.append(sample)
+                    yield sample
+            if collected is not None:
+                # only a fully consumed pass is a valid cache
+                self._pass_cache[cache_key] = collected
+
+        it = iter_all()
+        shuffle = is_train if self.should_shuffle is None else self.should_shuffle
+        if shuffle:
+            pool = self.pool_size if self.pool_size > 0 else 1000
+            if self.min_pool_size > 0:
+                pool = max(pool, self.min_pool_size)
+            self._epoch += 1
+            return _pool_shuffle(it, pool, seed=self._epoch)
+        return it
+
+    # -- reader-creator adapter ---------------------------------------------
+    def as_reader(self, obj=None, file_list=None, **kwargs) -> Callable:
+        """v2 reader creator: provider ported datasets plug into paddle.batch."""
+
+        def reader():
+            return self(obj=obj, file_list=file_list, **kwargs)
+
+        return reader
+
+
+def provider(input_types=None, **kwargs):
+    """The @provider decorator (PyDataProvider2.py:365).
+
+    Usage (verbatim from reference demos)::
+
+        @provider(input_types={'pixel': dense_vector(784),
+                               'label': integer_value(10)})
+        def process(settings, filename):
+            for ...: yield {'pixel': ..., 'label': ...}
+    """
+
+    def wrap(fn):
+        return DataProviderWrapper(fn, input_types=input_types, **kwargs)
+
+    return wrap
+
+
+def _pool_shuffle(it: Iterable, pool_size: int, seed: int = 0):
+    rnd = random.Random(seed)
+    pool: List[Any] = []
+    for item in it:
+        pool.append(item)
+        if len(pool) >= pool_size:
+            rnd.shuffle(pool)
+            yield from pool
+            pool = []
+    rnd.shuffle(pool)
+    yield from pool
+
+
+def _check_sample(input_types, sample) -> bool:
+    if input_types is None:
+        return True
+    specs = (
+        list(input_types.values()) if isinstance(input_types, dict) else list(input_types)
+    )
+    try:
+        if isinstance(sample, dict):
+            if not isinstance(input_types, dict):
+                return False
+            values = [sample[k] for k in input_types]
+        elif isinstance(sample, (list, tuple)):
+            values = list(sample)
+        else:
+            values = [sample]
+    except KeyError:
+        return False
+    if len(values) != len(specs):
+        return False
+    for v, spec in zip(values, specs):
+        if spec.kind == "index" and not (
+            np.isscalar(v) or (isinstance(v, np.ndarray) and v.ndim == 0)
+        ):
+            return False
+        if spec.kind == "dense":
+            dim = spec.dim if isinstance(spec.dim, tuple) else (spec.dim,)
+            if int(np.prod(np.shape(v))) != int(np.prod(dim)):
+                return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# MultiDataProvider: ratio-mixed sub-providers
+# ---------------------------------------------------------------------------
+
+
+class MultiDataProvider:
+    """Mixes sub-readers by sampling ratio (MultiDataProvider.cpp). Each entry
+    is (reader_creator, ratio); one mixed stream is produced per pass."""
+
+    def __init__(self, providers: Sequence, seed: int = 0):
+        self.entries = [(r, float(ratio)) for r, ratio in providers]
+        total = sum(r for _, r in self.entries)
+        self.probs = [r / total for _, r in self.entries]
+        self.seed = seed
+        self._epoch = 0  # vary the mixing order per pass
+
+    def __call__(self):
+        self._epoch += 1
+        rnd = random.Random(self.seed * 1000003 + self._epoch)
+        iters = [iter(r()) for r, _ in self.entries]
+        alive = list(range(len(iters)))
+        while alive:
+            i = rnd.choices(alive, weights=[self.probs[j] for j in alive])[0]
+            try:
+                yield next(iters[i])
+            except StopIteration:
+                alive.remove(i)
+
+
+# ---------------------------------------------------------------------------
+# DoubleBuffer: background prefetch of converted batches
+# ---------------------------------------------------------------------------
+
+
+class DoubleBuffer:
+    """Async batch prefetcher (DataProvider.h:249).
+
+    Wraps a batched reader (+ optional feeder) and keeps up to `capacity`
+    ready-to-feed batches in a background thread, so numpy conversion overlaps
+    device execution. Use as: `for batch in DoubleBuffer(reader, feeder): ...`;
+    one iteration = one pass.
+
+    Host side only: `data.pipeline.DevicePrefetcher` also moves the copy to
+    the device off the training thread; a DoubleBuffer composes as the
+    reader of a DevicePrefetcher, which then adds just the device leg."""
+
+    def __init__(self, reader: Callable, feeder: Optional[DataFeeder] = None, capacity: int = 4):
+        self.reader = reader
+        self.feeder = feeder
+        self.capacity = capacity
+
+    def __call__(self):
+        return iter(self)
+
+    def __iter__(self):
+        prepare = self.feeder if self.feeder is not None else (lambda raw: raw)
+        return iter_async(
+            self.reader, prepare, self.capacity,
+            name="paddle-tpu-torch-double-buffer",
+        )
+
+
+# ---------------------------------------------------------------------------
+# DataProviderConverter (py_paddle/dataprovider_converter.py)
+# ---------------------------------------------------------------------------
+
+
+class DataProviderConverter:
+    """input_types (list or dict) + names → DataFeeder; mirrors the SWIG-era
+    converter that turned numpy/scipy rows into C++ Arguments."""
+
+    def __init__(self, input_types, names: Optional[Sequence[str]] = None):
+        if isinstance(input_types, dict):
+            feeding = dict(input_types)
+        else:
+            names = list(names or [f"slot{i}" for i in range(len(input_types))])
+            feeding = dict(zip(names, input_types))
+        self.feeder = DataFeeder(feeding)
+
+    def __call__(self, samples) -> Dict[str, np.ndarray]:
+        return self.feeder(samples)

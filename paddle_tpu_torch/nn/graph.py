@@ -18,18 +18,26 @@ Ragged sequences are padded [B, T, ...] tensors plus a [B] `lengths`
 tensor; a batch dict carries `<name>.lengths` beside each sequence slot.
 Nested sequences are [B, S, T, ...] with `lengths` [B] counting the valid
 subsequences and `sub_lengths` [B, S] the valid steps of each, fed as
-`<name>.sub_lengths`."""
+`<name>.sub_lengths`.
+
+Randomness is jax's: `apply(..., rng=key)` hands the context a threefry
+key (`core/prng.py`), and `Context.next_rng(tag)` folds in the tag's
+stable hash and a per-apply draw count, as `paddle_tpu/nn/graph.py` does,
+so Dropout draws the reference's masks bit for bit. `apply(...,
+remat=policy)` runs the layers in segments that end at a conv or fc, each
+under `core/remat.py`'s checkpoint, with the draw count rewound for the
+recompute. A layer's output is dropped once its last consumer has run."""
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core import dtypes
+from paddle_tpu_torch.core import dtypes, prng, remat as remat_mod
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.nn import init as init_mod
 
@@ -91,12 +99,15 @@ class Context:
     statistics, the functional form of the reference's mutable
     movingMean_/movingVar_) collect in `state_updates`; nothing given is
     changed in place. `train` selects batch statistics over moving ones;
-    `policy` is the trace's dtype policy."""
+    `policy` is the trace's dtype policy; `rng` the threefry key (a [2]
+    tensor) that `next_rng` draws from, or a function giving it, called at
+    the first draw (a graph without Dropout computes no key)."""
 
     def __init__(self, mode: str, params: Params, seed: int = 0,
                  device: Optional[torch.device] = None,
                  states: Optional[Params] = None, train: bool = False,
-                 policy: Optional[dtypes.Policy] = None):
+                 policy: Optional[dtypes.Policy] = None,
+                 rng: Union[None, torch.Tensor, Callable[[], torch.Tensor]] = None):
         assert mode in ("init", "apply")
         self.mode = mode
         self.params = params
@@ -105,8 +116,20 @@ class Context:
         self.states: Params = {} if states is None else states
         self.train = train
         self.policy = policy or dtypes.current()
+        self.rng = rng
+        self.rng_count = 0
         self.state_updates: Params = {}
         self.param_attrs: Dict[str, ParamAttr] = {}
+
+    def next_rng(self, tag: str) -> torch.Tensor:
+        """A fresh key for one draw: fold_in(fold_in(rng, hash(tag)), n),
+        n counting this context's draws from 1."""
+        if self.rng is None:
+            raise ValueError("no rng available in this context (pass rng= to apply)")
+        if callable(self.rng):
+            self.rng = self.rng()
+        self.rng_count += 1
+        return prng.fold_in(prng.fold_in(self.rng, _stable_hash(tag)), self.rng_count)
 
     def param(self, layer: "Layer", pname: str, shape: Sequence[int],
               init: init_mod.Initializer,
@@ -223,7 +246,7 @@ class Network:
         states: Params = {}
         policy = policy or dtypes.current()
         ctx = Context("init", params, seed, dev, states=states, train=True,
-                      policy=policy)
+                      policy=policy, rng=prng.PRNGKey(seed, dev))
         with torch.no_grad(), dtypes.policy_scope(policy):
             self._run(ctx, batch, dev)
         self.param_attrs = dict(ctx.param_attrs)
@@ -231,12 +254,17 @@ class Network:
 
     def apply(self, params: Params, batch: Mapping[str, Any],
               states: Optional[Params] = None, *, train: bool = False,
-              policy: Optional[dtypes.Policy] = None):
+              policy: Optional[dtypes.Policy] = None,
+              rng: Union[None, torch.Tensor, Callable[[], torch.Tensor]] = None,
+              remat: Optional[str] = None):
         """Forward over `batch` (moved to the parameters' device) ->
         {output layer name: Argument}; with `states` given, ->
         (outputs, new states), the updated ones replacing their entries in
         a new dict. `train` selects batch statistics (and state updates)
-        over the moving ones."""
+        over the moving ones; `rng` is the key Dropout draws from (or a
+        function giving it at the first draw); `remat`
+        ("dots" | "conv_only" | "full") checkpoints segments of layers
+        under that policy (`core/remat.py`)."""
         known = next(iter(params.values()), None)
         if known is None and states:
             known = next(iter(states.values()))
@@ -247,26 +275,89 @@ class Network:
         policy = policy or dtypes.current()
         ctx = Context("apply", params, device=dev,
                       states={} if states is None else states, train=train,
-                      policy=policy)
+                      policy=policy, rng=rng)
         with dtypes.policy_scope(policy):
-            values = self._run(ctx, batch, dev)
+            values = self._run(ctx, batch, dev, remat_mod.resolve(remat))
         outs = {l.name: values[l.name] for l in self.outputs}
         if states is None:
             return outs
         return outs, {**states, **ctx.state_updates}
 
-    def _run(self, ctx: Context, batch: Mapping[str, Any],
-             device: torch.device) -> Dict[str, Argument]:
+    def _run(self, ctx: Context, batch: Mapping[str, Any], device: torch.device,
+             remat: Optional[str] = None) -> Dict[str, Argument]:
+        """Every layer's output, each dropped once its last consumer ran
+        (the outputs stay). With `remat`, the layers run in segments that
+        each end at a conv or fc layer, every segment under
+        `core/remat.checkpoint`: what a segment takes from earlier ones (a
+        conv's or fc's output, a residual branch) stays for the backward,
+        everything inside it is recomputed there unless the policy saves
+        it."""
         values: Dict[str, Argument] = {}
+        order = [layer for layer in self.layer_order if layer.type_name != "data"]
+        last_use: Dict[str, int] = {}  # name -> position of its last consumer
+        for i, layer in enumerate(order):
+            for dep in layer.inputs:
+                last_use[dep.name] = i
+        for layer in self.outputs:
+            last_use[layer.name] = len(order)
         for layer in self.layer_order:
             if layer.type_name == "data":
                 values[layer.name] = _feed_to_argument(batch, layer, device)
-                continue
-            out = layer.forward(ctx, [values[l.name] for l in layer.inputs])
-            if not isinstance(out, Argument):
-                raise TypeError(f"layer {layer.name} forward returned {type(out).__name__}")
-            values[layer.name] = out
+        done = 0
+        for segment in _segments(order, remat is not None):
+            if remat is None:
+                (layer,) = segment
+                values[layer.name] = _forward(layer, ctx,
+                                              [values[d.name] for d in layer.inputs])
+            else:
+                values.update(remat_mod.checkpoint(_segment_run(segment, ctx, values), remat))
+            done += len(segment)
+            for layer in segment:
+                for name in [layer.name] + [d.name for d in layer.inputs]:
+                    if last_use.get(name, -1) < done:
+                        values.pop(name, None)
         return values
+
+
+def _segments(order: List[Layer], remat: bool) -> List[List[Layer]]:
+    """The layers in order, one a segment, or with remat in runs that each
+    end at a conv or fc layer."""
+    if not remat:
+        return [[layer] for layer in order]
+    segments: List[List[Layer]] = [[]]
+    for layer in order:
+        segments[-1].append(layer)
+        if layer.type_name in _SEGMENT_ENDS:
+            segments.append([])
+    return [seg for seg in segments if seg]
+
+
+_SEGMENT_ENDS = ("conv", "fc")
+
+
+def _forward(layer: Layer, ctx: Context, ins: List[Argument]) -> Argument:
+    out = layer.forward(ctx, ins)
+    if not isinstance(out, Argument):
+        raise TypeError(f"layer {layer.name} forward returned {type(out).__name__}")
+    return out
+
+
+def _segment_run(segment: List[Layer], ctx: Context, values: Dict[str, Argument]):
+    """A function running `segment`'s layers on the values it takes from
+    earlier segments -> {layer name: output}. It rewinds ctx's draw count
+    to where it is now, so the backward's recompute draws the keys the
+    forward drew."""
+    start = ctx.rng_count
+    inputs = {d.name: values[d.name] for layer in segment for d in layer.inputs
+              if d.name in values}
+
+    def run() -> Dict[str, Argument]:
+        ctx.rng_count = start
+        local = dict(inputs)
+        for layer in segment:
+            local[layer.name] = _forward(layer, ctx, [local[d.name] for d in layer.inputs])
+        return {layer.name: local[layer.name] for layer in segment}
+    return run
 
 
 def _topo_sort(outputs: Sequence[Layer]) -> List[Layer]:

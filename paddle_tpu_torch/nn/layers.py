@@ -1,8 +1,8 @@
 """Core layers (counterpart of `paddle_tpu/nn/layers.py`), the ones the
 ported paths use: Data, Fc, Embedding, Concat (seq2seq, CTR), the image
 layers of ResNet and LeNet: Conv2D, Pool2D, BatchNorm, Addto, GlobalPool,
-Reshape, and BlockExpand (OCR's image-to-sequence). Image activations are
-NHWC, conv weights HWIO."""
+Reshape, BlockExpand (OCR's image-to-sequence), and Dropout (VGG, on jax's
+threefry bits). Image activations are NHWC, conv weights HWIO."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.nn import activations as act_mod
 from paddle_tpu_torch.nn import init as init_mod
 from paddle_tpu_torch.nn.graph import Argument, Context, Layer, ParamAttr
@@ -271,6 +272,30 @@ class BatchNorm(Layer):
             ctx.update_state(self, "moving_var",
                              self.maf * moving_var + (1 - self.maf) * var)
         return ins[0].with_value(act_mod.apply(self.act, out))
+
+
+class Dropout(Layer):
+    """Inverted dropout (the reference's Layer::forwardDropOut): at train
+    time keep each value with probability 1 - rate and scale it by
+    1 / (1 - rate); the identity at inference or for rate <= 0. The mask is
+    `prng.bernoulli` of the context's next key, the JAX package's mask bit
+    for bit."""
+
+    type_name = "dropout"
+
+    def __init__(self, input: Layer, rate: float, name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.rate = rate
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        x = ins[0].value
+        if not ctx.train or self.rate <= 0.0:
+            return ins[0]
+        keep = 1.0 - self.rate
+        mask = prng.bernoulli(ctx.next_rng(self.name), keep, x.shape)
+        # divide by keep rounded to x's dtype, as jax's weak-typed scalar is
+        keep_x = torch.tensor(keep, dtype=x.dtype).item()
+        return ins[0].with_value(torch.where(mask, x / keep_x, 0.0).to(x.dtype))
 
 
 class Addto(Layer):

@@ -25,7 +25,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch.core import dtypes
+from paddle_tpu_torch.core import dtypes, remat
 
 IntOr2 = Union[int, Tuple[int, int]]
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -58,9 +58,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: IntOr2 = 1,
     w_oihw = w.permute(3, 2, 0, 1).to(p.compute_dtype,
                                       memory_format=torch.channels_last)
     args = (_pair(stride), _pair(padding), _pair(dilation), groups)
-    if x.is_cuda and p.compute_dtype == torch.float32:
-        return _nhwc(_Conv2dF32.apply(_nchw(x), w_oihw, *args))
-    return _nhwc(F.conv2d(_nchw(x), w_oihw, None, *args))
+    with remat.name("conv_out"):  # the remat="conv_only" policy saves it
+        if x.is_cuda and p.compute_dtype == torch.float32:
+            return _nhwc(_Conv2dF32.apply(_nchw(x), w_oihw, *args))
+        return _nhwc(F.conv2d(_nchw(x), w_oihw, None, *args))
 
 
 def conv2d_weight_grad(x: torch.Tensor, dy: torch.Tensor, w_shape: Sequence[int],

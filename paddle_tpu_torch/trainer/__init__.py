@@ -3,6 +3,8 @@
 (`step_graph.py`), checkpoints (`checkpoint.py`, `v1_format.py`) and the
 events."""
 
-from paddle_tpu_torch.trainer.trainer import SGDTrainer
+from paddle_tpu_torch.trainer.events import BeginIteration, BeginPass, EndIteration, EndPass
+from paddle_tpu_torch.trainer.trainer import DivergenceError, Preempted, SGDTrainer
 
-__all__ = ["SGDTrainer"]
+__all__ = ["BeginIteration", "BeginPass", "DivergenceError", "EndIteration", "EndPass",
+           "Preempted", "SGDTrainer"]

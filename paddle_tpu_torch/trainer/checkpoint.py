@@ -3,12 +3,15 @@
 The pass directory is the JAX package's: save_dir/pass-%05d/ holds one
 .npz per tree (params / states / opt; an empty tree writes no file), a
 manifest.json with the pass id, each file's CRC-32 and its keys' shapes and
-dtypes, and the trainer's extra fields (samples, lr_scale, world_size), and
+dtypes, and the trainer's extra fields (samples, lr_scale, world_size; the
+port adds rng and diverged, and a drain's mid_pass and batches_done), and
 one v1 binary `Parameter::save` file per parameter (`v1_format.py`), so a
 pass directory doubles as a reference model directory. Tree keys are the
 JAX package's flattened paths, "/"-joined, dict keys sorted: the optimizer
 tree {"opt": {"slots": {name: (m, v)}, "t": t}} flattens to
-`opt/slots/<name>/<i>` and `opt/t`. save_dir/latest names the newest pass.
+`opt/slots/<name>/<i>` and `opt/t`, and model averaging's
+{"avg": {"avg": {name: a}, "n": n}} beside it to `avg/avg/<name>` and
+`avg/n`. save_dir/latest names the newest pass.
 Either package loads the other's pass directories.
 
 Writes are atomic (tmp + rename); `keep_last_n` prunes old passes after a
@@ -280,6 +283,17 @@ def find_latest_valid_pass(save_dir: str) -> Optional[int]:
         log.warning("auto-resume: skipping corrupt/partial checkpoint %s "
                     "(CRC or manifest check failed)", pdir)
     return None
+
+
+def pass_manifest(save_dir: str, pass_id: int) -> Dict[str, Any]:
+    """The manifest of one pass directory, or {}: how auto-resume learns
+    whether a checkpoint is a preemption drain's mid-pass save
+    (extra.mid_pass, extra.batches_done) or a pass-boundary one."""
+    try:
+        with open(os.path.join(save_dir, f"pass-{pass_id:05d}", "manifest.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
 
 
 def is_v1_model_dir(dirname: str) -> bool:

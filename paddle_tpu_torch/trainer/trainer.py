@@ -1,15 +1,25 @@
 """The training loop (counterpart of `SGDTrainer` in
 `paddle_tpu/trainer/trainer.py`), the single-device path.
 
-One step is the JAX package's compiled step: the lr comes from the
-schedule at the samples counter BEFORE the step (computed on the host and
-copied into a 0-d f32 tensor), the forward is `Network.apply` in train mode
-under the trainer's dtype policy, the backward is autograd over the summed
-costs, the optimizer writes the new parameters, its slots and its step
-counter `t` into their own storage, the new states (batch norm's moving
-statistics) are copied into theirs, and the samples counter advances by the
-batch size. `multi_step(batches)` runs K same-shape batches stacked on a
-leading axis in one dispatch (the counterpart of `make_multi_step`).
+One step is the JAX package's compiled step, and its whole train state
+lives on the device: the parameters, the optimizer's slots and `t`, the
+states (batch norm's moving statistics), the model averages, the samples
+counter (int32), `lr_scale`, the threefry key `rng`, the divergence count
+`diverged` and the guard's pass-cost accumulator `cost_acc`. A step reads
+the lr as `schedule(samples) * lr_scale` and its random key as
+`fold_in(rng, samples)` on the device; the forward is `Network.apply` in
+train mode under the trainer's dtype policy (and its `remat` policy), the
+backward is autograd over the summed costs; then the optimizer writes the
+new parameters, slots and `t` into their own storage, the model average
+folds them in, the new states are copied into theirs, and the samples
+counter advances by the batch size. With a `divergence_policy`, a step
+whose cost is NaN/Inf writes none of that (every leaf is written as
+`where(finite, new, old)`) and adds one to `diverged`; the host reads the
+count only at a guard poll, every `guard_check_every` steps and at pass
+end, and then skips, rolls back to the newest checkpoint with the lr
+halved, or raises `DivergenceError`. `multi_step(batches)` runs K
+same-shape batches stacked on a leading axis in one dispatch (the
+counterpart of `make_multi_step`).
 
 On the card the first `step` or `multi_step` of each batch signature runs
 eagerly, as a real step and as the warm-up (kernel builds and plans,
@@ -20,16 +30,22 @@ that turns the graph off, and a failed capture raises. The CPU runs every
 step eagerly: it has no graphs.
 
 `train(reader, num_passes, event_handler, feeder, test_reader, save_dir,
-auto_resume, keep_last_n, steps_per_dispatch, async_checkpoint)` runs
-passes over a reader of batches: dicts of arrays (`<slot>` and
-`<slot>.lengths`), or lists of samples that `feeder` (a `data.DataFeeder`)
-turns into them; it fires BeginPass / BeginIteration / EndIteration /
-EndPass, tests on `test_reader` at each pass end, and with `save_dir`
-writes a checkpoint there at each pass end (`save`; the JAX package's pass
-directory, `checkpoint.py`). `auto_resume` restores the newest valid
-checkpoint under `save_dir` and continues with the pass after it. `test`
-averages the cost over a reader, weighted by batch size, with the moving
-statistics.
+auto_resume, keep_last_n, steps_per_dispatch, async_checkpoint, remat)`
+runs passes over a reader of batches: dicts of arrays or tensors
+(`<slot>` and `<slot>.lengths`; a `data.DevicePrefetcher` yields them on
+the device, and a `StackedBatch` of K runs as one K-step dispatch), or
+lists of samples that `feeder` (a `data.DataFeeder`) turns into them; it
+fires BeginPass / BeginIteration / EndIteration (with the
+`extra_outputs`' values) / EndPass, tests on `test_reader` at each pass
+end, and with `save_dir` writes a checkpoint there at each pass end
+(`save`; the JAX package's pass directory, `checkpoint.py`). `auto_resume`
+restores the newest valid checkpoint under `save_dir` and continues with
+the pass after it, or, after a preemption drain's mid-pass checkpoint,
+with the rest of that pass. A preemption notice (`core/preempt.py`: a
+signal, or the `preempt` fault site) drains at the next dispatch
+boundary: a mid-pass checkpoint, then `Preempted`. `test` averages the
+cost over a reader, weighted by batch size, with the moving statistics and
+the model-averaged parameters.
 
 `precision="f32"` (the default ambient policy) or `"bf16"` pins the dtype
 policy when the trainer is built. Under f32 on the card the trainer turns
@@ -37,9 +53,8 @@ TF32 off for cuBLAS and cuDNN, process-wide: the reference's f32 is
 `Precision.HIGHEST`, and autograd runs the backward's convs and matmuls
 outside any context manager around the forward.
 
-Not ported yet (ROADMAP.md): the lr schedules other than the constant one,
-the divergence guard and rollback, the preemption drain, remat, model
-averaging, the parallel updaters and elastic resize."""
+Not ported yet (ROADMAP.md): the parallel updaters, the padded batch's
+sample mask and elastic resize; a pending resize request raises."""
 
 from __future__ import annotations
 
@@ -50,33 +65,84 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core import dtypes, faults
+from paddle_tpu_torch.core import dtypes, faults, preempt, prng, stats
+from paddle_tpu_torch.core import remat as remat_mod
+from paddle_tpu_torch.data.pipeline import StackedBatch
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.nn.graph import Layer, Network
 from paddle_tpu_torch.optim import schedules
-from paddle_tpu_torch.optim.optimizers import Optimizer
+from paddle_tpu_torch.optim.average import ModelAverage
+from paddle_tpu_torch.optim.optimizers import Optimizer, write_into
 from paddle_tpu_torch.trainer import checkpoint as ckpt
 from paddle_tpu_torch.trainer.events import BeginIteration, BeginPass, EndIteration, EndPass
 from paddle_tpu_torch.trainer.step_graph import StepGraph
 
 log = logging.getLogger("paddle_tpu_torch.trainer")
 
-TrainState = Dict[str, Any]  # params / opt / states / samples
+TrainState = Dict[str, Any]  # params / opt / states / avg / samples / lr_scale / ...
 Batch = Mapping[str, Any]
+
+DIVERGENCE_POLICIES = ("skip_batch", "rollback", "raise")
+REMAT_POLICIES = remat_mod.POLICIES
+
+
+class DivergenceError(RuntimeError):
+    """Raised by divergence_policy="raise" when a step cost goes NaN/Inf."""
+
+
+class Preempted(RuntimeError):
+    """Raised by train() after a preemption drain (`core/preempt.py`): the
+    step in flight finished and, given a save_dir and grace left, a
+    CRC-valid mid-pass checkpoint was written. A restart with
+    auto_resume=True continues from exactly this batch boundary."""
+
+    def __init__(self, pass_id: int, batches_done: int, checkpoint_dir: Optional[str],
+                 reason: Optional[str] = None):
+        self.pass_id = pass_id
+        self.batches_done = batches_done
+        self.checkpoint_dir = checkpoint_dir
+        self.reason = reason
+        where = f"checkpoint {checkpoint_dir}" if checkpoint_dir else "no checkpoint written"
+        super().__init__(f"preempted ({reason or 'signal'}) at pass {pass_id} after "
+                         f"{batches_done} batch(es); {where}")
 
 
 class SGDTrainer:
     """v2 `trainer.SGD` analog. `device=None` means CUDA and raises when no
-    card is present; the CPU runs only when asked for (`device="cpu"`)."""
+    card is present; the CPU runs only when asked for (`device="cpu"`).
+
+    extra_outputs: layers whose values each step hands to EndIteration's
+    `metrics`. schedule: lr(samples) (`optim/schedules.py`; default the
+    optimizer's constant lr). model_average: a `ModelAverage`, whose
+    averages `test()` evaluates. remat: "none" | "dots" | "conv_only" |
+    "full" (`core/remat.py`). divergence_policy: None (no guard) |
+    "skip_batch" | "rollback" | "raise", polled every guard_check_every
+    steps."""
 
     def __init__(self, cost: Union[Layer, Sequence[Layer]], optimizer: Optimizer,
                  seed: int = 0, device: DeviceLike = None,
-                 precision: Optional[str] = None):
+                 precision: Optional[str] = None, *,
+                 extra_outputs: Sequence[Layer] = (),
+                 schedule: Optional[schedules.Schedule] = None,
+                 model_average: Optional[ModelAverage] = None,
+                 remat: Optional[str] = None,
+                 divergence_policy: Optional[str] = None,
+                 guard_check_every: int = 16):
         costs = [cost] if isinstance(cost, Layer) else list(cost)
         self.cost_names = [c.name for c in costs]
-        self.network = Network(costs)
+        self.extra_names = [e.name for e in extra_outputs]
+        self.network = Network(costs + list(extra_outputs))
         self.optimizer = optimizer
-        self.schedule = schedules.build(optimizer.learning_rate)
+        self.schedule = schedule or schedules.build(optimizer.learning_rate)
+        self.model_average = model_average or ModelAverage(0.0)
+        self.remat = remat_mod.resolve(remat)
+        if divergence_policy is not None and divergence_policy not in DIVERGENCE_POLICIES:
+            raise ValueError(f"divergence_policy must be one of {DIVERGENCE_POLICIES} or "
+                             f"None, got {divergence_policy!r}")
+        if guard_check_every < 1:
+            raise ValueError(f"guard_check_every must be >= 1, got {guard_check_every}")
+        self.divergence_policy = divergence_policy
+        self.guard_check_every = guard_check_every
         self.seed = seed
         self.device = resolve_device(device)
         self.policy = dtypes.get(precision) if precision is not None else dtypes.current()
@@ -84,15 +150,16 @@ class SGDTrainer:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.state: Optional[TrainState] = None
-        # the lr multiplier a checkpoint carries (the JAX package's rollback
-        # halves it); 1.0 unless a loaded checkpoint says otherwise
-        self.lr_scale = 1.0
         # (K, batch signature) -> the captured dispatch (CUDA only)
         self.graphs: Dict[tuple, StepGraph] = {}
-        self._lr: Optional[torch.Tensor] = None
+        # host mirror of state["diverged"] as of the last guard poll
+        self._diverged_seen = 0
         self._ckpt_writer: Optional[ckpt.AsyncCheckpointer] = None
         self._pinned: Dict[str, torch.Tensor] = {}
         self._pending_load: Optional[tuple] = None
+        # (save_dir, pass_id) of the newest checkpoint written or loaded:
+        # a rollback needs no CRC scan to find it
+        self._known_good_pass: Optional[tuple] = None
 
     @property
     def precision(self) -> str:
@@ -100,17 +167,33 @@ class SGDTrainer:
 
     # -- state ---------------------------------------------------------------
     def init_state(self, sample_batch: Batch) -> TrainState:
-        """Create parameters (seeded from `seed`), states and optimizer
-        slots; drops every captured graph (they point at the old state)."""
+        """Create parameters (seeded from `seed`), states, optimizer slots,
+        averages and the counters; drops every captured graph (they point
+        at the old state)."""
         params, states = self.network.init(sample_batch, seed=self.seed,
                                             device=self.device, policy=self.policy,
                                             with_states=True)
         self.optimizer.param_attrs = self.network.param_attrs
-        self.state = {"params": params, "opt": self.optimizer.init_state(params),
-                      "states": states, "samples": 0}
-        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        dev = self.device
+        self.state = {
+            "params": params, "opt": self.optimizer.init_state(params), "states": states,
+            "avg": self.model_average.init_state(params),
+            # int32: f32 would stop counting past 2^24 samples
+            "samples": torch.zeros((), dtype=torch.int32, device=dev),
+            "lr_scale": torch.ones((), dtype=torch.float32, device=dev),
+            "diverged": torch.zeros((), dtype=torch.int32, device=dev),
+            "cost_acc": torch.zeros((), dtype=torch.float32, device=dev),
+            "rng": prng.PRNGKey(self.seed, dev),
+        }
+        self._diverged_seen = 0
         self.graphs.clear()
         return self.state
+
+    def set_lr_scale(self, value: float) -> None:
+        """Write the lr multiplier into its device tensor (the graphs read
+        it there; a rollback halves it)."""
+        assert self.state is not None, "call init_state() first"
+        self.state["lr_scale"].fill_(float(value))
 
     def load_params(self, params: Mapping[str, Any]) -> None:
         """Replace the parameters' values (tensors or arrays, e.g. from
@@ -142,22 +225,35 @@ class SGDTrainer:
                 own[name].copy_(v)
 
     # -- one step ------------------------------------------------------------
-    def _cost(self, params: Dict[str, torch.Tensor], batch: Batch,
-              train: bool):
-        """(summed f32 cost, new states) of a forward at `params`."""
+    def _cost(self, params: Dict[str, torch.Tensor], batch: Batch, train: bool,
+              rng: Optional[Callable[[], torch.Tensor]] = None):
+        """(summed f32 cost, outputs, new states) of a forward at `params`."""
         outs, states = self.network.apply(params, batch, self.state["states"],
-                                          train=train, policy=self.policy)
-        return sum(outs[c].value for c in self.cost_names).float(), states
+                                          train=train, policy=self.policy, rng=rng,
+                                          remat=self.remat if train else None)
+        return sum(outs[c].value for c in self.cost_names).float(), outs, states
 
-    def cost_grads_and_states(self, batch: Batch):
-        """(cost, {name: gradient}, new states) of a train-mode forward at
-        the current parameters, no update."""
+    def step_rng(self) -> torch.Tensor:
+        """The key the next step draws from: fold_in(rng, samples)."""
+        return prng.fold_in(self.state["rng"], self.state["samples"])
+
+    def _forward_backward(self, batch: Batch, rng: Callable[[], torch.Tensor]):
         names = list(self.state["params"])
         params = {k: v.detach().requires_grad_(True)
                   for k, v in self.state["params"].items()}
-        cost, states = self._cost(params, batch, train=True)
-        grads = torch.autograd.grad(cost, [params[k] for k in names])
-        return cost.detach(), dict(zip(names, grads)), states
+        cost, outs, states = self._cost(params, batch, train=True, rng=rng)
+        grads = torch.autograd.grad(cost, [params[k] for k in names],
+                                    allow_unused=True, materialize_grads=True)
+        extras = {n: outs[n].value.detach() for n in self.extra_names}
+        return cost.detach(), dict(zip(names, grads)), states, extras
+
+    def cost_grads_and_states(self, batch: Batch, rng: Optional[torch.Tensor] = None):
+        """(cost, {name: gradient}, new states) of a train-mode forward at
+        the current parameters, no update; Dropout draws from `rng`, by
+        default the key of the next step."""
+        cost, grads, states, _ = self._forward_backward(
+            batch, self.step_rng if rng is None else (lambda: rng))
+        return cost, grads, states
 
     def cost_and_grads(self, batch: Batch):
         """(cost, {name: gradient}) of a train-mode forward at the current
@@ -165,58 +261,58 @@ class SGDTrainer:
         cost, grads, _ = self.cost_grads_and_states(batch)
         return cost, grads
 
-    def _step_body(self, batch: Batch, lr: torch.Tensor) -> torch.Tensor:
-        """One update in place at the 0-d lr tensor `lr` -> the step's cost.
-        The body a CUDA graph captures: it reads no device value on the
-        host and writes only into the state's own storage."""
-        cost, grads, states = self.cost_grads_and_states(batch)
-        self.optimizer.update(grads, self.state["opt"], self.state["params"], lr)
-        own = self.state["states"]
+    def _step_body(self, batch: Batch):
+        """One step in place -> (its cost, {extra name: value}). The body a
+        CUDA graph captures: it reads no device value on the host and
+        writes only into the state's own storage."""
+        st = self.state
+        samples = st["samples"]
+        lr = self.schedule(samples.float()) * st["lr_scale"]
+        # the key is computed at the first draw, before the update below:
+        # a model without Dropout runs no threefry at all
+        cost, grads, states, extras = self._forward_backward(
+            batch, lambda: prng.fold_in(st["rng"], samples))
+        ok = torch.isfinite(cost) if self.divergence_policy is not None else None
+        self.optimizer.update(grads, st["opt"], st["params"], lr, ok=ok)
+        self.model_average.update(st["avg"], st["params"], ok=ok)
         with torch.no_grad():
+            own = st["states"]
             for k, v in states.items():
-                if v is not own[k]:
-                    own[k].copy_(v)
-        return cost
+                write_into(own[k], v, ok)
+            write_into(samples, samples + _batch_size(batch), ok)
+            if ok is not None:
+                write_into(st["cost_acc"], st["cost_acc"] + cost, ok)
+                st["diverged"].add_(torch.logical_not(ok).to(torch.int32))
+        return cost, extras
 
-    def _lrs(self, k: int, bs: int) -> List[float]:
-        """The schedule's lr before each of the next k steps of bs samples."""
-        s = self.state["samples"]
-        return [float(self.schedule(s + i * bs)) * self.lr_scale for i in range(k)]
-
-    def _dispatch(self, batch: Batch, k: int) -> List[torch.Tensor]:
+    def _dispatch(self, batch: Batch, k: int):
         """k steps on `batch` (one batch, or k stacked on a leading axis) ->
-        their k costs. On the card: replay the signature's graph, or run the
-        steps eagerly and capture them."""
-        first = batch if k == 1 else _unstack(batch, 0)
-        bs = _batch_size(first)
-        lrs = self._lrs(k, bs)
+        (their k costs, the extras of a single step). On the card: replay
+        the signature's graph, or run the steps eagerly and capture them."""
         if self.device.type == "cuda":
             key = (k, _signature(batch))
             graph = self.graphs.get(key)
             if graph is not None:
-                costs = list(graph.replay(batch, lrs))
-            else:
-                costs = self._eager(batch, k, lrs)
-                self.graphs[key] = StepGraph(self._step_body, batch, k, self.device)
-        else:
-            costs = self._eager(batch, k, lrs)
-        self.state["samples"] += k * bs
-        return costs
+                costs, extras = graph.replay(batch)
+                return list(costs), extras
+            out = self._eager(batch, k)
+            self.graphs[key] = StepGraph(self._step_body, batch, k, self.device)
+            return out
+        return self._eager(batch, k)
 
-    def _eager(self, batch: Batch, k: int, lrs: List[float]) -> List[torch.Tensor]:
-        costs = []
+    def _eager(self, batch: Batch, k: int):
+        costs, extras = [], {}
         for i in range(k):
-            self._lr.fill_(lrs[i])
-            costs.append(self._step_body(batch if k == 1 else _unstack(batch, i),
-                                         self._lr))
-        return costs
+            cost, extras = self._step_body(batch if k == 1 else _unstack(batch, i))
+            costs.append(cost)
+        return costs, (extras if k == 1 else {})
 
     def step(self, batch: Batch) -> torch.Tensor:
         """One training step on `batch`; returns the step's cost (a device
         scalar of its own, no host sync)."""
         if self.state is None:
             self.init_state(batch)
-        return self._dispatch(batch, 1)[0]
+        return self._dispatch(batch, 1)[0][0]
 
     def multi_step(self, batches: Batch) -> torch.Tensor:
         """K training steps in one dispatch: every slot of `batches` is
@@ -226,7 +322,7 @@ class SGDTrainer:
         k = _stack_size(batches)
         if self.state is None:
             self.init_state(_unstack(batches, 0))
-        return torch.stack(self._dispatch(batches, k))
+        return torch.stack(self._dispatch(batches, k)[0])
 
     # -- loops -----------------------------------------------------------------
     def _ensure_state(self, batch: Batch) -> None:
@@ -237,6 +333,7 @@ class SGDTrainer:
         if self._pending_load is not None:
             pending, self._pending_load = self._pending_load, None
             self.load(*pending)
+            self._known_good_pass = pending
 
     def train(self, reader: Callable, num_passes: int = 1,
               event_handler: Optional[Callable] = None,
@@ -244,11 +341,11 @@ class SGDTrainer:
               test_reader: Optional[Callable] = None,
               save_dir: Optional[str] = None, auto_resume: bool = False,
               keep_last_n: Optional[int] = None, steps_per_dispatch: int = 1,
-              async_checkpoint: bool = True) -> TrainState:
-        """`num_passes` passes over `reader()`, whose items are batch dicts
-        or, with `feeder`, lists of samples. EndPass metrics carry avg_cost
-        (one host sync per pass), batches, pass_seconds and, with
-        `test_reader`, test_cost.
+              async_checkpoint: bool = True, remat: Optional[str] = None) -> TrainState:
+        """`num_passes` passes over `reader()`, whose items are batch dicts,
+        `StackedBatch`es or, with `feeder`, lists of samples. EndPass metrics
+        carry avg_cost (one host sync per pass), batches, pass_seconds,
+        divergence_events and, with `test_reader`, test_cost.
 
         steps_per_dispatch=K > 1: K consecutive batches of one shape
         signature are stacked and run through `multi_step`; a shape change
@@ -264,36 +361,60 @@ class SGDTrainer:
         copies and a writer thread does the file I/O), keeping the newest
         `keep_last_n` passes. auto_resume: restore the newest checkpoint
         under save_dir that passes its CRCs (torn ones are skipped) and
-        continue with the pass after it; with a deterministic reader a run
-        killed and resumed this way ends where an unbroken run ends. train()
-        waits for the writer before it returns, and on its error path."""
+        continue with the pass after it, or with the rest of the pass a
+        preemption drain checkpointed; with a deterministic reader a run
+        killed or preempted and resumed this way ends where an unbroken run
+        ends. train() waits for the writer before it returns, and on its
+        error path.
+
+        remat: re-pins the rematerialization policy for this and later
+        calls, and drops the captured graphs when it changes; None keeps
+        the current one."""
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+        if remat is not None:
+            resolved = remat_mod.resolve(remat)
+            if resolved != self.remat:
+                self.remat = resolved
+                self.graphs.clear()
         event_handler = event_handler or (lambda e: None)
         resume_pass: Optional[int] = None
+        resume_mid, resume_skip = False, 0
         if auto_resume and save_dir is not None:
             self.checkpoint_wait()  # the scan must see completed writes
             resume_pass = ckpt.find_latest_valid_pass(save_dir)
             if resume_pass is not None:
+                extra = ckpt.pass_manifest(save_dir, resume_pass).get("extra", {})
+                if extra.get("mid_pass"):
+                    # a preemption drain's checkpoint: replay the rest of it
+                    resume_mid = True
+                    resume_skip = int(extra.get("batches_done", 0))
                 log.info("auto-resume: restoring from %s/pass-%05d (continuing at "
-                         "pass %d)", save_dir, resume_pass, resume_pass + 1)
+                         "pass %d%s)", save_dir, resume_pass,
+                         resume_pass if resume_mid else resume_pass + 1,
+                         f" batch {resume_skip}" if resume_mid else "")
                 if self.state is not None:
                     self.load(save_dir, resume_pass)
+                    self._known_good_pass = (save_dir, resume_pass)
                 else:  # the state's shapes are unknown until a batch arrives
                     self._pending_load = (save_dir, resume_pass)
         flushed = False
         try:
             for pass_id in range(num_passes):
-                if resume_pass is not None and pass_id <= resume_pass:
+                if resume_pass is not None and (
+                        pass_id < resume_pass or (pass_id == resume_pass and not resume_mid)):
                     continue  # completed by the run being resumed
-                self._train_one_pass(reader, pass_id, event_handler, feeder,
-                                     test_reader, save_dir, keep_last_n,
-                                     steps_per_dispatch, async_checkpoint)
+                self._train_one_pass(
+                    reader, pass_id, event_handler, feeder, test_reader, save_dir,
+                    keep_last_n, steps_per_dispatch, async_checkpoint,
+                    resume_skip if (resume_mid and pass_id == resume_pass) else 0)
             if self._pending_load is not None:
                 # every pass was checkpointed already: nothing ran, so build
                 # the state from one batch and load the last checkpoint
                 raw = next(iter(reader()), None)
                 if raw is not None:
+                    if isinstance(raw, StackedBatch):
+                        raw = _unstack(raw, 0)
                     self._ensure_state(_feed(raw, feeder))
             self.checkpoint_wait()
             flushed = True
@@ -311,87 +432,272 @@ class SGDTrainer:
     def _train_one_pass(self, reader: Callable, pass_id: int, event_handler: Callable,
                         feeder: Optional[Callable], test_reader: Optional[Callable],
                         save_dir: Optional[str], keep_last_n: Optional[int],
-                        steps_per_dispatch: int, async_checkpoint: bool) -> None:
+                        steps_per_dispatch: int, async_checkpoint: bool,
+                        resume_skip: int) -> None:
+        """One pass. Nothing here reads a device value per step: the pass
+        cost is a device sum (or, with the guard, the step's own masked
+        accumulator) read once at pass end, and `diverged` is read only at
+        guard polls. resume_skip: the batches of this pass a drained
+        checkpoint already holds; the reader is consumed past them."""
         inj = faults.get()
+        guard_on = self.divergence_policy is not None
         event_handler(BeginPass(pass_id))
         t0 = time.time()
+        if guard_on and self.state is not None:
+            self.state["cost_acc"].zero_()
         cost_sum: Optional[torch.Tensor] = None
-        n = 0
+        stepped = 0  # steps dispatched this pass
+        pass_div0 = self._diverged_seen
+        steps_since_poll = 0
         pending: List[Any] = []  # (batch_id, batch) waiting for a group
+        logical = 0  # reader position in single-batch units
+        boundary = 0  # every batch before it was applied or skipped
 
         def dispatch(first: int, last: int, batch: Batch, k: int) -> None:
-            nonlocal cost_sum, n
-            if inj.active and inj.fire("kill"):
-                raise faults.InjectedKill(f"injected kill at pass {pass_id} batch {first}")
+            nonlocal cost_sum, stepped, steps_since_poll
+            if inj.active:
+                if inj.fire("kill"):
+                    raise faults.InjectedKill(
+                        f"injected kill at pass {pass_id} batch {first}")
+                if inj.fire("preempt"):
+                    # only sets the drain flag: this dispatch still steps,
+                    # the next boundary drains
+                    preempt.get().request(f"injected preempt at pass {pass_id} "
+                                          f"batch {first}")
+                if inj.fire("nan_loss"):
+                    batch = _poison_batch(batch)
             event_handler(BeginIteration(pass_id, first))
-            costs = [self.step(batch)] if k == 1 else self.multi_step(batch)
-            for cost in costs:
-                cost_sum = cost if cost_sum is None else cost_sum + cost
-            n += k
-            event_handler(EndIteration(pass_id, last, costs[-1]))
+            costs, extras = self._dispatch(batch, k)
+            if not guard_on:
+                for cost in costs:
+                    cost_sum = cost if cost_sum is None else cost_sum + cost
+            stepped += k
+            steps_since_poll += k
+            if guard_on and steps_since_poll >= self.guard_check_every:
+                steps_since_poll = 0
+                new = self._poll_guard(pass_id, last, save_dir)
+                # a poll after every single step knows this step diverged:
+                # its event is not delivered
+                if new and k == 1 and self.guard_check_every == 1:
+                    return
+            event_handler(EndIteration(pass_id, last, costs[-1], extras))
 
         def flush() -> None:
+            nonlocal boundary
             for batch_id, batch in pending:
                 dispatch(batch_id, batch_id, batch, 1)
+            if pending:
+                boundary = pending[-1][0] + 1
             pending.clear()
 
-        for batch_id, raw in enumerate(reader()):
+        for raw in reader():
+            k_item = raw.k if isinstance(raw, StackedBatch) else 1
+            idx0 = logical
+            logical += k_item
+            if preempt.requested():
+                # a dispatch boundary: the previous step completed; the
+                # current batch and any buffered ones replay after resume
+                self._drain_preempt(save_dir, pass_id, max(boundary, resume_skip),
+                                    keep_last_n, async_checkpoint)
+            if preempt.resize_requested():
+                raise NotImplementedError(
+                    "elastic resize re-shards a DataParallel mesh, which the port "
+                    "does not have yet (ROADMAP.md item 8)")
+            if idx0 + k_item <= resume_skip:
+                boundary = logical  # already in the restored state
+                continue
+            if isinstance(raw, StackedBatch):
+                self._ensure_state(_unstack(raw, 0))
+                flush()  # keep the update order the reader's
+                skip = max(resume_skip - idx0, 0)  # a group across the boundary
+                if skip:
+                    for j in range(skip, k_item):
+                        dispatch(idx0 + j, idx0 + j, _unstack(raw, j), 1)
+                else:
+                    dispatch(idx0, idx0 + k_item - 1, dict(raw), k_item)
+                boundary = logical
+                continue
             batch = _feed(raw, feeder)
             self._ensure_state(batch)
             if steps_per_dispatch == 1:
-                dispatch(batch_id, batch_id, batch, 1)
+                dispatch(idx0, idx0, batch, 1)
+                boundary = logical
                 continue
             if pending and _signature(batch) != _signature(pending[0][1]):
                 flush()
-            pending.append((batch_id, batch))
+            pending.append((idx0, batch))
             if len(pending) == steps_per_dispatch:
                 dispatch(pending[0][0], pending[-1][0],
                          _stack([b for _, b in pending]), steps_per_dispatch)
+                boundary = pending[-1][0] + 1
                 pending.clear()
         flush()
+        if guard_on and self.state is not None:
+            # the reaction window never crosses a pass boundary: the pass
+            # checkpoint must not absorb an unexamined divergence
+            self._poll_guard(pass_id, max(logical - 1, 0), save_dir)
+        n_diverged = self._diverged_seen - pass_div0
+        n_batches = stepped - n_diverged
+        if guard_on and self.state is not None:
+            cost_sum = self.state["cost_acc"]  # accumulated and masked in the step
         metrics: Dict[str, Any] = {
-            "avg_cost": float(cost_sum) / n if n else 0.0,
-            "batches": n, "pass_seconds": time.time() - t0,
+            "avg_cost": (float(cost_sum) / n_batches
+                         if n_batches and cost_sum is not None else 0.0),
+            "batches": n_batches, "pass_seconds": time.time() - t0,
+            "divergence_events": n_diverged,
         }
         if test_reader is not None:
             metrics["test_cost"] = self.test(test_reader, feeder)["cost"]
         if save_dir is not None and self.state is not None:
             self.save(save_dir, pass_id, keep_last_n=keep_last_n, async_=async_checkpoint)
+            self._known_good_pass = (save_dir, pass_id)
         event_handler(EndPass(pass_id, metrics))
+
+    # -- divergence guard and preemption ------------------------------------------
+    def _poll_guard(self, pass_id: int, batch_id: int, save_dir: Optional[str],
+                    react: bool = True) -> int:
+        """Read the device's cumulative `diverged` count (the guard's one
+        host sync) and react to what is new since the last poll. The step
+        already reverted every diverged update on the device, so the
+        reaction is policy, not protection. Returns the number of new
+        events."""
+        d = int(self.state["diverged"])
+        new = d - self._diverged_seen
+        self._diverged_seen = d
+        if new <= 0:
+            return 0
+        stats.FT_EVENTS.incr("divergence", new)
+        if not react:
+            log.warning("divergence guard: %d non-finite step cost(s) found while "
+                        "draining at pass %d batch %d; the updates were reverted on "
+                        "the device, no reaction during the drain", new, pass_id, batch_id)
+            return new
+        if self.divergence_policy == "raise":
+            raise DivergenceError(
+                f"non-finite cost in {new} step(s) within the guard window ending at "
+                f"pass {pass_id} batch {batch_id}; every poisoned update was rolled "
+                f"back to its pre-step state on the device")
+        if self.divergence_policy == "rollback":
+            self._rollback(save_dir, pass_id, batch_id)
+        else:
+            log.warning("divergence guard: non-finite cost in %d step(s) in the window "
+                        "ending at pass %d batch %d; the poisoned updates were skipped "
+                        "on the device", new, pass_id, batch_id)
+        return new
+
+    def _rollback(self, save_dir: Optional[str], pass_id: int, batch_id: int) -> None:
+        """Restore the newest valid checkpoint and halve the lr multiplier;
+        with no checkpoint to return to, the step's own revert stands (as
+        skip_batch)."""
+        latest: Optional[int] = None
+        if save_dir is not None:
+            self.checkpoint_wait()  # scan and load only completed writes
+            if self._known_good_pass and self._known_good_pass[0] == save_dir:
+                latest = self._known_good_pass[1]
+            else:
+                latest = ckpt.find_latest_valid_pass(save_dir)
+        if latest is None:
+            log.warning("divergence rollback at pass %d batch %d: no valid checkpoint "
+                        "under %r; falling back to skipping the batch",
+                        pass_id, batch_id, save_dir)
+            return
+        cur_scale = float(self.state["lr_scale"])
+        seen = self._diverged_seen
+        try:
+            self.load(save_dir, latest)
+        except (OSError, ValueError):
+            # the remembered checkpoint rotted on disk: scan for another
+            self._known_good_pass = None
+            latest = ckpt.find_latest_valid_pass(save_dir)
+            if latest is None:
+                log.warning("divergence rollback at pass %d batch %d: no valid "
+                            "checkpoint under %r; falling back to skipping the batch",
+                            pass_id, batch_id, save_dir)
+                return
+            self.load(save_dir, latest)
+        # the events happened: the count stays the live one
+        self.state["diverged"].fill_(seen)
+        self._diverged_seen = seen
+        # halve from the lower of the live and the restored scale, so
+        # rollbacks onto one checkpoint compound (0.5, 0.25, ...)
+        self.set_lr_scale(min(cur_scale, float(self.state["lr_scale"])) * 0.5)
+        stats.FT_EVENTS.incr("divergence_rollback")
+        log.warning("divergence rollback at pass %d batch %d: restored pass-%05d, "
+                    "lr_scale now %g", pass_id, batch_id, latest,
+                    float(self.state["lr_scale"]))
+
+    def _drain_preempt(self, save_dir: Optional[str], pass_id: int, batches_done: int,
+                       keep_last_n: Optional[int], async_checkpoint: bool = False) -> None:
+        """Preemption drain at a dispatch boundary: a durable mid-pass
+        checkpoint unless the grace budget is spent, then Preempted."""
+        guard = preempt.get()
+        saved: Optional[str] = None
+        if self.state is not None and self.divergence_policy is not None:
+            # fold an unexamined guard window into the telemetry first
+            self._poll_guard(pass_id, batches_done, save_dir, react=False)
+        if self.state is not None and save_dir is not None:
+            if guard.deadline_passed():
+                log.warning("preempt drain at pass %d batch %d: grace budget (%.1fs) "
+                            "already spent; exiting without a mid-pass checkpoint",
+                            pass_id, batches_done, guard.grace_s)
+            else:
+                saved = self.save(save_dir, pass_id, keep_last_n=keep_last_n,
+                                  mid_pass_batches=batches_done, async_=async_checkpoint)
+                self.checkpoint_wait()  # durable before the exit
+                self._known_good_pass = (save_dir, pass_id)
+        stats.FT_EVENTS.incr("preempt_drain")
+        log.warning("preempt drain: stopping at pass %d batch %d (%s)", pass_id,
+                    batches_done, f"checkpointed to {saved}" if saved else "no checkpoint")
+        raise Preempted(pass_id, batches_done, saved, guard.reason)
 
     def test(self, reader: Callable, feeder: Optional[Callable] = None) -> Dict[str, Any]:
         """Average cost over `reader()` (batch dicts, or sample lists with
-        `feeder`), weighted by batch size; batch norm uses its moving
+        `feeder`), weighted by batch size, at the model-averaged parameters
+        (the parameters without averaging); batch norm uses its moving
         statistics."""
         assert self.state is not None, "call train() or init_state() first"
+        params = self.model_average.averaged_params(self.state["avg"],
+                                                    self.state["params"])
         total, n = 0.0, 0
         with torch.no_grad():
             for raw in reader():
                 batch = _feed(raw, feeder)
                 bs = _batch_size(batch)
-                total += float(self._cost(self.state["params"], batch, train=False)[0]) * bs
+                total += float(self._cost(params, batch, train=False)[0]) * bs
                 n += bs
         return {"cost": total / max(n, 1), "samples": n}
 
     # -- checkpoints -----------------------------------------------------------
     def _trees(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The checkpoint's three trees as flat {key: tensor} dicts, keyed as
-        the JAX package keys them."""
+        the JAX package keys them; the averages ride in the optimizer tree."""
+        opt_tree = {"opt": self.state["opt"]}
+        if self.state["avg"]:
+            opt_tree["avg"] = self.state["avg"]
         return {
             "params": ckpt.flatten_tree(self.state["params"], leaf=_leaf),
             "states": ckpt.flatten_tree(self.state["states"], leaf=_leaf),
-            "opt": ckpt.flatten_tree({"opt": self.state["opt"]}, leaf=_leaf),
+            "opt": ckpt.flatten_tree(opt_tree, leaf=_leaf),
         }
 
-    def _meta(self) -> Dict[str, Any]:
-        return {"samples": int(self.state["samples"]), "lr_scale": float(self.lr_scale),
-                "world_size": 1}
+    def _meta(self, mid_pass_batches: Optional[int] = None) -> Dict[str, Any]:
+        st = self.state
+        meta = {"samples": int(st["samples"]), "lr_scale": float(st["lr_scale"]),
+                "world_size": 1, "rng": [int(v) for v in st["rng"].tolist()],
+                "diverged": int(st["diverged"])}
+        if mid_pass_batches is not None:
+            meta["mid_pass"] = True
+            meta["batches_done"] = int(mid_pass_batches)
+        return meta
 
     def save(self, save_dir: str, pass_id: int, keep_last_n: Optional[int] = None,
-             async_: bool = False) -> str:
-        """Write the parameters, states, optimizer slots and `t` and the
-        samples counter as save_dir/pass-%05d (the JAX package's pass
-        directory), so `load` is a true resume.
+             async_: bool = False, mid_pass_batches: Optional[int] = None) -> str:
+        """Write the parameters, states, optimizer slots and `t`, the model
+        averages and the counters (samples, lr_scale, rng, diverged) as
+        save_dir/pass-%05d (the JAX package's pass directory), so `load` is
+        a true resume. mid_pass_batches marks a preemption drain's save:
+        the pass is applied through that many batches, and auto-resume
+        replays the rest of it.
 
         async_=True: the training thread waits for the previous snapshot's
         write, starts the device-to-host copies into pinned buffers (kept
@@ -401,18 +707,18 @@ class SGDTrainer:
         is durable after `checkpoint_wait()`; train() and load() call it."""
         assert self.state is not None
         trees = self._trees()
+        meta = self._meta(mid_pass_batches)
         if not async_:
             host = {name: {k: v.detach().cpu().numpy() for k, v in flat.items()}
                     for name, flat in trees.items()}
             return ckpt.save_pass(save_dir, pass_id, host["params"], host["states"],
-                                  host["opt"], extra_meta=self._meta(),
-                                  keep_last_n=keep_last_n)
+                                  host["opt"], extra_meta=meta, keep_last_n=keep_last_n)
         if self._ckpt_writer is None:
             self._ckpt_writer = ckpt.AsyncCheckpointer()
         self._ckpt_writer.wait()  # the pinned buffers are free again
         host, ready = self._fetch(trees)
         return ckpt.save_pass_async(self._ckpt_writer, save_dir, pass_id, host["params"],
-                                    host["states"], host["opt"], extra_meta=self._meta(),
+                                    host["states"], host["opt"], extra_meta=meta,
                                     keep_last_n=keep_last_n, ready=ready)
 
     def _fetch(self, trees):
@@ -443,11 +749,12 @@ class SGDTrainer:
             self._ckpt_writer.wait()
 
     def load(self, save_dir: str, pass_id: Optional[int] = None) -> None:
-        """Restore the parameters, states, optimizer slots and `t` and the
-        samples counter from a checkpoint (this package's or the JAX
-        package's; pass_id=None takes the newest), copying every value into
-        the state's own storage, so captured step graphs stay valid. A
-        reference v1 model directory restores the parameters only."""
+        """Restore the parameters, states, optimizer slots and `t`, the
+        model averages and the counters from a checkpoint (this package's or
+        the JAX package's, which holds no rng or diverged: those stay;
+        pass_id=None takes the newest), copying every value into the state's
+        own storage, so captured step graphs stay valid. A reference v1
+        model directory restores the parameters only."""
         assert self.state is not None, "init_state() with a sample batch first"
         self.checkpoint_wait()  # never read a checkpoint that is mid-write
         params, states, opt, manifest = ckpt.load_pass(
@@ -464,8 +771,9 @@ class SGDTrainer:
             if bad:
                 raise ValueError(f"checkpoint under {save_dir!r}: optimizer state shapes "
                                  f"differ (key, found, expected): {bad[:4]}")
-            missing = [k for k in own if k not in opt]
-            if len(missing) == len(own):
+            own_opt = [k for k in own if k.startswith("opt/")]
+            missing = [k for k in own_opt if k not in opt]
+            if missing and len(missing) == len(own_opt):
                 raise ValueError(f"checkpoint under {save_dir!r} holds no entry of this "
                                  f"optimizer's state (e.g. {missing[:4]})")
             if missing:
@@ -477,10 +785,16 @@ class SGDTrainer:
                     if k in opt:
                         v.copy_(torch.from_numpy(np.asarray(opt[k])))
         extra = manifest.get("extra", {})
+        st = self.state
         if extra.get("samples") is not None:
-            self.state["samples"] = int(extra["samples"])
+            st["samples"].fill_(int(extra["samples"]))
         if extra.get("lr_scale") is not None:
-            self.lr_scale = float(extra["lr_scale"])
+            st["lr_scale"].fill_(float(extra["lr_scale"]))
+        if extra.get("rng") is not None:
+            st["rng"].copy_(torch.tensor(extra["rng"], dtype=torch.int64))
+        if extra.get("diverged") is not None:
+            st["diverged"].fill_(int(extra["diverged"]))
+            self._diverged_seen = int(extra["diverged"])
 
 
 def _leaf(x: Any) -> Any:
@@ -521,3 +835,24 @@ def _batch_size(batch: Mapping[str, Any]) -> int:
         if not k.endswith(".lengths"):
             return int(np.shape(v)[0])
     raise ValueError("empty batch")
+
+
+def _poison_batch(batch: Batch) -> Dict[str, Any]:
+    """The nan_loss fault: NaN out the first float slot (shape and dtype
+    unchanged, so the same graph replays it). A batch of ids only (seq2seq)
+    gets its first id slot set past every vocabulary instead: the embedding
+    reads such an id as a NaN row (jnp.take's fill mode, `layers.take_rows`);
+    the JAX package's fault refuses such a batch."""
+    slots = [(k, v) for k, v in batch.items() if not k.endswith((".lengths", ".sub_lengths"))]
+    for k, v in slots:
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return {**batch, k: v * float("nan")}
+        if not isinstance(v, torch.Tensor) and np.issubdtype(np.asarray(v).dtype, np.floating):
+            return {**batch, k: np.asarray(v) * np.float32("nan")}
+    for k, v in slots:
+        if isinstance(v, torch.Tensor) and not v.is_floating_point():
+            return {**batch, k: torch.full_like(v, torch.iinfo(v.dtype).max)}
+        if not isinstance(v, torch.Tensor) and np.issubdtype(np.asarray(v).dtype, np.integer):
+            a = np.asarray(v)
+            return {**batch, k: np.full_like(a, np.iinfo(a.dtype).max)}
+    raise ValueError("nan_loss fault: batch has no float or id slot to poison")

@@ -170,7 +170,12 @@ def test_pass_directory_is_the_jax_packages(jax_s2s, tmp_path):
     jdir, pdir = tmp_path / "jax" / "pass-00000", tmp_path / "port" / "pass-00000"
     assert sorted(os.listdir(jdir)) == sorted(os.listdir(pdir))
     jm, pm = (json.loads((d / "manifest.json").read_text()) for d in (jdir, pdir))
-    assert jm["extra"] == pm["extra"] and jm["pass_id"] == pm["pass_id"] == 0
+    # the port's extra holds the JAX package's fields and two more: the
+    # threefry key and the divergence count (the JAX package leaves them out)
+    assert {k: pm["extra"][k] for k in jm["extra"]} == jm["extra"]
+    assert set(pm["extra"]) - set(jm["extra"]) == {"rng", "diverged"}
+    assert pm["extra"]["rng"] == [0, 0] and pm["extra"]["diverged"] == 0
+    assert jm["pass_id"] == pm["pass_id"] == 0
     assert jm["version"] == pm["version"]
     for name in jm["files"]:
         assert jm["files"][name]["keys"] == pm["files"][name]["keys"], name

@@ -153,12 +153,7 @@ def cuda():
 def eager_steps(tr, batches):
     """Steps through the eager body the capture records, on the card, with
     no graph: the reference a replay is held against."""
-    out = []
-    for b in batches:
-        bs = len(b["source_ids"])
-        out.append(float(tr._eager(b, 1, tr._lrs(1, bs))[0]))
-        tr.state["samples"] += bs
-    return out
+    return [float(tr._eager(b, 1)[0][0]) for b in batches]
 
 
 def rel_l2(a, b):
