@@ -20,8 +20,9 @@ Phases (any failure exits non-zero and prints no result line):
                <= 1e-4) and backward (each of dproj, dW_zr, dW_c, db, dh0
                <= 1e-3 x max(1, max|plain|)) in both directions at
                T=7/B=5/H=24, at the seq2seq encoder's T=50/B=128/H=512
-               with ragged lengths 30-50 and at T=50/B=64/H=1024 (lengths
-               30-50, wider than 4 units per SM); the LSTM forward (hs, h_last,
+               with ragged lengths 30-50, at T=50/B=64/H=1024 (lengths
+               30-50, wider than 4 units per SM) and at phase 21's
+               T=64/B=128/H=512 (lengths 30-50 padded to 64); the LSTM forward (hs, h_last,
                c_last <= 1e-4) and backward (dproj, dW, db, dh0, dc0, as
                the GRU's) in both directions with non-zero h0 and c0 at
                T=7/B=5/H=24, the text classifier's T=100/B=128/H=512 with
@@ -247,7 +248,31 @@ Phases (any failure exits non-zero and prints no result line):
                at full width, then card vs CPU at batch 8 over 4 ragged
                batches (costs 1e-5 relative, parameters and slots 1e-3
                relative L2).
- 21. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 21. v1_bigru — the v1 config pipeline: a v1 bi-GRU text config
+               (embedding_layer -> bidirectional_gru -> fc softmax,
+               classification_cost with its classification_error evaluator,
+               Adam) at the seq2seq encoder's widths (vocab 30000, 512,
+               batch 128, lengths 30-50, 24 batches a pass) through
+               `paddle_tpu_torch.cli` (`parse_args`, `prepare_train`, then
+               the job's `run`, as `main` runs `train`) in process, 2 passes with --save_dir (GRU counters from 0):
+               both GRU kernels for both directions every step (and both
+               forwards at the init and each test batch), one graph, every later step a
+               replay, avg_cost falls, the evaluator counted every example
+               of the pass, pass-00001 written; then --job=time (ms/step,
+               tokens/s over every timed batch's real tokens, GRU launches
+               a step), 5 replays under torch.profiler (the device's busy
+               ms a step and busy share, both over that window),
+               --job=test from pass-00001,
+               dump_config against the parse, and the config at vocab 64,
+               size 16, batch 8 card vs CPU over its first 4 logged step
+               costs (the first 1e-5 relative, all 1e-4).
+ 22. v1_lenet — the v1 MNIST LeNet config (two simple_img_conv_pool, fc 10
+               softmax, Momentum(0.9), batch 128, 20 batches a pass, 2
+               passes): one graph, the cost falls, no recurrent kernel;
+               --job=time (images/s), then busy ms and busy share as
+               phase 21's; card vs CPU
+               over its first 4 logged step costs.
+ 23. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -261,6 +286,7 @@ way to compare two commits' training steps in one chip call."""
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -393,6 +419,26 @@ REMAT_STEPS, REMAT_RTOL = 4, 1e-6
 OPT_STEPS, OPT_COST_RTOL, OPT_REL_L2 = 4, 1e-5, 1e-3
 # the prefetcher phase: 12 distinct VGG batches a pass, 2 batches ahead
 PREFETCH_BATCHES, PREFETCH_DEPTH = 12, 2
+# the v1 config pipeline (`python -m paddle_tpu_torch train --config=...`):
+# the reference's quick_start bidirectional text classifier with
+# bidirectional_gru for bidirectional_lstm, at the seq2seq encoder's widths
+# (bench.py:211-245: vocab 30000, 512 wide, batch 128), lengths 30-50 drawn
+# from RandomState as phase 5 draws them, 24 batches a pass, 2 passes;
+# the first 4 ids of a sequence say its label. Card vs CPU at vocab 64,
+# size 16, batch 8: the first V1_CPU_STEPS logged step costs, the first
+# within CPU_COST_RTOL, the others (Adam's steps on top) within V1_CPU_RTOL
+V1_BIGRU = dict(vocab=30000, size=512, batch=128, batches=24, test_batches=2,
+                min_len=30, max_len=50, passes=2, time_batches=20)
+V1_BIGRU_SMALL = dict(vocab=64, size=16, batch=8, batches=4, test_batches=1)
+V1_CPU_STEPS, V1_CPU_RTOL = 4, 1e-4
+# replays under torch.profiler after --job=time: the busy ms a step and the
+# busy share (kernel time over wall time) come from this one window
+V1_PROFILE_STEPS = 5
+# the v1 MNIST LeNet (BASELINE config #1 as a v1 config: two
+# simple_img_conv_pool of 20 and 50 5x5 filters, fc 10 softmax),
+# Momentum(0.9), batch 128, 20 batches a pass, 2 passes; card vs CPU over
+# its first V1_CPU_STEPS logged steps at 4 batches
+V1_LENET = dict(batch=128, batches=20, test_batches=2, passes=2, time_batches=20)
 
 
 def fail(msg: str) -> None:
@@ -691,6 +737,7 @@ def gru_kernel_phase(torch, flush, bw, f32_flops):
     directions, at a small odd shape and at the encoder's shape in the
     seq2seq training step; kernel and plain times (CUDA events, L2 flushed)
     beside the bound, at each shape in the forward direction."""
+    from paddle_tpu_torch.data.feeder import _bucket_len
     from paddle_tpu_torch.ops import rnn_kernels as K
 
     g = torch.Generator().manual_seed(5)
@@ -698,12 +745,19 @@ def gru_kernel_phase(torch, flush, bw, f32_flops):
     main_lens[0] = S2S["src_len"]
     wide_lens = torch.randint(30, 51, (64,), generator=g)
     wide_lens[0] = S2S["src_len"]
+    # phase 21's v1 config: lengths 30-50, which the feeder pads to the
+    # next power of two (data/feeder.py `_bucket_len`): T = 64
+    v1_lens = torch.randint(V1_BIGRU["min_len"], V1_BIGRU["max_len"] + 1,
+                            (V1_BIGRU["batch"],), generator=g)
+    v1_lens[0] = V1_BIGRU["max_len"]
+    v1_t = _bucket_len(V1_BIGRU["max_len"], None)
     shapes = (
         # name, seed, T, B, H, lengths, h0 scale
         ("small_odd", 11, 7, 5, 24, [7, 3, 1, 5, 6], 0.5),
         ("s2s_encoder", 12, S2S["src_len"], S2S["batch"], S2S["hidden"],
          main_lens.tolist(), 0.0),
         ("wide_h1024", 13, S2S["src_len"], 64, 1024, wide_lens.tolist(), 0.5),
+        ("v1_bigru", 14, v1_t, V1_BIGRU["batch"], V1_BIGRU["size"], v1_lens.tolist(), 0.0),
     )
     rows = []
     for name, seed, t, b, h, lens, h0_scale in shapes:
@@ -3416,6 +3470,365 @@ def prefetch_phase(torch, trainer, dev):
     return out
 
 
+V1_BIGRU_PROVIDER = """
+import numpy as np
+from paddle.trainer.PyDataProvider2 import *
+
+
+def hook(settings, vocab, train, test, min_len, max_len, **kwargs):
+    settings.vocab, settings.lens = vocab, (min_len, max_len)
+    settings.samples = {"train": train, "test": test}
+    settings.input_types = {"word": integer_value_sequence(vocab),
+                            "label": integer_value(2)}
+
+
+@provider(init_hook=hook, should_shuffle=False)
+def process(settings, filename):
+    rs = np.random.RandomState(0 if filename == "train" else 1)
+    lo, hi = settings.lens
+    for _ in range(settings.samples[filename]):
+        label = int(rs.randint(2))
+        ids = rs.randint(3, settings.vocab, size=rs.randint(lo, hi + 1))
+        ids[:4] = 1 + label
+        yield {"word": ids.tolist(), "label": label}
+"""
+
+V1_BIGRU_CONFIG = """
+from paddle.trainer_config_helpers import *
+
+vocab = get_config_arg("vocab", int, 30000)
+size = get_config_arg("size", int, 512)
+batch = get_config_arg("batch", int, 128)
+batches = get_config_arg("batches", int, 24)
+test_batches = get_config_arg("test_batches", int, 2)
+settings(batch_size=batch, learning_rate=1e-3, learning_method=AdamOptimizer())
+define_py_data_sources2(
+    train_list="train.list", test_list="test.list", module="v1_bigru_provider",
+    obj="process", args={"vocab": vocab, "train": batches * batch,
+                         "test": test_batches * batch, "min_len": 30, "max_len": 50})
+word = data_layer(name="word", size=vocab)
+label = data_layer(name="label", size=2)
+emb = embedding_layer(input=word, size=size)
+bi = bidirectional_gru(input=emb, size=size)
+output = fc_layer(input=bi, size=2, act=SoftmaxActivation())
+outputs(classification_cost(input=output, label=label))
+"""
+
+V1_LENET_PROVIDER = """
+import numpy as np
+from paddle.trainer.PyDataProvider2 import *
+
+
+def hook(settings, train, test, **kwargs):
+    settings.samples = {"train": train, "test": test}
+
+
+@provider(input_types={"pixel": dense_vector(784), "label": integer_value(10)},
+          init_hook=hook, should_shuffle=False)
+def process(settings, filename):
+    rs = np.random.RandomState(0 if filename == "train" else 1)
+    for _ in range(settings.samples[filename]):
+        label = int(rs.randint(10))
+        x = rs.rand(784).astype("float32") * 0.2
+        x[label * 70:label * 70 + 70] += 1.0
+        yield {"pixel": x, "label": label}
+"""
+
+V1_LENET_CONFIG = """
+from paddle.trainer_config_helpers import *
+
+batch = get_config_arg("batch", int, 128)
+batches = get_config_arg("batches", int, 20)
+test_batches = get_config_arg("test_batches", int, 2)
+settings(batch_size=batch, learning_rate=0.01, learning_method=MomentumOptimizer(0.9))
+define_py_data_sources2(
+    train_list="train.list", test_list="test.list", module="v1_lenet_provider",
+    obj="process", args={"train": batches * batch, "test": test_batches * batch})
+img = data_layer(name="pixel", size=784, height=28, width=28)
+label = data_layer(name="label", size=10)
+conv1 = simple_img_conv_pool(input=img, filter_size=5, num_filters=20, num_channel=1,
+                             pool_size=2, pool_stride=2, act=ReluActivation())
+conv2 = simple_img_conv_pool(input=conv1, filter_size=5, num_filters=50, num_channel=20,
+                             pool_size=2, pool_stride=2, act=ReluActivation())
+predict = fc_layer(input=conv2, size=10, act=SoftmaxActivation())
+outputs(classification_cost(input=predict, label=label))
+"""
+
+
+def v1_config_dir(name: str, config: str, provider: str) -> str:
+    """A directory holding a v1 config, its provider and file lists."""
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    files = {"conf.py": config, f"v1_{name}_provider.py": provider,
+             "train.list": "train\n", "test.list": "test\n"}
+    for fname, text in files.items():
+        with open(os.path.join(d, fname), "w") as f:
+            f.write(text)
+    return d
+
+
+class _Records:
+    """The trainer's log records ("pass P batch B cost=C") of a CLI run."""
+
+    def __init__(self):
+        import logging
+
+        self.costs = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda r: self.costs.append(
+            float(r.getMessage().rsplit("cost=", 1)[1])) if "cost=" in r.getMessage() else None
+        self.logger = logging.getLogger("paddle_tpu_torch.trainer")
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        return False
+
+
+def run_cli(conf_dir: str, argv, echo: bool = True):
+    """`python -m paddle_tpu_torch <argv>` in this process, from the
+    config's directory -> (exit code, its stdout lines, step costs logged,
+    the `train` command's job or None); `echo` repeats its stdout here."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import cli
+
+    out = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(conf_dir)
+    sys.path.insert(0, conf_dir)
+    job = None
+    try:
+        with _Records() as rec, contextlib.redirect_stdout(out):
+            args = cli.parse_args(list(argv))
+            if args.cmd == "train":
+                job = cli.prepare_train(args)
+                rc = job.run()
+            else:
+                rc = args.fn(args)
+    finally:
+        sys.path.remove(conf_dir)
+        os.chdir(cwd)
+    lines = out.getvalue().splitlines()
+    for line in lines if echo else ():
+        print(f"  | {line}", flush=True)
+    return rc, lines, rec.costs, job
+
+
+def pass_lines(lines):
+    """{pass id: {key: value}} of the CLI's "pass N: k=v ..." lines."""
+    out = {}
+    for line in lines:
+        if line.startswith("pass "):
+            head, rest = line.split(":", 1)
+            out[int(head.split()[1])] = {k: float(v) for k, v in
+                                         (kv.split("=", 1) for kv in rest.split())}
+    return out
+
+
+def v1_args(cfg: dict) -> str:
+    return ",".join(f"{k}={v}" for k, v in cfg.items()
+                    if k in ("vocab", "size", "batch", "batches", "test_batches"))
+
+
+def v1_vs_cpu(name: str, conf_dir: str, args: str):
+    """The config at a small width through `train --device=cpu` and
+    `--device=cuda` from the same seed: the first V1_CPU_STEPS logged step
+    costs (one pass, --log_period=1)."""
+    costs = {}
+    for dev in ("cpu", "cuda"):
+        rc, _, logged, _ = run_cli(conf_dir, [
+            "train", "--config=conf.py", f"--config_args={args}", f"--device={dev}",
+            "--num_passes=1", "--log_period=1"])
+        if rc != 0:
+            fail(f"{name}: train --device={dev} at the small width exited {rc}")
+        costs[dev] = logged[:V1_CPU_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(costs["cuda"], costs["cpu"])]
+    out = dict(config_args=args, steps=len(rel), cost_card=costs["cuda"],
+               cost_cpu=costs["cpu"], cost_rel_err=rel)
+    if len(rel) != V1_CPU_STEPS:
+        fail(f"{name}: {len(rel)} logged steps card vs CPU, want {V1_CPU_STEPS}")
+    if not (rel[0] <= CPU_COST_RTOL and max(rel) <= V1_CPU_RTOL):
+        fail(f"{name}: step costs card {costs['cuda']} vs CPU {costs['cpu']}: rel err "
+             f"{rel} (first <= {CPU_COST_RTOL}, all <= {V1_CPU_RTOL})")
+    return out
+
+
+def v1_timed(torch, conf_dir: str, name: str, tag: str, per_step, n: int):
+    """`--job=time` over n batches (the replays of one graph), then
+    torch.profiler over V1_PROFILE_STEPS replays on the same trainer: the
+    device's busy ms a step and its busy share, both over the profiled
+    window -> (result, the job)."""
+    zero_rnn_counts()
+    rc, lines, _, job = run_cli(conf_dir, ["train", "--config=conf.py", "--job=time",
+                                           f"--num_batches={n}"])
+    launches = rnn_counts()  # the init's forward, the warm-up step, n replays
+    if rc != 0:
+        fail(f"{name}: --job=time exited {rc}")
+    timed = json.loads(lines[-1])
+    if set(timed) != {"ms_per_batch", "batches"} or timed["batches"] != n:
+        fail(f"{name}: --job=time printed {timed}")
+    trainer = job.trainer
+    graphs = list(trainer.graphs.values())
+    if len(graphs) != 1 or graphs[0].replays != n:
+        fail(f"{name}: --job=time ran {len(graphs)} graphs, "
+             f"{graphs[0].replays if graphs else 0} replays, want one graph, {n} replays")
+    # the last timed batch, on the host as the feeder gave it (the graph's
+    # signature holds numpy dtypes: device tensors would capture anew)
+    batch = {k: v.cpu().numpy() for k, v in graphs[0].inputs.items()}
+    profile = profile_train(torch, lambda: trainer.step(batch), tag=tag,
+                            steps=V1_PROFILE_STEPS, label=f"{name.replace(' ', '_')}_profile")
+    if len(trainer.graphs) != 1:
+        fail(f"{name}: the profiled steps captured a graph of their own")
+    ms = timed["ms_per_batch"]
+    out = dict(ms_per_step=ms, batches_timed=n,
+               device_busy_ms_per_step=profile["device_busy_ms_per_step"],
+               busy_share=profile["device_busy_share"],
+               profiled_wall_ms_per_step=profile["wall_ms_per_step"],
+               kernel_launches=launches, profile=profile,
+               **per_step(job, ms))
+    return out, job
+
+
+def v1_bigru_phase(torch):
+    """Phase 21: the v1 bi-GRU text config at full width through the CLI."""
+    from paddle_tpu_torch import proto
+    from paddle_tpu_torch.config import parse_config
+
+    cfg = V1_BIGRU
+    d = v1_config_dir("bigru", V1_BIGRU_CONFIG, V1_BIGRU_PROVIDER)
+    save = os.path.join(d, "out")
+    steps = cfg["batches"] * cfg["passes"]
+    tests = cfg["test_batches"] * cfg["passes"]
+    t0 = time.perf_counter()
+    zero_rnn_counts()
+    rc, lines, _, job = run_cli(d, ["train", "--config=conf.py",
+                                    f"--num_passes={cfg['passes']}", f"--save_dir={save}",
+                                    "--log_period=0"])
+    launches = rnn_counts()
+    train_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"v1 bigru: train exited {rc}")
+    trainer = job.trainer
+    ((ev, _),) = job.evaluators
+    graphs = list(trainer.graphs.values())
+    passes = pass_lines(lines)
+    examples = cfg["batches"] * cfg["batch"]
+    result = dict(config=cfg, train_s=train_s, steps=steps, passes=passes,
+                  evaluator_samples_last_pass=ev.total, graphs=len(graphs),
+                  replays=graphs[0].replays if graphs else 0, kernel_launches=launches,
+                  gru_launches_per_step=dict(
+                      fwd=(launches["FWD_LAUNCHES"] - 2 * (tests + 1)) / steps,
+                      bwd=launches["BWD_LAUNCHES"] / steps))
+    # every train step runs both directions forward and backward; the
+    # parameters' init (one forward of the first batch) and each test batch
+    # at a pass end run both forwards
+    want = (2 * (steps + tests + 1), 2 * steps)
+    if (launches["FWD_LAUNCHES"], launches["BWD_LAUNCHES"]) != want:
+        fail(f"v1 bigru: GRU launches {launches} over {steps} steps, {tests} test "
+             f"batches and the init, want fwd {want[0]}, bwd {want[1]}")
+    if any(v for k, v in launches.items() if k not in ("FWD_LAUNCHES", "BWD_LAUNCHES")):
+        fail(f"v1 bigru: launched kernels it does not run: {launches}")
+    if len(graphs) != 1 or result["replays"] != steps - 1:
+        fail(f"v1 bigru: {len(graphs)} step graphs, {result['replays']} replays in "
+             f"{steps} steps: want one graph, every step after the first a replay")
+    if sorted(passes) != list(range(cfg["passes"])) or not all(
+            "ClassificationErrorEvaluator" in p for p in passes.values()):
+        fail(f"v1 bigru: pass lines {passes}")
+    if not passes[1]["avg_cost"] < passes[0]["avg_cost"]:
+        fail(f"v1 bigru: avg_cost did not fall: {passes}")
+    if ev.total != examples:
+        fail(f"v1 bigru: the evaluator counted {ev.total} samples, the pass has {examples}")
+    if not os.path.isdir(os.path.join(save, "pass-00001")):
+        fail("v1 bigru: pass-00001 was not written")
+
+    def per_step(timed_job, ms):
+        # real tokens (not padding) of every batch --job=time timed: the
+        # first n of the reader
+        n = cfg["time_batches"]
+        tokens = sum(int(timed_job.feeder(b)["word.lengths"].sum())
+                     for b in itertools.islice(timed_job.reader(), n))
+        return dict(tokens_timed=tokens, tokens_per_step=tokens / n,
+                    tokens_per_s=tokens / (n * ms / 1e3))
+
+    del trainer, job
+    timed, t_job = v1_timed(torch, d, "v1 bigru", "gru", per_step, cfg["time_batches"])
+    result["time"] = timed
+    counts = timed["kernel_launches"]
+    per_launch = dict(fwd=(counts["FWD_LAUNCHES"] - 2) / (cfg["time_batches"] + 1),
+                      bwd=counts["BWD_LAUNCHES"] / (cfg["time_batches"] + 1))
+    result["time"]["gru_launches_per_step"] = per_launch
+    if per_launch != dict(fwd=2.0, bwd=2.0):
+        fail(f"v1 bigru: --job=time launched the GRU kernels {counts}")
+    del t_job
+    torch.cuda.empty_cache()
+    rc, lines, _, _ = run_cli(d, ["train", "--config=conf.py", "--job=test",
+                                  f"--init_model_path={save}", "--start_pass=2"])
+    tested = json.loads(lines[-1])
+    result["test"] = tested
+    if rc != 0 or tested["samples"] != cfg["test_batches"] * cfg["batch"] or not (
+            tested["test_cost"] < passes[0]["avg_cost"]):
+        fail(f"v1 bigru: --job=test exited {rc} with {tested}")
+    rc, lines, _, _ = run_cli(d, ["dump_config", "--config=conf.py"], echo=False)
+    dumped = "\n".join(lines) + "\n"
+    parsed = proto.to_text(parse_config(os.path.join(d, "conf.py")).trainer_config)
+    result["dump_config_lines"] = len(lines)
+    if rc != 0 or dumped != parsed or 'type: "gated_recurrent"' not in dumped:
+        fail(f"v1 bigru: dump_config exited {rc}, matches the parse: {dumped == parsed}")
+    small = v1_config_dir("bigru", V1_BIGRU_CONFIG, V1_BIGRU_PROVIDER)
+    result["vs_cpu"] = v1_vs_cpu("v1 bigru", small, v1_args(V1_BIGRU_SMALL))
+    print("v1_bigru", json.dumps(result), flush=True)
+    return result
+
+
+def v1_lenet_phase(torch):
+    """Phase 22: the v1 MNIST LeNet config through the CLI."""
+    cfg = V1_LENET
+    d = v1_config_dir("lenet", V1_LENET_CONFIG, V1_LENET_PROVIDER)
+    steps = cfg["batches"] * cfg["passes"]
+    zero_rnn_counts()
+    rc, lines, _, job = run_cli(d, ["train", "--config=conf.py",
+                                    f"--num_passes={cfg['passes']}", "--log_period=0"])
+    launches = rnn_counts()
+    if rc != 0:
+        fail(f"v1 lenet: train exited {rc}")
+    trainer = job.trainer
+    ((ev, _),) = job.evaluators
+    graphs = list(trainer.graphs.values())
+    passes = pass_lines(lines)
+    result = dict(config=cfg, steps=steps, passes=passes, graphs=len(graphs),
+                  replays=graphs[0].replays if graphs else 0, kernel_launches=launches,
+                  evaluator_samples_last_pass=ev.total)
+    if len(graphs) != 1 or result["replays"] != steps - 1:
+        fail(f"v1 lenet: {len(graphs)} step graphs, {result['replays']} replays in "
+             f"{steps} steps: want one graph, every step after the first a replay")
+    if any(launches.values()):
+        fail(f"v1 lenet: launched kernels it does not run: {launches}")
+    if not passes[1]["avg_cost"] < passes[0]["avg_cost"]:
+        fail(f"v1 lenet: avg_cost did not fall: {passes}")
+    if ev.total != cfg["batches"] * cfg["batch"]:
+        fail(f"v1 lenet: the evaluator counted {ev.total} samples")
+
+    def per_step(_, ms):
+        return dict(images_per_s=cfg["batch"] / (ms / 1e3))
+
+    del trainer, job
+    timed, t_job = v1_timed(torch, d, "v1 lenet", "conv", per_step, cfg["time_batches"])
+    result["time"] = timed
+    if any(timed["kernel_launches"].values()):
+        fail(f"v1 lenet: --job=time launched kernels it does not run: "
+             f"{timed['kernel_launches']}")
+    del t_job
+    result["vs_cpu"] = v1_vs_cpu("v1 lenet", d, "batches=4,test_batches=1")
+    print("v1_lenet", json.dumps(result), flush=True)
+    return result
+
+
 def train_of(torch, tree: str) -> int:
     """`--train-of TREE`: the training phases (5, 7 and 10) of the
     chip_smoke.py in TREE, a checkout of this repository (an earlier
@@ -3566,7 +3979,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     optim = optim_phase(torch)
 
-    # 21. lines
+    # 21. the v1 bi-GRU config and 22. the v1 MNIST LeNet config through
+    # `python -m paddle_tpu_torch train`, in process (counters from 0)
+    torch.cuda.empty_cache()
+    v1_bigru = v1_bigru_phase(torch)
+    torch.cuda.empty_cache()
+    v1_lenet = v1_lenet_phase(torch)
+
+    # 23. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -3592,6 +4012,7 @@ def main() -> int:
         "shapes": rows,
     }]
     g_main = next(r for r in gru_rows if r["shape"] == "s2s_encoder")
+    g_v1 = next(r for r in gru_rows if r["shape"] == "v1_bigru")
     no_library = ("none: no single PyTorch call computes this GRU (torch.nn.GRU "
                   "applies the reset gate after the recurrent product and takes "
                   "no step mask)")
@@ -3603,6 +4024,7 @@ def main() -> int:
          [v["max_abs_err"] for r in gru_rows for d in ("fwd", "rev")
           for v in r[f"bwd_err_{d}"].values()]),
     ):
+        v1_key = "FWD_LAUNCHES" if leg == "fwd" else "BWD_LAUNCHES"
         kernels.append({
             "name": f"gru_seq_fused_{leg}",
             "route": "cuda",
@@ -3617,6 +4039,9 @@ def main() -> int:
             "bound_by": g_main[f"{leg}_bound_by"],
             "library_ms": None,
             "library_note": no_library,
+            "launches_v1_config": v1_bigru["kernel_launches"][v1_key],
+            "v1_config_shape": {k: g_v1[f"{leg}_{k}"] for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
             **({"bwd_parts_ms": g_main["bwd_parts_ms"],
                 "note_cublas_dw_ms": g_main["note_cublas_dw_ms"]} if leg == "bwd" else
                {"us_per_step": g_main["fwd_us_per_step"],
@@ -3695,7 +4120,8 @@ def main() -> int:
                    "attn_path": attn_path, "route": route, "resnet": resnet,
                    "resnet_vs_cpu": resnet_vs_cpu, "lenet": lenet, "ctr": ctr,
                    "ocr": ocr, "struct_ops": struct_ops, "vgg": vgg, "remat": remat,
-                   "guard": guard, "optim": optim, "prefetch": prefetch},
+                   "guard": guard, "optim": optim, "prefetch": prefetch,
+                   "v1_bigru": v1_bigru, "v1_lenet": v1_lenet},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

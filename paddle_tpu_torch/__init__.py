@@ -20,7 +20,9 @@ text-classification, ResNet-50 and LeNet training (`nn/`, `optim/`,
 `trainer/`, `models/`, with the bf16 policy of `core/dtypes.py`), the step
 as one CUDA graph on the card, readers and the feeder (`data/`),
 checkpoints and resume, and seq2seq beam-search generation; the fused
-attention op (`ops/attention.dot_product_attention`).
+attention op (`ops/attention.dot_product_attention`); the v1 config
+pipeline (`config/`, `proto/`, `v2/`, `metrics/`, `compat/`; `python -m
+paddle_tpu_torch train --config=conf.py` and `dump_config`).
 Every Pallas kernel of the JAX package has its CUDA counterpart."""
 
 from paddle_tpu_torch.device import resolve_device

@@ -1,9 +1,16 @@
-"""`python -m paddle_tpu_torch` — the port's CLI: `serve` only.
+"""`python -m paddle_tpu_torch` — the port's CLI (counterpart of
+`paddle_tpu/cli.py`): `train`, `dump_config` and `serve`, with the
+reference's flags and output lines, plus `--device` (default `cuda`; the
+tests pass `cpu`; the v1 flags `--use_gpu=0` / `--use_tpu=0` mean `cpu`):
 
-The port's counterpart of `paddle_tpu/cli.py`'s `serve` subcommand
-(`_serve_args` / `cmd_serve`), with the same flags and the same output
-lines, plus `--device` (default `cuda`; the tests pass `cpu`):
-
+    python -m paddle_tpu_torch train --config=conf.py [--config_args=k=v,...]
+        [--job=train|test|time] [--num_passes=N] [--save_dir=DIR]
+        [--init_model_path=DIR --start_pass=N] [--log_period=N] [--seed=N]
+        [--precision=f32|bf16] [--steps_per_dispatch=K] [--auto_resume=1]
+        [--keep_last_n=N] [--async_checkpoint=0|1] [--prefetch_depth=N]
+        [--divergence_policy=skip_batch|rollback|raise] [--remat=...]
+        [--faults=SPEC] [--device=cuda|cpu]
+    python -m paddle_tpu_torch dump_config --config=conf.py [--config_args=...]
     python -m paddle_tpu_torch serve [--device=cuda|cpu] [--port=N]
         [--demo | --load=model.npz] [--max_slots=N] [--page_size=N]
         [--prefill_buckets=16,32,64] [--prefill_chunk=C] [--speculate_k=K]
@@ -13,28 +20,457 @@ lines, plus `--device` (default `cuda`; the tests pass `cpu`):
         [--engine_restart_max=N] [--engine_stall_timeout_s=S]
         [--lease_s=S] [--require_register=0|1]
 
-It prints `{"role": "serve", "address": [host, port]}` once listening and,
-on SIGTERM or SIGINT, `{"final_stats": {...}}` before it exits 0. Not ported
-yet: `--tp > 1` (TP serving, ROADMAP.md §1 item 8) and `--config` (a
-v1-config `GenerationSession` over the ported beam search, which waits for
-the v1 config pipeline, §1 item 5); both raise a named NotImplementedError.
-The router and fleet flags wait for the router's slice (§1 item 7)."""
+`train` parses the v1 config (`config/config_parser.py`), builds the
+optimizer from its `settings()` (`config/optimizers.build_optimizer`),
+binds the provider's input types to the data layers, and trains through
+`SGDTrainer` (on the card, each step a replay of the step graph). It prints
+a line per pass, `pass N: avg_cost=... [test_cost=...] [Evaluator=...]`;
+`--job=test` prints `{"test_cost", "samples"}` and `--job=time`
+`{"ms_per_batch", "batches"}`. Flags whose subsystem the port does not have
+yet raise a named NotImplementedError (exit code 2): `--trainer_count > 1`
+(data parallelism, ROADMAP.md §1 item 8), `--master_endpoints`,
+`--elastic`, `--profile` (item 7) and `--compile_cache` (jax's cache, no
+counterpart). `--shard_update` and `--grad_compression` at
+`--trainer_count=1` warn and are ignored, as in the reference.
+
+`serve` prints `{"role": "serve", "address": [host, port]}` once listening
+and, on SIGTERM or SIGINT, `{"final_stats": {...}}` before it exits 0. Not
+ported yet: `--tp > 1` (TP serving, ROADMAP.md §1 item 8) and `--config` (a
+v1-config `GenerationSession`, item 5's next slice); both raise a named
+NotImplementedError. The router and fleet flags wait for item 7."""
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
+import os
 import sys
 import threading
-from typing import List, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 _NOT_PORTED = (
     "{what} is not ported to paddle_tpu_torch yet (ROADMAP.md §1 item {item})"
 )
 
 
+log = logging.getLogger("paddle_tpu_torch.cli")
+
+
+class NotPorted(NotImplementedError):
+    """A flag or data source whose subsystem the port does not have yet;
+    `main` prints it and exits with code 2."""
+
+
 def _str2bool(v: str) -> bool:
     return str(v).lower() in ("1", "true", "yes", "on")
+
+
+def _shard_update_mode(v: str):
+    """--shard_update value: a boolean (the zero1 alias) or zero1/2/3."""
+    s = str(v).strip().lower()
+    if s in ("zero1", "zero2", "zero3"):
+        return s
+    if s in ("1", "true", "yes", "on"):
+        return "zero1"
+    if s in ("0", "false", "no", "off", "none", ""):
+        return False
+    raise argparse.ArgumentTypeError(
+        f"--shard_update must be a boolean or one of zero1/zero2/zero3, got {v!r}")
+
+
+def _train_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--config", required=True, help="config script path")
+    p.add_argument("--config_args", default="",
+                   help="k=v,... passed to get_config_arg")
+    p.add_argument("--device", default="cuda",
+                   help="where training runs: cuda (default) or cpu")
+    p.add_argument("--use_tpu", type=_str2bool, default=True,
+                   help="v1 flag: 0 means --device=cpu")
+    p.add_argument("--use_gpu", type=_str2bool, default=None,
+                   help="v1 flag: 0 means --device=cpu")
+    p.add_argument("--trainer_count", type=int, default=1)
+    p.add_argument("--num_passes", type=int, default=1)
+    p.add_argument("--save_dir", default=None)
+    p.add_argument("--init_model_path", default=None)
+    p.add_argument("--start_pass", type=int, default=0)
+    p.add_argument("--log_period", type=int, default=100,
+                   help="log the cost every N batches (0 = off)")
+    p.add_argument("--test_period", type=int, default=0)
+    p.add_argument("--saving_period", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dtype", default=None, choices=[None, "float32", "bfloat16"])
+    p.add_argument("--precision", default=None, choices=[None, "f32", "bf16"],
+                   help="dtype policy of this trainer's step: bf16 casts dot/conv "
+                        "inputs to bfloat16, parameters stay f32 masters "
+                        "(default: f32, or the --dtype policy)")
+    p.add_argument("--remat", default=None,
+                   choices=[None, "none", "dots", "conv_only", "full"],
+                   help="backward rematerialization policy")
+    p.add_argument("--job", default="train", choices=["train", "test", "time"])
+    p.add_argument("--num_batches", type=int, default=20, help="--job=time batches")
+    p.add_argument("--prefetch_depth", type=int, default=2,
+                   help="batches fed and copied to the device ahead of the "
+                        "step on a worker thread (0 = off)")
+    p.add_argument("--compile_cache", default=None,
+                   help="the JAX package's XLA compilation cache (no "
+                        "counterpart here: raises)")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="train steps stacked into one dispatch (one graph "
+                        "replay); events and the log line fire per dispatch")
+    p.add_argument("--shard_update", type=_shard_update_mode, default=False,
+                   help="ZeRO-sharded update (needs --trainer_count > 1, not "
+                        "ported yet)")
+    p.add_argument("--grad_compression", default="none",
+                   choices=["none", "bf16", "int8"],
+                   help="compressed collectives (needs --trainer_count > 1, "
+                        "not ported yet)")
+    p.add_argument("--guard_check_every", type=int, default=16,
+                   help="steps between divergence-guard polls")
+    p.add_argument("--async_checkpoint", type=_str2bool, default=True,
+                   help="write checkpoints on a writer thread after a "
+                        "non-blocking device-to-host copy (0 = synchronous)")
+    p.add_argument("--auto_resume", type=_str2bool, default=False,
+                   help="resume from the newest CRC-valid checkpoint under "
+                        "--save_dir")
+    p.add_argument("--divergence_policy", default=None,
+                   choices=["skip_batch", "rollback", "raise"],
+                   help="react to a NaN/Inf step cost (default: guard off)")
+    p.add_argument("--keep_last_n", type=int, default=0,
+                   help="keep only the newest N pass checkpoints (0 = all)")
+    p.add_argument("--faults", default=None,
+                   help="chaos-injection spec, e.g. 'nan_loss:step=37'")
+    p.add_argument("--master_endpoints", default=None,
+                   help="elastic task master (not ported yet: raises)")
+    p.add_argument("--profile", default=None, metavar="pass:N",
+                   help="profile pass N (not ported yet: raises)")
+    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--preempt_grace_s", type=float, default=30.0,
+                   help="drain budget after SIGTERM/SIGINT: checkpoint and "
+                        "exit with code 77")
+    p.add_argument("--elastic", type=_str2bool, default=False,
+                   help="elastic resize (not ported yet: raises)")
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    """Raise NotPorted for a flag whose subsystem the port lacks."""
+    def refuse(what: str, item: str) -> None:
+        raise NotPorted(_NOT_PORTED.format(what=what, item=item))
+
+    if args.trainer_count > 1:
+        refuse("data-parallel training (--trainer_count > 1, --shard_update, "
+               "--grad_compression)", "8, parallelism")
+    if args.master_endpoints:
+        refuse("the elastic task master (--master_endpoints)",
+               "7, the fleet and control plane")
+    if args.elastic:
+        refuse("elastic resize (--elastic)", "7, the fleet and control plane")
+    if args.profile:
+        refuse("the pass profiler (--profile, obs/profile.py)",
+               "7, the fleet and control plane")
+    if args.compile_cache:
+        raise NotPorted(
+            "--compile_cache is the JAX package's persistent XLA compilation "
+            "cache; paddle_tpu_torch has no counterpart (its kernels build "
+            "once per checkout under build/)")
+
+
+def _make_evaluator(ec, base_dir: str):
+    from paddle_tpu_torch.metrics.evaluators import EVALUATORS
+
+    kw: Dict[str, Any] = {}
+    if ec.type == "chunk":
+        kw = dict(scheme=ec.chunk_scheme or "IOB",
+                  num_chunk_types=ec.num_chunk_types or 1,
+                  excluded_chunk_types=ec.excluded_chunk_types)
+    elif ec.type == "precision_recall":
+        kw = dict(positive_label=(None if ec.positive_label in (-1, None)
+                                  else ec.positive_label))
+    elif ec.type == "max_id_printer":
+        kw = dict(num_results=ec.num_results)
+    elif ec.type == "seq_text_printer":
+        # the config's relative result/dict paths follow the config's
+        # directory; the default result file stays cwd-relative
+        def resolve(path: str) -> str:
+            return os.path.join(base_dir, path) if path and not os.path.isabs(path) else path
+
+        kw = dict(result_file=(resolve(ec.result_file) if ec.result_file
+                               else "generated_sequences.txt"),
+                  dict_file=resolve(ec.dict_file), delimited=ec.delimited)
+    return EVALUATORS.get(ec.type)(**kw)
+
+
+class _EvaluatorFeed:
+    """The evaluators' per-step inputs, copied off the device explicitly
+    and only when the config declares evaluators. On the card each step
+    starts non-blocking copies into pinned memory (`host_copy`); the
+    evaluators read a step's values when the next step's arrive (its copies
+    have landed by then), so the feed adds no sync of its own to the step,
+    and `finish` reads the pass's last step. On the CPU the values are
+    copies of the step's own tensors, read the same way."""
+
+    def __init__(self, active):
+        self.active = active  # [(evaluator, [layer names])]
+        self.names = sorted({n for _, names in active for n in names})
+        self.pending: Optional[tuple] = None  # (host values, copied event)
+
+    def start(self) -> None:
+        self.pending = None
+        for ev, _ in self.active:
+            ev.start()
+
+    def step(self, outputs: Dict[str, Any]) -> None:
+        import torch
+
+        from paddle_tpu_torch.trainer.trainer import host_copy
+
+        host: Dict[str, Any] = {}
+        copied = None
+        for n in self.names:
+            v = outputs.get(n)
+            if v is None:
+                continue
+            if v.dtype in (torch.bfloat16, torch.float16):
+                v = v.float()
+            # the copies run in stream order: the last one's event covers all
+            host[n], copied = host_copy(v)
+        self.flush()
+        self.pending = (host, copied)
+
+    def flush(self) -> None:
+        if self.pending is None:
+            return
+        host, copied = self.pending
+        self.pending = None
+        if copied is not None:
+            copied.synchronize()
+        for ev, names in self.active:
+            vals = [host.get(n) for n in names]
+            if not vals or vals[0] is None:
+                continue
+            kw = {"output": vals[0].numpy()}
+            if len(vals) > 1 and vals[1] is not None:
+                kw["label"] = vals[1].numpy()
+            if len(vals) > 2 and vals[2] is not None:
+                kw["weight"] = vals[2].numpy()
+            ev.update(**kw)
+
+    def finish(self) -> Dict[str, Any]:
+        self.flush()
+        return {type(ev).__name__: ev.finish() for ev, _ in self.active}
+
+
+def _train_device(args: argparse.Namespace) -> str:
+    """--device, or cpu when a v1 flag turns the accelerator off."""
+    if args.use_gpu is False or args.use_tpu is False:
+        return "cpu"
+    return args.device
+
+
+class TrainJob:
+    """A parsed `train` command, built and ready to run: the trainer, the
+    feeder, the readers and the evaluators. `prepare_train` builds it and
+    `run` runs the job; a caller in process keeps it to read the trainer
+    and the evaluators afterwards."""
+
+    def __init__(self, args, trainer, feeder, reader, test_reader, evaluators):
+        self.args = args
+        self.trainer = trainer
+        self.feeder = feeder
+        self.reader = reader
+        self.test_reader = test_reader
+        self.evaluators = evaluators  # [(evaluator, [input layer names])]
+
+    def run(self) -> int:
+        from paddle_tpu_torch.core import preempt
+        from paddle_tpu_torch.trainer.events import BeginPass, EndIteration, EndPass
+        from paddle_tpu_torch.trainer.trainer import Preempted
+
+        args, trainer, feeder = self.args, self.trainer, self.feeder
+        reader, test_reader = self.reader, self.test_reader
+        if reader is None and args.job != "test":
+            print("config declares no data sources (define_py_data_sources2)",
+                  file=sys.stderr)
+            return 2
+        if args.init_model_path:
+            trainer.init_state(feeder(next(iter(reader() if reader else test_reader()))))
+            trainer.load(args.init_model_path,
+                         args.start_pass - 1 if args.start_pass else None)
+        if args.job == "time":
+            return _job_time(trainer, reader, feeder, args.num_batches)
+        if args.job == "test":
+            if test_reader is None:
+                print("--job=test needs a test data source", file=sys.stderr)
+                return 2
+            if trainer.state is None:
+                trainer.init_state(feeder(next(iter(test_reader()))))
+            res = trainer.test(test_reader, feeder)
+            print(json.dumps({"test_cost": res["cost"], "samples": res["samples"]}))
+            return 0
+
+        evals = _EvaluatorFeed(self.evaluators)
+
+        def handler(event):
+            if isinstance(event, BeginPass):
+                evals.start()
+            elif isinstance(event, EndIteration) and self.evaluators:
+                evals.step(event.raw_metrics)
+            elif isinstance(event, EndPass):
+                stats = evals.finish()
+                line = f"pass {event.pass_id}: avg_cost={event.metrics['avg_cost']:.6f}"
+                if "test_cost" in event.metrics:
+                    line += f" test_cost={event.metrics['test_cost']:.6f}"
+                for k, v in stats.items():
+                    line += f" {k}={v}"
+                print(line, flush=True)
+
+        if args.prefetch_depth > 0:
+            # feed and host-to-device copy on a worker thread, ahead of the step
+            from paddle_tpu_torch.data.pipeline import DevicePrefetcher
+
+            reader = DevicePrefetcher(reader, feeder, prefetch_depth=args.prefetch_depth,
+                                      device=trainer.device,
+                                      stack_k=args.steps_per_dispatch)
+        preempt.install(grace_s=args.preempt_grace_s)
+        try:
+            trainer.train(
+                reader, num_passes=args.num_passes, event_handler=handler, feeder=feeder,
+                test_reader=test_reader, save_dir=args.save_dir,
+                log_period=args.log_period, auto_resume=args.auto_resume,
+                keep_last_n=args.keep_last_n or None,
+                steps_per_dispatch=args.steps_per_dispatch,
+                async_checkpoint=args.async_checkpoint)
+        except Preempted as p:
+            where = (f"checkpoint saved to {p.checkpoint_dir}" if p.checkpoint_dir
+                     else "no mid-pass checkpoint (no --save_dir or grace expired)")
+            print(f"preempted ({p.reason}): drained at pass {p.pass_id} batch "
+                  f"{p.batches_done}; {where}; restart with --auto_resume=1 to continue",
+                  file=sys.stderr)
+            return preempt.EXIT_PREEMPTED
+        finally:
+            preempt.reset()
+        return 0
+
+
+def prepare_train(args: argparse.Namespace) -> TrainJob:
+    """Parse the config of a `train` command and build its job: the
+    optimizer from `settings()`, the trainer, the provider bound to the
+    data layers, the readers and the declared evaluators."""
+    from paddle_tpu_torch.config import build_optimizer, parse_config
+    from paddle_tpu_torch.core import faults, init_ctx
+    from paddle_tpu_torch.data.provider import bind_provider_types, make_reader
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.trainer.trainer import SGDTrainer
+
+    _refuse_unported(args)
+    device = resolve_device(_train_device(args))
+    init_ctx.init(device=device.type, trainer_count=args.trainer_count,
+                  log_period=args.log_period, seed=args.seed,
+                  **({"dtype_policy": args.dtype} if args.dtype else {}))
+    if args.shard_update or args.grad_compression != "none":
+        log.warning("--shard_update/--grad_compression need --trainer_count > 1 "
+                    "(no data axis to shard over); ignoring them")
+        args.shard_update, args.grad_compression = False, "none"
+    if args.faults:
+        faults.get().configure(args.faults)
+
+    pc = parse_config(args.config, args.config_args, emit_proto=False)
+    oc = pc.trainer_config.opt_config
+    bundle = build_optimizer(oc)
+    # Outputs() may mix training costs with plain fetch layers: only cost
+    # layers join the objective, the rest ride as extra outputs
+    cost_outputs = [l for l in pc.outputs if getattr(l, "is_cost", False)]
+    fetch_outputs = [l for l in pc.outputs if not getattr(l, "is_cost", False)]
+    if not cost_outputs:
+        cost_outputs, fetch_outputs = pc.outputs, []
+    # evaluator inputs must be network outputs so the step returns them
+    extra_layers = list(fetch_outputs)
+    seen = {l.name for l in cost_outputs} | {l.name for l in fetch_outputs}
+    eval_objs = []
+    net_layers = pc.topology.network.layers_by_name
+    for ec in pc.context.evaluators:
+        ins = [net_layers[n] for n in ec.input_layers if n in net_layers]
+        for l in ins:
+            if l.name not in seen:
+                seen.add(l.name)
+                extra_layers.append(l)
+        eval_objs.append((ec, [l.name for l in ins]))
+
+    trainer = SGDTrainer(
+        cost_outputs, bundle.optimizer, seed=args.seed, device=device,
+        precision=args.precision, extra_outputs=extra_layers,
+        schedule=bundle.schedule, model_average=bundle.model_average,
+        remat=args.remat, divergence_policy=args.divergence_policy,
+        guard_check_every=args.guard_check_every)
+    batch_size = oc.batch_size or 32
+    data_config = pc.trainer_config.data_config
+    test_config = pc.trainer_config.test_data_config
+    # bind strictly, as PyDataProvider2's slot binding does: a mis-bound
+    # provider would train on garbage
+    bind_dc = data_config or test_config
+    feeding = bind_provider_types(pc.topology, bind_dc) if bind_dc is not None else None
+    feeder = pc.topology.make_feeder(feeding)
+    reader = make_reader(data_config, batch_size) if data_config else None
+    test_reader = make_reader(test_config, batch_size, is_train=False) if test_config else None
+
+    base_dir = ((bind_dc.config_dir if bind_dc is not None else None)
+                or os.path.dirname(os.path.abspath(args.config)))
+    evaluators = [(_make_evaluator(ec, base_dir), names) for ec, names in eval_objs]
+    if evaluators and args.steps_per_dispatch > 1:
+        # a K-step dispatch hands out no per-batch outputs: the evaluators
+        # would count nothing, so the fusion goes, loudly
+        log.warning("config declares %d evaluator(s), which need per-batch network "
+                    "outputs — --steps_per_dispatch=%d would starve them; falling "
+                    "back to steps_per_dispatch=1", len(evaluators), args.steps_per_dispatch)
+        args.steps_per_dispatch = 1
+    return TrainJob(args, trainer, feeder, reader, test_reader, evaluators)
+
+
+def cmd_train(args: argparse.Namespace) -> int:
+    return prepare_train(args).run()
+
+
+def _job_time(trainer, reader, feeder, num_batches: int) -> int:
+    """--job=time (TrainerBenchmark.cpp): the mean time of `num_batches`
+    training steps. The first step of the batch signature runs eagerly and,
+    on the card, is captured; only the replays that follow are timed, with
+    one synchronize at the end."""
+    import torch
+
+    it = iter(reader())
+    batches = []
+    for _ in range(num_batches):
+        try:
+            batches.append(feeder(next(it)))
+        except StopIteration:
+            break
+    if not batches:
+        print("no data", file=sys.stderr)
+        return 2
+    if trainer.state is None:
+        trainer.init_state(batches[0])
+    cuda = trainer.device.type == "cuda"
+    trainer.step(batches[0])  # eager, then captured
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        trainer.step(b)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / len(batches)
+    print(json.dumps({"ms_per_batch": dt * 1e3, "batches": len(batches)}))
+    return 0
+
+
+def cmd_dump_config(args: argparse.Namespace) -> int:
+    from paddle_tpu_torch import proto
+    from paddle_tpu_torch.config import parse_config
+
+    pc = parse_config(args.config, args.config_args)
+    sys.stdout.write(proto.to_text(pc.trainer_config))
+    return 0
 
 
 def _serve_args(p: argparse.ArgumentParser) -> None:
@@ -210,16 +646,32 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The command line of `main` -> its namespace (`fn` runs the command)."""
     parser = argparse.ArgumentParser(prog="paddle_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    p_train = sub.add_parser("train", help="train/test/benchmark a v1 config")
+    _train_args(p_train)
+    p_train.set_defaults(fn=cmd_train)
+    p_dump = sub.add_parser("dump_config", help="print the TrainerConfig text")
+    p_dump.add_argument("--config", required=True)
+    p_dump.add_argument("--config_args", default="")
+    p_dump.set_defaults(fn=cmd_dump_config)
     p_serve = sub.add_parser(
         "serve", help="continuous-batching inference server"
     )
     _serve_args(p_serve)
     p_serve.set_defaults(fn=cmd_serve)
-    args = parser.parse_args(argv)
-    return args.fn(args)
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(argv)
+    try:
+        return args.fn(args)
+    except NotPorted as e:
+        print(f"{type(e).__name__}: {e}", file=sys.stderr)
+        return 2
 
 
 if __name__ == "__main__":

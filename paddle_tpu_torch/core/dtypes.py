@@ -57,6 +57,12 @@ def current() -> Policy:
     return _current.get()
 
 
+def set_policy(policy: Policy) -> None:
+    """Set the ambient policy of this thread/context (contextvar semantics:
+    other threads keep their own, f32 by default)."""
+    _current.set(policy)
+
+
 @contextlib.contextmanager
 def policy_scope(policy: Policy):
     token = _current.set(policy)

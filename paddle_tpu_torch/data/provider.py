@@ -13,8 +13,13 @@ Parity targets: the `@provider` decorator and input types
 from __future__ import annotations
 
 import functools
+import importlib
+import importlib.util
+import json
 import logging
+import os
 import random
+import sys
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -298,3 +303,164 @@ class DataProviderConverter:
 
     def __call__(self, samples) -> Dict[str, np.ndarray]:
         return self.feeder(samples)
+
+
+# ---------------------------------------------------------------------------
+# A config's data source: loading, slot binding and batching (the reference
+# keeps these in cli.py as `_load_provider_module`, `_load_provider`,
+# `bind_provider_types` and `_make_reader`)
+# ---------------------------------------------------------------------------
+
+# Names injected into legacy provider modules: the reference embedded
+# Python 2, so providers in the wild use py2 builtins.
+_PY2_SHIMS = {"xrange": range, "unicode": str, "long": int, "basestring": str}
+
+
+def load_provider_module(name: str, config_dir: str = ""):
+    """Import a provider module, preferring the config script's directory
+    (PyDataProvider2.cpp loads module.obj next to the config), with py2
+    builtin shims, its `paddle.*` imports on the port's modules."""
+    from paddle_tpu_torch.compat import paddle_modules
+
+    path = os.path.join(config_dir or ".", name + ".py") if name else None
+    with paddle_modules():
+        if path and os.path.exists(path):
+            spec = importlib.util.spec_from_file_location(name, path)
+            mod = importlib.util.module_from_spec(spec)
+            mod.__dict__.update(_PY2_SHIMS)
+            sys.modules.setdefault(name, mod)
+            spec.loader.exec_module(mod)
+            return mod
+        if config_dir and config_dir not in sys.path:
+            sys.path.insert(0, config_dir)
+        mod = importlib.import_module(name)
+    for k, v in _PY2_SHIMS.items():
+        mod.__dict__.setdefault(k, v)
+    return mod
+
+
+def load_provider(dc):
+    """DataConfig -> (provider, file_list, args): the PyDataProvider2 load
+    path (gserver/dataproviders/PyDataProvider2.cpp:195 loads module.obj).
+    The binary ProtoData providers (`type: proto*`) wait for item 5's next
+    slice."""
+    if (dc.type or "").startswith("proto"):
+        raise NotImplementedError(
+            "ProtoData providers (data/proto_data.py) are not ported to "
+            "paddle_tpu_torch yet (ROADMAP.md §1 item 5, the v1 config pipeline's "
+            "next slice)")
+    mod = load_provider_module(dc.load_data_module, dc.config_dir)
+    provider = getattr(mod, dc.load_data_object)
+    files: List[str] = []
+    flist = dc.files
+    if flist and not os.path.exists(flist) and dc.config_dir:
+        cand = os.path.join(dc.config_dir, flist)
+        if os.path.exists(cand):
+            flist = cand
+    if flist and os.path.exists(flist):
+        with open(flist) as f:
+            files = [ln.strip() for ln in f if ln.strip()]
+    elif flist:
+        files = [flist]
+    args = json.loads(dc.load_data_args) if dc.load_data_args else None
+    return provider, files, args
+
+
+def bind_provider_types(topology, dc) -> Optional[Dict[str, int]]:
+    """Bind the provider's input_types to the topology's data layers (the
+    runtime slot binding PyDataProvider2.cpp does) -> {layer name: slot
+    index}. Dict input_types bind by name; list input_types bind
+    positionally over the data layers (in Inputs() order when the config
+    declared one), except that dense slots whose declared sizes disagree
+    rebind to the layers whose sizes match (DataProviderConverter)."""
+    from paddle_tpu_torch.nn.graph import record_layers
+    from paddle_tpu_torch.v2.layer import data as _v2_data
+
+    provider, files, args = load_provider(dc)
+    kwargs = dict(args) if isinstance(args, dict) else {}
+    types = provider.make_settings(obj=None, file_list=files, **kwargs).input_types
+    if types is None:
+        return None
+    layers = list(topology.data_layers().values())
+    declared = getattr(topology, "declared_inputs", None)
+    if declared:
+        by_name = {l.name: l for l in layers}
+        picked = [by_name[n] for n in declared if n in by_name]
+        if len(picked) == len(layers):
+            layers = picked
+
+    def apply_spec(layer, spec):
+        with record_layers([]):  # a shape probe only: kept out of the graph
+            tmpl = _v2_data(layer.name + ".__tmpl__", spec)
+        layer.data_type = spec
+        layer.shape = tmpl.shape
+        layer.is_seq = tmpl.is_seq
+
+    if isinstance(types, dict):
+        feeding = {}
+        for i, (lname, spec) in enumerate(types.items()):
+            layer = topology.data_layers().get(lname)
+            if layer is None:
+                raise ValueError(f"provider input_types names unknown layer {lname!r}")
+            apply_spec(layer, spec)
+            feeding[lname] = i
+        return feeding
+    types = list(types)
+    if len(types) != len(layers):
+        raise ValueError(f"provider declares {len(types)} slots but the config has "
+                         f"{len(layers)} data layers")
+
+    def declared_size(layer):
+        size = getattr(layer, "_v1_size", None)
+        if size is None and getattr(layer, "shape", None):
+            size = 1
+            for d in layer.shape:
+                size *= int(d)
+        return size
+
+    def compatible(layer, spec) -> bool:
+        if spec.kind.startswith("dense") and not isinstance(spec.dim, tuple):
+            return declared_size(layer) in (None, int(spec.dim))
+        return True
+
+    order = list(layers)
+    if not all(compatible(l, s) for l, s in zip(order, types)):
+        remaining = list(layers)
+        order = []
+        for spec in types:
+            pick = next((l for l in remaining if compatible(l, spec)), remaining[0])
+            remaining.remove(pick)
+            order.append(pick)
+    for layer, spec in zip(order, types):
+        apply_spec(layer, spec)
+    return {layer.name: i for i, layer in enumerate(order)}
+
+
+def make_reader(dc, batch_size: int, is_train: bool = True) -> Callable:
+    """A reader of sample lists of `batch_size` from the config's provider,
+    with the @provider batching knobs: calc_batch_size gives a sample's
+    cost (e.g. its token count), can_over_batch_size whether the sample
+    that overflows stays in the batch or starts the next."""
+    provider, files, args = load_provider(dc)
+    kwargs = dict(args) if isinstance(args, dict) else {}
+    calc = getattr(provider, "calc_batch_size", None)
+    can_over = getattr(provider, "can_over_batch_size", True)
+
+    def reader():
+        batch: List[Any] = []
+        acc = 0
+        for sample in provider(obj=None, file_list=files or None, is_train=is_train,
+                               **kwargs):
+            cost = int(calc(sample)) if calc is not None else 1
+            if batch and not can_over and acc + cost > batch_size:
+                yield batch
+                batch, acc = [], 0
+            batch.append(sample)
+            acc += cost
+            if acc >= batch_size:
+                yield batch
+                batch, acc = [], 0
+        if batch:
+            yield batch
+
+    return reader

@@ -30,9 +30,10 @@ recompute. A layer's output is dropped once its last consumer has run."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -79,16 +80,26 @@ class Argument:
 @dataclasses.dataclass
 class ParamAttr:
     """Per-parameter attributes: sharing name, init, lr scale, decay,
-    staticness, clipping (the reference's ParameterConfig knobs)."""
+    staticness, clipping (the reference's ParameterConfig knobs). `momentum`,
+    `is_sparse` and `sharding` are carried into the config's
+    ParameterConfig and change nothing else here; `initializer(generator,
+    shape)` replaces the layer's initializer."""
 
     name: Optional[str] = None  # set -> parameter shared under this name
+    initializer: Optional[init_mod.Initializer] = None
     initial_std: Optional[float] = None  # set -> N(initial_mean, initial_std)
     initial_mean: float = 0.0
     learning_rate: float = 1.0
+    momentum: Optional[float] = None
     l1_decay: Optional[float] = None
     l2_decay: Optional[float] = None
     is_static: bool = False
+    is_sparse: bool = False
     gradient_clipping_threshold: Optional[float] = None
+    # set -> U(initial_min, initial_max), winning over initial_std
+    initial_min: Optional[float] = None
+    initial_max: Optional[float] = None
+    sharding: Optional[Tuple[Optional[str], ...]] = None
 
 
 class Context:
@@ -120,6 +131,9 @@ class Context:
         self.rng_count = 0
         self.state_updates: Params = {}
         self.param_attrs: Dict[str, ParamAttr] = {}
+        # (layer name, slot) -> parameter name; a shared name binds to every
+        # layer that uses it (the config dump reads this)
+        self.param_owners: Dict[tuple, str] = {}
 
     def next_rng(self, tag: str) -> torch.Tensor:
         """A fresh key for one draw: fold_in(fold_in(rng, hash(tag)), n),
@@ -136,10 +150,17 @@ class Context:
               attr: Optional[ParamAttr] = None) -> torch.Tensor:
         attr = attr or ParamAttr()
         full = attr.name or f"{layer.name}.{pname}"
+        self.param_owners.setdefault((layer.name, pname), full)
         if self.mode == "init" and full not in self.params:
-            initializer = init
-            if attr.initial_std is not None:
+            initializer = attr.initializer or init
+            if attr.initializer is None and attr.initial_max is not None:
+                lo = attr.initial_min if attr.initial_min is not None else -attr.initial_max
+                initializer = init_mod.uniform(lo, attr.initial_max)
+            elif attr.initializer is None and attr.initial_std is not None:
                 initializer = init_mod.normal(attr.initial_std, attr.initial_mean)
+            elif attr.initializer is None and _param_default.get("initial_std") is not None:
+                initializer = init_mod.normal(_param_default["initial_std"],
+                                              _param_default.get("initial_mean", 0.0))
             g = torch.Generator().manual_seed(
                 init_mod.param_seed(self.seed, _stable_hash(full)))
             self.params[full] = initializer(g, tuple(shape)).to(self.device)
@@ -178,6 +199,11 @@ def _stable_hash(s: str) -> int:
 _name_lock = threading.Lock()
 _name_counters: Dict[str, int] = {}
 
+# the config scripts' default parameter init (config_parser's
+# default_initial_std / default_initial_mean), read by Context.param for a
+# parameter with no init of its own
+_param_default: Dict[str, float] = {}
+
 
 def _auto_name(type_name: str) -> str:
     with _name_lock:
@@ -187,9 +213,27 @@ def _auto_name(type_name: str) -> str:
 
 
 def reset_name_scope() -> None:
-    """Reset auto-name counters (call between independently built graphs)."""
+    """Reset auto-name counters and the config's default init (call between
+    independently built graphs)."""
+    _param_default.clear()
     with _name_lock:
         _name_counters.clear()
+
+
+_record_tls = threading.local()
+
+
+@contextlib.contextmanager
+def record_layers(sink: List["Layer"]):
+    """Collect every Layer constructed inside the block into `sink`: a
+    config's layers that no output reaches stay in its config, as the
+    reference's do."""
+    old = getattr(_record_tls, "sink", None)
+    _record_tls.sink = sink
+    try:
+        yield sink
+    finally:
+        _record_tls.sink = old
 
 
 class Layer:
@@ -213,6 +257,9 @@ class Layer:
                     f"{type(layer).__name__}, not a Layer")
         self.inputs: List[Layer] = inputs
         self.name = name or _auto_name(self.type_name)
+        sink = getattr(_record_tls, "sink", None)
+        if sink is not None:
+            sink.append(self)
 
     def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
         raise NotImplementedError
@@ -228,9 +275,9 @@ class Network:
     def __init__(self, outputs: Union[Layer, Sequence[Layer]]):
         self.outputs: List[Layer] = [outputs] if isinstance(outputs, Layer) else list(outputs)
         self.layer_order = _topo_sort(self.outputs)
-        names: Dict[str, Layer] = {}
+        self.layers_by_name: Dict[str, Layer] = {}
         for layer in self.layer_order:
-            if names.setdefault(layer.name, layer) is not layer:
+            if self.layers_by_name.setdefault(layer.name, layer) is not layer:
                 raise ValueError(f"duplicate layer name {layer.name!r}")
         self.param_attrs: Dict[str, ParamAttr] = {}
 
@@ -284,10 +331,11 @@ class Network:
         return outs, {**states, **ctx.state_updates}
 
     def _run(self, ctx: Context, batch: Mapping[str, Any], device: torch.device,
-             remat: Optional[str] = None) -> Dict[str, Argument]:
+             remat: Optional[str] = None, keep_all: bool = False) -> Dict[str, Argument]:
         """Every layer's output, each dropped once its last consumer ran
-        (the outputs stay). With `remat`, the layers run in segments that
-        each end at a conv or fc layer, every segment under
+        (the outputs stay; with `keep_all` nothing is dropped). With
+        `remat`, the layers run in segments that each end at a conv or fc
+        layer, every segment under
         `core/remat.checkpoint`: what a segment takes from earlier ones (a
         conv's or fc's output, a residual branch) stays for the backward,
         everything inside it is recomputed there unless the policy saves
@@ -298,7 +346,7 @@ class Network:
         for i, layer in enumerate(order):
             for dep in layer.inputs:
                 last_use[dep.name] = i
-        for layer in self.outputs:
+        for layer in self.outputs if not keep_all else self.layer_order:
             last_use[layer.name] = len(order)
         for layer in self.layer_order:
             if layer.type_name == "data":

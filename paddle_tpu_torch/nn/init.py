@@ -44,6 +44,14 @@ def normal(std: float = 1.0, mean: float = 0.0) -> Initializer:
     return init
 
 
+def uniform(low: float, high: float) -> Initializer:
+    """U(low, high): ParamAttr's initial_min / initial_max."""
+    def init(g: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+        return low + (high - low) * torch.rand(tuple(shape), generator=g)
+
+    return init
+
+
 def _fan_in(shape: Sequence[int]) -> int:
     if len(shape) <= 2:
         return shape[0]

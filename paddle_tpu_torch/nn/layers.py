@@ -1,8 +1,10 @@
 """Core layers (counterpart of `paddle_tpu/nn/layers.py`), the ones the
 ported paths use: Data, Fc, Embedding, Concat (seq2seq, CTR), the image
 layers of ResNet and LeNet: Conv2D, Pool2D, BatchNorm, Addto, GlobalPool,
-Reshape, BlockExpand (OCR's image-to-sequence), and Dropout (VGG, on jax's
-threefry bits). Image activations are NHWC, conv weights HWIO."""
+Reshape, BlockExpand (OCR's image-to-sequence), Dropout (VGG, on jax's
+threefry bits), and the v1 config pipeline's Mixed (the sum of
+`nn/projections.py`), SwitchOrder (a flat CHW data slot into NHWC) and
+MaxId. Image activations are NHWC, conv weights HWIO."""
 
 from __future__ import annotations
 
@@ -135,15 +137,18 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 class Concat(Layer):
-    """Feature-axis concat of N inputs."""
+    """Feature-axis concat of N inputs, then the activation."""
 
     type_name = "concat"
 
-    def __init__(self, input: Sequence[Layer], name: Optional[str] = None):
+    def __init__(self, input: Sequence[Layer], act: act_mod.ActLike = None,
+                 name: Optional[str] = None):
         super().__init__(input, name=name)
+        self.act = act
 
     def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
-        return ins[0].with_value(torch.cat([a.value for a in ins], dim=-1))
+        out = torch.cat([a.value for a in ins], dim=-1)
+        return ins[0].with_value(act_mod.apply(self.act, out))
 
 
 class Conv2D(Layer):
@@ -387,3 +392,110 @@ class BlockExpand(Layer):
         seq = blocks.reshape(b, oh * ow, -1)
         lengths = torch.full((b,), oh * ow, dtype=torch.int32, device=x.device)
         return Argument(seq, lengths)
+
+
+class Mixed(Layer):
+    """The sum of projections (MixedLayer.cpp), then bias and activation.
+    Each projection claims one input slot for its first source in
+    declaration order; an operator's second source appends at the end (the
+    reference config's input layout, which the dump reads back)."""
+
+    type_name = "mixed"
+
+    def __init__(self, input: Sequence[Any], size: Optional[int] = None,
+                 act: act_mod.ActLike = None, bias: bool = False,
+                 bias_attr: Optional[ParamAttr] = None, name: Optional[str] = None):
+        from paddle_tpu_torch.nn.projections import Projection
+
+        self.projections = []
+        for p in input:
+            if not isinstance(p, Projection):
+                raise TypeError("mixed layer inputs must be Projections")
+            self.projections.append(p)
+        super().__init__([], name=name)
+        self._relayout()
+        self.size = size
+        self.act = act
+        self.bias = bias
+        self.bias_attr = _attr(bias_attr)
+
+    def _relayout(self) -> None:
+        slots: List[Layer] = []
+        arg_slots: List[List[int]] = []
+        for p in self.projections:
+            arg_slots.append([len(slots)])
+            slots.append(p.sources[0])
+        for i, p in enumerate(self.projections):
+            for extra in p.sources[1:]:
+                arg_slots[i].append(len(slots))
+                slots.append(extra)
+        self.inputs = slots
+        self._arg_slots = arg_slots
+
+    # `with mixed_layer(size=N) as m: m += full_matrix_projection(x)`
+    def __iadd__(self, proj):
+        from paddle_tpu_torch.nn.projections import Projection
+
+        if not isinstance(proj, Projection):
+            raise TypeError("mixed layer inputs must be Projections")
+        self.projections.append(proj)
+        self._relayout()
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None and not self.projections:
+            raise ValueError(f"mixed layer {self.name!r} finalized with no projections")
+        return False
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        out, first = None, None
+        for proj, slots in zip(self.projections, self._arg_slots):
+            args = [ins[j] for j in slots]
+            if first is None:
+                first = args[0]
+            y = proj.apply(ctx, self, args, self.size)
+            out = y if out is None else out + y
+        if self.bias:
+            out = out + ctx.param(self, "b", (out.shape[-1],), init_mod.zeros,
+                                  self.bias_attr)
+        return first.with_value(act_mod.apply(self.act, out))
+
+
+class SwitchOrder(Layer):
+    """NHWC <-> NCHW reorder (SwitchOrderLayer); the v1 path reads a flat
+    CHW data slot into NHWC through Reshape + SwitchOrder("NHWC")."""
+
+    type_name = "switch_order"
+
+    _PERMS = {"NCHW": (0, 3, 1, 2), "NHWC": (0, 2, 3, 1),
+              "NCDHW": (0, 4, 1, 2, 3), "NDHWC": (0, 2, 3, 4, 1)}
+
+    def __init__(self, input: Layer, to: str = "NCHW", name: Optional[str] = None):
+        super().__init__(input, name=name)
+        if to not in self._PERMS:
+            raise ValueError(f"switch_order {name}: unknown order {to!r}")
+        self.to = to
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        return ins[0].with_value(ins[0].value.permute(self._PERMS[self.to]))
+
+
+class MaxId(Layer):
+    """The argmax id of the last axis (MaxIdLayer); beam_size > 1 gives the
+    top-k ids, ties in index order as `lax.top_k` keeps them."""
+
+    type_name = "max_id"
+
+    def __init__(self, input: Layer, beam_size: int = 1, name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.beam_size = beam_size
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        x = ins[0].value
+        if self.beam_size <= 1:
+            return ins[0].with_value(torch.argmax(x, dim=-1))
+        order = torch.sort(x, dim=-1, descending=True, stable=True).indices
+        return ins[0].with_value(order[..., :self.beam_size])

@@ -59,6 +59,12 @@ class EndIteration:
         return self._cost
 
     @property
+    def raw_metrics(self) -> Dict[str, Any]:
+        """The extra outputs' values as the trainer handed them (device
+        tensors on the card), without a sync."""
+        return self._metrics
+
+    @property
     def metrics(self) -> Dict[str, np.ndarray]:
         """The extra outputs' values as host arrays."""
         if self._metrics_np is None:

@@ -30,12 +30,16 @@ that turns the graph off, and a failed capture raises. The CPU runs every
 step eagerly: it has no graphs.
 
 `train(reader, num_passes, event_handler, feeder, test_reader, save_dir,
-auto_resume, keep_last_n, steps_per_dispatch, async_checkpoint, remat)`
+log_period, auto_resume, keep_last_n, steps_per_dispatch, async_checkpoint,
+remat)`
 runs passes over a reader of batches: dicts of arrays or tensors
 (`<slot>` and `<slot>.lengths`; a `data.DevicePrefetcher` yields them on
 the device, and a `StackedBatch` of K runs as one K-step dispatch), or
 lists of samples that `feeder` (a `data.DataFeeder`) turns into them; it
-fires BeginPass / BeginIteration / EndIteration (with the
+logs the cost of the dispatch that crosses each `log_period` mark
+("pass %d batch %d cost=%.6f", read one dispatch later from a
+non-blocking copy, so the log costs no sync of its own); it fires
+BeginPass / BeginIteration / EndIteration (with the
 `extra_outputs`' values) / EndPass, tests on `test_reader` at each pass
 end, and with `save_dir` writes a checkpoint there at each pass end
 (`save`; the JAX package's pass directory, `checkpoint.py`). `auto_resume`
@@ -339,7 +343,8 @@ class SGDTrainer:
               event_handler: Optional[Callable] = None,
               feeder: Optional[Callable] = None,
               test_reader: Optional[Callable] = None,
-              save_dir: Optional[str] = None, auto_resume: bool = False,
+              save_dir: Optional[str] = None, log_period: int = 100,
+              auto_resume: bool = False,
               keep_last_n: Optional[int] = None, steps_per_dispatch: int = 1,
               async_checkpoint: bool = True, remat: Optional[str] = None) -> TrainState:
         """`num_passes` passes over `reader()`, whose items are batch dicts,
@@ -366,6 +371,9 @@ class SGDTrainer:
         killed or preempted and resumed this way ends where an unbroken run
         ends. train() waits for the writer before it returns, and on its
         error path.
+
+        log_period: a dispatch whose window crosses a multiple of it logs
+        its cost (as the JAX trainer does); 0 turns the log off.
 
         remat: re-pins the rematerialization policy for this and later
         calls, and drops the captured graphs when it changes; None keeps
@@ -406,7 +414,7 @@ class SGDTrainer:
                     continue  # completed by the run being resumed
                 self._train_one_pass(
                     reader, pass_id, event_handler, feeder, test_reader, save_dir,
-                    keep_last_n, steps_per_dispatch, async_checkpoint,
+                    log_period, keep_last_n, steps_per_dispatch, async_checkpoint,
                     resume_skip if (resume_mid and pass_id == resume_pass) else 0)
             if self._pending_load is not None:
                 # every pass was checkpointed already: nothing ran, so build
@@ -431,7 +439,8 @@ class SGDTrainer:
 
     def _train_one_pass(self, reader: Callable, pass_id: int, event_handler: Callable,
                         feeder: Optional[Callable], test_reader: Optional[Callable],
-                        save_dir: Optional[str], keep_last_n: Optional[int],
+                        save_dir: Optional[str], log_period: int,
+                        keep_last_n: Optional[int],
                         steps_per_dispatch: int, async_checkpoint: bool,
                         resume_skip: int) -> None:
         """One pass. Nothing here reads a device value per step: the pass
@@ -452,9 +461,19 @@ class SGDTrainer:
         pending: List[Any] = []  # (batch_id, batch) waiting for a group
         logical = 0  # reader position in single-batch units
         boundary = 0  # every batch before it was applied or skipped
+        pending_log: Optional[tuple] = None  # (batch id, host copy, copied event)
+
+        def flush_log() -> None:
+            nonlocal pending_log
+            if pending_log is not None:
+                batch_id, host, copied = pending_log
+                pending_log = None
+                if copied is not None:
+                    copied.synchronize()  # one dispatch behind: landed already
+                log.info("pass %d batch %d cost=%.6f", pass_id, batch_id, float(host))
 
         def dispatch(first: int, last: int, batch: Batch, k: int) -> None:
-            nonlocal cost_sum, stepped, steps_since_poll
+            nonlocal cost_sum, stepped, steps_since_poll, pending_log
             if inj.active:
                 if inj.fire("kill"):
                     raise faults.InjectedKill(
@@ -481,6 +500,9 @@ class SGDTrainer:
                 if new and k == 1 and self.guard_check_every == 1:
                     return
             event_handler(EndIteration(pass_id, last, costs[-1], extras))
+            if log_period > 0 and last % log_period < k:  # crossed a mark
+                flush_log()
+                pending_log = (last, *host_copy(costs[-1]))
 
         def flush() -> None:
             nonlocal boundary
@@ -532,6 +554,7 @@ class SGDTrainer:
                 boundary = pending[-1][0] + 1
                 pending.clear()
         flush()
+        flush_log()
         if guard_on and self.state is not None:
             # the reaction window never crosses a pass boundary: the pass
             # checkpoint must not absorb an unexamined divergence
@@ -799,6 +822,19 @@ class SGDTrainer:
 
 def _leaf(x: Any) -> Any:
     return x
+
+
+def host_copy(value: torch.Tensor):
+    """(host copy, event) of a device value: a non-blocking copy into pinned
+    memory and the event that says it landed; on the CPU a plain copy and
+    no event."""
+    if value.device.type != "cuda":
+        return value.detach().clone(), None
+    host = torch.empty(value.shape, dtype=value.dtype).pin_memory()
+    host.copy_(value.detach(), non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    return host, copied
 
 
 def _feed(raw: Any, feeder: Optional[Callable]) -> Batch:

@@ -1,10 +1,14 @@
 """The PyTorch port stands alone.
 
-  * No file of `paddle_tpu_torch/` (nor chip_smoke.py) imports jax or the
-    JAX package — matched by exact module name, since the port's own name
-    starts with the string "paddle_tpu".
+  * No file of `paddle_tpu_torch/` (nor chip_smoke.py) imports jax, the
+    JAX package or the repo's `paddle/` shim (which re-exports it) —
+    matched by exact module name, since the port's own name starts with
+    the string "paddle_tpu".
   * The whole package imports in a process where jax and `paddle_tpu` are
-    unimportable.
+    unimportable; there a v1 config (`from paddle.trainer_config_helpers
+    import *`) and its provider (`from paddle.trainer.PyDataProvider2
+    import *`) parse and train one step on the CPU, and afterwards
+    `sys.modules` holds neither the `paddle` shim nor `paddle_tpu`.
   * Device policy: entry points without `device=` run on CUDA and raise
     when it is absent; the CPU runs only when asked for."""
 
@@ -26,7 +30,7 @@ PORT_FILES = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + [
 def _forbidden(module: str) -> bool:
     return any(
         module == root or module.startswith(root + ".")
-        for root in ("jax", "jaxlib", "paddle_tpu")
+        for root in ("jax", "jaxlib", "paddle_tpu", "paddle")
     )
 
 
@@ -44,6 +48,13 @@ def test_forbidden_matches_exact_module_names():
     assert not _forbidden("paddle_tpu_torch")
     assert not _forbidden("paddle_tpu_torch.serving.model")
     assert not _forbidden("jaxtyping")
+    assert _forbidden("paddle") and _forbidden("paddle.trainer_config_helpers")
+
+
+def test_scan_covers_the_config_pipeline():
+    scanned = {p.relative_to(REPO).parts[1] for p in PORT_FILES
+               if len(p.relative_to(REPO).parts) > 2}
+    assert {"config", "proto", "v2", "metrics", "compat"} <= scanned
 
 
 @pytest.mark.parametrize(
@@ -54,7 +65,7 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
-_BLOCKED_IMPORT = r"""
+_BLOCK = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
@@ -66,6 +77,9 @@ class _BlockReference(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, _BlockReference())
+"""
+
+_BLOCKED_IMPORT = _BLOCK + r"""
 import paddle_tpu_torch
 import paddle_tpu_torch.serving.session
 names = [m.name for m in pkgutil.walk_packages(
@@ -87,6 +101,60 @@ def test_package_imports_with_jax_and_reference_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 15
+
+
+_V1_CONFIG = """
+from paddle.trainer_config_helpers import *
+settings(batch_size=4, learning_rate=0.1, learning_method=MomentumOptimizer(0.9))
+define_py_data_sources2(train_list='train.list', test_list=None,
+                        module='v1_provider', obj='process')
+x = data_layer(name='x', size=6)
+y = data_layer(name='y', size=3)
+h = mixed_layer(size=5, input=[full_matrix_projection(input=x)], act=TanhActivation())
+out = fc_layer(input=h, size=3, act=SoftmaxActivation())
+outputs(classification_cost(input=out, label=y))
+"""
+
+_V1_PROVIDER = """
+import numpy as np
+from paddle.trainer.PyDataProvider2 import *
+
+@provider(input_types={'x': dense_vector(6), 'y': integer_value(3)})
+def process(settings, filename):
+    rs = np.random.RandomState(0)
+    for _ in range(4):
+        yield {'x': rs.randn(6).astype('float32'), 'y': int(rs.randint(3))}
+"""
+
+_BLOCKED_V1 = _BLOCK + r"""
+import os
+os.chdir(sys.argv[1])
+sys.path.insert(0, sys.argv[1])
+from paddle_tpu_torch import cli
+job = cli.prepare_train(cli.parse_args(
+    ["train", "--config=conf.py", "--device=cpu", "--log_period=0"]))
+assert job.run() == 0
+left = [m for m in sys.modules if m in ("paddle", "paddle_tpu")
+        or m.startswith(("paddle.", "paddle_tpu."))]
+assert not left, left
+assert job.trainer.state["samples"].item() == 4
+print("ok")
+"""
+
+
+def test_v1_config_trains_with_jax_and_reference_blocked(tmp_path):
+    (tmp_path / "conf.py").write_text(_V1_CONFIG)
+    (tmp_path / "v1_provider.py").write_text(_V1_PROVIDER)
+    (tmp_path / "train.list").write_text("dummy\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)  # the repo root holds the `paddle/` shim too
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_V1, str(tmp_path)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "pass 0: avg_cost=" in out.stdout
+    assert out.stdout.strip().endswith("ok")
 
 
 # -- device policy ------------------------------------------------------------

@@ -17,6 +17,11 @@ rejected or differed on, each against the JAX package on the CPU.
     only). Same tolerances.
   * The "not ported" messages name ROADMAP.md's items by their numbers
     there (§1 item 5, the v1 config pipeline; item 8, TP serving).
+  * `SGDTrainer.train(log_period=N)` (the JAX trainer's argument, which
+    the port rejected): the same "pass P batch B cost=" marks as the JAX
+    trainer, per step and per K-step dispatch, each read from a copy
+    started one dispatch earlier; with log_period=0 a pass reads one
+    device value on the host (its average cost), whatever its length.
   * On a card (marked `cuda`, skipped here): a `Gru(act="relu")` graph on
     the card takes the step loop (no GRU kernel launch) and matches the
     CPU; out-of-range ids read NaN rows on the card with no device assert.
@@ -225,6 +230,68 @@ def test_not_ported_messages_name_the_roadmap_items():
     stale = re.compile(r"queue 1|item 3\.3|item 6, TP|pipeline of item 7")
     for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
         assert not stale.search(path.read_text()), path
+
+
+def _log_marks(records, logger):
+    return [tuple(int(v) for v in re.match(r"pass (\d+) batch (\d+) cost=", r.getMessage()).groups())
+            for r in records if r.name == logger and " cost=" in r.getMessage()]
+
+
+def _fc_batches(n=7, b=4):
+    rs = np.random.RandomState(5)
+    return [{"x": rs.randn(b, 6).astype(np.float32), "label": rs.randint(0, 3, b)}
+            for _ in range(n)]
+
+
+def _fc_cost(L, C):
+    x = L.Data("x", shape=(6,))
+    lbl = L.Data("label", shape=())
+    return C.ClassificationCost(L.Fc(x, 3, act=None, name="out"), lbl)
+
+
+@pytest.mark.parametrize("log_period,k", [(2, 1), (3, 1), (2, 3), (1, 2)])
+def test_log_period_marks_match_the_jax_trainer(log_period, k, caplog):
+    import logging
+
+    from paddle_tpu.nn import costs as JC
+    from paddle_tpu.nn import graph as jgraph
+    from paddle_tpu.nn import layers as JL
+    from paddle_tpu.optim import SGD as JSGD
+    from paddle_tpu.trainer.trainer import SGDTrainer as JaxTrainer
+    from paddle_tpu_torch.optim import SGD as TSGD
+    from paddle_tpu_torch.trainer import SGDTrainer as TorchTrainer
+
+    batches = _fc_batches()
+    jgraph.reset_name_scope()
+    jt = JaxTrainer(_fc_cost(JL, JC), JSGD(learning_rate=0.1))
+    tgraph.reset_name_scope()
+    tt = TorchTrainer(_fc_cost(TL, TC), TSGD(learning_rate=0.1), device="cpu")
+    with caplog.at_level(logging.INFO):
+        jt.train(lambda: iter(batches), num_passes=2, log_period=log_period,
+                 steps_per_dispatch=k)
+        tt.train(lambda: iter(batches), num_passes=2, log_period=log_period,
+                 steps_per_dispatch=k)
+    want = _log_marks(caplog.records, "paddle_tpu.trainer")
+    got = _log_marks(caplog.records, "paddle_tpu_torch.trainer")
+    assert want and got == want
+
+
+@pytest.mark.parametrize("log_period,reads", [(0, 1), (2, 1 + 3)])
+def test_log_period_adds_no_host_read_per_batch(log_period, reads, monkeypatch):
+    from paddle_tpu_torch.optim import SGD as TSGD
+    from paddle_tpu_torch.trainer import SGDTrainer as TorchTrainer
+
+    tgraph.reset_name_scope()
+    tt = TorchTrainer(_fc_cost(TL, TC), TSGD(learning_rate=0.1), device="cpu")
+    batches = _fc_batches(n=6)
+    tt.init_state(batches[0])
+    calls = []
+    for name in ("__float__", "item", "tolist"):
+        real = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name,
+                            lambda self, *a, _real=real, **kw: calls.append(1) or _real(self, *a, **kw))
+    tt.train(lambda: iter(batches), num_passes=1, log_period=log_period)
+    assert len(calls) == reads
 
 
 # -- on the card -------------------------------------------------------------
