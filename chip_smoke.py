@@ -272,7 +272,51 @@ Phases (any failure exits non-zero and prints no result line):
                --job=time (images/s), then busy ms and busy share as
                phase 21's; card vs CPU
                over its first 4 logged step costs.
- 23. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 23. v1_seq2seq — the reference's seqToseq demo network
+               (demo/seqToseq/seqToseq_net.py, is_generating=False: two
+               simple_gru encoders, each a gru_group of gru_step layers,
+               and a recurrent_group decoder of simple_attention, a mixed
+               projection, gru_step and a 30000-wide softmax mixed layer,
+               StaticInputs of the encoder, a memory booted from the
+               backward encoder's first step, classification_cost, Adam
+               5e-4) at train.conf's widths (vocab 30000, 512, batch 128,
+               every sequence 50 long, padded to 64; ids drawn as bench.py
+               draws them; 4 batches a pass, 2 passes) through
+               `paddle_tpu_torch.cli` in process (recurrent counters from
+               0): one graph, every later step a replay, avg_cost falls,
+               no recurrent kernel launch, peak memory; --job=time over 8
+               batches (ms a step, target tokens/s), 5 replays under
+               torch.profiler (busy ms, busy share, kernels a replay);
+               dump_config against the parse; gru_group's output against
+               simple_gru2's fused kernels on one parameter dict at vocab
+               30000 / 512 / batch 128 / lengths 30-50, both directions
+               (relative L2 <= 1e-4); the config at vocab 64, width 16,
+               batch 8 card vs CPU over its first 4 logged step costs.
+ 24. v2_api  — a paddle.v2 script at phase 21's widths: v2.init, data /
+               embedding(512) / two networks.simple_gru(512) (forward and
+               reverse) / last_seq and first_seq / fc(2, Softmax) /
+               classification_cost, parameters.create, trainer.SGD with
+               Adam(1e-3), train(batch(reader, 128), 2 passes of 8
+               batches, event_handler, feeding) (GRU counters from 0):
+               2 + 2 GRU launches a step (and the state's init forward),
+               one graph, every later step a replay, EndIteration costs
+               fall, EndPass each pass; test() finite; to_tar -> from_tar
+               bitwise; ms a step over 10 replays, tokens/s, busy share;
+               Inference.infer over 256 samples in chunks of 128 ->
+               values [256, 2] and ids [256], both GRU forwards each
+               chunk, its ms per 128; the script at vocab 64, width 16,
+               batch 8 card vs CPU over its first 4 EndIteration costs.
+ 25. deploy  — phase 21's pass-00001 through `merge_model` (the CLI, in
+               process), `capi.create_for_inference`: forward on a batch
+               of 128 equals the trainer's test forward on the pass's
+               parameters within 1e-6 relative, forward and
+               get_layer_output each launch both GRU forwards once;
+               merge_model_v1 writes its file; api.GradientMachine /
+               Arguments (ragged start positions) on phase 24's model:
+               forward and getLayerOutput agree, forwardBackward's
+               gradients finite; the merge's s, the load's s and the
+               forward's ms.
+ 26. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -439,6 +483,28 @@ V1_PROFILE_STEPS = 5
 # Momentum(0.9), batch 128, 20 batches a pass, 2 passes; card vs CPU over
 # its first V1_CPU_STEPS logged steps at 4 batches
 V1_LENET = dict(batch=128, batches=20, test_batches=2, passes=2, time_batches=20)
+
+# the v1 seqToseq demo (demo/seqToseq/seqToseq_net.py, is_generating=False)
+# through recurrent_group at train.conf's widths (bench.py:191,211-245):
+# vocab 30000 both sides, word vectors, encoder and decoder 512, batch 128,
+# every sequence 50 long, ids drawn as bench.py draws them; Adam 5e-4 as the
+# demo sets it; 4 batches a pass, 2 passes (the same 4 batches), then
+# --job=time over 8 batches. Card vs CPU at vocab 64, width 16, batch 8.
+# gru_group's output against simple_gru2's fused kernel on one parameter
+# dict at vocab 30000 / 512 / batch 128 / lengths 30-50: relative L2
+V1_S2S = dict(vocab=30000, size=512, batch=128, batches=4, length=50, passes=2,
+              time_batches=8)
+V1_S2S_SMALL = dict(vocab=64, size=16, batch=8, batches=4, length=6)
+GRU_GROUP_RTOL = 1e-4
+# the paddle.v2 script: the v1 bi-GRU's widths (vocab 30000, 512, batch 128,
+# lengths 30-50), 8 batches a pass, 2 passes; infer over 256 samples in
+# chunks of 128; card vs CPU at vocab 64, width 16, batch 8
+V2_API = dict(vocab=30000, size=512, batch=128, batches=8, passes=2, min_len=30,
+              max_len=50, infer=256, time_steps=10)
+V2_API_SMALL = dict(vocab=64, size=16, batch=8, batches=4, passes=1, min_len=3,
+                    max_len=6, infer=16, time_steps=0)
+# the merged model serves forwards equal to the trainer's test forward
+DEPLOY_RTOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -3659,14 +3725,16 @@ def v1_vs_cpu(name: str, conf_dir: str, args: str):
     return out
 
 
-def v1_timed(torch, conf_dir: str, name: str, tag: str, per_step, n: int):
+def v1_timed(torch, conf_dir: str, name: str, tag: str, per_step, n: int,
+             config_args: str = ""):
     """`--job=time` over n batches (the replays of one graph), then
     torch.profiler over V1_PROFILE_STEPS replays on the same trainer: the
     device's busy ms a step and its busy share, both over the profiled
     window -> (result, the job)."""
     zero_rnn_counts()
     rc, lines, _, job = run_cli(conf_dir, ["train", "--config=conf.py", "--job=time",
-                                           f"--num_batches={n}"])
+                                           f"--num_batches={n}",
+                                           f"--config_args={config_args}"])
     launches = rnn_counts()  # the init's forward, the warm-up step, n replays
     if rc != 0:
         fail(f"{name}: --job=time exited {rc}")
@@ -3782,6 +3850,7 @@ def v1_bigru_phase(torch):
         fail(f"v1 bigru: dump_config exited {rc}, matches the parse: {dumped == parsed}")
     small = v1_config_dir("bigru", V1_BIGRU_CONFIG, V1_BIGRU_PROVIDER)
     result["vs_cpu"] = v1_vs_cpu("v1 bigru", small, v1_args(V1_BIGRU_SMALL))
+    result["save_dir"] = save  # phase 25 merges its pass-00001
     print("v1_bigru", json.dumps(result), flush=True)
     return result
 
@@ -3826,6 +3895,464 @@ def v1_lenet_phase(torch):
     del t_job
     result["vs_cpu"] = v1_vs_cpu("v1 lenet", d, "batches=4,test_batches=1")
     print("v1_lenet", json.dumps(result), flush=True)
+    return result
+
+
+V1_S2S_PROVIDER = """
+import numpy as np
+from paddle.trainer.PyDataProvider2 import *
+
+
+def hook(settings, src_dict, trg_dict, samples, length, **kwargs):
+    settings.dicts, settings.length = (src_dict, trg_dict), length
+    settings.samples = {"train": samples, "test": samples}
+    settings.input_types = {
+        "source_language_word": integer_value_sequence(src_dict),
+        "target_language_word": integer_value_sequence(trg_dict),
+        "target_language_next_word": integer_value_sequence(trg_dict)}
+
+
+@provider(init_hook=hook, should_shuffle=False)
+def process(settings, filename):
+    # bench.py's draws: ids uniform in [2, vocab), every sequence `length`
+    # long; the next word is the target shifted, then 1 (<e>)
+    rs = np.random.RandomState(0 if filename == "train" else 1)
+    src_dict, trg_dict = settings.dicts
+    for _ in range(settings.samples[filename]):
+        src = rs.randint(2, src_dict, size=settings.length)
+        trg = rs.randint(2, trg_dict, size=settings.length)
+        yield {"source_language_word": src.tolist(),
+               "target_language_word": trg.tolist(),
+               "target_language_next_word": np.append(trg[1:], 1).tolist()}
+"""
+
+# demo/seqToseq/seqToseq_net.py of PaddlePaddle v0.11 (is_generating=False),
+# its widths from config args
+V1_S2S_CONFIG = """
+from paddle.trainer_config_helpers import *
+
+source_dict_dim = get_config_arg("vocab", int, 30000)
+target_dict_dim = source_dict_dim
+word_vector_dim = encoder_size = decoder_size = get_config_arg("size", int, 512)
+batch = get_config_arg("batch", int, 128)
+batches = get_config_arg("batches", int, 4)
+length = get_config_arg("length", int, 50)
+settings(batch_size=batch, learning_rate=5e-4, learning_method=AdamOptimizer())
+define_py_data_sources2(
+    train_list="train.list", test_list=None, module="v1_s2s_provider", obj="process",
+    args={"src_dict": source_dict_dim, "trg_dict": target_dict_dim,
+          "samples": batches * batch, "length": length})
+
+src_word_id = data_layer(name="source_language_word", size=source_dict_dim)
+src_embedding = embedding_layer(
+    input=src_word_id, size=word_vector_dim,
+    param_attr=ParamAttr(name="_source_language_embedding"))
+src_forward = simple_gru(input=src_embedding, size=encoder_size, naive=True,
+                         gru_layer_attr=ExtraLayerAttribute(error_clipping_threshold=50))
+src_backward = simple_gru(input=src_embedding, size=encoder_size, reverse=True,
+                          naive=True,
+                          gru_layer_attr=ExtraLayerAttribute(error_clipping_threshold=50))
+encoded_vector = concat_layer(input=[src_forward, src_backward])
+
+with mixed_layer(size=decoder_size) as encoded_proj:
+    encoded_proj += full_matrix_projection(input=encoded_vector)
+
+backward_first = first_seq(input=src_backward)
+with mixed_layer(size=decoder_size, act=TanhActivation()) as decoder_boot:
+    decoder_boot += full_matrix_projection(input=backward_first)
+
+
+def gru_decoder_with_attention(enc_vec, enc_proj, current_word):
+    decoder_mem = memory(name="gru_decoder", size=decoder_size, boot_layer=decoder_boot)
+    context = simple_attention(encoded_sequence=enc_vec, encoded_proj=enc_proj,
+                               decoder_state=decoder_mem)
+    with mixed_layer(size=decoder_size * 3) as decoder_inputs:
+        decoder_inputs += full_matrix_projection(input=context)
+        decoder_inputs += full_matrix_projection(input=current_word)
+    gru_step = gru_step_layer(name="gru_decoder", input=decoder_inputs,
+                              output_mem=decoder_mem, size=decoder_size)
+    with mixed_layer(size=target_dict_dim, bias_attr=True,
+                     act=SoftmaxActivation()) as out:
+        out += full_matrix_projection(input=gru_step)
+    return out
+
+
+group_inputs = [StaticInput(input=encoded_vector, is_seq=True),
+                StaticInput(input=encoded_proj, is_seq=True)]
+trg_embedding = embedding_layer(
+    input=data_layer(name="target_language_word", size=target_dict_dim),
+    size=word_vector_dim, param_attr=ParamAttr(name="_target_language_embedding"))
+group_inputs.append(trg_embedding)
+decoder = recurrent_group(name="decoder_group", step=gru_decoder_with_attention,
+                          input=group_inputs)
+lbl = data_layer(name="target_language_next_word", size=target_dict_dim)
+outputs(classification_cost(input=decoder, label=lbl))
+"""
+
+
+def s2s_args(cfg: dict) -> str:
+    return ",".join(f"{k}={cfg[k]}" for k in ("vocab", "size", "batch", "batches", "length"))
+
+
+def gru_group_vs_fused(torch, np):
+    """simple_gru (gru_group: a recurrent_group of gru_step layers, no
+    kernel) against simple_gru2 (the fused grumemory kernels) on one
+    parameter dict, forward and reverse, at vocab 30000 / 512 / batch 128 /
+    lengths 30-50 -> relative L2 over the valid steps."""
+    from paddle_tpu_torch.config import v1_layers as v1
+    from paddle_tpu_torch.nn import graph as G
+    from paddle_tpu_torch.v2 import data_type, layer
+
+    cfg = V1_BIGRU
+    rs = np.random.RandomState(5)
+    lens = rs.randint(cfg["min_len"], cfg["max_len"] + 1, cfg["batch"]).astype(np.int32)
+    batch = {"word": rs.randint(3, cfg["vocab"], (cfg["batch"], cfg["max_len"])).astype(
+        np.int32), "word.lengths": lens}
+    mask = torch.from_numpy(np.arange(cfg["max_len"])[None, :] < lens[:, None]).cuda()
+    out = {}
+    for reverse in (False, True):
+        vals = {}
+        params = None
+        for helper in ("simple_gru", "simple_gru2"):
+            G.reset_name_scope()
+            word = layer.data("word", data_type.integer_value_sequence(cfg["vocab"]))
+            emb = layer.embedding(word, cfg["size"], name="emb")
+            node = getattr(v1, helper)(input=emb, size=cfg["size"], name="g",
+                                       reverse=reverse)
+            net = G.Network([node])
+            if params is None:
+                params = net.init(batch, seed=3, device="cuda")
+            with torch.no_grad():
+                vals[helper] = net.apply(params, batch)[node.name].value
+        got, want = (vals[k][mask] for k in ("simple_gru", "simple_gru2"))
+        out["rev" if reverse else "fwd"] = rel_l2(torch, got, want)
+    if max(out.values()) > GRU_GROUP_RTOL:
+        fail(f"gru_group vs the fused GRU: relative L2 {out} > {GRU_GROUP_RTOL}")
+    return out
+
+
+def v1_seq2seq_phase(torch):
+    """Phase 23: the v1 seqToseq demo through recurrent_group at full width
+    through the CLI (GRU counters from 0: the groups launch no kernel)."""
+    import numpy as np
+
+    from paddle_tpu_torch import proto
+    from paddle_tpu_torch.config import parse_config
+
+    cfg = V1_S2S
+    d = v1_config_dir("s2s", V1_S2S_CONFIG, V1_S2S_PROVIDER)
+    steps = cfg["batches"] * cfg["passes"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    zero_rnn_counts()
+    rc, lines, costs, job = run_cli(d, ["train", "--config=conf.py",
+                                        f"--num_passes={cfg['passes']}", "--log_period=1"])
+    launches = rnn_counts()
+    train_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"v1 seq2seq: train exited {rc}")
+    trainer = job.trainer
+    graphs = list(trainer.graphs.values())
+    passes = pass_lines(lines)
+    result = dict(config=cfg, train_s=train_s, steps=steps, passes=passes,
+                  step_costs=costs, graphs=len(graphs),
+                  replays=graphs[0].replays if graphs else 0, kernel_launches=launches,
+                  peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if any(launches.values()):
+        fail(f"v1 seq2seq: launched kernels its groups do not run: {launches}")
+    if len(graphs) != 1 or result["replays"] != steps - 1:
+        fail(f"v1 seq2seq: {len(graphs)} step graphs, {result['replays']} replays in "
+             f"{steps} steps: want one graph, every step after the first a replay")
+    if sorted(passes) != list(range(cfg["passes"])) or not (
+            passes[1]["avg_cost"] < passes[0]["avg_cost"]):
+        fail(f"v1 seq2seq: avg_cost did not fall: {passes}")
+    if not all(np.isfinite(costs)) or len(costs) != steps:
+        fail(f"v1 seq2seq: logged step costs {costs}")
+
+    def per_step(timed_job, ms):
+        # real target tokens of every batch --job=time timed
+        n = cfg["time_batches"]
+        tokens = sum(int(timed_job.feeder(b)["target_language_word.lengths"].sum())
+                     for b in itertools.islice(timed_job.reader(), n))
+        return dict(tokens_timed=tokens, tokens_per_step=tokens / n,
+                    tokens_per_s=tokens / (n * ms / 1e3))
+
+    del trainer, job
+    torch.cuda.empty_cache()
+    # --job=time reads its batches from one pass: give it time_batches
+    timed, t_job = v1_timed(torch, d, "v1 seq2seq", "gru", per_step, cfg["time_batches"],
+                            config_args=f"batches={cfg['time_batches']}")
+    result["time"] = timed
+    if any(timed["kernel_launches"].values()):
+        fail(f"v1 seq2seq: --job=time launched kernels {timed['kernel_launches']}")
+    result["kernels_per_replay"] = timed["profile"]["kernel_launches_per_step"]
+    del t_job
+    torch.cuda.empty_cache()
+    rc, lines, _, _ = run_cli(d, ["dump_config", "--config=conf.py"], echo=False)
+    dumped = "\n".join(lines) + "\n"
+    parsed = proto.to_text(parse_config(os.path.join(d, "conf.py")).trainer_config)
+    result["dump_config_lines"] = len(lines)
+    if rc != 0 or dumped != parsed or 'type: "recurrent_layer_group"' not in dumped:
+        fail(f"v1 seq2seq: dump_config exited {rc}, matches the parse: {dumped == parsed}")
+    result["gru_group_vs_fused_rel_l2"] = gru_group_vs_fused(torch, np)
+    small = v1_config_dir("s2s", V1_S2S_CONFIG, V1_S2S_PROVIDER)
+    result["vs_cpu"] = v1_vs_cpu("v1 seq2seq", small, s2s_args(V1_S2S_SMALL))
+    print("v1_seq2seq", json.dumps(result), flush=True)
+    return result
+
+
+def v2_samples(np, cfg, n, seed):
+    """(ids, label) samples as phase 21's provider draws them: the first 4
+    ids of a sequence say its label."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        label = int(rs.randint(2))
+        ids = rs.randint(3, cfg["vocab"], size=rs.randint(cfg["min_len"], cfg["max_len"] + 1))
+        ids[:4] = 1 + label
+        out.append((ids.tolist(), label))
+    return out
+
+
+def v2_script(paddle, cfg, device):
+    """The paddle.v2 script of phase 24 -> (output layer, cost, parameters,
+    the trainer, its events): a bi-GRU of two networks.simple_gru over one
+    embedding, Adam(1e-3), `cfg["passes"]` passes of batch(reader)."""
+    from paddle_tpu_torch.nn import graph as G
+
+    G.reset_name_scope()
+    paddle.init(use_gpu=device == "cuda", trainer_count=1, seed=0)
+    word = paddle.layer.data(name="word",
+                             type=paddle.data_type.integer_value_sequence(cfg["vocab"]))
+    label = paddle.layer.data(name="label", type=paddle.data_type.integer_value(2))
+    emb = paddle.layer.embedding(input=word, size=cfg["size"])
+    fwd = paddle.networks.simple_gru(input=emb, size=cfg["size"], name="gru_fw")
+    bwd = paddle.networks.simple_gru(input=emb, size=cfg["size"], reverse=True,
+                                     name="gru_bw")
+    out = paddle.layer.fc(input=[paddle.layer.last_seq(input=fwd),
+                                 paddle.layer.first_seq(input=bwd)],
+                          size=2, act=paddle.activation.Softmax())
+    cost = paddle.layer.classification_cost(input=out, label=label)
+    params = paddle.parameters.create(cost)
+    trainer = paddle.trainer.SGD(cost=cost, parameters=params,
+                                 update_equation=paddle.optimizer.Adam(learning_rate=1e-3))
+    return out, cost, params, trainer
+
+
+def v2_train(paddle, np, cfg, trainer):
+    samples = v2_samples(np, cfg, cfg["batches"] * cfg["batch"], 0)
+    events = []
+    trainer.train(reader=paddle.batch(lambda: iter(samples), cfg["batch"]),
+                  num_passes=cfg["passes"], event_handler=events.append,
+                  feeding={"word": 0, "label": 1})
+    costs = [e.cost for e in events if isinstance(e, paddle.event.EndIteration)]
+    return samples, events, costs
+
+
+def v2_api_phase(torch):
+    """Phase 24: a paddle.v2 script at full width (GRU counters from 0 just
+    before train)."""
+    import io
+
+    import numpy as np
+
+    import paddle_tpu_torch.v2 as paddle
+
+    cfg = V2_API
+    steps = cfg["batches"] * cfg["passes"]
+    out, cost, params, trainer = v2_script(paddle, cfg, "cuda")
+    zero_rnn_counts()
+    t0 = time.perf_counter()
+    samples, events, costs = v2_train(paddle, np, cfg, trainer)
+    train_s = time.perf_counter() - t0
+    launches = rnn_counts()
+    tr = trainer.trainer
+    graphs = list(tr.graphs.values())
+    kinds = [type(e).__name__ for e in events]
+    result = dict(config=cfg, train_s=train_s, steps=steps, step_costs=costs,
+                  graphs=len(graphs), replays=graphs[0].replays if graphs else 0,
+                  kernel_launches=launches,
+                  gru_launches_per_step=dict(fwd=(launches["FWD_LAUNCHES"] - 2) / steps,
+                                             bwd=launches["BWD_LAUNCHES"] / steps))
+    # the state's init runs both forwards once; every step both directions
+    # forward and backward
+    if (launches["FWD_LAUNCHES"], launches["BWD_LAUNCHES"]) != (2 * steps + 2, 2 * steps):
+        fail(f"v2 api: GRU launches {launches} over {steps} steps, want fwd "
+             f"{2 * steps + 2}, bwd {2 * steps}")
+    if len(graphs) != 1 or result["replays"] != steps - 1:
+        fail(f"v2 api: {len(graphs)} step graphs, {result['replays']} replays in "
+             f"{steps} steps: want one graph, every step after the first a replay")
+    half = len(costs) // 2
+    if len(costs) != steps or not np.mean(costs[half:]) < np.mean(costs[:half]):
+        fail(f"v2 api: EndIteration costs did not fall: {costs}")
+    if kinds.count("EndPass") != cfg["passes"]:
+        fail(f"v2 api: {kinds.count('EndPass')} EndPass events for {cfg['passes']} passes")
+    test_samples = v2_samples(np, cfg, 2 * cfg["batch"], 1)
+    res = trainer.test(reader=paddle.batch(lambda: iter(test_samples), cfg["batch"]),
+                       feeding={"word": 0, "label": 1})
+    result["test_cost"] = res.cost
+    if not np.isfinite(res.cost):
+        fail(f"v2 api: test() cost {res.cost}")
+    buf = io.BytesIO()
+    trainer.save_parameter_to_tar(buf)
+    back = paddle.parameters.Parameters.from_tar(io.BytesIO(buf.getvalue()))
+    trained = trainer.parameters
+    if sorted(back.names()) != sorted(trained.names()) or not all(
+            back.get(k).tobytes() == trained.get(k).tobytes() for k in trained.names()):
+        fail("v2 api: to_tar -> from_tar is not bitwise")
+    result["tar_bytes"] = len(buf.getvalue())
+
+    # ms a step: replays of the trained step on one batch, one sync at the end
+    feeder = trainer.topology.make_feeder({"word": 0, "label": 1})
+    batch = feeder(samples[:cfg["batch"]])
+    tr.step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(cfg["time_steps"]):
+        tr.step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / cfg["time_steps"]
+    tokens = int(batch["word.lengths"].sum())
+    profile = profile_train(torch, lambda: tr.step(batch), tag="gru",
+                            steps=V1_PROFILE_STEPS, label="v2_api_profile")
+    result.update(ms_per_step=ms, tokens_per_step=tokens, tokens_per_s=tokens / (ms / 1e3),
+                  device_busy_ms_per_step=profile["device_busy_ms_per_step"],
+                  busy_share=profile["device_busy_share"], profile=profile)
+
+    inf = paddle.inference.Inference(out, trained)
+    infer_in = [(ids,) for ids, _ in v2_samples(np, cfg, cfg["infer"], 2)]
+    inf.infer(infer_in[:cfg["batch"]], feeding={"word": 0})  # its init's forward
+    zero_rnn_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, ids = inf.infer(infer_in, feeding={"word": 0}, field=["value", "id"],
+                          batch_size=cfg["batch"])
+    infer_ms = (time.perf_counter() - t0) * 1e3
+    infer_launches = rnn_counts()
+    chunks = -(-cfg["infer"] // cfg["batch"])
+    result.update(infer_ms_per_128=infer_ms / chunks, infer_launches=infer_launches)
+    if vals.shape != (cfg["infer"], 2) or ids.shape != (cfg["infer"],) or not (
+            np.isfinite(vals).all()) or not np.array_equal(ids, vals.argmax(-1)):
+        fail(f"v2 api: infer gave values {vals.shape}, ids {ids.shape}")
+    if infer_launches["FWD_LAUNCHES"] != 2 * chunks:
+        fail(f"v2 api: infer over {chunks} chunks launched {infer_launches}, want "
+             f"{2 * chunks} GRU forwards")
+    result["vs_cpu"] = v2_vs_cpu(torch, np, paddle)
+    print("v2_api", json.dumps(result), flush=True)
+    return result, (out, cost, trained)
+
+
+def v2_vs_cpu(torch, np, paddle):
+    """The v2 script at vocab 64, width 16, batch 8 on the CPU and on the
+    card from the same parameters: the first V1_CPU_STEPS EndIteration
+    costs (the first within CPU_COST_RTOL, all within V1_CPU_RTOL)."""
+    cfg = V2_API_SMALL
+    costs, start = {}, None
+    for dev in ("cpu", "cuda"):
+        _, _, params, trainer = v2_script(paddle, cfg, dev)
+        if start is None:
+            start = params.as_dict()
+        for k, v in start.items():
+            params.set(k, v)
+        costs[dev] = v2_train(paddle, np, cfg, trainer)[2][:V1_CPU_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(costs["cuda"], costs["cpu"])]
+    out = dict(steps=len(rel), cost_card=costs["cuda"], cost_cpu=costs["cpu"],
+               cost_rel_err=rel)
+    if len(rel) != V1_CPU_STEPS or not (rel[0] <= CPU_COST_RTOL and max(rel) <= V1_CPU_RTOL):
+        fail(f"v2 api: step costs card {costs['cuda']} vs CPU {costs['cpu']}: rel err "
+             f"{rel} (first <= {CPU_COST_RTOL}, all <= {V1_CPU_RTOL})")
+    return out
+
+
+def deploy_phase(torch, bigru_save_dir, v2_model):
+    """Phase 25: phase 21's pass-00001 merged through the CLI and served by
+    `capi.create_for_inference` (GRU counters from 0 around each call);
+    merge_model_v1; the py_paddle GradientMachine on phase 24's model."""
+    import numpy as np
+
+    from paddle_tpu_torch import api, capi
+    from paddle_tpu_torch.config import parse_config
+    from paddle_tpu_torch.optim import optimizers
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+    from paddle_tpu_torch.trainer.trainer import SGDTrainer
+
+    conf_dir = os.path.dirname(bigru_save_dir)
+    merged = os.path.join(conf_dir, "merged.npz")
+    t0 = time.perf_counter()
+    rc, lines, _, _ = run_cli(conf_dir, ["merge_model", "--config=conf.py",
+                                         f"--model_dir={bigru_save_dir}",
+                                         f"--output={merged}"])
+    merge_s = time.perf_counter() - t0
+    if rc != 0 or lines[-1] != merged or not os.path.exists(merged):
+        fail(f"deploy: merge_model exited {rc}: {lines}")
+    t0 = time.perf_counter()
+    machine = capi.create_for_inference(merged)
+    load_s = time.perf_counter() - t0
+    (cost_name,) = machine.output_names()
+    cfg = V1_BIGRU
+    samples = v2_samples(np, cfg, cfg["batch"], 3)
+    feeder = machine.topology.make_feeder({"word": 0, "label": 1})
+    batch = feeder(samples)
+    machine.forward(batch)  # warm
+    zero_rnn_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = machine.forward(batch, output_layer=cost_name)
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    fwd_launches = rnn_counts()
+    probs_layer = machine.network.outputs[0].inputs[0].name
+    zero_rnn_counts()
+    probs = machine.get_layer_output(probs_layer, batch)
+    layer_launches = rnn_counts()
+    for what, n in (("forward", fwd_launches), ("get_layer_output", layer_launches)):
+        if n["FWD_LAUNCHES"] != 2 or any(v for k, v in n.items() if k != "FWD_LAUNCHES"):
+            fail(f"deploy: {what} launched {n}, want both GRU forwards once")
+    if probs.shape != (cfg["batch"], 2) or not np.allclose(probs.sum(-1), 1, atol=1e-5):
+        fail(f"deploy: get_layer_output({probs_layer}) gave {probs.shape}")
+    params, _, _, _ = ckpt.load_pass(bigru_save_dir, 1)
+    tr = SGDTrainer(parse_config(os.path.join(conf_dir, "conf.py")).outputs,
+                    optimizers.Adam(1e-3))
+    tr.init_state(batch)
+    tr.load_params(params)
+    with torch.no_grad():
+        want = float(tr._cost(tr.state["params"], batch, train=False)[0])
+    rel = abs(float(got) - want) / abs(want)
+    if rel > DEPLOY_RTOL:
+        fail(f"deploy: the merged model's cost {float(got)} vs the trainer's test "
+             f"forward {want}: rel err {rel} > {DEPLOY_RTOL}")
+    v1_path = capi.merge_model_v1(os.path.join(conf_dir, "conf.py"), bigru_save_dir,
+                                  os.path.join(conf_dir, "merged_v1.bin"))
+    v1_bytes = os.path.getsize(v1_path)
+    want_bytes = sum(16 + 4 * np.asarray(v).size for v in params.values())
+    if v1_bytes <= want_bytes:
+        fail(f"deploy: merge_model_v1 wrote {v1_bytes} bytes, the parameters alone "
+             f"take {want_bytes}")
+
+    out, cost, trained = v2_model
+    gm = api.GradientMachine([cost, out])
+    gm.setParameters(trained.as_dict())
+    args = api.Arguments()
+    seqs = [ids for ids, _ in samples]
+    args.setSlotIds("word", np.concatenate([np.asarray(i, np.int32) for i in seqs]))
+    args.setSlotSequenceStartPositions("word", np.cumsum([0] + [len(i) for i in seqs]))
+    args.setSlotIds("label", np.asarray([y for _, y in samples], np.int32))
+    gm_cost, grads = gm.forwardBackward(args)
+    if not np.isfinite(gm_cost) or set(grads) != set(trained.names()) or not all(
+            np.isfinite(g).all() for g in grads.values()):
+        fail(f"deploy: GradientMachine.forwardBackward cost {gm_cost}, grads finite "
+             f"{[k for k, g in grads.items() if not np.isfinite(g).all()]}")
+    gm_outs = gm.forward(args)
+    gm_probs = gm.getLayerOutput(out.name, args)
+    if gm_probs.shape != (len(samples), 2) or not np.allclose(
+            gm_outs[out.name], gm_probs, rtol=1e-6, atol=1e-7):
+        fail(f"deploy: GradientMachine.forward gave {gm_outs[out.name].shape}, "
+             f"getLayerOutput {gm_probs.shape}")
+    result = dict(merge_s=merge_s, load_s=load_s, forward_ms_per_128=forward_ms,
+                  merged_bytes=os.path.getsize(merged), merged_v1_bytes=v1_bytes,
+                  forward_launches=fwd_launches, get_layer_output_launches=layer_launches,
+                  cost_merged=float(got), cost_trainer=want, cost_rel_err=rel,
+                  gradient_machine_cost=gm_cost, gradient_machine_out=list(gm_probs.shape))
+    print("deploy", json.dumps(result), flush=True)
     return result
 
 
@@ -3986,7 +4513,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     v1_lenet = v1_lenet_phase(torch)
 
-    # 23. lines
+    # 23. the v1 seqToseq demo through recurrent_group, 24. a paddle.v2
+    # script, 25. the deployment path on phase 21's checkpoint and phase
+    # 24's model (counters from 0 in each)
+    torch.cuda.empty_cache()
+    v1_seq2seq = v1_seq2seq_phase(torch)
+    torch.cuda.empty_cache()
+    v2_api, v2_model = v2_api_phase(torch)
+    torch.cuda.empty_cache()
+    deploy = deploy_phase(torch, v1_bigru["save_dir"], v2_model)
+    del v2_model
+
+    # 26. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -4040,6 +4578,11 @@ def main() -> int:
             "library_ms": None,
             "library_note": no_library,
             "launches_v1_config": v1_bigru["kernel_launches"][v1_key],
+            "launches_v2_api": v2_api["kernel_launches"][v1_key],
+            **({"launches_deploy": deploy["forward_launches"]["FWD_LAUNCHES"]
+                + deploy["get_layer_output_launches"]["FWD_LAUNCHES"],
+                "launches_v2_infer": v2_api["infer_launches"]["FWD_LAUNCHES"]}
+               if leg == "fwd" else {}),
             "v1_config_shape": {k: g_v1[f"{leg}_{k}"] for k in (
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
             **({"bwd_parts_ms": g_main["bwd_parts_ms"],
@@ -4121,7 +4664,8 @@ def main() -> int:
                    "resnet_vs_cpu": resnet_vs_cpu, "lenet": lenet, "ctr": ctr,
                    "ocr": ocr, "struct_ops": struct_ops, "vgg": vgg, "remat": remat,
                    "guard": guard, "optim": optim, "prefetch": prefetch,
-                   "v1_bigru": v1_bigru, "v1_lenet": v1_lenet},
+                   "v1_bigru": v1_bigru, "v1_lenet": v1_lenet,
+                   "v1_seq2seq": v1_seq2seq, "v2_api": v2_api, "deploy": deploy},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,5 @@
 """`python -m paddle_tpu_torch` — the port's CLI (counterpart of
-`paddle_tpu/cli.py`): `train`, `dump_config` and `serve`, with the
+`paddle_tpu/cli.py`): `train`, `dump_config`, `merge_model` and `serve`, with the
 reference's flags and output lines, plus `--device` (default `cuda`; the
 tests pass `cpu`; the v1 flags `--use_gpu=0` / `--use_tpu=0` mean `cpu`):
 
@@ -11,6 +11,8 @@ tests pass `cpu`; the v1 flags `--use_gpu=0` / `--use_tpu=0` mean `cpu`):
         [--divergence_policy=skip_batch|rollback|raise] [--remat=...]
         [--faults=SPEC] [--device=cuda|cpu]
     python -m paddle_tpu_torch dump_config --config=conf.py [--config_args=...]
+    python -m paddle_tpu_torch merge_model --config=conf.py --model_dir=DIR
+        --output=FILE [--config_args=...]
     python -m paddle_tpu_torch serve [--device=cuda|cpu] [--port=N]
         [--demo | --load=model.npz] [--max_slots=N] [--page_size=N]
         [--prefill_buckets=16,32,64] [--prefill_chunk=C] [--speculate_k=K]
@@ -32,6 +34,10 @@ yet raise a named NotImplementedError (exit code 2): `--trainer_count > 1`
 `--elastic`, `--profile` (item 7) and `--compile_cache` (jax's cache, no
 counterpart). `--shard_update` and `--grad_compression` at
 `--trainer_count=1` warn and are ignored, as in the reference.
+
+`merge_model` folds the config and a pass of `--model_dir` (the newest,
+or a pass directory itself) into one .npz (`capi/merge_model.py`) and
+prints its path; `capi.create_for_inference(path)` serves it.
 
 `serve` prints `{"role": "serve", "address": [host, port]}` once listening
 and, on SIGTERM or SIGINT, `{"final_stats": {...}}` before it exits 0. Not
@@ -473,6 +479,13 @@ def cmd_dump_config(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_merge_model(args: argparse.Namespace) -> int:
+    from paddle_tpu_torch.capi.merge_model import merge_model
+
+    print(merge_model(args.config, args.model_dir, args.output, args.config_args))
+    return 0
+
+
 def _serve_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="where the engine runs: cuda (default) or cpu")
@@ -657,6 +670,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p_dump.add_argument("--config", required=True)
     p_dump.add_argument("--config_args", default="")
     p_dump.set_defaults(fn=cmd_dump_config)
+    p_merge = sub.add_parser("merge_model", help="fold a config and its parameters "
+                             "into one file")
+    p_merge.add_argument("--config", required=True)
+    p_merge.add_argument("--model_dir", required=True)
+    p_merge.add_argument("--output", required=True)
+    p_merge.add_argument("--config_args", default="")
+    p_merge.set_defaults(fn=cmd_merge_model)
     p_serve = sub.add_parser(
         "serve", help="continuous-batching inference server"
     )

@@ -259,27 +259,10 @@ def _dsl_namespace() -> Dict[str, Any]:
         default_num_batches_regularization=default_num_batches_regularization,
     )
     # the rawest Layer()/Memory()/RecurrentLayerGroupBegin name-registry DSL
-    # (config/raw_api.py) waits with recurrent_group: each name raises
-    ns.update({name: _raw_api_stub(name) for name in _RAW_API_NAMES})
+    from paddle_tpu_torch.config.raw_api import RAW_API
+
+    ns.update(RAW_API)
     return ns
-
-
-_RAW_API_NAMES = (
-    "Layer", "Input", "Bias", "Memory", "RecurrentLayerGroupBegin",
-    "RecurrentLayerGroupEnd", "Evaluator", "FullMatrixProjection",
-    "TableProjection", "IdentityProjection", "TransposedFullMatrixProjection",
-    "DotMulProjection",
-)
-
-
-def _raw_api_stub(name: str):
-    def raw(*args, **kwargs):
-        raise NotImplementedError(
-            f"the raw config API's {name}() (config/raw_api.py) is not ported to "
-            "paddle_tpu_torch yet (ROADMAP.md §1 item 6, with recurrent_group)")
-
-    raw.__name__ = name
-    return raw
 
 
 def _parse_arg_str(config_arg_str: str) -> Dict[str, str]:

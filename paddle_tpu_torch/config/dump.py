@@ -11,7 +11,9 @@ per-input sub-confs at :319) and follows the JAX package's emitter rule for
 rule, so both packages print the same text for the same config. Geometry
 follows the reference: x = width, y = height; image tensors are NHWC, so
 input shape [B, H, W, C] maps to img_size_y=H, img_size=W, channels=C.
-The emitters of layers the port does not have yet are left out with them.
+A recurrent group expands as the reference's RecurrentLayerGroup does
+(`_emit_recurrent_group`). The emitters of layers the port does not have
+yet are left out with them.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ _TYPE_ALIAS = {
     "grumemory": "gated_recurrent",
     "block_expand": "blockexpand",
     "square_error": "square_error",
+    "step_arg_output": "get_output",
     "rank_cost": "rank-cost",
     "huber_regression_cost": "huber_regression",
     "huber_classification_cost": "huber_classification",
@@ -362,6 +365,123 @@ def _layer_attrs(layer: Layer, consumed: set) -> Dict[str, object]:
 
 
 
+def _v1_size_of(layer: Layer) -> int:
+    s = getattr(layer, "_v1_size", None)
+    if s:
+        return int(s)
+    shape = getattr(layer, "shape", None)
+    if shape:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        return n
+    sz = getattr(layer, "size", None)
+    if isinstance(sz, int):
+        return sz
+    return 0
+
+
+def _emit_recurrent_group(layer, mc, by_layer, alias, seen_cores) -> None:
+    """Expand a RecurrentGroup node as config_parser's
+    RecurrentLayerGroup{Begin,End} do: a `recurrent_layer_group` marker, a
+    scatter_agent per in-link, a `+delay1` agent per memory, the step net's
+    layers suffixed `@{group}`, and a gather_agent per step output under the
+    step layer's own name. The group node itself aliases to its output's
+    gather agent, so downstream inputs read as the reference's."""
+    from paddle_tpu_torch.nn.recurrent_group import MemoryLayer, _Placeholder
+
+    core = layer.core
+    group = layer.name
+    out_layer = core.out_layers[layer.out_index]
+    alias[layer.name] = out_layer.name
+    if id(core) in seen_cores:
+        return
+    seen_cores[id(core)] = group
+
+    mc.layers.append(proto.LayerConfig(name=group, type="recurrent_layer_group"))
+    sub = proto.SubModelConfig(name=group, is_recurrent_layer_group=True,
+                               reversed=bool(core.reverse))
+    sub.layer_names.append(group)
+
+    def in_group(n: str) -> str:
+        return f"{n}@{group}"
+
+    ph_names: Dict[str, str] = {}
+    for ph in core.placeholders:
+        src = getattr(ph, "src_layer", None)
+        if src is None:
+            continue
+        agent = in_group(src.name)
+        ph_names[ph.name] = agent
+        mc.layers.append(proto.LayerConfig(name=agent, type="scatter_agent",
+                                           size=_v1_size_of(ph)))
+        sub.layer_names.append(agent)
+        sub.in_links.append(proto.LinkConfig(layer_name=agent, link_name=src.name))
+    for m in core.memories:
+        link = core.links[m.name]
+        # named memories surface as "{name}+delay1"; anonymous ones keep
+        # their auto "__memory_N__" name (config_parser Memory naming)
+        agent = (f"{link.name}+delay1@{group}" if getattr(m, "user_named", True)
+                 else in_group(m.name))
+        ph_names[m.name] = agent
+        mc.layers.append(proto.LayerConfig(name=agent, type="agent", size=m.size or 0))
+        sub.layer_names.append(agent)
+        memc = proto.MemoryConfig(link_name=in_group(link.name), layer_name=agent)
+        if m.boot_layer is not None:
+            memc.boot_layer_name = m.boot_layer.name
+        sub.memories.append(memc)
+
+    for step_l in core.order:
+        if isinstance(step_l, (_Placeholder, MemoryLayer)):
+            continue
+        lc = proto.LayerConfig(
+            name=in_group(step_l.name),
+            type=_TYPE_ALIAS.get(step_l.type_name, step_l.type_name),
+            size=_v1_size_of(step_l),
+            active_type=_act_name(step_l),
+        )
+        owned = dict(by_layer.get(step_l.name, {}))
+        for bias_key in ("b", "bias"):
+            if bias_key in owned:
+                lc.bias_parameter_name = owned.pop(bias_key)
+                break
+        weight_names = sorted(owned.values())
+        for i, inp in enumerate(step_l.inputs):
+            lic = proto.LayerInputConfig(
+                input_layer_name=ph_names.get(inp.name, in_group(inp.name)))
+            if i < len(weight_names):
+                lic.input_parameter_name = weight_names[i]
+            lc.inputs.append(lic)
+        # typed sub-confs from annotations (no traced values in a group)
+        if step_l.type_name in ("mixed", "concat2"):
+            _emit_ingroup_mixed(step_l, lc)
+        mc.layers.append(lc)
+        sub.layer_names.append(in_group(step_l.name))
+
+    for out_l in core.out_layers:
+        mc.layers.append(proto.LayerConfig(name=out_l.name, type="gather_agent",
+                                           size=_v1_size_of(out_l)))
+        sub.layer_names.append(out_l.name)
+        sub.out_links.append(proto.LinkConfig(layer_name=in_group(out_l.name),
+                                              link_name=out_l.name))
+    mc.sub_models.append(sub)
+
+
+def _emit_ingroup_mixed(step_l, lc) -> None:
+    out_size = _v1_size_of(step_l)
+    for proj, slots in zip(getattr(step_l, "projections", []),
+                           getattr(step_l, "_arg_slots", [])):
+        ptype = _PROJ_TYPES.get(type(proj).__name__)
+        if ptype is None:
+            continue
+        in_size = _v1_size_of(proj.sources[0])
+        if ptype == "identity" and not in_size:
+            in_size = out_size
+        lc.inputs[slots[0]].proj_conf = proto.ProjectionConfig(
+            type=ptype, name=None, input_size=in_size,
+            output_size=in_size if ptype == "identity" else out_size)
+
+
 def build_model_config(
     topology: Union[Topology, Layer, Sequence[Layer]],
     batch_size: int = 2,
@@ -390,7 +510,11 @@ def build_model_config(
     # merge on emission so configs read like the originals
     alias: Dict[str, str] = {}
     lc_by_name: Dict[str, proto.LayerConfig] = {}
+    seen_cores: Dict[int, str] = {}
     for layer in net.layer_order:
+        if hasattr(layer, "core") and layer.type_name == "recurrent_layer_group":
+            _emit_recurrent_group(layer, mc, by_layer, alias, seen_cores)
+            continue
         if (
             layer.type_name == "dropout"
             and layer.name.endswith(".drop")
@@ -400,6 +524,15 @@ def build_model_config(
             parent = alias.get(layer.inputs[0].name, layer.inputs[0].name)
             lc_by_name[parent].drop_rate = getattr(layer, "rate", None)
             alias[layer.name] = parent
+            continue
+        if (
+            layer.type_name == "error_clip"
+            and layer.name.endswith(".eclip")
+            and len(layer.inputs) == 1
+            and layer.inputs[0].name in lc_by_name
+        ):
+            lc_by_name[layer.inputs[0].name].error_clipping_threshold = layer.threshold
+            alias[layer.name] = layer.inputs[0].name
             continue
         arg = values[layer.name]
         shape = tuple(int(d) for d in arg.value.shape)

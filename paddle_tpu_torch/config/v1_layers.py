@@ -15,12 +15,14 @@ parse_image). Here that geometry rides on the graph node as `_v1_geom`, and
 a flat input entering an image layer gets an explicit Reshape(CHW) +
 SwitchOrder(NHWC) adapter, everything downstream NHWC.
 
-The helpers whose layers the port does not have yet (the 3-D and transposed
-convs, the detection layers, recurrent_group and its step layers, and those
-of `v2/layer.py` that raise) raise a NotImplementedError naming ROADMAP.md
-§1 item 6. `simple_gru` is one of them: the reference routes it through
-gru_group (a recurrent_group); `simple_gru2` and `bidirectional_gru` run the
-fused grumemory.
+recurrent_group and its step layers (`gru_step_layer`, `lstm_step_layer`,
+`get_output_layer`) build `nn/recurrent_group.py`'s groups, and so do the
+composites on them: `gru_unit` / `gru_group`, `lstmemory_unit` /
+`lstmemory_group` and `simple_gru`, which the reference routes through
+gru_group; `simple_gru2` and `bidirectional_gru` run the fused grumemory.
+The helpers whose layers the port does not have yet (the 3-D and
+transposed convs, the detection layers, and those of `v2/layer.py` that
+raise) raise a NotImplementedError naming ROADMAP.md §1 item 6.
 """
 
 from __future__ import annotations
@@ -958,20 +960,42 @@ def simple_lstm(input, size, name=None, reverse=False, mat_param_attr=None,
 
 def recurrent_group(step, input, reverse=False, name=None, targetInlink=None,
                     **_compat):
-    """layers.py recurrent_group (not ported yet)."""
-    _not_ported("recurrent_group", "6, recurrent_group (nn/recurrent_group.py)")
+    """layers.py recurrent_group: marks the iterated data roots as (nested)
+    sequences, then builds the group (nn/recurrent_group.py)."""
+    items = input if isinstance(input, (list, tuple)) else [input]
+    for item in items:
+        if isinstance(item, _v2.SubsequenceInput):
+            _mark_seq_root(item.input, nested=True)
+        elif isinstance(item, Layer):
+            _mark_seq_root(item)
+    return _v2.recurrent_group(step, input, reverse=reverse, name=name)
 
 
 def lstm_step_layer(input, state, size=None, act=None, gate_act=None,
                     state_act=None, bias_attr=None, name=None, layer_attr=None):
     """layers.py lstm_step_layer — one LSTM cell step inside a group."""
-    _not_ported("lstm_step_layer (LstmStep)", "6, recurrent_group (nn/recurrent_group.py)")
+    if size is None:
+        size = (_size_of(input) or 0) // 4
+    node = R.LstmStep(
+        input, state, size, act=_act(act), gate_act=_act(gate_act),
+        state_act=_act(state_act), bias=bias_attr is not False,
+        bias_attr=_or_none(bias_attr), name=name,
+    )
+    return _with_drop(_annotate(node, size=size), layer_attr)
 
 
 def gru_step_layer(input, output_mem, size=None, act=None, gate_act=None,
                    bias_attr=None, param_attr=None, name=None,
                    layer_attr=None):
-    _not_ported("gru_step_layer (GruStep)", "6, recurrent_group (nn/recurrent_group.py)")
+    """layers.py gru_step_layer — one GRU step inside a group."""
+    if size is None:
+        size = (_size_of(input) or 0) // 3
+    node = R.GruStep(
+        input, output_mem, size, act=_act(act), gate_act=_act(gate_act),
+        bias=bias_attr is not False, bias_attr=_or_none(bias_attr),
+        param_attr=_or_none(param_attr), name=name,
+    )
+    return _with_drop(_annotate(node, size=size), layer_attr)
 
 
 gru_step_naive_layer = gru_step_layer
@@ -981,7 +1005,9 @@ def get_output_layer(input, arg_name, name=None, layer_attr=None):
     """Dual-role get_output_layer: inside a step net it reads a layer's
     auxiliary output arg (GetOutputLayer); on a finished recurrent_group it
     fetches another step output sequence."""
-    _not_ported("get_output_layer", "6, recurrent_group (nn/recurrent_group.py)")
+    if hasattr(input, "_group_core") or hasattr(input, "core"):
+        return _v2.get_output_layer(input, arg_name, name=name)
+    return R.StepArgOutput(input, arg_name, name=name)
 
 
 def lstmemory_unit(input, out_memory=None, name=None, size=None,
@@ -990,7 +1016,29 @@ def lstmemory_unit(input, out_memory=None, name=None, size=None,
                    lstm_bias_attr=None, lstm_layer_attr=None):
     """networks.py lstmemory_unit: the in-group LSTM step — input+recurrent
     mixed projection, lstm_step, state published for the state memory."""
-    _not_ported("lstmemory_unit", "6, recurrent_group (nn/recurrent_group.py)")
+    if size is None:
+        size = (_size_of(input) or 0) // 4
+    out_mem = _v2.memory(name=name, size=size) if out_memory is None else out_memory
+    state_mem = _v2.memory(name=f"{name}_state", size=size)
+    m = _v2.mixed(
+        size=size * 4,
+        name=f"{name}_input_recurrent",
+        bias_attr=input_proj_bias_attr,
+        layer_attr=input_proj_layer_attr,
+        act="linear",
+        input=[
+            _v2.identity_projection(input=input),
+            _v2.full_matrix_projection(input=out_mem, param_attr=_or_none(param_attr)),
+        ],
+    )
+    _annotate(m, size=size * 4)
+    lstm_out = lstm_step_layer(
+        name=name, input=m, state=state_mem, size=size,
+        bias_attr=lstm_bias_attr, act=act, gate_act=gate_act,
+        state_act=state_act, layer_attr=lstm_layer_attr,
+    )
+    get_output_layer(name=f"{name}_state", input=lstm_out, arg_name="state")
+    return lstm_out
 
 
 def lstmemory_group(input, size=None, name=None, out_memory=None,
@@ -1000,21 +1048,62 @@ def lstmemory_group(input, size=None, name=None, out_memory=None,
                     lstm_layer_attr=None):
     """networks.py lstmemory_group: lstmemory_unit unrolled by
     recurrent_group (the layer-composed LSTM, vs the fused lstmemory)."""
-    _not_ported("lstmemory_group", "6, recurrent_group (nn/recurrent_group.py)")
+    _mark_seq_root(input)
+    if size is None:
+        size = (_size_of(input) or 0) // 4
+
+    def __lstm_step__(ipt):
+        return lstmemory_unit(
+            input=ipt, name=name, size=size, act=act, gate_act=gate_act,
+            state_act=state_act, out_memory=out_memory,
+            input_proj_bias_attr=input_proj_bias_attr,
+            input_proj_layer_attr=input_proj_layer_attr,
+            param_attr=param_attr, lstm_layer_attr=lstm_layer_attr,
+            lstm_bias_attr=lstm_bias_attr,
+        )
+
+    node = _v2.recurrent_group(
+        name=f"{name}_recurrent_group", step=__lstm_step__, reverse=reverse,
+        input=input,
+    )
+    return _annotate(node, size=size)
 
 
 def gru_unit(input, memory_boot=None, size=None, name=None, gru_bias_attr=None,
              gru_param_attr=None, act=None, gate_act=None, gru_layer_attr=None,
              naive=False):
     """networks.py gru_unit: in-group GRU step with its output memory."""
-    _not_ported("gru_unit", "6, recurrent_group (nn/recurrent_group.py)")
+    if size is None:
+        size = (_size_of(input) or 0) // 3
+    out_mem = _v2.memory(name=name, size=size, boot_layer=memory_boot)
+    return gru_step_layer(
+        name=name, input=input, output_mem=out_mem, size=size,
+        bias_attr=gru_bias_attr, param_attr=gru_param_attr, act=act,
+        gate_act=gate_act, layer_attr=gru_layer_attr,
+    )
 
 
 def gru_group(input, memory_boot=None, size=None, name=None, reverse=False,
               gru_bias_attr=None, gru_param_attr=None, act=None,
               gate_act=None, gru_layer_attr=None, naive=False):
     """networks.py gru_group: gru_unit unrolled by recurrent_group."""
-    _not_ported("gru_group", "6, recurrent_group (nn/recurrent_group.py)")
+    _mark_seq_root(input)
+    if size is None:
+        size = (_size_of(input) or 0) // 3
+
+    def __gru_step__(ipt):
+        return gru_unit(
+            input=ipt, memory_boot=memory_boot, name=name, size=size,
+            gru_bias_attr=gru_bias_attr, gru_param_attr=gru_param_attr,
+            act=act, gate_act=gate_act, gru_layer_attr=gru_layer_attr,
+            naive=naive,
+        )
+
+    node = _v2.recurrent_group(
+        name=f"{name}_recurrent_group", step=__gru_step__, reverse=reverse,
+        input=input,
+    )
+    return _annotate(node, size=size)
 
 
 def gated_unit_layer(input, size, act=None, name=None, gate_attr=None,
@@ -1061,8 +1150,14 @@ def simple_gru(input, size, name=None, reverse=False, mixed_param_attr=None,
                gru_param_attr=None, gru_bias_attr=None, act=None,
                gate_act=None, gru_layer_attr=None, naive=False):
     """networks.py:981 — `%s_transform` mixed(3H) + gru_group, a
-    recurrent_group (not ported yet; simple_gru2 runs grumemory)."""
-    _not_ported("simple_gru (gru_group)", "6, recurrent_group (nn/recurrent_group.py)")
+    recurrent_group of gru_step layers (simple_gru2 runs the fused
+    grumemory: the same math)."""
+    m = _gru_transform(input, size, name, mixed_param_attr,
+                       mixed_bias_param_attr, mixed_layer_attr)
+    return gru_group(input=m, size=size, name=name, reverse=reverse,
+                     gru_bias_attr=gru_bias_attr, gru_param_attr=gru_param_attr,
+                     act=act, gate_act=gate_act, gru_layer_attr=gru_layer_attr,
+                     naive=naive)
 
 
 def simple_gru2(input, size, name=None, reverse=False, mixed_param_attr=None,

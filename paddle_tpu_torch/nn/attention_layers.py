@@ -1,5 +1,6 @@
-"""Attention decoder (counterpart of `AttentionDecoder` in
-`paddle_tpu/nn/attention_layers.py`): the teacher-forced training path
+"""`SimpleAttention` (simple_attention, the step of a recurrent group's
+attention decoder) and the attention decoder (counterparts of
+`paddle_tpu/nn/attention_layers.py`). `AttentionDecoder`: the teacher-forced training path
 (`forward`) and the step that beam-search generation drives
 (`initial_state`, `step`; `nn/beam_search.py`), on the same parameters.
 
@@ -27,6 +28,34 @@ from paddle_tpu_torch.ops import attention as attn_ops
 from paddle_tpu_torch.ops import linalg
 from paddle_tpu_torch.ops import rnn as rnn_ops
 from paddle_tpu_torch.ops import sequence as seq_ops
+
+
+class SimpleAttention(Layer):
+    """simple_attention (networks.py:1304): additive attention of a decoder
+    state [B, H] over an encoder sequence [B, T, D] -> the context [B, D].
+    As in the JAX package, the encoder projection is the layer's own
+    (`w_enc`), computed from the sequence at every call."""
+
+    type_name = "simple_attention"
+
+    def __init__(self, enc: Layer, dec_state: Layer, attention_size: int = 0,
+                 name: Optional[str] = None):
+        super().__init__([enc, dec_state], name=name)
+        self.attention_size = attention_size
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        enc, dec = ins
+        assert enc.is_seq, f"{self.name}: simple_attention needs an encoder sequence"
+        d_enc, d_dec = enc.value.shape[-1], dec.value.shape[-1]
+        a = self.attention_size or d_dec
+        sn = init_mod.smart_normal
+        w_enc = ctx.param(self, "w_enc", (d_enc, a), sn)
+        w_dec = ctx.param(self, "w_dec", (d_dec, a), sn)
+        v = ctx.param(self, "v", (a,), sn)
+        enc_proj = linalg.matmul(enc.value, w_enc)
+        context, _ = attn_ops.additive_attention(enc.value, enc_proj, dec.value, w_dec, v,
+                                                 enc.lengths)
+        return Argument(context)
 
 
 class DecoderParams(NamedTuple):

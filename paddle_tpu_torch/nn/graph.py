@@ -76,6 +76,9 @@ class Argument:
     def with_value(self, value: torch.Tensor) -> "Argument":
         return Argument(value, self.lengths, self.sub_lengths)
 
+    def as_non_seq(self) -> "Argument":
+        return Argument(self.value)
+
 
 @dataclasses.dataclass
 class ParamAttr:
@@ -112,7 +115,10 @@ class Context:
     changed in place. `train` selects batch statistics over moving ones;
     `policy` is the trace's dtype policy; `rng` the threefry key (a [2]
     tensor) that `next_rng` draws from, or a function giving it, called at
-    the first draw (a graph without Dropout computes no key)."""
+    the first draw (a graph without Dropout computes no key). `cache`
+    holds what one run shares between layers: a recurrent group's unroll,
+    which every output of the group reads, and a step layer's auxiliary
+    outputs."""
 
     def __init__(self, mode: str, params: Params, seed: int = 0,
                  device: Optional[torch.device] = None,
@@ -130,6 +136,7 @@ class Context:
         self.rng = rng
         self.rng_count = 0
         self.state_updates: Params = {}
+        self.cache: Dict[Any, Any] = {}
         self.param_attrs: Dict[str, ParamAttr] = {}
         # (layer name, slot) -> parameter name; a shared name binds to every
         # layer that uses it (the config dump reads this)

@@ -3,8 +3,8 @@ ported paths use: Data, Fc, Embedding, Concat (seq2seq, CTR), the image
 layers of ResNet and LeNet: Conv2D, Pool2D, BatchNorm, Addto, GlobalPool,
 Reshape, BlockExpand (OCR's image-to-sequence), Dropout (VGG, on jax's
 threefry bits), and the v1 config pipeline's Mixed (the sum of
-`nn/projections.py`), SwitchOrder (a flat CHW data slot into NHWC) and
-MaxId. Image activations are NHWC, conv weights HWIO."""
+`nn/projections.py`), SwitchOrder (a flat CHW data slot into NHWC),
+MaxId and ErrorClip (a layer's error_clipping_threshold). Image activations are NHWC, conv weights HWIO."""
 
 from __future__ import annotations
 
@@ -277,6 +277,34 @@ class BatchNorm(Layer):
             ctx.update_state(self, "moving_var",
                              self.maf * moving_var + (1 - self.maf) * var)
         return ins[0].with_value(act_mod.apply(self.act, out))
+
+
+class _ClipGrad(torch.autograd.Function):
+    """Identity forward; the backward clips the incoming error to ±t."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, t: float) -> torch.Tensor:
+        ctx.t = t
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g.clamp(-ctx.t, ctx.t), None
+
+
+class ErrorClip(Layer):
+    """ExtraLayerAttribute.error_clipping_threshold: identity forward, the
+    backpropagated error clipped to ±t (Layer.cpp backwardActivation's
+    errorClipping). Chained by the layer_attr seam like dropout."""
+
+    type_name = "error_clip"
+
+    def __init__(self, input: Layer, threshold: float, name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.threshold = float(threshold)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        return ins[0].with_value(_ClipGrad.apply(ins[0].value, self.threshold))
 
 
 class Dropout(Layer):

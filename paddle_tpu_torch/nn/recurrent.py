@@ -10,13 +10,18 @@ fused LSTM kernels, otherwise the plain step loop (`ops/rnn.lstm_scan`).
 the defaults (sigmoid gates, tanh candidate) it runs the fused GRU
 kernels, otherwise the plain step loop (`ops/rnn.gru_scan`). A named
 `param_attr` shares `w_hzr` under its name and `w_hc` under the name +
-".c", as in the JAX package (the two differ in shape)."""
+".c", as in the JAX package (the two differ in shape).
+
+`LstmStep`, `GruStep` and `StepArgOutput` are the one-step layers a
+recurrent group's step net is built from (`nn/recurrent_group.py`): plain
+PyTorch, run once a step of the group's loop."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, List, Optional
 
+from paddle_tpu_torch.nn import activations as act_mod
 from paddle_tpu_torch.nn import init as init_mod
 from paddle_tpu_torch.nn.graph import Argument, Context, Layer
 from paddle_tpu_torch.nn.layers import Concat, Fc, _attr
@@ -129,3 +134,104 @@ def bidirectional_gru(input: Layer, size: int, name: str = "bigru", **kw: Any) -
     fwd = simple_gru(input, size, reverse=False, name=f"{name}.fw", **kw)
     bwd = simple_gru(input, size, reverse=True, name=f"{name}.bw", **kw)
     return Concat([fwd, bwd], name=f"{name}.cat")
+
+
+# -- step layers of a recurrent group (nn/recurrent_group.py) ----------------
+
+
+class LstmStep(Layer):
+    """LstmStepLayer.cpp: one LSTM cell step inside a recurrent group.
+    Inputs: the [B, 4H] projection (Wx + Uh, mixed by the caller) and the
+    cell-state memory [B, H]. Output: h; the new cell state is published
+    in the run's cache under `{name}::state` for StepArgOutput (the
+    reference's second output, read by get_output_layer(arg_name='state'))."""
+
+    type_name = "lstm_step"
+
+    def __init__(self, input: Layer, state: Layer, size: int, act: Any = "tanh",
+                 gate_act: Any = "sigmoid", state_act: Any = "tanh", bias: bool = True,
+                 bias_attr: Any = None, name: Optional[str] = None):
+        super().__init__([input, state], name=name)
+        self.size = size
+        self.act = act or "tanh"
+        self.gate_act = gate_act or "sigmoid"
+        self.state_act = state_act or "tanh"
+        self.bias = bias
+        self.bias_attr = _attr(bias_attr)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        m, c_prev = ins[0].value, ins[1].value
+        hid = self.size
+        assert m.shape[-1] == 4 * hid, (
+            f"{self.name}: lstm_step input width {m.shape[-1]} != 4*size")
+        ci = cf = co = 0.0
+        if self.bias:
+            # the step layer's own parameter is the [3H] peephole block
+            # (checkI/checkF/checkO); the additive 4H gate bias lives in the
+            # input projection
+            b = ctx.param(self, "b", (3 * hid,), init_mod.zeros, self.bias_attr)
+            ci, cf, co = b[:hid], b[hid:2 * hid], b[2 * hid:]
+        gi = act_mod.apply(self.gate_act, m[..., :hid] + ci * c_prev)
+        gf = act_mod.apply(self.gate_act, m[..., hid:2 * hid] + cf * c_prev)
+        gc = act_mod.apply(self.act, m[..., 2 * hid:3 * hid])
+        c = gf * c_prev + gi * gc
+        go = act_mod.apply(self.gate_act, m[..., 3 * hid:] + co * c)
+        h = go * act_mod.apply(self.state_act, c)
+        ctx.cache[f"{self.name}::state"] = Argument(c)
+        return Argument(h)
+
+
+class GruStep(Layer):
+    """GruStepLayer.cpp: one GRU step inside a recurrent group. Inputs: the
+    [B, 3H] projection Wx and the previous output memory [B, H]. Its
+    parameters carry `Gru`'s names and shapes (`w_hzr`, `w_hc`, `b`)."""
+
+    type_name = "gru_step"
+
+    def __init__(self, input: Layer, output_mem: Layer, size: int, act: Any = "tanh",
+                 gate_act: Any = "sigmoid", bias: bool = True, bias_attr: Any = None,
+                 param_attr: Any = None, name: Optional[str] = None):
+        super().__init__([input, output_mem], name=name)
+        self.size = size
+        self.act = act or "tanh"
+        self.gate_act = gate_act or "sigmoid"
+        self.bias = bias
+        self.bias_attr = _attr(bias_attr)
+        self.param_attr = _attr(param_attr)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        m, h_prev = ins[0].value, ins[1].value
+        hid = self.size
+        assert m.shape[-1] == 3 * hid, (
+            f"{self.name}: gru_step input width {m.shape[-1]} != 3*size")
+        w_hzr = ctx.param(self, "w_hzr", (hid, 2 * hid), init_mod.smart_normal,
+                          self.param_attr)
+        c_attr = self.param_attr
+        if c_attr is not None and c_attr.name:
+            c_attr = dataclasses.replace(c_attr, name=c_attr.name + ".c")
+        w_hc = ctx.param(self, "w_hc", (hid, hid), init_mod.smart_normal, c_attr)
+        if self.bias:
+            m = m + ctx.param(self, "b", (3 * hid,), init_mod.zeros, self.bias_attr)
+        zr = m[..., :2 * hid] + h_prev @ w_hzr
+        z = act_mod.apply(self.gate_act, zr[..., :hid])
+        r = act_mod.apply(self.gate_act, zr[..., hid:])
+        c = act_mod.apply(self.act, m[..., 2 * hid:] + (r * h_prev) @ w_hc)
+        return Argument((1.0 - z) * h_prev + z * c)
+
+
+class StepArgOutput(Layer):
+    """In-step get_output_layer: reads an auxiliary output another step
+    layer published in the run's cache (GetOutputLayer.cpp)."""
+
+    type_name = "step_arg_output"
+
+    def __init__(self, input: Layer, arg_name: str, name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.arg_name = arg_name
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        key = f"{self.inputs[0].name}::{self.arg_name}"
+        if key not in ctx.cache:
+            raise ValueError(f"{self.name}: {self.inputs[0].name} published no "
+                             f"{self.arg_name!r} output")
+        return ctx.cache[key]

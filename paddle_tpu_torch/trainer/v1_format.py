@@ -6,8 +6,8 @@ Layout (paddle/parameter/Parameter.h:263 `Parameter::Header` +
 Parameter.cpp:286 `Parameter::save`): a little-endian packed
 `{int32 format; uint32 valueSize; uint64 size}` header (16 bytes, no
 padding) followed by `size` raw float32 values. One file per parameter named
-after it in a model directory (ParamUtil); the merged-model stream
-(MergeModel.cpp) waits with the C-API (ROADMAP.md).
+after it in a model directory (ParamUtil), or all parameters appended to one
+stream after a length-prefixed serialized config (MergeModel.cpp).
 
 Weight memory layouts (so reference-trained models load into the NHWC/HWIO
 layers here and vice-versa):
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Any, BinaryIO, Dict
+from typing import Any, BinaryIO, Dict, Optional
 
 import numpy as np
 
@@ -92,3 +92,24 @@ def load_model_dir(dirname: str, template: Dict[str, Any]) -> Dict[str, np.ndarr
         with open(path, "rb") as f:
             out[name] = read_param(f, name, np.asarray(arr).shape)
     return out
+
+
+def write_merged(stream: BinaryIO, config_bytes: bytes, params: Dict[str, Any],
+                 order: Optional[list] = None) -> None:
+    """MergeModel.cpp layout: int64 config length + serialized config +
+    parameters appended in order, each with its Parameter::Header."""
+    stream.write(struct.pack("<q", len(config_bytes)))
+    stream.write(config_bytes)
+    for name in order or list(params):
+        write_param(stream, name, np.asarray(params[name]))
+
+
+def read_merged(stream: BinaryIO, template: Dict[str, Any],
+                order: Optional[list] = None):
+    """-> (config_bytes, {name: array})."""
+    (n,) = struct.unpack("<q", stream.read(8))
+    config_bytes = stream.read(n)
+    out: Dict[str, np.ndarray] = {}
+    for name in order or list(template):
+        out[name] = read_param(stream, name, np.asarray(template[name]).shape)
+    return config_bytes, out

@@ -561,16 +561,23 @@ def dotmul_operator(a, b, scale=1.0):
 
 def effective_act(node):
     """The activation the cost layer actually sees, looking through
-    activation-less passthrough wrappers (dropout) — a drop_rate layer_attr
-    must not hide a softmax-activated layer from the cost."""
+    activation-less passthrough wrappers (dropout, an error clip) and a
+    recurrent group (to its step output) — a drop_rate or
+    error_clipping_threshold layer_attr, or a group, must not hide a
+    softmax-activated layer from the cost. The JAX package looks through
+    dropout only, and so re-softmaxes the seqToseq demo's probabilities
+    (ROADMAP.md §3)."""
     while node is not None:
         a = getattr(node, "act", None)
         if a is not None:
             return a
-        if getattr(node, "type_name", None) == "dropout":
+        kind = getattr(node, "type_name", None)
+        if kind in ("dropout", "error_clip"):
             node = node.inputs[0]
-            continue
-        return None
+        elif kind == "recurrent_layer_group":
+            node = node.core.out_layers[node.out_index]
+        else:
+            return None
     return None
 
 
@@ -708,49 +715,27 @@ def _with_drop(node: Layer, layer_attr) -> Layer:
     if layer_attr is not None and getattr(
         layer_attr, "error_clipping_threshold", None
     ):
-        _not_ported("ExtraAttr(error_clipping_threshold=) (ErrorClip)")
+        node = L.ErrorClip(
+            node, layer_attr.error_clipping_threshold, name=node.name + ".eclip"
+        )
     if layer_attr is not None and getattr(layer_attr, "drop_rate", None):
         return L.Dropout(node, layer_attr.drop_rate, name=node.name + ".drop")
     return node
 
 
-# -- recurrent groups / generation (RecurrentGradientMachine parity) -------
-# nn/recurrent_group.py is not ported yet: every name of the v1 dynamic-unroll
-# API raises.
+# -- recurrent groups (RecurrentGradientMachine parity) --------------------
+# generation (GeneratedInput, beam_search) raises the next slice's error
 
-_GROUP = "6, recurrent_group (nn/recurrent_group.py)"
-
-
-def recurrent_group(*args, **kwargs):
-    _not_ported("recurrent_group", _GROUP)
-
-
-def memory(*args, **kwargs):
-    _not_ported("memory (recurrent_group)", _GROUP)
-
-
-def beam_search(*args, **kwargs):
-    _not_ported("beam_search (recurrent_group)", _GROUP)
-
-
-def get_output_layer(*args, **kwargs):
-    _not_ported("get_output_layer (recurrent_group)", _GROUP)
-
-
-class StaticInput:
-    def __init__(self, *args, **kwargs):
-        _not_ported("StaticInput (recurrent_group)", _GROUP)
-
-
-class GeneratedInput(StaticInput):
-    pass
-
-
-class SubsequenceInput(StaticInput):
-    pass
-
-
-SubSequenceInput = SubsequenceInput
+from paddle_tpu_torch.nn.recurrent_group import (  # noqa: E402
+    GeneratedInput,
+    StaticInput,
+    SubsequenceInput,
+    SubSequenceInput,
+    beam_search,
+    get_output_layer,
+    memory,
+    recurrent_group,
+)
 
 __all__ += [
     "recurrent_group", "memory", "StaticInput", "GeneratedInput",

@@ -1,8 +1,8 @@
 """paddle.v2.networks analog (counterpart of `paddle_tpu/v2/networks.py`;
 trainer_config_helpers/networks.py): prebuilt composites —
 simple_img_conv_pool (:144), vgg_16_network (:468), simple_lstm (:553),
-simple_gru (:981), text_conv_pool, bidirectional_lstm. simple_attention
-(:1304) raises until `SimpleAttention` is ported (ROADMAP.md §1 item 6)."""
+simple_gru (:981), simple_attention (:1304), text_conv_pool,
+bidirectional_lstm."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from typing import Sequence
 from paddle_tpu_torch.nn import layers as L
 from paddle_tpu_torch.nn import recurrent as R
 from paddle_tpu_torch.nn import seq_layers as S
+from paddle_tpu_torch.nn.attention_layers import SimpleAttention
 from paddle_tpu_torch.v2.activation import resolve as _act
 from paddle_tpu_torch.v2.pooling import resolve as _pool
 
@@ -58,8 +59,11 @@ def simple_lstm(input, size, reverse=False, mat_param_attr=None,
     return R.simple_lstm(input, size, reverse=reverse)
 
 
-def simple_gru(input, size, reverse=False, **_compat):
-    return R.simple_gru(input, size, reverse=reverse)
+def simple_gru(input, size, reverse=False, name=None, **_compat):
+    """fc(3H) + the fused grumemory. `name` names the GRU (default "gru"),
+    so two directions can sit in one network; the JAX package drops it
+    (ROADMAP.md §3)."""
+    return R.simple_gru(input, size, reverse=reverse, **({"name": name} if name else {}))
 
 
 def bidirectional_lstm(input, size, return_seq=False, **_compat):
@@ -88,6 +92,4 @@ def simple_attention(encoded_sequence, encoded_proj=None, decoder_state=None,
     """simple_attention (networks.py:1304) — additive attention composed from
     the same primitive ops the reference uses (the encoded_proj transform is
     computed internally from encoded_sequence)."""
-    from paddle_tpu_torch.v2.layer import _not_ported
-
-    _not_ported("simple_attention (SimpleAttention)")
+    return SimpleAttention(encoded_sequence, decoder_state, name=name)

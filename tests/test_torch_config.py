@@ -421,18 +421,21 @@ def test_record_layers_keeps_layers_no_output_reaches(tmp_path):
         jparse(path).trainer_config)
 
 
-@pytest.mark.parametrize("src", [
-    "cos_sim(a=x, b=x)", "recurrent_group(step=None, input=x)",
-    "simple_gru(input=x, size=4)", "img_conv3d_layer(input=x, filter_size=1, num_filters=1)",
-    "Layer(name='l', type='fc')", "slope_intercept_layer(input=x)",
+@pytest.mark.parametrize("src,item", [
+    ("cos_sim(a=x, b=x)", "6"),
+    ("beam_search(step=None, input=[], bos_id=0, eos_id=1)", "5, the next slice"),
+    ("img_pool3d_layer(input=x, pool_size=1)", "6"),
+    ("img_conv3d_layer(input=x, filter_size=1, num_filters=1)", "6"),
+    ("priorbox_layer(input=x, image_size=8, min_size=2)", "6"),
+    ("slope_intercept_layer(input=x)", "6"),
 ])
-def test_unported_helpers_raise_named_errors(src, tmp_path):
+def test_unported_helpers_raise_named_errors(src, item, tmp_path):
     path = write_config(tmp_path, f"""
         from paddle.trainer_config_helpers import *
         x = data_layer(name='x', size=8)
         {src}
         """)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 6"):
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §1 item {item}"):
         tparse(path)
 
 

@@ -54,7 +54,8 @@ def test_forbidden_matches_exact_module_names():
 def test_scan_covers_the_config_pipeline():
     scanned = {p.relative_to(REPO).parts[1] for p in PORT_FILES
                if len(p.relative_to(REPO).parts) > 2}
-    assert {"config", "proto", "v2", "metrics", "compat"} <= scanned
+    assert {"config", "proto", "v2", "metrics", "compat", "capi"} <= scanned
+    assert REPO / "paddle_tpu_torch" / "api.py" in PORT_FILES
 
 
 @pytest.mark.parametrize(

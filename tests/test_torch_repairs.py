@@ -22,6 +22,15 @@ rejected or differed on, each against the JAX package on the CPU.
     trainer, per step and per K-step dispatch, each read from a copy
     started one dispatch earlier; with log_period=0 a pass reads one
     device value on the host (its average cost), whatever its length.
+  * `classification_cost` sees the softmax of its input through a
+    recurrent group (to the step's output layer) and through an error
+    clip, and consumes the probabilities: the seqToseq demo's cost is the
+    cross-entropy of the decoder's softmax (within 1e-5 of numpy's on the
+    JAX package's probabilities); the JAX package's is that of a second
+    softmax over them.
+  * `v2.networks.simple_gru(name=)` names the GRU (the JAX package drops
+    the name, so two directions in one v2 network collide there); without
+    a name both packages build the same "gru" layers and parameters.
   * On a card (marked `cuda`, skipped here): a `Gru(act="relu")` graph on
     the card takes the step loop (no GRU kernel launch) and matches the
     CPU; out-of-range ids read NaN rows on the card with no device assert.
@@ -230,6 +239,74 @@ def test_not_ported_messages_name_the_roadmap_items():
     stale = re.compile(r"queue 1|item 3\.3|item 6, TP|pipeline of item 7")
     for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
         assert not stale.search(path.read_text()), path
+
+
+def test_cost_sees_the_softmax_through_a_group_and_an_error_clip(tmp_path):
+    import jax
+    from paddle_tpu.config import parse_config as jparse
+    from paddle_tpu.nn.graph import Network as JNetwork
+
+    from paddle_tpu_torch.config import parse_config as tparse
+    from paddle_tpu_torch.nn.convert import params_from_jax
+    from test_torch_recurrent_group import SEQ2SEQ, _seq2seq_batch
+
+    path = tmp_path / "s2s.py"
+    path.write_text(SEQ2SEQ)
+    batch = _seq2seq_batch()
+    jpc, tpc = jparse(str(path)), tparse(str(path))
+    cost = jpc.outputs[0].name
+    jnet = JNetwork([jpc.outputs[0], jpc.topology.network.layers_by_name["decoder_group"]])
+    params, states = jnet.init(jax.random.PRNGKey(0), batch)
+    outs = jnet.apply(params, states, batch)[0]
+    probs, jcost = np.asarray(outs["decoder_group"].value), float(outs[cost].value)
+    tcost = float(tpc.topology.network.apply(params_from_jax(params, "cpu"), batch)[cost].value)
+    labels, lens = batch["target_language_next_word"], batch["target_language_next_word.lengths"]
+    valid = np.arange(labels.shape[1])[None, :] < lens[:, None]
+
+    def ce(p):
+        picked = np.take_along_axis(p, labels[..., None], -1)[..., 0]
+        return float((-np.log(picked) * valid).sum(-1).mean())
+
+    resoftmax = np.exp(probs) / np.exp(probs).sum(-1, keepdims=True)
+    assert tcost == pytest.approx(ce(probs), rel=1e-5)
+    assert jcost == pytest.approx(ce(resoftmax), rel=1e-5)  # the JAX package's fault
+    assert tpc.outputs[0].from_logits is False and jpc.outputs[0].from_logits is True
+
+    tgraph.reset_name_scope()
+    from paddle_tpu_torch.config import v1_layers as v1
+    from paddle_tpu_torch.v2.attr import ExtraAttr
+
+    x = v1.data_layer("x", 4)
+    out = v1.fc_layer(x, 3, act="softmax",
+                      layer_attr=ExtraAttr(error_clipping_threshold=5.0))
+    assert out.type_name == "error_clip"
+    assert v1.classification_cost(out, v1.data_layer("y", 3)).from_logits is False
+
+
+def test_v2_simple_gru_takes_a_name():
+    from paddle_tpu.nn import graph as jgraph
+    from paddle_tpu.v2 import data_type as jdt
+    from paddle_tpu.v2 import networks as jnets
+
+    from paddle_tpu_torch.v2 import data_type as tdt
+    from paddle_tpu_torch.v2 import networks as tnets
+
+    jgraph.reset_name_scope()
+    tgraph.reset_name_scope()
+    from paddle_tpu.v2 import layer as jvl
+    from paddle_tpu_torch.v2 import layer as tvl
+
+    jx = jvl.data(name="x", type=jdt.dense_vector_sequence(3))
+    tx = tvl.data(name="x", type=tdt.dense_vector_sequence(3))
+    assert jnets.simple_gru(jx, 4, name="mine").name == "gru"  # dropped there
+    assert tnets.simple_gru(tx, 4).name == "gru"
+    fw = tnets.simple_gru(tx, 4, name="g_fw")
+    bw = tnets.simple_gru(tx, 4, reverse=True, name="g_bw")
+    net = tgraph.Network([fw, bw])
+    batch = {"x": np.zeros((2, 5, 3), np.float32), "x.lengths": np.array([5, 2], np.int32)}
+    assert {k for k in net.init(batch, device="cpu")} == {
+        f"{n}.{p}" for n in ("g_fw", "g_bw") for p in ("w_hzr", "w_hc", "b")} | {
+        f"{n}.input_proj.{p}" for n in ("g_fw", "g_bw") for p in ("w", "b")}
 
 
 def _log_marks(records, logger):
