@@ -283,8 +283,9 @@ Phases (any failure exits non-zero and prints no result line):
                every sequence 50 long, padded to 64; ids drawn as bench.py
                draws them; 4 batches a pass, 2 passes) through
                `paddle_tpu_torch.cli` in process (recurrent counters from
-               0): one graph, every later step a replay, avg_cost falls,
-               no recurrent kernel launch, peak memory; --job=time over 8
+               0), 2 passes with --save_dir (phase 26 generates from its
+               pass-00001): one graph, every later step a replay, avg_cost
+               falls, no recurrent kernel launch, peak memory; --job=time over 8
                batches (ms a step, target tokens/s), 5 replays under
                torch.profiler (busy ms, busy share, kernels a replay);
                dump_config against the parse; gru_group's output against
@@ -316,7 +317,50 @@ Phases (any failure exits non-zero and prints no result line):
                forward and getLayerOutput agree, forwardBackward's
                gradients finite; the merge's s, the load's s and the
                forward's ms.
- 26. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 26. v1_gen  — the seqToseq demo's generating half
+               (demo/seqToseq/seqToseq_net.py, is_generating=True: phase
+               23's network with the decoder step under beam_search, the
+               target table a GeneratedInput named as the training
+               config's, beam 3, max_length 250, a seqtext printer over
+               sent_id and the 30000-word dictionary,
+               Outputs('__beam_search_predict__')) on phase 23's
+               pass-00001 through one GenerationSession: two batches of
+               128 sources of 30-50 ids (recurrent counters from 0): 128
+               lines a batch, lengths in [1, 250], scores best first, the
+               printed words the best beam's, the second call neither
+               rebuilds nor reloads, no recurrent kernel; ms a call,
+               kernels a generated step (torch.profiler over one call /
+               250), best-beam tokens/s, peak memory;
+               api.SequenceGenerator on the same parameters gives the
+               session's best beams; card vs CPU at vocab 64, width 16,
+               batch 8, beam 3, max_length 12 on one parameter dict: ids
+               identical, scores within 1e-5 relative.
+ 27. serve_config — `python -m paddle_tpu_torch serve --config=gen.conf
+               --model_dir=.../pass-00001 --port=0` as a subprocess on the
+               card: phase 26's first batch through the framed client's
+               generate_config returns phase 26's result file byte for
+               byte, twice; the request's ms; SIGTERM, exit code 0.
+ 28. v2_gen  — the paddle.v2 book's machine translation network at phase
+               23's widths (two networks.simple_gru encoders, the fused
+               GRU; simple_attention, gru_step and a 30000-wide softmax in a
+               recurrent_group): trainer.SGD with Adam(5e-4) over 4 batches
+               of 128 (GRU counters from 0: 2 + 2 a step and the init's
+               forward, one graph), to_tar -> from_tar bitwise; the
+               generating topology (layer.beam_search, GeneratedInput by
+               embedding name, beam 3, max_length 50) through
+               Inference.infer(field="value") over 256 sources in chunks of
+               128: ids [256, 50] int32, 2 GRU forward launches a chunk, the
+               first chunk equal to a Network forward of it; ms per 128.
+ 29. v1_proto — phase 21's config on TrainData(ProtoData(files=...,
+               type="proto_sequence")) and TestData(...), the shards
+               written by the port's write_shard from phase 21's samples
+               in its order (8 batches of 128 a pass, 2 test batches), 2
+               passes through the CLI (counters from 0): one graph, every
+               later step a replay, 2 + 2 GRU launches a step, avg_cost
+               falls; --job=time (ms a step, tokens/s); --job=test from its
+               pass-00001 on this config and on phase 21's PyDataProvider2
+               config: the same per-batch costs within 1e-6 relative.
+ 30. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -333,6 +377,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -505,6 +550,28 @@ V2_API_SMALL = dict(vocab=64, size=16, batch=8, batches=4, passes=1, min_len=3,
                     max_len=6, infer=16, time_steps=0)
 # the merged model serves forwards equal to the trainer's test forward
 DEPLOY_RTOL = 1e-6
+# the seqToseq demo's generating config on phase 23's pass: two batches of
+# 128 sources of 30-50 ids (bench.py's draws), beam 3, max_length 250; card
+# vs CPU at vocab 64, width 16, batch 8, beam 3, max_length 12 on one
+# parameter dict (the init's times `scale`: sharper distributions, fewer
+# near-ties; not so sharp that a step's best log-probability nears 0,
+# where log(p) of an f32 p near 1 keeps few digits in either package):
+# ids identical, scores within GEN_SMALL_RTOL
+V1_GEN = dict(vocab=30000, batch=128, min_len=30, max_len=50)
+V1_GEN_SMALL = dict(vocab=64, size=16, batch=8, beam=3, max_length=12, min_len=3,
+                    max_len=8, scale=2.0)
+GEN_SMALL_RTOL = 1e-5
+# the paddle.v2 book's NMT network at phase 23's widths: Adam(5e-4), 4
+# batches of 128 (every sequence 50), then beam 3, max_length 50 over 256
+# sources of 30-50 ids in chunks of 128
+V2_GEN = dict(vocab=30000, size=512, batch=128, batches=4, length=50, beam=3,
+              max_length=50, infer=256, min_len=30, max_len=50)
+# phase 21's bi-GRU config on proto_sequence shards of phase 21's samples:
+# 8 batches of 128 a pass, 2 passes, 2 test batches; the test batches'
+# costs equal to the PyDataProvider2 config's within PROTO_RTOL
+V1_PROTO = dict(vocab=30000, size=512, batch=128, batches=8, test_batches=2, passes=2,
+                min_len=30, max_len=50)
+PROTO_RTOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -4046,7 +4113,8 @@ def v1_seq2seq_phase(torch):
     t0 = time.perf_counter()
     zero_rnn_counts()
     rc, lines, costs, job = run_cli(d, ["train", "--config=conf.py",
-                                        f"--num_passes={cfg['passes']}", "--log_period=1"])
+                                        f"--num_passes={cfg['passes']}", "--log_period=1",
+                                        f"--save_dir={os.path.join(d, 'out')}"])
     launches = rnn_counts()
     train_s = time.perf_counter() - t0
     if rc != 0:
@@ -4068,6 +4136,9 @@ def v1_seq2seq_phase(torch):
         fail(f"v1 seq2seq: avg_cost did not fall: {passes}")
     if not all(np.isfinite(costs)) or len(costs) != steps:
         fail(f"v1 seq2seq: logged step costs {costs}")
+    if not os.path.isdir(os.path.join(d, "out", "pass-00001")):
+        fail("v1 seq2seq: pass-00001 was not written")
+    result["conf_dir"] = d  # phase 26 generates from its pass-00001
 
     def per_step(timed_job, ms):
         # real target tokens of every batch --job=time timed
@@ -4356,6 +4427,445 @@ def deploy_phase(torch, bigru_save_dir, v2_model):
     return result
 
 
+# the seqToseq demo's generating half (demo/seqToseq/seqToseq_net.py,
+# is_generating=True) on phase 23's network: the same step under
+# beam_search, the target table a GeneratedInput named as the training
+# config's, the network function's defaults beam 3, max_length 250, bos 0,
+# eos 1; a seqtext printer over sent_id and the target dictionary;
+# Outputs('__beam_search_predict__'). No data source: the batches are fed.
+V1_S2S_GEN_CONFIG = re.sub(
+    r"define_py_data_sources2\(.*?\}\)\n", "",
+    V1_S2S_CONFIG[:V1_S2S_CONFIG.index("trg_embedding = embedding_layer(")],
+    flags=re.S) + """trg_embedding = GeneratedInput(size=target_dict_dim,
+                               embedding_name="_target_language_embedding",
+                               embedding_size=word_vector_dim)
+group_inputs.append(trg_embedding)
+beam_gen = beam_search(name="decoder_group", step=gru_decoder_with_attention,
+                       input=group_inputs, bos_id=0, eos_id=1,
+                       beam_size=get_config_arg("beam_size", int, 3),
+                       max_length=get_config_arg("max_length", int, 250))
+seqtext_printer_evaluator(input=beam_gen, id_input=data_layer(name="sent_id", size=1),
+                          dict_file="trg.dict", result_file="gen_result.txt")
+Outputs("__beam_search_predict__")
+"""
+
+
+def gen_sources(np, cfg, n, seed):
+    """n source sentences of cfg's lengths, ids uniform in [2, vocab) as
+    bench.py:186-245 draws them, padded -> a batch with `sent_id`."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(cfg["min_len"], cfg["max_len"] + 1, n).astype(np.int32)
+    ids = rs.randint(2, cfg["vocab"], (n, cfg["max_len"])).astype(np.int32)
+    ids[np.arange(cfg["max_len"])[None, :] >= lens[:, None]] = 0
+    return {"source_language_word": ids, "source_language_word.lengths": lens,
+            "sent_id": np.arange(n, dtype=np.int32)}
+
+
+def trg_words(vocab: int):
+    return ["<s>", "<e>", "<unk>"] + [f"w{i}" for i in range(3, vocab)]
+
+
+def check_gen_result(name, text, beams, batch, words, max_length):
+    """A plain-mode result file against the beams it printed: one line a
+    sample, `sent_id \t words`, the best beam's words up to its length;
+    every length in [1, max_length]; each sample's scores best first."""
+    hist, scores, lens = (beams[k] for k in ("history", "scores", "lengths"))
+    lines = text.splitlines()
+    if len(lines) != len(batch["sent_id"]):
+        fail(f"{name}: {len(lines)} result lines for {len(batch['sent_id'])} samples")
+    if not ((lens >= 1) & (lens <= max_length)).all():
+        fail(f"{name}: lengths outside [1, {max_length}]: {lens.min()}..{lens.max()}")
+    if not (scores[:, :-1] >= scores[:, 1:]).all():
+        fail(f"{name}: beam scores not sorted best first")
+    for i, line in enumerate(lines):
+        want = f"{batch['sent_id'][i]}\t " + " ".join(
+            words[t] for t in hist[i, 0, :lens[i, 0]])
+        if line != want:
+            fail(f"{name}: line {i} {line[:80]!r} is not the best beam {want[:80]!r}")
+
+
+def v1_gen_phase(torch, s2s_dir):
+    """Phase 26: the seqToseq demo's generating config on phase 23's
+    pass-00001 through one GenerationSession (recurrent counters from 0),
+    SequenceGenerator on its parameters, card vs CPU at a small width."""
+    import numpy as np
+
+    from paddle_tpu_torch import api
+    from paddle_tpu_torch.config import parse_config
+    from paddle_tpu_torch.nn import graph as G
+    from paddle_tpu_torch.trainer.generation import GenerationSession
+
+    cfg = V1_GEN
+    conf = os.path.join(s2s_dir, "gen.conf")
+    with open(conf, "w") as f:
+        f.write(V1_S2S_GEN_CONFIG)
+    words = trg_words(V1_S2S["vocab"])
+    with open(os.path.join(s2s_dir, "trg.dict"), "w") as f:
+        f.write("\n".join(words) + "\n")
+    args = f"vocab={V1_S2S['vocab']},size={V1_S2S['size']}"
+    model_dir = os.path.join(s2s_dir, "out", "pass-00001")
+    pc = parse_config(conf, args, emit_proto=False)
+    (node,) = pc.outputs
+    if (node.name, node.type_name, node.beam_size, node.max_length, node.bos_id,
+            node.eos_id) != ("decoder_group", "beam_search", 3, 250, 0, 1):
+        fail(f"v1 gen: Outputs('__beam_search_predict__') resolved to {node!r}")
+    sess = GenerationSession(pc, model_dir=model_dir, base_dir=s2s_dir)
+    batches = [gen_sources(np, cfg, cfg["batch"], seed) for seed in (0, 1)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_rnn_counts()
+    ms, texts, beams, params = [], [], [], None
+    for i, batch in enumerate(batches):
+        dest = os.path.join(s2s_dir, f"gen_result.{i}.txt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = sess.generate(batch, result_file=dest)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if written != {"seq_text_printer_evaluator": dest}:
+            fail(f"v1 gen: generate wrote {written}")
+        if params is None:
+            params = sess._params
+        elif sess._params is not params:
+            fail("v1 gen: the second generate rebuilt or reloaded the parameters")
+        with open(dest) as f:
+            texts.append(f.read())
+        beams.append({k: v.cpu().numpy() for k, v in sess.last_beams["decoder_group"].items()
+                      if isinstance(v, torch.Tensor)})
+        check_gen_result("v1 gen", texts[-1], beams[-1], batch, words, 250)
+    launches = rnn_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        fail(f"v1 gen: launched recurrent kernels the groups do not run: {launches}")
+    profile = profile_train(torch, lambda: sess.generate(
+        batches[1], result_file=os.path.join(s2s_dir, "gen_profiled.txt")),
+        tag="gru", steps=1, label="v1_gen_profile")
+    best_tokens = int(beams[1]["lengths"][:, 0].sum())
+    result = dict(config=cfg, ms_per_call=ms[1], first_call_ms_with_build_and_load=ms[0],
+                  kernels_per_generated_step=profile["kernel_launches_per_step"] / 250,
+                  kernels_per_call=profile["kernel_launches_per_step"],
+                  device_busy_ms_per_call=profile["device_busy_ms_per_step"],
+                  busy_share=profile["device_busy_share"],
+                  best_beam_tokens=best_tokens,
+                  best_beam_tokens_per_s=best_tokens / (ms[1] / 1e3),
+                  beam_tokens_per_s=cfg["batch"] * 3 * 250 / (ms[1] / 1e3),
+                  length_min_mean_max=[int(beams[1]["lengths"][:, 0].min()),
+                                       float(beams[1]["lengths"][:, 0].mean()),
+                                       int(beams[1]["lengths"][:, 0].max())],
+                  length_mean_by_rank=beams[1]["lengths"].mean(0).tolist(),
+                  peak_memory_bytes=peak, kernel_launches=launches, profile=profile)
+
+    gm = api.GradientMachine(pc.outputs)
+    gm.setParameters({k: v.cpu().numpy() for k, v in params.items()})
+    t0 = time.perf_counter()
+    seqs = api.SequenceGenerator(gm, node).generate(batches[0])
+    result["sequence_generator_ms"] = (time.perf_counter() - t0) * 1e3
+    want = [beams[0]["history"][i, 0, :beams[0]["lengths"][i, 0]].tolist()
+            for i in range(cfg["batch"])]
+    if seqs != want:
+        bad = sum(a != b for a, b in zip(seqs, want))
+        fail(f"v1 gen: SequenceGenerator's ids differ from the session's on {bad} samples")
+
+    # card vs CPU at a small width, one parameter dict
+    small = V1_GEN_SMALL
+    sargs = (f"vocab={small['vocab']},size={small['size']},beam_size={small['beam']},"
+             f"max_length={small['max_length']}")
+    sbatch = gen_sources(np, small, small["batch"], 2)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        G.reset_name_scope()
+        s = GenerationSession(parse_config(conf, sargs, emit_proto=False), base_dir=s2s_dir,
+                              device=dev)
+        s._ensure_built(sbatch)
+        if dev == "cpu":
+            s._params = {k: small["scale"] * v for k, v in s._params.items()}
+            start = s._params
+        else:
+            s._params = {k: v.to(dev) for k, v in start.items()}
+        s.generate(sbatch, result_file=os.path.join(s2s_dir, f"gen_small_{dev}.txt"))
+        got[dev] = {k: v.cpu().numpy() for k, v in s.last_beams["decoder_group"].items()
+                    if isinstance(v, torch.Tensor)}
+    same = bool(np.array_equal(got["cuda"]["history"], got["cpu"]["history"]) and
+                np.array_equal(got["cuda"]["lengths"], got["cpu"]["lengths"]))
+    rel = float(np.max(np.abs(got["cuda"]["scores"] - got["cpu"]["scores"]) /
+                       np.abs(got["cpu"]["scores"])))
+    result["vs_cpu"] = dict(config=small, ids_identical=same, scores_max_rel_err=rel,
+                            lengths=got["cpu"]["lengths"][:, 0].tolist())
+    print("v1_gen", json.dumps(result), flush=True)
+    if not same or rel > GEN_SMALL_RTOL:
+        fail(f"v1 gen: card vs CPU ids identical {same}, scores rel err {rel}")
+    return result, dict(conf=conf, args=args, model_dir=model_dir, batch=batches[0],
+                        text=texts[0], ms=ms[1])
+
+
+def serve_config_phase(torch, gen):
+    """Phase 27: `python -m paddle_tpu_torch serve --config` on phase 26's
+    generating config and pass (a subprocess on the card) answers phase
+    26's first batch through `generate_config` with phase 26's text, twice;
+    SIGTERM ends it with exit code 0."""
+    import signal
+
+    from paddle_tpu_torch.serving import ServingClient
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "serve", f"--config={gen['conf']}",
+         f"--model_dir={gen['model_dir']}", f"--config_args={gen['args']}", "--port=0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+    try:
+        line = json.loads(proc.stdout.readline())
+        listen_s = time.perf_counter() - t0
+        client = ServingClient(tuple(line["address"]), timeout=600.0)
+        ms = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            files = client.generate_config(gen["batch"])
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if files != {"seq_text_printer_evaluator": gen["text"]}:
+                fail(f"serve --config: generate_config returned text that is not phase "
+                     f"26's ({sorted(files)})")
+        client.close()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    result = dict(listen_s=listen_s, first_request_ms_with_build_and_load=ms[0],
+                  request_ms=ms[1], session_ms=gen["ms"], exit_code=proc.returncode)
+    print("serve_config", json.dumps(result), flush=True)
+    if proc.returncode != 0:
+        fail(f"serve --config: exit code {proc.returncode} after SIGTERM: {err[-2000:]}")
+    return result
+
+
+def v2_nmt_net(paddle, cfg, is_generating):
+    """The paddle.v2 book's machine translation network (08.machine_
+    translation train.py `seqToseq_net`) at cfg's widths: two
+    networks.simple_gru encoders (the fused GRU kernels), simple_attention,
+    a recurrent_group decoder of fc + gru_step + softmax fc; generating, the
+    same step under layer.beam_search with a GeneratedInput."""
+    vocab, size = cfg["vocab"], cfg["size"]
+    src = paddle.layer.data(name="source_language_word",
+                            type=paddle.data_type.integer_value_sequence(vocab))
+    emb = paddle.layer.embedding(input=src, size=size)
+    fwd = paddle.networks.simple_gru(input=emb, size=size, name="src_forward")
+    bwd = paddle.networks.simple_gru(input=emb, size=size, reverse=True, name="src_backward")
+    encoded = paddle.layer.concat(input=[fwd, bwd])
+    encoded_proj = paddle.layer.fc(act=paddle.activation.Linear(), size=size,
+                                   bias_attr=False, input=encoded)
+    boot = paddle.layer.fc(size=size, act=paddle.activation.Tanh(), bias_attr=False,
+                           input=paddle.layer.first_seq(input=bwd))
+
+    def step(enc_vec, enc_proj, current_word):
+        mem = paddle.layer.memory(name="gru_decoder", size=size, boot_layer=boot)
+        context = paddle.networks.simple_attention(encoded_sequence=enc_vec,
+                                                   encoded_proj=enc_proj, decoder_state=mem)
+        inputs = paddle.layer.fc(
+            act=paddle.activation.Linear(), size=size * 3, bias_attr=False,
+            input=[context, current_word],
+            layer_attr=paddle.attr.ExtraLayerAttribute(error_clipping_threshold=100.0))
+        gru = paddle.layer.gru_step(name="gru_decoder", input=inputs, output_mem=mem,
+                                    size=size)
+        return paddle.layer.fc(size=vocab, bias_attr=True, act=paddle.activation.Softmax(),
+                               input=gru)
+
+    group = [paddle.layer.StaticInput(input=encoded),
+             paddle.layer.StaticInput(input=encoded_proj)]
+    if not is_generating:
+        trg = paddle.layer.embedding(
+            input=paddle.layer.data(name="target_language_word",
+                                    type=paddle.data_type.integer_value_sequence(vocab)),
+            size=size, param_attr=paddle.attr.ParamAttr(name="_target_language_embedding"))
+        decoder = paddle.layer.recurrent_group(name="decoder_group", step=step,
+                                               input=group + [trg])
+        label = paddle.layer.data(name="target_language_next_word",
+                                  type=paddle.data_type.integer_value_sequence(vocab))
+        return paddle.layer.classification_cost(input=decoder, label=label)
+    trg = paddle.layer.GeneratedInput(size=vocab, embedding_name="_target_language_embedding",
+                                      embedding_size=size)
+    return paddle.layer.beam_search(name="decoder_group", step=step, input=group + [trg],
+                                    bos_id=0, eos_id=1, beam_size=cfg["beam"],
+                                    max_length=cfg["max_length"])
+
+
+def v2_gen_phase(torch):
+    """Phase 28: the v2 book's NMT script at phase 23's widths trains 4
+    batches (GRU counters from 0), round-trips its parameters through a
+    tar, then generates with layer.beam_search + infer(field="value")."""
+    import io
+
+    import numpy as np
+
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.nn import graph as G
+
+    cfg = V2_GEN
+    G.reset_name_scope()
+    paddle.init(use_gpu=True, trainer_count=1, seed=0)
+    cost = v2_nmt_net(paddle, cfg, False)
+    params = paddle.parameters.create(cost)
+    trainer = paddle.trainer.SGD(cost=cost, parameters=params,
+                                 update_equation=paddle.optimizer.Adam(learning_rate=5e-4))
+    rs = np.random.RandomState(0)
+    samples = []
+    for _ in range(cfg["batches"] * cfg["batch"]):
+        src = rs.randint(2, cfg["vocab"], size=cfg["length"])
+        trg = rs.randint(2, cfg["vocab"], size=cfg["length"])
+        samples.append((src.tolist(), trg.tolist(), np.append(trg[1:], 1).tolist()))
+    feeding = {"source_language_word": 0, "target_language_word": 1,
+               "target_language_next_word": 2}
+    costs = []
+    zero_rnn_counts()
+    t0 = time.perf_counter()
+    trainer.train(reader=paddle.batch(lambda: iter(samples), cfg["batch"]), num_passes=1,
+                  event_handler=lambda e: costs.append(e.cost)
+                  if isinstance(e, paddle.event.EndIteration) else None, feeding=feeding)
+    train_s = time.perf_counter() - t0
+    train_launches = rnn_counts()
+    graphs = list(trainer.trainer.graphs.values())
+    steps = cfg["batches"]
+    if (train_launches["FWD_LAUNCHES"], train_launches["BWD_LAUNCHES"]) != (
+            2 * steps + 2, 2 * steps):
+        fail(f"v2 gen: GRU launches {train_launches} over {steps} steps, want fwd "
+             f"{2 * steps + 2} (the init's forward too), bwd {2 * steps}")
+    if len(graphs) != 1 or graphs[0].replays != steps - 1 or not np.isfinite(costs).all():
+        fail(f"v2 gen: {len(graphs)} graphs, costs {costs}")
+    buf = io.BytesIO()
+    trainer.save_parameter_to_tar(buf)
+    back = paddle.parameters.Parameters.from_tar(io.BytesIO(buf.getvalue()))
+    trained = trainer.parameters
+    if sorted(back.names()) != sorted(trained.names()) or not all(
+            back.get(k).tobytes() == trained.get(k).tobytes() for k in trained.names()):
+        fail("v2 gen: to_tar -> from_tar is not bitwise")
+    del trainer, graphs
+    torch.cuda.empty_cache()
+
+    G.reset_name_scope()
+    gen = v2_nmt_net(paddle, cfg, True)
+    inf = paddle.inference.Inference(gen, back)
+    src = gen_sources(np, cfg, cfg["infer"], 3)
+    sources = [(src["source_language_word"][i, :n].tolist(),)
+               for i, n in enumerate(src["source_language_word.lengths"])]
+    feed = {"source_language_word": 0}
+    inf.infer(sources[:cfg["batch"]], feeding=feed, field="value")  # its init's forward
+    zero_rnn_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = inf.infer(sources, feeding=feed, field="value", batch_size=cfg["batch"])
+    infer_ms = (time.perf_counter() - t0) * 1e3
+    launches = rnn_counts()
+    chunks = cfg["infer"] // cfg["batch"]
+    with torch.no_grad():
+        ref = inf.network.apply(inf._params, inf.topology.make_feeder(feed)(
+            sources[:cfg["batch"]]))[gen.name].value.cpu().numpy()
+    result = dict(config=cfg, train_s=train_s, step_costs=costs,
+                  train_launches=train_launches, tar_bytes=len(buf.getvalue()),
+                  infer_ms_per_128=infer_ms / chunks, infer_launches=launches,
+                  ids_shape=list(ids.shape),
+                  length_mean=float(np.where((ids == 1).any(1), (ids == 1).argmax(1) + 1,
+                                             cfg["max_length"]).mean()))
+    print("v2_gen", json.dumps(result), flush=True)
+    if launches["FWD_LAUNCHES"] != 2 * chunks or any(
+            v for k, v in launches.items() if k != "FWD_LAUNCHES"):
+        fail(f"v2 gen: infer over {chunks} chunks launched {launches}, want "
+             f"{2 * chunks} GRU forwards and nothing else")
+    if ids.shape != (cfg["infer"], cfg["max_length"]) or ids.dtype != np.int32:
+        fail(f"v2 gen: infer gave ids {ids.shape} {ids.dtype}")
+    if not np.array_equal(ids[:cfg["batch"]], ref):
+        fail("v2 gen: infer's first chunk differs from a Network forward of it")
+    return result
+
+
+V1_PROTO_CONFIG = V1_BIGRU_CONFIG.replace(
+    V1_BIGRU_CONFIG[V1_BIGRU_CONFIG.index("define_py_data_sources2("):
+                    V1_BIGRU_CONFIG.index("word = data_layer")],
+    'TrainData(ProtoData(files="train.list", type="proto_sequence"))\n'
+    'TestData(ProtoData(files="test.list", type="proto_sequence"))\n')
+
+
+def v1_proto_phase(torch, bigru_dir):
+    """Phase 29: phase 21's bi-GRU config on TrainData(ProtoData(...,
+    type="proto_sequence")): shards the port's write_shard writes of phase
+    21's samples, 2 passes through the CLI (GRU counters from 0),
+    --job=time; then --job=test of the proto config and of phase 21's
+    PyDataProvider2 config from the same pass, batch by batch."""
+    import numpy as np
+
+    from paddle_tpu_torch.data import proto_data as pd
+
+    cfg = V1_PROTO
+    d = v1_config_dir("proto", V1_PROTO_CONFIG, V1_BIGRU_PROVIDER)
+    for split, n, seed in (("train", cfg["batches"] * cfg["batch"], 0),
+                           ("test", cfg["test_batches"] * cfg["batch"], 1)):
+        # phase 21's provider's draws, in its order
+        pd.write_shard(os.path.join(d, f"{split}.bin"),
+                       [pd.SlotDef(pd.VECTOR_SPARSE_NON_VALUE, cfg["vocab"]),
+                        pd.SlotDef(pd.INDEX, 2)],
+                       [pd.DataSample(vector_slots=[pd.VectorSlot(ids=ids)], id_slots=[y])
+                        for ids, y in v2_samples(np, cfg, n, seed)])
+        with open(os.path.join(d, f"{split}.list"), "w") as f:
+            f.write(f"{split}.bin\n")
+    save = os.path.join(d, "out")
+    steps = cfg["batches"] * cfg["passes"]
+    zero_rnn_counts()
+    t0 = time.perf_counter()
+    rc, lines, costs, job = run_cli(d, ["train", "--config=conf.py",
+                                        f"--num_passes={cfg['passes']}", f"--save_dir={save}",
+                                        "--log_period=1"])
+    train_s = time.perf_counter() - t0
+    launches = rnn_counts()
+    if rc != 0:
+        fail(f"v1 proto: train exited {rc}")
+    graphs = list(job.trainer.graphs.values())
+    passes = pass_lines(lines)
+    tests = cfg["test_batches"] * cfg["passes"]
+    result = dict(config=cfg, train_s=train_s, steps=steps, passes=passes,
+                  graphs=len(graphs), replays=graphs[0].replays if graphs else 0,
+                  kernel_launches=launches)
+    if (launches["FWD_LAUNCHES"], launches["BWD_LAUNCHES"]) != (
+            2 * (steps + tests + 1), 2 * steps):
+        fail(f"v1 proto: GRU launches {launches}, want 2 + 2 a step (and both forwards "
+             f"at the init and each of {tests} test batches)")
+    if len(graphs) != 1 or result["replays"] != steps - 1:
+        fail(f"v1 proto: {len(graphs)} step graphs, {result['replays']} replays in {steps} "
+             "steps: want one graph, every step after the first a replay")
+    if not passes[1]["avg_cost"] < passes[0]["avg_cost"]:
+        fail(f"v1 proto: avg_cost did not fall: {passes}")
+    del job
+    rc, lines, _, t_job = run_cli(d, ["train", "--config=conf.py", "--job=time",
+                                      f"--num_batches={cfg['batches']}"])
+    timed = json.loads(lines[-1])
+    if rc != 0 or timed.get("batches") != cfg["batches"]:
+        fail(f"v1 proto: --job=time exited {rc}: {timed}")
+    tokens = sum(int(t_job.feeder(b)["word.lengths"].sum()) for b in t_job.reader())
+    result.update(ms_per_step=timed["ms_per_batch"], tokens_per_step=tokens / cfg["batches"],
+                  tokens_per_s=tokens / (cfg["batches"] * timed["ms_per_batch"] / 1e3))
+    del t_job
+
+    def test_costs(conf_dir):
+        rc, lines, _, job = run_cli(conf_dir, [
+            "train", "--config=conf.py", "--job=test", f"--init_model_path={save}",
+            f"--start_pass={cfg['passes']}", f"--config_args=test_batches={cfg['test_batches']}"],
+            echo=False)
+        if rc != 0:
+            fail(f"v1 proto: --job=test in {conf_dir} exited {rc}")
+        tr = job.trainer
+        with torch.no_grad():
+            return [float(tr._cost(tr.state["params"], job.feeder(b), train=False)[0])
+                    for b in job.test_reader()]
+
+    proto_costs, pydp_costs = test_costs(d), test_costs(bigru_dir)
+    rel = [abs(a - b) / abs(b) for a, b in zip(proto_costs, pydp_costs)]
+    result.update(test_batch_costs_proto=proto_costs, test_batch_costs_pydp2=pydp_costs,
+                  test_cost_rel_err=rel)
+    print("v1_proto", json.dumps(result), flush=True)
+    if len(proto_costs) != cfg["test_batches"] or len(rel) != len(pydp_costs) or (
+            max(rel) > PROTO_RTOL):
+        fail(f"v1 proto: --job=test batch costs {proto_costs} vs the PyDataProvider2 "
+             f"config's {pydp_costs}: rel err {rel} > {PROTO_RTOL}")
+    return result
+
+
 def train_of(torch, tree: str) -> int:
     """`--train-of TREE`: the training phases (5, 7 and 10) of the
     chip_smoke.py in TREE, a checkout of this repository (an earlier
@@ -4524,7 +5034,21 @@ def main() -> int:
     deploy = deploy_phase(torch, v1_bigru["save_dir"], v2_model)
     del v2_model
 
-    # 26. lines
+    # 26. the seqToseq demo's generating config on phase 23's pass, 27.
+    # served by `serve --config` in a subprocess, 28. a paddle.v2 NMT script
+    # trains and generates, 29. phase 21's config on ProtoData shards
+    # (counters from 0 in each)
+    torch.cuda.empty_cache()
+    v1_gen, gen_model = v1_gen_phase(torch, v1_seq2seq["conf_dir"])
+    torch.cuda.empty_cache()
+    serve_config = serve_config_phase(torch, gen_model)
+    del gen_model
+    torch.cuda.empty_cache()
+    v2_gen = v2_gen_phase(torch)
+    torch.cuda.empty_cache()
+    v1_proto = v1_proto_phase(torch, os.path.dirname(v1_bigru["save_dir"]))
+
+    # 30. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -4579,9 +5103,12 @@ def main() -> int:
             "library_note": no_library,
             "launches_v1_config": v1_bigru["kernel_launches"][v1_key],
             "launches_v2_api": v2_api["kernel_launches"][v1_key],
+            "launches_v2_gen_train": v2_gen["train_launches"][v1_key],
+            "launches_v1_proto": v1_proto["kernel_launches"][v1_key],
             **({"launches_deploy": deploy["forward_launches"]["FWD_LAUNCHES"]
                 + deploy["get_layer_output_launches"]["FWD_LAUNCHES"],
-                "launches_v2_infer": v2_api["infer_launches"]["FWD_LAUNCHES"]}
+                "launches_v2_infer": v2_api["infer_launches"]["FWD_LAUNCHES"],
+                "launches_v2_gen_infer": v2_gen["infer_launches"]["FWD_LAUNCHES"]}
                if leg == "fwd" else {}),
             "v1_config_shape": {k: g_v1[f"{leg}_{k}"] for k in (
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
@@ -4665,7 +5192,9 @@ def main() -> int:
                    "ocr": ocr, "struct_ops": struct_ops, "vgg": vgg, "remat": remat,
                    "guard": guard, "optim": optim, "prefetch": prefetch,
                    "v1_bigru": v1_bigru, "v1_lenet": v1_lenet,
-                   "v1_seq2seq": v1_seq2seq, "v2_api": v2_api, "deploy": deploy},
+                   "v1_seq2seq": v1_seq2seq, "v2_api": v2_api, "deploy": deploy,
+                   "v1_gen": v1_gen, "serve_config": serve_config, "v2_gen": v2_gen,
+                   "v1_proto": v1_proto},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

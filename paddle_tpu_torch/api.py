@@ -7,12 +7,12 @@ those internals are Python; this module gives scripts written against
 py_paddle the same class shapes over the port's layer graph. A
 `GradientMachine` runs on `device` (None: CUDA); its forwards run eagerly
 under `torch.inference_mode()`, `forwardBackward` under autograd.
-`SequenceGenerator` (beam search over a step net) is the next slice of
-ROADMAP.md §1 item 5 and raises."""
+`SequenceGenerator` generates over a graph holding a beam_search layer
+(`nn/recurrent_group.BeamSearchLayer`) on the machine's parameters."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,7 +20,6 @@ import torch
 from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.nn.graph import Layer, Network
-from paddle_tpu_torch.nn.recurrent_group import NEXT_SLICE
 
 
 class Arguments:
@@ -152,7 +151,27 @@ class GradientMachine:
 
 
 class SequenceGenerator:
-    """PaddleAPI.h:1025: beam-search generation over a beam_search layer."""
+    """PaddleAPI.h:1025: beam-search text generation over a graph holding a
+    beam_search layer; `dict_file` is the vocabulary, one word a line."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(NEXT_SLICE.format(what="api.SequenceGenerator"))
+    def __init__(self, machine: GradientMachine, beam_layer: Layer,
+                 dict_file: Optional[Sequence[str]] = None):
+        self.machine = machine
+        self.beam_layer = beam_layer
+        self.vocab = list(dict_file) if dict_file else None
+
+    def generate(self, in_args: Any) -> List[List[int]]:
+        """The best beam's ids of every sample, up to and including EOS."""
+        batch = self.machine._ready(in_args)
+        with torch.inference_mode():
+            outs, _ = self.machine.network.apply(self.machine.params, batch,
+                                                 self.machine.states, train=False)
+        arg = outs[self.beam_layer.name]
+        ids = arg.value.cpu().numpy()
+        lens = arg.lengths.cpu().numpy()
+        return [list(map(int, ids[i, :lens[i]])) for i in range(len(ids))]
+
+    def generateText(self, in_args: Any) -> List[str]:
+        assert self.vocab is not None, "pass dict_file to decode text"
+        return [" ".join(self.vocab[t] for t in seq if t < len(self.vocab))
+                for seq in self.generate(in_args)]

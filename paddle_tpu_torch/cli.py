@@ -14,7 +14,8 @@ tests pass `cpu`; the v1 flags `--use_gpu=0` / `--use_tpu=0` mean `cpu`):
     python -m paddle_tpu_torch merge_model --config=conf.py --model_dir=DIR
         --output=FILE [--config_args=...]
     python -m paddle_tpu_torch serve [--device=cuda|cpu] [--port=N]
-        [--demo | --load=model.npz] [--max_slots=N] [--page_size=N]
+        [--demo | --load=model.npz] [--config=gen.conf --model_dir=DIR
+        --config_args=...] [--max_slots=N] [--page_size=N]
         [--prefill_buckets=16,32,64] [--prefill_chunk=C] [--speculate_k=K]
         [--prefix_cache] [--max_new_limit=N] [--max_queue=N]
         [--tenant_tokens=CAP] [--tenant_tokens_per_s=R] [--tenant_concurrent=N]
@@ -40,10 +41,13 @@ or a pass directory itself) into one .npz (`capi/merge_model.py`) and
 prints its path; `capi.create_for_inference(path)` serves it.
 
 `serve` prints `{"role": "serve", "address": [host, port]}` once listening
-and, on SIGTERM or SIGINT, `{"final_stats": {...}}` before it exits 0. Not
-ported yet: `--tp > 1` (TP serving, ROADMAP.md §1 item 8) and `--config` (a
-v1-config `GenerationSession`, item 5's next slice); both raise a named
-NotImplementedError. The router and fleet flags wait for item 7."""
+and, on SIGTERM or SIGINT, `{"final_stats": {...}}` (with a token engine)
+before it exits 0. `--config` serves a v1 generating config's
+`trainer/generation.GenerationSession` on the parameters of `--model_dir`
+(RPC method `generate_config`), beside `--demo` / `--load`'s token engine
+or alone. Not ported yet: `--tp > 1` (TP serving, ROADMAP.md §1 item 8)
+raises a named NotImplementedError. The router and fleet flags wait for
+item 7."""
 
 from __future__ import annotations
 
@@ -499,8 +503,8 @@ def _serve_args(p: argparse.ArgumentParser) -> None:
                    help="ServableLM .npz to serve (either package's format)")
     p.add_argument(
         "--config", default=None,
-        help="v1 config script served through a GenerationSession (not "
-             "ported yet: raises)",
+        help="v1 config script: serve whole-request generation through a "
+             "long-lived GenerationSession (RPC method generate_config)",
     )
     p.add_argument("--model_dir", default=None, help="params for --config")
     p.add_argument("--config_args", default="")
@@ -578,10 +582,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
     if args.tp and args.tp > 1:
         raise NotImplementedError(_NOT_PORTED.format(
             what="tensor-parallel serving (--tp > 1)", item="8, TP serving"))
-    if args.config:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="serving a v1 config (--config, generate_config)",
-            item="5, the v1 config pipeline and GenerationSession"))
     quotas = None
     if args.tenant_tokens_per_s > 0 and args.tenant_tokens <= 0:
         # a refill rate without a bucket capacity is a no-op; saying nothing
@@ -604,49 +604,62 @@ def cmd_serve(args: argparse.Namespace) -> int:
             tokens_per_s=args.tenant_tokens_per_s,
             max_concurrent=args.tenant_concurrent or None,
         )
-    if not (args.demo or args.load):
-        print("serve needs a model: --demo or --load=model.npz",
-              file=sys.stderr)
-        return 2
+    session = None
+    if args.demo or args.load:
+        from paddle_tpu_torch.serving.model import ServableLM
+        from paddle_tpu_torch.serving.session import ServingSession, make_demo_session
 
-    from paddle_tpu_torch.serving.model import ServableLM
-    from paddle_tpu_torch.serving.session import ServingSession, make_demo_session
-
-    buckets = tuple(
-        int(b) for b in args.prefill_buckets.split(",") if b.strip()
-    )
-    session_kw = dict(
-        max_slots=args.max_slots,
-        page_size=args.page_size,
-        num_pages=args.num_pages or None,
-        prefill_buckets=buckets,
-        prefill_chunk=args.prefill_chunk or None,
-        prefix_cache=args.prefix_cache,
-        prefix_cache_pages=args.prefix_cache_pages or None,
-        speculate_k=args.speculate_k,
-        default_temperature=args.temperature,
-        default_top_k=args.top_k,
-        max_new_limit=args.max_new_limit,
-        max_queue=args.max_queue,
-        quotas=quotas,
-        default_deadline_s=args.default_deadline_s or None,
-        default_ttft_deadline_s=args.default_ttft_deadline_s or None,
-        engine_restart_max=args.engine_restart_max,
-        engine_stall_timeout_s=args.engine_stall_timeout_s,
-    )
-    if args.load:
-        model = ServableLM.load(args.load, device=args.device)
-        session = ServingSession(model, device=args.device, **session_kw)
-    else:
-        session = make_demo_session(
-            vocab=args.vocab, n_layers=args.n_layers, d_model=args.d_model,
-            n_heads=args.n_heads, seed=args.seed,
-            max_len=args.max_len or None, device=args.device, **session_kw,
+        buckets = tuple(
+            int(b) for b in args.prefill_buckets.split(",") if b.strip()
         )
+        session_kw = dict(
+            max_slots=args.max_slots,
+            page_size=args.page_size,
+            num_pages=args.num_pages or None,
+            prefill_buckets=buckets,
+            prefill_chunk=args.prefill_chunk or None,
+            prefix_cache=args.prefix_cache,
+            prefix_cache_pages=args.prefix_cache_pages or None,
+            speculate_k=args.speculate_k,
+            default_temperature=args.temperature,
+            default_top_k=args.top_k,
+            max_new_limit=args.max_new_limit,
+            max_queue=args.max_queue,
+            quotas=quotas,
+            default_deadline_s=args.default_deadline_s or None,
+            default_ttft_deadline_s=args.default_ttft_deadline_s or None,
+            engine_restart_max=args.engine_restart_max,
+            engine_stall_timeout_s=args.engine_stall_timeout_s,
+        )
+        if args.load:
+            model = ServableLM.load(args.load, device=args.device)
+            session = ServingSession(model, device=args.device, **session_kw)
+        else:
+            session = make_demo_session(
+                vocab=args.vocab, n_layers=args.n_layers, d_model=args.d_model,
+                n_heads=args.n_heads, seed=args.seed,
+                max_len=args.max_len or None, device=args.device, **session_kw,
+            )
+
+    gen_session = None
+    if args.config:
+        from paddle_tpu_torch.config import parse_config
+        from paddle_tpu_torch.trainer.generation import GenerationSession
+
+        pc = parse_config(args.config, args.config_args, emit_proto=False)
+        gen_session = GenerationSession(
+            pc, model_dir=args.model_dir,
+            base_dir=os.path.dirname(os.path.abspath(args.config)), device=args.device)
+
+    if session is None and gen_session is None:
+        print("serve needs a model: --demo, --load=model.npz, or "
+              "--config=conf.py [--model_dir=DIR]", file=sys.stderr)
+        return 2
 
     stop_evt = threading.Event()
     server = ServingServer(
-        session, host=args.host, port=args.port, lease_s=args.lease_s,
+        session=session, gen_session=gen_session, host=args.host, port=args.port,
+        lease_s=args.lease_s,
         require_register=args.require_register,
     ).start()
     _signal.signal(_signal.SIGTERM, lambda *_: stop_evt.set())
@@ -655,7 +668,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
           flush=True)
     stop_evt.wait()
     server.stop()
-    print(json.dumps({"final_stats": session.stats()}), flush=True)
+    if session is not None:
+        print(json.dumps({"final_stats": session.stats()}), flush=True)
     return 0
 
 

@@ -276,6 +276,21 @@ def _parse_arg_str(config_arg_str: str) -> Dict[str, str]:
     return out
 
 
+def _generates(layer) -> bool:
+    """Whether `layer` is what `outputs('__beam_search_predict__')` names:
+    the reference's default name of the beam_search output, which the
+    port's generating node does not carry (it takes the user's group
+    name). A beam_search node counts, and so does an outer
+    recurrent_group whose step generates (the nested-generation idiom,
+    sample_trainer_nest_rnn_gen), whose output concatenates the inner
+    beams."""
+    if getattr(layer, "type_name", "") == "beam_search":
+        return True
+    core = getattr(layer, "_group_core", None)
+    return core is not None and any(
+        getattr(o, "type_name", "") == "beam_search" for o in core.out_layers)
+
+
 def parse_config(
     config: Union[str, Callable[[], Any]],
     config_arg_str: str = "",
@@ -309,6 +324,8 @@ def parse_config(
             by_name = {l.name: l for l in created}
             for n in ctx.pending_output_names:
                 node = by_name.get(n)
+                if node is None and n == "__beam_search_predict__":
+                    node = next((l for l in created if _generates(l)), None)
                 if node is not None and node not in ctx.outputs:
                     ctx.outputs.append(node)
         if not ctx.outputs:

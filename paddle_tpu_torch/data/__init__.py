@@ -1,7 +1,8 @@
 """Readers and the feeder of the port (counterpart of `paddle_tpu/data/`):
 the reader combinators (`reader.py`), `DataFeeder` with its input specs
-(`feeder.py`), the device prefetcher (`pipeline.py`) and the
-PyDataProvider2 surface (`provider.py`)."""
+(`feeder.py`), the device prefetcher (`pipeline.py`), the
+PyDataProvider2 surface (`provider.py`) and the ProtoData shards and
+providers (`proto_data.py`)."""
 
 from paddle_tpu_torch.data import reader as reader  # noqa: F401
 from paddle_tpu_torch.data.feeder import (  # noqa: F401

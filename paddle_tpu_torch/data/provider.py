@@ -341,14 +341,27 @@ def load_provider_module(name: str, config_dir: str = ""):
 
 def load_provider(dc):
     """DataConfig -> (provider, file_list, args): the PyDataProvider2 load
-    path (gserver/dataproviders/PyDataProvider2.cpp:195 loads module.obj).
-    The binary ProtoData providers (`type: proto*`) wait for item 5's next
-    slice."""
+    path (gserver/dataproviders/PyDataProvider2.cpp:195 loads module.obj),
+    or the builtin ProtoData provider of binary shards (`type: proto*`,
+    REGISTER_DATA_PROVIDER proto / proto_sequence,
+    ProtoDataProvider.cpp:31; `data/proto_data.py`)."""
     if (dc.type or "").startswith("proto"):
-        raise NotImplementedError(
-            "ProtoData providers (data/proto_data.py) are not ported to "
-            "paddle_tpu_torch yet (ROADMAP.md §1 item 5, the v1 config pipeline's "
-            "next slice)")
+        from paddle_tpu_torch.data.proto_data import make_proto_provider, resolve_data_path
+
+        # one provider per DataConfig: bind_provider_types and make_reader
+        # both land here, and the provider caches all decoded shards
+        provider = getattr(dc, "_builtin_provider", None)
+        if provider is None:
+            provider = make_proto_provider(dc)
+            dc._builtin_provider = provider
+        files: List[str] = []
+        flist = resolve_data_path(dc.files, dc.config_dir or "") or dc.files
+        if flist and os.path.exists(flist):
+            with open(flist) as f:
+                files = [ln.strip() for ln in f if ln.strip()]
+        elif flist:
+            files = [flist]
+        return provider, files, None
     mod = load_provider_module(dc.load_data_module, dc.config_dir)
     provider = getattr(mod, dc.load_data_object)
     files: List[str] = []

@@ -3,7 +3,9 @@ RecurrentGradientMachine.h:309 beamSearch).
 
 `expand_beams` is the one top-k + finished-beam EOS-masking step;
 `beam_search_scan` runs it for `max_len` steps as a plain loop (the JAX
-package's `lax.scan`), then orders the beams best first.
+package's `lax.scan`), then orders the beams best first. The carry is a
+tensor or a dict / list / tuple of them (the JAX engine's pytree); every
+leaf follows the chosen beams. The loop reads nothing back to the host.
 
 Ties decide ids: `lax.top_k` puts the lower index first among equal values,
 and a finished beam offers a whole row of equal `score - 1e9` candidates.
@@ -14,7 +16,7 @@ lower flat index first), and the final ordering is a stable argsort, as
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,27 +47,51 @@ def expand_beams(cand_logp: torch.Tensor, pre_scores: torch.Tensor,
     return top_scores, top_idx // v, (top_idx % v).to(torch.int32)
 
 
-def _gather_beams(x: torch.Tensor, idx: torch.Tensor, batch: int, k: int) -> torch.Tensor:
-    """Select beams: a [B*K, ...] (or [B, K, ...]) tensor reindexed by
+def _tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
+    """`jax.tree.map` over a tensor or a dict / list / tuple of them."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _first_leaf(tree: Any) -> Optional[torch.Tensor]:
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return next((leaf for leaf in map(_first_leaf, tree) if leaf is not None), None)
+    return tree
+
+
+def _gather_beams(tree: Any, idx: torch.Tensor, batch: int, k: int) -> Any:
+    """Select beams: every leaf [B*K, ...] (or [B, K, ...]) reindexed by
     idx [B, K']."""
-    flat = x.shape[0] == batch * k
-    xb = x.reshape((batch, k) + tuple(x.shape[1:])) if flat else x
-    sel = xb[torch.arange(batch, device=x.device)[:, None], idx]
-    return sel.reshape((batch * idx.shape[1],) + tuple(x.shape[1:])) if flat else sel
+    rows = torch.arange(batch, device=idx.device)[:, None]
+
+    def one(x: torch.Tensor) -> torch.Tensor:
+        flat = x.shape[0] == batch * k
+        xb = x.reshape((batch, k) + tuple(x.shape[1:])) if flat else x
+        sel = xb[rows, idx]
+        return sel.reshape((batch * idx.shape[1],) + tuple(x.shape[1:])) if flat else sel
+
+    return _tree_map(one, tree)
 
 
 def beam_search_scan(step_fn: Callable[[torch.Tensor, Any, int], Tuple[torch.Tensor, Any]],
-                     carry0: torch.Tensor, batch: int, vocab: int, bos_id: int,
+                     carry0: Any, batch: int, vocab: int, bos_id: int,
                      eos_id: int, beam_size: int, max_len: int,
-                     length_penalty: float = 0.0) -> BeamResult:
+                     length_penalty: float = 0.0,
+                     device: Optional[torch.device] = None) -> BeamResult:
     """Beam search for `max_len` steps.
 
     step_fn(tokens [B*K] int32, carry, t) -> (logp [B*K, V] f32 log-probs,
-    new carry); the carry is a [B*K, ...] tensor (already tiled across
-    beams). Beam 0 is the only live beam at t=0, so the first expansion is
-    not K duplicates. Finished beams emit EOS with zero score delta."""
+    new carry); the carry's leaves are [B*K, ...] tensors (already tiled
+    across beams). Beam 0 is the only live beam at t=0, so the first
+    expansion is not K duplicates. Finished beams emit EOS with zero score
+    delta. `device` defaults to the carry's (the first leaf's)."""
     k = beam_size
-    dev = carry0.device
+    dev = device if device is not None else _first_leaf(carry0).device
     tokens = torch.full((batch, k), bos_id, dtype=torch.int32, device=dev)
     scores = torch.tensor([0.0] + [NEG_INF] * (k - 1), dtype=torch.float32,
                           device=dev).repeat(batch, 1)

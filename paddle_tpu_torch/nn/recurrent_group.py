@@ -5,7 +5,7 @@ Parity with RecurrentGradientMachine (gserver/gradientmachines/
 RecurrentGradientMachine.h:32: a sub-network run once a time step, with
 memory links between steps) and the trainer_config_helpers surface
 (`recurrent_group`, `memory`, `StaticInput`, `SubsequenceInput`,
-`get_output_layer` — layers.py).
+`GeneratedInput`, `beam_search`, `get_output_layer` — layers.py).
 
 The user's `step` function is called ONCE, when the group is built, on
 placeholder nodes: what it returns is a static sub-graph (the step net).
@@ -24,9 +24,15 @@ A nested group (`SubsequenceInput`, a [B, S, T, ...] input with
 one subsequence as a level-1 sequence; an inner group in that step net is
 the inner loop.
 
-Generation over a step net (`GeneratedInput`, `beam_search`,
-`BeamSearchLayer`) is the next slice of ROADMAP.md §1 item 5: each raises
-a NotImplementedError that says so.
+Generation (`beam_search`, `BeamSearchLayer`) runs the same step net once
+a generated step over B*K rows, the batch's rows each tiled over the K
+beams: a `GeneratedInput` placeholder takes the embedding of the tokens
+chosen at the step before, the step's first output is the probability of
+the next token, and `nn/beam_core.beam_search_scan` keeps the K best
+beams, the memories following them. It runs eagerly, `max_length` steps,
+with no read back to the host inside the loop. An outer group whose step
+beam-searches (nested generation) stacks the generated lengths of each
+outer step into the output's `sub_lengths`.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import torch
 
 from paddle_tpu_torch.nn import init as init_mod
+from paddle_tpu_torch.nn.beam_core import beam_search_scan
 from paddle_tpu_torch.nn.graph import (
     Argument,
     Context,
@@ -47,14 +54,6 @@ from paddle_tpu_torch.nn.graph import (
     record_layers,
 )
 from paddle_tpu_torch.ops import sequence as seq_ops
-
-NEXT_SLICE = ("{what} is not ported to paddle_tpu_torch yet (ROADMAP.md §1 item 5, "
-              "the next slice: beam search and generation over a recurrent group)")
-
-
-def _generation_not_ported(what: str):
-    raise NotImplementedError(NEXT_SLICE.format(what=what))
-
 
 # ---------------------------------------------------------------------------
 # step-net placeholders
@@ -103,10 +102,15 @@ class StaticInput:
 
 
 class GeneratedInput:
-    """Generation-time input (layers.py GeneratedInput): the next slice."""
+    """Generation-time input: the embedding of the token generated at the
+    step before (layers.py GeneratedInput). The table is the parameter
+    `embedding_name`, so a model trained with an embedding_layer of that
+    name generates from its trained table."""
 
-    def __init__(self, *args, **kwargs):
-        _generation_not_ported("GeneratedInput (beam_search)")
+    def __init__(self, size: int, embedding_name: str, embedding_size: int):
+        self.size = size  # vocabulary size
+        self.embedding_name = embedding_name
+        self.embedding_size = embedding_size
 
 
 class SubsequenceInput:
@@ -204,6 +208,8 @@ class _GroupCore:
         self.seq_inputs: List[Layer] = []
         self.sub_seq_flags: List[bool] = []  # parallel to seq_inputs
         self.static_inputs: List[StaticInput] = []
+        self.generated: Optional[GeneratedInput] = None
+        self.gen_placeholder: Optional[_Placeholder] = None
 
         bctx = _BuildCtx()
         step_args: List[Any] = []
@@ -217,6 +223,11 @@ class _GroupCore:
                     ph._v1_size = getattr(item.input, "_v1_size", None)
                     ph.src_layer = item.input
                     self.static_inputs.append(item)
+                elif isinstance(item, GeneratedInput):
+                    ph = _Placeholder(None)
+                    ph.static = None
+                    self.generated = item
+                    self.gen_placeholder = ph
                 elif isinstance(item, (SubsequenceInput, Layer)):
                     src = item.input if isinstance(item, SubsequenceInput) else item
                     ph = _Placeholder(None)
@@ -493,8 +504,14 @@ class RecurrentGroup(Layer):
                            else Argument(tiled, outer_len))
             return outs
 
+        # a generating step (beam_search) computes the lengths of what it
+        # returns: those stack into the output's sub_lengths (the reference
+        # concatenates the generated inner results,
+        # RecurrentGradientMachine.cpp:536)
+        gen_outs = {l.name for l in core.out_layers if isinstance(l, BeamSearchLayer)}
         keys0 = set(ctx.state_updates)
         stacked: Dict[str, List[torch.Tensor]] = {n: [] for n in out_names}
+        gen_lengths: Dict[str, List[torch.Tensor]] = {n: [] for n in gen_outs}
         out_is_seq: Dict[str, bool] = {}
         for s in (range(s_max - 1, -1, -1) if core.reverse else range(s_max)):
             values = _eval_subnet(core.order, ctx, seeded_at(s))
@@ -505,6 +522,8 @@ class RecurrentGroup(Layer):
             for n in out_names:
                 out_is_seq[n] = values[n].is_seq
                 stacked[n].append(values[n].value)
+            for n in gen_outs:
+                gen_lengths[n].append(values[n].lengths)
         for k in list(ctx.state_updates):
             if k not in keys0:
                 del ctx.state_updates[k]
@@ -528,8 +547,15 @@ class RecurrentGroup(Layer):
             ys = torch.stack(ys, dim=1)
             # a sequence-valued step output (an inner group's unroll) stacks
             # to a nested [B, S, T, ...]; a flat one to a level-1 sequence
-            outs[n] = (Argument(ys, outer_len, dep_sub_lengths(n)) if out_is_seq[n]
-                       else Argument(ys, outer_len))
+            if not out_is_seq[n]:
+                outs[n] = Argument(ys, outer_len)
+                continue
+            if n in gen_outs:
+                ls = gen_lengths[n][::-1] if core.reverse else gen_lengths[n]
+                sub = torch.stack(ls, dim=1)
+            else:
+                sub = dep_sub_lengths(n)
+            outs[n] = Argument(ys, outer_len, sub)
         return outs
 
 
@@ -546,6 +572,8 @@ def recurrent_group(step: Callable, input: Union[Layer, StaticInput, Sequence],
     multi-output contract, `a, b = recurrent_group(...)`). Every step output
     is also reachable through get_output_layer."""
     core = _GroupCore(step, input, reverse=reverse)
+    if core.generated is not None:
+        raise ValueError("GeneratedInput is only valid under beam_search")
     node = RecurrentGroup(core, 0, name=name)
     node._group_core = core
     if core.multi_out:
@@ -571,14 +599,113 @@ def get_output_layer(group: Layer, out_name: str, name: Optional[str] = None) ->
     return node
 
 
+# ---------------------------------------------------------------------------
+# generation: beam search over a step net
+# ---------------------------------------------------------------------------
+
+
 class BeamSearchLayer(Layer):
-    """v1 beam_search() over a step net: the next slice."""
+    """v1 beam_search(): generate with the step net.
+
+    Output Argument: value [B, max_length] int32, the best beam's token
+    ids, lengths [B] (up to and including EOS). The run's cache holds every
+    beam under ("beam", name) (history [B, K, L], scores [B, K], lengths
+    [B, K], num_results, eos_id) for the sequence printer, and the scores
+    under (id(core), "beam_scores")."""
 
     type_name = "beam_search"
 
-    def __init__(self, *args, **kwargs):
-        _generation_not_ported("BeamSearchLayer (beam_search)")
+    def __init__(self, core: _GroupCore, bos_id: int, eos_id: int, beam_size: int,
+                 max_length: int, num_results_per_sample: int = 1,
+                 name: Optional[str] = None):
+        super().__init__(core.outer_inputs(), name=name)
+        self.core = core
+        self.bos_id = bos_id
+        self.eos_id = eos_id
+        self.beam_size = beam_size
+        self.max_length = max_length
+        self.num_results_per_sample = min(num_results_per_sample, beam_size)
+
+    def _embed(self, ctx: Context, tokens: torch.Tensor) -> torch.Tensor:
+        gen = self.core.generated
+        table = ctx.param(self, "emb", (gen.size, gen.embedding_size), init_mod.normal(0.01),
+                          ParamAttr(name=gen.embedding_name))
+        return table[tokens.long()]
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        core = self.core
+        if core.generated is None:
+            raise ValueError("beam_search step needs a GeneratedInput")
+        seq, static, boot_map = core.split_outer(ins)
+        if seq:
+            raise ValueError("beam_search inputs must be StaticInput/GeneratedInput only")
+        if static:
+            anchor = static[0].value
+        elif boot_map:
+            anchor = next(iter(boot_map.values())).value
+        else:
+            raise ValueError("beam_search needs a static or boot input for batch size")
+        batch, dev = anchor.shape[0], anchor.device
+        k, max_len = self.beam_size, self.max_length
+        carry0 = core.init_carry(ctx, batch, dev, boot_map)
+        gen_name = core.gen_placeholder.name
+
+        if ctx.mode == "init":
+            # one step from BOS creates every parameter of the step net
+            seeded: Dict[str, Argument] = {}
+            core.seed_static(seeded, static)
+            bos = torch.full((batch,), self.bos_id, dtype=torch.int32, device=dev)
+            seeded[gen_name] = Argument(self._embed(ctx, bos))
+            for m in core.memories:
+                seeded[m.name] = Argument(carry0[m.name])
+            _eval_subnet(core.order, ctx, seeded)
+            return Argument(torch.zeros((batch, max_len), dtype=torch.int32, device=dev),
+                            torch.ones((batch,), dtype=torch.int32, device=dev))
+
+        # static inputs and memories tiled over the beams: batch axis B*K
+        def tile(x: torch.Tensor) -> torch.Tensor:
+            return x.repeat_interleave(k, dim=0)
+
+        static_args: Dict[str, Argument] = {}
+        core.seed_static(static_args, static)
+        static_tiled = {n: Argument(tile(a.value), None if a.lengths is None else tile(a.lengths))
+                        for n, a in static_args.items()}
+        prob_layer = core.out_layers[0].name
+
+        def step_fn(tokens: torch.Tensor, carry: Dict[str, torch.Tensor], t: int):
+            seeded = dict(static_tiled)
+            seeded[gen_name] = Argument(self._embed(ctx, tokens))
+            for m in core.memories:
+                seeded[m.name] = Argument(carry[m.name])
+            values = _eval_subnet(core.order, ctx, seeded)
+            probs = values[prob_layer].value.float()
+            new_carry = {m.name: values[core.links[m.name].name].value for m in core.memories}
+            return torch.clamp_min(probs, 1e-20).log(), new_carry
+
+        keys0 = set(ctx.state_updates)
+        res = beam_search_scan(step_fn, {n: tile(v) for n, v in carry0.items()}, batch=batch,
+                               vocab=core.generated.size, bos_id=self.bos_id,
+                               eos_id=self.eos_id, beam_size=k, max_len=max_len, device=dev)
+        for key in list(ctx.state_updates):
+            if key not in keys0:
+                del ctx.state_updates[key]
+        # beams arrive sorted best first from the engine; the whole result
+        # stays for the printer (fillGenOutputs packs [len, ids..., -1] a
+        # beam and a probability matrix, RecurrentGradientMachine.cpp:
+        # 1301-1345; the arrays are kept instead)
+        ctx.cache[(id(core), "beam_scores")] = res.scores
+        ctx.cache[("beam", self.name)] = {
+            "history": res.history, "scores": res.scores, "lengths": res.lengths,
+            "num_results": self.num_results_per_sample, "eos_id": self.eos_id,
+        }
+        return Argument(res.history[:, 0], res.lengths[:, 0])
 
 
-def beam_search(*args, **kwargs) -> Layer:
-    _generation_not_ported("beam_search (recurrent_group generation)")
+def beam_search(step: Callable, input: Sequence, bos_id: int, eos_id: int,
+                beam_size: int = 4, max_length: int = 50, num_results_per_sample: int = 1,
+                name: Optional[str] = None, **_compat) -> Layer:
+    core = _GroupCore(step, input)
+    node = BeamSearchLayer(core, bos_id, eos_id, beam_size, max_length,
+                           num_results_per_sample=num_results_per_sample, name=name)
+    node._group_core = core
+    return node

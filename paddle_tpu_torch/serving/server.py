@@ -18,23 +18,30 @@ so either package's client talks to either package's server:
 
 Methods: register | heartbeat | deregister | submit | poll | poll_many |
 cancel | stream | generate (blocking submit+wait) | stats | metrics |
-trace_export. `generate_config` (a v1-config `GenerationSession` beside the
-token engine) waits for the v1 config pipeline (ROADMAP.md §1 item 5): it
-answers an RPC error naming that item.
+trace_export | generate_config. `generate_config` runs a whole batch
+through a v1 config's long-lived `trainer/generation.GenerationSession`
+(`serve --config`), beside the token engine or alone: the batch arrives as
+{slot: nested lists}, the sequence printers' text comes back inline.
 
-Threads: the handler threads parse, queue and read handles; they never touch
-the device. Only the session's engine thread does."""
+Threads: the handler threads parse, queue and read handles; the token
+engine's thread alone touches the device for the engine, and
+`generate_config` runs the generation session on its handler thread under
+one lock."""
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import socket
 import socketserver
+import tempfile
 import threading
 import time
 import uuid
 from typing import Any, Dict, Optional
+
+import numpy as np
 
 from paddle_tpu_torch.core import stats
 from paddle_tpu_torch.obs import metrics as obs_metrics
@@ -50,13 +57,6 @@ from paddle_tpu_torch.serving.scheduler import RequestHandle
 from paddle_tpu_torch.serving.session import SERVING_EVENTS, ServingSession
 
 log = logging.getLogger("paddle_tpu_torch.serving")
-
-GENERATE_CONFIG_NOT_PORTED = (
-    "generate_config is not ported to paddle_tpu_torch yet: it serves a "
-    "v1-config GenerationSession, which waits for the v1 config pipeline "
-    "(ROADMAP.md §1 item 5)"
-)
-
 
 def encode_frame(obj: Any, framed: bool = False) -> bytes:
     """Wire encoding for ONE push-stream frame — the single stream-encode
@@ -268,22 +268,28 @@ class _Handler(socketserver.StreamRequestHandler):
 
 
 class ServingServer:
-    """Threaded TCP wrapper around a ServingSession. start()/stop(); port 0
-    picks a free port. `start()` starts the session's supervised engine
+    """Threaded TCP wrapper around a ServingSession and/or a config-driven
+    GenerationSession (`gen_session`). start()/stop(); port 0 picks a free
+    port. `start()` starts the session's supervised engine
     (`serve_forever`) unless it already runs."""
 
     def __init__(
         self,
-        session: ServingSession,
+        session: Optional[ServingSession] = None,
+        gen_session=None,  # trainer.generation.GenerationSession
         host: str = "127.0.0.1",
         port: int = 0,
         lease_s: float = 30.0,
         require_register: bool = False,
         handle_ttl_s: float = 600.0,
     ):
-        if session is None:
-            raise ValueError("need a ServingSession")
+        if session is None and gen_session is None:
+            raise ValueError("need a ServingSession and/or a GenerationSession")
         self.session = session
+        self.gen_session = gen_session
+        # the generation session writes its printers' result files: one
+        # request at a time
+        self._gen_lock = threading.Lock()
         self.membership = _Membership(lease_s)
         self.require_register = require_register
         # ids THIS server minted via register: require_register must check
@@ -341,7 +347,7 @@ class ServingServer:
                 self._forget_tenant(tenant_id)
             return {"ok": bool(tenant_id)}
         if method == "stats":
-            out = dict(self.session.stats())
+            out = dict(self.session.stats()) if self.session else {}
             out["live_tenants"] = self.membership.live
             out["evicted_tenants"] = self.membership.evicted
             out["stream_frames_pushed"] = self.stream_frames
@@ -354,6 +360,11 @@ class ServingServer:
         if method == "trace_export":
             return {"chrome_trace": obs_trace.export_chrome()}
         if method in ("submit", "generate"):
+            if self.session is None:
+                return {
+                    "err": "no token engine on this server (started with "
+                    "--config only); use generate_config"
+                }
             tenant = self._tenant_for(tenant_id)
             # idempotency keys are scoped PER TENANT: two tenants using the
             # same key must not alias (that would hand one tenant the other's
@@ -498,7 +509,7 @@ class ServingServer:
                     })
             return {"results": out}
         if method == "generate_config":
-            return {"err": GENERATE_CONFIG_NOT_PORTED}
+            return self._generate_config(req)
         return {"err": f"unknown method {method!r}"}
 
     def _tenant_for(self, tenant_id: Optional[str]) -> str:
@@ -522,7 +533,7 @@ class ServingServer:
         self.membership.drop(tid)
         with self._minted_lock:
             self._minted.discard(tid)
-        return self.session.cancel_tenant(tid)
+        return self.session.cancel_tenant(tid) if self.session else 0
 
     @staticmethod
     def _completion(handle: RequestHandle) -> dict:
@@ -538,6 +549,9 @@ class ServingServer:
         """Pusher-thread wait for the next engine step boundary (delegates
         to the session's step-sequence condition; the timeout doubles as
         the liveness tick for cancellations that finish without a step)."""
+        if self.session is None:
+            self._stop_evt.wait(timeout)
+            return seq
         return self.session.stream_wait(seq, timeout)
 
     @staticmethod
@@ -562,6 +576,33 @@ class ServingServer:
     def note_stream(self, delta: int) -> None:
         with self._stream_lock:
             self.stream_active += delta
+
+    def _generate_config(self, req: dict) -> dict:
+        """Whole-request generation on the long-lived GenerationSession
+        (built and loaded once, on its first request). The batch arrives as
+        {name: nested lists}; the printers' text returns inline as
+        {evaluator: text}."""
+        if self.gen_session is None:
+            return {"err": "no --config generation session on this server"}
+        batch = {k: np.asarray(v) for k, v in req["batch"].items()}
+        fd, dest = tempfile.mkstemp(suffix=".gen.txt")
+        os.close(fd)
+        written: Dict[str, str] = {}
+        try:
+            with self._gen_lock:
+                written = self.gen_session.generate(batch, result_file=dest)
+            out = {}
+            for name, path in written.items():
+                with open(path) as f:
+                    out[name] = f.read()
+            return {"files": out}
+        finally:
+            # a config with several printers fans out to files beside `dest`
+            for path in {dest, *written.values()}:
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
 
     # -- lifecycle ----------------------------------------------------------
     def _reap_loop(self) -> None:
@@ -595,7 +636,7 @@ class ServingServer:
                 log.info("GC'd %d unpolled finished request handle(s)", len(stale))
 
     def start(self) -> "ServingServer":
-        if self.session._thread is None:
+        if self.session is not None and self.session._thread is None:
             self.session.serve_forever()
         self._thread = threading.Thread(
             target=self._srv.serve_forever, daemon=True
@@ -614,7 +655,8 @@ class ServingServer:
         self._srv.server_close()
         if self._reaper is not None:
             self._reaper.join(timeout=5.0)
-        self.session.stop()
+        if self.session is not None:
+            self.session.stop()
 
 
 class Rejected(RuntimeError):
@@ -975,6 +1017,17 @@ class ServingClient:
 
     def stats(self) -> dict:
         return self._client.call("stats", **self._id_kw())
+
+    def generate_config(self, batch: Dict[str, Any]) -> Dict[str, str]:
+        """A whole batch through the server's `--config` generation session
+        -> {evaluator name: the text its printer wrote}. The batch's arrays
+        travel as nested lists."""
+        resp = self._client.call(
+            "generate_config", batch={k: np.asarray(v).tolist() for k, v in batch.items()},
+            **self._id_kw())
+        if "err" in resp:
+            raise Rejected(resp["err"])
+        return resp["files"]
 
     def metrics(self) -> str:
         """The server's Prometheus metrics text (the `metrics` RPC)."""

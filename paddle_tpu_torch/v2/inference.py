@@ -60,7 +60,9 @@ class Inference:
         chunks: List[List[np.ndarray]] = []
         for i in range(0, len(samples), batch_size):
             vals = self.forward(feeder(samples[i:i + batch_size]))
-            chunks.append([v.float().cpu().numpy() for v in vals])
+            # ids (a beam_search output) stay int32, as the JAX package's do
+            chunks.append([(v.float() if v.is_floating_point() else v).cpu().numpy()
+                           for v in vals])
         per_output = [_concat_chunks([c[j] for c in chunks])
                       for j in range(len(self.output_names))]
         results = []

@@ -723,8 +723,7 @@ def _with_drop(node: Layer, layer_attr) -> Layer:
     return node
 
 
-# -- recurrent groups (RecurrentGradientMachine parity) --------------------
-# generation (GeneratedInput, beam_search) raises the next slice's error
+# -- recurrent groups (RecurrentGradientMachine parity) and generation ------
 
 from paddle_tpu_torch.nn.recurrent_group import (  # noqa: E402
     GeneratedInput,
@@ -737,8 +736,23 @@ from paddle_tpu_torch.nn.recurrent_group import (  # noqa: E402
     recurrent_group,
 )
 
+
+
+def gru_step(input, output_mem, size=None, act=None, gate_act=None, name=None,
+             bias_attr=None, param_attr=None, layer_attr=None):
+    """paddle.v2's gru_step (v1 gru_step_layer, layers.py): one GRU step
+    inside a group, the decoder of the v2 book's machine translation. The
+    JAX package's v2 layer module has no such name; its configs call
+    `config.v1_layers.gru_step_layer`, this same layer."""
+    from paddle_tpu_torch.config.v1_layers import gru_step_layer
+
+    return gru_step_layer(input, output_mem, size=size, act=act, gate_act=gate_act,
+                          bias_attr=bias_attr, param_attr=param_attr, name=name,
+                          layer_attr=layer_attr)
+
+
 __all__ += [
     "recurrent_group", "memory", "StaticInput", "GeneratedInput",
     "SubsequenceInput", "SubSequenceInput",
-    "beam_search", "get_output_layer",
+    "beam_search", "get_output_layer", "gru_step",
 ]

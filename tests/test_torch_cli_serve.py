@@ -5,8 +5,9 @@
     gives in process;
   * SIGTERM ends it with exit code 0 after a `{"final_stats": ...}` line;
   * the two quota-flag warnings of the reference CLI;
-  * `--tp 2` and `--config` raise NotImplementedError naming ROADMAP.md's
-    items.
+  * `--tp 2` raises NotImplementedError naming ROADMAP.md's item, with or
+    without `--config` (serving a v1 config is ported:
+    tests/test_torch_generation_serving.py).
 
 Each subprocess serves on 127.0.0.1 port 0 and is killed if a test fails."""
 
@@ -86,7 +87,7 @@ def test_cli_serve_quota_flag_warnings(flags, warning):
 
 @pytest.mark.parametrize("argv,item", [
     (["--tp", "2"], "§1 item 8"),
-    (["--config", "conf.py"], "§1 item 5"),
+    (["--config", "conf.py", "--tp", "2"], "§1 item 8"),
 ])
 def test_cli_serve_unported_flags_raise_named(argv, item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as ei:

@@ -423,7 +423,7 @@ def test_record_layers_keeps_layers_no_output_reaches(tmp_path):
 
 @pytest.mark.parametrize("src,item", [
     ("cos_sim(a=x, b=x)", "6"),
-    ("beam_search(step=None, input=[], bos_id=0, eos_id=1)", "5, the next slice"),
+    ("conv_shift_layer(a=x, b=x)", "6"),
     ("img_pool3d_layer(input=x, pool_size=1)", "6"),
     ("img_conv3d_layer(input=x, filter_size=1, num_filters=1)", "6"),
     ("priorbox_layer(input=x, image_size=8, min_size=2)", "6"),

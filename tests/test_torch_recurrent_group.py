@@ -19,8 +19,9 @@ the JAX package's, on the CPU.
     parse to the JAX package's `dump_config` text (the demo's but for the
     repaired cost's `from_logits`); the decoder group's and the raw
     network's outputs and gradients agree.
-  * Generation (`beam_search`, `GeneratedInput`) raises the next slice's
-    named error.
+  * Generation's helpers (`beam_search`, `GeneratedInput`) build under
+    the v2 names (their numbers: tests/test_torch_generation.py), and
+    `memory` outside a group raises.
   * On a card (marked `cuda`, skipped here): the seqToseq network trains as
     one step graph (the group loops captured, no recurrent kernel) and its
     costs agree with the CPU's.
@@ -515,12 +516,25 @@ def test_raw_api_recurrent_layer_group_config(tmp_path):
 
 
 def test_generation_raises_the_next_slices_error():
+    """Generation was the next slice and is ported: GeneratedInput and
+    beam_search build a generating node; a beam_search without a
+    GeneratedInput fails when it runs, and memory outside a group raises."""
     vl, dt, graph = _modules("torch")
     graph.reset_name_scope()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5, the next slice"):
-        vl.GeneratedInput(size=6, embedding_name="emb", embedding_size=4)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5, the next slice"):
-        vl.beam_search(lambda x: x, input=[], bos_id=0, eos_id=1)
+    gen_in = vl.GeneratedInput(size=6, embedding_name="emb", embedding_size=4)
+    enc = vl.data(name="enc", type=dt.dense_vector_sequence(4))
+    node = vl.beam_search(lambda e, w: vl.fc(input=[vl.pool(input=e), w], size=6,
+                                             act="softmax"),
+                          input=[vl.StaticInput(enc, is_seq=True), gen_in],
+                          bos_id=0, eos_id=1, beam_size=2, max_length=3)
+    assert node.type_name == "beam_search" and node.core.generated is gen_in
+    batch = _seq(b=2, t=3, d=4, lengths=(3, 2), name="enc")
+    out = graph.Network([node]).init(batch, device="cpu")
+    assert "emb" in out
+    bad = vl.beam_search(lambda e: vl.fc(input=vl.pool(input=e), size=6, act="softmax"),
+                         input=[vl.StaticInput(enc, is_seq=True)], bos_id=0, eos_id=1)
+    with pytest.raises(ValueError, match="needs a GeneratedInput"):
+        graph.Network([bad]).init(batch, device="cpu")
     with pytest.raises(RuntimeError, match="inside a recurrent_group"):
         vl.memory(name="m", size=3)
 

@@ -16,7 +16,15 @@ rejected or differed on, each against the JAX package on the CPU.
     the defaults take the step loop (the kernels compute sigmoid and tanh
     only). Same tolerances.
   * The "not ported" messages name ROADMAP.md's items by their numbers
-    there (§1 item 5, the v1 config pipeline; item 8, TP serving).
+    there (§1 item 5, the v1 config pipeline; item 8, TP serving); none
+    says "the next slice" since generation was ported, and every entry
+    point that said so runs: `GeneratedInput`, `beam_search`,
+    `api.SequenceGenerator`, `serve --config`, `generate_config`,
+    `trainer/generation.py` and the ProtoData providers.
+  * `outputs('__beam_search_predict__')` (the reference's default name of
+    the beam_search output) resolves to the config's beam_search node, or
+    to an outer group whose step generates, as in the JAX package; with no
+    such node, and no other output, both parses fail with ValueError.
   * `SGDTrainer.train(log_period=N)` (the JAX trainer's argument, which
     the port rejected): the same "pass P batch B cost=" marks as the JAX
     trainer, per step and per K-step dispatch, each read from a copy
@@ -226,19 +234,141 @@ def _roadmap_item(n: int) -> str:
 
 def test_not_ported_messages_name_the_roadmap_items():
     from paddle_tpu_torch import cli
-    from paddle_tpu_torch.serving import server
+    from paddle_tpu_torch.v2 import layer as tvl
 
     assert "v1 config pipeline" in _roadmap_item(5)
     assert "TP serving" in _roadmap_item(8)
-    assert "§1 item 5" in server.GENERATE_CONFIG_NOT_PORTED
-    assert "beam search" not in server.GENERATE_CONFIG_NOT_PORTED
     serve = ["serve", "--device", "cpu", "--demo"]
-    for argv, item in ((["--tp", "2"], "§1 item 8"), (["--config", "c.py"], "§1 item 5")):
-        with pytest.raises(NotImplementedError, match=item):
+    for argv in (["--tp", "2"], ["--tp", "2", "--config", "c.py"]):
+        with pytest.raises(NotImplementedError, match="§1 item 8"):
             cli.main(serve + argv)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 6"):
+        tvl.cos_sim(a=None, b=None)
     stale = re.compile(r"queue 1|item 3\.3|item 6, TP|pipeline of item 7")
     for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
         assert not stale.search(path.read_text()), path
+
+
+def test_named_errors_left_name_their_item_not_the_next_slice():
+    """What is still to port after generation names ROADMAP.md §1 item 5's
+    last part (datasets, image helpers) or item 6 / 7 / 8; no file of the
+    port says "the next slice"."""
+    import paddle_tpu_torch.v2 as tpaddle
+
+    for name in ("dataset", "image"):
+        with pytest.raises(NotImplementedError, match=r"item 5, its last part") as ei:
+            getattr(tpaddle, name)
+        assert "next slice" not in str(ei.value)
+    for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
+        assert "next slice" not in path.read_text(), path
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    section = roadmap[roadmap.index("5. **The v1 config pipeline"):roadmap.index("6. **")]
+    for left in ("fluid/*", "trainer/multi_network.py", "utils/*", "data/datasets/*",
+                 "ctypes"):
+        assert left in section, left
+
+
+def test_entry_points_that_were_the_next_slice_run(tmp_path):
+    """Each entry point that raised "the next slice" before generation was
+    ported now builds and runs on the CPU (their numbers against the JAX
+    package: tests/test_torch_generation*.py, test_torch_proto_data.py)."""
+    from paddle_tpu_torch import api
+    from paddle_tpu_torch.data import proto_data
+    from paddle_tpu_torch.data.provider import load_provider
+    from paddle_tpu_torch.proto import DataConfig
+    from paddle_tpu_torch.serving import ServingClient, ServingServer
+    from paddle_tpu_torch.trainer.generation import GenerationSession
+    from paddle_tpu_torch.v2 import data_type as tdt
+    from paddle_tpu_torch.v2 import layer as tvl
+
+    tgraph.reset_name_scope()
+    enc = tvl.data(name="enc", type=tdt.dense_vector_sequence(4))
+    gen = tvl.beam_search(
+        lambda e, w: tvl.fc(input=[tvl.pool(input=e), w], size=5, act="softmax"),
+        input=[tvl.StaticInput(enc, is_seq=True),
+               tvl.GeneratedInput(size=5, embedding_name="emb", embedding_size=3)],
+        bos_id=0, eos_id=1, beam_size=2, max_length=4, name="gen")
+    batch = {"enc": np.ones((2, 3, 4), np.float32), "enc.lengths": np.asarray([3, 1], np.int32)}
+    gm = api.GradientMachine([gen], device="cpu")
+    seqs = api.SequenceGenerator(gm, gen).generate(batch)
+    assert len(seqs) == 2 and all(1 <= len(s) <= 4 for s in seqs)
+
+    class Parsed:  # what GenerationSession reads of a parsed config
+        outputs = [gen]
+
+        class context:
+            evaluators = []
+
+    sess = GenerationSession(Parsed, device="cpu")
+    assert sess.generate(batch) == {} and sess.built
+    srv = ServingServer(gen_session=sess, port=0).start()
+    try:
+        c = ServingClient(srv.address)
+        assert c.generate_config(batch) == {}
+        c.close()
+    finally:
+        srv.stop()
+
+    shard = str(tmp_path / "s.bin")
+    proto_data.write_shard(shard, [proto_data.SlotDef(proto_data.INDEX, 3)],
+                           [proto_data.DataSample(id_slots=[i % 3]) for i in range(5)])
+    (tmp_path / "s.list").write_text(shard + "\n")
+    dc = DataConfig(type="proto", files="s.list", config_dir=str(tmp_path))
+    prov, files, _ = load_provider(dc)
+    assert files == [shard] and load_provider(dc)[0] is prov
+    assert [s for s in prov(file_list=files, is_train=False)] == [(i % 3,) for i in range(5)]
+
+
+def test_beam_search_predict_resolves_as_in_jax(tmp_path):
+    """`Outputs('__beam_search_predict__')`: the beam_search node, or the
+    outer group of a nested generation; without one, and no other output,
+    both packages' parses raise ValueError."""
+    import textwrap
+
+    from paddle_tpu.config import parse_config as jparse
+
+    from paddle_tpu_torch.config import parse_config as tparse
+
+    head = """
+        from paddle.trainer_config_helpers import *
+        enc = data_layer(name="enc", size=4)
+        """
+    gen = """
+        def step(e, w):
+            return fc_layer(input=[pooling_layer(input=e), w], size=5,
+                            act=SoftmaxActivation())
+        beam_search(step=step, input=[StaticInput(enc, is_seq=True),
+                    GeneratedInput(size=5, embedding_name="emb", embedding_size=3)],
+                    bos_id=0, eos_id=1, beam_size=2, max_length=4, name="gen")
+        """
+    nested = """
+        def outer(xs):
+            def step(e, w):
+                return fc_layer(input=[pooling_layer(input=e), w], size=5,
+                                act=SoftmaxActivation())
+            return beam_search(step=step, input=[StaticInput(xs, is_seq=True),
+                               GeneratedInput(size=5, embedding_name="emb",
+                                              embedding_size=3)],
+                               bos_id=0, eos_id=1, beam_size=2, max_length=4, name="gen")
+        recurrent_group(step=outer, input=SubsequenceInput(enc), name="outer_gen")
+        """
+    plain = """
+        fc_layer(input=enc, size=3, name="other")
+        """
+    tail = """
+        Outputs("__beam_search_predict__")
+        """
+    for body, want in ((gen, "gen"), (nested, "outer_gen"), (plain, None)):
+        path = tmp_path / "conf.py"
+        path.write_text(textwrap.dedent(head) + textwrap.dedent(body) + textwrap.dedent(tail))
+        if want is None:
+            for parse in (jparse, tparse):
+                with pytest.raises(ValueError, match="declared no outputs"):
+                    parse(str(path), emit_proto=False)
+            continue
+        names = [[l.name for l in parse(str(path), emit_proto=False).outputs]
+                 for parse in (jparse, tparse)]
+        assert names == [[want], [want]]
 
 
 def test_cost_sees_the_softmax_through_a_group_and_an_error_clip(tmp_path):

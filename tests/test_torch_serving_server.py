@@ -7,7 +7,8 @@ packages.
   * quotas — rejections reach the client as `Rejected` naming the reason;
   * streaming — push frames carry deltas from the client's cursor, a
     reattach resumes mid-request, delta polls reassemble the full list;
-  * `generate_config` answers its named not-ported error;
+  * `generate_config` on a server without a generation session answers
+    a named error (its generation: tests/test_torch_generation_serving.py);
   * the wire both ways — the JAX package's `ServingClient` gets from the
     port's `ServingServer` the greedy tokens the JAX server gives it, and
     the port's client gets them from the JAX server, on the framed and the
@@ -292,8 +293,9 @@ def test_generate_config_answers_named_error(port_server):
     c = ServingClient(port_server.address)
     try:
         resp = c._client.call("generate_config", batch={})
-        assert "generate_config is not ported" in resp["err"]
-        assert "ROADMAP.md" in resp["err"] and "§1 item 5" in resp["err"]
+        assert resp == {"err": "no --config generation session on this server"}
+        with pytest.raises(Rejected, match="no --config generation session"):
+            c.generate_config({})
         assert "unknown method" in c._client.call("outstanding")["err"]
     finally:
         c.close()

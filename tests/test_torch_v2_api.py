@@ -13,8 +13,9 @@ event,inference,plot,minibatch}.py`, `v2.init`) and the py_paddle surface
     values, and load into each other bitwise.
   * Twins of tests/test_v2_api.py:28 (train / test / infer round trip,
     on a numpy reader for mnist), :63 (tar round trip) and :150 (the
-    GradientMachine / Arguments shapes; SequenceGenerator raises the next
-    slice's error), with the JAX package's numbers where they exist:
+    GradientMachine / Arguments shapes; SequenceGenerator builds, its
+    numbers in tests/test_torch_generation_serving.py), with the JAX
+    package's numbers where they exist:
     `forwardBackward`'s cost and gradients within 1e-5.
   * `trainer_count > 1` and `paddle.dataset` raise named errors; `plot`
     and `minibatch.batch` work.
@@ -231,9 +232,10 @@ def test_save_parameter_to_tar_and_warm_start(tmp_path):
 
 
 def test_swig_api_shapes_match_jax():
-    """Twin of tests/test_v2_api.py:150 (generation is the next slice):
-    forward, forwardBackward and getLayerOutput on the JAX parameters give
-    the JAX package's numbers."""
+    """Twin of tests/test_v2_api.py:150: forward, forwardBackward and
+    getLayerOutput on the JAX parameters give the JAX package's numbers;
+    a SequenceGenerator wraps the machine (its generation is held to the
+    JAX package's in tests/test_torch_generation_serving.py)."""
     from paddle_tpu.api import Arguments as JArguments
     from paddle_tpu.api import GradientMachine as JGradientMachine
     from paddle_tpu.nn.graph import reset_name_scope
@@ -286,8 +288,8 @@ def test_swig_api_shapes_match_jax():
     b = a2.as_batch()
     assert b["s"].shape == (2, 3, 2)
     np.testing.assert_array_equal(b["s.lengths"], [2, 3])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5, the next slice"):
-        api.SequenceGenerator(gm, None)
+    sg = api.SequenceGenerator(gm, gm.network.outputs[1], dict_file=["a", "b", "c"])
+    assert sg.machine is gm and sg.vocab == ["a", "b", "c"]
 
 
 def test_named_errors_plot_and_minibatch(tmp_path):
