@@ -64,7 +64,10 @@ Phases (any failure exits non-zero and prints no result line):
                graph's device time by CUDA events) and under torch.profiler
                (busy time and share, kernels and the top kernels a step). A
                small model's greedy tokens on the card must equal its
-               tokens on the CPU.
+               tokens on the CPU. Then one sampled request on the session
+               (temperature 0.8, top_k 40, seed 2^31 + 7): its tokens equal
+               a CPU engine's for the same request (jax's threefry noise)
+               and differ from the greedy ones.
  4b. wire    — the port's ServingServer on 127.0.0.1 port 0 over a
                serve_forever session of phase 4's configuration: phase 4's
                8 prompts through a framed ServingClient give phase 4's
@@ -82,6 +85,8 @@ Phases (any failure exits non-zero and prints no result line):
                request completes with phase 4's tokens exactly, one
                restart, the graph captured twice (the re-capture after
                recovery), no page leak.
+ 4e. layer_error — a width-5 batch into an Fc made for 8, on the card:
+               LayerError naming the layer and its layer stack.
   5. train   — seq2seq NMT training at the reference's headline widths
                (bench.py:211-245: vocab 30000, embed = hidden = 512, batch
                128, lengths 50; random weights from seed 0): SGDTrainer +
@@ -360,7 +365,32 @@ Phases (any failure exits non-zero and prints no result line):
                falls; --job=time (ms a step, tokens/s); --job=test from its
                pass-00001 on this config and on phase 21's PyDataProvider2
                config: the same per-batch costs within 1e-6 relative.
- 30. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 30. book_nmt — the paddle.v2 book's machine translation chapter,
+               unchanged, through paddle.dataset.wmt14 (synthetic records:
+               nothing cached, nothing fetched): train(30000) ->
+               reader.shuffle(8192) -> batch(128) -> trainer.SGD with
+               Adam(5e-5) over 8 batches of phase 28's network at vocab
+               30000 / 512 (GRU counters from 0: 2 + 2 a step and the
+               init's forward; every step after a signature's first a
+               replay); the first 2 batches' costs card vs CPU from the
+               same parameters; layer.beam_search (beam 3, max_length 50)
+               through infer over 128 sources of wmt14.test(30000), 2 GRU
+               forwards a chunk, every id a word of wmt14.get_dict(30000);
+               ms a step, target tokens/s, graphs, infer ms per 128, peak
+               memory.
+ 31. book    — the book's six other chapters, unchanged, each through its
+               reader over 8 batches (the first 2 also on the CPU from the
+               same parameters): fit_a_line (uci_housing),
+               recognize_digits (mnist, two conv-pools of 20 and 50),
+               image_classification (cifar.train10, vgg_bn_drop),
+               word2vec (imikolov, 5-grams, emb 32 shared, hidden 256),
+               understand_sentiment (imdb, stacked_lstm_net 128 / 512 / 3,
+               ModelAverage) and label_semantic_roles (conll05.test(),
+               db_lstm depth 8, hidden 512, batch 32, crf + crf_decoding,
+               ModelAverage): finite costs, the first 2 batches' costs
+               card vs CPU, SRL's decoded ids inside the label
+               dictionary; ms a step each, and whether the cost fell.
+ 32. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -398,6 +428,8 @@ _PEAKS = (
 GPT2_SMALL = dict(vocab=50257, n_layers=12, d_model=768, n_heads=12)
 PROMPT_LENS = (16, 40, 100, 128, 200, 350, 500, 700)
 NEW_TOKENS = 32
+# phase 4's sampled request: a seed past 2^31 (seeds are uint32 per request)
+SAMPLED = dict(temperature=0.8, top_k=40, seed=2**31 + 7)
 KERNEL_TOL = 1e-4
 LOGITS_TOL = 1e-3
 GRAPH_RTOL = 1e-5
@@ -572,6 +604,26 @@ V2_GEN = dict(vocab=30000, size=512, batch=128, batches=4, length=50, beam=3,
 V1_PROTO = dict(vocab=30000, size=512, batch=128, batches=8, test_batches=2, passes=2,
                 min_len=30, max_len=50)
 PROTO_RTOL = 1e-6
+# the paddle.v2 book's machine translation chapter through wmt14: vocab
+# 30000, 512, batch 128, 8 batches (the first BOOK_CPU_STEPS also on the
+# CPU from the same parameters); beam 3, max_length 50 over 128 test sources
+BOOK_NMT = dict(vocab=30000, size=512, batch=128, batches=8, beam=3, max_length=50,
+                infer=128)
+BOOK_CPU_STEPS = 2
+# the book's six other chapters at its widths, 8 batches each (batch 128;
+# SRL 32 over conll05.test()'s 512 records), ModelAverage where the book
+# passes it
+BOOK_BATCHES = 8
+BOOK = dict(
+    fit_a_line=dict(batch=128),
+    recognize_digits=dict(batch=128, filters=(20, 50)),
+    image_classification=dict(batch=128, fc=512,
+                              stages=((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))),
+    word2vec=dict(batch=128, emb=32, hidden=256),
+    understand_sentiment=dict(batch=128, emb=128, hidden=512, stacked=3, average=True),
+    label_semantic_roles=dict(batch=32, word_dim=32, mark_dim=5, hidden=512, depth=8,
+                              average=True),
+)
 
 
 def fail(msg: str) -> None:
@@ -1551,12 +1603,38 @@ def serve_phase(torch):
     print("serve", json.dumps(result), flush=True)
     if not err <= LOGITS_TOL:
         fail(f"first decode step logits differ from the CPU path by {err}")
+    result["sampled"] = sampled_request_phase(torch, sess, prompts[0], handles[0].tokens)
     result["graph_vs_eager"] = graph_vs_eager_phase(torch, sess)
     result["decode_profile"] = profile_decode(torch, sess, prompts)
     result["tokens"] = [h.tokens for h in handles]
     result["prompts"] = prompts
     del sess, model, cpu_model, first, kp, vp, ref
     release(torch)
+    return result
+
+
+def sampled_request_phase(torch, sess, prompt, greedy):
+    """One sampled request (SAMPLED) on phase 4's session after its greedy
+    ones: its tokens on the card equal a CPU engine's for the same request
+    (the same seeded weights; the noise is jax's threefry bits, the same on
+    every device) and differ from the prompt's greedy tokens."""
+    from paddle_tpu_torch.serving import make_demo_session
+
+    t0 = time.perf_counter()
+    h = sess.submit(prompt, NEW_TOKENS, **SAMPLED)
+    sess.run_until_idle()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    cpu = make_demo_session(**SERVE, device="cpu")
+    ch = cpu.submit(prompt, NEW_TOKENS, **SAMPLED)
+    cpu.run_until_idle()
+    result = dict(request=SAMPLED, tokens=h.tokens, cpu_tokens=ch.tokens, card_ms=card_ms,
+                  equal=h.tokens == ch.tokens, greedy_differs=h.tokens != greedy)
+    print("sampled", json.dumps(result), flush=True)
+    del cpu
+    if not h.done or h.tokens != ch.tokens:
+        fail(f"sampled request: card tokens {h.tokens} vs CPU {ch.tokens}")
+    if h.tokens == greedy:
+        fail("sampled request: tokens equal the greedy ones")
     return result
 
 
@@ -4776,6 +4854,532 @@ def v2_gen_phase(torch):
     return result
 
 
+# -- the paddle.v2 book's chapters (phases 30-31) ------------------------------
+# Each builds its network with the `paddle` module it is given (the port's
+# paddle_tpu_torch.v2, or the JAX package's in the CPU tests) and returns
+# what its train.py hands trainer.SGD: the cost, the extra layers, the
+# feeding, the update equation and the reader creator. Where the JAX
+# package names a v2 call differently from the book, the chapter uses the
+# JAX package's name (layer.pool, attr.ExtraAttr, optimizer.ModelAverageCfg,
+# data_type.dense_array for the image chapters' flat records, which the
+# feeder reshapes to NHWC).
+
+
+def book_fit_a_line(paddle, cfg):
+    """01.fit_a_line: uci_housing, fc 13 -> 1, square_error_cost."""
+    x = paddle.layer.data(name="x", type=paddle.data_type.dense_vector(13))
+    y_predict = paddle.layer.fc(input=x, size=1, act=paddle.activation.Linear())
+    y = paddle.layer.data(name="y", type=paddle.data_type.dense_vector(1))
+    cost = paddle.layer.square_error_cost(input=y_predict, label=y)
+    # the training split (404 records) three times over: 8 full batches
+    train = paddle.dataset.uci_housing.train()
+    return dict(cost=cost, extra=[], feeding={"x": 0, "y": 1},
+                optimizer=paddle.optimizer.Momentum(momentum=0),
+                reader=paddle.reader.chain(train, train, train), buf_size=500)
+
+
+def book_recognize_digits(paddle, cfg):
+    """02.recognize_digits `convolutional_neural_network`: mnist, two
+    simple_img_conv_pool (5x5, pool 2) of cfg["filters"], fc 10 softmax."""
+    images = paddle.layer.data(name="pixel", type=paddle.data_type.dense_array((28, 28, 1)))
+    label = paddle.layer.data(name="label", type=paddle.data_type.integer_value(10))
+    f1, f2 = cfg["filters"]
+    conv_pool_1 = paddle.networks.simple_img_conv_pool(
+        input=images, filter_size=5, num_filters=f1, num_channel=1, pool_size=2,
+        pool_stride=2, act=paddle.activation.Relu())
+    conv_pool_2 = paddle.networks.simple_img_conv_pool(
+        input=conv_pool_1, filter_size=5, num_filters=f2, num_channel=f1, pool_size=2,
+        pool_stride=2, act=paddle.activation.Relu())
+    predict = paddle.layer.fc(input=conv_pool_2, size=10, act=paddle.activation.Softmax())
+    cost = paddle.layer.classification_cost(input=predict, label=label)
+    opt = paddle.optimizer.Momentum(
+        learning_rate=0.1 / 128.0, momentum=0.9,
+        regularization=paddle.optimizer.L2Regularization(rate=0.0005 * 128))
+    return dict(cost=cost, extra=[], feeding={"pixel": 0, "label": 1}, optimizer=opt,
+                reader=paddle.dataset.mnist.train(), buf_size=8192)
+
+
+def book_image_classification(paddle, cfg):
+    """03.image_classification `vgg_bn_drop`: cifar.train10, img_conv_group
+    stages of cfg["stages"] (filters, convs) with batch norm and dropout,
+    dropout 0.5, fc, batch_norm with drop_rate 0.5, fc, fc 10 softmax."""
+    image = paddle.layer.data(name="image", type=paddle.data_type.dense_array((32, 32, 3)))
+    label = paddle.layer.data(name="label", type=paddle.data_type.integer_value(10))
+
+    def conv_block(ipt, num_filter, groups, dropouts, num_channels=None):
+        return paddle.networks.img_conv_group(
+            input=ipt, num_channels=num_channels, pool_size=2, pool_stride=2,
+            conv_num_filter=[num_filter] * groups, conv_filter_size=3,
+            conv_act=paddle.activation.Relu(), conv_with_batchnorm=True,
+            conv_batchnorm_drop_rate=dropouts, pool_type=paddle.pooling.Max())
+
+    x, channels = image, 3
+    for i, (nf, groups) in enumerate(cfg["stages"]):
+        drops = ([0.3] if i == 0 else [0.4]) * (groups - 1) + [0]
+        x = conv_block(x, nf, groups, drops, channels)
+        channels = nf
+    drop = paddle.layer.dropout(input=x, dropout_rate=0.5)
+    fc1 = paddle.layer.fc(input=drop, size=cfg["fc"], act=paddle.activation.Linear())
+    bn = paddle.layer.batch_norm(input=fc1, act=paddle.activation.Relu(),
+                                 layer_attr=paddle.attr.ExtraAttr(drop_rate=0.5))
+    fc2 = paddle.layer.fc(input=bn, size=cfg["fc"], act=paddle.activation.Linear())
+    out = paddle.layer.fc(input=fc2, size=10, act=paddle.activation.Softmax())
+    cost = paddle.layer.classification_cost(input=out, label=label)
+    opt = paddle.optimizer.Momentum(
+        momentum=0.9, regularization=paddle.optimizer.L2Regularization(rate=0.0002 * 128),
+        learning_rate=0.1 / 128.0, learning_rate_decay_a=0.1,
+        learning_rate_decay_b=50000 * 100, learning_rate_schedule="discexp")
+    return dict(cost=cost, extra=[], feeding={"image": 0, "label": 1}, optimizer=opt,
+                reader=paddle.dataset.cifar.train10(), buf_size=50000)
+
+
+def book_word2vec(paddle, cfg):
+    """04.word2vec: imikolov 5-grams, four embeddings of cfg["emb"] sharing
+    the table `shared_w`, concat, fc cfg["hidden"] sigmoid (drop_rate 0.5),
+    softmax over the dictionary."""
+    word_dict = paddle.dataset.imikolov.build_dict()
+    if cfg.get("vocab"):  # the CPU twins' reduced dictionary
+        word_dict = {w: i for w, i in word_dict.items() if i < cfg["vocab"] - 1}
+        word_dict["<unk>"] = len(word_dict)
+    dict_size = len(word_dict)
+    emb_attr = paddle.attr.Param(name="shared_w", initial_std=0.001, learning_rate=1,
+                                 l2_rate=0)
+
+    def word(name):
+        return paddle.layer.data(name=name, type=paddle.data_type.integer_value(dict_size))
+
+    names = ("firstw", "secondw", "thirdw", "fourthw")
+    embs = [paddle.layer.embedding(input=word(n), size=cfg["emb"], param_attr=emb_attr)
+            for n in names]
+    nextword = word("fifthw")
+    contextemb = paddle.layer.concat(input=embs)
+    hidden1 = paddle.layer.fc(
+        input=contextemb, size=cfg["hidden"], act=paddle.activation.Sigmoid(),
+        layer_attr=paddle.attr.ExtraAttr(drop_rate=0.5),
+        bias_attr=paddle.attr.Param(learning_rate=2),
+        param_attr=paddle.attr.Param(initial_std=1.0 / (cfg["emb"] * 8) ** 0.5,
+                                     learning_rate=1))
+    predictword = paddle.layer.fc(input=hidden1, size=dict_size,
+                                  bias_attr=paddle.attr.Param(learning_rate=2),
+                                  act=paddle.activation.Softmax())
+    cost = paddle.layer.classification_cost(input=predictword, label=nextword)
+    opt = paddle.optimizer.AdaGrad(
+        learning_rate=3e-3, regularization=paddle.optimizer.L2Regularization(8e-4))
+    return dict(cost=cost, extra=[], feeding={n: i for i, n in enumerate(names + ("fifthw",))},
+                optimizer=opt, reader=paddle.dataset.imikolov.train(word_dict, 5),
+                buf_size=8192, dict_size=dict_size)
+
+
+def book_understand_sentiment(paddle, cfg):
+    """05.understand_sentiment `stacked_lstm_net`: imdb, embedding
+    cfg["emb"], fc + lstmemory stacked cfg["stacked"] deep (every other one
+    reversed; lstmemory keeps its peepholes, the plain step loop), max pools
+    of the last pair, fc 2 softmax; with `average`, ModelAverage(0.5)."""
+    word_dict = paddle.dataset.imdb.word_dict()
+    input_dim, hid_dim = len(word_dict), cfg["hidden"]
+    layer_attr = paddle.attr.ExtraAttr(drop_rate=0.5)
+    fc_para_attr = paddle.attr.Param(learning_rate=1e-3)
+    lstm_para_attr = paddle.attr.Param(initial_std=0.0, learning_rate=1.0)
+    para_attr = [fc_para_attr, lstm_para_attr]
+    bias_attr = paddle.attr.Param(initial_std=0.0, l2_rate=0.0)
+    relu, linear = paddle.activation.Relu(), paddle.activation.Linear()
+    data = paddle.layer.data("word", paddle.data_type.integer_value_sequence(input_dim))
+    emb = paddle.layer.embedding(input=data, size=cfg["emb"])
+    fc1 = paddle.layer.fc(input=emb, size=hid_dim, act=linear, bias_attr=bias_attr)
+    lstm1 = paddle.layer.lstmemory(input=fc1, act=relu, bias_attr=bias_attr,
+                                   layer_attr=layer_attr)
+    inputs = [fc1, lstm1]
+    for i in range(2, cfg["stacked"] + 1):
+        fc = paddle.layer.fc(input=inputs, size=hid_dim, act=linear, param_attr=para_attr,
+                             bias_attr=bias_attr)
+        lstm = paddle.layer.lstmemory(input=fc, reverse=(i % 2) == 0, act=relu,
+                                      bias_attr=bias_attr, layer_attr=layer_attr)
+        inputs = [fc, lstm]
+    fc_last = paddle.layer.pool(input=inputs[0], pooling_type=paddle.pooling.Max())
+    lstm_last = paddle.layer.pool(input=inputs[1], pooling_type=paddle.pooling.Max())
+    output = paddle.layer.fc(input=[fc_last, lstm_last], size=2,
+                             act=paddle.activation.Softmax(), bias_attr=bias_attr,
+                             param_attr=para_attr)
+    lbl = paddle.layer.data("label", paddle.data_type.integer_value(2))
+    cost = paddle.layer.classification_cost(input=output, label=lbl)
+    opt = paddle.optimizer.Adam(
+        learning_rate=2e-3, regularization=paddle.optimizer.L2Regularization(rate=8e-4),
+        model_average=paddle.optimizer.ModelAverageCfg(average_window=0.5)
+        if cfg["average"] else None)
+    return dict(cost=cost, extra=[], feeding={"word": 0, "label": 1}, optimizer=opt,
+                reader=paddle.dataset.imdb.train(word_dict), buf_size=1000)
+
+
+def book_label_semantic_roles(paddle, cfg):
+    """06.label_semantic_roles `db_lstm`: conll05.test(), eight embeddings
+    (word cfg["word_dim"] shared as `emb`, mark cfg["mark_dim"]), mixed
+    full_matrix_projections, cfg["depth"] lstmemory layers of
+    cfg["hidden"] / 4 alternating direction, crf and crf_decoding over the
+    label dictionary. No pretrained embedding: conll05.get_embedding
+    raises offline, so `emb` keeps its initial values (is_static)."""
+    word_dict, verb_dict, label_dict = paddle.dataset.conll05.get_dict()
+    word_dict_len, pred_len, label_dict_len = len(word_dict), len(verb_dict), len(label_dict)
+    mark_dict_len, word_dim, mark_dim = 2, cfg["word_dim"], cfg["mark_dim"]
+    hidden_dim, depth, default_std = cfg["hidden"], cfg["depth"], 1 / (cfg["hidden"] ** 0.5) / 3.0
+
+    def seq(name, size):
+        return paddle.layer.data(name=name, type=paddle.data_type.integer_value_sequence(size))
+
+    word = seq("word_data", word_dict_len)
+    predicate = seq("verb_data", pred_len)
+    ctx = [seq(f"ctx_{n}_data", word_dict_len) for n in ("n2", "n1", "0", "p1", "p2")]
+    mark = seq("mark_data", mark_dict_len)
+    emb_para = paddle.attr.Param(name="emb", initial_std=0.0, is_static=True)
+    std_0 = paddle.attr.Param(initial_std=0.0)
+    std_default = paddle.attr.Param(initial_std=default_std)
+    predicate_embedding = paddle.layer.embedding(
+        size=word_dim, input=predicate,
+        param_attr=paddle.attr.Param(name="vemb", initial_std=default_std))
+    mark_embedding = paddle.layer.embedding(size=mark_dim, input=mark, param_attr=std_0)
+    emb_layers = [paddle.layer.embedding(size=word_dim, input=x, param_attr=emb_para)
+                  for x in [word] + ctx]
+    emb_layers += [predicate_embedding, mark_embedding]
+    hidden_0 = paddle.layer.mixed(
+        size=hidden_dim, bias_attr=std_default,
+        input=[paddle.layer.full_matrix_projection(input=emb, param_attr=std_default)
+               for emb in emb_layers])
+    mix_hidden_lr = 1e-3
+    lstm_para_attr = paddle.attr.Param(initial_std=0.0, learning_rate=1.0)
+    hidden_para_attr = paddle.attr.Param(initial_std=default_std, learning_rate=mix_hidden_lr)
+    lstm_0 = paddle.layer.lstmemory(
+        input=hidden_0, act=paddle.activation.Relu(), gate_act=paddle.activation.Sigmoid(),
+        state_act=paddle.activation.Sigmoid(), bias_attr=std_0, param_attr=lstm_para_attr)
+    input_tmp = [hidden_0, lstm_0]
+    for i in range(1, depth):
+        mix_hidden = paddle.layer.mixed(
+            size=hidden_dim, bias_attr=std_default,
+            input=[paddle.layer.full_matrix_projection(input=input_tmp[0],
+                                                       param_attr=hidden_para_attr),
+                   paddle.layer.full_matrix_projection(input=input_tmp[1],
+                                                       param_attr=lstm_para_attr)])
+        lstm = paddle.layer.lstmemory(
+            input=mix_hidden, act=paddle.activation.Relu(),
+            gate_act=paddle.activation.Sigmoid(), state_act=paddle.activation.Sigmoid(),
+            reverse=((i % 2) == 1), bias_attr=std_0, param_attr=lstm_para_attr)
+        input_tmp = [mix_hidden, lstm]
+    feature_out = paddle.layer.mixed(
+        size=label_dict_len, bias_attr=std_default,
+        input=[paddle.layer.full_matrix_projection(input=input_tmp[0],
+                                                   param_attr=hidden_para_attr),
+               paddle.layer.full_matrix_projection(input=input_tmp[1],
+                                                   param_attr=lstm_para_attr)])
+    target = seq("target", label_dict_len)
+    crf_cost = paddle.layer.crf(
+        size=label_dict_len, input=feature_out, label=target,
+        param_attr=paddle.attr.Param(name="crfw", initial_std=default_std,
+                                     learning_rate=mix_hidden_lr))
+    crf_dec = paddle.layer.crf_decoding(size=label_dict_len, input=feature_out,
+                                        param_attr=paddle.attr.Param(name="crfw"))
+    opt = paddle.optimizer.Momentum(
+        momentum=0, learning_rate=1e-2,
+        regularization=paddle.optimizer.L2Regularization(rate=8e-4),
+        model_average=paddle.optimizer.ModelAverageCfg(average_window=0.5,
+                                                       max_average_window=10000)
+        if cfg["average"] else None)
+    names = ("word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data", "ctx_p1_data",
+             "ctx_p2_data", "verb_data", "mark_data", "target")
+    return dict(cost=crf_cost, extra=[crf_dec], decode=crf_dec,
+                feeding={n: i for i, n in enumerate(names)}, optimizer=opt,
+                reader=paddle.dataset.conll05.test(), buf_size=8192,
+                label_dict_len=label_dict_len)
+
+
+def book_machine_translation(paddle, cfg):
+    """08.machine_translation: wmt14.train(cfg["vocab"]) through
+    v2_nmt_net (two simple_gru encoders: the fused GRU kernels)."""
+    cost = v2_nmt_net(paddle, cfg, False)
+    opt = paddle.optimizer.Adam(learning_rate=5e-5,
+                                regularization=paddle.optimizer.L2Regularization(rate=8e-4))
+    return dict(cost=cost, extra=[], optimizer=opt,
+                feeding={"source_language_word": 0, "target_language_word": 1,
+                         "target_language_next_word": 2},
+                reader=paddle.dataset.wmt14.train(cfg["vocab"]), buf_size=8192)
+
+
+BOOK_CHAPTERS = dict(
+    fit_a_line=book_fit_a_line, recognize_digits=book_recognize_digits,
+    image_classification=book_image_classification, word2vec=book_word2vec,
+    understand_sentiment=book_understand_sentiment,
+    label_semantic_roles=book_label_semantic_roles,
+    machine_translation=book_machine_translation)
+
+
+def book_run(paddle, name, cfg, batches, device=None, start_tar=None, keep_init=False,
+             event_handler=None, before_train=None):
+    """One chapter's train.py: its network, `parameters.create` (or
+    `Parameters.from_tar(start_tar)`), trainer.SGD and train() over
+    `batch(shuffle(reader, buf_size), cfg["batch"])`, the first `batches`
+    batches, one pass; `before_train()` runs just before train(). ->
+    {chapter, trainer, costs (EndIteration's), the training pass's batches,
+    and with keep_init the initial parameters' tar}."""
+    import io
+
+    ch = BOOK_CHAPTERS[name](paddle, cfg)
+    if start_tar is None:
+        params = paddle.parameters.create(ch["cost"])
+    else:
+        params = paddle.parameters.Parameters.from_tar(io.BytesIO(start_tar))
+    init_tar = None
+    if keep_init:
+        buf = io.BytesIO()
+        params.to_tar(buf)
+        init_tar = buf.getvalue()
+    kw = {} if device is None else {"device": device}
+    trainer = paddle.trainer.SGD(cost=ch["cost"], parameters=params,
+                                 update_equation=ch["optimizer"], extra_layers=ch["extra"],
+                                 **kw)
+    batched = paddle.batch(paddle.reader.shuffle(ch["reader"], buf_size=ch["buf_size"]),
+                           cfg["batch"])
+    costs, passes = [], []
+
+    def handler(e):
+        if type(e).__name__ == "EndIteration":
+            costs.append(float(e.cost))
+        if event_handler is not None:
+            event_handler(e)
+
+    def reader():
+        # SGD reads a first batch of its own to build its state: the
+        # training pass is the last call
+        passes.append([])
+        for b in itertools.islice(batched(), batches):
+            passes[-1].append(b)
+            yield b
+
+    if before_train is not None:
+        before_train()
+    trainer.train(reader=reader, num_passes=1, event_handler=handler, feeding=ch["feeding"])
+    return dict(chapter=ch, trainer=trainer, costs=costs, batches=passes[-1],
+                init_tar=init_tar)
+
+def book_data_home() -> str:
+    """A fresh, empty DATA_HOME under build/ for the book's readers: with
+    nothing cached there, every reader yields its synthetic records."""
+    import tempfile
+
+    from paddle_tpu_torch.data.datasets import common
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    common.DATA_HOME = tempfile.mkdtemp(prefix="book-data-", dir=os.path.join(REPO, "build"))
+    common.SYNTHETIC = False
+    return common.DATA_HOME
+
+
+def book_files(home: str):
+    return sorted(os.path.relpath(os.path.join(d, f), home)
+                  for d, _, fs in os.walk(home) for f in fs)
+
+
+def book_step_times(run_fn):
+    """Run run_fn(event_handler) -> result, recording each EndIteration's
+    wall time -> (result, [ms of each step after the first])."""
+    stamps = []
+
+    def handler(e):
+        if type(e).__name__ == "EndIteration":
+            stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    out = run_fn(handler)
+    return out, [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])], (stamps[0] - t0) * 1e3
+
+
+def book_nmt_phase(torch):
+    """Phase 30: the v2 book's machine translation chapter, unchanged, through
+    `paddle.dataset.wmt14`: train(30000) -> reader.shuffle(8192) ->
+    batch(128) -> trainer.SGD over 8 batches (GRU counters from 0), the
+    first 2 batches' costs against the CPU from the same parameters; then
+    layer.beam_search + infer over 128 sources of wmt14.test(30000), the
+    ids turned into words through wmt14.get_dict(30000)."""
+    import random
+
+    import numpy as np
+
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.nn import graph as G
+
+    cfg, steps = BOOK_NMT, BOOK_NMT["batches"]
+    home = book_data_home()
+    G.reset_name_scope()
+    paddle.init(use_gpu=True, trainer_count=1, seed=0)
+    random.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    run, step_ms, first_ms = book_step_times(lambda h: book_run(
+        paddle, "machine_translation", cfg, steps, keep_init=True, event_handler=h,
+        before_train=zero_rnn_counts))
+    launches = rnn_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tr = run["trainer"].trainer
+    costs = run["costs"]
+    batches = run["batches"]
+    trg_tokens = [sum(len(s[1]) for s in b) for b in batches]
+    src_lens = sorted({len(s[0]) for b in batches for s in b})
+    replayed_s = sum(step_ms) / 1e3
+    result = dict(config=cfg, step_costs=costs, kernel_launches=launches,
+                  graphs=len(tr.graphs), signatures=[str(k)[:200] for k in tr.graphs],
+                  replays=sum(g.replays for g in tr.graphs.values()),
+                  first_step_ms=first_ms, step_ms=step_ms,
+                  ms_per_step_median=statistics.median(step_ms),
+                  target_tokens_per_s=sum(trg_tokens[1:]) / replayed_s,
+                  target_tokens_per_step=trg_tokens, source_lengths=[src_lens[0], src_lens[-1]],
+                  peak_memory_bytes=peak, synthetic=paddle.dataset.common.SYNTHETIC)
+    if (launches["FWD_LAUNCHES"], launches["BWD_LAUNCHES"]) != (2 * steps + 2, 2 * steps):
+        fail(f"book nmt: GRU launches {launches} over {steps} steps, want fwd "
+             f"{2 * steps + 2} (the init's forward too), bwd {2 * steps}")
+    if len(costs) != steps or not np.isfinite(costs).all():
+        fail(f"book nmt: costs {costs}")
+    if result["replays"] + len(tr.graphs) != steps:
+        fail(f"book nmt: {len(tr.graphs)} graphs and {result['replays']} replays over "
+             f"{steps} steps: every step after a signature's first must replay")
+    files = book_files(home)
+    if not paddle.dataset.common.SYNTHETIC or files:
+        fail(f"book nmt: SYNTHETIC {paddle.dataset.common.SYNTHETIC}, files under "
+             f"DATA_HOME {files[:5]}")
+
+    # the first 2 batches on the CPU from the same parameters and batches
+    G.reset_name_scope()
+    random.seed(0)
+    cpu = book_run(paddle, "machine_translation", cfg, BOOK_CPU_STEPS, device="cpu",
+                   start_tar=run["init_tar"])["costs"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(costs, cpu)]
+    result["vs_cpu"] = dict(steps=len(cpu), cost_card=costs[:len(cpu)], cost_cpu=cpu,
+                            cost_rel_err=rel)
+    if len(rel) != BOOK_CPU_STEPS or not (rel[0] <= CPU_COST_RTOL and max(rel) <= V1_CPU_RTOL):
+        fail(f"book nmt: step costs card {costs[:len(cpu)]} vs CPU {cpu}: rel err {rel} "
+             f"(first <= {CPU_COST_RTOL}, all <= {V1_CPU_RTOL})")
+
+    # generation: layer.beam_search over 128 test sources, as the chapter does
+    G.reset_name_scope()
+    gen = v2_nmt_net(paddle, cfg, True)
+    inf = paddle.inference.Inference(gen, run["trainer"].parameters)
+    sources = [(s,) for s, _, _ in itertools.islice(
+        paddle.dataset.wmt14.test(cfg["vocab"])(), cfg["infer"])]
+    feed = {"source_language_word": 0}
+    inf.infer(sources, feeding=feed, field="value")  # its init's forward
+    zero_rnn_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = inf.infer(sources, feeding=feed, field="value", batch_size=cfg["batch"])
+    infer_ms = (time.perf_counter() - t0) * 1e3
+    infer_launches = rnn_counts()
+    _, trg_dict = paddle.dataset.wmt14.get_dict(cfg["vocab"])
+    words = [[trg_dict[int(i)] for i in row[:(list(row) + [1]).index(1)]] for row in ids]
+    result.update(infer_ms_per_128=infer_ms * cfg["batch"] / len(sources),
+                  infer_launches=infer_launches, ids_shape=list(ids.shape),
+                  first_translation=" ".join(words[0]),
+                  length_mean=float(np.mean([len(w) + 1 for w in words])))
+    print("book_nmt", json.dumps(result), flush=True)
+    if ids.shape != (cfg["infer"], cfg["max_length"]) or ids.dtype != np.int32:
+        fail(f"book nmt: infer gave ids {ids.shape} {ids.dtype}")
+    if not all(int(i) in trg_dict for i in ids.ravel()):
+        fail("book nmt: a generated id is not a word of wmt14.get_dict")
+    chunks = -(-len(sources) // cfg["batch"])
+    if infer_launches["FWD_LAUNCHES"] != 2 * chunks or any(
+            v for k, v in infer_launches.items() if k != "FWD_LAUNCHES"):
+        fail(f"book nmt: infer over {chunks} chunks launched {infer_launches}, want "
+             f"{2 * chunks} GRU forwards and nothing else")
+    return result
+
+
+def book_chapters_phase(torch):
+    """Phase 31: the book's six other chapters, unchanged, at their widths,
+    each through its reader over 8 batches (counters from 0 in each):
+    finite costs; the first 2 batches' costs against the CPU from the
+    same parameters and batches; SRL's crf_decoding ids inside the label
+    dictionary. Whether a chapter's cost fell over its 8 batches is
+    reported, not held: under the book's rates on the synthetic records
+    image_classification's and word2vec's do not (PERF.md §6)."""
+    import random
+
+    import numpy as np
+
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.nn import graph as G
+
+    home = book_data_home()
+    out = {}
+    for name, cfg in BOOK.items():
+        G.reset_name_scope()
+        paddle.init(use_gpu=True, trainer_count=1, seed=0)
+        random.seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        run, step_ms, first_ms = book_step_times(lambda h: book_run(
+            paddle, name, cfg, BOOK_BATCHES, keep_init=True, event_handler=h,
+            before_train=zero_rnn_counts))
+        tr, costs = run["trainer"].trainer, run["costs"]
+        r = dict(config=cfg, step_costs=costs, cost_fell=costs[-1] <= costs[0],
+                 first_step_ms=first_ms,
+                 ms_per_step_median=statistics.median(step_ms), step_ms=step_ms,
+                 graphs=len(tr.graphs), replays=sum(g.replays for g in tr.graphs.values()),
+                 kernel_launches=rnn_counts(),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated())
+        G.reset_name_scope()
+        random.seed(0)
+        cpu = book_run(paddle, name, cfg, BOOK_CPU_STEPS, device="cpu",
+                       start_tar=run["init_tar"])["costs"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(costs, cpu)]
+        r["vs_cpu"] = dict(cost_cpu=cpu, cost_rel_err=rel)
+        if name == "label_semantic_roles":
+            ch = run["chapter"]
+            feeding = {k: v for k, v in ch["feeding"].items() if k != "target"}
+            samples = [s[:-1] for s in itertools.islice(paddle.dataset.conll05.test()(),
+                                                         cfg["batch"])]
+            dec = np.asarray(paddle.infer(output_layer=ch["decode"],
+                                          parameters=run["trainer"].parameters, input=samples,
+                                          feeding=feeding, field="value"))
+            r["decode_shape"], r["decode_ids"] = list(dec.shape), sorted(set(dec.ravel().tolist()))
+            if dec.min() < 0 or dec.max() >= ch["label_dict_len"]:
+                fail(f"book {name}: crf_decoding ids {r['decode_ids']} outside the "
+                     f"{ch['label_dict_len']} labels")
+        out[name] = r
+        print("book_chapter", name, json.dumps(r), flush=True)
+        if len(costs) != BOOK_BATCHES or not np.isfinite(costs).all():
+            fail(f"book {name}: costs over {BOOK_BATCHES} batches {costs}")
+        if len(rel) != BOOK_CPU_STEPS or not (rel[0] <= CPU_COST_RTOL and
+                                              max(rel) <= V1_CPU_RTOL):
+            fail(f"book {name}: step costs card {costs[:len(cpu)]} vs CPU {cpu}: rel err "
+                 f"{rel} (first <= {CPU_COST_RTOL}, all <= {V1_CPU_RTOL})")
+        if r["replays"] + r["graphs"] != BOOK_BATCHES:
+            fail(f"book {name}: {r['graphs']} graphs and {r['replays']} replays over "
+                 f"{BOOK_BATCHES} steps")
+        del run, tr
+        torch.cuda.empty_cache()
+    files = book_files(home)
+    if not paddle.dataset.common.SYNTHETIC or files:
+        fail(f"book: SYNTHETIC {paddle.dataset.common.SYNTHETIC}, files {files[:5]}")
+    return out
+
+
+def layer_error_phase(torch):
+    """A forward error on the card raises LayerError naming the layer (the
+    JAX package's layer-name context): a width-5 batch into an Fc made for 8."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.stack_trace import LayerError
+    from paddle_tpu_torch.nn import graph as G
+    from paddle_tpu_torch.nn import layers as L
+
+    G.reset_name_scope()
+    net = G.Network([L.Fc(L.Data("x", shape=(8,)), 3, act=None)])
+    params = net.init({"x": np.zeros((2, 8), np.float32)}, device="cuda")
+    try:
+        net.apply(params, {"x": np.zeros((2, 5), np.float32)})
+    except LayerError as e:
+        result = dict(layer_name=e.layer_name, layer_stack=e.layer_stack, text=str(e)[:200])
+    else:
+        fail("layer error: a width-5 batch into an 8-wide Fc raised nothing on the card")
+    print("layer_error", json.dumps(result), flush=True)
+    if result["layer_name"] != "__fc_0__" or not result["text"].startswith(
+            "error in layer '__fc_0__' (layer stack: __fc_0__): "):
+        fail(f"layer error: {result}")
+    return result
+
+
 V1_PROTO_CONFIG = V1_BIGRU_CONFIG.replace(
     V1_BIGRU_CONFIG[V1_BIGRU_CONFIG.index("define_py_data_sources2("):
                     V1_BIGRU_CONFIG.index("word = data_layer")],
@@ -4961,6 +5565,7 @@ def main() -> int:
     wire = wire_phase(torch, serve)
     speculation = speculation_phase(torch)
     recovery = recovery_phase(torch, serve)
+    layer_error = layer_error_phase(torch)
 
     # 5. seq2seq training at the reference's widths as a CUDA graph (GRU
     # launches from 0), 5b. its checkpoints, 5c. generation
@@ -5048,7 +5653,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     v1_proto = v1_proto_phase(torch, os.path.dirname(v1_bigru["save_dir"]))
 
-    # 30. lines
+    # 30. the v2 book's machine translation chapter through wmt14, 31. its
+    # six other chapters through their readers (counters from 0 in each)
+    torch.cuda.empty_cache()
+    book_nmt = book_nmt_phase(torch)
+    torch.cuda.empty_cache()
+    book = book_chapters_phase(torch)
+
+    # 32. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -5105,10 +5717,12 @@ def main() -> int:
             "launches_v2_api": v2_api["kernel_launches"][v1_key],
             "launches_v2_gen_train": v2_gen["train_launches"][v1_key],
             "launches_v1_proto": v1_proto["kernel_launches"][v1_key],
+            "launches_book_nmt_train": book_nmt["kernel_launches"][v1_key],
             **({"launches_deploy": deploy["forward_launches"]["FWD_LAUNCHES"]
                 + deploy["get_layer_output_launches"]["FWD_LAUNCHES"],
                 "launches_v2_infer": v2_api["infer_launches"]["FWD_LAUNCHES"],
-                "launches_v2_gen_infer": v2_gen["infer_launches"]["FWD_LAUNCHES"]}
+                "launches_v2_gen_infer": v2_gen["infer_launches"]["FWD_LAUNCHES"],
+                "launches_book_nmt_infer": book_nmt["infer_launches"]["FWD_LAUNCHES"]}
                if leg == "fwd" else {}),
             "v1_config_shape": {k: g_v1[f"{leg}_{k}"] for k in (
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
@@ -5194,7 +5808,8 @@ def main() -> int:
                    "v1_bigru": v1_bigru, "v1_lenet": v1_lenet,
                    "v1_seq2seq": v1_seq2seq, "v2_api": v2_api, "deploy": deploy,
                    "v1_gen": v1_gen, "serve_config": serve_config, "v2_gen": v2_gen,
-                   "v1_proto": v1_proto},
+                   "v1_proto": v1_proto, "layer_error": layer_error, "book_nmt": book_nmt,
+                   "book": book},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """Readers and the feeder of the port (counterpart of `paddle_tpu/data/`):
 the reader combinators (`reader.py`), `DataFeeder` with its input specs
 (`feeder.py`), the device prefetcher (`pipeline.py`), the
-PyDataProvider2 surface (`provider.py`) and the ProtoData shards and
-providers (`proto_data.py`)."""
+PyDataProvider2 surface (`provider.py`), the ProtoData shards and
+providers (`proto_data.py`), the v2 dataset readers (`datasets/`), the
+image helpers (`image.py`) and the sharded readers (`sharded_reader.py`)."""
 
 from paddle_tpu_torch.data import reader as reader  # noqa: F401
 from paddle_tpu_torch.data.feeder import (  # noqa: F401

@@ -37,8 +37,9 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
-from paddle_tpu_torch.core import dtypes, prng, remat as remat_mod
+from paddle_tpu_torch.core import dtypes, prng, remat as remat_mod, stack_trace
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.nn import init as init_mod
 
@@ -390,8 +391,23 @@ def _segments(order: List[Layer], remat: bool) -> List[List[Layer]]:
 _SEGMENT_ENDS = ("conv", "fc")
 
 
+# torch.utils.checkpoint ends a recompute early by raising through the
+# layers: control flow, not a layer's failure
+_PASS_THROUGH = (stack_trace.LayerError,) + tuple(
+    getattr(torch.utils.checkpoint, n) for n in ("_StopRecomputationError",)
+    if hasattr(torch.utils.checkpoint, n))
+
+
 def _forward(layer: Layer, ctx: Context, ins: List[Argument]) -> Argument:
-    out = layer.forward(ctx, ins)
+    # layer-name crash context (CustomStackTrace parity,
+    # NeuralNetwork.cpp:259-261), as the JAX package's Network._run keeps it
+    with stack_trace.layer_frame(layer.name):
+        try:
+            out = layer.forward(ctx, ins)
+        except _PASS_THROUGH:
+            raise
+        except Exception as e:
+            raise stack_trace.LayerError(layer.name, stack_trace.current_stack(), e) from e
     if not isinstance(out, Argument):
         raise TypeError(f"layer {layer.name} forward returned {type(out).__name__}")
     return out

@@ -40,11 +40,10 @@ Differences from the JAX package, each on purpose:
     clamps explicitly here.
   * Masking uses NEG_INF = -1e9, never -inf, as the JAX package does: a
     fully masked row (bucket padding) gets uniform weights, not NaN.
-  * Sampling draws its gumbel noise from a `torch.Generator` seeded on the
-    host from (seed, step) per slot, not from jax's threefry. The port's own
-    contracts hold (same (seed, step) -> same token; a slot's token never
-    depends on its batch-mates; temperature 0 and top_k=1 are greedy); only
-    greedy tokens match the JAX package.
+  * Sampling draws its gumbel noise on jax's threefry bits
+    (`core/prng.py`): the key is `fold_in(PRNGKey(seed), step)` and the noise
+    `uniform(key, (V,), 1e-20, 1.0)`, as the JAX package draws them, so
+    sampled tokens match the JAX package's as greedy ones do.
 
 Parameters and pools are f32. Tensor parallelism (the JAX package's mesh,
 `shard_params` and `shard_map` seam) is not ported yet (ROADMAP.md)."""
@@ -59,6 +58,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.ops.paged_attention import paged_attention_decode
 from paddle_tpu_torch.serving.convert import params_from_jax, params_to_jax
@@ -111,22 +111,6 @@ class Block(nn.Module):
         self.b2 = _param(d, device=device)
         self.ln1 = _param(d, device=device, fill=1.0)
         self.ln2 = _param(d, device=device, fill=1.0)
-
-
-_M64 = (1 << 64) - 1
-
-
-def _draw_seed(seed: int, step: int) -> int:
-    """The per-(request seed, token index) generator seed, a pure function
-    of the pair, so a replay of (seed, step) draws the same noise. The pair
-    goes through splitmix64's bijective finalizer: torch's CPU generator
-    keeps only the low 32 bits of its seed, so both halves must reach them
-    (the CUDA generator takes all 64)."""
-    z = ((((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
-         + 0x9E3779B97F4A7C15) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return z ^ (z >> 31)
 
 
 class ServableLM(nn.Module):
@@ -220,8 +204,9 @@ class ServableLM(nn.Module):
         batch — the default serving config — never syncs and never runs the
         sampled branch. A sampled slot keeps logits >= its k-th largest
         (ties kept), divides by its temperature and takes the gumbel-max
-        with noise from its own generator seeded by (seed, step): its token
-        depends on its own row and identity only."""
+        with threefry noise from the key `fold_in(PRNGKey(seed), step)`, as
+        the JAX package does: its token depends on its own row and identity
+        only, and a replay of (seed, step) draws the same token."""
         if greedy is None:
             greedy = logits.argmax(-1)
         temps = np.asarray(temps, np.float32)
@@ -233,13 +218,14 @@ class ServableLM(nn.Module):
         for b in sampled:
             lg = logits[b]
             k = int(top_ks[b])
-            z = lg / float(temps[b])
+            # a [1] divisor, not a Python scalar: CUDA divides by a host
+            # scalar through its reciprocal, an ulp off jnp's division
+            z = lg / lg.new_full((1,), float(temps[b]))
             if k > 0:
                 thr = torch.topk(lg, min(k, vocab)).values[-1]
                 z = torch.where(lg >= thr, z, NEG_INF)
-            g = torch.Generator(device=lg.device)
-            g.manual_seed(_draw_seed(seeds[b], steps[b]))
-            u = torch.rand(vocab, generator=g, device=lg.device).clamp_min_(1e-20)
+            key = prng.fold_in(prng.PRNGKey(int(seeds[b]), device=lg.device), int(steps[b]))
+            u = prng.uniform(key, (vocab,), 1e-20, 1.0)
             out[b] = torch.argmax(z.float() - torch.log(-torch.log(u)))
         return out
 

@@ -1,8 +1,9 @@
 """paddle.v2 analog (counterpart of `paddle_tpu/v2/`): the user-facing v2
 API — layer, activation, pooling, attr, data_type, networks, optimizer,
-topology, parameters, trainer.SGD, event, inference.infer, plot, reader
-and minibatch.batch, with `init` (paddle.init). A v2 script written against
-the reference runs unchanged:
+topology, parameters, trainer.SGD, event, inference.infer, plot, reader,
+minibatch.batch, dataset (the readers of `data/datasets/`) and image (the
+helpers of `data/image.py`), with `init` (paddle.init). A v2 script written
+against the reference runs unchanged:
 
     paddle.init(use_gpu=True)
     params = paddle.parameters.create(cost)
@@ -11,8 +12,10 @@ the reference runs unchanged:
     probs = paddle.infer(output_layer=out, parameters=trainer.parameters,
                          input=samples)
 
-`dataset` and `image` (the dataset readers and image helpers) raise a
-NotImplementedError naming ROADMAP.md §1 item 5's last part."""
+`paddle.dataset.<name>.train()` reads a corpus only where it is already
+cached under `dataset.common.DATA_HOME`; otherwise it yields deterministic
+synthetic records of the same schema, the same records as the JAX
+package's."""
 
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from paddle_tpu_torch.v2 import trainer as trainer  # noqa: F401
 from paddle_tpu_torch.v2.inference import infer as infer  # noqa: F401
 from paddle_tpu_torch.v2.minibatch import batch as batch  # noqa: F401
 
+from paddle_tpu_torch.data import datasets as dataset  # noqa: F401
+from paddle_tpu_torch.data import image as image  # noqa: F401
 from paddle_tpu_torch.data import reader as reader  # noqa: F401
 
 
@@ -43,11 +48,3 @@ def init(use_gpu: bool = True, trainer_count: int = 1, seed: int = 0, **kwargs):
 
     return init_ctx.init(use_gpu=use_gpu, trainer_count=trainer_count, seed=seed, **kwargs)
 
-
-def __getattr__(name: str):
-    if name in ("dataset", "image"):
-        raise NotImplementedError(
-            f"paddle_tpu_torch.v2.{name} (the dataset readers and image helpers, "
-            "data/datasets/* and data/image.py) is not ported to paddle_tpu_torch yet "
-            "(ROADMAP.md §1 item 5, its last part)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

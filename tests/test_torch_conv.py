@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.core import dtypes
+from paddle_tpu_torch.core.stack_trace import LayerError
 from paddle_tpu_torch.nn import graph as tgraph
 from paddle_tpu_torch.nn import layers as TL
 from paddle_tpu_torch.nn.convert import params_from_jax
@@ -411,7 +412,7 @@ def test_batch_norm_layer_moves_and_uses_its_statistics():
     want = (x - new["bn.moving_mean"].numpy()) / np.sqrt(new["bn.moving_var"].numpy() + 1e-5)
     _close(outs["bn"].value, want, 1e-5, "eval output")
     # without states, apply returns the outputs alone and needs none here
-    with pytest.raises(KeyError, match="bn.moving_mean"):
+    with pytest.raises(LayerError, match=r"error in layer 'bn' .*bn.moving_mean"):
         net.apply(params, {"x": x})
 
 

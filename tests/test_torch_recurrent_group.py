@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.core.stack_trace import LayerError
 from paddle_tpu_torch.nn import graph as tgraph
 from paddle_tpu_torch.nn.convert import params_from_jax
 
@@ -533,7 +534,7 @@ def test_generation_raises_the_next_slices_error():
     assert "emb" in out
     bad = vl.beam_search(lambda e: vl.fc(input=vl.pool(input=e), size=6, act="softmax"),
                          input=[vl.StaticInput(enc, is_seq=True)], bos_id=0, eos_id=1)
-    with pytest.raises(ValueError, match="needs a GeneratedInput"):
+    with pytest.raises(LayerError, match="needs a GeneratedInput"):
         graph.Network([bad]).init(batch, device="cpu")
     with pytest.raises(RuntimeError, match="inside a recurrent_group"):
         vl.memory(name="m", size=3)

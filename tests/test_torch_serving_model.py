@@ -254,15 +254,32 @@ def test_init_params_scales_and_device_independence():
     assert not any(p.requires_grad for p in a.parameters())
 
 
-def test_draw_seed_reaches_the_low_32_bits():
-    """torch's CPU generator keeps only the low 32 bits of a seed: both the
-    request seed and the token index must move them."""
-    from paddle_tpu_torch.serving.model import _draw_seed
+SAMPLE_SEEDS = (0, 7, 2**31 + 3, 2**32 - 1)
+SAMPLE_STEPS = (0, 1, 63)
 
-    low = 0xFFFFFFFF
-    assert len({_draw_seed(s, 0) & low for s in range(2000)}) == 2000
-    assert len({_draw_seed(7, t) & low for t in range(2000)}) == 2000
-    assert _draw_seed(5, 3) == _draw_seed(5, 3) < 2**64
+
+@pytest.mark.parametrize("top_k", [0, 1, 5])
+@pytest.mark.parametrize("temp", [0.5, 1.0, 1.7])
+def test_sampled_tokens_equal_jax(pair, temp, top_k):
+    """The sampler draws jax's threefry noise from `fold_in(PRNGKey(seed),
+    step)`: every (seed, step) slot, seeds past 2^31 included, samples the
+    JAX package's token from the same logits."""
+    import jax.numpy as jnp
+
+    jm, _, pm = pair
+    slots = [(s, t) for s in SAMPLE_SEEDS for t in SAMPLE_STEPS]
+    n = len(slots)
+    logits = (np.random.RandomState(11).randn(n, CFG["vocab"]) * 2.0).astype(np.float32)
+    seeds = np.array([s for s, _ in slots], np.uint32)
+    steps = np.array([t for _, t in slots], np.int32)
+    temps = np.full(n, temp, np.float32)
+    top_ks = np.full(n, top_k, np.int32)
+    want = np.asarray(jm._sample(jnp.asarray(logits), jnp.asarray(seeds), jnp.asarray(steps),
+                                 jnp.asarray(temps), jnp.asarray(top_ks)))
+    got = pm._sample(_t(logits), seeds, steps, temps, top_ks).numpy()
+    np.testing.assert_array_equal(got, want)
+    if top_k != 1:  # the draws are not all the argmax
+        assert (got != logits.argmax(-1)).any()
 
 
 def test_gelu_is_the_tanh_approximation(pair):

@@ -7,8 +7,9 @@ IDENTICAL, with whole-prompt prefill and with chunked prefill (a chunk size
 that divides the prompts and one that does not). The port keeps one decode
 signature and leaks no page.
 
-Sampling cannot match the JAX package (threefry vs torch's generators), so
-it is held to the port's own contracts: same seed -> same tokens, a sampled
+Sampling draws jax's threefry bits in both packages, so a sampled
+request's whole token stream equals the JAX engine's at the same seed, and
+the port's own contracts hold too: same seed -> same tokens, a sampled
 request's tokens do not depend on its batch-mates, temperature 0 and
 top_k=1 are greedy."""
 
@@ -96,6 +97,31 @@ def test_more_requests_than_slots_join_and_retire(jax_pair, port_model):
     st = ps.stats()
     assert st["completed"] == 8 and st["pages_in_use"] == 0
     assert st["decode_shape_signatures"] == 1
+
+
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_sampled_streams_identical_to_jax_session(jax_pair, port_model, chunk):
+    """Sampled requests (seeds past 2^31 too) beside greedy ones: every
+    stream equals the JAX engine's token for token."""
+    from paddle_tpu.serving.session import ServingSession as JaxSession
+
+    jm, jp = jax_pair
+    reqs = [(PROMPTS[0], dict(temperature=0.8, top_k=40, seed=2**31 + 7)),
+            (PROMPTS[1], {}),
+            (PROMPTS[2], dict(temperature=1.7, seed=3)),
+            (PROMPTS[3], dict(temperature=0.5, top_k=5, seed=2**32 - 1)),
+            (PROMPTS[0] + [20], {})]
+    prompts = reqs + ([(LONG, dict(temperature=1.0, seed=9))] if chunk else [])
+
+    def run(session):
+        hs = [session.submit(p, 12, **kw) for p, kw in prompts]
+        session.run_until_idle()
+        return [h.tokens for h in hs]
+
+    want = run(JaxSession(jm, jp, prefill_chunk=chunk, **SESSION))
+    assert run(_port_session(port_model, prefill_chunk=chunk)) == want
+    greedy = _run(_port_session(port_model), [PROMPTS[1]], n=12)[0]
+    assert want[1] == greedy and want[0] != _run(_port_session(port_model), [PROMPTS[0]], n=12)[0]
 
 
 def test_no_decode_step_skipped_during_chunked_prefill(port_model):

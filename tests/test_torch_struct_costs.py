@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.core.stack_trace import LayerError
 from paddle_tpu_torch.nn import graph as tgraph
 from paddle_tpu_torch.nn import layers as TL
 from paddle_tpu_torch.nn import struct_costs as TS
@@ -294,7 +295,7 @@ def test_ctc_cost_needs_sequences():
     cost = TS.CTCCost(TL.Data("x", shape=(3,)), TL.Data("y", shape=(), is_seq=True))
     batch = {"x": np.zeros((2, 3), np.float32), "y": np.zeros((2, 2), np.int32),
              "y.lengths": np.array([1, 1], np.int32)}
-    with pytest.raises(ValueError, match="sequence"):
+    with pytest.raises(LayerError, match=r"error in layer '__ctc_0__' .*sequence"):
         tgraph.Network([cost]).apply({"unused": torch.zeros(1)}, batch)
 
 

@@ -17,8 +17,9 @@ event,inference,plot,minibatch}.py`, `v2.init`) and the py_paddle surface
     numbers in tests/test_torch_generation_serving.py), with the JAX
     package's numbers where they exist:
     `forwardBackward`'s cost and gradients within 1e-5.
-  * `trainer_count > 1` and `paddle.dataset` raise named errors; `plot`
-    and `minibatch.batch` work.
+  * `trainer_count > 1` raises a named error; `paddle.dataset` and
+    `paddle.image` are the port's modules; `plot` and `minibatch.batch`
+    work.
   * On a card (marked `cuda`, skipped here): the script launches the fused
     GRU forward and backward every step in one graph, agrees with the CPU,
     and `infer` launches the forward once a chunk.
@@ -293,8 +294,10 @@ def test_swig_api_shapes_match_jax():
 
 
 def test_named_errors_plot_and_minibatch(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"item 5, its last part"):
-        tpaddle.dataset
+    # paddle.dataset and paddle.image are the port's own modules now
+    from paddle_tpu_torch.data import datasets, image
+
+    assert tpaddle.dataset is datasets and tpaddle.image is image
     _, _, out, cost = _mlp(tpaddle)
     tpaddle.init(trainer_count=2)
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.core import prng
+from paddle_tpu_torch.core.stack_trace import LayerError
 from paddle_tpu_torch.nn import graph as tgraph
 from paddle_tpu_torch.nn import layers as TL
 from paddle_tpu_torch.nn.convert import params_from_jax
@@ -152,7 +153,7 @@ def test_dropout_rate_zero_is_identity_and_needs_no_key():
     x = torch.randn(2, 3)
     assert torch.equal(net.apply({"device": x}, {"x": x}, train=True)["d"].value, x)
     net2 = tgraph.Network([TL.Dropout(TL.Data("y", shape=(3,)), 0.5, name="d2")])
-    with pytest.raises(ValueError, match="rng"):
+    with pytest.raises(LayerError, match=r"error in layer 'd2' .*rng"):
         net2.apply({"device": x}, {"y": x}, train=True)
 
 
