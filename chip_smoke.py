@@ -378,19 +378,46 @@ Phases (any failure exits non-zero and prints no result line):
                forwards a chunk, every id a word of wmt14.get_dict(30000);
                ms a step, target tokens/s, graphs, infer ms per 128, peak
                memory.
- 31. book    — the book's six other chapters, unchanged, each through its
-               reader over 8 batches (the first 2 also on the CPU from the
-               same parameters): fit_a_line (uci_housing),
+ 31. book    — the book's seven other chapters, unchanged, each through
+               its reader over 8 batches (the first 2 also on the CPU from
+               the same parameters): fit_a_line (uci_housing),
                recognize_digits (mnist, two conv-pools of 20 and 50),
                image_classification (cifar.train10, vgg_bn_drop),
                word2vec (imikolov, 5-grams, emb 32 shared, hidden 256),
-               understand_sentiment (imdb, stacked_lstm_net 128 / 512 / 3,
-               ModelAverage) and label_semantic_roles (conll05.test(),
-               db_lstm depth 8, hidden 512, batch 32, crf + crf_decoding,
-               ModelAverage): finite costs, the first 2 batches' costs
-               card vs CPU, SRL's decoded ids inside the label
-               dictionary; ms a step each, and whether the cost fell.
- 32. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+               recommender_system (movielens, batch 256: id embeddings of
+               32 and 16 through fcs, the categories as a sparse binary
+               vector, the title through sequence_conv_pool, two 200-wide
+               tanh fcs, cos_sim(scale=5), square_error_cost, Adam(1e-4);
+               one graph), understand_sentiment (imdb, stacked_lstm_net
+               128 / 512 / 3, ModelAverage) and label_semantic_roles
+               (conll05.test(), db_lstm depth 8, hidden 512, batch 32, crf
+               + crf_decoding, ModelAverage): finite costs, the first 2
+               batches' costs card vs CPU, SRL's decoded ids inside the
+               label dictionary; ms a step each, and whether the cost fell.
+ 32. image_models — AlexNet and GoogLeNet as benchmarks/image_bench.py
+               trains them: 224x224, 1000 classes, batch 128 (labels
+               randint(0, 10)), SGD(0.01, momentum 0.9), in f32 (TF32 off)
+               and bf16, 8 steps each (one graph, 7 replays): ms a step
+               (host clock), the graph's device ms, images/s, MFU over 3 x
+               2 x the convs' and fcs' multiply-adds, peak memory,
+               torch.profiler's busy share, kernels a step and kernel
+               groups (fewer layout transposes than convs); costs finite
+               and falling; then each model at 64x64, batch 4 in f32, cost
+               and gradients card vs CPU.
+ 33. v1_alexnet — the reference's benchmark/paddle/image/alexnet.py as a v1
+               config (227x227x3, batch 128 through --config_args)
+               through `train --job=time` over 8 replays of one graph: ms
+               a batch, images/s, busy share; dump_config equal to the
+               parse; the first 4 logged costs card vs CPU at 67x67.
+ 34. vocab   — each of the 36 layers of the v1 vocabulary (ROADMAP §1
+               items 6a-6b; VOCAB_CASES, with further shapes and options)
+               forward and backward card vs CPU, f32: within 1e-5
+               relative L2; SamplingId's ids and EosIdCheck's flags equal.
+ 35. v1_vocab — a v1 config over the new helpers and `1 + layer_math.exp(x)
+               * z` through `train --config` for 8 steps: one graph, the
+               cost falls, print_layer's line once a step, dump_config
+               equal to the parse, the first 4 costs card vs CPU.
+ 36. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -620,6 +647,7 @@ BOOK = dict(
     image_classification=dict(batch=128, fc=512,
                               stages=((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))),
     word2vec=dict(batch=128, emb=32, hidden=256),
+    recommender_system=dict(batch=256, emb=32, small=16, combined=200, title_dict=5000),
     understand_sentiment=dict(batch=128, emb=128, hidden=512, stacked=3, average=True),
     label_semantic_roles=dict(batch=32, word_dim=32, mark_dim=5, hidden=512, depth=8,
                               average=True),
@@ -5101,9 +5129,51 @@ def book_machine_translation(paddle, cfg):
                 reader=paddle.dataset.wmt14.train(cfg["vocab"]), buf_size=8192)
 
 
+def book_recommender_system(paddle, cfg):
+    """05.recommender_system: movielens; the user's id, gender, age and job
+    and the movie's id, categories and title, each through an embedding
+    (or, for the categories, a sparse_binary_vector) and an fc, combined
+    into two 200-wide tanh fcs; `cos_sim(scale=5)` of the two against the
+    score by square_error_cost, Adam(1e-4). cfg["title_dict"] is the title
+    vocabulary (the synthetic records' 5000 ids; the book reads
+    get_movie_title_dict(), which neither package's reader has)."""
+    ml = paddle.dataset.movielens
+    layer, dt, act = paddle.layer, paddle.data_type, paddle.activation
+    emb, small = cfg["emb"], cfg["small"]
+
+    def id_fc(name, n, width):
+        slot = layer.data(name=name, type=dt.integer_value(n))
+        return layer.fc(input=layer.embedding(input=slot, size=width), size=width)
+
+    usr = layer.fc(input=[id_fc("user_id", ml.max_user_id() + 1, emb),
+                          id_fc("gender_id", 2, small),
+                          id_fc("age_id", len(ml.age_table()), small),
+                          id_fc("job_id", ml.max_job_id() + 1, small)],
+                   size=cfg["combined"], act=act.Tanh())
+    categories = layer.data(name="category_id",
+                            type=dt.sparse_binary_vector(len(ml.movie_categories())))
+    title = layer.data(name="movie_title",
+                       type=dt.integer_value_sequence(cfg["title_dict"]))
+    title_conv = paddle.networks.sequence_conv_pool(
+        input=layer.embedding(input=title, size=emb), hidden_size=emb, context_len=3)
+    mov = layer.fc(input=[id_fc("movie_id", ml.max_movie_id() + 1, emb),
+                          layer.fc(input=categories, size=emb), title_conv],
+                   size=cfg["combined"], act=act.Tanh())
+    inference = layer.cos_sim(a=usr, b=mov, size=1, scale=5)
+    score = layer.data(name="score", type=dt.dense_vector(1))
+    cost = layer.square_error_cost(input=inference, label=score)
+    feeding = {"user_id": 0, "gender_id": 1, "age_id": 2, "job_id": 3, "movie_id": 4,
+               "category_id": 5, "movie_title": 6, "score": 7}
+    return dict(cost=cost, extra=[], feeding=feeding,
+                optimizer=paddle.optimizer.Adam(learning_rate=1e-4),
+                reader=(lambda: ((*r[:7], [r[7]]) for r in ml.train()())),
+                buf_size=8192)
+
+
 BOOK_CHAPTERS = dict(
     fit_a_line=book_fit_a_line, recognize_digits=book_recognize_digits,
     image_classification=book_image_classification, word2vec=book_word2vec,
+    recommender_system=book_recommender_system,
     understand_sentiment=book_understand_sentiment,
     label_semantic_roles=book_label_semantic_roles,
     machine_translation=book_machine_translation)
@@ -5347,6 +5417,9 @@ def book_chapters_phase(torch):
         if r["replays"] + r["graphs"] != BOOK_BATCHES:
             fail(f"book {name}: {r['graphs']} graphs and {r['replays']} replays over "
                  f"{BOOK_BATCHES} steps")
+        if name == "recommender_system" and r["graphs"] != 1:
+            fail(f"book {name}: {r['graphs']} graphs over {BOOK_BATCHES} steps, want one "
+                 f"(every batch's titles pad to the same length)")
         del run, tr
         torch.cuda.empty_cache()
     files = book_files(home)
@@ -5468,6 +5541,698 @@ def v1_proto_phase(torch, bigru_dir):
         fail(f"v1 proto: --job=test batch costs {proto_costs} vs the PyDataProvider2 "
              f"config's {pydp_costs}: rel err {rel} > {PROTO_RTOL}")
     return result
+
+
+# -- AlexNet and GoogLeNet (phase 32) --------------------------------------------
+
+# benchmarks/image_bench.py's run: 224x224, 1000 classes, batch 128,
+# SGD(0.01, momentum 0.9), one batch drawn once (randn images, labels
+# randint(0, 10)); 8 steps a (model, precision), the first eager and
+# captured, the other 7 replays
+IMAGE_MODELS = ("alexnet", "googlenet")
+IMAGE = dict(image_size=224, batch=128, classes=1000, lr=0.01, steps=8)
+# card against CPU: 64x64, batch 4, 10 classes, f32 (TF32 off); the cost
+# within 1e-5, each gradient within IMAGE_GRAD_REL_L2 (GoogLeNet's relus
+# sit on ties the summation order decides: tests/test_torch_image_models.py)
+IMAGE_CPU = dict(image_size=64, batch=4, classes=10)
+IMAGE_GRAD_REL_L2 = {"alexnet": 1e-4, "googlenet": 5e-2}
+
+
+def image_batch(np, size, b, label_range=10):
+    """image_bench.py:39-44's batch: one RandomState(0), randn images,
+    randint(0, 10) labels."""
+    rs = np.random.RandomState(0)
+    return {"image": rs.randn(b, size, size, 3).astype(np.float32),
+            "label": rs.randint(0, label_range, b)}
+
+
+def image_trainer(model, device, precision, size, classes, lr=0.01):
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.nn.graph import reset_name_scope
+    from paddle_tpu_torch.optim import SGD
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    reset_name_scope()
+    cost = getattr(models, model)(num_classes=classes, image_size=size)[3]
+    return SGDTrainer(cost, SGD(learning_rate=lr, momentum=0.9), seed=0, device=device,
+                      precision=precision)
+
+
+def conv_fc_macs(torch, trainer, image_size) -> int:
+    """Multiply-adds an image of the model's convs and fcs: each conv's
+    output pixels x kh x kw x Cin/groups x Cout (the output shapes from a
+    forward of one image), each fc's weight size."""
+    import numpy as np
+
+    from paddle_tpu_torch.nn.graph import Context
+
+    net, params = trainer.network, trainer.state["params"]
+    dev = next(iter(params.values())).device
+    one = image_batch(np, image_size, 1)
+    ctx = Context("apply", params, device=dev, states=trainer.state["states"], train=False)
+    with torch.no_grad():
+        values = net._run(ctx, one, dev, keep_all=True)
+    macs = 0
+    for layer in net.layer_order:
+        if layer.type_name == "conv":
+            kh, kw, cin_g, cout = params[f"{layer.name}.w"].shape
+            oh, ow = values[layer.name].value.shape[1:3]
+            macs += oh * ow * kh * kw * cin_g * cout
+        elif layer.type_name == "fc":
+            macs += sum(p.numel() for k, p in params.items()
+                        if k.startswith(f"{layer.name}.w"))
+    return int(macs)
+
+
+def profile_image_step(torch, trainer, batch, label):
+    """torch.profiler over 2 replayed steps: busy share, kernels a step, the
+    kernel groups of phase 10 (`kernel_group`); fails if layout transposes
+    run once a conv or more (the convs must read NHWC as channels_last)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = kernels.get(e.key, (0.0, 0))
+            kernels[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    groups = {}
+    for key, (ms, n) in kernels.items():
+        g = groups.setdefault(kernel_group(key), [0.0, 0])
+        g[0] += ms / steps
+        g[1] += n / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    n_convs = sum(1 for l in trainer.network.layer_order if l.type_name == "conv")
+    transposes = groups.get("layout_transpose", [0.0, 0])[1]
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_busy_ms_per_step": busy_ms / steps, "device_busy_share": busy_ms / wall_ms,
+           "kernel_launches_per_step": sum(c for _, c in kernels.values()) / steps,
+           "groups_ms_and_launches_per_step": groups,
+           "layout_transposes_per_step": transposes, "convs": n_convs,
+           "top_kernels_ms_per_step": [[k[:90], ms / steps, c / steps]
+                                       for k, (ms, c) in top]}
+    print(label, json.dumps(out), flush=True)
+    if busy_ms <= 0:
+        fail(f"{label}: torch.profiler recorded no device time")
+    if transposes >= n_convs:
+        fail(f"{label}: {transposes} layout-transpose kernels a step for {n_convs} convs")
+    return out
+
+
+def image_models_phase(torch):
+    """Phase 32: AlexNet and GoogLeNet training as image_bench.py drives the
+    JAX package (IMAGE), in f32 (TF32 off) and bf16: per (model,
+    precision) one eager step and its capture, then replays; ms a step
+    (host clock, the median of the replays), the graph's device ms (CUDA
+    events), images/s, MFU (3 x 2 x the convs' and fcs' multiply-adds
+    over the f32 non-tensor or the dense bf16 peak), peak memory, and
+    torch.profiler's busy share and kernels a step. Gates: one graph and
+    steps - 1 replays, finite costs that fall on the fixed batch, no
+    recurrent kernel launched, fewer layout transposes than convs. Then
+    each model's f32 cost and gradients card against CPU (IMAGE_CPU)."""
+    import numpy as np
+
+    cfg = IMAGE
+    name = torch.cuda.get_device_name(0)
+    _, f32_flops, _ = peaks(name)
+    batch = image_batch(np, cfg["image_size"], cfg["batch"])
+    out = {}
+    for model in IMAGE_MODELS:
+        for precision in ("f32", "bf16"):
+            t0 = time.perf_counter()
+            trainer = image_trainer(model, "cuda", precision, cfg["image_size"],
+                                    cfg["classes"], cfg["lr"])
+            trainer.init_state(batch)
+            dev = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            macs = conv_fc_macs(torch, trainer, cfg["image_size"])
+            zero_rnn_counts()
+            torch.cuda.reset_peak_memory_stats()
+            costs, step_ms = timed_calls(torch, lambda: trainer.step(dev), cfg["steps"])
+            peak = torch.cuda.max_memory_allocated()
+            launches = rnn_counts()
+            graphs = list(trainer.graphs.values())
+            replays = graphs[0].replays if graphs else 0
+            med = statistics.median(step_ms[1:])
+            device_ms = device_ms_per_call(torch, lambda: trainer.step(dev), n=3)
+            flops = 3 * 2 * macs * cfg["batch"]
+            peak_flops = f32_flops if precision == "f32" else bf16_peak(name)
+            tag = f"{model}_{precision}"
+            r = dict(model=model, precision=trainer.precision, config=cfg,
+                     params=sum(p.numel() for p in trainer.state["params"].values()),
+                     macs_per_image=macs, train_flops_per_step=flops, setup_s=setup_s,
+                     costs=costs, step_ms=step_ms, step_ms_median=med,
+                     step_ms_min=min(step_ms[1:]), images_per_s=cfg["batch"] / (med / 1e3),
+                     graph_device_ms_per_step=device_ms, busy_share_graph=device_ms / med,
+                     mfu=flops / (med / 1e3) / peak_flops, peak_tflops=peak_flops / 1e12,
+                     bound_ms_at_peak=flops / peak_flops * 1e3, peak_memory_bytes=peak,
+                     graphs=len(graphs), replays=replays, kernel_launches=launches)
+            if len(graphs) != 1 or replays != cfg["steps"] - 1:
+                fail(f"{tag}: {len(graphs)} step graphs, {replays} replays in "
+                     f"{cfg['steps']} steps: want one graph, every later step a replay")
+            if not np.isfinite(costs).all() or not costs[-1] < costs[0]:
+                fail(f"{tag}: costs {costs}: want finite and falling on the fixed batch")
+            if any(launches.values()):
+                fail(f"{tag}: launched kernels it does not run: {launches}")
+            r["profile"] = profile_image_step(torch, trainer, dev, f"{tag}_profile")
+            print("image_model", tag, json.dumps({k: v for k, v in r.items()
+                                                  if k != "profile"}), flush=True)
+            out[tag] = r
+            del trainer, dev, graphs
+            torch.cuda.empty_cache()
+        out[f"{model}_vs_cpu"] = image_vs_cpu(torch, model)
+    return out
+
+
+def image_vs_cpu(torch, model):
+    """The model at IMAGE_CPU in f32 on the card and on the CPU from the
+    same parameters: the first step's cost and gradients (same key)."""
+    import numpy as np
+
+    cfg = IMAGE_CPU
+    batch = image_batch(np, cfg["image_size"], cfg["batch"])
+    cpu = image_trainer(model, "cpu", "f32", cfg["image_size"], cfg["classes"])
+    card = image_trainer(model, "cuda", "f32", cfg["image_size"], cfg["classes"])
+    cpu.init_state(batch)
+    card.init_state(batch)
+    card.load_params(cpu.state["params"])
+    c_cpu, g_cpu = cpu.cost_and_grads(batch)
+    c_card, g_card = card.cost_and_grads(batch)
+    cost_err = abs(float(c_card) - float(c_cpu)) / abs(float(c_cpu))
+    grad_err = {k: rel_l2(torch, g_card[k].cpu(), v) for k, v in g_cpu.items()}
+    out = dict(config=cfg, cost_card=float(c_card), cost_cpu=float(c_cpu),
+               cost_rel_err=cost_err, grad_rel_l2_max=max(grad_err.values()),
+               grad_rel_l2_worst=max(grad_err, key=grad_err.get),
+               tolerances=dict(cost=CPU_COST_RTOL, grad=IMAGE_GRAD_REL_L2[model]))
+    print("image_vs_cpu", model, json.dumps(out), flush=True)
+    if not cost_err <= CPU_COST_RTOL:
+        fail(f"{model} card vs CPU: cost {c_card} vs {c_cpu} (rel {cost_err})")
+    bad = {k: e for k, e in grad_err.items() if not e <= IMAGE_GRAD_REL_L2[model]}
+    if bad:
+        fail(f"{model} card vs CPU: gradients beyond {IMAGE_GRAD_REL_L2[model]} relative "
+             f"L2: {dict(list(bad.items())[:5])}")
+    return out
+
+
+def dump_equals_parse(conf_dir: str, args: str, name: str) -> dict:
+    """`python -m paddle_tpu_torch dump_config` of the config against
+    `proto.to_text` of its parse, in the config's directory."""
+    from paddle_tpu_torch import proto
+    from paddle_tpu_torch.config import parse_config
+
+    rc, lines, _, _ = run_cli(conf_dir, ["dump_config", "--config=conf.py",
+                                         f"--config_args={args}"], echo=False)
+    cwd = os.getcwd()
+    os.chdir(conf_dir)
+    sys.path.insert(0, conf_dir)
+    try:
+        want = proto.to_text(parse_config("conf.py", args).trainer_config)
+    finally:
+        sys.path.remove(conf_dir)
+        os.chdir(cwd)
+    got = "\n".join(lines)
+    out = dict(rc=rc, dump_lines=len(lines), equal=got == want.rstrip("\n"),
+               layers=sum(1 for line in lines if line.strip() == "layers {"))
+    if rc != 0 or not out["equal"]:
+        fail(f"{name}: dump_config exited {rc}, equal to the parse: {out['equal']}")
+    return out
+
+
+def v1_alexnet_phase(torch):
+    """Phase 33: the reference's benchmark AlexNet as a v1 config
+    (V1_ALEXNET_CONFIG) at 227x227, batch 128 through `python -m
+    paddle_tpu_torch train --config=... --job=time`, in process: ms a
+    batch over 8 replays of one graph, images/s, busy share and kernels a
+    step; `dump_config` equal to the parse; the first 4 logged costs card
+    against CPU at V1_ALEXNET_SMALL."""
+    d = v1_config_dir("alexnet", V1_ALEXNET_CONFIG, V1_ALEXNET_PROVIDER)
+    args = config_args(V1_ALEXNET)
+    result = dict(config=V1_ALEXNET, dump=dump_equals_parse(d, args, "v1 alexnet"))
+
+    def per_step(job, ms):
+        return dict(images_per_s=V1_ALEXNET["batch_size"] / (ms / 1e3),
+                    graphs=len(job.trainer.graphs))
+
+    timed, job = v1_timed(torch, d, "v1 alexnet", "conv", per_step, V1_ALEXNET["batches"],
+                          config_args=args)
+    result["time"] = timed
+    if any(timed["kernel_launches"].values()):
+        fail(f"v1 alexnet: launched kernels it does not run: {timed['kernel_launches']}")
+    del job
+    torch.cuda.empty_cache()
+    result["vs_cpu"] = v1_vs_cpu("v1 alexnet", d, config_args(V1_ALEXNET_SMALL))
+    print("v1_alexnet", json.dumps(result), flush=True)
+    return result
+
+
+def v1_vocab_phase(torch):
+    """Phase 35: V1_VOCAB_CONFIG (the transposed conv, img_cmrnorm, maxout,
+    bilinear_interp, spp, pad, crop, cos_sim, trans, row_conv, prelu,
+    scaling, print_layer, selective_fc and `1 + layer_math.exp(x) * z`)
+    through `train --config` for 8 steps: one graph of 7 replays, the cost
+    falls, print_layer's line once a step (the eager step's and each
+    replay's), `dump_config` equal to the parse; ms a step over 5 more
+    replays of the last batch; then the first 4 logged costs card against
+    CPU at V1_VOCAB_SMALL."""
+    import numpy as np
+
+    cfg = V1_VOCAB
+    d = v1_config_dir("vocab", V1_VOCAB_CONFIG, V1_VOCAB_PROVIDER)
+    args = config_args(cfg)
+    result = dict(config=cfg, dump=dump_equals_parse(d, args, "v1 vocab"))
+    zero_rnn_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc, lines, costs, job = run_cli(d, ["train", "--config=conf.py", f"--config_args={args}",
+                                        "--num_passes=1", "--log_period=1"], echo=False)
+    wall_s = time.perf_counter() - t0
+    launches = rnn_counts()
+    graphs = list(job.trainer.graphs.values()) if job is not None else []
+    prints = [line for line in lines if line.startswith("gate [[")]
+    result.update(rc=rc, step_costs=costs, graphs=len(graphs),
+                  replays=graphs[0].replays if graphs else 0, print_lines=len(prints),
+                  first_print=prints[0][:60] if prints else None, wall_s=wall_s,
+                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                  kernel_launches=launches)
+    if rc != 0:
+        fail(f"v1 vocab: train exited {rc}")
+    if len(graphs) != 1 or result["replays"] != cfg["batches"] - 1:
+        fail(f"v1 vocab: {len(graphs)} graphs, {result['replays']} replays over "
+             f"{cfg['batches']} steps: want one graph, every later step a replay")
+    if len(costs) != cfg["batches"] or not np.isfinite(costs).all() or not costs[-1] < costs[0]:
+        fail(f"v1 vocab: step costs {costs}: want {cfg['batches']}, finite, falling")
+    if len(prints) != cfg["batches"]:
+        fail(f"v1 vocab: print_layer printed {len(prints)} times over {cfg['batches']} "
+             f"steps, want once a step")
+    if any(launches.values()):
+        fail(f"v1 vocab: launched kernels it does not run: {launches}")
+    # the last batch again through the graph: ms a step (each replay prints)
+    batch = {k: v.cpu().numpy() for k, v in graphs[0].inputs.items()}
+    _, step_ms = timed_calls(torch, lambda: job.trainer.step(batch), 5)
+    result.update(ms_per_step_median=statistics.median(step_ms), step_ms=step_ms)
+    del job, graphs
+    result["vs_cpu"] = v1_vs_cpu("v1 vocab", d, config_args(V1_VOCAB_SMALL))
+    print("v1_vocab", json.dumps(result), flush=True)
+    return result
+
+
+# -- AlexNet as a v1 config (phase 33) and a v1 config of the new helpers
+# (phase 35) ------------------------------------------------------------------
+
+V1_ALEXNET_PROVIDER = """
+import numpy as np
+from paddle.trainer.PyDataProvider2 import *
+
+
+def hook(settings, height, width, num_class, samples, **kwargs):
+    settings.shape, settings.num_class = (3, height, width), num_class
+    settings.samples = samples
+    settings.input_types = {"data": dense_vector(3 * height * width),
+                            "label": integer_value(num_class)}
+
+
+@provider(init_hook=hook, should_shuffle=False)
+def process(settings, filename):
+    # images and labels drawn as benchmarks/image_bench.py draws them
+    rs = np.random.RandomState(0)
+    size = int(np.prod(settings.shape))
+    for _ in range(settings.samples):
+        yield {"data": rs.randn(size).astype("float32"),
+               "label": int(rs.randint(settings.num_class))}
+"""
+
+# benchmark/paddle/image/alexnet.py's layout (the JAX package's
+# models/alexnet.py docstring names it): 227x227x3, conv 96/256/384/384/256,
+# cross-map norms after conv1 and conv2, 3x3/2 max pools, two 4096 fcs with
+# drop_rate 0.5, momentum with the per-sample rate and L2
+V1_ALEXNET_CONFIG = """
+from paddle.trainer_config_helpers import *
+
+height = get_config_arg("height", int, 227)
+width = get_config_arg("width", int, 227)
+num_class = get_config_arg("num_class", int, 1000)
+batch_size = get_config_arg("batch_size", int, 128)
+batches = get_config_arg("batches", int, 8)
+fc_dim = get_config_arg("fc_dim", int, 4096)
+gp = get_config_arg("layer_num", int, 1)
+define_py_data_sources2(
+    "train.list", None, module="v1_alexnet_provider", obj="process",
+    args={"height": height, "width": width, "num_class": num_class,
+          "samples": batches * batch_size})
+settings(batch_size=batch_size, learning_rate=0.01 / batch_size,
+         learning_method=MomentumOptimizer(0.9),
+         regularization=L2Regularization(0.0005 * batch_size))
+
+# conv1
+net = data_layer("data", size=height * width * 3, height=height, width=width)
+net = img_conv_layer(input=net, filter_size=11, num_channels=3, num_filters=96,
+                     stride=4, padding=1)
+net = img_cmrnorm_layer(input=net, size=5, scale=0.0001, power=0.75)
+net = img_pool_layer(input=net, pool_size=3, stride=2)
+# conv2
+net = img_conv_layer(input=net, filter_size=5, num_filters=256, stride=1, padding=2,
+                     groups=gp)
+net = img_cmrnorm_layer(input=net, size=5, scale=0.0001, power=0.75)
+net = img_pool_layer(input=net, pool_size=3, stride=2)
+# conv3, conv4, conv5
+net = img_conv_layer(input=net, filter_size=3, num_filters=384, stride=1, padding=1)
+net = img_conv_layer(input=net, filter_size=3, num_filters=384, stride=1, padding=1,
+                     groups=gp)
+net = img_conv_layer(input=net, filter_size=3, num_filters=256, stride=1, padding=1,
+                     groups=gp)
+net = img_pool_layer(input=net, pool_size=3, stride=2)
+net = fc_layer(input=net, size=fc_dim, act=ReluActivation(),
+               layer_attr=ExtraAttr(drop_rate=0.5))
+net = fc_layer(input=net, size=fc_dim, act=ReluActivation(),
+               layer_attr=ExtraAttr(drop_rate=0.5))
+net = fc_layer(input=net, size=num_class, act=SoftmaxActivation())
+lab = data_layer("label", num_class)
+outputs(cross_entropy(input=net, label=lab))
+"""
+
+V1_VOCAB_PROVIDER = """
+import numpy as np
+from paddle.trainer.PyDataProvider2 import *
+
+
+def hook(settings, side, vocab, samples, **kwargs):
+    settings.side, settings.vocab, settings.samples = side, vocab, samples
+    settings.input_types = {"image": dense_vector(3 * side * side), "x": dense_vector(16),
+                            "w": dense_vector(1), "word": integer_value_sequence(vocab),
+                            "label": integer_value(4)}
+
+
+@provider(init_hook=hook, should_shuffle=False)
+def process(settings, filename):
+    rs = np.random.RandomState(0)
+    for _ in range(settings.samples):
+        x = rs.randn(16).astype("float32")
+        label = int(np.argmax(x[:4]))  # learnable from x alone
+        yield {"image": rs.rand(3 * settings.side ** 2).astype("float32"), "x": x,
+               "w": rs.uniform(0.5, 1.5, 1).astype("float32"),
+               "word": rs.randint(0, settings.vocab, rs.randint(3, 9)).tolist(),
+               "label": label}
+"""
+
+# the v1 DSL over the new layers: the transposed conv, img_cmrnorm, maxout,
+# bilinear_interp, spp, pad, crop, cos_sim, trans, row_conv, prelu,
+# scaling, print_layer and selective_fc, and layer_math's arithmetic
+# (`1 + layer_math.exp(x) * z` builds scaling and slope_intercept)
+V1_VOCAB_CONFIG = """
+from paddle.trainer_config_helpers import *
+
+side = get_config_arg("side", int, 16)
+vocab = get_config_arg("vocab", int, 50)
+batch = get_config_arg("batch", int, 64)
+batches = get_config_arg("batches", int, 8)
+settings(batch_size=batch, learning_rate=1e-2, learning_method=AdamOptimizer())
+define_py_data_sources2(
+    train_list="train.list", test_list=None, module="v1_vocab_provider", obj="process",
+    args={"side": side, "vocab": vocab, "samples": batches * batch})
+img = data_layer(name="image", size=3 * side * side, height=side, width=side)
+x = data_layer(name="x", size=16)
+w = data_layer(name="w", size=1)
+word = data_layer(name="word", size=vocab)
+label = data_layer(name="label", size=4)
+
+conv = img_conv_layer(input=img, filter_size=3, num_filters=8, num_channels=3, padding=1)
+norm = img_cmrnorm_layer(input=conv, size=5)
+mo = maxout_layer(input=norm, groups=2)
+up = img_conv_layer(input=mo, filter_size=2, num_filters=4, stride=2, trans=True)
+down = bilinear_interp_layer(input=up, out_size_x=side, out_size_y=side)
+pyramid = spp_layer(input=down, pyramid_height=2)
+padded = pad_layer(input=mo, pad_h=[1, 1], pad_w=[1, 1])
+cropped = crop_layer(input=padded, offset=[1, 1], shape=[side, side])
+f_img = fc_layer(input=[pyramid, cropped], size=16, act=TanhActivation())
+h = fc_layer(input=x, size=16, act=TanhActivation())
+cos = cos_sim(a=f_img, b=h, scale=5)
+gate = print_layer(input=1 + layer_math.exp(cos) * w, format="gate")
+flipped = trans_layer(input=h, height=4)
+seq = row_conv_layer(input=embedding_layer(input=word, size=8), context_len=3,
+                     act=TanhActivation())
+pooled = pooling_layer(input=seq, pooling_type=AvgPooling())
+feat = concat_layer(input=[flipped, pooled, f_img, h])
+act = prelu_layer(input=fc_layer(input=feat, size=16, act=LinearActivation()))
+scaled = scaling_layer(input=act, weight=gate)
+out = selective_fc_layer(input=scaled, size=4, act=SoftmaxActivation())
+outputs(classification_cost(input=out, label=label))
+"""
+def config_args(cfg: dict) -> str:
+    """A config's --config_args from a dict of its get_config_arg values."""
+    return ",".join(f"{k}={v}" for k, v in cfg.items())
+
+
+V1_VOCAB = dict(side=16, vocab=50, batch=64, batches=8)
+V1_VOCAB_SMALL = dict(side=8, vocab=20, batch=8, batches=4)
+V1_ALEXNET = dict(batch_size=128, batches=8)
+# phase 33's card-vs-CPU check: AlexNet's v1 layout at 67x67 (conv5 3x3),
+# fc 64, 10 classes, batch 4
+V1_ALEXNET_SMALL = dict(height=67, width=67, num_class=10, batch_size=4, batches=4,
+                        fc_dim=64)
+
+
+# -- the v1 layer vocabulary (phase 34; tests/test_torch_layers_vocab.py) ------
+
+# The 36 layers ROADMAP §1 items 6a-6b port, at small shapes, each
+# name -> (inputs, build). An input is (kind, shape[, high]): "x" randn,
+# "pos" U(0.5, 1.5), "prob" rows of a softmax, "sel" 0/1 with a 1 in every
+# row, "ids" integers in [0, high), "seq" a randn [B, T, D] sequence with
+# ragged lengths. build(L, P, ins, name) makes the layer from a package's
+# `nn.layers` and `nn.projections` modules over Data layers `ins`.
+VOCAB_CASES = {
+    "conv_transpose": ([("x", (3, 5, 6, 4))], lambda L, P, i, n: L.Conv2DTranspose(
+        i[0], 3, 3, stride=2, padding=1, name=n)),
+    "conv_transpose_s1p0": ([("x", (3, 4, 5, 4))], lambda L, P, i, n: L.Conv2DTranspose(
+        i[0], 3, (3, 2), stride=1, padding=0, act="tanh", name=n)),
+    "conv_transpose_s2p0": ([("x", (3, 4, 5, 4))], lambda L, P, i, n: L.Conv2DTranspose(
+        i[0], 3, 3, stride=2, padding=0, name=n)),
+    "conv_transpose_s1p1": ([("x", (3, 4, 5, 4))], lambda L, P, i, n: L.Conv2DTranspose(
+        i[0], 3, 3, stride=1, padding=1, name=n)),
+    "lrn": ([("x", (3, 4, 5, 7))], lambda L, P, i, n: L.CrossMapNorm(
+        i[0], size=5, scale=0.5, power=0.75, name=n)),
+    "maxout": ([("x", (3, 4, 4, 6))], lambda L, P, i, n: L.Maxout(i[0], 3, name=n)),
+    "spp": ([("x", (3, 5, 6, 4))], lambda L, P, i, n: L.SpatialPyramidPool(
+        i[0], 3, "max", name=n)),
+    "spp_avg": ([("x", (3, 5, 6, 4))], lambda L, P, i, n: L.SpatialPyramidPool(
+        i[0], 2, "avg", name=n)),
+    "bilinear_interp": ([("x", (3, 4, 5, 2))], lambda L, P, i, n: L.BilinearInterp(
+        i[0], (7, 9), name=n)),
+    "bilinear_interp_down": ([("x", (3, 8, 7, 2))], lambda L, P, i, n: L.BilinearInterp(
+        i[0], (3, 4), name=n)),
+    "pad": ([("x", (3, 4, 5, 2))], lambda L, P, i, n: L.Pad(
+        i[0], pad_h=(1, 2), pad_w=(0, 1), pad_c=(1, 0), name=n)),
+    "crop": ([("x", (3, 5, 6, 2))], lambda L, P, i, n: L.Crop(i[0], 1, 2, 3, 3, name=n)),
+    "rotate": ([("x", (3, 4, 5, 2))], lambda L, P, i, n: L.Rotate(i[0], name=n)),
+    "feature_map_expand": ([("x", (3, 4))], lambda L, P, i, n: L.FeatureMapExpand(
+        i[0], 3, act="tanh", name=n)),
+    "feature_map_expand_elems": ([("x", (3, 4))], lambda L, P, i, n: L.FeatureMapExpand(
+        i[0], 3, as_row_vector=False, name=n)),
+    "cross_channel_norm": ([("x", (3, 4, 5, 6))], lambda L, P, i, n: L.CrossChannelNorm(
+        i[0], name=n)),
+    "prelu": ([("x", (3, 8))], lambda L, P, i, n: L.ParameterRelu(
+        i[0], partial_sum=2, name=n)),
+    "scaling": ([("x", (3, 1)), ("x", (3, 5))], lambda L, P, i, n: L.Scaling(
+        i[0], i[1], name=n)),
+    "slope_intercept": ([("x", (3, 5))], lambda L, P, i, n: L.SlopeIntercept(
+        i[0], slope=2.0, intercept=0.5, name=n)),
+    "interpolation": ([("x", (3, 1)), ("x", (3, 5)), ("x", (3, 5))],
+                      lambda L, P, i, n: L.Interpolation(i[0], i[1], i[2], name=n)),
+    "power": ([("x", (3, 1)), ("pos", (3, 5))], lambda L, P, i, n: L.Power(
+        i[0], i[1], name=n)),
+    "dot_prod": ([("x", (3, 6)), ("x", (3, 6))], lambda L, P, i, n: L.DotProd(
+        i[0], i[1], name=n)),
+    "cos_sim": ([("x", (3, 6)), ("x", (3, 6))], lambda L, P, i, n: L.CosSim(
+        i[0], i[1], scale=5.0, name=n)),
+    "convex_comb": ([("x", (3, 4)), ("x", (3, 12))], lambda L, P, i, n: L.LinearComb(
+        i[0], i[1], size=3, name=n)),
+    "cos_vm": ([("x", (3, 4)), ("x", (3, 12))], lambda L, P, i, n: L.CosSimVecMat(
+        i[0], i[1], size=3, scale=2.0, name=n)),
+    "concat2": ([("x", (3, 5)), ("x", (3, 3))], lambda L, P, i, n: L.Concat2(
+        [P.FullMatrix(i[0], size=4), P.Identity(i[1])], act="tanh", bias=True, name=n)),
+    "trans": ([("x", (3, 6))], lambda L, P, i, n: L.Trans(i[0], 2, name=n)),
+    "trans_batch": ([("x", (3, 6))], lambda L, P, i, n: L.Trans(i[0], name=n)),
+    "row_l2_norm": ([("x", (3, 6))], lambda L, P, i, n: L.RowL2Norm(i[0], name=n)),
+    "data_norm": ([("x", (3, 6))], lambda L, P, i, n: L.DataNorm(i[0], name=n)),
+    "data_norm_min_max": ([("x", (3, 6))], lambda L, P, i, n: L.DataNorm(
+        i[0], "min-max", name=n)),
+    "data_norm_decimal": ([("x", (3, 6))], lambda L, P, i, n: L.DataNorm(
+        i[0], "decimal-scaling", name=n)),
+    "resize": ([("x", (3, 8))], lambda L, P, i, n: L.Resize(i[0], 4, name=n)),
+    "clip": ([("x", (3, 8))], lambda L, P, i, n: L.Clip(i[0], -0.5, 0.5, name=n)),
+    "scale_shift": ([("x", (3, 5))], lambda L, P, i, n: L.ScaleShift(i[0], name=n)),
+    "multiplex": ([("ids", (3,), 3), ("x", (3, 5)), ("x", (3, 5)), ("x", (3, 5))],
+                  lambda L, P, i, n: L.Multiplex(i[0], i[1:], name=n)),
+    "outer_prod": ([("x", (3, 4)), ("x", (3, 3))], lambda L, P, i, n: L.OuterProd(
+        i[0], i[1], name=n)),
+    "conv_shift": ([("x", (3, 7)), ("x", (3, 3))], lambda L, P, i, n: L.ConvShift(
+        i[0], i[1], name=n)),
+    "sum_to_one_norm": ([("pos", (3, 5))], lambda L, P, i, n: L.SumToOneNorm(
+        i[0], name=n)),
+    "tensor": ([("x", (3, 4)), ("x", (3, 5))], lambda L, P, i, n: L.TensorLayer(
+        i[0], i[1], 3, act="tanh", name=n)),
+    "selective_fc": ([("x", (3, 6)), ("sel", (3, 5))], lambda L, P, i, n: L.SelectiveFc(
+        [i[0], i[1]], 5, act="softmax", name=n)),
+    "selective_fc_all": ([("x", (3, 6))], lambda L, P, i, n: L.SelectiveFc(
+        i[0], 5, act="tanh", name=n)),
+    "row_conv": ([("seq", (3, 6, 4))], lambda L, P, i, n: L.RowConv(
+        i[0], 3, act="tanh", name=n)),
+    "sampling_id": ([("prob", (3, 7))], lambda L, P, i, n: L.SamplingId(i[0], name=n)),
+    "eos_id": ([("ids", (3, 5), 4)], lambda L, P, i, n: L.EosIdCheck(i[0], 2, name=n)),
+    "print": ([("x", (3, 4))], lambda L, P, i, n: L.PrintLayer(
+        i[0], message="vocab print", name=n)),
+}
+# the 36 layers of ROADMAP §1 items 6a-6b, one case a layer (the others are
+# further shapes and options of the same layers)
+VOCAB_LAYERS = (
+    "conv_transpose", "lrn", "maxout", "spp", "bilinear_interp", "pad", "crop", "rotate",
+    "feature_map_expand", "cross_channel_norm", "prelu", "scaling", "slope_intercept",
+    "interpolation", "power", "dot_prod", "cos_sim", "convex_comb", "cos_vm", "concat2",
+    "trans", "row_l2_norm", "data_norm", "resize", "clip", "scale_shift", "multiplex",
+    "outer_prod", "conv_shift", "sum_to_one_norm", "tensor", "selective_fc", "row_conv",
+    "sampling_id", "eos_id", "print")
+VOCAB_RNG_SEED = 5
+VOCAB_CARD_RTOL = 1e-5
+
+
+def vocab_inputs(np, name, seed=0):
+    """A case's inputs drawn from RandomState(seed): [(value, lengths or
+    None)], float32 values (ids int32)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for spec in VOCAB_CASES[name][0]:
+        kind, shape = spec[0], spec[1]
+        lengths = None
+        if kind == "x":
+            v = rs.randn(*shape)
+        elif kind == "pos":
+            v = rs.uniform(0.5, 1.5, shape)
+        elif kind == "prob":
+            e = np.exp(rs.randn(*shape))
+            v = e / e.sum(-1, keepdims=True)
+        elif kind == "sel":
+            v = (rs.rand(*shape) < 0.5).astype(np.float32)
+            v[np.arange(shape[0]), rs.randint(0, shape[1], shape[0])] = 1.0
+        elif kind == "ids":
+            v = rs.randint(0, spec[2], shape).astype(np.int32)
+        else:  # "seq"
+            v = rs.randn(*shape)
+            lengths = np.array([shape[1]] + list(rs.randint(1, shape[1] + 1, shape[0] - 1)),
+                               np.int32)
+        out.append((v.astype(np.float32) if v.dtype != np.int32 else v, lengths))
+    return out
+
+
+def vocab_states(np, states, seed=1):
+    """Random statistics for DataNorm's states (its `min` below its `max`)."""
+    rs = np.random.RandomState(seed)
+    return {k: (rs.uniform(-1.0, 0.0, np.shape(v)) if k.endswith(".min")
+                else rs.uniform(0.5, 1.5, np.shape(v))).astype(np.float32)
+            for k, v in states.items()}
+
+
+def vocab_build(name, L, P, Data):
+    """The case's layer named `name` over Data layers `in0`, `in1`, ..."""
+    specs, build = VOCAB_CASES[name]
+    ins = [Data(f"in{j}", shape=s[1][1:], is_seq=s[0] == "seq") for j, s in enumerate(specs)]
+    return build(L, P, ins, name)
+
+
+def vocab_port_run(torch, name, device, inputs, ct=None, params=None, states=None,
+                   policy="f32"):
+    """The port's layer `name` on `device`: init mode (without `params`) makes
+    its parameters and states on the CPU; then the forward in train mode
+    over `inputs` and, given a cotangent `ct`, the gradients of the float
+    inputs and the parameters -> dict(out, dx, dp, params, states)."""
+    from paddle_tpu_torch.core import dtypes, prng
+    from paddle_tpu_torch.nn import graph as G
+    from paddle_tpu_torch.nn import layers as L
+    from paddle_tpu_torch.nn import projections as P
+
+    dev = torch.device(device)
+    pol = dtypes.get(policy)
+    layer = vocab_build(name, L, P, L.Data)
+    xs = []
+    for v, lengths in inputs:
+        t = torch.as_tensor(v).to(dev)
+        if t.is_floating_point():
+            t = t.to(pol.compute_dtype).requires_grad_(ct is not None)
+        xs.append((t, None if lengths is None else torch.as_tensor(lengths).to(dev)))
+    args = [G.Argument(t, lengths) for t, lengths in xs]
+    if params is None:
+        ctx = G.Context("init", {}, device=torch.device("cpu"), train=True,
+                        rng=prng.PRNGKey(VOCAB_RNG_SEED))
+        with torch.no_grad():
+            layer.forward(ctx, [G.Argument(t.detach().cpu(), None if n is None else n.cpu())
+                                for t, n in xs])
+        params, states = ctx.params, ctx.states
+    params = {k: v.to(dev).clone().requires_grad_(ct is not None) for k, v in params.items()}
+    states = {k: torch.as_tensor(v).to(dev) for k, v in (states or {}).items()}
+    ctx = G.Context("apply", params, device=dev, states=states, train=True, policy=pol,
+                    rng=prng.PRNGKey(VOCAB_RNG_SEED, dev))
+    with dtypes.policy_scope(pol):
+        out = layer.forward(ctx, args).value
+    res = dict(out=out.detach(), dx=[], dp={}, params=params, states=states)
+    if ct is not None and out.is_floating_point():
+        floats = [t for t, _ in xs if t.is_floating_point()]
+        wrt = floats + list(params.values())
+        if wrt:
+            grads = torch.autograd.grad(out, wrt, torch.as_tensor(ct).to(dev, out.dtype),
+                                        allow_unused=True)
+            res["dx"] = [g for g in grads[:len(floats)]]
+            res["dp"] = dict(zip(params, grads[len(floats):]))
+    return res
+
+
+def vocab_phase(torch):
+    """Phase 34: each of the 36 layers of the v1 vocabulary (VOCAB_CASES,
+    with the further shapes and options) forward and backward on the card
+    against the port's CPU result from the same parameters, states and
+    inputs, f32 with TF32 off: output, input and parameter gradients
+    within VOCAB_CARD_RTOL relative L2; SamplingId's ids and EosIdCheck's
+    flags equal."""
+    import numpy as np
+
+    worst, rows = 0.0, {}
+    for name in VOCAB_CASES:
+        inputs = vocab_inputs(np, name)
+        cpu0 = vocab_port_run(torch, name, "cpu", inputs)
+        states = {k: torch.as_tensor(v) for k, v in vocab_states(np, cpu0["states"]).items()}
+        params = {k: v.detach() for k, v in cpu0["params"].items()}
+        out_shape = tuple(cpu0["out"].shape)
+        ct = np.random.RandomState(2).randn(*out_shape).astype(np.float32)
+        cpu = vocab_port_run(torch, name, "cpu", inputs, ct, params, states)
+        card = vocab_port_run(torch, name, "cuda", inputs, ct, params, states)
+        errs = {"out": rel_l2(torch, card["out"].float(), cpu["out"].float())}
+        for j, (g, w) in enumerate(zip(card["dx"], cpu["dx"])):
+            if w is not None:
+                errs[f"dx{j}"] = rel_l2(torch, g, w)
+        for k, w in cpu["dp"].items():
+            if w is not None:
+                errs[k] = rel_l2(torch, card["dp"][k], w)
+        exact = not cpu["out"].is_floating_point() or name == "eos_id"
+        if exact and not torch.equal(card["out"].cpu(), cpu["out"]):
+            fail(f"vocab {name}: card {card['out'].tolist()} != CPU {cpu['out'].tolist()}")
+        rows[name] = dict(shape=list(out_shape), max_rel_l2=max(errs.values()),
+                          worst=max(errs, key=errs.get), checked=len(errs))
+        worst = max(worst, rows[name]["max_rel_l2"])
+        if not rows[name]["max_rel_l2"] <= VOCAB_CARD_RTOL:
+            fail(f"vocab {name}: card vs CPU {errs} (relative L2, want <= "
+                 f"{VOCAB_CARD_RTOL})")
+    out = dict(cases=len(rows), layers=len(VOCAB_LAYERS), max_rel_l2=worst,
+               tolerance=VOCAB_CARD_RTOL, rows=rows)
+    print("vocab", json.dumps(out), flush=True)
+    return out
 
 
 def train_of(torch, tree: str) -> int:
@@ -5660,7 +6425,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     book = book_chapters_phase(torch)
 
-    # 32. lines
+    # 32. AlexNet and GoogLeNet at 224x224, batch 128, in f32 and bf16, 33.
+    # the reference's AlexNet v1 config under --job=time, 34. the 36 layers
+    # of the v1 vocabulary card vs CPU, 35. a v1 config of the new helpers
+    # trained as one graph (counters from 0 in each)
+    torch.cuda.empty_cache()
+    image_models = image_models_phase(torch)
+    torch.cuda.empty_cache()
+    v1_alexnet = v1_alexnet_phase(torch)
+    torch.cuda.empty_cache()
+    vocab = vocab_phase(torch)
+    v1_vocab = v1_vocab_phase(torch)
+
+    # 36. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -5809,7 +6586,8 @@ def main() -> int:
                    "v1_seq2seq": v1_seq2seq, "v2_api": v2_api, "deploy": deploy,
                    "v1_gen": v1_gen, "serve_config": serve_config, "v2_gen": v2_gen,
                    "v1_proto": v1_proto, "layer_error": layer_error, "book_nmt": book_nmt,
-                   "book": book},
+                   "book": book, "image_models": image_models, "v1_alexnet": v1_alexnet,
+                   "vocab": vocab, "v1_vocab": v1_vocab},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

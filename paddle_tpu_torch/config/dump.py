@@ -13,7 +13,8 @@ follows the reference: x = width, y = height; image tensors are NHWC, so
 input shape [B, H, W, C] maps to img_size_y=H, img_size=W, channels=C.
 A recurrent group expands as the reference's RecurrentLayerGroup does
 (`_emit_recurrent_group`). The emitters of layers the port does not have
-yet are left out with them.
+yet (the 3-D convs, SimpleRnn, the detection layers, NCE and hsigmoid) are
+left out with them.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import proto
+from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.nn.graph import Argument, Context, Layer
 from paddle_tpu_torch.v2.topology import Topology
 
@@ -31,6 +33,8 @@ from paddle_tpu_torch.v2.topology import Topology
 # differ (gserver/layers/*.cpp registrations)
 _TYPE_ALIAS = {
     "conv": "exconv",
+    "conv_transpose": "exconvt",
+    "cos_sim": "cos",
     "smooth_l1_cost": "smooth_l1",
     "last_seq": "seqlastins",
     "first_seq": "seqlastins",
@@ -38,7 +42,10 @@ _TYPE_ALIAS = {
     "seq_reshape": "seqreshape",
     "classification_cost": "multi-class-cross-entropy",
     "grumemory": "gated_recurrent",
+    "lrn": "norm",
+    "outer_prod": "out_prod",
     "block_expand": "blockexpand",
+    "feature_map_expand": "featmap_expand",
     "square_error": "square_error",
     "step_arg_output": "get_output",
     "rank_cost": "rank-cost",
@@ -122,7 +129,7 @@ def _set_hw(lc: proto.LayerConfig, out: Argument) -> None:
             lc.depth = g[0]
 
 
-@_emitter("conv")
+@_emitter("conv", "conv_transpose")
 def _emit_conv(layer, ins, out, lc):
     kh, kw = _pair(layer.filter_size)
     sh, sw = _pair(layer.stride)
@@ -132,21 +139,25 @@ def _emit_conv(layer, ins, out, lc):
     ihwc, ohwc = _hw(ins[0]), _hw(out)
     cin = ihwc[2] if ihwc else 0
     groups = getattr(layer, "groups", 1)
+    trans = layer.type_name == "conv_transpose"
     cc = proto.ConvConfig(
         filter_size=kw, filter_size_y=kh,
         channels=cin,
         stride=sw, stride_y=sh,
         padding=pw, padding_y=ph,
         groups=groups,
-        filter_channels=cin // max(groups, 1),
+        # exconvt describes the forward conv it transposes: its input
+        # channels are this layer's num_filters
+        filter_channels=(layer.num_filters if trans else cin) // max(groups, 1),
         caffe_mode=True,
     )
     if dh != 1 or dw != 1:
         cc.dilation, cc.dilation_y = dw, dh
-    if ihwc:
-        cc.img_size, cc.img_size_y = ihwc[1], ihwc[0]
-    if ohwc:
-        cc.output_x, cc.output_y = ohwc[1], ohwc[0]
+    src, dst = (ohwc, ihwc) if trans else (ihwc, ohwc)  # parse_conv's swap
+    if src:
+        cc.img_size, cc.img_size_y = src[1], src[0]
+    if dst:
+        cc.output_x, cc.output_y = dst[1], dst[0]
     lc.inputs[0].conv_conf = cc
     lc.num_filters = layer.num_filters
     lc.shared_biases = True
@@ -186,6 +197,79 @@ def _emit_bn(layer, ins, out, lc):
     if ugs is not None:
         lc.use_global_stats = bool(ugs)
     _set_hw(lc, out)
+
+
+@_emitter("sampling_id")
+def _emit_sampling_id(layer, ins, out, lc):
+    # SamplingIdLayer keeps its input's size in the config even though the
+    # forward emits one sampled id per row (SamplingIdLayer.cpp)
+    feat = ins[0].value.shape[1:]
+    lc.size = int(np.prod(feat)) if feat else 1
+
+
+@_emitter("lrn")
+def _emit_norm(layer, ins, out, lc):
+    ihwc = _hw(ins[0])
+    size = getattr(layer, "size", 0)
+    nc = proto.NormConfig(
+        norm_type="cmrnorm-projection",
+        channels=ihwc[2] if ihwc else 0,
+        size=size,
+        # config_parser stores scale/size (parse_norm); the kernel multiplies
+        # by the window sum so the product is the user's scale
+        scale=getattr(layer, "scale", 0.0) / max(size, 1),
+        pow=getattr(layer, "power", 0.0),
+        blocked=False,
+    )
+    if ihwc:
+        nc.img_size, nc.img_size_y = ihwc[1], ihwc[0]
+        nc.output_x, nc.output_y = ihwc[1], ihwc[0]
+    lc.inputs[0].norm_conf = nc
+    _set_hw(lc, out)
+
+
+@_emitter("clip")
+def _emit_clip(layer, ins, out, lc):
+    lc.inputs[0].clip_conf = proto.ClipConfig(
+        min=getattr(layer, "lo", 0.0), max=getattr(layer, "hi", 0.0))
+
+
+@_emitter("pad")
+def _emit_pad(layer, ins, out, lc):
+    # the image_conf only: the JAX package's emitter prints no pad sizes
+    # (ROADMAP.md §3 fault 16), and the same text is printed here
+    lc.inputs[0].pad_conf = proto.PadConfig(image_conf=_image_conf(ins[0]))
+    _set_hw(lc, out)
+
+
+@_emitter("maxout")
+def _emit_maxout(layer, ins, out, lc):
+    lc.inputs[0].maxout_conf = proto.MaxOutConfig(
+        image_conf=_image_conf(ins[0]), groups=getattr(layer, "groups", 0))
+    _set_hw(lc, out)
+
+
+@_emitter("spp")
+def _emit_spp(layer, ins, out, lc):
+    lc.inputs[0].spp_conf = proto.SppConfig(
+        image_conf=_image_conf(ins[0]),
+        pool_type=f"{getattr(layer, 'pool_type', 'max')}-projection",
+        pyramid_height=getattr(layer, "pyramid_height", 0))
+
+
+@_emitter("bilinear_interp")
+def _emit_bilinear(layer, ins, out, lc):
+    ohwc = _hw(out)
+    lc.inputs[0].bilinear_interp_conf = proto.BilinearInterpConfig(
+        image_conf=_image_conf(ins[0]),
+        out_size_x=ohwc[1] if ohwc else 0,
+        out_size_y=ohwc[0] if ohwc else 0)
+    _set_hw(lc, out)
+
+
+@_emitter("row_conv")
+def _emit_row_conv(layer, ins, out, lc):
+    lc.inputs[0].row_conv_conf = proto.RowConvConfig(context_length=layer.context_len)
 
 
 @_emitter("block_expand")
@@ -238,6 +322,29 @@ def _emit_lstm(layer, ins, out, lc):
     lc.reversed = bool(getattr(layer, "reverse", False))
     lc.active_gate_type = getattr(layer, "gate_act", "sigmoid")
     lc.active_state_type = getattr(layer, "state_act", "tanh")
+
+
+@_emitter("crop")
+def _emit_crop(layer, ins, out, lc):
+    # axis 2 and the offset; no shape, as the JAX package's (§3 fault 16)
+    lc.axis = 2
+    lc.offset = list(layer.offset)
+
+
+@_emitter("prelu")
+def _emit_prelu(layer, ins, out, lc):
+    lc.partial_sum = getattr(layer, "partial_sum", 1)
+
+
+@_emitter("slope_intercept")
+def _emit_slope(layer, ins, out, lc):
+    lc.slope = getattr(layer, "slope", 1.0)
+    lc.intercept = getattr(layer, "intercept", 0.0)
+
+
+@_emitter("cos_sim", "cos_vm")
+def _emit_cos(layer, ins, out, lc):
+    lc.cos_scale = getattr(layer, "scale", 1.0)
 
 
 @_emitter("crf", "crf_decoding")
@@ -492,7 +599,7 @@ def build_model_config(
     net = topology.network
 
     cpu = torch.device("cpu")
-    ctx = Context("init", {}, device=cpu, train=False)
+    ctx = Context("init", {}, device=cpu, train=False, rng=prng.PRNGKey(0))
     with torch.no_grad():
         values = net._run(ctx, topology.sample_batch(batch_size, seq_len), cpu,
                           keep_all=True)
@@ -631,13 +738,24 @@ def build_model_config(
 # the same fact is not emitted twice)
 _EMITTED_ATTRS = {
     "conv": {"filter_size", "stride", "padding", "dilation", "groups", "num_filters"},
+    "conv_transpose": {"filter_size", "stride", "padding", "dilation", "groups",
+                       "num_filters"},
     "pool": {"pool_size", "pool_type", "stride", "padding", "ceil_mode"},
     "batch_norm": {"maf", "use_global_stats", "epsilon"},
+    "lrn": {"size", "scale", "power"},
+    "clip": {"lo", "hi"},
+    "maxout": {"groups"},
+    "spp": {"pool_type", "pyramid_height"},
     "block_expand": {"block", "stride", "padding"},
     "dropout": {"rate"},
     "last_seq": {"stride"},
     "first_seq": {"stride"},
     "lstmemory": {"reverse", "gate_act", "state_act"},
+    "crop": {"offset"},
+    "prelu": {"partial_sum"},
+    "slope_intercept": {"slope", "intercept"},
+    "cos_sim": {"scale"},
+    "cos_vm": {"scale"},
     "ctc": {"norm_by_times", "blank"},
     "warp_ctc": {"norm_by_times", "blank"},
     "expand": {"expand_level"},

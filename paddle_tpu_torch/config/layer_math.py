@@ -3,9 +3,8 @@
 trainer_config_helpers/layer_math.py): unary math as mixed layers with the
 matching activation, and +,-,* overloads building slope_intercept / scaling /
 identity-projection-sum subgraphs, so `1 + layer_math.exp(x) * z` in a config
-script builds the same layer graph as the reference. The forms that need
-slope_intercept, repeat or scaling raise until those layers are ported
-(ROADMAP.md §1 item 6)."""
+script builds the same layer graph as the reference, its scalar forms
+through slope_intercept, repeat and scaling."""
 
 from __future__ import annotations
 

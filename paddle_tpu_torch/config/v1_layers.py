@@ -20,9 +20,11 @@ recurrent_group and its step layers (`gru_step_layer`, `lstm_step_layer`,
 composites on them: `gru_unit` / `gru_group`, `lstmemory_unit` /
 `lstmemory_group` and `simple_gru`, which the reference routes through
 gru_group; `simple_gru2` and `bidirectional_gru` run the fused grumemory.
-The helpers whose layers the port does not have yet (the 3-D and
-transposed convs, the detection layers, and those of `v2/layer.py` that
-raise) raise a NotImplementedError naming ROADMAP.md §1 item 6.
+The transposed conv (`img_conv_layer(trans=True)`) and `concat_layer` of
+projections build as in the JAX package. The helpers whose layers the port
+does not have yet (the 3-D convs, the detection layers, and those of
+`v2/layer.py` that raise) raise a NotImplementedError naming ROADMAP.md §1
+item 6.
 """
 
 from __future__ import annotations
@@ -295,7 +297,9 @@ def img_conv_layer(input, filter_size, num_filters, name=None,
         name=name,
     )
     if trans:
-        _not_ported("img_conv_layer(trans=True) (Conv2DTranspose)")
+        node = L.Conv2DTranspose(nhwc, **kwargs)
+        oh = (h - 1) * sy - 2 * py + fy
+        ow = (w - 1) * stride - 2 * padding + filter_size
     else:
         node = L.Conv2D(nhwc, dilation=(dy, dilation), groups=groups, **kwargs)
         oh = _conv_out(h, fy, py, sy, dy)
@@ -423,7 +427,10 @@ def concat_layer(input, act=None, name=None, layer_attr=None, bias_attr=None):
             assert all(isinstance(x, Projection) for x in ins), (
                 "concat_layer mixes projections and layers"
             )
-            _not_ported("concat_layer of projections (Concat2)")
+            node = L.Concat2(ins, act=_act(act),
+                             bias=bias_attr not in (None, False),
+                             bias_attr=_or_none(bias_attr), name=name)
+            return _with_drop(node, layer_attr)
         if hasattr(item, "build") and not isinstance(item, Layer):
             built.append(item.build(f"{name}.proj{i}" if name else None))
         elif _is_flat(item) and getattr(item, "_v1_geom", None) is not None:

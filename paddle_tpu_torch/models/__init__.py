@@ -1,8 +1,12 @@
 """Model zoo of the port (counterpart of `paddle_tpu/models/`): the seq2seq
 NMT model's training graph, the LSTM text classifier, ResNet, LeNet, CTR
-wide&deep, the OCR CRNN and VGG."""
+wide&deep, the OCR CRNN, VGG, and the reference's benchmark image models
+AlexNet and GoogLeNet. SSD waits for the detection layers (ROADMAP.md §1
+item 6e)."""
 
+from paddle_tpu_torch.models.alexnet import alexnet
 from paddle_tpu_torch.models.ctr import ctr_wide_deep
+from paddle_tpu_torch.models.googlenet import googlenet
 from paddle_tpu_torch.models.lenet import lenet
 from paddle_tpu_torch.models.ocr_crnn import ocr_crnn
 from paddle_tpu_torch.models.resnet import resnet, resnet50
@@ -10,5 +14,5 @@ from paddle_tpu_torch.models.seq2seq import Seq2SeqModel, seq2seq
 from paddle_tpu_torch.models.text_lstm import text_lstm
 from paddle_tpu_torch.models.vgg import vgg, vgg16, vgg19
 
-__all__ = ["Seq2SeqModel", "ctr_wide_deep", "lenet", "ocr_crnn", "resnet", "resnet50",
-           "seq2seq", "text_lstm", "vgg", "vgg16", "vgg19"]
+__all__ = ["Seq2SeqModel", "alexnet", "ctr_wide_deep", "googlenet", "lenet", "ocr_crnn",
+           "resnet", "resnet50", "seq2seq", "text_lstm", "vgg", "vgg16", "vgg19"]

@@ -1,10 +1,9 @@
 """The v1 layer graph of the port (counterpart of `paddle_tpu/nn/`), the
-parts the ported training paths use: `graph.py` (Argument with nested
-sub_lengths, ParamAttr, Layer, Network, states), `layers.py` (Data, Fc,
-Embedding, Concat, Conv2D, Pool2D, BatchNorm, Addto, GlobalPool, Reshape,
-BlockExpand), `costs.py` (every cost layer of the JAX package's module),
-`struct_costs.py` (CTCCost, CRFCost, CRFDecoding), `activations.py`,
-`recurrent.py` (Lstm, simple_lstm, bidirectional_lstm, Gru, simple_gru,
+parts the ported paths use: `graph.py` (Argument with nested sub_lengths,
+ParamAttr, Layer, Network, states), `layers.py` (every layer of the JAX
+package's `nn/layers.py`), `costs.py` (every cost layer of the JAX
+package's module), `struct_costs.py` (CTCCost, CRFCost, CRFDecoding),
+`activations.py`, `recurrent.py` (Lstm, simple_lstm, bidirectional_lstm, Gru, simple_gru,
 bidirectional_gru), `seq_layers.py` (SeqPool, LastSeq, FirstSeq, Expand,
 SeqConcat, SeqReshape, SeqSlice, KmaxSeqScore, SubSeq, SubNestedSeq) and
 `attention_layers.py` (AttentionDecoder), `beam_core.py` and

@@ -37,6 +37,13 @@ def ones(g: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
     return torch.ones(tuple(shape), dtype=torch.float32)
 
 
+def constant(value: float) -> Initializer:
+    def init(g: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+        return torch.full(tuple(shape), float(value), dtype=torch.float32)
+
+    return init
+
+
 def normal(std: float = 1.0, mean: float = 0.0) -> Initializer:
     def init(g: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
         return mean + std * torch.randn(tuple(shape), generator=g)

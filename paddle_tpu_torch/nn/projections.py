@@ -9,13 +9,12 @@ embedding lookup), `SliceProj` (feature ranges), `Context_` (the sliding
 window of `ops/sequence.context_projection`, with learned boundary rows),
 `DotMulOperator` (x1 * x2), `ConvProj` (a conv whose filter is a
 parameter) and `ConvOperator` (a conv whose filter is another layer's
-output, one filter per example). Parameters are named
-`{mixed}.proj{i}.w` as in the JAX package, in the same layouts.
+output, one filter per example), each also as the transposed conv
+(`trans=True`). Parameters are named `{mixed}.proj{i}.w` as in the JAX
+package, in the same layouts.
 
 Everything here is capturable in the step graph: no host reads, no Python
-number that changes between steps. `ConvProj` and `ConvOperator` with
-`trans=True` (a transposed conv) raise: `Conv2DTranspose` waits for the
-other layers (ROADMAP.md §1 item 6)."""
+number that changes between steps."""
 
 from __future__ import annotations
 
@@ -29,8 +28,6 @@ from paddle_tpu_torch.nn.graph import Argument, Context, Layer, ParamAttr
 from paddle_tpu_torch.ops import conv as conv_ops
 from paddle_tpu_torch.ops import linalg
 from paddle_tpu_torch.ops import sequence as seq_ops
-
-_NOT_PORTED = "{what} is not ported to paddle_tpu_torch yet (ROADMAP.md §1 item 6)"
 
 
 class Projection:
@@ -234,15 +231,15 @@ def _as_nhwc(x: torch.Tensor, channels: Optional[int]) -> torch.Tensor:
 class ConvProj(Projection):
     """A conv with a parameter filter (HWIO, he_normal) inside a mixed
     layer; the output flattens to [B, -1] in NHWC order, as the JAX
-    package's does."""
+    package's does. With `trans` a transposed conv, its filter
+    [kh, kw, num_filters, C] the forward conv's HWIO (as
+    `layers.Conv2DTranspose`'s; the groups are not applied, as in the JAX
+    package)."""
 
     def __init__(self, input: Layer, filter_size, num_filters: int,
                  num_channels=None, stride=1, padding=0, groups: int = 1,
                  param_attr: Any = None, trans: bool = False):
         super().__init__([input], param_attr)
-        if trans:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="conv_projection(trans=True) (Conv2DTranspose)"))
         self.filter_size = filter_size
         self.num_filters = num_filters
         self.num_channels = num_channels
@@ -254,10 +251,16 @@ class ConvProj(Projection):
     def apply(self, ctx, owner, args, size):
         x = _as_nhwc(args[0].value, self.num_channels)
         kh, kw = conv_ops._pair(self.filter_size)
-        w = ctx.param(owner, self._pname(owner, "w"),
-                      (kh, kw, x.shape[-1] // self.groups, self.num_filters),
-                      init_mod.he_normal, self.param_attr)
-        y = conv_ops.conv2d(x, w, self.stride, self.padding, 1, self.groups, ctx.policy)
+        cin = x.shape[-1]
+        shape = ((kh, kw, self.num_filters, cin) if self.trans
+                 else (kh, kw, cin // self.groups, self.num_filters))
+        w = ctx.param(owner, self._pname(owner, "w"), shape, init_mod.he_normal,
+                      self.param_attr)
+        if self.trans:
+            y = conv_ops.conv2d_transpose(x, w, self.stride, self.padding, ctx.policy)
+        else:
+            y = conv_ops.conv2d(x, w, self.stride, self.padding, 1, self.groups,
+                                ctx.policy)
         return y.reshape(y.shape[0], -1)
 
     def build(self, name: str) -> Layer:
@@ -274,17 +277,15 @@ class ConvProj(Projection):
 class ConvOperator(Projection):
     """A conv whose filter is another layer's output: example i's image
     convolves with example i's filter [kh, kw, C, F] (one filter row
-    broadcasts over the batch). All B convolutions run as one grouped conv
-    (groups = B), the batch folded into the channels."""
+    broadcasts over the batch); with `trans` the transposed conv, the
+    filter [kh, kw, F, C] the forward conv's HWIO. All B convolutions run
+    as one grouped conv (groups = B), the batch folded into the channels."""
 
     is_operator = True
 
     def __init__(self, img: Layer, filt: Layer, filter_size, num_filters: int,
                  num_channels=None, stride=1, padding=0, trans: bool = False):
         super().__init__([img, filt], None)
-        if trans:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="conv_operator(trans=True) (Conv2DTranspose)"))
         self.filter_size = filter_size
         self.num_filters = num_filters
         self.num_channels = num_channels
@@ -297,10 +298,17 @@ class ConvOperator(Projection):
         b, h, wd, cin = x.shape
         kh, kw = conv_ops._pair(self.filter_size)
         f = self.num_filters
-        w = args[1].value.reshape(-1, kh, kw, cin, f).expand(b, kh, kw, cin, f)
         x_all = x.permute(1, 2, 0, 3).reshape(1, h, wd, b * cin)
-        w_all = w.permute(1, 2, 3, 0, 4).reshape(kh, kw, cin, b * f)
-        y = conv_ops.conv2d(x_all, w_all, self.stride, self.padding, 1, b, ctx.policy)
+        if self.trans:
+            w = args[1].value.reshape(-1, kh, kw, f, cin).expand(b, kh, kw, f, cin)
+            w_all = w.permute(1, 2, 3, 0, 4).reshape(kh, kw, f, b * cin)
+            y = conv_ops.conv2d_transpose(x_all, w_all, self.stride, self.padding,
+                                          ctx.policy, groups=b)
+        else:
+            w = args[1].value.reshape(-1, kh, kw, cin, f).expand(b, kh, kw, cin, f)
+            w_all = w.permute(1, 2, 3, 0, 4).reshape(kh, kw, cin, b * f)
+            y = conv_ops.conv2d(x_all, w_all, self.stride, self.padding, 1, b,
+                                ctx.policy)
         oh, ow = y.shape[1], y.shape[2]
         y = y.reshape(oh, ow, b, f).permute(2, 0, 1, 3)
         return y.reshape(b, -1)

@@ -1,8 +1,11 @@
-"""Convolution and pooling, NHWC (counterpart of `paddle_tpu/ops/conv.py`).
+"""Convolution, pooling and bilinear resizing, NHWC (counterpart of
+`paddle_tpu/ops/conv.py`).
 
-The JAX package computes a conv as one XLA conv HLO and pools with
-`lax.reduce_window`; neither is a Pallas kernel. Here the conv is cuDNN's
-(`F.conv2d`) and pooling is torch's. Activations stay NHWC and conv
+The JAX package computes a conv as one XLA conv HLO, pools with
+`lax.reduce_window` and resizes with `jax.image.resize`; none is a Pallas
+kernel. Here the conv and the transposed conv are cuDNN's (`F.conv2d`,
+`F.conv_transpose2d`), pooling is torch's, and the resize is two small
+weight-matrix products. Activations stay NHWC and conv
 weights HWIO, as in the reference's state dict: `x.permute(0, 3, 1, 2)` of
 a contiguous NHWC tensor is an NCHW view in channels_last strides (no
 copy), the weight goes in as channels_last OIHW (one copy, fused with the
@@ -99,6 +102,83 @@ class _Conv2dF32(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = conv2d_weight_grad(x, dy, w.shape, stride, padding, dilation, groups)
         return dx, dw, None, None, None, None
+
+
+def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, stride: IntOr2 = 1,
+                     padding: IntOr2 = 0, policy: Optional[dtypes.Policy] = None,
+                     groups: int = 1) -> torch.Tensor:
+    """The transposed conv: x [B, H, W, Cin], w [kh, kw, Cout/groups, Cin],
+    the HWIO weight of the forward conv it transposes (Cout -> Cin
+    channels) -> [B, (H-1)*s + kh - 2p, (W-1)*s + kw - 2p, Cout]. The JAX
+    package runs the flipped kernel over the input dilated by the stride,
+    padded k-1-p; `F.conv_transpose2d` with the forward conv's OIHW weight
+    is that same adjoint. `groups` (not in the JAX package's op) serves
+    the transposed conv operator, one group an example. On the card in f32
+    the weight gradient is im2col + matmul, as `conv2d`'s is."""
+    p = policy or dtypes.current()
+    x = p.cast(x)
+    w_oihw = w.permute(3, 2, 0, 1).to(p.compute_dtype,
+                                      memory_format=torch.channels_last)
+    args = (_pair(stride), _pair(padding))
+    with remat.name("conv_out"):
+        if x.is_cuda and p.compute_dtype == torch.float32:
+            return _nhwc(_ConvT2dF32.apply(_nchw(x), w_oihw, *args, groups))
+        return _nhwc(F.conv_transpose2d(_nchw(x), w_oihw, None, *args, 0, groups))
+
+
+class _ConvT2dF32(torch.autograd.Function):
+    """cuDNN's transposed conv; its input gradient is the forward conv of
+    the output gradient, its weight gradient the forward conv's weight
+    gradient with the output gradient as the input, in full f32."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.args = (stride, padding, groups)
+        return F.conv_transpose2d(x, w, None, stride, padding, 0, groups)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, padding, groups = ctx.args
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = F.conv2d(dy, w, None, stride, padding, 1, groups)
+        if ctx.needs_input_grad[1]:
+            dw = conv2d_weight_grad(dy, x, w.shape, stride, padding, (1, 1), groups)
+        return dx, dw, None, None, None
+
+
+def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, out_h, out_w, C] as `jax.image.resize(...,
+    method="bilinear")` computes it: half-pixel centres, a triangle kernel
+    widened by in/out when scaling down (antialiased), each output's
+    weights normalised to sum 1. Each resized axis is one weight matrix
+    [out, in] built on x's device (no host copy: capturable), applied by
+    `einsum`; an axis of unchanged size is left alone, as JAX skips it."""
+    if out_h != x.shape[1]:
+        x = torch.einsum("bhwc,oh->bowc", x, _resize_weights(x, x.shape[1], out_h))
+    if out_w != x.shape[2]:
+        x = torch.einsum("bhwc,ow->bhoc", x, _resize_weights(x, x.shape[2], out_w))
+    return x
+
+
+def _resize_weights(x: torch.Tensor, n_in: int, n_out: int) -> torch.Tensor:
+    """jax.image's `compute_weight_mat` for the triangle kernel, transposed
+    to [out, in], in f32 then cast to x's dtype."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    sample = (torch.arange(n_out, **f32) + 0.5) * inv_scale - 0.5
+    dist = (sample[:, None] - torch.arange(n_in, **f32)[None, :]).abs() / kernel_scale
+    w = torch.clamp_min(1.0 - dist, 0.0)
+    total = w.sum(dim=1, keepdim=True)
+    eps = torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > 1000.0 * eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w)).to(x.dtype)
 
 
 def pool_pads(padding) -> Pads:

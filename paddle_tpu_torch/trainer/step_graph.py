@@ -26,7 +26,9 @@ What makes the capture legal:
     step. Whoever replaces a value copies it into that storage
     (`SGDTrainer.load*`, `set_lr_scale`) and never rebinds it;
     `init_state` drops the graphs.
-  * No host work inside: the step reads no device value on the host, and
+  * No host work inside: the step reads no device value on the host (a
+    PrintLayer's value is copied into a buffer of the graph's and printed
+    after each replay, `nn/layers.captured_prints`), and
     the kernels' plans, builds and attributes are cached by the warm-up
     (the trainer runs the first step of a signature eagerly, as a real
     step, before it captures).
@@ -46,6 +48,7 @@ from typing import Any, Callable, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch.nn import layers
 from paddle_tpu_torch.ops import rnn_kernels
 
 
@@ -76,10 +79,12 @@ class StepGraph:
         # thread_local: the checkpoint writer thread may wait on a CUDA
         # event meanwhile; the autograd thread's backward still records
         # into the capture stream
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        with layers.captured_prints() as prints, \
+                torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             outs = [step_body(b) for b in batches]
             self.costs = torch.stack([c for c, _ in outs])
             self.extras = outs[0][1] if k == 1 else {}
+        self.prints = prints
         self.kernel_calls = {name: n - before[name]
                              for name, n in rnn_kernels.CAPTURED.items()
                              if n != before[name]}
@@ -102,6 +107,7 @@ class StepGraph:
         self.graph.replay()
         self.replays += 1
         rnn_kernels.note_replay(self.kernel_calls)
+        layers.emit_prints(self.prints)
         return self.costs.clone(), {k: v.clone() for k, v in self.extras.items()}
 
 

@@ -10,9 +10,11 @@ config yields the same names, parameters and proto text in both packages.
     h = paddle.layer.fc(input=images, size=200, act=paddle.activation.Tanh())
     cost = paddle.layer.classification_cost(input=out, label=lbl)
 
-A constructor whose layer the port does not have yet raises a
-NotImplementedError that names ROADMAP.md §1 item 6 (the other layers and
-models); nothing is dropped silently.
+Every layer of the JAX package's `nn/layers.py` builds here. A constructor
+whose layer the port does not have yet (the 3-D convs, `recurrent`,
+`mdlstm`, the structured costs of ROADMAP.md §1 item 6c and the detection
+layers) raises a NotImplementedError that names ROADMAP.md §1 item 6;
+nothing is dropped silently.
 """
 
 from __future__ import annotations
@@ -128,9 +130,7 @@ def img_conv(
     dilation=1, groups=1, act=None, bias_attr=None, param_attr=None, name=None,
     trans=False, layer_attr=None, **_compat,
 ):
-    if trans:
-        _not_ported("img_conv(trans=True) (Conv2DTranspose)")
-    cls = L.Conv2D
+    cls = L.Conv2DTranspose if trans else L.Conv2D
     kwargs = dict(
         num_filters=num_filters, filter_size=filter_size, stride=stride,
         padding=padding, act=_act(act), bias=bias_attr is not False,
@@ -253,7 +253,8 @@ def expand(input, expand_as, expand_level=None, name=None, **_compat):
 
 
 def repeat(input, num_repeats, as_row_vector=True, act=None, name=None, **_compat):
-    _not_ported("repeat (FeatureMapExpand)")
+    return L.FeatureMapExpand(input, num_repeats, as_row_vector=as_row_vector,
+                              act=_act(act), name=name)
 
 
 def seq_reshape(input, reshape_size, name=None):
@@ -291,7 +292,8 @@ def img_pool3d(input, pool_size, pool_type=None, stride=None, padding=0,
 
 
 def linear_comb(weights, vectors, size=None, name=None, **_compat):
-    _not_ported("linear_comb (LinearComb)")
+    """linear_comb_layer / convex_comb_layer (layers.py:4984)."""
+    return L.LinearComb(weights, vectors, size=size, name=name)
 
 
 convex_comb = linear_comb
@@ -319,49 +321,54 @@ class BeamInput:
 
 
 def cos_sim(a, b, scale=1.0, size=1, name=None):
-    _not_ported("cos_sim (CosSim, CosSimVecMat)")
-
-
+    """cos_sim_layer (layers.py:2228): size=1 is the row-wise cosine; size=N>1
+    the vector-against-matrix form (cos_vm, CosSimVecMatLayer)."""
+    if size and size > 1:
+        return L.CosSimVecMat(a, b, size=size, scale=scale, name=name)
+    return L.CosSim(a, b, scale=scale, name=name)
 
 
 def trans(input, height=None, name=None):
-    _not_ported("trans (Trans)")
+    return L.Trans(input, height, name=name)
 
 
 def scaling(input, weight, name=None):
-    _not_ported("scaling (Scaling)")
+    return L.Scaling(weight, input, name=name)
 
 
 def slope_intercept(input, slope=1.0, intercept=0.0, name=None):
-    _not_ported("slope_intercept (SlopeIntercept)")
+    return L.SlopeIntercept(input, slope=slope, intercept=intercept, name=name)
 
 
 def interpolation(input, weight, name=None):
-    _not_ported("interpolation (Interpolation)")
+    a, b = input
+    return L.Interpolation(weight, a, b, name=name)
 
 
 def power(input, weight, name=None):
-    _not_ported("power (Power)")
+    return L.Power(weight, input, name=name)
 
 
 def dot_prod(a, b, name=None):
-    _not_ported("dot_prod (DotProd)")
+    return L.DotProd(a, b, name=name)
 
 
 def out_prod(a, b, name=None):
-    _not_ported("out_prod (OuterProd)")
+    return L.OuterProd(a, b, name=name)
 
 
 def conv_shift(a, b, name=None):
-    _not_ported("conv_shift (ConvShift)")
+    return L.ConvShift(a, b, name=name)
 
 
 def tensor(a, b, size, act=None, param_attr=None, bias_attr=None, name=None, **_compat):
-    _not_ported("tensor (TensorLayer)")
+    return L.TensorLayer(a, b, size, act=_act(act), bias=bias_attr is not False,
+                         param_attr=param_attr, bias_attr=bias_attr, name=name)
 
 
 def multiplex(input, name=None):
-    _not_ported("multiplex (Multiplex)")
+    ins = list(input)
+    return L.Multiplex(ins[0], ins[1:], name=name)
 
 
 def max_id(input, name=None):
@@ -369,74 +376,78 @@ def max_id(input, name=None):
 
 
 def sampling_id(input, name=None):
-    _not_ported("sampling_id (SamplingId)")
+    return L.SamplingId(input, name=name)
 
 
 def eos(input, eos_id, name=None):
-    _not_ported("eos (EosIdCheck)")
+    return L.EosIdCheck(input, eos_id=eos_id, name=name)
 
 
 def print_layer(input, format=None, name=None):
-    _not_ported("print_layer (PrintLayer)")
+    return L.PrintLayer(input, message=format or "", name=name)
 
 
 def clip(input, min, max, name=None):
-    _not_ported("clip (Clip)")
+    return L.Clip(input, min=min, max=max, name=name)
 
 
 def scale_shift(input, param_attr=None, bias_attr=None, name=None):
-    _not_ported("scale_shift (ScaleShift)")
+    return L.ScaleShift(input, bias=bias_attr is not False,
+                        param_attr=param_attr, bias_attr=bias_attr, name=name)
 
 
 def prelu(input, partial_sum=1, param_attr=None, name=None):
-    _not_ported("prelu (ParameterRelu)")
+    return L.ParameterRelu(input, partial_sum=partial_sum, param_attr=param_attr, name=name)
 
 
 # -- image misc ------------------------------------------------------------
 
 
 def maxout(input, groups, name=None, **_compat):
-    _not_ported("maxout (Maxout)")
+    return L.Maxout(input, groups, name=name)
 
 
 def spp(input, pyramid_height=3, pool_type=None, name=None, **_compat):
-    _not_ported("spp (SpatialPyramidPool)")
+    return L.SpatialPyramidPool(input, pyramid_height, _pool(pool_type), name=name)
 
 
 def img_cmrnorm(input, size, scale=0.0128, power=0.75, name=None, **_compat):
-    _not_ported("img_cmrnorm (CrossMapNorm)")
+    return L.CrossMapNorm(input, size=size, scale=scale, power=power, name=name)
 
 
 def sum_to_one_norm(input, name=None):
-    _not_ported("sum_to_one_norm (SumToOneNorm)")
+    return L.SumToOneNorm(input, name=name)
 
 
 def row_l2_norm(input, name=None):
-    _not_ported("row_l2_norm (RowL2Norm)")
+    return L.RowL2Norm(input, name=name)
 
 
 def cross_channel_norm(input, param_attr=None, name=None):
-    _not_ported("cross_channel_norm (CrossChannelNorm)")
+    return L.CrossChannelNorm(input, name=name)
 
 
 def data_norm(input, name=None, **_compat):
-    _not_ported("data_norm (DataNorm)")
+    return L.DataNorm(input, name=name)
 
 
 def bilinear_interp(input, out_size_x, out_size_y, name=None):
-    _not_ported("bilinear_interp (BilinearInterp)")
+    return L.BilinearInterp(input, (out_size_y, out_size_x), name=name)
 
 
 def pad(input, pad_c=None, pad_h=None, pad_w=None, name=None):
-    _not_ported("pad (Pad)")
+    return L.Pad(input, pad_c=pad_c or [0, 0], pad_h=pad_h or [0, 0],
+                 pad_w=pad_w or [0, 0], name=name)
 
 
 def crop(input, offset, shape, name=None, **_compat):
-    _not_ported("crop (Crop)")
+    off_h, off_w = (offset if isinstance(offset, (list, tuple)) else (offset, offset))
+    out_h, out_w = (shape if isinstance(shape, (list, tuple)) else (shape, shape))
+    return L.Crop(input, off_h, off_w, out_h, out_w, name=name)
 
 
 def rotate(input, name=None):
-    _not_ported("rotate (Rotate)")
+    return L.Rotate(input, name=name)
 
 
 def switch_order(input, to="NCHW", name=None, **_compat):
@@ -444,11 +455,11 @@ def switch_order(input, to="NCHW", name=None, **_compat):
 
 
 def featmap_expand(input, num_filters, name=None):
-    _not_ported("featmap_expand (FeatureMapExpand)")
+    return L.FeatureMapExpand(input, num_filters, name=name)
 
 
 def resize(input, size, name=None):
-    _not_ported("resize (Resize)")
+    return L.Resize(input, size, name=name)
 
 
 def block_expand(input, block_x, block_y, stride_x=None, stride_y=None,
@@ -459,12 +470,15 @@ def block_expand(input, block_x, block_y, stride_x=None, stride_y=None,
 
 
 def row_conv(input, context_len, act=None, param_attr=None, name=None):
-    _not_ported("row_conv (RowConv)")
+    return L.RowConv(input, context_len, act=_act(act), param_attr=param_attr, name=name)
 
 
 def selective_fc(input, size, select=None, act=None, param_attr=None,
                  bias_attr=None, name=None, **_compat):
-    _not_ported("selective_fc (SelectiveFc)")
+    return L.SelectiveFc(
+        [input, select] if select is not None else input, size, act=_act(act),
+        bias=bias_attr is not False, param_attr=param_attr, name=name,
+    )
 
 
 # -- mixed / projections ---------------------------------------------------

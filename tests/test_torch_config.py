@@ -8,11 +8,20 @@
     ModelAverage and gradient clipping, get_config_arg, and more of the
     DSL (LSTMs, sequence layers, image helpers, structured costs, layer
     arithmetic, the `with mixed_layer(...) as m` form).
-  * Layer parity: each projection's mixed layer, and five configs whole
+  * The layers ROADMAP §1 items 6a-6b ported, through their v1 helpers:
+    proto parity for an image config (the transposed conv, img_cmrnorm,
+    maxout, bilinear_interp, spp, pad, crop, rotate, cross_channel_norm,
+    prelu), a vector config (cos_sim both forms, trans, scaling,
+    slope_intercept, interpolation, power, dot_prod, out_prod,
+    conv_shift, tensor, linear_comb, multiplex, the norms, data_norm,
+    clip, scale_shift, resize, repeat, selective_fc, sampling_id, eos,
+    print_layer, row_conv), layer_math's scalar forms, concat_layer of
+    projections, the transposed conv projection and operator, and
+    chip_smoke.py's v1 AlexNet and new-helper configs.
+  * Layer parity: each projection's mixed layer, and six configs whole
     (the bi-GRU, LeNet, text_conv_pool, sequence layers, the `with
-    mixed_layer` form), given the JAX parameters moved by name and the
-    same batch, give the JAX package's outputs, costs and gradients (f32,
-    rtol 1e-5).
+    mixed_layer` form, chip_smoke.py's new-helper config), given the JAX parameters moved by name and the same batch,
+    give the JAX package's outputs, costs and gradients (f32, rtol 1e-5).
   * The `paddle.*` imports of a config resolve to the port's modules and
     `sys.modules` is put back afterwards; layers no output reaches stay in
     the config (`record_layers`); what is not ported raises a named error.
@@ -25,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from paddle_tpu_torch import proto as tproto
 from paddle_tpu_torch.config import parse_config as tparse
 from paddle_tpu_torch.nn.convert import params_from_jax
@@ -152,6 +162,78 @@ with mixed_layer(size=5, act=SigmoidActivation(), bias_attr=ParamAttr(initial_st
 outputs(m)
 """
 
+# the layers of ROADMAP §1 items 6a-6b through the v1 helpers: images,
+# vectors and ids, layer_math's scalar forms, concat_layer of projections
+VOCAB_IMAGE = """
+from paddle.trainer_config_helpers import *
+settings(batch_size=4, learning_rate=0.01, learning_method=MomentumOptimizer(0.9))
+img = data_layer(name='image', size=3*12*12, height=12, width=12)
+lbl = data_layer(name='label', size=10)
+c = img_conv_layer(input=img, filter_size=3, num_filters=8, num_channels=3, padding=1)
+n = img_cmrnorm_layer(input=c, size=5, scale=0.001, power=0.5)
+m = maxout_layer(input=n, groups=2)
+up = img_conv_layer(input=m, filter_size=3, num_filters=4, stride=2, padding=1, trans=True,
+                    act=LinearActivation())
+bi = bilinear_interp_layer(input=up, out_size_x=10, out_size_y=9)
+sp = spp_layer(input=bi, pyramid_height=3, pool_type=AvgPooling())
+pd = pad_layer(input=m, pad_c=[1, 1], pad_h=[1, 0], pad_w=[0, 2])
+cr = crop_layer(input=pd, offset=[1, 1], shape=[10, 11])
+rt = rotate_layer(input=cr)
+cn = cross_channel_norm_layer(input=rt)
+f = fc_layer(input=[sp, cn], size=12, act=LinearActivation())
+pr = prelu_layer(input=f, partial_sum=3)
+out = fc_layer(input=pr, size=10, act=SoftmaxActivation())
+outputs(classification_cost(input=out, label=lbl))
+"""
+VOCAB_VECTOR = """
+from paddle.trainer_config_helpers import *
+x = data_layer(name='x', size=8)
+y = data_layer(name='y', size=8)
+w = data_layer(name='w', size=1)
+sel = data_layer(name='sel', size=6)
+ids = data_layer(name='ids', size=1)
+word = data_layer(name='word', size=20)
+h = fc_layer(input=x, size=8, act=TanhActivation())
+outputs(cos_sim(a=h, b=y, scale=5),
+        cos_sim(a=fc_layer(input=x, size=4), b=fc_layer(input=y, size=12), size=3),
+        trans_layer(input=h), scaling_layer(input=h, weight=w),
+        slope_intercept_layer(input=h, slope=2.0, intercept=0.5),
+        interpolation_layer(input=[h, y], weight=w),
+        power_layer(input=fc_layer(input=x, size=8, act=SigmoidActivation()), weight=w),
+        dot_prod_layer(h, y), out_prod_layer(h, y),
+        conv_shift_layer(a=h, b=fc_layer(input=x, size=3)),
+        tensor_layer(a=h, b=y, size=4),
+        linear_comb_layer(weights=fc_layer(input=x, size=2),
+                          vectors=fc_layer(input=y, size=8), size=4),
+        multiplex_layer(input=[ids, h, y]),
+        sum_to_one_norm_layer(input=fc_layer(input=x, size=5, act=SigmoidActivation())),
+        row_l2_norm_layer(input=h), data_norm_layer(input=x),
+        clip_layer(input=h, min=-0.5, max=0.5), scale_shift_layer(input=h),
+        resize_layer(input=h, size=4), repeat_layer(input=h, num_repeats=2),
+        sampling_id_layer(input=selective_fc_layer(input=h, select=sel, size=6,
+                                                   act=SoftmaxActivation())),
+        eos_layer(input=ids, eos_id=1), print_layer(input=h),
+        row_conv_layer(input=embedding_layer(input=word, size=4), context_len=3))
+"""
+LAYER_MATH_SCALARS = """
+from paddle.trainer_config_helpers import *
+x = data_layer(name='x', size=4)
+y = data_layer(name='y', size=4)
+z = data_layer(name='z', size=1)
+outputs(1 + layer_math.exp(x) * z, 2 - y, y * 3, x + z, x - y, z * layer_math.tanh(y) - 1)
+"""
+CONCAT_PROJECTIONS = """
+from paddle.trainer_config_helpers import *
+x = data_layer(name='x', size=8)
+y = data_layer(name='y', size=6)
+img = data_layer(name='img', size=64, height=8, width=8)
+c = concat_layer(input=[full_matrix_projection(input=x, size=5), identity_projection(input=y),
+                        conv_projection(input=img, filter_size=3, num_filters=2,
+                                        num_channels=1, padding=1)],
+                 act=TanhActivation(), bias_attr=True)
+outputs(c)
+"""
+
 # projection kind -> (the projection, the mixed layer's size, the data
 # layers it reads, whether its output is pooled: a sequence input)
 PROJECTIONS = {
@@ -171,6 +253,12 @@ PROJECTIONS = {
                         "num_channels=1, padding=1)", 128, "img", False),
     "conv_operator": ("conv_operator(img=img, filter=filt, filter_size=3, "
                       "num_filters=2, num_channels=1)", 72, "img,filt", False),
+    "conv_projection_trans": ("conv_projection(input=img, filter_size=3, num_filters=2, "
+                              "num_channels=1, stride=2, padding=1, trans=True)", 450,
+                              "img", False),
+    "conv_operator_trans": ("conv_operator(img=img, filter=filt, filter_size=3, "
+                            "num_filters=2, num_channels=1, trans=True)", 200, "img,filt",
+                            False),
 }
 _DATA = {
     "x": "x = data_layer(name='x', size=8)",
@@ -248,7 +336,16 @@ CASES = {
     "struct_costs": (lambda: STRUCT_COSTS, ""),
     "layer_math": (lambda: LAYER_MATH, ""),
     "mixed_context_manager": (lambda: MIXED_CTX_MGR, ""),
+    "vocab_image": (lambda: VOCAB_IMAGE, ""),
+    "vocab_vector": (lambda: VOCAB_VECTOR, ""),
+    "layer_math_scalars": (lambda: LAYER_MATH_SCALARS, ""),
+    "concat_projections": (lambda: CONCAT_PROJECTIONS, ""),
+    "v1_vocab": (lambda: cs.V1_VOCAB_CONFIG, cs.config_args(cs.V1_VOCAB_SMALL)),
+    "v1_alexnet": (lambda: cs.V1_ALEXNET_CONFIG, cs.config_args(cs.V1_ALEXNET_SMALL)),
 }
+# providers the chip_smoke configs name, written beside them
+_PROVIDERS = {"v1_vocab": ("v1_vocab_provider", "V1_VOCAB_PROVIDER"),
+              "v1_alexnet": ("v1_alexnet_provider", "V1_ALEXNET_PROVIDER")}
 CASES.update({f"mixed_{k}": ((lambda k=k: mixed_config(k)), "") for k in PROJECTIONS})
 CASES.update({f"settings_{k}": ((lambda k=k: settings_config(k)), "") for k in OPTIMIZERS})
 
@@ -270,6 +367,12 @@ def test_proto_text_matches_jax(case, tmp_path, monkeypatch):
 
         (tmp_path / "conf_provider.py").write_text(PROVIDER_SRC)
         monkeypatch.syspath_prepend(str(tmp_path))
+    if case in _PROVIDERS:
+        module, text = _PROVIDERS[case]
+        (tmp_path / f"{module}.py").write_text(getattr(cs, text))
+        (tmp_path / "train.list").write_text("train\n")
+        monkeypatch.syspath_prepend(str(tmp_path))
+        monkeypatch.chdir(tmp_path)
     src, args = CASES[case]
     path = write_config(tmp_path, src())
     port = tproto.to_text(tparse(path, args).trainer_config)
@@ -350,14 +453,21 @@ def test_mixed_projection_matches_jax(kind, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["bigru", "lenet", "text_conv_pool", "seq_layers",
-                                  "mixed_context_manager"])
+                                  "mixed_context_manager", "v1_vocab"])
 def test_config_outputs_and_grads_match_jax(case, tmp_path, monkeypatch):
     """A whole config's outputs (its costs) and every gradient, f32, rtol
     1e-5 (the JAX GRU on its lax.scan oracle)."""
     monkeypatch.setenv("PADDLE_TPU_PALLAS", "0")
+    if case in _PROVIDERS:
+        module, text = _PROVIDERS[case]
+        (tmp_path / f"{module}.py").write_text(getattr(cs, text))
+        monkeypatch.syspath_prepend(str(tmp_path))
+        monkeypatch.chdir(tmp_path)
     src = {"bigru": BIGRU, "lenet": LENET, "text_conv_pool": TEXT_CONV,
-           "seq_layers": SEQ_LAYERS, "mixed_context_manager": MIXED_CTX_MGR}[case]
-    touts, tgrads, jouts, jgrads, names = _outputs_and_grads(src, "", tmp_path)
+           "seq_layers": SEQ_LAYERS, "mixed_context_manager": MIXED_CTX_MGR,
+           "v1_vocab": cs.V1_VOCAB_CONFIG}[case]
+    args = cs.config_args(cs.V1_VOCAB_SMALL) if case == "v1_vocab" else ""
+    touts, tgrads, jouts, jgrads, names = _outputs_and_grads(src, args, tmp_path)
     for n in names:
         _close(touts[n].value.detach(), jouts[n].value)
     assert set(tgrads) == set(jgrads)
@@ -422,12 +532,12 @@ def test_record_layers_keeps_layers_no_output_reaches(tmp_path):
 
 
 @pytest.mark.parametrize("src,item", [
-    ("cos_sim(a=x, b=x)", "6"),
-    ("conv_shift_layer(a=x, b=x)", "6"),
+    ("nce_layer(input=x, label=x, num_classes=4)", "6"),
+    ("hsigmoid(input=x, label=x, num_classes=4)", "6"),
     ("img_pool3d_layer(input=x, pool_size=1)", "6"),
     ("img_conv3d_layer(input=x, filter_size=1, num_filters=1)", "6"),
     ("priorbox_layer(input=x, image_size=8, min_size=2)", "6"),
-    ("slope_intercept_layer(input=x)", "6"),
+    ("lambda_cost(input=x, score=x)", "6"),
 ])
 def test_unported_helpers_raise_named_errors(src, item, tmp_path):
     path = write_config(tmp_path, f"""

@@ -245,7 +245,7 @@ def test_not_ported_messages_name_the_roadmap_items():
         with pytest.raises(NotImplementedError, match="§1 item 8"):
             cli.main(serve + argv)
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 6"):
-        tvl.cos_sim(a=None, b=None)
+        tvl.mdlstm(input=None)
     stale = re.compile(r"queue 1|item 3\.3|item 6, TP|pipeline of item 7")
     for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
         assert not stale.search(path.read_text()), path

@@ -5,7 +5,8 @@ The chapters are chip_smoke.py's (`book_*`, `BOOK_CHAPTERS`, `book_run`),
 written once against a `paddle` module argument, so the same function
 builds the network in both packages: fit_a_line (uci_housing),
 recognize_digits (mnist), image_classification (cifar.train10,
-vgg_bn_drop), word2vec (imikolov), understand_sentiment (imdb,
+vgg_bn_drop), word2vec (imikolov), recommender_system (movielens,
+cos_sim), understand_sentiment (imdb,
 stacked_lstm_net), label_semantic_roles (conll05, db_lstm, crf +
 crf_decoding) and machine_translation (wmt14, the fused GRU). Here they run
 at reduced widths (widths <= 16, SRL depth 2, one VGG conv per stage; the
@@ -52,6 +53,7 @@ SMALL = dict(
     image_classification=dict(batch=8, stages=((4, 1), (8, 1), (8, 1), (16, 1), (16, 1)),
                               fc=16),
     word2vec=dict(batch=8, emb=8, hidden=16, vocab=64),
+    recommender_system=dict(batch=8, emb=8, small=4, combined=16, title_dict=5000),
     understand_sentiment=dict(batch=8, emb=8, hidden=16, stacked=3, average=False),
     label_semantic_roles=dict(batch=8, word_dim=8, mark_dim=5, hidden=16, depth=2,
                               average=False),
@@ -135,7 +137,8 @@ def _both(name, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["fit_a_line", "recognize_digits", "image_classification",
-                                  "word2vec", "understand_sentiment"])
+                                  "word2vec", "recommender_system",
+                                  "understand_sentiment"])
 def test_chapter_trains_like_jax(name, monkeypatch, tmp_path):
     _, trun, _ = _both(name, monkeypatch, tmp_path)
     assert tpaddle.dataset.common.SYNTHETIC
