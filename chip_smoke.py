@@ -417,7 +417,33 @@ Phases (any failure exits non-zero and prints no result line):
                * z` through `train --config` for 8 steps: one graph, the
                cost falls, print_layer's line once a step, dump_config
                equal to the parse, the first 4 costs card vs CPU.
- 36. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 36. fluid_digits — recognize_digits' conv net as a fluid Program
+               (fluid.layers: conv 20 and 50 of 5x5 with relu, 2x2 max
+               pools, fc 10 softmax, cross_entropy, accuracy; Adam 1e-3)
+               over 20 `exe.run` calls at batch 64 on mnist's synthetic
+               records: runs 1-2 eager, run 2 captured as one CUDA graph,
+               18 replays; the loss falls; the first 2 losses card vs
+               CPU from the same scope; the eager interpreter on the card
+               against 3 replays; ms a run (the fetch included), the
+               graph's device ms, kernels a replay, peak memory.
+ 37. fluid_lstm — the fluid LSTM text classifier (lookup_table, mul, the
+               lstm op with SeqLengths, last_h, mul, softmax,
+               cross_entropy, mean; Adam) at vocab 10000, 128, 512, batch
+               128, length 100 (lengths 60-100), 12 runs of one batch: one
+               graph, the loss falls; ms a run, real tokens/s, kernels a
+               replay, peak memory; card vs CPU at batch 8.
+ 38. fluid_control — card vs CPU: a recurrent op over gru_unit (T 50, B
+               128, H 512, SGD; one graph), the while counter (eager: its
+               trip count is a device value), cond with a scalar and a
+               per-sample condition at [128, 512], beam_search +
+               beam_search_decode at B 128, K 3, V 30000 over 8 steps,
+               save -> load inside a graphed run; each program's route.
+ 39. gan     — the GAN demo through MultiNetworkTrainer, batch 128, 400
+               alternating iterations: one graph a phase, every later
+               step a replay; the generator's mean within half its
+               starting distance of the data mean; the shared dis_*
+               bitwise equal in both phases; ms an iteration.
+ 40. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -652,6 +678,30 @@ BOOK = dict(
     label_semantic_roles=dict(batch=32, word_dim=32, mark_dim=5, hidden=512, depth=8,
                               average=True),
 )
+# the fluid stack on the card (phases 36-38). 36: recognize_digits' conv
+# net in fluid.layers (two conv-pools of 20 and 50, fc 10 softmax, Adam
+# 1e-3) at batch 64 over 20 runs of mnist's synthetic records; 37: the
+# LSTM text classifier of tests/test_fluid_control_flow.py:487-546 at
+# benchmarks/rnn_bench.py's widths (lengths drawn in 60-100), 12 runs of
+# one batch, card vs CPU at batch 8; 38: a recurrent op over gru_unit at
+# the seq2seq widths (T 50, B 128, H 512, SGD), the while counter, cond
+# with a scalar and a per-sample condition at [128, 512], beam_search +
+# beam_search_decode at B 128, K 3, V 30000 over 8 steps of a toy decoder,
+# and save -> load inside a graphed run. Card vs CPU: first losses within
+# CPU_COST_RTOL, the second within V1_CPU_RTOL; the eager interpreter on
+# the card against the replays within FLUID_EAGER_RTOL; outputs within
+# FLUID_OUT_TOL
+FLUID_DIGITS = dict(batch=64, runs=20, lr=1e-3, eager_from=10, eager_runs=3)
+FLUID_LSTM = dict(vocab=10000, embed=128, hidden=512, classes=2, batch=128, seq_len=100,
+                  min_len=60, runs=12, lr=1e-3, cpu_batch=8, eager_from=5, eager_runs=4)
+FLUID_GRU = dict(t=50, b=128, d=512, h=512, classes=2, runs=6, lr=0.1)
+FLUID_COND = dict(b=128, d=512, runs=4)
+FLUID_BEAM = dict(b=128, k=3, v=30000, steps=8, emb=64, runs=4, end_id=1)
+FLUID_EAGER_RTOL = 1e-5
+FLUID_OUT_TOL = dict(rtol=1e-4, atol=1e-5)
+# 39: the GAN demo (tests/test_multi_network.py:24-60) through
+# MultiNetworkTrainer at batch 128 over 400 alternating iterations
+GAN = dict(batch=128, iters=400, mean=(2.0, -1.0), std=0.3, noise=4)
 
 
 def fail(msg: str) -> None:
@@ -6235,6 +6285,644 @@ def vocab_phase(torch):
     return out
 
 
+def fluid_digits_program(fluid, lr=None):
+    """Phase 36's program, built with a fluid package's layers API (either
+    package's: tests/test_torch_fluid.py builds it in both): recognize_digits'
+    conv net, reshaped before its fc as tests/test_fluid.py:92 does."""
+    import numpy as np
+
+    L = fluid.layers
+    fluid.reset_default_program()
+    img = L.data("img", shape=[1, 28, 28])
+    label = L.data("label", shape=[1], dtype=np.int64)
+    p1 = L.pool2d(L.conv2d(img, 20, 5, act="relu"), 2, pool_stride=2)
+    p2 = L.pool2d(L.conv2d(p1, 50, 5, act="relu"), 2, pool_stride=2)
+    pred = L.fc(L.reshape(p2, [-1, 50 * 4 * 4]), 10, act="softmax")
+    loss = L.mean(L.cross_entropy(pred, label))
+    acc = L.accuracy(pred, label)
+    fluid.optimizer.AdamOptimizer(lr or FLUID_DIGITS["lr"]).minimize(loss)
+    return fluid.default_main_program(), [loss.name, acc.name]
+
+
+def fluid_digits_feeds(np, runs, batch):
+    """`runs` feeds of `batch` mnist.train() records (synthetic: nothing is
+    cached under the fresh DATA_HOME)."""
+    from paddle_tpu_torch.data.datasets import mnist
+
+    book_data_home()
+    recs = list(itertools.islice(mnist.train()(), runs * batch))
+    if len(recs) < runs * batch:
+        fail(f"fluid digits: mnist.train() gave {len(recs)} records")
+    feeds = []
+    for i in range(runs):
+        part = recs[i * batch:(i + 1) * batch]
+        feeds.append({"img": np.stack([r[0] for r in part]).reshape(batch, 1, 28, 28),
+                      "label": np.asarray([[r[1]] for r in part], np.int64)})
+    return feeds
+
+
+def fluid_lstm_program(fluid, cfg):
+    """Phase 37's program: the LSTM text classifier of
+    tests/test_fluid_control_flow.py:487-546 at cfg's widths (uniform
+    initial ranges of 1/sqrt(fan-in) past the embedding)."""
+    import numpy as np
+
+    fluid.reset_default_program()
+    t, vocab, emb_d, hid = cfg["seq_len"], cfg["vocab"], cfg["embed"], cfg["hidden"]
+    prog = fluid.default_main_program()
+    block = prog.global_block()
+    block.create_var("ids", shape=[t], dtype=np.int64, is_data=True)
+    block.create_var("lengths", shape=[], dtype=np.int32, is_data=True)
+    block.create_var("label", shape=[1], dtype=np.int64, is_data=True)
+
+    def param(name, shape, bound):
+        return block.create_parameter(name, shape=shape, initializer=("uniform", -bound, bound))
+
+    emb_w = param("emb.w", [vocab, emb_d], 0.1)
+    block.append_op("lookup_table", {"W": emb_w, "Ids": "ids"}, {"Out": "emb"}, {})
+    proj_w = param("proj.w", [emb_d, 4 * hid], emb_d ** -0.5)
+    block.append_op("mul", {"X": "emb", "Y": proj_w}, {"Out": "proj"}, {"x_num_col_dims": 2})
+    lstm_w = param("lstm.w", [hid, 4 * hid], hid ** -0.5)
+    lstm_b = block.create_parameter("lstm.b", shape=[4 * hid], initializer=("constant", 0.0))
+    block.append_op("lstm", {"Input": "proj", "Weight": lstm_w, "Bias": lstm_b,
+                             "SeqLengths": "lengths"},
+                    {"Hidden": "hidden", "Cell": "cell", "LastH": "last_h"}, {})
+    fc_w = param("fc.w", [hid, cfg["classes"]], hid ** -0.5)
+    block.append_op("mul", {"X": "last_h", "Y": fc_w}, {"Out": "logits"}, {})
+    block.append_op("softmax", {"X": "logits"}, {"Y": "probs"}, {})
+    block.append_op("cross_entropy", {"X": "probs", "Label": "label"}, {"Y": "xent"}, {})
+    loss = block.create_var("loss", shape=[])
+    block.append_op("mean", {"X": "xent"}, {"Out": loss}, {})
+    fluid.optimizer.AdamOptimizer(learning_rate=cfg["lr"]).minimize(loss)
+    return prog, ["loss"]
+
+
+def fluid_lstm_feed(np, cfg, b, seed=0):
+    """A batch drawn as benchmarks/rnn_bench.py:31-36 draws its ids and
+    labels, lengths in [min_len, seq_len] (the first row full)."""
+    rs = np.random.RandomState(seed)
+    t = cfg["seq_len"]
+    lengths = rs.randint(cfg["min_len"], t + 1, b).astype(np.int32)
+    lengths[0] = t
+    return {"ids": rs.randint(0, cfg["vocab"], (b, t)).astype(np.int64), "lengths": lengths,
+            "label": rs.randint(0, cfg["classes"], (b, 1)).astype(np.int64)}
+
+
+def fluid_gru_program(fluid, cfg):
+    """A recurrent op over gru_unit (x_t @ W_in, then the GRU cell on
+    h_pre), its last state through an fc, softmax and cross_entropy,
+    trained with SGD."""
+    import numpy as np
+
+    fluid.reset_default_program()
+    d, h = cfg["d"], cfg["h"]
+    prog = fluid.default_main_program()
+    block = prog.global_block()
+    block.create_var("x_seq", shape=[cfg["t"], d], is_data=True)
+    block.create_var("h0", shape=[h], is_data=True)
+    block.create_var("label", shape=[1], dtype=np.int64, is_data=True)
+    w_in = block.create_parameter("w_in", shape=[d, 3 * h],
+                                  initializer=("uniform", -d ** -0.5, d ** -0.5))
+    u = block.create_parameter("gru.w", shape=[h, 3 * h],
+                               initializer=("uniform", -h ** -0.5, h ** -0.5))
+    bias = block.create_parameter("gru.b", shape=[1, 3 * h], initializer=("constant", 0.0))
+    fc_w = block.create_parameter("fc.w", shape=[h, cfg["classes"]],
+                                  initializer=("uniform", -h ** -0.5, h ** -0.5))
+    sub = prog.create_block()
+    sub.append_op("mul", {"X": "x_t", "Y": w_in}, {"Out": "xp"}, {})
+    sub.append_op("gru_unit", {"Input": "xp", "HiddenPrev": "h_pre", "Weight": u,
+                               "Bias": bias}, {"Hidden": "h_new"}, {})
+    prog.rollback()
+    block.desc.ops.append(fluid.framework.OpDesc(
+        type="recurrent", attrs={"sub_block": sub.idx, "seq_ins": {"x_t": "x_seq"},
+                                 "states": {"h_pre": ("h0", "h_new")},
+                                 "seq_outs": {"h_seq": "h_new"}, "name": "gru"}))
+    block.append_op("mul", {"X": "gru.h_new@LAST", "Y": fc_w}, {"Out": "logits"}, {})
+    block.append_op("softmax", {"X": "logits"}, {"Y": "probs"}, {})
+    block.append_op("cross_entropy", {"X": "probs", "Label": "label"}, {"Y": "xent"}, {})
+    loss = block.create_var("loss", shape=[])
+    block.append_op("mean", {"X": "xent"}, {"Out": loss}, {})
+    fluid.optimizer.SGDOptimizer(learning_rate=cfg["lr"]).minimize(loss)
+    return prog, ["loss", "h_seq"]
+
+
+def fluid_gru_feed(np, cfg, seed=0):
+    rs = np.random.RandomState(seed)
+    b = cfg["b"]
+    return {"x_seq": rs.randn(b, cfg["t"], cfg["d"]).astype(np.float32),
+            "h0": np.zeros((b, cfg["h"]), np.float32),
+            "label": rs.randint(0, cfg["classes"], (b, 1)).astype(np.int64)}
+
+
+def fluid_while_program(fluid):
+    """The counter of tests/test_fluid_control_flow.py:107: v doubles until
+    c reaches n (a `while` op: its trip count is a device value)."""
+    fluid.reset_default_program()
+    prog = fluid.default_main_program()
+    block = prog.global_block()
+    for name, shape in (("v", [4]), ("c", []), ("n", [])):
+        block.create_var(name, shape=shape, is_data=True)
+    block.create_var("keep_going", shape=[])
+    block.append_op("less_than", {"X": "c", "Y": "n"}, {"Out": "keep_going"}, {})
+    sub = prog.create_block()
+    sub.append_op("scale", {"X": "v"}, {"Out": "v"}, {"scale": 2.0})
+    sub.append_op("increment", {"X": "c"}, {"Out": "c"}, {"step": 1.0})
+    sub.append_op("less_than", {"X": "c", "Y": "n"}, {"Out": "keep_going"}, {})
+    prog.rollback()
+    block.desc.ops.append(fluid.framework.OpDesc(
+        type="while", attrs={"sub_block": sub.idx, "cond": "keep_going", "carry": ["v", "c"]}))
+    return prog, ["v", "c"]
+
+
+def fluid_cond_program(fluid, per_sample: bool):
+    """cond over a [B, D] input: the true block scales by 10 then applies
+    dropout, the false block negates; a scalar flag picks one, a [B] flag
+    picks rows."""
+    fluid.reset_default_program()
+    prog = fluid.default_main_program()
+    block = prog.global_block()
+    block.create_var("flag", shape=[FLUID_COND["b"]] if per_sample else [], is_data=True)
+    block.create_var("x", shape=[FLUID_COND["d"]], is_data=True)
+    true_b = prog.create_block()
+    true_b.append_op("scale", {"X": "x"}, {"Out": "t"}, {"scale": 10.0})
+    true_b.append_op("dropout", {"X": "t"}, {"Out": "out"}, {"dropout_prob": 0.25})
+    prog.rollback()
+    false_b = prog.create_block()
+    false_b.append_op("scale", {"X": "x"}, {"Out": "out"}, {"scale": -1.0})
+    prog.rollback()
+    block.desc.ops.append(fluid.framework.OpDesc(
+        type="cond", attrs={"cond": "flag", "true_block": true_b.idx,
+                            "false_block": false_b.idx, "outs": ["out"]}))
+    return prog, ["out"]
+
+
+def fluid_beam_program(fluid, cfg):
+    """beam_search over `steps` steps of a toy decoder (lookup_table of the
+    previous ids, tanh(emb @ W_h + state), a V-wide softmax; the state
+    follows the chosen parents through `gather`), then
+    beam_search_decode."""
+    fluid.reset_default_program()
+    bk, v, e = cfg["b"] * cfg["k"], cfg["v"], cfg["emb"]
+    prog = fluid.default_main_program()
+    block = prog.global_block()
+    block.create_var("pre_ids", shape=[1], is_data=True)
+    block.create_var("pre_scores", shape=[1], is_data=True)
+    block.create_var("state", shape=[e], is_data=True)
+    emb = block.create_parameter("dec.emb", shape=[v, e], initializer=("uniform", -1.0, 1.0))
+    w_h = block.create_parameter("dec.w_h", shape=[e, e],
+                                 initializer=("uniform", -e ** -0.5, e ** -0.5))
+    w_out = block.create_parameter("dec.w_out", shape=[e, v], initializer=("normal", 0.0, 1.0))
+    ids, scores, state = "pre_ids", "pre_scores", "state"
+    for t in range(cfg["steps"]):
+        block.append_op("lookup_table", {"W": emb, "Ids": ids}, {"Out": f"e{t}"}, {})
+        block.append_op("mul", {"X": f"e{t}", "Y": w_h}, {"Out": f"s{t}"}, {})
+        block.append_op("elementwise_add", {"X": f"s{t}", "Y": state}, {"Out": f"a{t}"}, {})
+        block.append_op("tanh", {"X": f"a{t}"}, {"Y": f"h{t}"}, {})
+        block.append_op("mul", {"X": f"h{t}", "Y": w_out}, {"Out": f"logits{t}"}, {})
+        block.append_op("softmax", {"X": f"logits{t}"}, {"Y": f"probs{t}"}, {})
+        block.append_op("beam_search", {"pre_ids": ids, "pre_scores": scores,
+                                        "scores": f"probs{t}"},
+                        {"selected_ids": f"ids{t}", "selected_scores": f"scores{t}",
+                         "parent_idx": f"parent{t}"},
+                        {"beam_size": cfg["k"], "end_id": cfg["end_id"],
+                         "is_accumulated": False})
+        block.append_op("gather", {"X": f"h{t}", "Index": f"parent{t}"},
+                        {"Out": f"state{t}"}, {})
+        block.append_op("reshape", {"X": f"ids{t}"}, {"Out": f"ids_row{t}"},
+                        {"shape": [1, bk]})
+        block.append_op("reshape", {"X": f"parent{t}"}, {"Out": f"parent_row{t}"},
+                        {"shape": [1, bk]})
+        ids, scores, state = f"ids{t}", f"scores{t}", f"state{t}"
+    steps = range(cfg["steps"])
+    block.append_op("concat", {"X": [f"ids_row{t}" for t in steps]}, {"Out": "all_ids"},
+                    {"axis": 0})
+    block.append_op("concat", {"X": [f"parent_row{t}" for t in steps]},
+                    {"Out": "all_parents"}, {"axis": 0})
+    block.append_op("beam_search_decode", {"Ids": "all_ids", "ParentIdx": "all_parents",
+                                           "Scores": scores},
+                    {"SentenceIds": "sentences", "SentenceScores": "sentence_scores"},
+                    {"beam_size": cfg["k"]})
+    return prog, ["sentences", "sentence_scores"]
+
+
+def fluid_beam_feed(np, cfg, seed=0):
+    """Start ids 0 for every beam, beam 0 of each source at score 0 and
+    the others at -1e9 (so the first step expands one beam), a random
+    state a source."""
+    rs = np.random.RandomState(seed)
+    b, k, e = cfg["b"], cfg["k"], cfg["emb"]
+    scores = np.full((b, k), -1e9, np.float32)
+    scores[:, 0] = 0.0
+    state = np.repeat(rs.randn(b, 1, e).astype(np.float32), k, axis=1)
+    return {"pre_ids": np.zeros((b * k, 1), np.int64), "pre_scores": scores.reshape(-1, 1),
+            "state": state.reshape(b * k, e)}
+
+
+def fluid_save_load_program(fluid, path):
+    """save then load of the same file inside one run: the save writes each
+    run's value; the load reads the file once a signature (the JAX
+    package's trace-time constant)."""
+    fluid.reset_default_program()
+    block = fluid.default_main_program().global_block()
+    block.create_var("x", shape=[FLUID_COND["d"]], is_data=True)
+    block.append_op("scale", {"X": "x"}, {"Out": "y"}, {"scale": 2.0})
+    block.append_op("save", {"X": "y"}, {"Out": "saved"}, {"file_path": path})
+    block.append_op("load", {}, {"Out": "loaded"}, {"file_path": path})
+    return fluid.default_main_program(), ["y", "loaded"]
+
+
+def fluid_runs(exe, prog, feeds, fetch, scope, use_jit=True):
+    """exe.run over `feeds` -> (the fetches of each run, host ms of each
+    run, fetches included)."""
+    outs, ms = [], []
+    for feed in feeds:
+        t = time.perf_counter()
+        outs.append(exe.run(prog, feed=feed, fetch_list=fetch, scope=scope, use_jit=use_jit))
+        ms.append((time.perf_counter() - t) * 1e3)
+    return outs, ms
+
+
+def fluid_start(fluid, prog, seed=0):
+    """The persistables' initial values (drawn on the CPU) as host arrays,
+    so the card and the CPU start from the same scope."""
+    scope = fluid.Scope()
+    fluid.Executor(seed=seed, device="cpu").initialize(prog, scope)
+    return scope.numpy()
+
+
+def fluid_graph_stats(exe):
+    graphs = list(exe.graphs.values())
+    return dict(graphs=len(graphs), replays=sum(g.replays for g in graphs),
+                eager_runs=exe.eager_runs, route="graph" if graphs else "eager")
+
+
+def rel_err(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def fluid_vs_cpu(name, card_losses, cpu_losses):
+    """The first loss within CPU_COST_RTOL of the CPU's, the second within
+    V1_CPU_RTOL (an update apart)."""
+    rel = [rel_err(a, b) for a, b in zip(card_losses, cpu_losses)]
+    if not (rel[0] <= CPU_COST_RTOL and max(rel) <= V1_CPU_RTOL):
+        fail(f"{name}: losses card {card_losses} vs CPU {cpu_losses}: rel err {rel} "
+             f"(first <= {CPU_COST_RTOL}, all <= {V1_CPU_RTOL})")
+    return rel
+
+
+def fluid_eager_vs_replay(fluid, prog, feeds, fetch, snapshot, replayed):
+    """The eager interpreter on the card (use_jit=False) from `snapshot`
+    (the scope's arrays before the replays `replayed`, their losses) over
+    the same feeds -> (relative errors, bitwise)."""
+    exe = fluid.Executor(device="cuda")
+    eager, _ = fluid_runs(exe, prog, feeds, fetch, fluid.scope_from_arrays(snapshot, "cuda"),
+                          use_jit=False)
+    got = [float(e[0]) for e in eager]
+    rel = [rel_err(a, b) for a, b in zip(got, replayed)]
+    if not max(rel) <= FLUID_EAGER_RTOL:
+        fail(f"fluid: eager on the card {got} vs replays {replayed}: rel err {rel} "
+             f"(<= {FLUID_EAGER_RTOL})")
+    return rel, got == list(replayed)
+
+
+def fluid_digits_phase(torch):
+    """Phase 36: recognize_digits' conv net as a fluid Program on the card,
+    20 `exe.run(prog, feed, fetch_list=[loss, acc])` calls on mnist's
+    synthetic records at batch 64: one graph (captured at run 2) and 18
+    replays, the loss falls; ms a run (host clock, the fetch included), the
+    graph's device ms (CUDA events over 5 back-to-back replays, run after
+    the checks), kernels a replay (torch.profiler over 3 runs), peak
+    memory; the first 2 losses card vs CPU from the same scope; 3 runs of
+    the eager interpreter on the card (use_jit=False) from the scope
+    before run 11 against runs 11-13 (replays)."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    cfg = FLUID_DIGITS
+    prog, fetch = fluid_digits_program(fluid)
+    feeds = fluid_digits_feeds(np, cfg["runs"], cfg["batch"])
+    start = fluid_start(fluid, prog)
+    exe = fluid.Executor(device="cuda")
+    scope = fluid.scope_from_arrays(start, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    k = cfg["eager_from"]
+    outs, ms = fluid_runs(exe, prog, feeds[:k], fetch, scope)
+    snapshot = scope.numpy()
+    more, more_ms = fluid_runs(exe, prog, feeds[k:], fetch, scope)
+    outs, ms = outs + more, ms + more_ms
+    peak = torch.cuda.max_memory_allocated()
+    stats = fluid_graph_stats(exe)
+    losses = [float(o[0]) for o in outs]
+    acc = [float(o[1]) for o in outs]
+    n = cfg["eager_runs"]
+    eager_rel, bitwise = fluid_eager_vs_replay(fluid, prog, feeds[k:k + n], fetch, snapshot,
+                                               losses[k:k + n])
+    cpu, _ = fluid_runs(fluid.Executor(device="cpu"), prog, feeds[:2], fetch,
+                        fluid.scope_from_arrays(start, "cpu"))
+    cpu_rel = fluid_vs_cpu("fluid digits", losses[:2], [float(c[0]) for c in cpu])
+    out = dict(config=cfg, **stats, losses=losses, accuracy=acc,
+               ms_per_run_median=statistics.median(ms[2:]), run_ms=ms,
+               peak_memory_bytes=peak, cpu_loss_rel_err=cpu_rel,
+               eager_vs_replay_rel_err=eager_rel, eager_vs_replay_bitwise=bitwise)
+    if stats["graphs"] != 1 or stats["replays"] != cfg["runs"] - 2:
+        fail(f"fluid digits: {stats} over {cfg['runs']} runs, want 1 graph and "
+             f"{cfg['runs'] - 2} replays")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"fluid digits: losses {losses}")
+    out["profile"] = profile_train(torch, lambda: exe.run(prog, feed=feeds[-1],
+                                                          fetch_list=fetch, scope=scope),
+                                   tag="fluid", steps=3, label="fluid_digits_profile")
+    (graph,) = exe.graphs.values()
+    out["graph_device_ms"] = device_ms_per_call(torch, graph.graph.replay, n=5)
+    print("fluid_digits", json.dumps(out), flush=True)
+    return out
+
+
+def fluid_lstm_phase(torch):
+    """Phase 37: the fluid LSTM text classifier at rnn_bench's widths
+    (vocab 10000, embedding 128, hidden 512, batch 128, length 100, lengths
+    60-100), 12 runs of one batch: one graph, the loss falls; ms a run,
+    real tokens/s, kernels a replay, peak memory; the first 2 losses card
+    vs CPU at batch 8 from the same scope; the eager interpreter on the
+    card against runs 6-9 (replays) from the scope before them."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    cfg = FLUID_LSTM
+    prog, fetch = fluid_lstm_program(fluid, cfg)
+    feed = fluid_lstm_feed(np, cfg, cfg["batch"])
+    start = fluid_start(fluid, prog)
+    exe = fluid.Executor(device="cuda")
+    scope = fluid.scope_from_arrays(start, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    k, n = cfg["eager_from"], cfg["eager_runs"]
+    outs, ms = fluid_runs(exe, prog, [feed] * k, fetch, scope)
+    snapshot = scope.numpy()
+    more, more_ms = fluid_runs(exe, prog, [feed] * (cfg["runs"] - k), fetch, scope)
+    outs, ms = outs + more, ms + more_ms
+    peak = torch.cuda.max_memory_allocated()
+    stats = fluid_graph_stats(exe)
+    losses = [float(o[0]) for o in outs]
+    run_ms = statistics.median(ms[2:])
+    eager_rel, bitwise = fluid_eager_vs_replay(fluid, prog, [feed] * n, fetch, snapshot,
+                                               losses[k:k + n])
+    small = fluid_lstm_feed(np, cfg, cfg["cpu_batch"], seed=1)
+    card, _ = fluid_runs(fluid.Executor(device="cuda"), prog, [small] * 2, fetch,
+                         fluid.scope_from_arrays(start, "cuda"))
+    cpu, _ = fluid_runs(fluid.Executor(device="cpu"), prog, [small] * 2, fetch,
+                        fluid.scope_from_arrays(start, "cpu"))
+    cpu_rel = fluid_vs_cpu("fluid lstm", [float(c[0]) for c in card],
+                           [float(c[0]) for c in cpu])
+    out = dict(config=cfg, **stats, losses=losses, ms_per_run_median=run_ms, run_ms=ms,
+               real_tokens_per_s=float(feed["lengths"].sum()) / (run_ms / 1e3),
+               peak_memory_bytes=peak, cpu_batch_loss_rel_err=cpu_rel,
+               eager_vs_replay_rel_err=eager_rel, eager_vs_replay_bitwise=bitwise)
+    if stats["graphs"] != 1 or stats["replays"] != cfg["runs"] - 2:
+        fail(f"fluid lstm: {stats} over {cfg['runs']} runs")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"fluid lstm: losses {losses}")
+    out["profile"] = profile_train(torch, lambda: exe.run(prog, feed=feed, fetch_list=fetch,
+                                                          scope=scope),
+                                   tag="fluid", steps=2, label="fluid_lstm_profile")
+    (graph,) = exe.graphs.values()
+    out["graph_device_ms"] = device_ms_per_call(torch, graph.graph.replay, n=3)
+    print("fluid_lstm", json.dumps(out), flush=True)
+    return out
+
+
+def fluid_card_vs_cpu(name, prog, fetch, feeds, cpu_runs=None):
+    """`feeds` through a card executor and, for the first `cpu_runs`, a CPU
+    one, from the same initial scope -> the card's outputs and stats; every
+    float fetch within FLUID_OUT_TOL of the CPU's, the others (ids, flags)
+    equal."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    start = fluid_start(fluid, prog)
+    exe = fluid.Executor(device="cuda")
+    card, ms = fluid_runs(exe, prog, feeds, fetch, fluid.scope_from_arrays(start, "cuda"))
+    n = len(feeds) if cpu_runs is None else cpu_runs
+    cpu, _ = fluid_runs(fluid.Executor(device="cpu"), prog, feeds[:n], fetch,
+                        fluid.scope_from_arrays(start, "cpu"))
+    worst = 0.0
+    for i, (c_run, p_run) in enumerate(zip(card, cpu)):
+        for j, (c, p) in enumerate(zip(c_run, p_run)):
+            if p.dtype.kind not in "fc":
+                if not np.array_equal(c, p):
+                    fail(f"fluid {name}: run {i} fetch {fetch[j]} card != CPU")
+                continue
+            err = float(np.max(np.abs(c - p) / (FLUID_OUT_TOL["atol"]
+                                                 + FLUID_OUT_TOL["rtol"] * np.abs(p))))
+            worst = max(worst, err)
+            if not err <= 1.0:
+                fail(f"fluid {name}: run {i} fetch {fetch[j]} card vs CPU beyond "
+                     f"{FLUID_OUT_TOL} ({err:.3g} of the tolerance)")
+    return card, dict(**fluid_graph_stats(exe), ms_per_run_median=statistics.median(ms),
+                      runs=len(feeds), cpu_runs=n, worst_share_of_tolerance=worst)
+
+
+def fluid_control_phase(torch):
+    """Phase 38: fluid control flow and generation ops, card vs CPU from
+    the same scopes and feeds: a recurrent op over gru_unit at T 50, B 128,
+    H 512 trained with SGD (first 2 losses as phase 36's; kernels a replay
+    by torch.profiler), the while
+    counter (eager on the card: its trip count is a device value), cond
+    with a scalar and a per-sample condition at [128, 512] (dropout in the
+    true block: the same keys), beam_search + beam_search_decode at B 128,
+    K 3, V 30000 over 8 steps (the decoded ids equal, scores within
+    FLUID_OUT_TOL), and save -> load inside a graphed run (the file holds
+    each run's value after its replay; the load reads it once). Which
+    programs ran as a graph and which eagerly is reported."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    out = {}
+    cfg = FLUID_GRU
+    prog, fetch = fluid_gru_program(fluid, cfg)
+    feed = fluid_gru_feed(np, cfg)
+    start = fluid_start(fluid, prog)
+    exe = fluid.Executor(device="cuda")
+    scope = fluid.scope_from_arrays(start, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    card, ms = fluid_runs(exe, prog, [feed] * cfg["runs"], fetch, scope)
+    cpu, _ = fluid_runs(fluid.Executor(device="cpu"), prog, [feed] * 2, fetch,
+                        fluid.scope_from_arrays(start, "cpu"))
+    losses = [float(c[0]) for c in card]
+    out["recurrent_gru"] = dict(
+        config=cfg, **fluid_graph_stats(exe), losses=losses,
+        ms_per_run_median=statistics.median(ms[2:]),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        cpu_loss_rel_err=fluid_vs_cpu("fluid recurrent", losses[:2],
+                                      [float(c[0]) for c in cpu]))
+    if out["recurrent_gru"]["graphs"] != 1 or not losses[-1] < losses[0]:
+        fail(f"fluid recurrent: {out['recurrent_gru']}")
+    out["recurrent_gru"]["profile"] = profile_train(
+        torch, lambda: exe.run(prog, feed=feed, fetch_list=fetch, scope=scope), tag="fluid",
+        steps=2, label="fluid_gru_profile")
+
+    prog, fetch = fluid_while_program(fluid)
+    feeds = [{"v": np.full(4, i + 1.0, np.float32), "c": np.zeros((), np.float32),
+              "n": np.full((), 7.0 - i, np.float32)} for i in range(3)]
+    card, out["while"] = fluid_card_vs_cpu("while", prog, fetch, feeds)
+    if out["while"]["route"] != "eager" or not np.array_equal(card[0][0], np.full(4, 128.0)):
+        fail(f"fluid while: {out['while']}, v {card[0][0]}")
+
+    c = FLUID_COND
+    rs = np.random.RandomState(0)
+    for kind, per_sample in (("cond_scalar", False), ("cond_per_sample", True)):
+        prog, fetch = fluid_cond_program(fluid, per_sample)
+        flags = ([rs.randint(0, 2, c["b"]).astype(np.float32) for _ in range(c["runs"])]
+                 if per_sample else [np.asarray(float(i % 2)) for i in range(c["runs"])])
+        feeds = [{"flag": f, "x": rs.randn(c["b"], c["d"]).astype(np.float32)} for f in flags]
+        _, out[kind] = fluid_card_vs_cpu(kind, prog, fetch, feeds)
+        if out[kind]["route"] != "graph":
+            fail(f"fluid {kind}: {out[kind]}")
+
+    cfg = FLUID_BEAM
+    prog, fetch = fluid_beam_program(fluid, cfg)
+    feeds = [fluid_beam_feed(np, cfg, seed=i) for i in range(cfg["runs"])]
+    card, out["beam_search"] = fluid_card_vs_cpu("beam_search", prog, fetch, feeds,
+                                                 cpu_runs=2)
+    ids = card[-1][0]
+    out["beam_search"].update(config=cfg, sentence_ids_shape=list(ids.shape),
+                              distinct_ids=int(len(np.unique(ids))))
+    if out["beam_search"]["route"] != "graph" or ids.shape != (cfg["b"], cfg["k"],
+                                                                  cfg["steps"]):
+        fail(f"fluid beam_search: {out['beam_search']}")
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        path = os.path.join(REPO, "build", f"fluid_saved_{dev}")
+        prog, fetch = fluid_save_load_program(fluid, path)
+        exe = fluid.Executor(device=dev)
+        xs = [np.full(c["d"], float(i + 1), np.float32) for i in range(4)]
+        runs = []
+        for x in xs:
+            y, loaded = exe.run(prog, feed={"x": x}, fetch_list=fetch)
+            runs.append(dict(y=y, loaded=loaded, disk=np.load(path + ".npy")))
+        results[dev] = dict(runs=runs, stats=fluid_graph_stats(exe))
+    for dev, r in results.items():
+        for i, run in enumerate(r["runs"]):
+            if not (np.array_equal(run["disk"], run["y"])
+                    and np.array_equal(run["loaded"], r["runs"][0]["y"])):
+                fail(f"fluid save/load on {dev}: run {i} disk {run['disk'][:2]} y "
+                     f"{run['y'][:2]} loaded {run['loaded'][:2]}")
+    out["save_load"] = results["cuda"]["stats"]
+    if out["save_load"]["route"] != "graph" or out["save_load"]["replays"] != 2:
+        fail(f"fluid save/load: {out['save_load']}")
+    out["routes"] = {k: v["route"] for k, v in out.items()}
+    print("fluid_control", json.dumps(out), flush=True)
+    return out
+
+
+def gan_build(L, C, ParamAttr, Network, Adam, Trainer, **kw):
+    """The GAN demo's two phases (tests/test_multi_network.py:24-60), in a
+    package's layers (either package's: tests/test_torch_multi_network.py
+    builds both): the discriminator Fc 16 relu -> Fc 2 softmax (`dis_*`),
+    the generator Fc 16 relu -> Fc 2 (`gen_*`) scored by a static copy of
+    the discriminator, Adam(1e-2) in both -> (dis trainer, gen trainer,
+    the generator's Network, its output's name)."""
+    def discriminator(sample, static):
+        pa = lambda n: ParamAttr(name=n, is_static=static)  # noqa: E731
+        h = L.Fc(sample, 16, act="relu", param_attr=pa("dis_w1"),
+                 bias_attr=pa("dis_b1"), name=f"dish_{static}")
+        return L.Fc(h, 2, act="softmax", param_attr=pa("dis_w2"),
+                    bias_attr=pa("dis_b2"), name=f"diso_{static}")
+
+    def generator(noise, static):
+        pa = lambda n: ParamAttr(name=n, is_static=static)  # noqa: E731
+        h = L.Fc(noise, 16, act="relu", param_attr=pa("gen_w1"),
+                 bias_attr=pa("gen_b1"), name=f"genh_{static}")
+        return L.Fc(h, 2, act=None, param_attr=pa("gen_w2"),
+                    bias_attr=pa("gen_b2"), name=f"geno_{static}")
+
+    d_cost = C.ClassificationCost(discriminator(L.Data("sample", shape=(2,)), False),
+                                  L.Data("label", shape=()), name="d_cost")
+    g_sample = generator(L.Data("noise", shape=(4,)), False)
+    g_cost = C.ClassificationCost(discriminator(g_sample, True),
+                                  L.Data("label", shape=()), name="g_cost")
+    dis = Trainer(d_cost, Adam(learning_rate=1e-2), **kw)
+    gen = Trainer(g_cost, Adam(learning_rate=1e-2), **kw)
+    return dis, gen, Network(g_sample), g_sample.name
+
+
+def gan_phase(torch):
+    """Phase 39: the GAN demo through MultiNetworkTrainer on the card at
+    batch 128, 400 alternating iterations on the test's data (mean
+    [2, -1], sigma 0.3): each phase's step one graph, every later step a
+    replay; the generator's mean lands within half of its starting
+    distance of the data mean; dis_w1 / dis_w2 bitwise equal in both
+    phases' states after the run, gen_w1 absent from the discriminator's.
+    ms an iteration (the discriminator step, the generator step and the
+    sampling forward of the fakes, host clock); then torch.profiler over 5
+    more iterations (kernels an iteration, busy share)."""
+    import numpy as np
+
+    from paddle_tpu_torch.nn import costs, layers
+    from paddle_tpu_torch.nn.graph import Network, ParamAttr, reset_name_scope
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer import MultiNetworkTrainer, SGDTrainer
+
+    cfg = GAN
+    reset_name_scope()
+    dis, gen, gen_net, name = gan_build(layers, costs, ParamAttr, Network, Adam, SGDTrainer,
+                                        device="cuda")
+    mt = MultiNetworkTrainer({"dis": dis, "gen": gen})
+    rs = np.random.RandomState(0)
+    bs, mean = cfg["batch"], np.asarray(cfg["mean"], np.float32)
+    real = lambda: mean + rs.randn(bs, 2).astype(np.float32) * cfg["std"]  # noqa: E731
+    noise = lambda n=bs: rs.randn(n, cfg["noise"]).astype(np.float32)  # noqa: E731
+    ones = np.ones(bs, np.int64)
+    labels = np.concatenate([np.ones(bs), np.zeros(bs)]).astype(np.int64)
+    mt.init_state({"dis": {"sample": real(), "label": ones},
+                   "gen": {"noise": noise(), "label": ones}})
+
+    def samples(n):
+        outs = gen_net.apply(mt.state_of("gen")["params"], {"noise": noise(n)})
+        return outs[name].value.detach().cpu().numpy()
+
+    costs_d, costs_g = [], []
+
+    def iteration():
+        batch = np.concatenate([real(), samples(bs)], 0)
+        costs_d.append(mt.step("dis", {"sample": batch, "label": labels}))
+        costs_g.append(mt.step("gen", {"noise": noise(), "label": ones}))
+
+    before = float(np.linalg.norm(samples(256).mean(0) - mean))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(cfg["iters"]):
+        iteration()
+    torch.cuda.synchronize()
+    ms_iter = (time.perf_counter() - t0) * 1e3 / cfg["iters"]
+    after = float(np.linalg.norm(samples(256).mean(0) - mean))
+    graphs = {p: (len(tr.graphs), sum(g.replays for g in tr.graphs.values()))
+              for p, tr in mt.trainers.items()}
+    dp, gp = mt.state_of("dis")["params"], mt.state_of("gen")["params"]
+    in_sync = {k: bool(torch.equal(dp[k], gp[k])) for k in ("dis_w1", "dis_b1", "dis_w2",
+                                                             "dis_b2")}
+    out = dict(config=cfg, ms_per_iteration=ms_iter, distance_before=before,
+               distance_after=after, graphs_and_replays=graphs, shared_bitwise=in_sync,
+               cost_d_first_last=[float(costs_d[0]), float(costs_d[-1])],
+               cost_g_first_last=[float(costs_g[0]), float(costs_g[-1])],
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    print("gan", json.dumps(out), flush=True)
+    if any(g != (1, cfg["iters"] - 1) for g in graphs.values()):
+        fail(f"gan: graphs and replays {graphs}, want one graph a phase and "
+             f"{cfg['iters'] - 1} replays")
+    if not after < 0.5 * before:
+        fail(f"gan: the generator's mean moved from {before} to {after} of the data mean")
+    if not all(in_sync.values()) or "gen_w1" in dp:
+        fail(f"gan: shared parameters {in_sync}, dis params {sorted(dp)}")
+    out["profile"] = profile_train(torch, iteration, tag="gan", steps=5, label="gan_profile")
+    return out
+
+
 def train_of(torch, tree: str) -> int:
     """`--train-of TREE`: the training phases (5, 7 and 10) of the
     chip_smoke.py in TREE, a checkout of this repository (an earlier
@@ -6437,7 +7125,20 @@ def main() -> int:
     vocab = vocab_phase(torch)
     v1_vocab = v1_vocab_phase(torch)
 
-    # 36. lines
+    # 36. a fluid Program (recognize_digits) trains as one CUDA graph, 37.
+    # the fluid LSTM text classifier at rnn_bench's widths, 38. fluid
+    # control flow and generation ops card vs CPU, 39. the GAN demo's two
+    # phases through MultiNetworkTrainer
+    torch.cuda.empty_cache()
+    fluid_digits = fluid_digits_phase(torch)
+    torch.cuda.empty_cache()
+    fluid_lstm = fluid_lstm_phase(torch)
+    torch.cuda.empty_cache()
+    fluid_control = fluid_control_phase(torch)
+    torch.cuda.empty_cache()
+    gan = gan_phase(torch)
+
+    # 40. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -6587,7 +7288,8 @@ def main() -> int:
                    "v1_gen": v1_gen, "serve_config": serve_config, "v2_gen": v2_gen,
                    "v1_proto": v1_proto, "layer_error": layer_error, "book_nmt": book_nmt,
                    "book": book, "image_models": image_models, "v1_alexnet": v1_alexnet,
-                   "vocab": vocab, "v1_vocab": v1_vocab},
+                   "vocab": vocab, "v1_vocab": v1_vocab, "fluid_digits": fluid_digits,
+                   "fluid_lstm": fluid_lstm, "fluid_control": fluid_control, "gan": gan},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,9 +22,15 @@ as one CUDA graph on the card, readers and the feeder (`data/`),
 checkpoints and resume, and seq2seq beam-search generation; the fused
 attention op (`ops/attention.dot_product_attention`); the v1 config
 pipeline (`config/`, `proto/`, `v2/`, `metrics/`, `compat/`; `python -m
-paddle_tpu_torch train --config=conf.py` and `dump_config`).
+paddle_tpu_torch train --config=conf.py` and `dump_config`); the fluid
+stack (`fluid/`: a Program runs on the card as one CUDA graph per feed
+signature), the GAN demo's `trainer/multi_network.py`, `utils/` and
+`config/protostr.py`.
 Every Pallas kernel of the JAX package has its CUDA counterpart."""
 
 from paddle_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+# the JAX package's version: `python -m paddle_tpu_torch version` prints it
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "__version__"]

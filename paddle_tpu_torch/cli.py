@@ -1,5 +1,6 @@
 """`python -m paddle_tpu_torch` — the port's CLI (counterpart of
-`paddle_tpu/cli.py`): `train`, `dump_config`, `merge_model` and `serve`, with the
+`paddle_tpu/cli.py`): `train`, `dump_config`, `merge_model`, `serve` and
+`version`, with the
 reference's flags and output lines, plus `--device` (default `cuda`; the
 tests pass `cpu`; the v1 flags `--use_gpu=0` / `--use_tpu=0` mean `cpu`):
 
@@ -22,6 +23,7 @@ tests pass `cpu`; the v1 flags `--use_gpu=0` / `--use_tpu=0` mean `cpu`):
         [--default_deadline_s=S] [--default_ttft_deadline_s=S]
         [--engine_restart_max=N] [--engine_stall_timeout_s=S]
         [--lease_s=S] [--require_register=0|1]
+    python -m paddle_tpu_torch version
 
 `train` parses the v1 config (`config/config_parser.py`), builds the
 optimizer from its `settings()` (`config/optimizers.build_optimizer`),
@@ -673,6 +675,14 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_version(_args: argparse.Namespace) -> int:
+    """Print the JAX package's line, `paddle-tpu <version>`."""
+    from paddle_tpu_torch import __version__
+
+    print(f"paddle-tpu {__version__}")
+    return 0
+
+
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """The command line of `main` -> its namespace (`fn` runs the command)."""
     parser = argparse.ArgumentParser(prog="paddle_tpu_torch")
@@ -696,6 +706,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     _serve_args(p_serve)
     p_serve.set_defaults(fn=cmd_serve)
+    p_ver = sub.add_parser("version", help="print the package version")
+    p_ver.set_defaults(fn=cmd_version)
     return parser.parse_args(argv)
 
 

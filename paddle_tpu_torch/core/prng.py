@@ -1,6 +1,6 @@
 """jax.random's threefry generator in torch integer ops (the counterpart of
 the `jax.random` calls the JAX package makes: `PRNGKey`, `fold_in`,
-`bernoulli`, `uniform`).
+`bernoulli`, `uniform`, `normal`).
 
 The bits are jax's own, bit for bit: `threefry2x32` is the Threefry-2x32
 hash of `jax/_src/prng.py` (20 rounds, key schedule k1, k2, k1^k2^0x1BD11BDA),
@@ -18,6 +18,8 @@ reads a device value on the host."""
 
 from __future__ import annotations
 
+import math
+import struct
 from typing import Sequence, Union
 
 import torch
@@ -85,12 +87,37 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """jax.random.uniform in float32: the top 23 bits as the mantissa of a
-    float in [1, 2), minus 1, scaled to [minval, maxval)."""
+    float in [1, 2), minus 1, scaled to [minval, maxval). The bounds are
+    rounded to float32 and their span taken in float32, as jax does; XLA
+    computes `floats * span + minval` as one fused multiply-add, rounded
+    once, so the scaling runs in float64 (exact for the product of two
+    float32 values) and rounds to float32 at the end."""
     bits = random_bits(key, shape)
     floats = ((bits >> 9) | _ONE_F32_BITS).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(floats * (maxval - minval) + minval, minval)
+    lo, hi = _f32(minval), _f32(maxval)
+    if lo == 0.0 and hi == 1.0:
+        return floats
+    scaled = (floats.double() * _f32(hi - lo) + lo).float()
+    return torch.clamp_min(scaled, lo)
+
+
+def _f32(v: float) -> float:
+    """v rounded to the nearest float32."""
+    return struct.unpack("f", struct.pack("f", v))[0]
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]) -> torch.Tensor:
     """jax.random.bernoulli: a bool tensor, True with probability p (f32)."""
     return uniform(key, shape) < p
+
+
+# float32's successor of -1.0 toward 0 (np.nextafter(-1, 0) in f32), jax's
+# lower bound for the uniform under `normal`
+_NORMAL_LO = -1.0 + 2.0 ** -24
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """jax.random.normal in float32: sqrt(2) * erfinv(u), u uniform in
+    [nextafter(-1, 0), 1). The uniform bits are jax's; torch's erfinv and
+    XLA's agree to float32 rounding, not bit for bit."""
+    return math.sqrt(2.0) * torch.erfinv(uniform(key, shape, _NORMAL_LO, 1.0))

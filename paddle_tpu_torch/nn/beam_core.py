@@ -37,8 +37,10 @@ def expand_beams(cand_logp: torch.Tensor, pre_scores: torch.Tensor,
     finished [B, K] bool. Finished beams propagate EOS at their unchanged
     score. -> (top_scores [B, k], beam_idx [B, k], tok [B, k] int32)."""
     b, _, v = cand_logp.shape
-    eos_only = torch.full((v,), NEG_INF, dtype=cand_logp.dtype, device=cand_logp.device)
-    eos_only[eos_id] = 0.0
+    # built on the device (an indexed write of a Python number would copy
+    # from the host, which a CUDA graph capture refuses)
+    vocab = torch.arange(v, device=cand_logp.device)
+    eos_only = torch.where(vocab == eos_id, 0.0, NEG_INF).to(cand_logp.dtype)
     cand = torch.where(finished[:, :, None], pre_scores[:, :, None] + eos_only,
                        cand_logp)
     top_scores, top_idx = torch.sort(cand.reshape(b, -1), dim=-1, descending=True,
