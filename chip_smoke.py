@@ -443,7 +443,45 @@ Phases (any failure exits non-zero and prints no result line):
                step a replay; the generator's mean within half its
                starting distance of the data mean; the shared dis_*
                bitwise equal in both phases; ms an iteration.
- 40. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 40. ssd     — models/ssd.py at its defaults (96x96x3, 21 classes, widths
+               32/64/128, 12 096 priors) at batch 32 of 1-8 gt boxes an
+               image, Adam(1e-3), 20 steps of one batch through
+               SGDTrainer: one graph, 19 replays, no ported kernel
+               launched, the cost falls; ms a step (host clock), the
+               graph's device ms, images/s, busy share, kernels a step,
+               peak memory. Card vs CPU at batch 4 (SGD(0.01)): the first
+               2 costs (1e-5, 1e-4), every gradient (1e-4 x max(1,
+               max|g|)). DetectionOutput on the trained parameters at
+               batch 4, card vs CPU from the same head outputs: labels
+               equal, scores and boxes within 1e-5 (rows in a score tie
+               matched as a set); ms and kernels of a detection call at
+               batch 32; detection_map (11-point) over 4 batches.
+ 41. struct_costs — NCE (uniform, and by a distribution), hsigmoid,
+               LambdaCost and CrossEntropyOverBeam (B 512, D 256, 10 000
+               classes; 64 queries of 32 documents; 3 beam expansions)
+               card vs CPU: cost 1e-5, gradients 1e-4 x max(1, max|g|);
+               then the book's word2vec with hsigmoid and with NCE in its
+               softmax's place and the LambdaRank demo over mq2007's
+               listwise queries, 8 batches each through paddle.v2: one
+               graph, 7 replays, the cost falls.
+ 42. rnn_extra — SimpleRnn (B 64, T 50, H 256) both ways and MDLstm (B 8,
+               16 x 16, 32 units) in all four direction pairs: output
+               card vs CPU within 1e-5 relative L2, gradients within 5e-4
+               of a float64 CPU run (the CPU's f32 distance printed); a v1 config of a bidirectional recurrent_layer text
+               classifier through `train --config` for 8 steps: one graph,
+               the cost falls.
+ 43. layers3d — Conv3D, Conv3DTranspose and Pool3D (max, avg with
+               ceil_mode) over [8, 16, 16, 16, 16] in f32 with TF32 off,
+               output and gradients card vs CPU within 1e-5 relative L2;
+               ms of a forward + backward.
+ 44. runtime — g++ builds the native library (seconds printed);
+               recordio.convert shards mnist's synthetic records (each
+               shard read back equal to the Python oracle's); a TaskMaster
+               hands them out one shard a task and recognize_digits trains
+               8 batches on them through paddle.v2's DataFeeder as one
+               graph, the cost falling; a HostPool array stages a batch;
+               one native update of each optimizer type against optim/.
+ 45. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -5014,7 +5052,9 @@ def book_image_classification(paddle, cfg):
 def book_word2vec(paddle, cfg):
     """04.word2vec: imikolov 5-grams, four embeddings of cfg["emb"] sharing
     the table `shared_w`, concat, fc cfg["hidden"] sigmoid (drop_rate 0.5),
-    softmax over the dictionary."""
+    softmax over the dictionary; cfg["output"] "hsigmoid" or "nce" puts
+    that cost over the dictionary in the softmax's place (AdaGrad at the
+    book's 3e-3)."""
     word_dict = paddle.dataset.imikolov.build_dict()
     if cfg.get("vocab"):  # the CPU twins' reduced dictionary
         word_dict = {w: i for w, i in word_dict.items() if i < cfg["vocab"] - 1}
@@ -5037,12 +5077,20 @@ def book_word2vec(paddle, cfg):
         bias_attr=paddle.attr.Param(learning_rate=2),
         param_attr=paddle.attr.Param(initial_std=1.0 / (cfg["emb"] * 8) ** 0.5,
                                      learning_rate=1))
-    predictword = paddle.layer.fc(input=hidden1, size=dict_size,
-                                  bias_attr=paddle.attr.Param(learning_rate=2),
-                                  act=paddle.activation.Softmax())
-    cost = paddle.layer.classification_cost(input=predictword, label=nextword)
+    output = cfg.get("output", "softmax")
+    if output == "hsigmoid":  # phase 41: the softmax output as a hierarchical sigmoid
+        cost = paddle.layer.hsigmoid(input=hidden1, label=nextword, num_classes=dict_size)
+    elif output == "nce":  # and as noise-contrastive estimation
+        cost = paddle.layer.nce(input=hidden1, label=nextword, num_classes=dict_size,
+                                num_neg_samples=cfg["neg"])
+    else:
+        predictword = paddle.layer.fc(input=hidden1, size=dict_size,
+                                      bias_attr=paddle.attr.Param(learning_rate=2),
+                                      act=paddle.activation.Softmax())
+        cost = paddle.layer.classification_cost(input=predictword, label=nextword)
     opt = paddle.optimizer.AdaGrad(
-        learning_rate=3e-3, regularization=paddle.optimizer.L2Regularization(8e-4))
+        learning_rate=3e-3,
+        regularization=paddle.optimizer.L2Regularization(8e-4))
     return dict(cost=cost, extra=[], feeding={n: i for i, n in enumerate(names + ("fifthw",))},
                 optimizer=opt, reader=paddle.dataset.imikolov.train(word_dict, 5),
                 buf_size=8192, dict_size=dict_size)
@@ -5220,13 +5268,28 @@ def book_recommender_system(paddle, cfg):
                 buf_size=8192)
 
 
+def book_lambda_rank(paddle, cfg):
+    """The learning-to-rank demo's LambdaRank network (v2 lambda_cost):
+    mq2007's listwise queries of 46-wide documents, fc cfg["hidden"] tanh,
+    fc 1 linear, lambda_cost NDCG@6, Adam at cfg["lr"]."""
+    dim = paddle.dataset.mq2007.FEATURE_DIM
+    data = paddle.layer.data("data", paddle.data_type.dense_vector_sequence(dim))
+    label = paddle.layer.data("label", paddle.data_type.dense_vector_sequence(1))
+    hidden = paddle.layer.fc(input=data, size=cfg["hidden"], act=paddle.activation.Tanh())
+    score = paddle.layer.fc(input=hidden, size=1, act=paddle.activation.Linear())
+    cost = paddle.layer.lambda_cost(input=score, score=label, NDCG_num=6)
+    return dict(cost=cost, extra=[], feeding={"data": 0, "label": 1},
+                optimizer=paddle.optimizer.Adam(learning_rate=cfg["lr"]),
+                reader=paddle.dataset.mq2007.train(format="listwise"), buf_size=512)
+
+
 BOOK_CHAPTERS = dict(
     fit_a_line=book_fit_a_line, recognize_digits=book_recognize_digits,
     image_classification=book_image_classification, word2vec=book_word2vec,
     recommender_system=book_recommender_system,
     understand_sentiment=book_understand_sentiment,
     label_semantic_roles=book_label_semantic_roles,
-    machine_translation=book_machine_translation)
+    machine_translation=book_machine_translation, lambda_rank=book_lambda_rank)
 
 
 def book_run(paddle, name, cfg, batches, device=None, start_tar=None, keep_init=False,
@@ -6923,6 +6986,656 @@ def gan_phase(torch):
     return out
 
 
+# -- SSD, the structured costs, SimpleRnn / MDLstm, the 3-D layers and the
+# native runtime (phases 40-44) -----------------------------------------------
+
+# 40: models/ssd.py at its defaults (96x96x3, 21 classes, widths 32/64/128,
+# three heads of 4 priors a cell at 48, 24 and 12: 12 096 priors, nms_top_k
+# 400, keep_top_k 200), batch 32 of 1-8 gt boxes an image (padded to 8),
+# Adam(1e-3), `steps` steps on one batch; card vs CPU at batch 4 (SGD(0.01):
+# the first 2 costs, every gradient); detections at batch 4 card vs CPU
+# from the same head outputs; mAP over `map_batches` batches of 32
+SSD = dict(image_size=96, num_classes=21, widths=(32, 64, 128), batch=32, steps=20,
+           lr=1e-3, max_gt=8, cpu_batch=4, cpu_lr=0.01, map_batches=4)
+SSD_GRAD_TOL = 1e-4
+SSD_DET_TOL = 1e-5
+# 41: the structured costs at a word model's widths (B 512, D 256, a 10 000
+# word dictionary, 10 noise samples; LambdaRank over 64 queries of 32
+# documents; three beam expansions of 128 x 5 x 4 candidates), card vs CPU;
+# then the book's word2vec with hsigmoid / NCE in the softmax's place and
+# the LambdaRank demo over mq2007, 8 batches each
+STRUCT = dict(b=512, d=256, classes=10000, neg=10, queries=64, docs=32, beam_b=128,
+              beam_k=5, beam_n=4)
+STRUCT_BOOK = (("word2vec_hsigmoid", "word2vec", dict(batch=128, emb=32, hidden=256,
+                                                      output="hsigmoid")),
+               ("word2vec_nce", "word2vec", dict(batch=128, emb=32, hidden=256, output="nce",
+                                                 neg=10)),
+               ("lambda_rank", "lambda_rank", dict(batch=32, hidden=128, lr=1e-3)))
+# 42: SimpleRnn (B 64, T 50, H 256) both ways and MDLstm (B 8, a 16 x 16
+# grid, 32 units) in each direction pair, on the phase's data and on
+# `md_seeds` more draws of grid and parameters, card vs CPU; a v1 config
+# of a bidirectional recurrent_layer text classifier trained 8 steps
+RNN_EXTRA = dict(b=64, t=50, h=256, grid_b=8, grid=16, grid_hid=32, md_seeds=(1, 2, 3))
+# MDLstm's gradients run back through 31 wavefront steps of two
+# neighbours each, and their f32 rounding error varies with the data: over
+# this phase's 16 draws, 2.7e-6 to 4.2e-5 relative L2 from a float64 run on
+# the CPU, 3.4e-6 to 1.5e-4 on an H100, whose float64 gradients are the
+# CPU's within 4e-13. A wrong gradient reads 1.5e-2 or more (a neighbour's
+# h scaled by 0.999, a peephole on the wrong cell). So each f32 gradient is
+# held to the float64 run within this limit, card f32 vs CPU f32 printed
+# beside, and the card in float64 to the CPU in float64
+RNN_EXTRA_GRAD_REL_L2 = 5e-4
+RNN_EXTRA_F64_REL_L2 = 1e-10
+V1_RNN = dict(vocab=1000, emb=64, size=128, batch=64, batches=8)
+# 43: Conv3D (16 -> 32, k 3, pad 1), Conv3DTranspose (32 -> 16, k 2, stride
+# 2) and Pool3D (max, avg; k 2) over [8, 16, 16, 16, 16], and Conv3D from one
+# channel (1 -> 32, k 3, pad 1) over [8, 16, 16, 16, 1], f32 with TF32 off;
+# cuDNN computes all of them, its own weight gradients included
+L3D = dict(b=8, d=16, c=16, filters=32)
+L3D_REL_L2 = 1e-5
+# 44: the native runtime: mnist's synthetic records sharded into recordio
+# (1 000 records a shard), an in-process TaskMaster handing them out one
+# shard a task, recognize_digits fed through DataFeeder into its step graph
+RUNTIME = dict(records=4096, per_shard=1000, batch=128, steps=8)
+
+
+def ssd_net(cfg):
+    """A fresh models/ssd.py graph at cfg's widths -> (cost, detection)."""
+    from paddle_tpu_torch.models import ssd
+    from paddle_tpu_torch.nn.graph import reset_name_scope
+
+    reset_name_scope()
+    _, _, _, cost, det = ssd(image_size=cfg["image_size"], num_classes=cfg["num_classes"],
+                             widths=cfg["widths"])
+    return cost, det
+
+
+def ssd_batch(np, cfg, b, seed):
+    """A detection batch: randn images; 1..max_gt gt boxes an image in
+    normalised corners (corner in [0, 0.6), sides in [0.15, 0.4)), labels
+    1..num_classes-1, as tests/test_torch_detection.py draws them; rows past
+    an image's count are zero, `gt_*.lengths` hold the counts."""
+    rs = np.random.RandomState(seed)
+    s, g = cfg["image_size"], cfg["max_gt"]
+    boxes = np.zeros((b, g, 4), np.float32)
+    labels = np.zeros((b, g), np.int32)
+    lengths = rs.randint(1, g + 1, b).astype(np.int32)
+    for i in range(b):
+        for j in range(lengths[i]):
+            x0, y0 = rs.uniform(0, 0.6, 2)
+            w, h = rs.uniform(0.15, 0.4, 2)
+            boxes[i, j] = [x0, y0, min(x0 + w, 1.0), min(y0 + h, 1.0)]
+            labels[i, j] = rs.randint(1, cfg["num_classes"])
+    return {"image": rs.randn(b, s, s, 3).astype(np.float32), "gt_boxes": boxes,
+            "gt_boxes.lengths": lengths, "gt_labels": labels, "gt_labels.lengths": lengths}
+
+
+def detections_agree(np, got, want, tol):
+    """Card vs CPU detections [B, K, 6], row by row: the same label, score
+    and box within `tol`. Rows whose scores lie within `tol` of their
+    neighbour's form a tie the two devices' last bits may break either way,
+    so each such run is matched as a set -> (ok, max_abs_err, rows in
+    ties)."""
+    worst, tied = 0.0, 0
+    for g_img, w_img in zip(got, want):
+        i = 0
+        while i < len(w_img):
+            j = i + 1
+            while j < len(w_img) and abs(w_img[j, 1] - w_img[j - 1, 1]) <= tol:
+                j += 1
+            tied += j - i if j - i > 1 else 0
+            used = set()
+            for row in w_img[i:j]:
+                best = None
+                for t in range(i, j):
+                    if t in used or g_img[t, 0] != row[0]:
+                        continue
+                    err = float(np.abs(g_img[t, 1:] - row[1:]).max())
+                    if err <= tol and (best is None or err < best[1]):
+                        best = (t, err)
+                if best is None:
+                    return False, worst, tied
+                used.add(best[0])
+                worst = max(worst, best[1])
+            i = j
+    return True, worst, tied
+
+
+def grads_close(torch, got, want, tol):
+    """{name: max abs err} and the names outside tol x max(1, max|want|)."""
+    errs, bad = {}, []
+    for k, w in want.items():
+        w = w.detach().cpu().double()
+        g = got[k].detach().cpu().double()
+        errs[k] = float((g - w).abs().max())
+        if errs[k] > tol * max(1.0, float(w.abs().max())):
+            bad.append(k)
+    return errs, bad
+
+
+def ssd_phase(torch):
+    """Phase 40: SSD at full width trains as one graph, card vs CPU at batch
+    4, detections card vs CPU, detection timing and mAP (see SSD)."""
+    import numpy as np
+
+    from paddle_tpu_torch.metrics.evaluators import DetectionMAPEvaluator
+    from paddle_tpu_torch.nn.detection_layers import gather_heads
+    from paddle_tpu_torch.nn.graph import Network
+    from paddle_tpu_torch.optim import SGD, Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    cfg = SSD
+    cost, det = ssd_net(cfg)
+    trainer = SGDTrainer(cost, Adam(learning_rate=cfg["lr"]), seed=0, device="cuda")
+    batch = ssd_batch(np, cfg, cfg["batch"], 0)
+    t0 = time.perf_counter()
+    trainer.init_state(batch)
+    dev_batch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_rnn_counts()
+    costs, step_ms = timed_calls(torch, lambda: trainer.step(dev_batch), cfg["steps"])
+    launches = rnn_counts()
+    peak = torch.cuda.max_memory_allocated()
+    graphs = list(trainer.graphs.values())
+    replays = graphs[0].replays if graphs else 0
+    med = statistics.median(step_ms[1:])
+    device_ms = device_ms_per_call(torch, lambda: trainer.step(dev_batch))
+    res = dict(config=cfg, params=sum(p.numel() for p in trainer.state["params"].values()),
+               setup_s=setup_s, costs=costs, step_ms=step_ms, step_ms_median=med,
+               images_per_s=cfg["batch"] / (med / 1e3), graph_device_ms_per_step=device_ms,
+               busy_share_graph=device_ms / med, peak_memory_bytes=peak, graphs=len(graphs),
+               replays=replays, kernel_launches=launches)
+    print("ssd", json.dumps(res), flush=True)
+    if len(graphs) != 1 or replays != cfg["steps"] - 1:
+        fail(f"ssd: {len(graphs)} step graphs, {replays} replays in {cfg['steps']} steps")
+    if any(launches.values()):
+        fail(f"ssd: the step launched ported kernels it does not run: {launches}")
+    if not (np.isfinite(costs).all() and costs[-1] < costs[0]):
+        fail(f"ssd: training costs {costs}: want finite and falling")
+    res["profile"] = profile_train(torch, lambda: trainer.step(dev_batch), tag="ssd",
+                                   label="ssd_profile")
+
+    # card vs CPU at batch 4 from the same parameters
+    small = ssd_batch(np, cfg, cfg["cpu_batch"], 1)
+    twins = {}
+    for dev in ("cpu", "cuda"):
+        twins[dev] = SGDTrainer(ssd_net(cfg)[0], SGD(learning_rate=cfg["cpu_lr"]), seed=0,
+                                device=dev)
+        twins[dev].init_state(small)
+    twins["cuda"].load_params(twins["cpu"].state["params"])
+    c_card, g_card = twins["cuda"].cost_and_grads(small)
+    c_cpu, g_cpu = twins["cpu"].cost_and_grads(small)
+    errs, bad = grads_close(torch, g_card, g_cpu, SSD_GRAD_TOL)
+    two = {dev: [float(tr.step(small)) for _ in range(2)] for dev, tr in twins.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(two["cuda"], two["cpu"])]
+    res["vs_cpu"] = dict(batch=cfg["cpu_batch"], cost_card=float(c_card),
+                         cost_cpu=float(c_cpu), costs_card=two["cuda"], costs_cpu=two["cpu"],
+                         cost_rel_err=rel, grad_max_abs_err=max(errs.values()),
+                         grads_outside_tol=bad)
+    print("ssd_vs_cpu", json.dumps(res["vs_cpu"]), flush=True)
+    if not (rel[0] <= CPU_COST_RTOL and rel[1] <= V1_CPU_RTOL):
+        fail(f"ssd: costs card {two['cuda']} vs CPU {two['cpu']}: rel err {rel}")
+    if bad:
+        fail(f"ssd: gradients card vs CPU beyond {SSD_GRAD_TOL} x max(1, max|g|): {bad}")
+    del twins
+
+    # detections on the trained parameters: card vs CPU from the same heads
+    params = trainer.state["params"]
+    heads_net = Network(list(det.inputs))
+    image = {"image": ssd_batch(np, cfg, cfg["cpu_batch"], 2)["image"]}
+    heads = heads_net.apply(params, image)
+    loc, conf, pri, var = gather_heads([heads[l.name] for l in det.inputs], det.n_heads)
+    on_card = det.detect(loc, conf, pri, var).cpu().numpy()
+    on_cpu = det.detect(loc.cpu(), conf.cpu(), pri.cpu(), var.cpu()).numpy()
+    ok, worst, tied = detections_agree(np, on_card, on_cpu, SSD_DET_TOL)
+    res["detect_vs_cpu"] = dict(shape=list(on_card.shape), max_abs_err=worst, tied_rows=tied,
+                                rows_scored=int((on_card[..., 1] > 0).sum()))
+    if not ok:
+        fail(f"ssd: detections card vs CPU differ beyond {SSD_DET_TOL} "
+             f"(labels, scores, boxes; {tied} rows in score ties)")
+    # the detection call at batch 32 (eager), then mAP over map_batches batches
+    det_net = Network([det])
+    img32 = {"image": torch.as_tensor(batch["image"]).to("cuda")}
+    res["detect_ms_batch32"] = events_ms(torch, lambda: det_net.apply(params, img32), n=5)
+    res["detect_profile"] = profile_train(torch, lambda: det_net.apply(params, img32),
+                                          tag="sort", steps=1, label="ssd_detect_profile")
+    ev = DetectionMAPEvaluator(ap_type="11point")
+    ev.start()
+    for i in range(cfg["map_batches"]):
+        b = ssd_batch(np, cfg, cfg["batch"], 10 + i)
+        dets = det_net.apply(params, {"image": b["image"]})["detection"].value
+        ev.update(detections=dets, gt_boxes=b["gt_boxes"], gt_labels=b["gt_labels"],
+                  gt_lengths=b["gt_boxes.lengths"])
+    res["map_11point"] = ev.finish()
+    print("ssd_detect", json.dumps({k: res[k] for k in (
+        "detect_vs_cpu", "detect_ms_batch32", "map_11point")}), flush=True)
+    if not 0.0 <= res["map_11point"] <= 1.0:
+        fail(f"ssd: mAP {res['map_11point']} outside [0, 1]")
+    return res
+
+
+def layer_card_vs_cpu(torch, net, batch, train=True, seed=3, f64=False, init_seed=0):
+    """One graph's output and its gradients on the card and on the CPU from
+    the same parameters (`net.init` at `init_seed`) and, in training, the
+    same key: a cost's own gradients, or those of the output times a fixed
+    cotangent -> (card, CPU) pairs of (output on the host, {param: grad});
+    with `f64`, two more, the CPU and the card in float64 (parameters,
+    inputs and the compute policy)."""
+    import numpy as np
+
+    from paddle_tpu_torch.core import dtypes, prng
+
+    params = {k: v.numpy() for k, v in net.init(batch, seed=init_seed, device="cpu").items()}
+    name = net.outputs[0].name
+    runs = [("cuda", torch.float32), ("cpu", torch.float32)]
+    out = []
+    for dev, dt in runs + ([("cpu", torch.float64), ("cuda", torch.float64)] if f64 else []):
+        policy = dtypes.Policy(param_dtype=dt, compute_dtype=dt, accum_dtype=dt)
+        tp = {k: torch.from_numpy(v).to(dev, dt).requires_grad_(True) for k, v in params.items()}
+        feed = {k: torch.from_numpy(v).to(dt) if v.dtype == np.float32 else v
+                for k, v in batch.items()}
+        value = net.apply(tp, feed, train=train, rng=prng.PRNGKey(seed, dev),
+                          policy=policy)[name].value
+        loss = value
+        if value.dim():
+            gen = torch.Generator().manual_seed(seed)
+            loss = (value * torch.randn(value.shape, generator=gen).to(dev, dt)).sum()
+        grads = torch.autograd.grad(loss, list(tp.values()))
+        out.append((value.detach().cpu().double(), dict(zip(tp, grads))))
+    return tuple(out)
+
+
+def struct_costs_phase(torch):
+    """Phase 41 (see STRUCT): NCE (uniform and by distribution), hsigmoid,
+    LambdaCost and CrossEntropyOverBeam, value and gradients card vs CPU;
+    then the book's word2vec with hsigmoid and with NCE over its dictionary,
+    and the LambdaRank demo over mq2007, 8 batches each through
+    paddle.v2's trainer: one graph, every later batch a replay, the cost
+    falling."""
+    import random
+
+    import numpy as np
+
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.nn import graph as G
+    from paddle_tpu_torch.nn import layers as L
+    from paddle_tpu_torch.nn import struct_costs as S
+
+    cfg = STRUCT
+    rs = np.random.RandomState(0)
+    b, d, c = cfg["b"], cfg["d"], cfg["classes"]
+    flat = {"x": rs.randn(b, d).astype(np.float32),
+            "y": rs.randint(0, c, b).astype(np.int32)}
+    q, t = cfg["queries"], cfg["docs"]
+    lens = rs.randint(t // 2, t + 1, q).astype(np.int32)
+    rank = {"docs": rs.randn(q, t, 46).astype(np.float32), "docs.lengths": lens,
+            "rel": rs.randint(0, 3, (q, t)).astype(np.float32), "rel.lengths": lens}
+    bb, k, n = cfg["beam_b"], cfg["beam_k"], cfg["beam_n"]
+    beam = {"s0": rs.randn(bb, k * n).astype(np.float32),
+            "sel0": np.stack([rs.permutation(k * n)[:k] for _ in range(bb)]).astype(np.int32),
+            "g0": rs.randint(0, k * n, bb).astype(np.int32),
+            "s1": rs.randn(bb, k * k * n).astype(np.float32),
+            "sel1": np.stack([rs.permutation(k * k * n)[:k] for _ in range(bb)]).astype(np.int32),
+            "g1": rs.randint(0, k * k * n, bb).astype(np.int32)}
+    dist = rs.rand(c).astype(np.float32) + 0.01
+
+    def nce(**kw):
+        return S.NCECost(L.Fc(L.Data("x", shape=(d,)), d, act="tanh", name="h"),
+                         L.Data("y", shape=()), num_classes=c, num_neg_samples=cfg["neg"],
+                         name="cost", **kw)
+
+    def beam_ce():
+        ins = [S.BeamInput(L.Fc(L.Data(f"s{i}", shape=(w,)), w, act=None, name=f"f{i}"),
+                           L.Data(f"sel{i}", shape=(k,)), L.Data(f"g{i}", shape=()))
+               for i, w in enumerate((k * n, k * k * n))]
+        return S.CrossEntropyOverBeam(ins, name="cost")
+
+    cases = {
+        "nce_uniform": (nce, flat),
+        "nce_distribution": (lambda: nce(neg_distribution=dist), flat),
+        "hsigmoid": (lambda: S.HierarchicalSigmoid(
+            L.Fc(L.Data("x", shape=(d,)), d, act="tanh", name="h"), L.Data("y", shape=()),
+            num_classes=c, name="cost"), flat),
+        "lambda_cost": (lambda: S.LambdaCost(
+            L.Fc(L.Data("docs", shape=(None, 46), is_seq=True), 1, act=None, name="h"),
+            L.Data("rel", shape=(None,), is_seq=True), ndcg_num=6, name="cost"), rank),
+        "cross_entropy_over_beam": (beam_ce, beam),
+    }
+    res = {"config": cfg, "cases": {}}
+    for name, (build, batch) in cases.items():
+        G.reset_name_scope()
+        net = G.Network([build()])
+        (vc, gc), (vp, gp) = layer_card_vs_cpu(torch, net, batch)
+        errs, bad = grads_close(torch, gc, gp, SSD_GRAD_TOL)
+        vc, vp = float(vc), float(vp)
+        rel = abs(vc - vp) / max(abs(vp), 1e-30)
+        res["cases"][name] = dict(cost_card=vc, cost_cpu=vp, cost_rel_err=rel,
+                                  grad_max_abs_err=max(errs.values()), grads_outside_tol=bad)
+        if not (np.isfinite(vc) and rel <= CPU_COST_RTOL) or bad:
+            fail(f"struct costs {name}: card {vc} vs CPU {vp} (rel {rel}); gradients "
+                 f"outside {SSD_GRAD_TOL} x max(1, max|g|): {bad}")
+    print("struct_costs", json.dumps(res["cases"]), flush=True)
+
+    book_data_home()
+    res["book"] = {}
+    for label, chapter, bcfg in STRUCT_BOOK:
+        G.reset_name_scope()
+        paddle.init(use_gpu=True, trainer_count=1, seed=0)
+        random.seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        run, step_ms, first_ms = book_step_times(lambda h: book_run(
+            paddle, chapter, bcfg, BOOK_BATCHES, event_handler=h,
+            before_train=zero_rnn_counts))
+        tr, costs = run["trainer"].trainer, run["costs"]
+        r = dict(config=bcfg, step_costs=costs, first_step_ms=first_ms,
+                 ms_per_step_median=statistics.median(step_ms), graphs=len(tr.graphs),
+                 replays=sum(g.replays for g in tr.graphs.values()),
+                 kernel_launches=rnn_counts(), peak_memory_bytes=torch.cuda.max_memory_allocated())
+        res["book"][label] = r
+        print("struct_costs_book", label, json.dumps(r), flush=True)
+        if len(costs) != BOOK_BATCHES or not np.isfinite(costs).all() or not costs[-1] < costs[0]:
+            fail(f"{label}: costs over {BOOK_BATCHES} batches {costs}: want finite, falling")
+        if r["graphs"] != 1 or r["replays"] != BOOK_BATCHES - 1:
+            fail(f"{label}: {r['graphs']} graphs and {r['replays']} replays over "
+                 f"{BOOK_BATCHES} batches")
+    return res
+
+
+V1_RNN_PROVIDER = """
+import numpy as np
+from paddle.trainer.PyDataProvider2 import *
+
+
+def hook(settings, vocab, samples, **kwargs):
+    settings.vocab, settings.samples = vocab, samples
+    settings.input_types = {"word": integer_value_sequence(vocab), "label": integer_value(2)}
+
+
+@provider(init_hook=hook, should_shuffle=False)
+def process(settings, filename):
+    rs = np.random.RandomState(0)
+    half = settings.vocab // 2
+    for _ in range(settings.samples):
+        label = int(rs.randint(2))  # the label's words come from its half of the vocabulary
+        words = rs.randint(0, half, rs.randint(17, 33)) + half * label
+        yield {"word": words.tolist(), "label": label}
+"""
+
+# a bidirectional vanilla-RNN text classifier (recurrent_layer both ways)
+V1_RNN_CONFIG = """
+from paddle.trainer_config_helpers import *
+
+vocab = get_config_arg("vocab", int, 1000)
+emb = get_config_arg("emb", int, 64)
+size = get_config_arg("size", int, 128)
+batch = get_config_arg("batch", int, 64)
+batches = get_config_arg("batches", int, 8)
+settings(batch_size=batch, learning_rate=2e-3, learning_method=AdamOptimizer())
+define_py_data_sources2(train_list="train.list", test_list=None, module="v1_rnn_provider",
+                        obj="process", args={"vocab": vocab, "samples": batches * batch})
+word = data_layer(name="word", size=vocab)
+label = data_layer(name="label", size=2)
+e = embedding_layer(input=word, size=emb)
+fwd = recurrent_layer(input=fc_layer(input=e, size=size, act=LinearActivation()),
+                      act=TanhActivation())
+bwd = recurrent_layer(input=fc_layer(input=e, size=size, act=LinearActivation()),
+                      act=TanhActivation(), reverse=True)
+pooled = pooling_layer(input=concat_layer(input=[fwd, bwd]), pooling_type=MaxPooling())
+outputs(classification_cost(input=fc_layer(input=pooled, size=2, act=SoftmaxActivation()),
+                            label=label))
+"""
+
+
+def rnn_extra_phase(torch):
+    """Phase 42 (see RNN_EXTRA): SimpleRnn both ways and MDLstm in every
+    direction pair: the output card vs CPU within 1e-5 relative L2, each
+    f32 gradient, card and CPU, within RNN_EXTRA_GRAD_REL_L2 of a float64
+    run on the CPU (card vs CPU in f32 printed beside), the card's float64
+    gradients within RNN_EXTRA_F64_REL_L2 of the CPU's; then V1_RNN_CONFIG
+    through `train --config` for 8 steps: one graph, 7 replays, the cost
+    falling, no ported kernel launched."""
+    import numpy as np
+
+    from paddle_tpu_torch.nn import graph as G
+    from paddle_tpu_torch.nn import layers as L
+    from paddle_tpu_torch.nn import recurrent as R
+
+    cfg = RNN_EXTRA
+    rs = np.random.RandomState(0)
+    seq = {"x": rs.randn(cfg["b"], cfg["t"], cfg["h"]).astype(np.float32) * 0.5,
+           "x.lengths": rs.randint(cfg["t"] // 2, cfg["t"] + 1, cfg["b"]).astype(np.int32)}
+    g, hid = cfg["grid"], cfg["grid_hid"]
+    grid = {"x": rs.randn(cfg["grid_b"], g, g, 5 * hid).astype(np.float32) * 0.5}
+    cases = {f"simple_rnn_{'rev' if rev else 'fwd'}": (
+        lambda rev=rev: R.SimpleRnn(L.Data("x", shape=(None, cfg["h"]), is_seq=True),
+                                    reverse=rev, name="out"), seq, 0) for rev in (False, True)}
+    for seed in (0,) + cfg["md_seeds"]:
+        x = grid if seed == 0 else {"x": np.random.RandomState(seed).randn(
+            cfg["grid_b"], g, g, 5 * hid).astype(np.float32) * 0.5}
+        for dirs in ((True, True), (False, True), (True, False), (False, False)):
+            cases[f"mdlstm_{int(dirs[0])}{int(dirs[1])}" + (f"_s{seed}" if seed else "")] = (
+                lambda dirs=dirs: R.MDLstm(L.Data("x", shape=(g, g, 5 * hid)), size=hid,
+                                           directions=dirs, name="out"), x, seed)
+    res = {"config": cfg, "cases": {}}
+    for name, (build, batch, init_seed) in cases.items():
+        G.reset_name_scope()
+        net = G.Network([build()])
+        (vc, gc), (vp, gp), (_, g64), (_, g64c) = layer_card_vs_cpu(torch, net, batch, f64=True,
+                                                                    init_seed=init_seed)
+        rel = float((vc - vp).norm() / max(float(vp.norm()), 1e-30))
+
+        def rel_to(grads, want):
+            return max(float((grads[k].cpu().double() - g.cpu().double()).norm()
+                             / max(float(g.cpu().double().norm()), 1e-30))
+                       for k, g in want.items())
+
+        row = dict(out_rel_l2=rel, grad_card_f64=rel_to(gc, g64), grad_cpu_f64=rel_to(gp, g64),
+                   grad_card_cpu=rel_to(gc, gp), grad_card64_cpu64=rel_to(g64c, g64))
+        res["cases"][name] = row
+        if (not rel <= L3D_REL_L2 or row["grad_card_f64"] > RNN_EXTRA_GRAD_REL_L2
+                or row["grad_cpu_f64"] > RNN_EXTRA_GRAD_REL_L2
+                or row["grad_card64_cpu64"] > RNN_EXTRA_F64_REL_L2):
+            fail(f"rnn_extra {name}: output card vs CPU relative L2 {rel} (<= {L3D_REL_L2}); "
+                 f"gradients (largest over the parameters) {row}: f32 vs f64 <= "
+                 f"{RNN_EXTRA_GRAD_REL_L2}, card f64 vs CPU f64 <= {RNN_EXTRA_F64_REL_L2}")
+    print("rnn_extra", json.dumps(res["cases"]), flush=True)
+
+    d = v1_config_dir("rnn", V1_RNN_CONFIG, V1_RNN_PROVIDER)
+    zero_rnn_counts()
+    rc, lines, costs, job = run_cli(d, ["train", "--config=conf.py",
+                                        f"--config_args={config_args(V1_RNN)}",
+                                        "--num_passes=1", "--log_period=1"], echo=False)
+    launches = rnn_counts()
+    graphs = list(job.trainer.graphs.values()) if job is not None else []
+    v1 = dict(config=V1_RNN, rc=rc, step_costs=costs, graphs=len(graphs),
+              replays=graphs[0].replays if graphs else 0, kernel_launches=launches)
+    if graphs:
+        b = {k: v.cpu().numpy() for k, v in graphs[0].inputs.items()}
+        _, step_ms = timed_calls(torch, lambda: job.trainer.step(b), 5)
+        v1["ms_per_step_median"] = statistics.median(step_ms)
+    res["v1"] = v1
+    print("rnn_extra_v1", json.dumps(v1), flush=True)
+    if rc != 0 or len(graphs) != 1 or v1["replays"] != V1_RNN["batches"] - 1:
+        fail(f"v1 recurrent_layer config: exit {rc}, {len(graphs)} graphs, {v1['replays']} "
+             f"replays over {V1_RNN['batches']} steps")
+    if len(costs) != V1_RNN["batches"] or not np.isfinite(costs).all() or not costs[-1] < costs[0]:
+        fail(f"v1 recurrent_layer config: step costs {costs}: want finite, falling")
+    if any(launches.values()):
+        fail(f"v1 recurrent_layer config launched kernels it does not run: {launches}")
+    return res
+
+
+def layers3d_phase(torch):
+    """Phase 43 (see L3D): Conv3D, Conv3DTranspose, Pool3D max / avg and a
+    one-channel Conv3D, output and every gradient card vs CPU in f32 with TF32 off, each within
+    L3D_REL_L2 relative L2; ms of a forward + backward on the card."""
+    import numpy as np
+
+    from paddle_tpu_torch.nn import graph as G
+    from paddle_tpu_torch.nn import layers as L
+    from paddle_tpu_torch.nn import layers3d as L3
+
+    cfg = L3D
+    s, c, f = cfg["d"], cfg["c"], cfg["filters"]
+    rs = np.random.RandomState(0)
+    xs = rs.randn(cfg["b"], s, s, s, c).astype(np.float32)
+    x1 = rs.randn(cfg["b"], s, s, s, 1).astype(np.float32)
+    cases = {
+        "conv3d": (lambda x_: L3.Conv3D(x_, f, 3, padding=1, act="relu", name="out"), xs),
+        "conv3d_transpose": (lambda x_: L3.Conv3DTranspose(
+            L3.Conv3D(x_, f, 1, name="pre"), c, 2, stride=2, name="out"), xs),
+        "pool3d_max": (lambda x_: L3.Pool3D(x_, 2, "max", name="out"), xs),
+        "pool3d_avg": (lambda x_: L3.Pool3D(x_, 3, "avg", stride=2, padding=1, ceil_mode=True,
+                                            name="out"), xs),
+        "conv3d_one_channel": (lambda x_: L3.Conv3D(x_, f, 3, padding=1, name="out"), x1),
+    }
+    res = {"config": cfg, "cases": {}}
+    for name, (build, x) in cases.items():
+        G.reset_name_scope()
+        net = G.Network([build(L.Data("x", shape=x.shape[1:]))])
+        params = {k: v.numpy() for k, v in net.init({"x": x}, device="cpu").items()}
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            tp = {k: torch.from_numpy(v).to(dev).requires_grad_(True) for k, v in params.items()}
+            xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+
+            def fwd_bwd():
+                y = net.apply(tp or {"device": xt}, {"x": xt})["out"].value
+                return y, torch.autograd.grad((0.5 * y * y + y).sum(),
+                                              list(tp.values()) + [xt])
+
+            y, grads = fwd_bwd()
+            outs[dev] = [y.detach().cpu()] + [gr.cpu() for gr in grads]
+            if dev == "cuda":
+                res["cases"][name] = dict(card_ms_fwd_bwd=events_ms(torch, fwd_bwd, n=5))
+        rels = [float((a - b).norm() / max(float(b.norm()), 1e-30))
+                for a, b in zip(outs["cuda"], outs["cpu"])]
+        res["cases"][name].update(rel_l2=rels, shape=list(outs["cpu"][0].shape))
+        if max(rels) > L3D_REL_L2:
+            fail(f"layers3d {name}: card vs CPU relative L2 {rels} (out, grads) > {L3D_REL_L2}")
+    print("layers3d", json.dumps(res), flush=True)
+    return res
+
+
+def runtime_phase(torch):
+    """Phase 44 (see RUNTIME): g++ builds the native library (seconds
+    printed); `recordio.convert` shards mnist's synthetic records, each
+    shard read back equal to the Python oracle's; a TaskMaster hands the
+    shards out as tasks and the book's recognize_digits trains on what
+    `read_shards` gives, through paddle.v2's trainer (DataFeeder) as one
+    step graph, the cost falling; a HostPool array stages one batch; one
+    native update of each optimizer type against the port's optim/."""
+    import pickle
+    import random
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch import optim
+    from paddle_tpu_torch.nn import graph as G
+    from paddle_tpu_torch.runtime import build, recordio
+    from paddle_tpu_torch.runtime.allocator import HostPool
+    from paddle_tpu_torch.runtime.master import TaskMaster
+    from paddle_tpu_torch.runtime.optimizer import NativeOptimizer
+
+    cfg = RUNTIME
+    t0 = time.perf_counter()
+    lib = build.build()
+    res = dict(config=cfg, build_s=time.perf_counter() - t0, library=os.path.relpath(lib, REPO))
+    book_data_home()
+    samples = list(itertools.islice(paddle.dataset.mnist.train()(), cfg["records"]))
+    shard_dir = tempfile.mkdtemp(prefix="recordio-", dir=os.path.join(REPO, "build"))
+    t0 = time.perf_counter()
+    shards = recordio.convert(shard_dir, lambda: iter(samples), records_per_file=cfg["per_shard"])
+    res["convert_s"] = time.perf_counter() - t0
+    for p in shards:
+        if list(recordio.Reader(p)) != list(recordio._py_read(p)):
+            fail(f"runtime: {p}: the native reader's records differ from the oracle's")
+    master = TaskMaster(timeout_s=600, failure_max=2)
+    master.set_dataset(shards, chunks_per_task=1)
+    read, tasks = [], []
+
+    def master_reader():
+        while True:
+            task = master.get_task()
+            if task is None or task[0] == TaskMaster.PASS_FINISHED:
+                return
+            tasks.append(task[0])
+            for s in recordio.read_shards(task[1]):
+                read.append(s)
+                yield s
+            master.task_finished(task[0])
+
+    G.reset_name_scope()
+    paddle.init(use_gpu=True, trainer_count=1, seed=0)
+    random.seed(0)
+    ch = BOOK_CHAPTERS["recognize_digits"](paddle, BOOK["recognize_digits"])
+    params = paddle.parameters.create(ch["cost"])
+    trainer = paddle.trainer.SGD(cost=ch["cost"], parameters=params,
+                                 update_equation=ch["optimizer"], extra_layers=ch["extra"])
+    costs, calls = [], []
+    batched = paddle.batch(master_reader, cfg["batch"])
+
+    def reader():
+        calls.append(1)
+        if len(calls) == 1:  # the trainer's first look, to build its state
+            return iter([samples[:cfg["batch"]]])
+        return itertools.islice(batched(), cfg["steps"])
+
+    trainer.train(reader=reader, num_passes=1, feeding=ch["feeding"],
+                  event_handler=lambda e: costs.append(float(e.cost))
+                  if type(e).__name__ == "EndIteration" else None)
+    tr = trainer.trainer
+    res.update(shards=len(shards), tasks=len(tasks), records_read=len(read),
+               master=master.stats(), step_costs=costs, graphs=len(tr.graphs),
+               replays=sum(g.replays for g in tr.graphs.values()))
+    same = [pickle.dumps(a) for a in read] == [pickle.dumps(a) for a in samples[:len(read)]]
+    if not same or len(read) < cfg["steps"] * cfg["batch"]:
+        fail(f"runtime: {len(read)} records read through the task master, not mnist's first")
+    if not (np.isfinite(costs).all() and costs[-1] < costs[0]) or res["graphs"] != 1:
+        fail(f"runtime: recognize_digits over the shards: costs {costs}, {res['graphs']} "
+             "graphs: want finite, falling, one graph")
+    master.close()
+    # one batch staged in the host pool, then moved to the card
+    pool = HostPool(total_bytes=64 << 20)
+    images = np.stack([np.asarray(s[0], np.float32) for s in samples[:cfg["batch"]]])
+    staged = pool.ndarray(images.shape, np.float32)
+    staged[:] = images
+    on_card = torch.from_numpy(staged).to("cuda")
+    res["host_pool"] = dict(pool.stats(), staged_equal=bool(
+        torch.equal(on_card.cpu(), torch.from_numpy(images))))
+    pool.release(staged)
+    del staged, on_card
+    if not res["host_pool"]["staged_equal"] or pool.stats()["in_use"] != 0:
+        fail(f"runtime: host pool staging {res['host_pool']}")
+    pool.close()
+    # one native update of each type against the port's optimizers (host)
+    rs = np.random.RandomState(0)
+    p0, g0 = rs.randn(4096).astype(np.float32), rs.randn(4096).astype(np.float32)
+    res["optimizers"] = {}
+    for kind, kw, opt in (
+            ("sgd", dict(learning_rate=0.1, momentum=0.9), optim.SGD(learning_rate=0.1,
+                                                                      momentum=0.9)),
+            ("adagrad", dict(learning_rate=0.1, epsilon=1e-6),
+             optim.AdaGrad(learning_rate=0.1, epsilon=1e-6)),
+            ("adadelta", dict(learning_rate=1.0, rho=0.95, epsilon=1e-6),
+             optim.AdaDelta(learning_rate=1.0, rho=0.95, epsilon=1e-6)),
+            ("adam", dict(learning_rate=0.01), optim.Adam(learning_rate=0.01))):
+        p_nat = p0.copy()
+        NativeOptimizer(kind, **kw).update(p_nat, g0)
+        tp = {"w": torch.from_numpy(p0.copy())}
+        opt.update({"w": torch.from_numpy(g0)}, opt.init_state(tp), tp, kw["learning_rate"])
+        err = float(np.abs(p_nat - tp["w"].numpy()).max())
+        res["optimizers"][kind] = err
+        if err > 1e-5:
+            fail(f"runtime: native {kind} update differs from optim/ by {err}")
+    print("runtime", json.dumps(res), flush=True)
+    return res
+
+
 def train_of(torch, tree: str) -> int:
     """`--train-of TREE`: the training phases (5, 7 and 10) of the
     chip_smoke.py in TREE, a checkout of this repository (an earlier
@@ -7138,7 +7851,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     gan = gan_phase(torch)
 
-    # 40. lines
+    # 40. SSD trains at full width and detects, 41. the structured costs, 42.
+    # SimpleRnn / MDLstm and a v1 recurrent_layer config, 43. the 3-D layers,
+    # 44. the native runtime feeding a step graph (counters from 0 in each)
+    torch.cuda.empty_cache()
+    ssd = ssd_phase(torch)
+    torch.cuda.empty_cache()
+    struct_costs = struct_costs_phase(torch)
+    torch.cuda.empty_cache()
+    rnn_extra = rnn_extra_phase(torch)
+    torch.cuda.empty_cache()
+    layers3d = layers3d_phase(torch)
+    torch.cuda.empty_cache()
+    runtime = runtime_phase(torch)
+
+    # 45. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -7289,7 +8016,9 @@ def main() -> int:
                    "v1_proto": v1_proto, "layer_error": layer_error, "book_nmt": book_nmt,
                    "book": book, "image_models": image_models, "v1_alexnet": v1_alexnet,
                    "vocab": vocab, "v1_vocab": v1_vocab, "fluid_digits": fluid_digits,
-                   "fluid_lstm": fluid_lstm, "fluid_control": fluid_control, "gan": gan},
+                   "fluid_lstm": fluid_lstm, "fluid_control": fluid_control, "gan": gan,
+                   "ssd": ssd, "struct_costs": struct_costs, "rnn_extra": rnn_extra,
+                   "layers3d": layers3d, "runtime": runtime},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,9 +12,7 @@ rule, so both packages print the same text for the same config. Geometry
 follows the reference: x = width, y = height; image tensors are NHWC, so
 input shape [B, H, W, C] maps to img_size_y=H, img_size=W, channels=C.
 A recurrent group expands as the reference's RecurrentLayerGroup does
-(`_emit_recurrent_group`). The emitters of layers the port does not have
-yet (the 3-D convs, SimpleRnn, the detection layers, NCE and hsigmoid) are
-left out with them.
+(`_emit_recurrent_group`).
 """
 
 from __future__ import annotations
@@ -73,6 +71,12 @@ def _act_name(layer: Layer) -> str:
     if not isinstance(a, str) or a in ("linear", "identity"):
         return ""
     return a
+
+
+def _triple(v) -> Tuple[int, int, int]:
+    if isinstance(v, (tuple, list)):
+        return int(v[0]), int(v[1]), int(v[2])
+    return int(v), int(v), int(v)
 
 
 def _geom(arg: Argument) -> Optional[Tuple[int, int, int, int]]:
@@ -181,6 +185,56 @@ def _emit_pool(layer, ins, out, lc):
         pc.img_size, pc.img_size_y = ihwc[1], ihwc[0]
     if ohwc:
         pc.output_x, pc.output_y = ohwc[1], ohwc[0]
+    lc.inputs[0].pool_conf = pc
+    _set_hw(lc, out)
+
+
+@_emitter("conv3d", "deconv3d")
+def _emit_conv3d(layer, ins, out, lc):
+    fd, fh, fw = _triple(layer.filter_size)
+    sd, sh, sw = _triple(layer.stride)
+    pd, ph, pw = _triple(layer.padding)
+    ig, og = _geom(ins[0]), _geom(out)
+    trans = layer.type_name == "deconv3d"
+    groups = getattr(layer, "groups", 1)
+    cin = ig[3] if ig else 0
+    cc = proto.ConvConfig(
+        filter_size=fw, filter_size_y=fh, filter_size_z=fd,
+        channels=cin,
+        stride=sw, stride_y=sh, stride_z=sd,
+        padding=pw, padding_y=ph, padding_z=pd,
+        groups=groups,
+        filter_channels=(layer.num_filters if trans else cin) // max(groups, 1),
+        caffe_mode=True,
+    )
+    src, dst = (og, ig) if trans else (ig, og)
+    if src:
+        cc.img_size, cc.img_size_y, cc.img_size_z = src[2], src[1], src[0]
+    if dst:
+        cc.output_x, cc.output_y, cc.output_z = dst[2], dst[1], dst[0]
+    lc.inputs[0].conv_conf = cc
+    lc.num_filters = layer.num_filters
+    lc.shared_biases = True
+    _set_hw(lc, out)
+
+
+@_emitter("pool3d")
+def _emit_pool3d(layer, ins, out, lc):
+    fd, fh, fw = _triple(layer.pool_size)
+    sd, sh, sw = _triple(layer.stride if layer.stride is not None else layer.pool_size)
+    pd, ph, pw = _triple(layer.padding)
+    ig, og = _geom(ins[0]), _geom(out)
+    pc = proto.PoolConfig(
+        pool_type=f"{layer.pool_type}-projection",
+        channels=ig[3] if ig else 0,
+        size_x=fw, size_y=fh, size_z=fd,
+        stride=sw, stride_y=sh, stride_z=sd,
+        padding=pw, padding_y=ph, padding_z=pd,
+    )
+    if ig:
+        pc.img_size, pc.img_size_y, pc.img_size_z = ig[2], ig[1], ig[0]
+    if og:
+        pc.output_x, pc.output_y, pc.output_z = og[2], og[1], og[0]
     lc.inputs[0].pool_conf = pc
     _set_hw(lc, out)
 
@@ -324,6 +378,37 @@ def _emit_lstm(layer, ins, out, lc):
     lc.active_state_type = getattr(layer, "state_act", "tanh")
 
 
+@_emitter("multibox_loss")
+def _emit_multibox(layer, ins, out, lc):
+    lc.size = 1
+    lc.inputs[0].multibox_loss_conf = proto.MultiBoxLossConfig(
+        num_classes=layer.num_classes,
+        overlap_threshold=layer.overlap_threshold,
+        neg_pos_ratio=layer.neg_pos_ratio,
+        neg_overlap=getattr(layer, "neg_overlap", 0.5),  # the v1 layer's only
+        background_id=layer.background_id,
+        input_num=layer.n_heads,
+    )
+
+
+@_emitter("detection_output")
+def _emit_detection_output(layer, ins, out, lc):
+    lc.inputs[0].detection_output_conf = proto.DetectionOutputConfig(
+        num_classes=layer.num_classes,
+        nms_threshold=layer.nms_threshold,
+        nms_top_k=layer.nms_top_k,
+        background_id=layer.background_id,
+        input_num=layer.n_heads,
+        keep_top_k=layer.keep_top_k,
+        confidence_threshold=layer.confidence_threshold,
+    )
+
+
+@_emitter("recurrent")
+def _emit_recurrent(layer, ins, out, lc):
+    lc.reversed = bool(layer.reverse)
+
+
 @_emitter("crop")
 def _emit_crop(layer, ins, out, lc):
     # axis 2 and the offset; no shape, as the JAX package's (§3 fault 16)
@@ -359,6 +444,18 @@ def _emit_ctc(layer, ins, out, lc):
     lc.blank = getattr(layer, "blank", 0)
     if getattr(layer, "size", None):
         lc.size = layer.size
+
+
+@_emitter("nce")
+def _emit_nce(layer, ins, out, lc):
+    lc.num_classes = layer.num_classes
+    lc.num_neg_samples = layer.num_neg_samples
+    lc.active_type = "sigmoid"  # NCELayer's fixed activation
+
+
+@_emitter("hsigmoid")
+def _emit_hsigmoid(layer, ins, out, lc):
+    lc.num_classes = layer.num_classes
 
 
 @_emitter("expand")
@@ -750,6 +847,7 @@ _EMITTED_ATTRS = {
     "dropout": {"rate"},
     "last_seq": {"stride"},
     "first_seq": {"stride"},
+    "recurrent": {"reverse"},
     "lstmemory": {"reverse", "gate_act", "state_act"},
     "crop": {"offset"},
     "prelu": {"partial_sum"},
@@ -758,6 +856,8 @@ _EMITTED_ATTRS = {
     "cos_vm": {"scale"},
     "ctc": {"norm_by_times", "blank"},
     "warp_ctc": {"norm_by_times", "blank"},
+    "nce": {"num_classes", "num_neg_samples"},
+    "hsigmoid": {"num_classes"},
     "expand": {"expand_level"},
     "seq_pool": {"agg_level", "pool_type"},
     "global_pool": {"agg_level", "pool_type"},

@@ -20,11 +20,10 @@ recurrent_group and its step layers (`gru_step_layer`, `lstm_step_layer`,
 composites on them: `gru_unit` / `gru_group`, `lstmemory_unit` /
 `lstmemory_group` and `simple_gru`, which the reference routes through
 gru_group; `simple_gru2` and `bidirectional_gru` run the fused grumemory.
-The transposed conv (`img_conv_layer(trans=True)`) and `concat_layer` of
-projections build as in the JAX package. The helpers whose layers the port
-does not have yet (the 3-D convs, the detection layers, and those of
-`v2/layer.py` that raise) raise a NotImplementedError naming ROADMAP.md §1
-item 6.
+The transposed conv (`img_conv_layer(trans=True)`), `concat_layer` of
+projections, the 3-D convs and pools (a flat CDHW slot gets an NDHWC
+adapter, as a flat CHW one gets NHWC) and the packed v1 detection layers
+build as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,12 +32,12 @@ import math
 from typing import List, Optional, Sequence
 
 from paddle_tpu_torch.nn import costs as C
+from paddle_tpu_torch.nn import detection_layers as D
 from paddle_tpu_torch.nn import layers as L
 from paddle_tpu_torch.nn import recurrent as R
 from paddle_tpu_torch.nn import seq_layers as S
 from paddle_tpu_torch.nn.graph import Layer
 from paddle_tpu_torch.v2 import layer as _v2
-from paddle_tpu_torch.v2.layer import _not_ported
 from paddle_tpu_torch.v2.activation import resolve as _act
 from paddle_tpu_torch.v2.pooling import resolve as _pool_name
 
@@ -158,21 +157,82 @@ def _ensure_nhwc(input: Layer, num_channels: Optional[int]):
 
 
 
+def _annotate3d(node: Layer, geom3d) -> Layer:
+    c, d, h, w = (int(v) for v in geom3d)
+    node._v1_geom3d = (c, d, h, w)
+    node._v1_size = c * d * h * w
+    return node
+
+
+def _ensure_ndhwc(input: Layer, num_channels: Optional[int]):
+    """3-D analog of _ensure_nhwc: flat [B, c*d*h*w] (CDHW order) → NDHWC."""
+    geom3d = getattr(input, "_v1_geom3d", None)
+    if geom3d is not None and not _is_flat(input):
+        return input, geom3d
+    cached = getattr(input, "_v1_ndhwc_node", None)
+    if cached is not None:
+        return cached, cached._v1_geom3d
+    if geom3d is None:
+        size = _size_of(input)
+        if size is None or num_channels is None:
+            raise ValueError(
+                f"cannot infer 3-D geometry of {getattr(input, 'name', input)!r}; "
+                "declare height/width/depth on the data layer or pass num_channels"
+            )
+        side = round((size // num_channels) ** (1 / 3))
+        geom3d = (num_channels, side, side, side)
+    c, d, h, w = geom3d
+    node = L.Reshape(input, (c, d, h, w), name=f"{input.name}.as_vol")
+    node = L.SwitchOrder(node, to="NDHWC", name=f"{input.name}.to_ndhwc")
+    _annotate3d(node, (c, d, h, w))
+    input._v1_ndhwc_node = node
+    return node, (c, d, h, w)
+
+
 def img_conv3d_layer(input, filter_size, num_filters=None, name=None,
                      num_channels=None, act=None, groups=1, stride=1,
                      padding=0, bias_attr=None, param_attr=None,
                      shared_biases=True, layer_attr=None,
                      trans=False, layer_type=None, **_compat):
-    """layers.py img_conv3d_layer — flat CDHW data gets the NDHWC adapter;
-    filter/stride/padding may be scalars or (x, y, z)? no: scalars or
-    [d, h, w]-style lists per the reference (one value used for all axes)."""
-    _not_ported("img_conv3d_layer (Conv3D)")
+    """layers.py img_conv3d_layer: a flat CDHW data slot gets the NDHWC
+    adapter; filter_size / stride / padding are one value for all three
+    axes or [d, h, w] lists."""
+    ndhwc, (cin, dz, h, w) = _ensure_ndhwc(input, num_channels)
+    f = filter_size if isinstance(filter_size, (list, tuple)) else (filter_size,) * 3
+    s = stride if isinstance(stride, (list, tuple)) else (stride,) * 3
+    p = padding if isinstance(padding, (list, tuple)) else (padding,) * 3
+    node = _v2.img_conv3d(
+        ndhwc, tuple(f), num_filters, stride=tuple(s), padding=tuple(p),
+        groups=groups, act=_act(act),
+        bias_attr=bias_attr, param_attr=_or_none(param_attr), name=name,
+        trans=trans,
+    )
+    if trans:
+        od = (dz - 1) * s[0] - 2 * p[0] + f[0]
+        oh = (h - 1) * s[1] - 2 * p[1] + f[1]
+        ow = (w - 1) * s[2] - 2 * p[2] + f[2]
+    else:
+        od = _conv_out(dz, f[0], p[0], s[0])
+        oh = _conv_out(h, f[1], p[1], s[1])
+        ow = _conv_out(w, f[2], p[2], s[2])
+    return _with_drop(
+        _annotate3d(node, (num_filters, od, oh, ow)), layer_attr
+    )
 
 
 def img_pool3d_layer(input, pool_size, name=None, num_channels=None,
                      pool_type=None, stride=1, padding=0, layer_attr=None,
                      ceil_mode=True, **_compat):
-    _not_ported("img_pool3d_layer (Pool3D)")
+    ndhwc, (c, dz, h, w) = _ensure_ndhwc(input, num_channels)
+    f = pool_size if isinstance(pool_size, (list, tuple)) else (pool_size,) * 3
+    s = stride if isinstance(stride, (list, tuple)) else (stride,) * 3
+    p = padding if isinstance(padding, (list, tuple)) else (padding,) * 3
+    node = _v2.img_pool3d(ndhwc, tuple(f), pool_type=pool_type,
+                          stride=tuple(s), padding=tuple(p), name=name)
+    od = _pool_out(dz, f[0], p[0], s[0], ceil_mode)
+    oh = _pool_out(h, f[1], p[1], s[1], ceil_mode)
+    ow = _pool_out(w, f[2], p[2], s[2], ceil_mode)
+    return _with_drop(_annotate3d(node, (c, od, oh, ow)), layer_attr)
 
 
 def _conv_out(size: int, filt: int, pad: int, stride: int, dilation: int = 1) -> int:
@@ -638,14 +698,29 @@ def multibox_loss_layer(input_loc, input_conf, priorbox, label, num_classes,
                         neg_overlap=0.5, background_id=0, name=None):
     """layers.py multibox_loss_layer: packed v1 slots (priorbox rows of 8,
     label rows of 6) in the reference input order."""
-    _not_ported("multibox_loss_layer (MultiBoxLossV1)")
+    locs = input_loc if isinstance(input_loc, (list, tuple)) else [input_loc]
+    confs = input_conf if isinstance(input_conf, (list, tuple)) else [input_conf]
+    node = D.MultiBoxLossV1(
+        list(locs), list(confs), priorbox, label, num_classes,
+        overlap_threshold=overlap_threshold, neg_pos_ratio=neg_pos_ratio,
+        neg_overlap=neg_overlap, background_id=background_id, name=name,
+    )
+    return _annotate(node, size=1)
 
 
 def detection_output_layer(input_loc, input_conf, priorbox, num_classes,
                            nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
                            confidence_threshold=0.01, background_id=0,
                            name=None):
-    _not_ported("detection_output_layer (DetectionOutputV1)")
+    locs = input_loc if isinstance(input_loc, (list, tuple)) else [input_loc]
+    confs = input_conf if isinstance(input_conf, (list, tuple)) else [input_conf]
+    node = D.DetectionOutputV1(
+        list(locs), list(confs), priorbox, num_classes,
+        nms_threshold=nms_threshold, nms_top_k=nms_top_k,
+        keep_top_k=keep_top_k, confidence_threshold=confidence_threshold,
+        background_id=background_id, name=name,
+    )
+    return _annotate(node, size=keep_top_k * 7)
 
 
 def lambda_cost(input, score, name=None, NDCG_num=5, max_sort_size=-1,

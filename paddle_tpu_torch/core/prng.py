@@ -1,6 +1,7 @@
 """jax.random's threefry generator in torch integer ops (the counterpart of
 the `jax.random` calls the JAX package makes: `PRNGKey`, `fold_in`,
-`bernoulli`, `uniform`, `normal`).
+`split`, `bernoulli`, `uniform`, `normal`, `randint`, `gumbel`,
+`categorical`).
 
 The bits are jax's own, bit for bit: `threefry2x32` is the Threefry-2x32
 hash of `jax/_src/prng.py` (20 rounds, key schedule k1, k2, k1^k2^0x1BD11BDA),
@@ -121,3 +122,53 @@ def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     [nextafter(-1, 0), 1). The uniform bits are jax's; torch's erfinv and
     XLA's agree to float32 rounding, not bit for bit."""
     return math.sqrt(2.0) * torch.erfinv(uniform(key, shape, _NORMAL_LO, 1.0))
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """jax.random.split under the partitionable threefry: key i of the [num, 2]
+    result is threefry2x32(key, (0, i)), the same words `fold_in(key, i)`
+    gives."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    y1, y2 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
+    return torch.stack([y1, y2], dim=1)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -> torch.Tensor:
+    """jax.random.randint for int32 (jax's default int): two 32-bit draws, one
+    from each half of `split(key)`, combined as (hi mod span) * (2^32 mod
+    span) + (lo mod span), all mod span, in uint32 arithmetic (each product
+    wraps at 32 bits, as XLA's does) -> an int64 tensor in [minval, maxval)."""
+    lo_i32, hi_i32 = -2 ** 31, 2 ** 31 - 1
+    minval = min(max(int(minval), lo_i32), hi_i32)
+    out_of_range = int(maxval) > hi_i32
+    maxval = min(max(int(maxval), lo_i32), hi_i32)
+    span = (maxval - minval) & _MASK
+    if maxval <= minval:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & _MASK
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    if span == 0:  # 2^32 wrapped: XLA's x rem 0 is x, so the offset is `lower`
+        offset = lower
+    else:
+        multiplier = (((1 << 16) % span) ** 2 & _MASK) % span
+        offset = (((higher % span) * multiplier) & _MASK) + (lower % span)
+        offset = (offset & _MASK) % span
+    return (minval + offset + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """jax.random.gumbel in float32 (its default low-range mode):
+    -log(-log(u)), u uniform in [float32 tiny, 1)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """jax.random.categorical over the last axis of 1-D `logits` [C], with
+    replacement: argmax(gumbel(key, (*shape, C)) + logits) -> int64 `shape`.
+    The argmax is the first maximum, as jnp.argmax's."""
+    shape = tuple(int(s) for s in shape)
+    noise = gumbel(key, shape + (int(logits.shape[-1]),)).to(logits.device)
+    return torch.argmax(noise + logits, dim=-1)

@@ -4,12 +4,11 @@ metrics accumulated across batches.
 Parity with paddle/gserver/evaluators/Evaluator.h:42 (start/eval/finish,
 registry :32) and its registered set: classification_error, seq error, auc,
 precision_recall, pnpair, rank auc, chunk F1 (ChunkEvaluator.cpp), sum /
-column-sum, CTC edit distance and the printers. Evaluators run on host numpy
-over a batch's outputs; the caller copies those off the device first (the
-CLI does it once per step, only when a config declares evaluators), as the
-reference's kernels produce per-batch stats and its Evaluator accumulates
-on the host. `detection_map` raises until the detection layers are ported
-(ROADMAP.md §1 item 6)."""
+column-sum, CTC edit distance, detection mAP and the printers. Evaluators
+run on host numpy over a batch's outputs; the caller copies those off the
+device first (the CLI does it once per step, only when a config declares
+evaluators), as the reference's kernels produce per-batch stats and its
+Evaluator accumulates on the host."""
 
 from __future__ import annotations
 
@@ -31,6 +30,11 @@ class Evaluator:
 
     def finish(self) -> float:
         raise NotImplementedError
+
+
+def _np(x) -> np.ndarray:
+    """A numpy array of `x` (an array, a list, or a tensor on any device)."""
+    return np.asarray(x.detach().cpu() if hasattr(x, "detach") else x)
 
 
 def _mask_flat(values: np.ndarray, lengths: Optional[np.ndarray]):
@@ -398,12 +402,89 @@ class CTCErrorEvaluator(Evaluator):
 @EVALUATORS.register("detection_map")
 class DetectionMAPEvaluator(Evaluator):
     """Mean average precision over detection outputs
-    (DetectionMAPEvaluator.cpp); not ported yet."""
+    (DetectionMAPEvaluator.cpp), on the host in numpy: per-class scored
+    TP/FP marks accumulate across batches, then AP per class by the
+    11-point or the integral rule, averaged over the classes that have
+    ground truth.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the detection_map evaluator is not ported to paddle_tpu_torch yet "
-            "(ROADMAP.md §1 item 6, with the detection layers)")
+    update(detections=[B, K, 6] rows (label, score, xmin, ymin, xmax, ymax;
+    score 0 is padding), gt_boxes=[B, G, 4], gt_labels=[B, G],
+    gt_lengths=[B]): the padded form of the reference's sequence label
+    input. A detection is a true positive when it overlaps a still
+    unclaimed gt box of its class by at least `overlap_threshold`."""
+
+    def __init__(self, overlap_threshold=0.5, ap_type="11point", background_id=0):
+        self.overlap_threshold = overlap_threshold
+        self.ap_type = ap_type
+        self.background_id = background_id
+
+    def start(self):
+        self.marks = {}  # class -> [(score, is_tp)]
+        self.n_gt = {}  # class -> count
+
+    @staticmethod
+    def _iou(a, b):
+        lt = np.maximum(a[:2], b[:2])
+        rb = np.minimum(a[2:], b[2:])
+        wh = np.maximum(rb - lt, 0.0)
+        inter = wh[0] * wh[1]
+        ua = max(a[2] - a[0], 0) * max(a[3] - a[1], 0)
+        ub = max(b[2] - b[0], 0) * max(b[3] - b[1], 0)
+        return inter / max(ua + ub - inter, 1e-12)
+
+    def update(self, detections=None, gt_boxes=None, gt_labels=None, gt_lengths=None, **kw):
+        det = _np(detections)
+        gtb = _np(gt_boxes)
+        gtl = _np(gt_labels)
+        lens = (_np(gt_lengths) if gt_lengths is not None
+                else np.full(gtb.shape[0], gtb.shape[1]))
+        for i in range(det.shape[0]):
+            gts = gtb[i, :lens[i]]
+            gls = gtl[i, :lens[i]]
+            for c in np.unique(gls):
+                if c == self.background_id:
+                    continue
+                self.n_gt[int(c)] = self.n_gt.get(int(c), 0) + int((gls == c).sum())
+            used = np.zeros(len(gts), bool)
+            rows = det[i]
+            rows = rows[rows[:, 1] > 0]
+            rows = rows[np.argsort(-rows[:, 1])]
+            for row in rows:
+                c, score, box = int(row[0]), float(row[1]), row[2:6]
+                best_j, best_iou = -1, self.overlap_threshold
+                for j in np.where((gls == c) & ~used)[0]:
+                    v = self._iou(box, gts[j])
+                    if v >= best_iou:
+                        best_j, best_iou = j, v
+                if best_j >= 0:
+                    used[best_j] = True
+                self.marks.setdefault(c, []).append((score, best_j >= 0))
+
+    def finish(self):
+        aps = []
+        for c, n_pos in self.n_gt.items():
+            marks = sorted(self.marks.get(c, []), key=lambda t: -t[0])
+            if n_pos == 0:
+                continue
+            if not marks:
+                aps.append(0.0)
+                continue
+            tps = np.cumsum([m[1] for m in marks])
+            fps = np.cumsum([not m[1] for m in marks])
+            recall = tps / n_pos
+            precision = tps / np.maximum(tps + fps, 1e-12)
+            ap = 0.0
+            if self.ap_type == "11point":
+                for r in np.linspace(0, 1, 11):
+                    p = precision[recall >= r].max() if (recall >= r).any() else 0.0
+                    ap += p / 11.0
+            else:  # integral
+                prev_r = 0.0
+                for k in range(len(marks)):
+                    ap += precision[k] * (recall[k] - prev_r)
+                    prev_r = recall[k]
+            aps.append(float(ap))
+        return float(np.mean(aps)) if aps else 0.0
 
 
 @EVALUATORS.register("value_printer")

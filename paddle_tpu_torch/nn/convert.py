@@ -10,7 +10,9 @@ seq2seq model has 22 such names (`src_emb.w`, `trg_emb_table`, `out_w`,
 the same graph with `use_peephole=False`) has `emb.w`, `logits.{w,b}` and
 per layer i `lstm{i}.input_proj.{w,b}` and `lstm{i}.{w_hh,b}` (W_hh
 [H, 4H] in gate blocks i, f, c, o), plus `lstm{i}.check_{i,f,o}` [H] with
-peepholes. Conv weights are HWIO in both packages. State dicts (batch
+peepholes. Conv weights are HWIO in both packages, 3-D ones DHWIO; NCE's
+`w` is [num_classes, D], hsigmoid's [num_classes - 1, D] in heap order,
+MDLstm's `w_h` [H, 5H] with `check_f` [2, H]. State dicts (batch
 norm's `<layer>.moving_mean` / `.moving_var`, f32 [C]) move through the same
 two functions: ResNet-50 has 161 parameters and 106 states."""
 

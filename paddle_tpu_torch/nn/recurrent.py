@@ -12,6 +12,11 @@ kernels, otherwise the plain step loop (`ops/rnn.gru_scan`). A named
 `param_attr` shares `w_hzr` under its name and `w_hc` under the name +
 ".c", as in the JAX package (the two differ in shape).
 
+`SimpleRnn` (recurrent) is the vanilla full-matrix recurrence and `MDLstm`
+(mdlstmemory) the 2-D multi-dimensional LSTM over a projected grid, both
+plain PyTorch loops (`ops/rnn.simple_rnn_scan`, `ops/mdlstm.mdlstm_2d`), as
+the JAX package runs `lax.scan` for them.
+
 `LstmStep`, `GruStep` and `StepArgOutput` are the one-step layers a
 recurrent group's step net is built from (`nn/recurrent_group.py`): plain
 PyTorch, run once a step of the group's loop."""
@@ -25,6 +30,7 @@ from paddle_tpu_torch.nn import activations as act_mod
 from paddle_tpu_torch.nn import init as init_mod
 from paddle_tpu_torch.nn.graph import Argument, Context, Layer
 from paddle_tpu_torch.nn.layers import Concat, Fc, _attr
+from paddle_tpu_torch.ops import mdlstm as md_ops
 from paddle_tpu_torch.ops import rnn as rnn_ops
 
 
@@ -106,6 +112,71 @@ class Gru(Layer):
         hs, _ = rnn_ops.gru_scan(proj, arg.mask(proj.dtype), p, reverse=self.reverse,
                                  gate_act=self.gate_act, cand_act=self.act)
         return Argument(hs, arg.lengths)
+
+
+class SimpleRnn(Layer):
+    """The vanilla full-matrix recurrence (RecurrentLayer.cpp): the input
+    is already of width H; weight `w_hh` [H, H], bias `b` [H]."""
+
+    type_name = "recurrent"
+
+    def __init__(self, input: Layer, act: Any = "tanh", reverse: bool = False,
+                 bias: bool = True, param_attr: Any = None, bias_attr: Any = None,
+                 name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.act = act
+        self.reverse = reverse
+        self.bias = bias
+        self.param_attr = _attr(param_attr)
+        self.bias_attr = _attr(bias_attr)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        arg = ins[0]
+        assert arg.is_seq, f"{self.name}: recurrent needs a sequence input"
+        proj = arg.value
+        hdim = proj.shape[-1]
+        w_hh = ctx.param(self, "w_hh", (hdim, hdim), init_mod.smart_normal, self.param_attr)
+        b = (ctx.param(self, "b", (hdim,), init_mod.zeros, self.bias_attr)
+             if self.bias else None)
+        hs, _ = rnn_ops.simple_rnn_scan(proj, arg.mask(proj.dtype), w_hh, b, self.act,
+                                        reverse=self.reverse)
+        return Argument(hs, arg.lengths)
+
+
+class MDLstm(Layer):
+    """The 2-D multi-dimensional LSTM (MDLstmLayer.cpp:180): the input is
+    the projected grid [B, H, W, 5*size] (as lstmemory's is 4H wide),
+    the output [B, H, W, size]; parameters `w_h` [size, 5*size], `b`
+    [5*size], peepholes `check_i` [size], `check_f` [2, size], `check_o`
+    [size]. directions[d] False walks dimension d backwards."""
+
+    type_name = "mdlstmemory"
+
+    def __init__(self, input: Layer, size: Optional[int] = None, directions=(True, True),
+                 param_attr: Any = None, bias_attr: Any = None, name: Optional[str] = None):
+        super().__init__(input, name=name)
+        self.size = size
+        self.directions = tuple(directions)
+        self.param_attr = _attr(param_attr)
+        self.bias_attr = _attr(bias_attr)
+
+    def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
+        proj = ins[0].value
+        if proj.dim() != 4:
+            raise ValueError(f"{self.name}: mdlstmemory needs a [B, H, W, 5*size] grid "
+                             f"input, got {tuple(proj.shape)}")
+        hid = self.size or proj.shape[-1] // 5
+        if proj.shape[-1] != 5 * hid:
+            raise ValueError(f"{self.name}: input width {proj.shape[-1]} != 5*size ({5 * hid})")
+        p = md_ops.MDLstmParams(
+            w_h=ctx.param(self, "w_h", (hid, 5 * hid), init_mod.smart_normal,
+                          self.param_attr),
+            bias=ctx.param(self, "b", (5 * hid,), init_mod.zeros, self.bias_attr),
+            check_i=ctx.param(self, "check_i", (hid,), init_mod.zeros),
+            check_f=ctx.param(self, "check_f", (2, hid), init_mod.zeros),
+            check_o=ctx.param(self, "check_o", (hid,), init_mod.zeros),
+        )
+        return ins[0].with_value(md_ops.mdlstm_2d(proj, p, self.directions))
 
 
 def simple_lstm(input: Layer, size: int, reverse: bool = False, name: str = "lstm",

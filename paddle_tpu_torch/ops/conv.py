@@ -1,4 +1,5 @@
-"""Convolution, pooling and bilinear resizing, NHWC (counterpart of
+"""Convolution, pooling and bilinear resizing, NHWC, and the 3-D convolution,
+transposed convolution and pooling, NDHWC (counterpart of
 `paddle_tpu/ops/conv.py`).
 
 The JAX package computes a conv as one XLA conv HLO, pools with
@@ -19,7 +20,14 @@ some shapes its heuristics pick a weight-gradient algorithm that does not
 (LeNet's first conv, one input channel: 4.8e-4 relative L2 from the CPU's
 on an H100). So an f32 conv on the card takes its weight gradient
 from `conv2d_weight_grad`: im2col (`F.unfold`) and an f32 matmul, which
-cuBLAS computes in full f32 with TF32 off."""
+cuBLAS computes in full f32 with TF32 off. The 3-D convs (`F.conv3d`,
+`F.conv_transpose3d` on channels_last_3d views of NDHWC activations and
+DHWIO weights) keep cuDNN's own gradients, which hold f32 with TF32 off
+on an H100, one input channel included.
+
+The 3-D pools take any padding, also asymmetric (the v1 `ceil_mode` output
+size): the pad cells are written out (-inf for max, 0 for an average that
+divides by the cells inside the volume)."""
 
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch.nn.functional as F
 from paddle_tpu_torch.core import dtypes, remat
 
 IntOr2 = Union[int, Tuple[int, int]]
+IntOr3 = Union[int, Tuple[int, int, int]]
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
 
@@ -250,3 +259,87 @@ def conv_out_size(in_size: int, k: int, stride: int, pad: int,
                   dilation: int = 1) -> int:
     eff = (k - 1) * dilation + 1
     return (in_size + 2 * pad - eff) // stride + 1
+
+
+# -- 3-D ------------------------------------------------------------------------
+
+
+def _triple(v: IntOr3) -> Tuple[int, int, int]:
+    if isinstance(v, (tuple, list)):
+        assert len(v) == 3
+        return int(v[0]), int(v[1]), int(v[2])
+    return int(v), int(v), int(v)
+
+
+def _ncdhw(x: torch.Tensor) -> torch.Tensor:
+    """NDHWC -> the NCDHW view cuDNN reads as channels_last_3d."""
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def _ndhwc(y: torch.Tensor) -> torch.Tensor:
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def _oidhw(w: torch.Tensor, p: dtypes.Policy) -> torch.Tensor:
+    """DHWIO -> OIDHW in the policy's compute dtype, channels_last_3d."""
+    return w.permute(4, 3, 0, 1, 2).to(p.compute_dtype, memory_format=torch.channels_last_3d)
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, stride: IntOr3 = 1, padding: IntOr3 = 0,
+           dilation: IntOr3 = 1, groups: int = 1,
+           policy: Optional[dtypes.Policy] = None) -> torch.Tensor:
+    """x [B, D, H, W, Cin], w [kd, kh, kw, Cin/groups, Cout] -> [B, D', H',
+    W', Cout], in the policy's compute dtype."""
+    p = policy or dtypes.current()
+    x = p.cast(x)
+    args = (_triple(stride), _triple(padding), _triple(dilation), groups)
+    return _ndhwc(F.conv3d(_ncdhw(x), _oidhw(w, p), None, *args))
+
+
+def conv3d_transpose(x: torch.Tensor, w: torch.Tensor, stride: IntOr3 = 1,
+                     padding: IntOr3 = 0,
+                     policy: Optional[dtypes.Policy] = None) -> torch.Tensor:
+    """The transposed 3-D conv (DeConv3DLayer.cpp): x [B, D, H, W, Cin], w
+    [kd, kh, kw, Cout, Cin], the DHWIO weight of the forward conv it
+    transposes -> [B, (D-1)*s + kd - 2p, ..., Cout]."""
+    p = policy or dtypes.current()
+    x = p.cast(x)
+    args = (_triple(stride), _triple(padding))
+    return _ndhwc(F.conv_transpose3d(_ncdhw(x), _oidhw(w, p), None, *args))
+
+
+def pool_pads3d(padding):
+    """int | (pd, ph, pw) | ((lo, hi) x 3) -> ((lo, hi) x 3)."""
+    if (isinstance(padding, (tuple, list)) and padding
+            and isinstance(padding[0], (tuple, list))):
+        return tuple((int(lo), int(hi)) for lo, hi in padding)
+    pd, ph, pw = _triple(padding)
+    return (pd, pd), (ph, ph), (pw, pw)
+
+
+def _pad3d(xc: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
+    (dl, dh), (hl, hh), (wl, wh) = pads
+    return F.pad(xc, (wl, wh, hl, hh, dl, dh), value=value)
+
+
+def max_pool3d(x: torch.Tensor, window: IntOr3, stride: Optional[IntOr3] = None,
+               padding=0) -> torch.Tensor:
+    """[B, D, H, W, C] max pooling; pad cells are -inf (they never win)."""
+    k = _triple(window)
+    s = _triple(stride if stride is not None else window)
+    xc = _pad3d(_ncdhw(x), pool_pads3d(padding), float("-inf"))
+    return _ndhwc(F.max_pool3d(xc, k, s))
+
+
+def avg_pool3d(x: torch.Tensor, window: IntOr3, stride: Optional[IntOr3] = None,
+               padding=0, exclusive: bool = True) -> torch.Tensor:
+    """[B, D, H, W, C] average pooling: each window's sum over its cells
+    inside the volume when padded (`exclusive`), else over the window."""
+    k = _triple(window)
+    s = _triple(stride if stride is not None else window)
+    pads = pool_pads3d(padding)
+    summed = F.avg_pool3d(_pad3d(_ncdhw(x), pads), k, s, divisor_override=1)
+    if not (exclusive and any(lo or hi for lo, hi in pads)):
+        return _ndhwc(summed / float(k[0] * k[1] * k[2]))
+    ones = _pad3d(x.new_ones((1, 1) + tuple(x.shape[1:4])), pads)
+    return _ndhwc(summed / F.avg_pool3d(ones, k, s, divisor_override=1))

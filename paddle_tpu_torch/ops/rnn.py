@@ -1,6 +1,6 @@
-"""LSTM and GRU cells and whole-sequence scans (counterpart of
-`LstmParams`, `lstm_step`, `lstm_scan`, `GruParams`, `gru_step` and
-`gru_scan` in `paddle_tpu/ops/rnn.py`).
+"""LSTM and GRU cells and whole-sequence scans, and the vanilla recurrence
+(counterpart of `LstmParams`, `lstm_step`, `lstm_scan`, `GruParams`,
+`gru_step`, `gru_scan` and `simple_rnn_scan` in `paddle_tpu/ops/rnn.py`).
 
 LSTM gate blocks [input i, forget f, cell candidate c, output o] (the JAX
 package's order, not the reference's [c, i, f, o]), optional peephole
@@ -217,5 +217,33 @@ def gru_step_loop(
         h_new = gru_step(proj[:, t], h, p, gate_act, cand_act)
         m = mask[:, t, None].to(h_new.dtype)
         h = m * h_new + (1 - m) * h
+        hs[t] = h
+    return torch.stack(hs, dim=1), h
+
+
+def simple_rnn_scan(
+    proj: torch.Tensor,  # [B, T, H] (the input already projected)
+    mask: torch.Tensor,  # [B, T]
+    w_hh: torch.Tensor,  # [H, H]
+    bias: Optional[torch.Tensor],
+    act: act_mod.ActLike = "tanh",
+    h0: Optional[torch.Tensor] = None,
+    reverse: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The vanilla recurrence (RecurrentLayer.cpp), h_t = act(x_t + h_{t-1}
+    W + b) -> (h_seq [B, T, H], h_last). A loop over time of a few kernels a
+    step, no host read (capturable); masked steps carry h; `reverse` walks
+    from the last step. Autograd gives the gradient."""
+    b, t_len, hdim = proj.shape
+    h = h0 if h0 is not None else torch.zeros((b, hdim), dtype=proj.dtype, device=proj.device)
+    a = act_mod.get(act)
+    hs: List[Optional[torch.Tensor]] = [None] * t_len
+    xs = proj.unbind(1)  # one backward stack, not T full-size slice gradients
+    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
+        pre = xs[t] + linalg.matmul(h, w_hh)
+        if bias is not None:
+            pre = pre + bias
+        m = mask[:, t, None].to(proj.dtype)
+        h = m * a(pre) + (1 - m) * h
         hs[t] = h
     return torch.stack(hs, dim=1), h

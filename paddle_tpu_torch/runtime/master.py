@@ -13,11 +13,17 @@ front end rides on:
   frame layer (`runtime/frames.py`), pipelined `call_many`, push-stream
   `call_stream`, and the seeded `conn_reset` chaos site.
 
-The task plane (`TaskMaster` over the native dispatcher, `MasterServer`,
-elastic resize, `cluster_reader`, recordio) is not ported yet (ROADMAP.md)."""
+- `TaskMaster`: the in-process task dispatcher over the native library
+  (`csrc/native/master.cc`): todo / pending / done queues, lease timeouts
+  with re-queue, the failure cap, passes, snapshot and restore in the JAX
+  package's snapshot format.
+
+The rest of the task plane (`MasterServer`, elastic resize,
+`cluster_reader`) is ROADMAP.md §1 item 7."""
 
 from __future__ import annotations
 
+import ctypes as C
 import json
 import logging
 import os
@@ -30,7 +36,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
 
 from paddle_tpu_torch.core import faults, stats
 from paddle_tpu_torch.obs import trace as obs_trace
-from paddle_tpu_torch.runtime import frames
+from paddle_tpu_torch.runtime import frames, native
 
 log = logging.getLogger("paddle_tpu_torch.master")
 
@@ -68,6 +74,78 @@ def parse_endpoints(address: EndpointsLike) -> List[Endpoint]:
         raise ValueError(f"no master endpoints in {address!r}")
     return out
 
+
+
+class TaskMaster:
+    """In-process task dispatcher (go/master service.go parity) over the
+    native library. A task's payload is its newline-joined shard paths."""
+
+    PASS_FINISHED = -2
+
+    def __init__(self, timeout_s: float = 60.0, failure_max: int = 3):
+        self._lib = native.lib()
+        self._m = self._lib.pt_master_create(timeout_s, failure_max)
+        self._buf = C.create_string_buffer(1 << 20)
+
+    def set_dataset(self, shard_paths: Sequence[str], chunks_per_task: int = 1) -> None:
+        """Group the shards into tasks of `chunks_per_task` (go master
+        NewService(chunksPerTask), service.go:140)."""
+        paths = list(shard_paths)
+        payloads = ["\n".join(paths[i:i + chunks_per_task])
+                    for i in range(0, len(paths), chunks_per_task)]
+        blob = b"".join(p.encode() + b"\0" for p in payloads)
+        self._lib.pt_master_set_dataset(self._m, blob, len(payloads))
+
+    def get_task(self) -> Optional[tuple]:
+        """(task_id, [shard paths]); None while every task is leased;
+        (PASS_FINISHED, []) when the pass has no task left."""
+        tid = self._lib.pt_master_get_task(self._m, self._buf, len(self._buf))
+        while tid == -3:  # the buffer is too small: grow it until the payload fits
+            self._buf = C.create_string_buffer(len(self._buf) * 4)
+            tid = self._lib.pt_master_get_task(self._m, self._buf, len(self._buf))
+        if tid < 0:
+            return None if tid == -1 else (self.PASS_FINISHED, [])
+        return int(tid), self._buf.value.decode().split("\n")
+
+    def task_finished(self, task_id: int) -> bool:
+        return self._lib.pt_master_task_finished(self._m, task_id) == 0
+
+    def task_failed(self, task_id: int) -> bool:
+        return self._lib.pt_master_task_failed(self._m, task_id) == 0
+
+    def pass_finished(self, start_next: bool = False) -> bool:
+        return self._lib.pt_master_pass_finished(self._m, int(start_next)) == 1
+
+    def stats(self) -> dict:
+        out = (C.c_int64 * 5)()
+        self._lib.pt_master_stats(self._m, out)
+        return {"todo": out[0], "pending": out[1], "done": out[2], "discarded": out[3],
+                "pass": out[4]}
+
+    def snapshot(self, path: str) -> None:
+        if self._m is None:
+            raise OSError("snapshot on a closed TaskMaster")
+        if self._lib.pt_master_snapshot(self._m, path.encode()) != 0:
+            raise OSError(f"snapshot to {path} failed")
+
+    def restore(self, path: str) -> None:
+        """Load a snapshot; a truncated or corrupt one raises and leaves the
+        live queues as they were."""
+        if self._lib.pt_master_restore(self._m, path.encode()) != 0:
+            raise OSError(f"restore from {path} failed")
+
+    @property
+    def closed(self) -> bool:
+        return self._m is None
+
+    def close(self) -> None:
+        if self._m:
+            self._lib.pt_master_destroy(self._m)
+            self._m = None
+
+    def __del__(self):
+        if getattr(self, "_m", None):
+            self.close()
 
 
 class _Membership:

@@ -10,11 +10,9 @@ config yields the same names, parameters and proto text in both packages.
     h = paddle.layer.fc(input=images, size=200, act=paddle.activation.Tanh())
     cost = paddle.layer.classification_cost(input=out, label=lbl)
 
-Every layer of the JAX package's `nn/layers.py` builds here. A constructor
-whose layer the port does not have yet (the 3-D convs, `recurrent`,
-`mdlstm`, the structured costs of ROADMAP.md §1 item 6c and the detection
-layers) raises a NotImplementedError that names ROADMAP.md §1 item 6;
-nothing is dropped silently.
+Every constructor of the JAX package's module builds here: the layers of
+`nn/layers.py`, the 3-D convs, `recurrent`, `mdlstm`, the structured costs
+and the detection layers.
 """
 
 from __future__ import annotations
@@ -23,7 +21,9 @@ from typing import Sequence
 
 from paddle_tpu_torch.data.feeder import InputSpec
 from paddle_tpu_torch.nn import costs as C
+from paddle_tpu_torch.nn import detection_layers as D
 from paddle_tpu_torch.nn import layers as L
+from paddle_tpu_torch.nn import layers3d as L3
 from paddle_tpu_torch.nn import projections as P
 from paddle_tpu_torch.nn import recurrent as R
 from paddle_tpu_torch.nn import seq_layers as S
@@ -31,13 +31,6 @@ from paddle_tpu_torch.nn import struct_costs as SC
 from paddle_tpu_torch.nn.graph import Layer
 from paddle_tpu_torch.v2.activation import resolve as _act
 from paddle_tpu_torch.v2.pooling import resolve as _pool
-
-NOT_PORTED = "{what} is not ported to paddle_tpu_torch yet (ROADMAP.md §1 item {item})"
-
-
-def _not_ported(what: str, item: str = "6, the other layers and models"):
-    raise NotImplementedError(NOT_PORTED.format(what=what, item=item))
-
 
 __all__ = [
     "data", "fc", "embedding", "img_conv", "img_pool", "batch_norm", "dropout",
@@ -209,7 +202,10 @@ def grumemory(input, size=None, reverse=False, act=None, gate_act=None,
 
 
 def recurrent(input, act=None, reverse=False, bias_attr=None, param_attr=None, name=None):
-    _not_ported("recurrent (SimpleRnn)")
+    return R.SimpleRnn(input, act=_act(act) or "tanh", reverse=reverse,
+                       bias=bias_attr is not False, param_attr=param_attr,
+                       bias_attr=None if bias_attr in (None, True, False) else bias_attr,
+                       name=name)
 
 
 simple_lstm = R.simple_lstm
@@ -283,12 +279,23 @@ def img_conv3d(input, filter_size, num_filters, num_channels=None, stride=1,
                padding=0, dilation=1, groups=1, act=None, bias_attr=None,
                param_attr=None, name=None, trans=False, layer_attr=None,
                **_compat):
-    _not_ported("img_conv3d (Conv3D)")
+    """img_conv3d_layer (layers.py:6770), NDHWC input."""
+    cls = L3.Conv3DTranspose if trans else L3.Conv3D
+    kwargs = dict(num_filters=num_filters, filter_size=filter_size, stride=stride,
+                  padding=padding, act=_act(act), bias=bias_attr is not False,
+                  param_attr=param_attr, bias_attr=_or_none(bias_attr), name=name)
+    if not trans:
+        kwargs.update(dilation=dilation, groups=groups)
+    return _with_drop(cls(input, **kwargs), layer_attr)
 
 
 def img_pool3d(input, pool_size, pool_type=None, stride=None, padding=0,
                ceil_mode=True, name=None, layer_attr=None, **_compat):
-    _not_ported("img_pool3d (Pool3D)")
+    """img_pool3d_layer (layers.py:2695); ceil_mode=True is the v1 output
+    size, as img_pool_layer's."""
+    return _with_drop(L3.Pool3D(input, pool_size, _pool(pool_type), stride=stride,
+                                padding=padding, ceil_mode=ceil_mode, name=name),
+                      layer_attr)
 
 
 def linear_comb(weights, vectors, size=None, name=None, **_compat):
@@ -301,7 +308,10 @@ convex_comb = linear_comb
 
 def mdlstm(input, size=None, directions=(True, True), param_attr=None,
            bias_attr=None, name=None, **_compat):
-    _not_ported("mdlstm (MDLstm)")
+    """mdlstmemory (config_parser.py:3621): the 2-D multi-dimensional LSTM
+    over a projected [B, H, W, 5*size] grid."""
+    return R.MDLstm(input, size=size, directions=directions, param_attr=param_attr,
+                    bias_attr=_or_none(bias_attr), name=name)
 
 
 def sub_nested_seq(input, selected_indices, name=None):
@@ -310,14 +320,12 @@ def sub_nested_seq(input, selected_indices, name=None):
 
 
 def cross_entropy_over_beam(input, name=None):
-    _not_ported("cross_entropy_over_beam (CrossEntropyOverBeam)")
+    """cross_entropy_over_beam (layers.py:6038); input is a list of
+    BeamInput(candidate_scores, selected_candidates, gold)."""
+    return SC.CrossEntropyOverBeam(input, name=name)
 
 
-class BeamInput:
-    """cross_entropy_over_beam's input triple (not ported yet)."""
-
-    def __init__(self, *args, **kwargs):
-        _not_ported("BeamInput (cross_entropy_over_beam)")
+BeamInput = SC.BeamInput
 
 
 def cos_sim(a, b, scale=1.0, size=1, name=None):
@@ -645,7 +653,7 @@ def rank_cost(left, right, label, weight=None, name=None, coeff=1.0):
 
 
 def lambda_cost(input, score, NDCG_num=5, name=None, coeff=1.0, **_compat):
-    _not_ported("lambda_cost (LambdaCost)")
+    return SC.LambdaCost(input, score, ndcg_num=NDCG_num, name=name, coeff=coeff)
 
 
 def sum_cost(input, name=None):
@@ -686,11 +694,14 @@ def warp_ctc(input, label, size=None, blank=0, norm_by_times=False, name=None, *
 def nce(input, label, num_classes, weight=None, num_neg_samples=10,
         neg_distribution=None, bias_attr=None, param_attr=None, name=None,
         **_compat):
-    _not_ported("nce (NCECost)")
+    return SC.NCECost(input, label, num_classes, num_neg_samples=num_neg_samples,
+                      neg_distribution=neg_distribution, bias=bias_attr is not False,
+                      param_attr=param_attr, weight=weight, name=name)
 
 
 def hsigmoid(input, label, num_classes, bias_attr=None, param_attr=None, name=None, **_compat):
-    _not_ported("hsigmoid (HierarchicalSigmoid)")
+    return SC.HierarchicalSigmoid(input, label, num_classes, bias=bias_attr is not False,
+                                  param_attr=param_attr, name=name)
 
 
 # -- detection -------------------------------------------------------------
@@ -698,19 +709,36 @@ def hsigmoid(input, label, num_classes, bias_attr=None, param_attr=None, name=No
 
 def priorbox(input, image_size, min_size, max_size=(), aspect_ratio=(2.0,),
              variance=(0.1, 0.1, 0.2, 0.2), clip=True, name=None):
-    _not_ported("priorbox (PriorBox)")
+    if isinstance(image_size, int):
+        image_size = (image_size, image_size)
+    return D.PriorBox(input, image_size=image_size, min_size=min_size, max_size=max_size,
+                      aspect_ratio=aspect_ratio, variance=variance, clip=clip, name=name)
 
 
 def multibox_loss(input_loc, input_conf, priorbox, label, num_classes,
                   overlap_threshold=0.5, neg_pos_ratio=3.0, background_id=0,
                   name=None, **_compat):
-    _not_ported("multibox_loss (MultiBoxLoss)")
+    """label = (gt_boxes layer, gt_labels layer): the reference packs both in
+    one LoD slot; the padded arrays feed as two slots."""
+    gt_boxes, gt_labels = label
+    return D.MultiBoxLoss(_as_list(input_loc), _as_list(input_conf), _as_list(priorbox),
+                          gt_boxes, gt_labels, num_classes=num_classes,
+                          overlap_threshold=overlap_threshold, neg_pos_ratio=neg_pos_ratio,
+                          background_id=background_id, name=name)
 
 
 def detection_output(input_loc, input_conf, priorbox, num_classes,
                      nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
                      confidence_threshold=0.01, background_id=0, name=None):
-    _not_ported("detection_output (DetectionOutput)")
+    return D.DetectionOutput(_as_list(input_loc), _as_list(input_conf), _as_list(priorbox),
+                             num_classes=num_classes, nms_threshold=nms_threshold,
+                             nms_top_k=nms_top_k, keep_top_k=keep_top_k,
+                             confidence_threshold=confidence_threshold,
+                             background_id=background_id, name=name)
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
 
 
 

@@ -24,7 +24,10 @@
     give the JAX package's outputs, costs and gradients (f32, rtol 1e-5).
   * The `paddle.*` imports of a config resolve to the port's modules and
     `sys.modules` is put back afterwards; layers no output reaches stay in
-    the config (`record_layers`); what is not ported raises a named error.
+    the config (`record_layers`).
+  * The helpers of ROADMAP §1 items 6c-6e (NCE, hsigmoid, the 3-D pool and
+    conv, priorbox, lambda_cost, recurrent_layer, the packed v1 detection
+    layers) parse and dump the JAX package's text.
 jax is imported inside the tests only."""
 
 import sys
@@ -531,22 +534,41 @@ def test_record_layers_keeps_layers_no_output_reaches(tmp_path):
         jparse(path).trainer_config)
 
 
-@pytest.mark.parametrize("src,item", [
-    ("nce_layer(input=x, label=x, num_classes=4)", "6"),
-    ("hsigmoid(input=x, label=x, num_classes=4)", "6"),
-    ("img_pool3d_layer(input=x, pool_size=1)", "6"),
-    ("img_conv3d_layer(input=x, filter_size=1, num_filters=1)", "6"),
-    ("priorbox_layer(input=x, image_size=8, min_size=2)", "6"),
-    ("lambda_cost(input=x, score=x)", "6"),
+_VOL = "v = data_layer(name='v', size=2 * 4 * 4 * 4)"
+_IMG = ("img = data_layer(name='img', size=3 * 8 * 8, height=8, width=8)\n"
+        "c = img_conv_layer(input=img, filter_size=3, num_filters=4, padding=1, "
+        "num_channels=3)")
+_SEQ = "q = data_layer(name='q', size=5)\nrel = data_layer(name='rel', size=1)"
+_PACKED = ("loc = data_layer(name='loc', size=16)\nconf = data_layer(name='conf', size=84)\n"
+           "prior = data_layer(name='prior', size=32)\nlbl6 = data_layer(name='lbl6', size=12)")
+
+
+@pytest.mark.parametrize("src", [
+    "outputs(nce_layer(input=fc_layer(input=x, size=6), label=lbl, num_classes=4))",
+    "outputs(hsigmoid(input=fc_layer(input=x, size=6), label=lbl, num_classes=4))",
+    f"{_VOL}\noutputs(img_pool3d_layer(input=v, pool_size=2, num_channels=2))",
+    f"{_VOL}\noutputs(img_conv3d_layer(input=v, filter_size=3, num_filters=4, "
+    "num_channels=2, padding=1))",
+    f"{_IMG}\noutputs(priorbox_layer(input=c, image_size=8, min_size=[2], max_size=[4]))",
+    f"{_SEQ}\noutputs(lambda_cost(input=fc_layer(input=q, size=1), score=rel))",
+    f"{_SEQ}\noutputs(recurrent_layer(input=fc_layer(input=q, size=6), reverse=True))",
+    f"{_PACKED}\noutputs(multibox_loss_layer(input_loc=loc, input_conf=conf, priorbox=prior, "
+    "label=lbl6, num_classes=21), detection_output_layer(input_loc=loc, input_conf=conf, "
+    "priorbox=prior, num_classes=21, keep_top_k=5))",
 ])
-def test_unported_helpers_raise_named_errors(src, item, tmp_path):
-    path = write_config(tmp_path, f"""
-        from paddle.trainer_config_helpers import *
-        x = data_layer(name='x', size=8)
-        {src}
-        """)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §1 item {item}"):
-        tparse(path)
+def test_unported_helpers_raise_named_errors(src, tmp_path):
+    """The helpers that raised a named error until ROADMAP §1 item 6 was
+    ported (NCE, hsigmoid, the 3-D pool and conv, priorbox, lambda_cost)
+    and the other helpers of items 6c-6e: each config parses in the port
+    and dumps the JAX package's text."""
+    from paddle_tpu import proto as jproto
+    from paddle_tpu.config import parse_config as jparse
+
+    path = write_config(tmp_path, "from paddle.trainer_config_helpers import *\n"
+                        "x = data_layer(name='x', size=8)\n"
+                        "lbl = data_layer(name='lbl', size=4)\n" + src + "\n")
+    assert tproto.to_text(tparse(path).trainer_config) == \
+        jproto.to_text(jparse(path).trainer_config)
 
 
 def test_dump_config_function_and_build_model_config_agree():

@@ -1,9 +1,8 @@
 """The port's streaming evaluators (`paddle_tpu_torch/metrics/evaluators.py`)
 against the JAX package's, on the same numpy inputs: every evaluator of the
 registry, over three batches, gives the JAX package's statistic (and the
-printers the same lines, seq_text_printer the same file);
-`detection_map` raises the named error of ROADMAP.md §1 item 6. jax is
-imported inside the tests only."""
+printers the same lines, seq_text_printer the same file), `detection_map`
+included, in both AP rules. jax is imported inside the tests only."""
 
 import numpy as np
 import pytest
@@ -156,6 +155,29 @@ def test_registry_names_match_jax():
     assert tev.EVALUATORS.names() == JEVALUATORS.names()
 
 
-def test_detection_map_raises_named_error():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 6"):
-        tev.EVALUATORS.get("detection_map")()
+@pytest.mark.parametrize("ap_type", ["11point", "integral"])
+def test_detection_map_raises_named_error(ap_type):
+    """`detection_map` (a named error until the detection layers were
+    ported) against the JAX package's on two batches of detections, a
+    padding row, an unmatched class and a duplicate hit among them."""
+    from paddle_tpu.metrics.evaluators import EVALUATORS as JEVALUATORS
+
+    dets = np.array([[[1, 0.9, 0.1, 0.1, 0.4, 0.4], [1, 0.8, 0.6, 0.6, 0.9, 0.9],
+                      [2, 0.7, 0.5, 0.5, 0.8, 0.8], [1, 0.6, 0.12, 0.1, 0.4, 0.42],
+                      [0, 0.0, 0, 0, 0, 0]],
+                     [[3, 0.95, 0.2, 0.2, 0.5, 0.5], [2, 0.5, 0.0, 0.0, 0.3, 0.3],
+                      [1, 0.4, 0.5, 0.5, 0.9, 0.9], [0, 0.0, 0, 0, 0, 0],
+                      [0, 0.0, 0, 0, 0, 0]]], np.float32)
+    gtb = np.array([[[0.1, 0.1, 0.4, 0.4], [0.5, 0.5, 0.8, 0.8]],
+                    [[0.2, 0.2, 0.5, 0.5], [0.5, 0.5, 0.9, 0.9]]], np.float32)
+    gtl = np.array([[1, 2], [3, 4]])
+    results = []
+    for registry in (tev.EVALUATORS, JEVALUATORS):
+        ev = registry.get("detection_map")(ap_type=ap_type)
+        ev.start()
+        for _ in range(2):
+            ev.update(detections=dets, gt_boxes=gtb, gt_labels=gtl,
+                      gt_lengths=np.array([2, 2]))
+        results.append(ev.finish())
+    assert 0.0 < results[1] < 1.0
+    assert results[0] == results[1]

@@ -9,6 +9,11 @@
     import *`) and its provider (`from paddle.trainer.PyDataProvider2
     import *`) parse and train one step on the CPU, and afterwards
     `sys.modules` holds neither the `paddle` shim nor `paddle_tpu`.
+  * The native runtime is the port's own: `runtime/build.py` compiles only
+    the sources under `paddle_tpu_torch/csrc/native/` into
+    `build/paddle_tpu_torch/`; no port file names the top-level `csrc/`
+    or the JAX package's `runtime/_lib`, and none reads
+    `PADDLE_TPU_NO_NATIVE` (there is no fallback to switch to).
   * Device policy: entry points without `device=` run on CUDA and raise
     when it is absent; the CPU runs only when asked for."""
 
@@ -64,6 +69,33 @@ def test_scan_covers_the_config_pipeline():
 def test_no_jax_or_reference_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_native_build_compiles_only_the_ports_sources():
+    from paddle_tpu_torch.runtime import build
+
+    port = REPO / "paddle_tpu_torch"
+    assert build.NATIVE_DIR == port / "csrc" / "native"
+    assert build.BUILD_DIR == REPO / "build" / "paddle_tpu_torch"
+    assert build.sources() and all(s.resolve().is_relative_to(port)
+                                   for s in build.sources() + build.headers())
+    assert build.library_path().parent == build.BUILD_DIR
+
+
+_NATIVE_FORBIDDEN = ("PADDLE_TPU_NO_NATIVE", "runtime/_lib", '"_lib"', "'_lib'")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_native_fallback_or_reference_library(path):
+    text = path.read_text()
+    bad = [w for w in _NATIVE_FORBIDDEN if w in text]
+    assert not bad, f"{path.relative_to(REPO)} names {bad}"
+    # the top-level csrc/ by path: a parent-relative join, or "csrc" as a
+    # path component right under the repository root
+    for node in ast.walk(ast.parse(text, str(path))):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert not node.value.startswith(("csrc/", "../csrc", "/csrc")), \
+                f"{path.relative_to(REPO)} names {node.value!r}"
 
 
 _BLOCK = r"""

@@ -236,7 +236,6 @@ def _roadmap_item(n: int) -> str:
 
 def test_not_ported_messages_name_the_roadmap_items():
     from paddle_tpu_torch import cli
-    from paddle_tpu_torch.v2 import layer as tvl
 
     assert "v1 config pipeline" in _roadmap_item(5)
     assert "TP serving" in _roadmap_item(8)
@@ -244,8 +243,9 @@ def test_not_ported_messages_name_the_roadmap_items():
     for argv in (["--tp", "2"], ["--tp", "2", "--config", "c.py"]):
         with pytest.raises(NotImplementedError, match="§1 item 8"):
             cli.main(serve + argv)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 6"):
-        tvl.mdlstm(input=None)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 7"):
+        cli.prepare_train(cli.parse_args(["train", "--device", "cpu", "--config", "c.py",
+                                          "--master_endpoints", "127.0.0.1:1"]))
     stale = re.compile(r"queue 1|item 3\.3|item 6, TP|pipeline of item 7")
     for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
         assert not stale.search(path.read_text()), path
