@@ -481,7 +481,49 @@ Phases (any failure exits non-zero and prints no result line):
                8 batches on them through paddle.v2's DataFeeder as one
                graph, the cost falling; a HostPool array stages a batch;
                one native update of each optimizer type against optim/.
- 45. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 45. fleet   — the router drill in one process at phase 4's
+               configuration: a RouterServer (lease 0.8 s, poll 0.01 s)
+               in front of three ServingServer replicas, each warmed (its
+               decode graph captured on its own engine thread) before the
+               next is built and before it joins. 48 requests of
+               PROMPT_LENS' mix, 32 new tokens, one submit every 50 ms,
+               odd ones sampled (temperature 0.8, top_k 20, seed 1000+i):
+               first unfaulted (tokens equal a direct single session's for
+               the same open-loop requests; tokens/s against that one
+               replica), then 12 of them with decode_raise firing once,
+               fleet-wide (one replica restarts and re-captures its graph
+               while the others replay theirs: tokens unchanged), then on
+               a fresh fleet faulted — replica 0 kill()ed mid-decode,
+               replica 1 wedged between steps on its generation lock for
+               2 s, past its lease, then healed. Gates: every request
+               finishes or fails with a named reason, finished tokens
+               bitwise the unfaulted run's (greedy and sampled), no
+               duplicate delivery and >= 1 late winner dropped, no page
+               leaked on a survivor, launches = decode steps x n_layers
+               (CAPTURED through the replays) with every graph holding 12
+               kernel calls, goodput retention >= 0.7. Printed: TTFT
+               p50/p99 through the router against the direct session,
+               tokens/s, kill -> first token on the survivor, RPCs per
+               request, each replica's decode steps and graph replays, and
+               where a request's time went (forward RPC, the replica's
+               queue and prefill, the pump cycle, ms a decoded token).
+ 46. fleet_processes — what a deployment runs: `python -m
+               paddle_tpu_torch.serving.router serve` as a process, a
+               RouterStandby watching it from this one, two `python -m
+               paddle_tpu_torch serve --demo` replicas at phase 4's widths
+               with `--router_endpoints PRIMARY,STANDBY`. A burst of 16
+               through the router against the same burst on one replica
+               (tokens/s); then 16 streams through a ServingClient given
+               both endpoints, one replica SIGKILLed once the router
+               shows work in flight on it (its work fails over); then 16
+               more, the router process SIGKILLed once the survivor has
+               work in flight (the standby takes over, its
+               sweep adopts the survivor's work, the streams reattach by
+               key and cursor). Gates: every stream delivers its tokens
+               exactly once, equal to phase 45's unfaulted run; the
+               survivor leaks no page and its launches = its decode steps
+               x n_layers; takeover and rejoin times printed.
+ 47. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -7636,6 +7678,618 @@ def runtime_phase(torch):
     return res
 
 
+# -- 45-46: the serving fleet ---------------------------------------------------
+
+FLEET = dict(replicas=3, requests=48, gap_s=0.05, lease_s=0.8, poll_s=0.01,
+             stall_fence_s=0.2, wedge_s=2.0, late_grace_s=30.0, retention_min=0.7,
+             recapture_requests=12, recapture_step=10)
+FLEET_SAMPLED = dict(temperature=0.8, top_k=20)
+FLEET_PROC = dict(lease_s=2.0, batch=16, standby_poll_s=0.1)
+WARM_PROMPT = [1, 5, 9, 11]
+
+
+def fleet_requests(torch, bos_id):
+    """Phase 45's 48 requests: PROMPT_LENS' mix in turn, odd ones sampled
+    under their own seed (1000 + i), even ones greedy."""
+    rng = torch.Generator().manual_seed(45)
+    reqs = []
+    for i in range(FLEET["requests"]):
+        n = PROMPT_LENS[i % len(PROMPT_LENS)]
+        prompt = [bos_id] + torch.randint(3, GPT2_SMALL["vocab"], (n - 1,),
+                                          generator=rng).tolist()
+        reqs.append((prompt, dict(FLEET_SAMPLED, seed=1000 + i) if i % 2 else {}))
+    return reqs
+
+
+def named_reasons() -> set:
+    from paddle_tpu_torch.serving import FinishReason
+
+    return {v for k, v in vars(FinishReason).items()
+            if not k.startswith("_") and isinstance(v, str)}
+
+
+def warmed_session():
+    """A phase-4 session on its supervised engine thread, warmed there: its
+    first decode step runs eagerly and the step is captured before the
+    replica joins a fleet (a capture must not outlast a lease); the load
+    estimate the warm-up left is forgotten."""
+    sess = gpt2_session(engine_stall_timeout_s=300.0, engine_restart_max=5)
+    sess.serve_forever()
+    h = sess.submit(WARM_PROMPT, 4)
+    if not h._event.wait(120.0) or sess.decode_graph_captures != 1:
+        fail(f"fleet: a replica did not warm up ({sess.decode_graph_captures} captures)")
+    sess.scheduler.reset_load_estimate()
+    return sess
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def ttft_ms(handles):
+    t = [(h.t_first_token - h.t_submit) * 1e3 for h in handles
+         if h.t_first_token is not None]
+    return dict(p50=percentile(t, 0.5), p99=percentile(t, 0.99)) if t else None
+
+
+def open_loop(submit, reqs, gap_s, before=None, timeout_s=180.0):
+    """Submit `reqs` one every `gap_s` (open loop; a shed is counted), then
+    wait for every handle -> (handles by index, shed, wall s)."""
+    from paddle_tpu_torch.serving import QuotaExceeded
+
+    handles, shed = {}, 0
+    t0 = time.perf_counter()
+    for i, (prompt, sampling) in enumerate(reqs):
+        if before is not None:
+            before(i)
+        try:
+            handles[i] = submit(i, prompt, sampling)
+        except QuotaExceeded:
+            shed += 1
+        if gap_s:
+            time.sleep(gap_s)
+    for h in handles.values():
+        h._event.wait(max(0.1, timeout_s - (time.perf_counter() - t0)))
+    return handles, shed, time.perf_counter() - t0
+
+
+class Fleet:
+    """Phase 45's fleet: a RouterServer and `n` warmed in-process replicas,
+    with the router's replica forwards and batch polls counted."""
+
+    def __init__(self, n):
+        from paddle_tpu_torch.serving import ServingServer
+        from paddle_tpu_torch.serving.router import RouterServer
+
+        self.server = RouterServer(lease_s=FLEET["lease_s"], poll_interval_s=FLEET["poll_s"],
+                                   late_grace_s=FLEET["late_grace_s"]).start()
+        self.router = r = self.server.router
+        self.rpcs = dict(forward=0, poll_many=0)
+        self.forward_s = []
+        forward, pump = r._forward, r._pump_once
+
+        def counted_forward(*a, **kw):
+            self.rpcs["forward"] += 1
+            t = time.perf_counter()
+            try:
+                return forward(*a, **kw)
+            finally:
+                self.forward_s.append(time.perf_counter() - t)
+
+        def counted_pump(*a, **kw):
+            ok = pump(*a, **kw)
+            if ok is not None:
+                self.rpcs["poll_many"] += 1
+            return ok
+
+        r._forward, r._pump_once = counted_forward, counted_pump
+        self.replicas = []
+        for _ in range(n):
+            sess = warmed_session()
+            srv = ServingServer(sess, router_endpoints=self.server.address,
+                                stall_fence_s=FLEET["stall_fence_s"]).start()
+            self.replicas.append((srv, sess))
+            deadline = time.monotonic() + 30
+            while len(self.server.fleet.live()) < len(self.replicas):
+                if time.monotonic() > deadline:
+                    fail("fleet: a replica did not join the router")
+                time.sleep(0.01)
+
+    def submit(self, i, prompt, sampling):
+        return self.router.submit(prompt, NEW_TOKENS, tenant=f"tenant{i % 3}",
+                                  deadline_s=120.0, **sampling)
+
+    def counts(self):
+        return [(s.decode_steps, s.decode_graph_captures) for _, s in self.replicas]
+
+    def replica_handle(self, h):
+        """The replica-side RequestHandle that delivered fleet request `h`
+        (same process, same monotonic clock), or None."""
+        rep = self.server.fleet.get(h.delivered_by) if h.delivered_by else None
+        for srv, _ in self.replicas:
+            if rep is not None and tuple(srv.address) == rep.endpoint:
+                with srv._handles_lock:
+                    rid = srv._by_client_id.get((h.tenant, h.key))
+                    return srv._handles.get(rid) if rid is not None else None
+        return None
+
+    def breakdown(self, handles):
+        """Where a fleet request's time went, medians in ms: the submit
+        forward's RPC, submit -> the replica's admission stamp, the
+        replica's own TTFT (queue and prefill), its first token -> the
+        router's mirror (the pump cycle), the replica's ms a decoded token,
+        its last token -> the router's delivery."""
+        rows = [(h, self.replica_handle(h)) for h in handles.values()]
+        rows = [(h, sh) for h, sh in rows if sh is not None and sh.t_first_token
+                and h.t_first_token and sh.t_done and h.t_done]
+
+        def med(xs):
+            return statistics.median(xs) * 1e3 if xs else None
+
+        return dict(
+            requests=len(rows), forward_rpc_ms=med(self.forward_s),
+            submit_to_replica_ms=med([sh.t_submit - h.t_submit for h, sh in rows]),
+            replica_ttft_ms=med([sh.t_first_token - sh.t_submit for h, sh in rows]),
+            pump_first_token_ms=med([h.t_first_token - sh.t_first_token for h, sh in rows]),
+            decode_ms_per_token=med([(sh.t_done - sh.t_first_token) / max(1, len(sh.tokens) - 1)
+                                     for h, sh in rows]),
+            pump_delivery_ms=med([h.t_done - sh.t_done for h, sh in rows]),
+        )
+
+    def close(self, killed=()):
+        for k, (srv, _) in enumerate(self.replicas):
+            (srv.kill if k in killed else srv.stop)()
+        self.server.stop()
+
+
+def fleet_run_stats(handles, shed, wall):
+    done = {i: list(h.tokens) for i, h in handles.items()
+            if h.done and h.status == h.DONE}
+    reasons = {}
+    for h in handles.values():
+        reasons[h.finish_reason] = reasons.get(h.finish_reason, 0) + 1
+    return dict(
+        accepted=len(handles), shed=shed, completed=len(done), wall_s=wall,
+        goodput_rps=len(done) / wall, tokens_per_s=sum(map(len, done.values())) / wall,
+        finish_reasons=reasons, ttft_ms=ttft_ms(handles.values()),
+        all_named=all(h.done for h in handles.values())
+        and all(h.finish_reason in named_reasons() for h in handles.values()),
+    ), done
+
+
+def fleet_phase(torch, smi):
+    """Phase 45 (see the module docstring)."""
+    from paddle_tpu_torch.core import faults
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    n_layers = GPT2_SMALL["n_layers"]
+    out = dict(config=dict(FLEET, new_tokens=NEW_TOKENS, prompt_lens=list(PROMPT_LENS)),
+               nvidia_smi=smi)
+
+    # the direct single session: the same open-loop requests
+    direct = warmed_session()
+    reqs = fleet_requests(torch, direct.cfg.bos_id)
+    hs, _, wall = open_loop(lambda i, p, s: direct.submit(p, NEW_TOKENS, **s), reqs,
+                            FLEET["gap_s"])
+    ref = {i: list(h.tokens) for i, h in hs.items()}
+    out["direct"] = dict(wall_s=wall, ttft_ms=ttft_ms(hs.values()),
+                         tokens_per_s=sum(map(len, ref.values())) / wall)
+    direct.stop()
+    del direct, hs
+    release(torch)
+
+    # the unfaulted fleet: open loop, then one recapture mid-run
+    fleet = Fleet(FLEET["replicas"])
+    try:
+        counts0 = fleet.counts()
+        pa.LAUNCHES = 0
+        hs, shed, wall = open_loop(fleet.submit, reqs, FLEET["gap_s"])
+        launches = pa.LAUNCHES
+        steps = sum(a[0] - b[0] for a, b in zip(fleet.counts(), counts0))
+        clean, clean_toks = fleet_run_stats(hs, shed, wall)
+        clean.update(launches=launches, decode_steps=steps,
+                     breakdown=fleet.breakdown(hs),
+                     rpcs=dict(fleet.rpcs), rpcs_per_request=(
+                         fleet.rpcs["forward"] + fleet.rpcs["poll_many"]) / max(1, len(hs)),
+                     poll_many_per_result=fleet.rpcs["poll_many"] / max(1, len(hs)))
+        out["clean"] = clean
+        if clean_toks != ref or shed:
+            bad = [i for i in ref if clean_toks.get(i) != ref[i]]
+            fail(f"fleet: unfaulted tokens differ from the direct session at {bad} "
+                 f"(shed {shed})")
+        if launches != steps * n_layers:
+            fail(f"fleet: {launches} decode kernel launches in {steps} decode steps")
+        restarts0 = [s.engine_restarts for _, s in fleet.replicas]
+        with faults.inject(f"decode_raise:step={FLEET['recapture_step']}") as inj:
+            hs, _, wall = open_loop(fleet.submit, reqs[:FLEET["recapture_requests"]],
+                                    FLEET["gap_s"])
+            fired = inj.fired.get("decode_raise", 0)
+        restarted = [k for k, (_, s) in enumerate(fleet.replicas)
+                     if s.engine_restarts > restarts0[k]]
+        captures = [s.decode_graph_captures for _, s in fleet.replicas]
+        out["recapture"] = dict(fired=fired, restarted=restarted, captures=captures,
+                                wall_s=wall)
+        if (fired != 1 or len(restarted) != 1
+                or captures != [2 if k in restarted else 1 for k in range(len(captures))]):
+            fail(f"fleet: recapture run: {out['recapture']}")
+        if {i: list(h.tokens) for i, h in hs.items()} != {
+                i: ref[i] for i in range(FLEET["recapture_requests"])}:
+            fail("fleet: tokens changed across a replica's recapture mid-run")
+        out["clean"]["replicas"] = [
+            dict(decode_steps=s.decode_steps, captures=s.decode_graph_captures,
+                 graph_replays=s.decode_steps - s.decode_graph_captures,
+                 kernel_calls=s._decode_graph.kernel_calls)
+            for _, s in fleet.replicas]
+    finally:
+        fleet.close()
+    del fleet, hs
+    release(torch)
+
+    # the faulted fleet: replica 0 killed, replica 1 wedged past its lease
+    fleet = Fleet(FLEET["replicas"])
+    timer = None
+    killed = {}
+    try:
+        counts0 = fleet.counts()
+        r = fleet.router
+        pa.LAUNCHES = 0
+
+        def fault(i):
+            nonlocal timer
+            if i == FLEET["requests"] // 4:
+                killed["t"] = time.monotonic()
+                rid = next(x.replica_id for x in fleet.server.fleet.replicas() if x.index == 0)
+                with r._lock:
+                    killed["handles"] = [h for h in r._handles.values()
+                                         if rid in h.assignments and not h.done]
+                fleet.replicas[0][0].kill()
+            if i == FLEET["requests"] // 2:
+                lock = fleet.replicas[1][1]._gen_lock
+                lock.acquire()
+                timer = threading.Timer(FLEET["wedge_s"], lock.release)
+                timer.start()
+
+        hs, shed, wall = open_loop(fleet.submit, reqs, FLEET["gap_s"], before=fault)
+        timer.join()
+        survivors = fleet.replicas[1:]
+        deadline = time.monotonic() + 60
+        while (any(s.scheduler.has_work() for _, s in survivors)
+               or r.late_results_dropped < 1) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        launches = pa.LAUNCHES
+        steps = sum(a[0] - b[0] for a, b in zip(fleet.counts(), counts0))
+        faulted, fault_toks = fleet_run_stats(hs, shed, wall)
+        # the killed replica's in-flight requests: their first token on the
+        # survivor that took them (the survivor's own handle, same clock)
+        firsts = []
+        for h in killed["handles"]:
+            for srv, _ in survivors:
+                with srv._handles_lock:
+                    rid = srv._by_client_id.get((h.tenant, h.key))
+                    sh = srv._handles.get(rid) if rid is not None else None
+                if sh is not None and sh.t_first_token is not None:
+                    firsts.append(sh.t_first_token - killed["t"])
+        mismatch = [i for i, t in fault_toks.items() if t != clean_toks.get(i)]
+        faulted.update(
+            failovers=r.failovers, replica_evictions=r.replica_evictions,
+            late_results_dropped=r.late_results_dropped, launches=launches,
+            decode_steps=steps, mismatched=mismatch,
+            greedy_checked=sum(1 for i in fault_toks if i % 2 == 0),
+            sampled_checked=sum(1 for i in fault_toks if i % 2 == 1),
+            killed_in_flight=len(killed["handles"]),
+            kill_to_first_token_s=min(firsts) if firsts else None,
+            kill_to_last_first_token_s=max(firsts) if firsts else None,
+            pages_in_use_survivors=[s.cache.pages_in_use for _, s in survivors],
+            kernel_calls=[s._decode_graph.kernel_calls for _, s in fleet.replicas],
+            rpcs=dict(fleet.rpcs),
+        )
+        faulted["goodput_retention"] = faulted["goodput_rps"] / clean["goodput_rps"]
+        out["faulted"] = faulted
+    finally:
+        if timer is not None:
+            timer.join()
+        fleet.close(killed=(0,))
+    print("fleet", json.dumps(out), flush=True)
+    f = out["faulted"]
+    if not (clean["all_named"] and f["all_named"]):
+        fail(f"fleet: a request ended without a named reason: {f['finish_reasons']}")
+    if f["shed"] or f["completed"] != f["accepted"]:
+        # one replica lives throughout: nothing may end other than done
+        fail(f"fleet: faulted run: {f['shed']} shed, {f['finish_reasons']}")
+    if f["mismatched"] or not (f["greedy_checked"] and f["sampled_checked"]):
+        fail(f"fleet: faulted tokens differ from the unfaulted run at {f['mismatched']}")
+    if f["failovers"] < 1 or f["replica_evictions"] < 2 or f["late_results_dropped"] < 1:
+        fail(f"fleet: failovers {f['failovers']}, evictions {f['replica_evictions']}, "
+             f"late winners {f['late_results_dropped']}")
+    if any(f["pages_in_use_survivors"]):
+        fail(f"fleet: pages leaked on a survivor: {f['pages_in_use_survivors']}")
+    if f["launches"] != f["decode_steps"] * n_layers or set(f["kernel_calls"]) != {n_layers}:
+        fail(f"fleet: {f['launches']} launches in {f['decode_steps']} decode steps, "
+             f"graphs holding {f['kernel_calls']} kernel calls")
+    if not f["goodput_retention"] >= FLEET["retention_min"]:
+        fail(f"fleet: goodput retention {f['goodput_retention']:.3f} < "
+             f"{FLEET['retention_min']}")
+    del fleet, hs
+    release(torch)
+    out["reqs"] = reqs
+    out["tokens"] = clean_toks
+    return out
+
+
+def free_port() -> int:
+    """A free local port, for a standby that binds it only at takeover."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn(args, name, env):
+    """Start `python -m <args>` from the repository root; its stderr goes to
+    build/fleet_<name>.err."""
+    with open(os.path.join(REPO, "build", f"fleet_{name}.err"), "w") as err:
+        return subprocess.Popen([sys.executable, "-m", *args], cwd=REPO, env=env,
+                                stdout=subprocess.PIPE, stderr=err, text=True)
+
+
+def first_json(proc, name):
+    """A spawned process's first stdout line, as JSON (120 s at most)."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], 120.0)
+    line = proc.stdout.readline() if ready else ""
+    if not line:
+        proc.kill()
+        with open(os.path.join(REPO, "build", f"fleet_{name}.err")) as f:
+            tail = f.read()[-2000:]
+        fail(f"fleet_processes: {name} did not start: {tail}")
+    return json.loads(line)
+
+
+def stream_batch(endpoints, reqs, idx, on_started=None):
+    """One ServingClient a stream (both router endpoints) for each request
+    index in `idx`, in threads; `on_started` runs once every thread is
+    started -> {index: tokens}, {index: error}."""
+    from paddle_tpu_torch.serving import ServingClient
+
+    got, errs = {}, {}
+
+    def run(i):
+        prompt, sampling = reqs[i]
+        c = ServingClient(endpoints, timeout=5.0)
+        toks = []
+        try:
+            for fr in c.stream(prompt, NEW_TOKENS, reattach_retries=60,
+                               client_req_id=f"fleet-proc-{i}", **sampling):
+                toks.extend(fr["tokens"])
+                if fr.get("done"):
+                    break
+            got[i] = toks
+        except Exception as e:  # reported by the caller's gate
+            errs[i] = repr(e)
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in idx]
+    for t in threads:
+        t.start()
+    if on_started is not None:
+        on_started()
+    for t in threads:
+        t.join(180.0)
+    return got, errs
+
+
+def wait_idle(probe, timeout_s=30.0):
+    """Poll a router's `replicas` view until every live replica's last
+    heartbeat reported an idle engine and the router has nothing in flight
+    there: the least-loaded choice reads the heartbeats' load, so a
+    snapshot taken during a burst would steer the next requests."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        reps = [r for r in probe.call("replicas")["replicas"] if r["state"] == "live"]
+        if all(r["outstanding"] == 0 and not r["load"].get("queue_depth")
+               and not r["load"].get("active_slots") for r in reps):
+            return
+        time.sleep(0.02)
+    fail(f"fleet_processes: the replicas did not report idle: {reps}")
+
+
+def wait_in_flight(probe, endpoint, n=1, timeout_s=60.0):
+    """Poll a router's `replicas` view until the replica at `endpoint` has
+    at least `n` requests in flight there."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        for r in probe.call("replicas")["replicas"]:
+            if tuple(r["endpoint"]) == tuple(endpoint) and r["outstanding"] >= n:
+                return r["outstanding"]
+        time.sleep(0.002)
+    fail(f"fleet_processes: no request in flight on {endpoint}")
+
+
+def fleet_process_phase(torch, smi, fleet):
+    """Phase 46 (see the module docstring)."""
+    import signal
+
+    from paddle_tpu_torch.runtime.master import MasterClient
+    from paddle_tpu_torch.serving import ServingClient
+    from paddle_tpu_torch.serving.router import RouterStandby
+
+    reqs, want = fleet["reqs"], fleet["tokens"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    procs = {}
+    standby_box = {}
+    stop_standby = threading.Event()
+    out = dict(config=dict(FLEET_PROC), nvidia_smi=smi)
+    try:
+        # the router and both replicas start together (each process takes
+        # seconds to import torch and reach the card); a replica that finds
+        # no router yet retries its registration from its heartbeat loop
+        primary = ("127.0.0.1", free_port())
+        procs["router"] = spawn(
+            ["paddle_tpu_torch.serving.router", "serve", "--port", str(primary[1]),
+             "--lease_s", str(FLEET_PROC["lease_s"])], "router", env)
+        sb_port = free_port()
+        endpoints = [list(primary), ["127.0.0.1", sb_port]]
+        flags = ["--vocab", str(SERVE["vocab"]), "--n_layers", str(SERVE["n_layers"]),
+                 "--d_model", str(SERVE["d_model"]), "--n_heads", str(SERVE["n_heads"]),
+                 "--max_len", str(SERVE["max_len"]), "--max_slots", str(SERVE["max_slots"]),
+                 "--page_size", str(SERVE["page_size"]),
+                 "--prefill_buckets", ",".join(map(str, SERVE["prefill_buckets"])),
+                 "--prefill_chunk", str(SERVE["prefill_chunk"]),
+                 "--max_new_limit", str(SERVE["max_new_limit"]), "--seed", str(SERVE["seed"]),
+                 "--router_endpoints", ",".join(f"{h}:{p}" for h, p in endpoints),
+                 "--stall_fence_s", "30", "--engine_stall_timeout_s", "300"]
+        names = ("replica_a", "replica_b")
+        for name in names:
+            procs[name] = spawn(["paddle_tpu_torch", "serve", "--demo", "--device",
+                                 "cuda", *flags], name, env)
+        if tuple(first_json(procs["router"], "router")["address"]) != primary:
+            fail("fleet_processes: the router is not on its port")
+        # the standby watches only a listening primary: armed before the
+        # router listens, it would count the refused probes as a death
+        standby = RouterStandby(primary, port=sb_port, poll_s=FLEET_PROC["standby_poll_s"],
+                                lease_s=FLEET_PROC["lease_s"], stop_evt=stop_standby)
+        threading.Thread(target=lambda: standby_box.update(
+            srv=standby.run(), t_takeover=time.monotonic()), daemon=True).start()
+        addrs = {name: tuple(first_json(procs[name], name)["address"])
+                 for name in names}
+        via = ServingClient(primary, timeout=10.0)
+        deadline = time.monotonic() + 60
+        while via.stats()["live_replicas"] < 2:
+            if time.monotonic() > deadline:
+                fail("fleet_processes: the replicas did not join the router")
+            time.sleep(0.05)
+        for a in addrs.values():  # each replica's first decode step and capture
+            c = ServingClient(a)
+            c.generate(WARM_PROMPT, 4, timeout_s=120.0)
+            c.close()
+
+        def burst(client, idx):
+            t0 = time.perf_counter()
+            rids = {i: client.submit(reqs[i][0], NEW_TOKENS, client_req_id=f"burst-{t0}-{i}",
+                                     **reqs[i][1]) for i in idx}
+            toks = {}
+            while len(toks) < len(rids):
+                for i, rid in rids.items():
+                    if i not in toks:
+                        r = client.poll(rid)
+                        if r.get("done"):
+                            toks[i] = list(r["tokens"])
+                time.sleep(0.005)
+            wall = time.perf_counter() - t0
+            return toks, sum(map(len, toks.values())) / wall
+
+        idx = list(range(FLEET_PROC["batch"]))
+        toks, out["fleet_burst_tokens_per_s"] = burst(via, idx)
+        one = ServingClient(addrs["replica_a"])
+        toks1, out["one_replica_burst_tokens_per_s"] = burst(one, idx)
+        one.close()
+        if toks != {i: want[i] for i in idx} or toks1 != toks:
+            fail("fleet_processes: burst tokens differ from phase 45's unfaulted run")
+
+        # fault 1: replica A SIGKILLed with streams in flight on it
+        kill = {}
+        probe = MasterClient(primary, timeout=10.0)
+        wait_idle(probe)
+
+        def kill_a():
+            kill["in_flight"] = wait_in_flight(probe, addrs["replica_a"])
+            kill["t"] = time.monotonic()
+            procs["replica_a"].send_signal(signal.SIGKILL)
+
+        b1 = list(range(FLEET_PROC["batch"]))
+        got, errs = stream_batch(endpoints, reqs, b1, kill_a)
+        out["replica_kill_to_done_s"] = time.monotonic() - kill["t"]
+        out["replica_killed_in_flight"] = kill["in_flight"]
+        st = via.stats()
+        out["after_replica_kill"] = {k: st[k] for k in (
+            "failovers", "replica_evictions", "live_replicas", "completed")}
+        if errs or got != {i: want[i] for i in b1}:
+            fail(f"fleet_processes: after the replica kill: errors {errs}, tokens "
+                 f"equal {got == {i: want[i] for i in b1}}")
+        if st["failovers"] < 1 or st["live_replicas"] != 1:
+            fail(f"fleet_processes: after the replica kill: {out['after_replica_kill']}")
+        via.close()
+
+        # fault 2: the router process SIGKILLed with 16 more in flight
+        def kill_router():
+            kill["router_in_flight"] = wait_in_flight(probe, addrs["replica_b"])
+            probe.close()
+            kill["router"] = time.monotonic()
+            procs["router"].send_signal(signal.SIGKILL)
+            threading.Thread(target=watch_rejoin, daemon=True).start()
+
+        def watch_rejoin():
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                srv = standby_box.get("srv")
+                if srv is not None and srv.fleet.live():
+                    kill["rejoin"] = time.monotonic()
+                    return
+                time.sleep(0.005)
+
+        b2 = list(range(FLEET_PROC["batch"], 2 * FLEET_PROC["batch"]))
+        got, errs = stream_batch(endpoints, reqs, b2, kill_router)
+        t_done = time.monotonic()
+        deadline = time.monotonic() + 30
+        while "srv" not in standby_box and time.monotonic() < deadline:
+            time.sleep(0.01)
+        new = standby_box.get("srv")
+        if new is None or standby_box["t_takeover"] < kill["router"]:
+            fail("fleet_processes: the standby did not take over after the kill")
+        out["takeover"] = dict(
+            kill_to_done_s=t_done - kill["router"],
+            adopted=new.router.adopted, completed=new.router.completed,
+            live_replicas=len(new.fleet.live()), instance=new.router.instance,
+            in_flight_at_kill=kill["router_in_flight"],
+            takeover_s=standby_box["t_takeover"] - kill["router"],
+            rejoin_s=kill.get("rejoin", t_done) - kill["router"],
+        )
+        if errs or got != {i: want[i] for i in b2}:
+            fail(f"fleet_processes: after the router kill: errors {errs}, tokens "
+                 f"equal {got == {i: want[i] for i in b2}}")
+        if new.router.adopted < 1:
+            fail(f"fleet_processes: the standby's sweep adopted nothing: {out['takeover']}")
+
+        # the survivor: no page leaked; its launches = its decode steps x 12
+        c = ServingClient(addrs["replica_b"])
+        deadline = time.monotonic() + 30
+        while c.stats()["pages_in_use"] and time.monotonic() < deadline:
+            time.sleep(0.05)
+        st = c.stats()
+        c.close()
+        procs["replica_b"].send_signal(signal.SIGTERM)
+        final = json.loads(procs["replica_b"].communicate(timeout=60)[0].strip().splitlines()[-1])
+        out["survivor"] = dict(
+            pages_in_use=st["pages_in_use"], decode_steps=final["final_stats"]["decode_steps"],
+            captures=final["final_stats"]["decode_graph_captures"],
+            launches=final["paged_attention_launches"], exit=procs["replica_b"].returncode)
+        out["survivor"]["graph_replays"] = (out["survivor"]["decode_steps"]
+                                            - out["survivor"]["captures"])
+        print("fleet_processes", json.dumps(out), flush=True)
+        sv = out["survivor"]
+        if sv["pages_in_use"] or sv["exit"] != 0:
+            fail(f"fleet_processes: survivor {sv}")
+        if sv["launches"] != sv["decode_steps"] * GPT2_SMALL["n_layers"]:
+            fail(f"fleet_processes: the survivor launched the decode kernel "
+                 f"{sv['launches']} times in {sv['decode_steps']} decode steps")
+        return out
+    finally:
+        stop_standby.set()
+        if standby_box.get("srv") is not None:
+            standby_box["srv"].stop()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait(30)
+
+
 def train_of(torch, tree: str) -> int:
     """`--train-of TREE`: the training phases (5, 7 and 10) of the
     chip_smoke.py in TREE, a checkout of this repository (an earlier
@@ -7865,7 +8519,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     runtime = runtime_phase(torch)
 
-    # 45. lines
+    # 45. the serving fleet in one process and 46. as processes with a router
+    # takeover (launch counters from 0 in each run)
+    release(torch)
+    fleet = fleet_phase(torch, smi)
+    fleet_proc = fleet_process_phase(torch, smi, fleet)
+    del fleet["reqs"]
+
+    # 47. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -7875,6 +8536,9 @@ def main() -> int:
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:108",
         "launches": serve["launches"],
+        "launches_fleet": fleet["clean"]["launches"],
+        "launches_fleet_faulted": fleet["faulted"]["launches"],
+        "launches_fleet_processes_survivor": fleet_proc["survivor"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "kernel_ms": main_row["kernel_ms"],
@@ -8018,7 +8682,8 @@ def main() -> int:
                    "vocab": vocab, "v1_vocab": v1_vocab, "fluid_digits": fluid_digits,
                    "fluid_lstm": fluid_lstm, "fluid_control": fluid_control, "gan": gan,
                    "ssd": ssd, "struct_costs": struct_costs, "rnn_extra": rnn_extra,
-                   "layers3d": layers3d, "runtime": runtime},
+                   "layers3d": layers3d, "runtime": runtime, "fleet": fleet,
+                   "fleet_processes": fleet_proc},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

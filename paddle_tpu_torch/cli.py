@@ -23,6 +23,8 @@ tests pass `cpu`; the v1 flags `--use_gpu=0` / `--use_tpu=0` mean `cpu`):
         [--default_deadline_s=S] [--default_ttft_deadline_s=S]
         [--engine_restart_max=N] [--engine_stall_timeout_s=S]
         [--lease_s=S] [--require_register=0|1]
+        [--router_endpoints=H:P[,H:Q]] [--advertise_host=H]
+        [--stall_fence_s=S] [--exit_on_drain] [--master_endpoints=H:P]
     python -m paddle_tpu_torch version
 
 `train` parses the v1 config (`config/config_parser.py`), builds the
@@ -34,7 +36,7 @@ a line per pass, `pass N: avg_cost=... [test_cost=...] [Evaluator=...]`;
 `{"ms_per_batch", "batches"}`. Flags whose subsystem the port does not have
 yet raise a named NotImplementedError (exit code 2): `--trainer_count > 1`
 (data parallelism, ROADMAP.md §1 item 8), `--master_endpoints`,
-`--elastic`, `--profile` (item 7) and `--compile_cache` (jax's cache, no
+`--elastic`, `--profile` (item 7b) and `--compile_cache` (jax's cache, no
 counterpart). `--shard_update` and `--grad_compression` at
 `--trainer_count=1` warn and are ignored, as in the reference.
 
@@ -47,9 +49,11 @@ and, on SIGTERM or SIGINT, `{"final_stats": {...}}` (with a token engine)
 before it exits 0. `--config` serves a v1 generating config's
 `trainer/generation.GenerationSession` on the parameters of `--model_dir`
 (RPC method `generate_config`), beside `--demo` / `--load`'s token engine
-or alone. Not ported yet: `--tp > 1` (TP serving, ROADMAP.md §1 item 8)
-raises a named NotImplementedError. The router and fleet flags wait for
-item 7."""
+or alone. `--router_endpoints` joins a router's fleet as a replica
+(`serving/fleet.ReplicaAgent`; a primary,standby list rotates to the
+standby when the primary dies); the router itself is `python -m
+paddle_tpu_torch.serving.router serve|standby`. Not ported yet: `--tp > 1`
+(TP serving, ROADMAP.md §1 item 8) raises a named NotImplementedError."""
 
 from __future__ import annotations
 
@@ -175,12 +179,13 @@ def _refuse_unported(args: argparse.Namespace) -> None:
                "--grad_compression)", "8, parallelism")
     if args.master_endpoints:
         refuse("the elastic task master (--master_endpoints)",
-               "7, the fleet and control plane")
+               "7b, the task plane and elastic training")
     if args.elastic:
-        refuse("elastic resize (--elastic)", "7, the fleet and control plane")
+        refuse("elastic resize (--elastic)",
+               "7b, the task plane and elastic training")
     if args.profile:
         refuse("the pass profiler (--profile, obs/profile.py)",
-               "7, the fleet and control plane")
+               "7b, the task plane and elastic training")
     if args.compile_cache:
         raise NotPorted(
             "--compile_cache is the JAX package's persistent XLA compilation "
@@ -563,6 +568,33 @@ def _serve_args(p: argparse.ArgumentParser) -> None:
                         "queued requests cancelled")
     p.add_argument("--require_register", type=_str2bool, default=False,
                    help="reject requests without a registered tenant lease")
+    p.add_argument(
+        "--master_endpoints", default=None,
+        help="master to health-check: its stats keys (or its "
+             "unreachability) ride this server's stats() as `master`",
+    )
+    p.add_argument(
+        "--router_endpoints", default=None,
+        help="join a serving router's fleet as a replica: register this "
+             "server's endpoint with the router at host:port and renew the "
+             "lease with load-snapshot heartbeats; a wedged engine "
+             "self-fences so the router fails its work over to a survivor. "
+             "A comma-separated primary,standby list rotates to the standby "
+             "router when the primary dies, whose takeover sweep re-adopts "
+             "this replica's in-flight work",
+    )
+    p.add_argument(
+        "--advertise_host", default=None,
+        help="hostname the router dials this replica back on (default "
+             "--host)",
+    )
+    p.add_argument("--stall_fence_s", type=float, default=5.0,
+                   help="replica self-fence: with work pending and no engine "
+                        "progress for this long (between steps), heartbeats "
+                        "to the router stop so its lease can lapse")
+    p.add_argument("--exit_on_drain", action="store_true",
+                   help="exit cleanly when a router-ordered planned drain "
+                        "completes")
     # demo model shape knobs (ignored with --load)
     p.add_argument("--max_len", type=int, default=0,
                    help="demo model position capacity (0 = largest bucket + "
@@ -663,6 +695,12 @@ def cmd_serve(args: argparse.Namespace) -> int:
         session=session, gen_session=gen_session, host=args.host, port=args.port,
         lease_s=args.lease_s,
         require_register=args.require_register,
+        master_endpoints=args.master_endpoints,
+        router_endpoints=args.router_endpoints,
+        advertise_host=args.advertise_host,
+        stall_fence_s=args.stall_fence_s,
+        # planned drain complete -> leave cleanly and exit 0
+        on_drained=(stop_evt.set if args.exit_on_drain else None),
     ).start()
     _signal.signal(_signal.SIGTERM, lambda *_: stop_evt.set())
     _signal.signal(_signal.SIGINT, lambda *_: stop_evt.set())
@@ -671,7 +709,13 @@ def cmd_serve(args: argparse.Namespace) -> int:
     stop_evt.wait()
     server.stop()
     if session is not None:
-        print(json.dumps({"final_stats": session.stats()}), flush=True)
+        from paddle_tpu_torch.ops import paged_attention
+
+        # the process's decode-kernel launches (one session a process): a
+        # fleet drill holds them to decode_steps x n_layers
+        print(json.dumps({"final_stats": session.stats(),
+                          "paged_attention_launches": paged_attention.LAUNCHES}),
+              flush=True)
     return 0
 
 

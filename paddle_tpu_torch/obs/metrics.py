@@ -3,9 +3,10 @@
 The port's slice of `paddle_tpu/obs/metrics.py`: the registry primitives,
 the collector that absorbs the named `core.stats.EventCounter` groups and
 the tracer's span counts, the serving failure-path counters the scheduler,
-KV cache and session increment, and the flat/Prometheus read paths. Metric
-names are the JAX package's, so one dashboard reads either engine. The
-fleet, router and autoscaler counters wait for the slice that ports them."""
+KV cache and session increment, the router tier's counters, and the
+flat/Prometheus read paths. Metric names are the JAX package's, so one
+dashboard reads either engine. The fleet gauges, the aggregation and the
+resize and autoscaler counters are ROADMAP.md §1 item 7b."""
 
 from __future__ import annotations
 
@@ -20,11 +21,17 @@ __all__ = [
     "Sample",
     "observe_deadline_miss",
     "observe_engine_restart",
+    "observe_late_result_dropped",
     "observe_pages_recycled",
     "observe_prefix_cow",
     "observe_prefix_evictions",
     "observe_prefix_hit",
+    "observe_replica_evicted",
+    "observe_replica_failover",
+    "observe_router_hedge",
+    "observe_router_shed",
     "observe_shed",
+    "observe_takeover",
     "snapshot",
     "to_prometheus_text",
 ]
@@ -247,6 +254,65 @@ def observe_prefix_evictions(n: int) -> None:
         "paddle_tpu_serving_prefix_evictions_total",
         "prefix-cache pages evicted (pool pressure or cache-size cap)",
     ).inc(n)
+
+
+# -- the router tier: the JAX package's family and label names, so one
+# Prometheus text reads both packages' fleets --------------------------------------
+
+
+def observe_takeover(plane: str) -> None:
+    """A warm standby took over a dead control plane (runtime/election.py);
+    paired with the `<plane>_takeover` FT_EVENTS key."""
+    REGISTRY.counter(
+        "paddle_tpu_takeovers_total",
+        "control-plane standby takeovers, by plane",
+    ).inc(plane=plane)
+
+
+def observe_replica_evicted(cause: str) -> None:
+    """The router evicted a replica lease; cause is 'lease' (heartbeats
+    stopped: death or a self-fenced wedge), 'conn' (dispatch/pump
+    connections dead), 'deregister' or 'drain_timeout'."""
+    REGISTRY.counter(
+        "paddle_tpu_router_replica_evictions_total",
+        "serving replicas evicted from the router fleet, by cause",
+    ).inc(cause=cause)
+
+
+def observe_replica_failover(cause: str) -> None:
+    """One in-flight request re-submitted to a survivor after its replica
+    was lost (token-identical: the pinned per-request seed)."""
+    REGISTRY.counter(
+        "paddle_tpu_router_failovers_total",
+        "in-flight requests failed over to a surviving replica, by cause",
+    ).inc(cause=cause)
+
+
+def observe_router_hedge() -> None:
+    """A token-less request past its TTFT hedge was duplicated onto a second
+    replica (first token wins, the loser cancelled on its replica)."""
+    REGISTRY.counter(
+        "paddle_tpu_router_hedges_total",
+        "cross-replica TTFT hedges launched by the router",
+    ).inc()
+
+
+def observe_late_result_dropped() -> None:
+    """A replica answered a request the router had already delivered from a
+    survivor: the late winner was dropped by the fleet dedup map."""
+    REGISTRY.counter(
+        "paddle_tpu_router_late_results_dropped_total",
+        "late replica results dropped by the fleet (tenant, request) dedup",
+    ).inc()
+
+
+def observe_router_shed(reason: str) -> None:
+    """The router shed a submit fleet-wide ('no_replicas', or 'overload'
+    when every live replica shed or was saturated)."""
+    REGISTRY.counter(
+        "paddle_tpu_router_shed_total",
+        "submits shed by the router fleet-wide, by named reason",
+    ).inc(reason=reason)
 
 
 # -- read paths -----------------------------------------------------------------

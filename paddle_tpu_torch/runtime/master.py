@@ -19,7 +19,7 @@ front end rides on:
   package's snapshot format.
 
 The rest of the task plane (`MasterServer`, elastic resize,
-`cluster_reader`) is ROADMAP.md §1 item 7."""
+`cluster_reader`) is ROADMAP.md §1 item 7b."""
 
 from __future__ import annotations
 

@@ -11,8 +11,11 @@
     srv = ServingServer(make_demo_session(), port=0).start()
     print(ServingClient(srv.address).generate([1, 5, 9], 16)["tokens"])
 
-(or `python -m paddle_tpu_torch serve --demo`). The router and fleet wait
-for a later slice (ROADMAP.md)."""
+(or `python -m paddle_tpu_torch serve --demo`). A fleet of servers sits
+behind `serving.router.RouterServer` (`python -m
+paddle_tpu_torch.serving.router serve`; the module is not imported
+here, so `-m` runs it once), each server joined with
+`ServingServer(..., router_endpoints=...)` or `serve --router_endpoints`."""
 
 from paddle_tpu_torch.serving.kv_cache import PagedKVCache
 from paddle_tpu_torch.serving.model import LMConfig, ServableLM

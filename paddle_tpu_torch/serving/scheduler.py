@@ -54,6 +54,9 @@ class FinishReason:
     DEADLINE = "deadline"          # total-latency deadline expired
     CLIENT_TIMEOUT = "client_timeout"  # result(timeout=) abandoned the work
     ENGINE_ERROR = "engine_error"  # engine died past its restart budget
+    # the router tier: the assigned replica was lost and no live survivor
+    # could take the request before the router gave up
+    REPLICA_LOST = "replica_lost"
 
 
 class RequestHandle:

@@ -18,7 +18,10 @@ so either package's client talks to either package's server:
 
 Methods: register | heartbeat | deregister | submit | poll | poll_many |
 cancel | stream | generate (blocking submit+wait) | stats | metrics |
-trace_export | generate_config. `generate_config` runs a whole batch
+trace_export | outstanding (the router's takeover sweep) |
+generate_config. With `router_endpoints` the server joins a router's
+fleet as a replica (serving/fleet.py `ReplicaAgent`); `kill()` is the
+drills' crash. `generate_config` runs a whole batch
 through a v1 config's long-lived `trainer/generation.GenerationSession`
 (`serve --config`), beside the token engine or alone: the batch arrives as
 {slot: nested lists}, the sequence printers' text comes back inline.
@@ -105,6 +108,11 @@ class _Handler(socketserver.StreamRequestHandler):
     def handle(self):
         srv: ServingServer = self.server.ctx  # type: ignore[attr-defined]
         for line in self.rfile:
+            if srv._killed:
+                # crash semantics: server_close() only shuts the listener;
+                # a killed process must also stop answering on established
+                # connections, or its peers would keep talking to a ghost
+                break
             try:
                 req = json.loads(line)
             except json.JSONDecodeError:
@@ -169,7 +177,7 @@ class _Handler(socketserver.StreamRequestHandler):
                 return
             except OSError:
                 return
-            if got is None:
+            if got is None or srv._killed:
                 return
             obj, rid, flags, blob = got
             req = frames.decode_payload(obj, rid, flags, blob)
@@ -217,7 +225,7 @@ class _Handler(socketserver.StreamRequestHandler):
         # not global wakes (every pusher shares one notify sequence)
         srv.note_stream(1)
         try:
-            while True:
+            while not srv._killed:
                 next_seq = srv.stream_wait(seq)
                 # done BEFORE tokens: completion is latched after the final
                 # append, so a True here guarantees the token read is complete
@@ -282,11 +290,39 @@ class ServingServer:
         lease_s: float = 30.0,
         require_register: bool = False,
         handle_ttl_s: float = 600.0,
+        master_endpoints: Optional[EndpointsLike] = None,
+        router_endpoints: Optional[EndpointsLike] = None,
+        advertise_host: Optional[str] = None,
+        stall_fence_s: float = 5.0,
+        on_drained=None,
     ):
         if session is None and gen_session is None:
             raise ValueError("need a ServingSession and/or a GenerationSession")
         self.session = session
         self.gen_session = gen_session
+        # control-plane visibility: with master_endpoints set, stats()
+        # carries the master's health (`master`: its stats keys, or
+        # reachable false with the error), client side only
+        self.master_endpoints = master_endpoints
+        self._master_client: Optional[MasterClient] = None
+        self._master_client_lock = threading.Lock()
+        # (monotonic, result) of the last probe: stats() calls are served
+        # concurrently, and a down master costs seconds of retries per
+        # probe, so at most one probe is in flight and everyone else reads
+        # the cached view
+        self._master_health_cache: tuple = (0.0, None)
+        self._master_health_ttl_s = 2.0
+        # fleet mode: with router_endpoints set (a primary, or a
+        # primary,standby list), start() joins the router's fleet as a
+        # replica through a ReplicaAgent (serving/fleet.py)
+        self.router_endpoints = router_endpoints
+        self.advertise_host = advertise_host
+        self.stall_fence_s = float(stall_fence_s)
+        # fired by the agent when a router-ordered planned drain completes
+        # (the serve CLI's --exit_on_drain shuts the process down here)
+        self.on_drained = on_drained
+        self._agent = None
+        self._killed = False
         # the generation session writes its printers' result files: one
         # request at a time
         self._gen_lock = threading.Lock()
@@ -354,6 +390,8 @@ class ServingServer:
             out["stream_bytes_pushed"] = self.stream_bytes
             out["stream_tokens_pushed"] = self.stream_tokens
             out["stream_frames_coalesced"] = self.stream_coalesced
+            if self.master_endpoints is not None:
+                out["master"] = self._master_health()
             return out
         if method == "metrics":
             return {"text": obs_metrics.to_prometheus_text()}
@@ -508,9 +546,77 @@ class ServingServer:
                         "tokens_so_far": len(toks),
                     })
             return {"results": out}
+        if method == "outstanding":
+            # the takeover sweep: a freshly elected router asks each
+            # re-registering replica for every keyed request it still holds,
+            # in flight and finished but unpolled, with the whole
+            # re-submission identity (prompt, pinned seed, sampling knobs),
+            # so it can rebuild its books from the data plane and fail a
+            # request over token-identically if this replica dies too.
+            # Cold path: one call per replica registration event.
+            with self._handles_lock:
+                keyed = [
+                    (tenant, key, self._handles.get(rid))
+                    for (tenant, key), rid in self._by_client_id.items()
+                ]
+            return {"requests": [
+                {
+                    "request_id": handle.request_id,
+                    "tenant_id": tenant,
+                    "client_req_id": key,
+                    "prompt": list(handle.prompt_tokens),
+                    "max_new_tokens": handle.max_new_tokens,
+                    "seed": handle.seed,
+                    "temperature": handle.temperature,
+                    "top_k": handle.top_k,
+                    "done": handle.done,
+                    "tokens_so_far": len(handle.tokens),
+                }
+                for tenant, key, handle in keyed if handle is not None
+            ]}
         if method == "generate_config":
             return self._generate_config(req)
         return {"err": f"unknown method {method!r}"}
+
+    def _master_health(self) -> dict:
+        """The master's control-plane health, for stats(): its stats keys
+        with reachable true, or reachable false with the error. Never
+        raises (a dead master must not take the serving stats down too).
+        TTL-cached with one probe in flight: concurrent callers read the
+        last view instead of queueing behind a dead master's retries."""
+        ts, cached = self._master_health_cache
+        if cached is not None and time.monotonic() - ts < self._master_health_ttl_s:
+            return cached
+        if not self._master_client_lock.acquire(blocking=False):
+            return cached if cached is not None else {
+                "reachable": False, "error": "health probe in flight"}
+        try:
+            try:
+                if self._master_client is None:
+                    self._master_client = MasterClient(
+                        self.master_endpoints, timeout=5.0, retries=2,
+                    )
+                st = self._master_client.call("stats")
+            except (ConnectionError, OSError) as e:
+                out = {
+                    "reachable": False,
+                    "error": f"{type(e).__name__}: {e}"[-300:],
+                }
+            else:
+                out = {
+                    k: st[k]
+                    for k in (
+                        "snapshot_failures", "live_trainers",
+                        "evicted_trainers", "todo", "pending", "done",
+                        "discarded",
+                    )
+                    if k in st
+                }
+                out["reachable"] = True
+        finally:
+            self._master_client_lock.release()
+        self._master_health_cache = (time.monotonic(), out)
+        return out
 
     def _tenant_for(self, tenant_id: Optional[str]) -> str:
         if self.require_register:
@@ -644,12 +750,53 @@ class ServingServer:
         self._thread.start()
         self._reaper = threading.Thread(target=self._reap_loop, daemon=True)
         self._reaper.start()
+        if self.router_endpoints is not None and self.session is not None:
+            from paddle_tpu_torch.serving.fleet import ReplicaAgent
+
+            host, port = self.address
+            self._agent = ReplicaAgent(
+                self.router_endpoints, self.session,
+                advertise=(self.advertise_host or host, port),
+                stall_fence_s=self.stall_fence_s,
+                on_drained=self.on_drained,
+            ).start()
         return self
 
-    def stop(self) -> None:
-        """Stop listening, stop the reaper and stop the session's engine
-        (a stopped server's session is retired with it)."""
+    def kill(self) -> None:
+        """Crash semantics (drills): sever the TCP front end and the fleet
+        heartbeats abruptly, with no deregister and no drain, so a router
+        finds the death as it would a real process kill: dead connections
+        and a lapsed lease. Idempotent; safe before start()."""
+        if self._killed:
+            return
+        self._killed = True
         self._stop_evt.set()
+        if self._agent is not None:
+            self._agent.kill()
+
+        def _die():
+            try:
+                if self._thread is not None:
+                    self._srv.shutdown()
+                self._srv.server_close()
+            except OSError:
+                pass
+            if self.session is not None:
+                self.session.stop()
+
+        # sever off-thread: kill() must not block behind the session
+        # supervisor's join
+        threading.Thread(target=_die, daemon=True).start()
+
+    def stop(self) -> None:
+        """Deregister from the router, stop listening, stop the reaper and
+        stop the session's engine (a stopped server's session is retired
+        with it). A no-op after kill()."""
+        if self._killed:
+            return
+        self._stop_evt.set()
+        if self._agent is not None:
+            self._agent.stop()  # clean leave: deregister from the router
         if self._thread is not None:
             self._srv.shutdown()
         self._srv.server_close()
@@ -657,6 +804,14 @@ class ServingServer:
             self._reaper.join(timeout=5.0)
         if self.session is not None:
             self.session.stop()
+        # non-blocking: an in-flight health probe against a dead master
+        # must not stall shutdown
+        if self._master_client_lock.acquire(blocking=False):
+            try:
+                if self._master_client is not None:
+                    self._master_client.close()
+            finally:
+                self._master_client_lock.release()
 
 
 class Rejected(RuntimeError):

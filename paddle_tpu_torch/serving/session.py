@@ -306,6 +306,10 @@ class ServingSession:
             ),
             top_k=self.default_top_k if top_k is None else int(top_k),
         )
+        # the full prompt rides the handle: a router's takeover sweep reads
+        # it back (the `outstanding` RPC), so a request whose replica also
+        # dies can be re-submitted to a survivor token-identically
+        handle.prompt_tokens = prompt
         SERVING_EVENTS.incr("serving_submitted")
         with self._work:
             self._work.notify()

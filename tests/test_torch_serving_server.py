@@ -296,7 +296,9 @@ def test_generate_config_answers_named_error(port_server):
         assert resp == {"err": "no --config generation session on this server"}
         with pytest.raises(Rejected, match="no --config generation session"):
             c.generate_config({})
-        assert "unknown method" in c._client.call("outstanding")["err"]
+        assert "unknown method" in c._client.call("no_such_method")["err"]
+        # the router's takeover sweep is a method of the server now
+        assert "requests" in c._client.call("outstanding")
     finally:
         c.close()
 
