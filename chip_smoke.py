@@ -523,7 +523,43 @@ Phases (any failure exits non-zero and prints no result line):
                exactly once, equal to phase 45's unfaulted run; the
                survivor leaks no page and its launches = its decode steps
                x n_layers; takeover and rejoin times printed.
- 47. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 47. cluster — cluster training through the task master, as processes:
+               `python -m paddle_tpu_torch.runtime.master serve --faults
+               master_kill:step=N` on a snapshot, a `... master standby`
+               process on the same snapshot, and two trainer processes,
+               each running the CLI's `train --config=<phase 21's config>
+               --master_endpoints=PRIMARY,STANDBY --device=cuda` (as
+               `chip_smoke.py --cluster-trainer`, which prints the
+               process's kernel counts and step stamps) at phase 21's
+               widths; phase 21's 24 batches pickled into recordio shards,
+               one batch a task, through `cluster_reader`. The primary dies
+               mid-pass, the standby takes over, both trainers fail over.
+               Gates: done == ntasks and discarded == 0 on the standby, the
+               primary's exit KILLED_EXIT and the standby's takeover line,
+               both trainers trained (every task's batch was trained by
+               some trainer) and failed over, each ran one step graph with
+               gru_seq_fused fwd = 2 x (steps + test batches + the init's
+               forward) and bwd = 2 x steps, the cost falls. Printed: kill
+               -> the standby serving, kill -> each trainer's next logged
+               step, in ms.
+ 48. autoscale — `python -m paddle_tpu_torch.serving.router serve
+               --autoscale --autoscale_master M` in front of one `python -m
+               paddle_tpu_torch serve --demo --exit_on_drain` replica at
+               phase 4's widths; a master process seeded with
+               `--initial_world 1` and one trainer of phase 47 pulling its
+               tasks (paced by the h2d_delay site). 3 logical chips. Phase
+               45's 48 requests twice at once through the router (a
+               burst), idle, then the burst again. Gates: the controller's
+               decisions are spawn, drain, lend (resize to 2) and reclaim
+               (resize to 1) in that order; every request finishes with a
+               direct session's tokens; the epochs settle (idle, none timed
+               out) and the trainer's reader drained through both and
+               trained after the reclaim, on one graph with its GRU
+               launches = 2 x steps (+ the init's forward); every replica
+               that served launched the decode kernel decode steps x 12
+               times. Printed: spawn -> the replica live in the router's
+               view, in s; the decision log and the signals' timeline.
+ 49. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -8290,6 +8326,487 @@ def fleet_process_phase(torch, smi, fleet):
             p.wait(30)
 
 
+# phase 47: the task master in front of two CLI trainers of phase 21's
+# config at full width (vocab 30000, 512, batch 128, lengths 30-50), phase
+# 21's 24 batches of samples pickled into recordio shards of one batch each
+# (one task a shard); the primary dies to master_kill on its kill_step-th
+# RPC, mid-pass; a standby process on the same snapshot takes over. 1 test
+# batch at the pass end
+CLUSTER = dict(tasks=24, kill_step=11, lease_s=30.0, standby_poll_s=0.05,
+               test_batches=1)
+# phase 48: the autoscaler in front of GPT-2-small replicas (phase 4's
+# widths) and a trainer of phase 47, one card: the controller's chips are
+# logical (3: a replica and the training world at the start, one free).
+# The trainer is paced by the h2d_delay site (one batch a h2d_delay_ms) so
+# it trains through the whole drill. The thresholds and rate limits are
+# this drill's, set from its measured signals (PERF.md §6): a
+# spawned replica is live in the router's view ~12 s after its spawn, so
+# the burst (phase 45's 48 requests 4 times) outlasts the spawn, and the
+# serving cooldown (20 s) keeps the drain after the burst and a second
+# spawn from being ordered before the first one is seen; the router's
+# queue-wait estimate reads 0.8-1.3 s idle after a burst and tens of s in
+# one. The module's defaults stay the JAX package's
+AUTOSCALE = dict(chips=3, min_replicas=1, max_replicas=2, initial_world=1,
+                 tick_s=0.25, router_lease_s=1.5, master_lease_s=2.0,
+                 burst_repeat=4, h2d_delay_ms=100, repeat_tasks=60,
+                 config=dict(high_wait_s=10.0, low_wait_s=2.0, high_ticks=2, low_ticks=4,
+                             serving_cooldown_s=20.0, train_cooldown_s=4.0,
+                             flap_window_s=6.0, startup_quiet_s=6.0,
+                             drain_deadline_s=30.0, resize_timeout_s=30.0,
+                             train_min_world=0, train_max_world=2))
+
+
+def phase21_samples(n):
+    """Phase 21's training samples (V1_BIGRU_PROVIDER's, file "train")."""
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        label = int(rs.randint(2))
+        ids = rs.randint(3, V1_BIGRU["vocab"], size=rs.randint(
+            V1_BIGRU["min_len"], V1_BIGRU["max_len"] + 1))
+        ids[:4] = 1 + label
+        out.append({"word": ids.tolist(), "label": label})
+    return out
+
+
+def cluster_trainer(torch, conf_dir: str, argv) -> int:
+    """`chip_smoke.py --cluster-trainer CONF_DIR ARGS`: one trainer process
+    of phases 47-48. It runs the CLI's `train` command (what `python -m
+    paddle_tpu_torch train ARGS` runs) in this process, from CONF_DIR, and
+    prints one line: the exit code, the GRU launches, the step graphs, each
+    logged step's wall-clock stamp and cost, the wall-clock stamps of its
+    first failed master RPCs, and the fault-tolerance events."""
+    import logging
+
+    sys.path.insert(0, REPO)
+    from paddle_tpu_torch.core import stats
+
+    stamps, rpc_failures = [], []
+
+    class Stamp(logging.Handler):
+        def emit(self, r):
+            msg = r.getMessage()
+            if " cost=" in msg:
+                stamps.append((time.time(), float(msg.rsplit("cost=", 1)[1])))
+            elif " failed (" in msg:  # the master client's reconnect warning
+                rpc_failures.append(r.created)
+
+    for name in ("paddle_tpu_torch.trainer", "paddle_tpu_torch.master"):
+        logging.getLogger(name).setLevel(logging.INFO)
+        logging.getLogger(name).addHandler(Stamp())
+    zero_rnn_counts()
+    rc, lines, _, job = run_cli(conf_dir, ["train", "--config=conf.py", *argv], echo=False)
+    graphs = list(job.trainer.graphs.values())
+    print(json.dumps({
+        "rc": rc, "launches": rnn_counts(), "graphs": len(graphs),
+        "replays": sum(g.replays for g in graphs),
+        "samples": int(job.trainer.state["samples"]) if job.trainer.state else 0,
+        "stamps": stamps, "rpc_failures": rpc_failures[:8],
+        "pass_lines": [l for l in lines if l.startswith("pass ")],
+        "ft": stats.FT_EVENTS.as_dict()}), flush=True)
+    return 0
+
+
+def cluster_dir(tasks: int, repeat: int = 1):
+    """Phase 21's config and provider in a fresh directory, and phase 21's
+    first `tasks` batches of samples in recordio shards of one batch each
+    -> (the directory, the shard list repeated `repeat` times)."""
+    from paddle_tpu_torch.runtime import recordio
+
+    d = v1_config_dir("bigru", V1_BIGRU_CONFIG, V1_BIGRU_PROVIDER)
+    b = V1_BIGRU["batch"]
+    samples = phase21_samples(tasks * b)
+    shards = recordio.convert(os.path.join(d, "shards"), lambda: iter(samples),
+                              records_per_file=b)
+    if len(shards) != tasks:
+        fail(f"cluster: {len(shards)} shards for {tasks} batches")
+    return d, shards * repeat
+
+
+def trainer_cmd(conf_dir, endpoints, *extra):
+    cfg = V1_BIGRU
+    args = (f"--config_args=batches={CLUSTER['tasks']},test_batches="
+            f"{CLUSTER['test_batches']}")
+    return [os.path.join(REPO, "chip_smoke.py"), "--cluster-trainer", conf_dir, args,
+            f"--master_endpoints={endpoints}", "--device=cuda", "--num_passes=1",
+            "--log_period=1", *extra]
+
+
+def spawn_script(args, name, env):
+    """Start `python <args>` from the repository root; its stderr goes to
+    build/fleet_<name>.err."""
+    with open(os.path.join(REPO, "build", f"fleet_{name}.err"), "w") as err:
+        return subprocess.Popen([sys.executable, *args], cwd=REPO, env=env,
+                                stdout=subprocess.PIPE, stderr=err, text=True)
+
+
+def last_json(proc, name, timeout_s=120.0):
+    """A process's last stdout line, as JSON, once it exits."""
+    try:
+        out = proc.communicate(timeout=timeout_s)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out = proc.communicate()[0]
+    lines = [l for l in out.strip().splitlines() if l.startswith("{")]
+    if not lines:
+        with open(os.path.join(REPO, "build", f"fleet_{name}.err")) as f:
+            tail = f.read()[-3000:]
+        fail(f"{name}: printed no result (exit {proc.returncode}): {tail}")
+    return json.loads(lines[-1])
+
+
+def trainer_gates(name, res, tests):
+    """One trainer's launches, graphs and costs -> its summary."""
+    steps = res["samples"] // V1_BIGRU["batch"]
+    la = res["launches"]
+    want = (2 * (steps + tests + 1), 2 * steps)
+    out = dict(steps=steps, graphs=res["graphs"], replays=res["replays"],
+               gru_fwd_launches=la["FWD_LAUNCHES"], gru_bwd_launches=la["BWD_LAUNCHES"],
+               rc=res["rc"])
+    if (la["FWD_LAUNCHES"], la["BWD_LAUNCHES"]) != want:
+        fail(f"{name}: GRU launches {la} in {steps} steps, {tests} test batches and "
+             f"the init: want fwd {want[0]}, bwd {want[1]}")
+    if any(v for k, v in la.items() if k not in ("FWD_LAUNCHES", "BWD_LAUNCHES")):
+        fail(f"{name}: launched kernels it does not run: {la}")
+    if steps and (res["graphs"] != 1 or res["replays"] != steps - 1):
+        fail(f"{name}: {res['graphs']} step graphs, {res['replays']} replays in {steps} "
+             f"steps: want one graph, every step after the first a replay")
+    return out
+
+
+def cluster_phase(torch):
+    """Phase 47 (see the module docstring)."""
+    import signal
+    import threading
+
+    from paddle_tpu_torch.runtime.master import KILLED_EXIT, MasterClient
+
+    d, shards = cluster_dir(CLUSTER["tasks"])
+    env = dict(os.environ, PYTHONPATH=REPO)
+    p1, p2 = free_port(), free_port()
+    snap = os.path.join(d, "master.snap")
+    endpoints = f"127.0.0.1:{p1},127.0.0.1:{p2}"
+    procs, stamp = {}, {}
+    out = dict(config=dict(CLUSTER, **{k: V1_BIGRU[k] for k in (
+        "vocab", "size", "batch", "min_len", "max_len")}))
+    t0 = time.perf_counter()
+    try:
+        procs["primary"] = spawn(
+            ["paddle_tpu_torch.runtime.master", "serve", "--port", str(p1),
+             "--snapshot", snap, "--lease_s", str(CLUSTER["lease_s"]),
+             "--failure_max", "10", "--faults", f"master_kill:step={CLUSTER['kill_step']}"],
+            "master_primary", env)
+        first_json(procs["primary"], "master_primary")
+        boot = MasterClient(("127.0.0.1", p1))
+        boot.call("set_dataset", shards=shards, chunks_per_task=1)
+        boot.close()
+        procs["standby"] = spawn(
+            ["paddle_tpu_torch.runtime.master", "standby", "--port", str(p2),
+             "--primary", f"127.0.0.1:{p1}", "--snapshot", snap,
+             "--lease_s", str(CLUSTER["lease_s"]), "--poll_s",
+             str(CLUSTER["standby_poll_s"]), "--max_wait_s", "300"],
+            "master_standby", env)
+
+        def watch_standby():
+            line = procs["standby"].stdout.readline()
+            stamp["standby"] = time.time()
+            stamp["standby_line"] = line
+
+        threading.Thread(target=watch_standby, daemon=True).start()
+        for name in ("trainer_a", "trainer_b"):
+            procs[name] = spawn_script(trainer_cmd(d, endpoints), name, env)
+        res = {name: last_json(procs[name], name, timeout_s=300.0)
+               for name in ("trainer_a", "trainer_b")}
+        out["wall_s"] = time.perf_counter() - t0
+        procs["primary"].wait(30)
+        # the kill: the first master RPC that failed in either trainer (the
+        # primary dies inside a trainer's RPC; its process exits later)
+        fails = [t for r in res.values() for t in r["rpc_failures"]]
+        if fails:
+            stamp["kill"] = min(fails)
+        post = MasterClient(("127.0.0.1", p2))
+        st = post.call("stats")
+        post.close()
+        out["master"] = {k: st[k] for k in ("todo", "pending", "done", "discarded",
+                                            "pass", "evicted_trainers")}
+        out["primary_exit"] = procs["primary"].returncode
+        out["standby"] = json.loads(stamp.get("standby_line") or "{}")
+        for name, r in res.items():
+            out[name] = trainer_gates(name, r, CLUSTER["test_batches"])
+            after = [t for t, _ in r["stamps"] if t > stamp.get("kill", 1e30)]
+            out[name]["kill_to_next_batch_ms"] = (
+                (after[0] - stamp["kill"]) * 1e3 if after else None)
+            out[name]["failovers"] = r["ft"].get("master_failover", 0)
+            out[name]["pass_lines"] = r["pass_lines"]
+        out["kill_to_standby_serving_ms"] = (
+            (stamp["standby"] - stamp["kill"]) * 1e3
+            if "standby" in stamp and "kill" in stamp else None)
+        out["steps_after_kill"] = {
+            n: sum(t > stamp.get("kill", 1e30) for t, _ in r["stamps"]) for n, r in res.items()}
+        stamps = sorted(s for r in res.values() for s in r["stamps"])
+        costs = [c for _, c in stamps]
+        out["cost_first3"], out["cost_last3"] = costs[:3], costs[-3:]
+        print("cluster", json.dumps(out), flush=True)
+        consumed = sum(out[n]["steps"] for n in res)
+        if out["primary_exit"] != KILLED_EXIT or out["standby"].get("role") != "standby":
+            fail(f"cluster: primary exit {out['primary_exit']}, standby {out['standby']}")
+        if st["done"] != CLUSTER["tasks"] or st["discarded"] != 0:
+            fail(f"cluster: the master's books after the failover: {out['master']}")
+        if any(res[n]["rc"] != 0 for n in res) or not all(out[n]["steps"] for n in res):
+            fail(f"cluster: both trainers must pull work and exit 0: "
+                 f"{[(n, out[n]['steps'], res[n]['rc']) for n in res]}")
+        if consumed < CLUSTER["tasks"]:
+            fail(f"cluster: {consumed} batches trained, the pass has {CLUSTER['tasks']}")
+        if not all(out[n]["failovers"] for n in res):
+            fail("cluster: a trainer never failed over to the standby")
+        if "kill" not in stamp or not sum(out["steps_after_kill"].values()):
+            fail(f"cluster: the kill did not land mid-pass: {out['steps_after_kill']}")
+        if not (sum(out["cost_last3"]) < sum(out["cost_first3"])):
+            fail(f"cluster: the cost did not fall: {out['cost_first3']} -> "
+                 f"{out['cost_last3']}")
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs.values():
+            try:
+                p.wait(30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(30)
+
+
+def autoscale_phase(torch, fleet):
+    """Phase 48 (see the module docstring)."""
+    import signal
+    import threading
+
+    from paddle_tpu_torch.runtime.master import MasterClient
+    from paddle_tpu_torch.serving import ServingClient
+
+    cfg = AUTOSCALE
+    reqs, want = fleet["reqs"], fleet["tokens"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    logs = os.path.join(REPO, "build", "autoscale")
+    os.makedirs(logs, exist_ok=True)
+    for f in os.listdir(logs):
+        os.unlink(os.path.join(logs, f))
+    d, shards = cluster_dir(CLUSTER["tasks"], cfg["repeat_tasks"])
+    pm, pr = free_port(), free_port()
+    router = ("127.0.0.1", pr)
+    procs = {}
+    out = dict(config=dict(cfg))
+    # (s since the start, live replicas, draining, the router's queue-wait
+    # estimate, the training world, its epoch's state, epochs completed)
+    timeline = []
+    t0, t0_wall = time.monotonic(), time.time()
+    try:
+        procs["master"] = spawn(
+            ["paddle_tpu_torch.runtime.master", "serve", "--port", str(pm),
+             "--lease_s", str(cfg["master_lease_s"]),
+             "--initial_world", str(cfg["initial_world"])], "as_master", env)
+        first_json(procs["master"], "as_master")
+        mc = MasterClient(("127.0.0.1", pm), timeout=10.0)
+        mc.call("set_dataset", shards=shards, chunks_per_task=1)
+        procs["trainer"] = spawn_script(trainer_cmd(
+            d, f"127.0.0.1:{pm}", "--prefetch_depth=1",
+            f"--faults=h2d_delay:{cfg['h2d_delay_ms']}ms"), "as_trainer", env)
+        flags = ["--vocab", str(SERVE["vocab"]), "--n_layers", str(SERVE["n_layers"]),
+                 "--d_model", str(SERVE["d_model"]), "--n_heads", str(SERVE["n_heads"]),
+                 "--max_len", str(SERVE["max_len"]), "--max_slots", str(SERVE["max_slots"]),
+                 "--page_size", str(SERVE["page_size"]),
+                 "--prefill_buckets", ",".join(map(str, SERVE["prefill_buckets"])),
+                 "--prefill_chunk", str(SERVE["prefill_chunk"]),
+                 "--max_new_limit", str(SERVE["max_new_limit"]), "--seed", str(SERVE["seed"]),
+                 "--device", "cuda"]
+        procs["replica_a"] = spawn(["paddle_tpu_torch", "serve", "--demo", *flags,
+                                    "--router_endpoints", "%s:%d" % router,
+                                    "--exit_on_drain"], "as_replica_a", env)
+        addr_a = tuple(first_json(procs["replica_a"], "as_replica_a")["address"])
+        c = ServingClient(addr_a)
+        c.generate(WARM_PROMPT, 4, timeout_s=120.0)  # its first step and capture
+        c.close()
+        out["replica_a_ready_s"] = time.monotonic() - t0
+        procs["router"] = spawn(
+            ["paddle_tpu_torch.serving.router", "serve", "--port", str(pr),
+             "--lease_s", str(cfg["router_lease_s"]), "--autoscale",
+             "--autoscale_master", f"127.0.0.1:{pm}",
+             "--autoscale_tick_s", str(cfg["tick_s"]),
+             "--autoscale_chips", str(cfg["chips"]),
+             "--autoscale_min_replicas", str(cfg["min_replicas"]),
+             "--autoscale_max_replicas", str(cfg["max_replicas"]),
+             "--autoscale_config", json.dumps(cfg["config"]),
+             "--autoscale_spawn_log_dir", logs,
+             *[f"--autoscale_spawn_arg={a}" for a in ["--demo", *flags]]],
+            "as_router", env)
+        if first_json(procs["router"], "as_router").get("autoscale") is not True:
+            fail("autoscale: the router did not report its controller")
+        probe = MasterClient(router, timeout=10.0)
+        stop_watch = threading.Event()
+        marks = {}
+
+        def watch():
+            """The router's and the master's view every 0.1 s: a row of the
+            timeline whenever it changes, and the spawn's two marks."""
+            probe = MasterClient(router, timeout=10.0)
+            mc = MasterClient(("127.0.0.1", pm), timeout=10.0)
+            spawned = os.path.join(logs, "replica_0.err")
+            while not stop_watch.is_set():
+                rs, ms = probe.call("stats"), mc.call("stats")
+                reps = rs["replicas"]
+                rz = ms["resize"]
+                now = time.monotonic() - t0
+                row = (round(now, 3), sum(r["state"] == "live" for r in reps),
+                       sum(r["state"] == "draining" for r in reps),
+                       rs["estimated_queue_wait_s"], rz["world"], rz["state"],
+                       rz["completed"])
+                if not timeline or row[1:] != timeline[-1][1:]:
+                    timeline.append(row)
+                if "spawn" not in marks and os.path.exists(spawned):
+                    marks["spawn"] = now
+                if "spawn" in marks and "spawn_live" not in marks and row[1] == 2:
+                    marks["spawn_live"] = now
+                time.sleep(0.1)
+            probe.close()
+            mc.close()
+
+        deadline = time.monotonic() + 30
+        while probe.call("stats")["live_replicas"] < 1:
+            if time.monotonic() > deadline:
+                fail("autoscale: replica A did not join the router")
+            time.sleep(0.05)
+        wt = threading.Thread(target=watch, daemon=True)
+        wt.start()
+
+        def burst(tag):
+            """Every request of phase 45 `burst_repeat` times through the
+            router at once -> {(copy, index): tokens}."""
+            cl = ServingClient(router, timeout=30.0)
+            rids = {(k, i): cl.submit(reqs[i][0], NEW_TOKENS,
+                                      client_req_id=f"as-{tag}-{k}-{i}", **reqs[i][1])
+                    for k in range(cfg["burst_repeat"]) for i in range(len(reqs))}
+            toks, deadline = {}, time.monotonic() + 300
+            while len(toks) < len(rids) and time.monotonic() < deadline:
+                for key, rid in rids.items():
+                    if key not in toks:
+                        r = cl.poll(rid)
+                        if r.get("done"):
+                            toks[key] = list(r["tokens"])
+                time.sleep(0.02)
+            cl.close()
+            return toks, len(rids)
+
+        def wait_for(cond, what, timeout_s):
+            deadline = time.monotonic() + timeout_s
+            while not cond():
+                if time.monotonic() > deadline:
+                    fail(f"autoscale: {what} did not happen in {timeout_s:.0f} s: "
+                         f"timeline {timeline}")
+                time.sleep(0.1)
+            return time.monotonic() - t0
+
+        # 1. a burst: the controller spawns a second replica
+        marks["burst1"] = time.monotonic() - t0
+        got1, n1 = burst("b1")
+        marks["burst1_done"] = time.monotonic() - t0
+        wait_for(lambda: "spawn_live" in marks, "the spawned replica going live", 120)
+        # 2. idle: a drain, then the freed chip lent to training (world 2)
+        marks["lent"] = wait_for(
+            lambda: mc.call("stats")["resize"]["world"] == 2
+            and mc.call("stats")["resize"]["state"] == "idle", "the lend", 120)
+        # 3. the next burst, past the flap window: the chip comes back first
+        time.sleep(max(0.0, cfg["config"]["flap_window_s"] + 1.0
+                       - (time.monotonic() - t0 - marks["lent"])))
+        marks["burst2"] = time.monotonic() - t0
+        box = {}
+        bt = threading.Thread(target=lambda: box.update(r=burst("b2")), daemon=True)
+        bt.start()
+        marks["reclaimed"] = wait_for(
+            lambda: mc.call("stats")["resize"]["world"] == 1, "the reclaim", 120)
+        bt.join(300)
+        got2, n2 = box.get("r", ({}, -1))
+        marks["burst2_done"] = time.monotonic() - t0
+        stop_watch.set()
+        wt.join(5)
+        mst = mc.call("stats")
+        out["resize"] = mst["resize"]
+        out["master"] = {k: mst[k] for k in ("done", "discarded", "live_leases")}
+        # the controller's decision log, the trainer, then every replica
+        procs["router"].send_signal(signal.SIGTERM)
+        ctl = last_json(procs["router"], "as_router", timeout_s=60.0)["autoscaler"]
+        procs["trainer"].send_signal(signal.SIGTERM)
+        tres = last_json(procs["trainer"], "as_trainer", timeout_s=120.0)
+        replicas = {}
+        if procs["replica_a"].poll() is None:
+            procs["replica_a"].send_signal(signal.SIGTERM)
+        replicas["replica_a"] = last_json(procs["replica_a"], "as_replica_a", 60.0)
+        for f in sorted(os.listdir(logs)):
+            if f.endswith(".out"):
+                with open(os.path.join(logs, f)) as fh:
+                    lines = [l for l in fh.read().splitlines() if l.startswith("{")]
+                replicas[f[:-4]] = json.loads(lines[-1]) if lines else {}
+        out.update(marks=marks, timeline=timeline, decisions=ctl["actions"],
+                   controller=ctl, spawn_to_live_s=marks["spawn_live"] - marks["spawn"])
+        out["replicas"] = {
+            n: dict(decode_steps=r.get("final_stats", {}).get("decode_steps"),
+                    captures=r.get("final_stats", {}).get("decode_graph_captures"),
+                    launches=r.get("paged_attention_launches"))
+            for n, r in replicas.items()}
+        stamps = [t for t, _ in tres["stamps"]]
+        out["trainer"] = dict(rc=tres["rc"], steps=tres["samples"] // V1_BIGRU["batch"],
+                              graphs=tres["graphs"], replays=tres["replays"],
+                              launches=tres["launches"], ft=tres["ft"])
+        print("autoscale", json.dumps(out), flush=True)
+        acts = [a.split(":")[0] if not a.startswith("resize") else a for a in ctl["actions"]]
+        order = [a for a in acts if a in ("spawn", "drain", "resize:2", "resize:1")]
+        if order[:4] != ["spawn", "drain", "resize:2", "resize:1"]:
+            fail(f"autoscale: decisions {ctl['actions']}: want spawn, drain, lend "
+                 f"(resize:2), reclaim (resize:1) in that order")
+        bad = {k: v for k, v in {**{("b1",) + k: v for k, v in got1.items()},
+                                 **{("b2",) + k: v for k, v in got2.items()}}.items()
+               if v != want[k[-1]]}
+        if len(got1) != n1 or len(got2) != n2 or bad:
+            fail(f"autoscale: {len(got1)}/{n1} and {len(got2)}/{n2} requests finished, "
+                 f"{len(bad)} with tokens other than a direct session's")
+        rz = mst["resize"]
+        if rz["state"] != "idle" or rz["completed"] < 2 or rz["last"].get("timed_out"):
+            fail(f"autoscale: the resize epochs did not settle: {rz}")
+        after = [t for t in stamps if t > t0_wall + marks["reclaimed"]]
+        out["trainer"]["steps_after_reclaim"] = len(after)
+        if tres["ft"].get("reader_resize_drain", 0) < 2 or not after:
+            fail(f"autoscale: the trainer did not train through both epochs: "
+                 f"{out['trainer']}")
+        steps, la = out["trainer"]["steps"], tres["launches"]
+        if (la["FWD_LAUNCHES"], la["BWD_LAUNCHES"]) != (2 * (steps + 1), 2 * steps) or (
+                tres["graphs"] != 1):
+            fail(f"autoscale: the trainer's GRU launches {la} and {tres['graphs']} graphs "
+                 f"in {steps} steps")
+        # a replica spawned by the second burst may still be loading at the
+        # end: SIGTERM reaches it before it serves, and it reports nothing
+        served = {n: r for n, r in out["replicas"].items() if r["launches"] is not None}
+        for n, r in served.items():
+            if r["launches"] != r["decode_steps"] * GPT2_SMALL["n_layers"]:
+                fail(f"autoscale: {n} launched the decode kernel {r['launches']} times "
+                     f"in {r['decode_steps']} decode steps")
+        if "replica_a" not in served or "replica_0" not in served:
+            fail(f"autoscale: replica A and the first spawned replica must report: "
+                 f"{out['replicas']}")
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs.values():
+            try:
+                p.wait(30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(30)
+
+
 def train_of(torch, tree: str) -> int:
     """`--train-of TREE`: the training phases (5, 7 and 10) of the
     chip_smoke.py in TREE, a checkout of this repository (an earlier
@@ -8338,6 +8855,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--train-of"]:
         return train_of(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--cluster-trainer"]:
+        return cluster_trainer(torch, sys.argv[2], sys.argv[3:])
     sys.path.insert(0, REPO)
     from paddle_tpu_torch.ops import build
 
@@ -8524,9 +9043,16 @@ def main() -> int:
     release(torch)
     fleet = fleet_phase(torch, smi)
     fleet_proc = fleet_process_phase(torch, smi, fleet)
+
+    # 47. cluster training through the task master with a failover, 48. the
+    # autoscaler in front of replica processes and a trainer (counters from
+    # 0 in each process)
+    release(torch)
+    cluster = cluster_phase(torch)
+    autoscale = autoscale_phase(torch, fleet)
     del fleet["reqs"]
 
-    # 47. lines
+    # 49. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -8539,6 +9065,8 @@ def main() -> int:
         "launches_fleet": fleet["clean"]["launches"],
         "launches_fleet_faulted": fleet["faulted"]["launches"],
         "launches_fleet_processes_survivor": fleet_proc["survivor"]["launches"],
+        "launches_autoscale_replicas": {
+            n: r["launches"] for n, r in autoscale["replicas"].items()},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "kernel_ms": main_row["kernel_ms"],
@@ -8587,6 +9115,9 @@ def main() -> int:
             "launches_v2_gen_train": v2_gen["train_launches"][v1_key],
             "launches_v1_proto": v1_proto["kernel_launches"][v1_key],
             "launches_book_nmt_train": book_nmt["kernel_launches"][v1_key],
+            "launches_cluster_trainers": [cluster[n][f"gru_{leg}_launches"]
+                                          for n in ("trainer_a", "trainer_b")],
+            "launches_autoscale_trainer": autoscale["trainer"]["launches"][v1_key],
             **({"launches_deploy": deploy["forward_launches"]["FWD_LAUNCHES"]
                 + deploy["get_layer_output_launches"]["FWD_LAUNCHES"],
                 "launches_v2_infer": v2_api["infer_launches"]["FWD_LAUNCHES"],
@@ -8683,7 +9214,8 @@ def main() -> int:
                    "fluid_lstm": fluid_lstm, "fluid_control": fluid_control, "gan": gan,
                    "ssd": ssd, "struct_costs": struct_costs, "rnn_extra": rnn_extra,
                    "layers3d": layers3d, "runtime": runtime, "fleet": fleet,
-                   "fleet_processes": fleet_proc},
+                   "fleet_processes": fleet_proc, "cluster": cluster,
+                   "autoscale": autoscale},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,8 @@ tests pass `cpu`; the v1 flags `--use_gpu=0` / `--use_tpu=0` mean `cpu`):
         [--precision=f32|bf16] [--steps_per_dispatch=K] [--auto_resume=1]
         [--keep_last_n=N] [--async_checkpoint=0|1] [--prefetch_depth=N]
         [--divergence_policy=skip_batch|rollback|raise] [--remat=...]
-        [--faults=SPEC] [--device=cuda|cpu]
+        [--faults=SPEC] [--master_endpoints=H:P[,H:Q]] [--elastic=0|1]
+        [--profile=pass:N --profile_dir=DIR] [--device=cuda|cpu]
     python -m paddle_tpu_torch dump_config --config=conf.py [--config_args=...]
     python -m paddle_tpu_torch merge_model --config=conf.py --model_dir=DIR
         --output=FILE [--config_args=...]
@@ -33,10 +34,19 @@ binds the provider's input types to the data layers, and trains through
 `SGDTrainer` (on the card, each step a replay of the step graph). It prints
 a line per pass, `pass N: avg_cost=... [test_cost=...] [Evaluator=...]`;
 `--job=test` prints `{"test_cost", "samples"}` and `--job=time`
-`{"ms_per_batch", "batches"}`. Flags whose subsystem the port does not have
-yet raise a named NotImplementedError (exit code 2): `--trainer_count > 1`
-(data parallelism, ROADMAP.md §1 item 8), `--master_endpoints`,
-`--elastic`, `--profile` (item 7b) and `--compile_cache` (jax's cache, no
+`{"ms_per_batch", "batches"}`. `--master_endpoints` pulls the training
+samples from a task master (`runtime/master.cluster_reader`: pickled
+provider-format samples in recordio shards; a primary,standby list fails
+over) in place of the config's provider, so a config without data sources
+trains there. `--elastic` at `--trainer_count=1` says it needs a mesh and
+trains on, as in the reference (a resize epoch reaching the trainer is
+ignored). `--profile=pass:N` captures pass N as a torch.profiler trace
+and writes `profile.json` (the step's FLOP and byte buckets,
+`obs/profile.py`) under `--profile_dir`, printing `{"profile_json",
+"trace_dir"}`; with `--job=time` the buckets join the timing line as
+`hlo_cost`. Flags whose subsystem the port does not have yet raise a named
+NotImplementedError (exit code 2): `--trainer_count > 1` (data
+parallelism, ROADMAP.md §1 item 8) and `--compile_cache` (jax's cache, no
 counterpart). `--shard_update` and `--grad_compression` at
 `--trainer_count=1` warn and are ignored, as in the reference.
 
@@ -62,6 +72,7 @@ import json
 import logging
 import os
 import sys
+import tempfile
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -158,15 +169,25 @@ def _train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--faults", default=None,
                    help="chaos-injection spec, e.g. 'nan_loss:step=37'")
     p.add_argument("--master_endpoints", default=None,
-                   help="elastic task master (not ported yet: raises)")
+                   help="pull training data from an elastic task master instead "
+                        "of the config's provider: 'host:port' or a failover "
+                        "list 'a:p1,b:p2' (primary + standby); shards hold "
+                        "pickled provider-format samples")
     p.add_argument("--profile", default=None, metavar="pass:N",
-                   help="profile pass N (not ported yet: raises)")
-    p.add_argument("--profile_dir", default=None)
+                   help="capture a torch.profiler trace of pass N and write the "
+                        "step's FLOP/byte buckets as profile.json; with "
+                        "--job=time the buckets join the printed JSON line")
+    p.add_argument("--profile_dir", default=None,
+                   help="where the trace and profile.json go (default: "
+                        "<save_dir>/profile, else a directory under TMPDIR)")
     p.add_argument("--preempt_grace_s", type=float, default=30.0,
                    help="drain budget after SIGTERM/SIGINT: checkpoint and "
                         "exit with code 77")
     p.add_argument("--elastic", type=_str2bool, default=False,
-                   help="elastic resize (not ported yet: raises)")
+                   help="join the master's elastic-resize plane (needs "
+                        "--master_endpoints and --trainer_count > 1, a mesh "
+                        "to re-shape; without them training goes on without "
+                        "elastic resize)")
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
@@ -177,15 +198,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     if args.trainer_count > 1:
         refuse("data-parallel training (--trainer_count > 1, --shard_update, "
                "--grad_compression)", "8, parallelism")
-    if args.master_endpoints:
-        refuse("the elastic task master (--master_endpoints)",
-               "7b, the task plane and elastic training")
-    if args.elastic:
-        refuse("elastic resize (--elastic)",
-               "7b, the task plane and elastic training")
-    if args.profile:
-        refuse("the pass profiler (--profile, obs/profile.py)",
-               "7b, the task plane and elastic training")
     if args.compile_cache:
         raise NotPorted(
             "--compile_cache is the JAX package's persistent XLA compilation "
@@ -310,12 +322,27 @@ class TrainJob:
             print("config declares no data sources (define_py_data_sources2)",
                   file=sys.stderr)
             return 2
+        profiler = None
+        profile_dir = None
+        if args.profile:
+            from paddle_tpu_torch.obs import profile as obs_profile
+
+            profile_dir = args.profile_dir or (
+                os.path.join(args.save_dir, "profile") if args.save_dir
+                else os.path.join(tempfile.gettempdir(), "paddle_tpu_torch_profile"))
+            try:
+                profiler = obs_profile.PassProfiler.from_spec(args.profile,
+                                                              logdir=profile_dir)
+            except ValueError as e:
+                print(str(e), file=sys.stderr)
+                return 2
         if args.init_model_path:
             trainer.init_state(feeder(next(iter(reader() if reader else test_reader()))))
             trainer.load(args.init_model_path,
                          args.start_pass - 1 if args.start_pass else None)
         if args.job == "time":
-            return _job_time(trainer, reader, feeder, args.num_batches)
+            return _job_time(trainer, reader, feeder, args.num_batches,
+                             profile_dir=profile_dir)
         if args.job == "test":
             if test_reader is None:
                 print("--job=test needs a test data source", file=sys.stderr)
@@ -342,6 +369,15 @@ class TrainJob:
                     line += f" {k}={v}"
                 print(line, flush=True)
 
+        if profiler is not None:
+            handler = profiler.wrap(handler)
+        profile_reader = reader  # the cost report's batch, before the prefetcher
+        if args.elastic:
+            # the port's trainer has no mesh (--trainer_count > 1 is item 8):
+            # the reference's message for a trainer without one, and train on
+            print("--elastic needs --master_endpoints (the resize plane rides "
+                  "the master heartbeats) and --trainer_count > 1 (a mesh to "
+                  "re-shape); continuing without elastic resize", file=sys.stderr)
         if args.prefetch_depth > 0:
             # feed and host-to-device copy on a worker thread, ahead of the step
             from paddle_tpu_torch.data.pipeline import DevicePrefetcher
@@ -367,7 +403,29 @@ class TrainJob:
             return preempt.EXIT_PREEMPTED
         finally:
             preempt.reset()
+        if profiler is not None:
+            self._profile_report(profiler, profile_dir, profile_reader)
         return 0
+
+    def _profile_report(self, profiler, profile_dir: str, reader) -> None:
+        """Write profile.json (whether the pass was captured, and the step's
+        cost buckets against the reader's first batch) and print where."""
+        from paddle_tpu_torch.obs import profile as obs_profile
+
+        report = {"profile": self.args.profile, "trace_dir": profile_dir,
+                  "captured": profiler.captured}
+        try:
+            raw = next(iter(reader()), None) if reader is not None else None
+            if raw is not None and self.trainer.state is not None:
+                batch = (self.feeder(raw) if self.feeder is not None
+                         and not isinstance(raw, dict) else raw)
+                report.update(obs_profile.trainer_cost_report(self.trainer, batch))
+        except Exception as e:  # the report must not fail a finished run
+            log.warning("step cost report failed: %r", e)
+            report["error"] = repr(e)[-400:]
+        path = obs_profile.write_report(report, os.path.join(profile_dir, "profile.json"))
+        print(json.dumps({"profile_json": path,
+                          "trace_dir": profile_dir if profiler.captured else None}))
 
 
 def prepare_train(args: argparse.Namespace) -> TrainJob:
@@ -429,6 +487,14 @@ def prepare_train(args: argparse.Namespace) -> TrainJob:
     feeding = bind_provider_types(pc.topology, bind_dc) if bind_dc is not None else None
     feeder = pc.topology.make_feeder(feeding)
     reader = make_reader(data_config, batch_size) if data_config else None
+    if args.master_endpoints:
+        # the cluster data path: this trainer is a stateless consumer of the
+        # master's task queue; the endpoint list gives it a standby to fail
+        # over to when the primary dies mid-pass
+        from paddle_tpu_torch.data import reader as rd
+        from paddle_tpu_torch.runtime.master import cluster_reader
+
+        reader = rd.batch(cluster_reader(args.master_endpoints), batch_size)
     test_reader = make_reader(test_config, batch_size, is_train=False) if test_config else None
 
     base_dir = ((bind_dc.config_dir if bind_dc is not None else None)
@@ -448,11 +514,14 @@ def cmd_train(args: argparse.Namespace) -> int:
     return prepare_train(args).run()
 
 
-def _job_time(trainer, reader, feeder, num_batches: int) -> int:
+def _job_time(trainer, reader, feeder, num_batches: int,
+              profile_dir: Optional[str] = None) -> int:
     """--job=time (TrainerBenchmark.cpp): the mean time of `num_batches`
     training steps. The first step of the batch signature runs eagerly and,
     on the card, is captured; only the replays that follow are timed, with
-    one synchronize at the end."""
+    one synchronize at the end. With `profile_dir` (--profile) the timed
+    window is a torch.profiler trace there, and the step's cost buckets
+    (one eager step on a copy of the state) join the line as `hlo_cost`."""
     import torch
 
     it = iter(reader())
@@ -471,13 +540,25 @@ def _job_time(trainer, reader, feeder, num_batches: int) -> int:
     trainer.step(batches[0])  # eager, then captured
     if cuda:
         torch.cuda.synchronize()
+    if profile_dir is not None:
+        from paddle_tpu_torch.core import stats
+
+        stats.profiler_start(profile_dir)
     t0 = time.perf_counter()
     for b in batches:
         trainer.step(b)
     if cuda:
         torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / len(batches)
-    print(json.dumps({"ms_per_batch": dt * 1e3, "batches": len(batches)}))
+    out = {"ms_per_batch": dt * 1e3, "batches": len(batches)}
+    if profile_dir is not None:
+        from paddle_tpu_torch.obs import profile as obs_profile
+
+        stats.profiler_stop()
+        out["trace_dir"] = profile_dir
+        out["hlo_cost"] = obs_profile.trainer_cost_report(
+            trainer, batches[0])["executables"]["train_step"]
+    print(json.dumps(out))
     return 0
 
 

@@ -35,6 +35,22 @@ Sites the ported code polls (hooks live next to the code they sabotage):
     preempt        simulated preemption notice: sets the     (trainer.SGDTrainer.train)
                    core.preempt drain flag (SIGTERM analog);
                    the next dispatch boundary drains
+    h2d_delay      sleep inside the prefetcher's H2D leg     (data.pipeline.DevicePrefetcher)
+    master_drop    the master drops an RPC without replying  (runtime.master._Handler)
+    master_kill    the master process dies mid-RPC: the      (runtime.master._Handler)
+                   server shuts down abruptly, no reply, no
+                   final snapshot; a standby must absorb it
+    resize_drain_stall  a member wedges INSIDE the resize    (runtime.master.ResizeClient,
+                   drain barrier and never acks, so the       cluster_reader's drain)
+                   master must time it out or evict it;
+                   stall length via PADDLE_TPU_RESIZE_STALL_S
+                   (default 300)
+    controller_kill  the autoscaler controller dies at the   (runtime.autoscaler
+                   top of a tick; the fleet it steered         .AutoscalerController.tick)
+                   degrades to a static fleet
+    scale_decision_stall  an autoscaler tick wedges before   (runtime.autoscaler
+                   deciding; stall length via                  .AutoscalerController.tick)
+                   PADDLE_TPU_SCALE_STALL_S (default 300)
 
 Seeding: `PADDLE_TPU_FAULTS_SEED` (or the `seed` argument). Each site gets
 its own `random.Random(f"{seed}:{site}")` stream, so the fire pattern of one
@@ -179,6 +195,14 @@ class FaultInjector:
         if self.fire(site):
             raise InjectedFault(f"injected fault {site!r} (chaos harness)")
 
+    def sleep(self, site: str) -> None:
+        """Delay-site hook: sleep the configured duration when firing."""
+        with self._lock:
+            fs = self.spec.get(site)
+            delay = fs.delay_s if fs is not None else None
+        if delay and self.fire(site):
+            time.sleep(delay)
+
     def reset(self) -> None:
         self.configure(self.spec_str, self.seed)
 
@@ -197,8 +221,8 @@ def maybe_stall(
 ) -> bool:
     """Wedge-the-thread hook of the stall sites: when `site` fires, sleep
     for `$env` seconds (default `default_s`) — long enough for the watchdog
-    that owns this thread (the serving supervisor) to supersede it — then
-    return True."""
+    that owns this thread (the serving supervisor, the master's drain
+    timeout or lease eviction) to supersede it — then return True."""
     if not (ACTIVE.active and ACTIVE.fire(site)):
         return False
     stall_s = float(os.environ.get(env, str(default_s)))

@@ -20,8 +20,9 @@ directly, so the drain is a deterministic, tested path without signals.
 
 `request_resize(world)` parks an elastic-resize order (a cooperative drain
 that re-shards the state and continues) exactly as the JAX package does;
-the port's trainer has no mesh to re-shard yet and raises a named
-NotImplementedError when it finds one pending (ROADMAP item 8)."""
+the port's trainer has no mesh to re-shard yet (ROADMAP item 8), so it
+takes a pending order and ignores it, as the JAX package's trainer without
+a mesh does."""
 
 from __future__ import annotations
 

@@ -193,7 +193,9 @@ class DevicePrefetcher:
 
     def _to_device(self, batch: Dict[str, Any]):
         """A feed-ready host batch -> (tensors on the device, the copies'
-        CUDA event or None)."""
+        CUDA event or None). The `h2d_delay` fault site sleeps here, once a
+        copy."""
+        faults.get().sleep("h2d_delay")
         host = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
                 for k, v in batch.items()}
         if self.device.type != "cuda":

@@ -4,21 +4,28 @@ The port's slice of `paddle_tpu/obs/metrics.py`: the registry primitives,
 the collector that absorbs the named `core.stats.EventCounter` groups and
 the tracer's span counts, the serving failure-path counters the scheduler,
 KV cache and session increment, the router tier's counters, and the
-flat/Prometheus read paths. Metric names are the JAX package's, so one
-dashboard reads either engine. The fleet gauges, the aggregation and the
-resize and autoscaler counters are ROADMAP.md §1 item 7b."""
+flat/Prometheus read paths, the resize-epoch and autoscaler counters, and
+the master's fleet view: `snapshot()` is the flat dict a trainer
+piggybacks on its heartbeat, `FleetMetrics` keeps one per trainer on the
+master and `aggregate_snapshots` sums them, and `to_prometheus_text(fleet=)`
+renders that aggregate. Metric names are the JAX package's, so one
+dashboard reads either engine."""
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Dict, Iterable, List, Mapping, NamedTuple, Optional, Tuple
 
 __all__ = [
     "Counter",
     "Histogram",
     "MetricsRegistry",
+    "FleetMetrics",
+    "Gauge",
     "REGISTRY",
     "Sample",
+    "aggregate_snapshots",
     "observe_deadline_miss",
     "observe_engine_restart",
     "observe_late_result_dropped",
@@ -28,8 +35,12 @@ __all__ = [
     "observe_prefix_hit",
     "observe_replica_evicted",
     "observe_replica_failover",
+    "observe_resize",
     "observe_router_hedge",
     "observe_router_shed",
+    "observe_scale_decision",
+    "observe_scale_rejected",
+    "observe_scale_suppressed",
     "observe_shed",
     "observe_takeover",
     "snapshot",
@@ -72,6 +83,16 @@ class Counter:
             items = list(self._vals.items())
         for key, v in items or [((), 0.0)]:
             yield Sample(self.name, self.mtype, v, key)
+
+
+class Gauge(Counter):
+    """Last-write-wins value; `set()` replaces, `inc()` still adjusts."""
+
+    mtype = "gauge"
+
+    def set(self, v: float, **labels: Any) -> None:
+        with self._lock:
+            self._vals[_labels(labels)] = float(v)
 
 
 class Histogram:
@@ -136,6 +157,9 @@ class MetricsRegistry:
     def counter(self, name: str, help: str = "") -> Counter:
         return self._get(Counter, name, help)
 
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get(Gauge, name, help)
+
     def histogram(self, name: str, help: str = "", buckets=None) -> Histogram:
         return self._get(Histogram, name, help, buckets=buckets)
 
@@ -155,9 +179,14 @@ class MetricsRegistry:
             out.extend(fn())
         return out
 
+    def reset(self) -> None:
+        with self._lock:
+            self._metrics.clear()
+
 
 def _stats_collector() -> Iterable[Sample]:
-    """Absorb every registered core.stats EventCounter group."""
+    """Absorb core.stats: every registered EventCounter group, the StatSet
+    timers and the shape-signature count."""
     from paddle_tpu_torch.core import stats
 
     for group, ec in stats.EVENT_COUNTERS.items():
@@ -166,6 +195,15 @@ def _stats_collector() -> Iterable[Sample]:
                 "paddle_tpu_events_total", "counter", float(n),
                 (("event", event), ("group", group)),
             )
+    for name, d in sorted(stats.GLOBAL_STATS.as_dict().items()):
+        yield Sample(
+            "paddle_tpu_timer_ms_total", "counter", float(d["total_ms"]),
+            (("name", name),),
+        )
+        yield Sample(
+            "paddle_tpu_timer_calls_total", "counter", float(d["count"]),
+            (("name", name),),
+        )
 
 
 def _trace_collector() -> Iterable[Sample]:
@@ -184,6 +222,24 @@ def _trace_collector() -> Iterable[Sample]:
 REGISTRY = MetricsRegistry()
 REGISTRY.register_collector(_stats_collector)
 REGISTRY.register_collector(_trace_collector)
+
+
+def observe_resize(phase_seconds: Mapping[str, float]) -> None:
+    """Record one completed elastic-resize epoch: bumps
+    `paddle_tpu_resize_epochs_total` and adds each phase's seconds to
+    `paddle_tpu_resize_latency_seconds_total{phase=...}`. Counters, not
+    gauges: the master sums heartbeat snapshots key by key, so the fleet
+    aggregate reads as total epochs and total seconds a phase."""
+    REGISTRY.counter(
+        "paddle_tpu_resize_epochs_total",
+        "completed elastic resize epochs",
+    ).inc()
+    lat = REGISTRY.counter(
+        "paddle_tpu_resize_latency_seconds_total",
+        "elastic resize wall-clock by phase",
+    )
+    for phase, s in phase_seconds.items():
+        lat.inc(float(s), phase=phase)
 
 
 # -- serving failure-path counters ---------------------------------------------
@@ -315,6 +371,34 @@ def observe_router_shed(reason: str) -> None:
     ).inc(reason=reason)
 
 
+def observe_scale_decision(lever: str, direction: str) -> None:
+    """The autoscaler admitted one scale action past its hysteresis,
+    cooldown and flap gates; lever 'serving' (spawn/drain) or 'train'
+    (resize epoch), direction 'grow' or 'shrink'."""
+    REGISTRY.counter(
+        "paddle_tpu_autoscaler_decisions_total",
+        "autoscaler scale actions admitted, by lever and direction",
+    ).inc(lever=lever, direction=direction)
+
+
+def observe_scale_suppressed(reason: str) -> None:
+    """The decision engine wanted an action but a rate-limit gate held it:
+    'startup', 'cooldown', 'flap' or 'backoff'."""
+    REGISTRY.counter(
+        "paddle_tpu_autoscaler_suppressed_total",
+        "autoscaler actions suppressed by rate-limit gates, by reason",
+    ).inc(reason=reason)
+
+
+def observe_scale_rejected(lever: str) -> None:
+    """A pulled lever refused the order (a resize the master rejected, or
+    one that timed out): the backoff trigger."""
+    REGISTRY.counter(
+        "paddle_tpu_autoscaler_rejected_total",
+        "autoscaler lever pulls rejected or timed out, by lever",
+    ).inc(lever=lever)
+
+
 # -- read paths -----------------------------------------------------------------
 
 
@@ -325,10 +409,66 @@ def _flat_key(s: Sample) -> str:
 
 
 def snapshot(registry: Optional[MetricsRegistry] = None) -> Dict[str, float]:
-    """Flat {key: value} view of every sample."""
+    """Flat {key: value} view of every sample: the payload a trainer
+    piggybacks on its master heartbeat."""
     return {
         _flat_key(s): s.value for s in (registry or REGISTRY).collect()
     }
+
+
+def aggregate_snapshots(snaps: Iterable[Mapping[str, float]]) -> Dict[str, float]:
+    """Sum per-trainer snapshots key by key; a value that is not a number
+    is skipped."""
+    out: Dict[str, float] = {}
+    for snap in snaps:
+        for k, v in snap.items():
+            try:
+                out[k] = out.get(k, 0.0) + float(v)
+            except (TypeError, ValueError):
+                continue
+    return out
+
+
+class FleetMetrics:
+    """The master's store of per-trainer heartbeat snapshots. An entry
+    expires `ttl_s` after its last heartbeat (a dead trainer's numbers must
+    not inflate the fleet forever) and goes at once on deregister or
+    eviction, with the lease."""
+
+    def __init__(self, ttl_s: float = 60.0):
+        self.ttl_s = float(ttl_s)
+        self._lock = threading.Lock()
+        self._by_id: Dict[str, Tuple[float, Dict[str, float]]] = {}
+
+    def update(self, trainer_id: str, snap: Mapping[str, Any]) -> None:
+        if not trainer_id or not isinstance(snap, Mapping):
+            return
+        clean = {
+            str(k): float(v)
+            for k, v in snap.items()
+            if isinstance(v, (int, float))
+        }
+        with self._lock:
+            self._by_id[trainer_id] = (time.monotonic(), clean)
+
+    def drop(self, trainer_id: Optional[str]) -> None:
+        if not trainer_id:
+            return
+        with self._lock:
+            self._by_id.pop(trainer_id, None)
+
+    def aggregate(self) -> Dict[str, Any]:
+        cutoff = time.monotonic() - self.ttl_s
+        with self._lock:
+            live = {
+                tid: snap
+                for tid, (seen, snap) in self._by_id.items()
+                if seen >= cutoff
+            }
+        return {
+            "reporting_trainers": len(live),
+            "counters": aggregate_snapshots(live.values()),
+        }
 
 
 def _escape(v: str) -> str:
@@ -344,8 +484,13 @@ def _fmt(v: float) -> str:
     return repr(f)
 
 
-def to_prometheus_text(registry: Optional[MetricsRegistry] = None) -> str:
-    """Render the registry in the Prometheus text exposition format."""
+def to_prometheus_text(
+    registry: Optional[MetricsRegistry] = None,
+    fleet: Optional[Mapping[str, Any]] = None,
+    extra: Optional[Mapping[str, float]] = None,
+) -> str:
+    """Render the registry (plus an optional fleet aggregate and flat extra
+    gauges) in the Prometheus text exposition format."""
     samples = (registry or REGISTRY).collect()
     by_name: Dict[str, List[Sample]] = {}
     types: Dict[str, str] = {}
@@ -361,4 +506,20 @@ def to_prometheus_text(registry: Optional[MetricsRegistry] = None) -> str:
                 lines.append(f"{name}{{{lab}}} {_fmt(s.value)}")
             else:
                 lines.append(f"{name} {_fmt(s.value)}")
+    if extra:
+        for k, v in sorted(extra.items()):
+            lines.append(f"# TYPE {k} gauge")
+            lines.append(f"{k} {_fmt(v)}")
+    if fleet:
+        n = int(fleet.get("reporting_trainers", 0) or 0)
+        lines.append("# TYPE paddle_tpu_fleet_reporting_trainers gauge")
+        lines.append(f"paddle_tpu_fleet_reporting_trainers {n}")
+        counters = fleet.get("counters") or {}
+        if counters:
+            lines.append("# TYPE paddle_tpu_fleet gauge")
+            for k, v in sorted(counters.items()):
+                lines.append(
+                    f'paddle_tpu_fleet{{key="{_escape(str(k))}"}} '
+                    f"{_fmt(v)}"
+                )
     return "\n".join(lines) + "\n"

@@ -32,14 +32,16 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 __all__ = [
     "TRACER",
     "Tracer",
     "activate",
+    "current_context",
     "enable_tracing",
     "export_chrome",
+    "merge_chrome",
     "record_span",
     "reset",
     "span",
@@ -256,6 +258,10 @@ def span_from_monotonic(
 # -- cross-process context ---------------------------------------------------
 
 
+def current_context() -> Optional[Tuple[str, str]]:
+    return TRACER.current()
+
+
 def wire_context() -> Optional[Dict[str, str]]:
     """The current span as the tiny dict that piggybacks on line-JSON RPC
     frames (`"_trace": {"t": ..., "s": ...}`); None when disabled/no span."""
@@ -363,6 +369,28 @@ def export_chrome(path: Optional[str] = None) -> Dict[str, Any]:
         "displayTimeUnit": "ms",
         "traceEvents": [_to_event(r, pid) for r in TRACER.snapshot()],
         "otherData": {"dropped_spans": TRACER.dropped},
+    }
+    if path:
+        with open(path, "w") as f:
+            json.dump(out, f)
+    return out
+
+
+def merge_chrome(traces: Iterable[Dict[str, Any]], path: Optional[str] = None) -> Dict[str, Any]:
+    """Merge per-process exports (local + `trace_export` RPC results) into
+    one loadable trace; events keep their origin pid rows."""
+    events: List[Dict[str, Any]] = []
+    dropped = 0
+    for t in traces:
+        if not t:
+            continue
+        events.extend(t.get("traceEvents", []))
+        dropped += int(t.get("otherData", {}).get("dropped_spans", 0) or 0)
+    events.sort(key=lambda e: e.get("ts", 0))
+    out = {
+        "displayTimeUnit": "ms",
+        "traceEvents": events,
+        "otherData": {"dropped_spans": dropped},
     }
     if path:
         with open(path, "w") as f:

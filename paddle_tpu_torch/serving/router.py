@@ -1489,17 +1489,15 @@ class RouterStandby:
         return srv.start()
 
 
-_AUTOSCALE_FLAGS = (
-    "autoscale", "autoscale_master", "autoscale_tick_s", "autoscale_chips",
-    "autoscale_min_replicas", "autoscale_max_replicas", "autoscale_spawn_arg",
-)
-
-
 def _main(argv: Optional[List[str]] = None) -> int:
     """`python -m paddle_tpu_torch.serving.router serve|standby|drain|status`:
     the router as its own process, the warm-standby role and the operator
-    levers. The JAX package's `--autoscale*` flags are accepted and raise a
-    named NotImplementedError: the autoscaler is not ported yet."""
+    levers. `serve --autoscale` runs the autoscaler controller beside the
+    router (`runtime/autoscaler.py`), with the JAX package's `--autoscale*`
+    flags; the port adds `--autoscale_config` (a JSON object of further
+    `ScaleConfig` fields: cooldowns, thresholds, quiet period) and
+    `--autoscale_spawn_log_dir` (where spawned replicas write their
+    output)."""
     import argparse
     import json
     import signal as _signal
@@ -1517,12 +1515,30 @@ def _main(argv: Optional[List[str]] = None) -> int:
                          "request past this is duplicated onto a second "
                          "replica, first token wins")
     sv.add_argument("--drain_deadline_s", type=float, default=30.0)
+    # the autoscaler beside this router: it watches the stats this process
+    # already aggregates from heartbeats and pulls the spawn/drain (and,
+    # with --autoscale_master, training resize) levers. The router never
+    # depends on it: kill the controller and the fleet is simply static.
     sv.add_argument("--autoscale", action="store_true",
-                    help="autoscaler co-process (not ported yet: raises)")
-    for flag in _AUTOSCALE_FLAGS[1:]:
-        sv.add_argument(f"--{flag}", default=None,
-                        action="append" if flag.endswith("_arg") else "store",
-                        help="autoscaler (not ported yet: raises)")
+                    help="run an autoscaler controller for this router's "
+                         "fleet (see paddle_tpu_torch/runtime/autoscaler.py)")
+    sv.add_argument("--autoscale_master", default=None,
+                    help="master host:port — arms the training resize "
+                         "lever so training borrows idle serving chips")
+    sv.add_argument("--autoscale_tick_s", type=float, default=1.0)
+    sv.add_argument("--autoscale_chips", type=int, default=8,
+                    help="total chip budget arbitrated across both fleets")
+    sv.add_argument("--autoscale_min_replicas", type=int, default=1)
+    sv.add_argument("--autoscale_max_replicas", type=int, default=8)
+    sv.add_argument("--autoscale_spawn_arg", action="append", default=None,
+                    help="repeatable: extra argv for spawned replicas "
+                         "(default: --demo)")
+    sv.add_argument("--autoscale_config", default=None,
+                    help="JSON object of further ScaleConfig fields, e.g. "
+                         "'{\"serving_cooldown_s\": 4, \"startup_quiet_s\": 1}'")
+    sv.add_argument("--autoscale_spawn_log_dir", default=None,
+                    help="write each spawned replica's stdout/stderr there "
+                         "(default: discarded)")
     sb = sub.add_parser(
         "standby",
         help="watch a primary router; take over its fleet when it dies "
@@ -1548,22 +1564,55 @@ def _main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     if args.cmd == "serve":
-        given = [f for f in _AUTOSCALE_FLAGS if getattr(args, f)]
-        if given:
-            raise NotImplementedError(
-                f"the autoscaler (--{given[0]}, runtime/autoscaler.py) is not "
-                "ported to paddle_tpu_torch yet (ROADMAP.md §1 item 7b)")
+        extra_cfg = json.loads(args.autoscale_config) if args.autoscale_config else {}
         srv = RouterServer(
             host=args.host, port=args.port, lease_s=args.lease_s,
             hedge_ttft_s=args.hedge_ttft_s or None,
             drain_deadline_s=args.drain_deadline_s,
         ).start()
-        _signal.signal(_signal.SIGTERM, lambda *_: srv.stop())
-        _signal.signal(_signal.SIGINT, lambda *_: srv.stop())
+        ctl = None
+        if args.autoscale:
+            from paddle_tpu_torch.runtime.autoscaler import (
+                AutoscalerController, ReplicaSpawner, ScaleConfig,
+            )
+
+            ctl = AutoscalerController(
+                router_endpoints=srv.address,
+                master_endpoints=args.autoscale_master,
+                config=ScaleConfig(
+                    chips_total=args.autoscale_chips,
+                    min_replicas=args.autoscale_min_replicas,
+                    max_replicas=args.autoscale_max_replicas,
+                    **extra_cfg,
+                ),
+                spawner=ReplicaSpawner(
+                    srv.address,
+                    extra_args=(args.autoscale_spawn_arg
+                                if args.autoscale_spawn_arg is not None
+                                else ["--demo"]),
+                    log_dir=args.autoscale_spawn_log_dir,
+                ),
+                tick_s=args.autoscale_tick_s,
+            ).start()
+
+        def _shutdown(*_):
+            if ctl is not None:
+                ctl.stop()
+            srv.stop()
+
+        _signal.signal(_signal.SIGTERM, _shutdown)
+        _signal.signal(_signal.SIGINT, _shutdown)
         print(json.dumps({"role": "router", "address": list(srv.address),
-                          "autoscale": False}), flush=True)
+                          "autoscale": bool(args.autoscale)}),
+              flush=True)
         while srv._thread is not None and srv._thread.is_alive():
             time.sleep(0.05)
+        if ctl is not None:
+            ctl.stop()
+            if ctl.spawner is not None:
+                ctl.spawner.stop_all()
+            print(json.dumps({"role": "router", "autoscaler": ctl.stats()}),
+                  flush=True)
         return 0
     if args.cmd == "standby":
         stop_evt = threading.Event()

@@ -57,8 +57,14 @@ TF32 off for cuBLAS and cuDNN, process-wide: the reference's f32 is
 `Precision.HIGHEST`, and autograd runs the backward's convs and matmuls
 outside any context manager around the forward.
 
-Not ported yet (ROADMAP.md): the parallel updaters, the padded batch's
-sample mask and elastic resize; a pending resize request raises."""
+An elastic-resize request (`core/preempt.request_resize`, set by a
+master's resize epoch through `runtime/master.ResizeClient`) is taken at
+the next dispatch boundary and ignored with the JAX package's warning: the
+port's trainer has no DataParallel mesh to re-shape, as the JAX package's
+single-device trainer has none.
+
+Not ported yet (ROADMAP.md item 8): the parallel updaters, the padded
+batch's sample mask and the re-shard of a resize (`resize_to`)."""
 
 from __future__ import annotations
 
@@ -346,7 +352,8 @@ class SGDTrainer:
               save_dir: Optional[str] = None, log_period: int = 100,
               auto_resume: bool = False,
               keep_last_n: Optional[int] = None, steps_per_dispatch: int = 1,
-              async_checkpoint: bool = True, remat: Optional[str] = None) -> TrainState:
+              async_checkpoint: bool = True, remat: Optional[str] = None,
+              resize_barrier: Optional[Callable] = None) -> TrainState:
         """`num_passes` passes over `reader()`, whose items are batch dicts,
         `StackedBatch`es or, with `feeder`, lists of samples. EndPass metrics
         carry avg_cost (one host sync per pass), batches, pass_seconds,
@@ -377,7 +384,13 @@ class SGDTrainer:
 
         remat: re-pins the rematerialization policy for this and later
         calls, and drops the captured graphs when it changes; None keeps
-        the current one."""
+        the current one.
+
+        resize_barrier: the fleet hook of elastic resize
+        (`runtime.master.ResizeClient.barrier`). A trainer with a mesh
+        passes it after its drain checkpoint; this one has no mesh, so a
+        pending resize is taken and ignored at the next dispatch boundary
+        and the barrier is never called, as in the JAX package."""
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
         if remat is not None:
@@ -521,10 +534,8 @@ class SGDTrainer:
                 # current batch and any buffered ones replay after resume
                 self._drain_preempt(save_dir, pass_id, max(boundary, resume_skip),
                                     keep_last_n, async_checkpoint)
-            if preempt.resize_requested():
-                raise NotImplementedError(
-                    "elastic resize re-shards a DataParallel mesh, which the port "
-                    "does not have yet (ROADMAP.md item 8)")
+            if self.state is not None and preempt.resize_requested():
+                self._drain_resize()
             if idx0 + k_item <= resume_skip:
                 boundary = logical  # already in the restored state
                 continue
@@ -648,6 +659,16 @@ class SGDTrainer:
         log.warning("divergence rollback at pass %d batch %d: restored pass-%05d, "
                     "lr_scale now %g", pass_id, batch_id, latest,
                     float(self.state["lr_scale"]))
+
+    def _drain_resize(self) -> None:
+        """Take a pending resize request at a dispatch boundary and ignore
+        it: there is no DataParallel mesh to re-shape (the JAX package's
+        `_drain_resize` does the same for a trainer without one)."""
+        req = preempt.get().take_resize()
+        if req is None:
+            return  # another poller claimed it
+        log.warning("resize request (%s) ignored: this trainer has no "
+                    "DataParallel mesh to re-shape", req.reason)
 
     def _drain_preempt(self, save_dir: Optional[str], pass_id: int, batches_done: int,
                        keep_last_n: Optional[int], async_checkpoint: bool = False) -> None:

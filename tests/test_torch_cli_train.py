@@ -11,7 +11,11 @@ small v1 bi-GRU text config, on the CPU.
     `--job=test` (after `--init_model_path`) {"test_cost", "samples"};
     `--use_gpu=0` means the CPU; with no card and no `--device=cpu` train
     raises; each unported flag exits 2 naming its ROADMAP item; evaluators
-    turn `--steps_per_dispatch > 1` back to 1, loudly.
+    turn `--steps_per_dispatch > 1` back to 1, loudly;
+    `--master_endpoints` trains on a task master's shards exactly as on the
+    provider; `--elastic` at one trainer prints the reference's message and
+    trains; `--profile=pass:N` writes profile.json (and with `--job=time`
+    joins the timing line).
   * On a card (marked `cuda`, skipped here): the config trains through the
     step graph and reaches both GRU kernels for both directions on every
     step, and its pass cost agrees with the CPU's.
@@ -195,15 +199,85 @@ def test_train_without_a_card_or_device_cpu_raises(in_conf_dir, no_cuda):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--trainer_count=2", r"item 8"), ("--master_endpoints=localhost:1", r"item 7"),
-    ("--elastic=1", r"item 7"), ("--profile=pass:0", r"item 7"),
-    ("--compile_cache=cache", r"no counterpart"),
+    ("--trainer_count=2", r"item 8"), ("--compile_cache=cache", r"no counterpart"),
 ])
 def test_unported_flags_exit_2_naming_their_item(flag, item, in_conf_dir, capsys):
     assert cli.main(["train", "--config=conf.py", "--device=cpu", flag]) == 2
     err = capsys.readouterr().err
     assert "NotPorted" in err
     assert __import__("re").search(item, err), err
+
+
+def _samples():
+    """The provider's 24 samples, as `process` yields them."""
+    rs = np.random.RandomState(11)
+    out = []
+    for _ in range(24):
+        n = rs.randint(4, 10)
+        out.append({'word': rs.randint(0, 40, size=n).tolist(), 'label': int(rs.randint(2))})
+    return out
+
+
+def _pass_line(out: str) -> str:
+    return next(l for l in out.splitlines() if l.startswith("pass 0:"))
+
+
+def test_master_endpoints_trains_on_the_masters_tasks(in_conf_dir, tmp_path, capsys):
+    """--master_endpoints takes the samples from the task master (pickled
+    provider-format samples in recordio shards, one task a shard): the
+    pass line equals the provider's run on the same samples, and every
+    task is done exactly once."""
+    from paddle_tpu_torch.runtime import recordio
+    from paddle_tpu_torch.runtime.master import MasterClient, MasterServer, TaskMaster
+
+    assert cli.main(["train", "--config=conf.py", "--device=cpu", "--num_passes=1"]) == 0
+    want = _pass_line(capsys.readouterr().out)
+    shards = recordio.convert(str(tmp_path / "ds"), _samples, records_per_file=8)
+    srv = MasterServer(TaskMaster()).start()
+    try:
+        c = MasterClient(srv.address)
+        c.call("set_dataset", shards=shards, chunks_per_task=1)
+        assert cli.main(["train", "--config=conf.py", "--device=cpu", "--num_passes=1",
+                         "--master_endpoints=%s:%d" % srv.address]) == 0
+        assert _pass_line(capsys.readouterr().out) == want
+        st = c.call("stats")
+        assert st["done"] == len(shards) == 3 and st["discarded"] == 0
+        c.close()
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--elastic=1"], ["--profile=pass:1"], ["--profile=pass:0", "--job=time", "--num_batches=2"],
+])
+def test_elastic_and_profile_flags_train(argv, in_conf_dir, tmp_path, capsys):
+    """--elastic at one trainer prints the reference's message and trains;
+    --profile=pass:N writes profile.json (a capture of pass N, the step's
+    FLOP and byte buckets); with --job=time the buckets join the line."""
+    import os
+
+    pdir = str(tmp_path / "prof")
+    assert cli.main(["train", "--config=conf.py", "--device=cpu", "--num_passes=2",
+                     f"--profile_dir={pdir}", *argv]) == 0
+    out = capsys.readouterr()
+    last = out.out.strip().splitlines()[-1]
+    if argv[0] == "--elastic=1":
+        assert "--elastic needs --master_endpoints" in out.err
+        assert "continuing without elastic resize" in out.err
+        assert last.startswith("pass 1:")
+        return
+    got = json.loads(last)
+    if "--job=time" in argv:
+        assert got["batches"] == 2 and got["trace_dir"] == pdir
+        assert got["hlo_cost"]["flops"] > 0 and got["hlo_cost"]["bytes_accessed"] > 0
+        assert os.path.exists(os.path.join(pdir, "trace.json"))
+        return
+    assert got["trace_dir"] == pdir
+    report = json.load(open(got["profile_json"]))
+    assert report["captured"] is True and report["profile"] == "pass:1"
+    step = report["executables"]["train_step"]
+    assert step["flops"] > 0 and 0 < len(step["top_buckets"]) <= report["top_k"] == 3
+    assert {"generated_unix_s", "top_k", "executables"} <= set(report)
 
 
 def test_shard_update_at_one_trainer_warns_and_trains(in_conf_dir, caplog, capsys):

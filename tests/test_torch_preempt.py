@@ -13,8 +13,10 @@ On the CPU:
     clean one;
   * the drain's checkpoint is durable before Preempted propagates with the
     async writer; past the grace deadline no checkpoint is written; a second
-    signal escalates to the previous handler; a resize request raises a
-    named NotImplementedError;
+    signal escalates to the previous handler; a resize request reaching the
+    port's mesh-less trainer is taken and ignored, as the JAX package's
+    trainer without a mesh ignores it (ROADMAP §3 fault 21): both packages
+    train on to the same parameters;
   * a mid-pass checkpoint with model averages and the key loads both ways
     between the packages: each package resumes the other's drain and ends
     where its own unbroken run ends (1e-5).
@@ -146,11 +148,56 @@ def test_second_signal_escalates():
         signal.signal(signal.SIGTERM, prev)
 
 
-def test_resize_request_raises_named_error():
+def test_resize_request_raises_named_error(caplog):
+    """No longer raises (fault 21): a pending resize on the mesh-less trainer
+    is taken at the next dispatch boundary and ignored with the JAX
+    package's warning, and the run equals one without the request."""
+    clean = trainer()
+    clean.train(toy_reader(), num_passes=1)
     assert preempt.get().request_resize(2)
     tr = trainer()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8"):
+    with caplog.at_level("WARNING", logger="paddle_tpu_torch.trainer"):
         tr.train(toy_reader(), num_passes=1)
+    assert "ignored: this trainer has no DataParallel mesh" in caplog.text
+    assert not preempt.resize_requested()
+    assert_bitwise(snapshot(tr), snapshot(clean))
+
+
+def test_resize_on_a_mesh_less_trainer_is_ignored_as_in_jax():
+    """The same resize order, parked mid-pass, on a JAX trainer and a port
+    trainer with the same parameters: both take it, ignore it and end at
+    the same parameters and averages (1e-5)."""
+    from paddle_tpu.core import preempt as jpreempt
+
+    from paddle_tpu_torch.nn.convert import params_from_jax
+
+    reader = toy_reader()
+
+    def order(guard):
+        def handler(ev):
+            if type(ev).__name__ == "EndIteration" and (ev.pass_id, ev.batch_id) == (0, 2):
+                assert guard.get().request_resize(4, reason="parity order")
+        return handler
+
+    jt = _jax_trainer()
+    _jax_init(jt)
+    params0 = {k: np.asarray(v) for k, v in jt.state["params"].items()}
+    try:
+        jt.train(reader, num_passes=2, event_handler=order(jpreempt), log_period=1000)
+        assert not jpreempt.resize_requested()
+    finally:
+        jpreempt.reset()
+    tr = trainer()
+    tr.init_state(next(reader()))
+    tr.load_params(params_from_jax(params0, device="cpu"))
+    for k, a in tr.state["avg"]["avg"].items():
+        a.copy_(tr.state["params"][k])
+    tr.train(reader, num_passes=2, event_handler=order(preempt))
+    assert not preempt.resize_requested()
+    _close({k: v.numpy() for k, v in tr.state["params"].items()},
+           {k: np.asarray(v) for k, v in jt.state["params"].items()}, "params")
+    _close({k: v.numpy() for k, v in tr.state["avg"]["avg"].items()},
+           {k: np.asarray(v) for k, v in jt.state["avg"]["avg"].items()}, "averages")
 
 
 def _child(outdir, mode):

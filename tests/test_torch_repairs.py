@@ -243,9 +243,14 @@ def test_not_ported_messages_name_the_roadmap_items():
     for argv in (["--tp", "2"], ["--tp", "2", "--config", "c.py"]):
         with pytest.raises(NotImplementedError, match="§1 item 8"):
             cli.main(serve + argv)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 7"):
-        cli.prepare_train(cli.parse_args(["train", "--device", "cpu", "--config", "c.py",
-                                          "--master_endpoints", "127.0.0.1:1"]))
+    # item 7b is ported: --master_endpoints is no longer a named error, and
+    # only item 8's --trainer_count > 1 still refuses
+    args = cli.parse_args(["train", "--device", "cpu", "--config", "c.py",
+                           "--master_endpoints", "127.0.0.1:1", "--trainer_count", "2"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+        cli.prepare_train(args)
+    args.trainer_count = 1
+    assert cli._refuse_unported(args) is None
     stale = re.compile(r"queue 1|item 3\.3|item 6, TP|pipeline of item 7")
     for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
         assert not stale.search(path.read_text()), path

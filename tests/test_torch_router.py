@@ -729,13 +729,48 @@ def test_cli_router_and_replica_processes_join_answer_and_stop():
                 p.wait(10)
 
 
-def test_cli_autoscale_flags_name_item_7b():
-    from paddle_tpu_torch.serving import router
+def test_cli_autoscale_flags_name_item_7b(tmp_path):
+    """Item 7b is ported: `serve --autoscale` runs the controller beside
+    the router instead of naming the item. Its first line reports
+    `"autoscale": true`; the controller observes the router and a master
+    (seeded with `initial_world`) every tick, lends the idle chip to
+    training through one resize epoch, and on SIGTERM the router prints the
+    controller's final stats."""
+    import json
+    import signal
+    import subprocess
+    import sys
 
-    for argv in (["serve", "--autoscale"], ["serve", "--autoscale_master", "h:1"],
-                 ["serve", "--autoscale_spawn_arg=--demo"]):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 7b"):
-            router._main(argv)
+    from paddle_tpu_torch.runtime.master import MasterServer, TaskMaster
+
+    master = MasterServer(TaskMaster(), initial_world=1).start()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.router", "serve",
+         "--autoscale", "--autoscale_master", "%s:%d" % master.address,
+         "--autoscale_tick_s", "0.05", "--autoscale_chips", "2",
+         "--autoscale_config", json.dumps({"startup_quiet_s": 0.0}),
+         "--autoscale_spawn_log_dir", str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    try:
+        first = json.loads(proc.stdout.readline())
+        assert first["role"] == "router" and first["autoscale"] is True
+        time.sleep(1.0)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=30)
+        assert proc.returncode == 0
+        final = json.loads(out.strip().splitlines()[-1])["autoscaler"]
+        assert final["ticks"] >= 2 and final["observe_failures"] == 0, final
+        # an idle fleet with no replica: the free chip goes to training,
+        # once (the epoch has no member to drain, so it settles at once)
+        assert final["actions"] == ["resize:2"] and not final["dead"], final
+        st = master.resize.info()
+        assert st["state"] == "idle" and st["completed"] == 1 and st["world"] == 2
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        master.stop()
 
 
 # -- on the card ----------------------------------------------------------------------
