@@ -559,7 +559,27 @@ Phases (any failure exits non-zero and prints no result line):
                that served launched the decode kernel decode steps x 12
                times. Printed: spawn -> the replica live in the router's
                view, in s; the decision log and the signals' timeline.
- 49. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 49. dp_resnet — phase 10's ResNet-50 step (224x224, batch 256, bf16,
+               SGD(0.1, momentum 0.9), K = 8 a call) through
+               `DataParallel(make_mesh({"data": 1}))` over a one-rank NCCL
+               group, as bench.py runs it on a one-chip host, for the
+               replicated, zero1 and zero3 updaters: a warm-up call (eager,
+               then captured with its collectives) and two replays each.
+               Gates: one graph each; collective counts = the CPU tests'
+               pins a step (batch norm's 2 all-reduces x 53 layers, plus the
+               updater's); parameters and moving statistics bitwise a
+               mesh-less trainer's after the same calls; finite costs.
+               Printed: images/s, ms a step against phase 10, MFU, peak
+               memory, optimizer-state bytes, the NCCL kernels' share of
+               device time and count a step (torch.profiler).
+ 50. dp_seq2seq — phase 5's seq2seq through DataParallel on that group:
+               replicated at K = 1 (its first 4 steps vs a mesh-less
+               trainer, bitwise) and zero2 + int8 at K = 4. Gates:
+               gru_seq_fused 2 + 2 launches an update; one gradient
+               all-to-all and one all-gather a zero2 dispatch; the int8
+               residual non-zero after the first dispatch; the cost falls;
+               one graph each.
+ 51. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
@@ -2750,7 +2770,7 @@ def resnet_batches(np, size, b, k, classes):
     return batch, stacked
 
 
-def resnet_trainer(device, precision, size, classes, lr=0.1, remat=None):
+def resnet_trainer(device, precision, size, classes, lr=0.1, remat=None, **kw):
     from paddle_tpu_torch.models import resnet50
     from paddle_tpu_torch.nn.graph import reset_name_scope
     from paddle_tpu_torch.optim import SGD
@@ -2759,7 +2779,7 @@ def resnet_trainer(device, precision, size, classes, lr=0.1, remat=None):
     reset_name_scope()
     cost = resnet50(num_classes=classes, image_size=size)[3]
     return SGDTrainer(cost, SGD(learning_rate=lr, momentum=0.9), seed=0, device=device,
-                      precision=precision, remat=remat)
+                      precision=precision, remat=remat, **kw)
 
 
 # kernel-name fragments of each group in the ResNet-50 profile
@@ -8807,6 +8827,292 @@ def autoscale_phase(torch, fleet):
                 p.wait(30)
 
 
+# phases 49-50: data parallelism over a one-rank NCCL group (the card has one
+# GPU; NCCL refuses two ranks on one device)
+DP_UPDATERS = (("replicated", False), ("zero1", "zero1"), ("zero3", "zero3"))
+DP_S2S = dict(check_steps=4, timed_steps=6, zero2_k=4, zero2_dispatches=4)
+
+
+def dp_pins(shard, n_bn: int, n_flat: int, comp=None) -> dict:
+    """The collectives of one step (tests/test_torch_collectives.py): batch
+    norm's two all-reduces a layer, plus the updater's: replicated one flat
+    all-reduce; zero1/2 one gradient scatter (a reduce-scatter, or an
+    all-to-all of the encoded rows under bf16/int8) and one all-gather;
+    zero3 one reduce-scatter and one all-gather a flat parameter."""
+    pins = {"all_reduce": 2 * n_bn, "reduce_scatter": 0, "all_gather": 0, "all_to_all": 0}
+    scatter = "reduce_scatter" if comp in (None, "none") else "all_to_all"
+    if not shard:
+        pins["all_reduce"] += 1
+    elif shard == "zero3":
+        pins.update({scatter: 1, "all_gather": n_flat})
+    else:
+        pins.update({scatter: 1, "all_gather": 1})
+    return pins
+
+
+def profile_collectives(torch, call, steps: int, label: str):
+    """torch.profiler over one `call` of `steps` steps: the NCCL kernels'
+    (and device-to-device copies') share of device time and count a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = nccl_ms = copy_ms = 0.0
+    nccl_n = copy_n = 0
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        busy += ms
+        low = e.key.lower()
+        if "nccl" in low:
+            nccl_ms += ms
+            nccl_n += e.count
+            names[e.key[:70]] = e.count / steps
+        elif "memcpy dtod" in low or "memcpy_dtod" in low:
+            copy_ms += ms
+            copy_n += e.count
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_busy_ms_per_step": busy / steps, "device_busy_share": busy / wall_ms,
+           "nccl_kernels_per_step": nccl_n / steps, "nccl_ms_per_step": nccl_ms / steps,
+           "nccl_share_of_device_time": nccl_ms / busy if busy else 0.0,
+           "nccl_kernels": names, "dtod_copies_per_step": copy_n / steps,
+           "dtod_copy_ms_per_step": copy_ms / steps}
+    print(label, json.dumps(out), flush=True)
+    if busy <= 0:
+        fail(f"{label}: torch.profiler recorded no device time")
+    return out
+
+
+def dp_resnet_phase(torch, resnet):
+    """Phase 10's ResNet-50 step as bench.py:656-830 runs it on a one-chip
+    host: `DataParallel(make_mesh({"data": 1}))` over a one-rank NCCL group
+    (224x224, batch 256, 1000 classes, bf16, SGD(0.1, momentum 0.9), K = 8
+    stacked batches a `multi_step` call, drawn as phase 10 draws them), for
+    the replicated, zero1 and zero3 updaters in turn: one warm-up call
+    (eager, then the 8 steps captured with their collectives as one CUDA
+    graph) and two timed replays, each from the same parameters and moving
+    statistics as a mesh-less trainer that ran the same three calls first.
+    Gates: one graph per updater; the collective counts = the pins of
+    tests/test_torch_collectives.py a step x 24 steps (the replays count
+    the calls their capture holds); parameters and moving statistics
+    bitwise the mesh-less trainer's; finite costs. Printed: bench.py's
+    fields, ms a step against phase 10's, peak memory, optimizer-state
+    bytes, and from torch.profiler over one call the NCCL kernels' share of
+    device time and their count a step."""
+    import numpy as np
+
+    from paddle_tpu_torch.parallel import DataParallel, make_mesh
+
+    cfg = RESNET
+    k = cfg["scan_k"]
+    calls = cfg["warmup"] + cfg["dispatches"]
+    t0 = time.perf_counter()
+    batch, stacked = resnet_batches(np, cfg["image_size"], cfg["batch"], k, cfg["classes"])
+    stacked = {key: torch.as_tensor(v).to("cuda") for key, v in stacked.items()}
+    draw_s = time.perf_counter() - t0
+
+    def snapshot(tr):
+        return ({key: v.clone() for key, v in tr.canonical_params().items()},
+                {key: v.clone() for key, v in tr.state["states"].items()})
+
+    ref = resnet_trainer("cuda", "bf16", cfg["image_size"], cfg["classes"])
+    ref.init_state(batch)
+    init_params, init_states = snapshot(ref)
+    ref_costs, ref_ms = timed_calls(torch, lambda: ref.multi_step(stacked), calls)
+    want_params, want_states = snapshot(ref)
+    n_bn = sum(1 for l in ref.network.layer_order if l.type_name == "batch_norm")
+    del ref
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mesh = make_mesh({"data": 1})
+    mesh_s = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0)
+    peak_flops = bf16_peak(name)
+    flops_per_image = RESNET_FLOPS_PER_IMAGE * (cfg["image_size"] / 224.0) ** 2
+    out = {"config": dict(cfg, precision="bf16", optimizer="SGD(0.1, momentum 0.9)",
+                          mesh=repr(mesh), mesh_s=mesh_s, batch_norms=n_bn),
+           "draw_s": draw_s, "mesh_less": dict(costs=ref_costs, dispatch_ms=ref_ms,
+                                                ms_per_step=statistics.median(
+                                                    ref_ms[cfg["warmup"]:]) / k),
+           "phase10_ms_per_step": resnet["ms_per_step"]}
+    for label, shard in DP_UPDATERS:
+        torch.cuda.empty_cache()
+        tr = resnet_trainer("cuda", "bf16", cfg["image_size"], cfg["classes"],
+                            parallel=DataParallel(mesh), shard_update=shard)
+        tr.init_state(batch)
+        tr.load_params(init_params)
+        tr.load_states(init_states)
+        n_flat = sum(1 for g in getattr(tr.updater, "_geom", {}).values() if g.flat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_counts()
+        costs, dispatch_ms = timed_calls(torch, lambda: tr.multi_step(stacked), calls)
+        counts = mesh.counts()
+        peak = torch.cuda.max_memory_allocated()
+        graphs = list(tr.graphs.values())
+        replays = graphs[0].replays if graphs else 0
+        got_params, got_states = snapshot(tr)
+        bitwise_params = all(torch.equal(got_params[key], v) for key, v in want_params.items())
+        bitwise_states = all(torch.equal(got_states[key], v) for key, v in want_states.items())
+        worst = max(rel_l2(torch, got_params[key], v) for key, v in want_params.items())
+        ms_per_step = statistics.median(dispatch_ms[cfg["warmup"]:]) / k
+        images_per_s = cfg["batch"] / (ms_per_step / 1e3)
+        pins = dp_pins(shard, n_bn, n_flat)
+        want_counts = {key: calls * k * v for key, v in pins.items()}
+        opt_bytes = sum(v.numel() * v.element_size() for v in
+                        tr._trees()["opt"].values())
+        res = dict(
+            updater=label, resnet50_images_per_sec_per_chip=images_per_s,
+            ms_per_step=ms_per_step, ms_per_step_min=min(dispatch_ms[cfg["warmup"]:]) / k,
+            vs_phase10_ms_per_step=ms_per_step / resnet["ms_per_step"],
+            vs_mesh_less_ms_per_step=ms_per_step / out["mesh_less"]["ms_per_step"],
+            mfu=images_per_s * flops_per_image / peak_flops, dispatch_ms=dispatch_ms,
+            costs=costs, peak_memory_bytes=peak, opt_state_bytes=opt_bytes,
+            param_bytes=sum(v.numel() * v.element_size()
+                            for v in tr.state["params"].values()),
+            graphs=len(graphs), replays=replays, collective_counts=counts,
+            collective_pins_per_step=pins, flat_params=n_flat,
+            bitwise_params=bitwise_params, bitwise_states=bitwise_states,
+            param_rel_l2_max=worst,
+            collective_bytes_detail=tr.updater.collective_bytes_detail(k))
+        res["profile"] = profile_collectives(torch, lambda: tr.multi_step(stacked), k,
+                                             f"dp_resnet_profile_{label}")
+        out[label] = res
+        print("dp_resnet", json.dumps(res), flush=True)
+        if len(graphs) != 1 or replays != cfg["dispatches"]:
+            fail(f"dp_resnet {label}: {len(graphs)} graphs, {replays} replays: want one "
+                 f"graph, every call after the first a replay")
+        if counts != want_counts:
+            fail(f"dp_resnet {label}: collectives {counts}, want {want_counts} "
+                 f"({pins} a step x {calls * k} steps)")
+        if not (bitwise_params and bitwise_states):
+            fail(f"dp_resnet {label}: parameters bitwise {bitwise_params}, moving "
+                 f"statistics bitwise {bitwise_states} against the mesh-less trainer "
+                 f"(largest parameter difference {worst} relative L2)")
+        if not all(np.isfinite(costs)):
+            fail(f"dp_resnet {label}: non-finite costs {costs}")
+        del tr, graphs
+        torch.cuda.empty_cache()
+    return out, mesh
+
+
+def dp_seq2seq_phase(torch, mesh):
+    """Phase 5's seq2seq NMT (bench.py:211-245: vocab 30000, 512/512, batch
+    128, lengths 50, Adam(1e-3), f32) through `DataParallel` over phase 49's
+    one-rank NCCL group, twice: replicated at K = 1, its first 4 steps held
+    to a mesh-less trainer from the same parameters (costs and parameters
+    bitwise), then 6 timed steps; and zero2 with int8 compression at K = 4
+    (4 stacked batches merged into one 512-row update a dispatch), 4
+    dispatches. Gates: gru_seq_fused launches = 2 x updates forward and
+    backward (a replay counts the calls it holds); zero2 runs one gradient
+    scatter (an all-to-all of the int8 rows) and one parameter all-gather a
+    dispatch; the int8 error-feedback residual is non-zero after the first
+    dispatch; the cost falls; one graph per signature. Printed: ms a step
+    of both runs and `collective_bytes_detail`."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import rnn_kernels as K
+    from paddle_tpu_torch.parallel import DataParallel
+
+    cfg = DP_S2S
+    batch = s2s_batch(np, 0, S2S["batch"], ragged=False)
+    plain = s2s_trainer("cuda")
+    plain.init_state(batch)
+    init = {key: v.clone() for key, v in plain.state["params"].items()}
+    dp = s2s_trainer("cuda", parallel=DataParallel(mesh))
+    dp.init_state(batch)
+    dp.load_params(init)
+
+    K.FWD_LAUNCHES = K.BWD_LAUNCHES = 0
+    mesh.reset_counts()
+    check_costs, check_ms = timed_calls(torch, lambda: dp.step(batch), cfg["check_steps"])
+    after_check = {key: v.clone() for key, v in dp.canonical_params().items()}
+    more, more_ms = timed_calls(torch, lambda: dp.step(batch), cfg["timed_steps"])
+    steps = cfg["check_steps"] + cfg["timed_steps"]
+    fwd, bwd = K.FWD_LAUNCHES, K.BWD_LAUNCHES
+    counts = mesh.counts()
+    graphs = len(dp.graphs)
+    plain_costs, plain_ms = timed_calls(torch, lambda: plain.step(batch), cfg["check_steps"])
+    cost_err = max(abs(a - b) / abs(b) for a, b in zip(check_costs, plain_costs))
+    param_err, bitwise = rel_l2_max(torch, after_check, plain.state["params"])
+    cost_bitwise = check_costs == plain_costs
+    replicated = dict(steps=steps, costs=check_costs + more,
+                      step_ms_median=statistics.median(more_ms),
+                      mesh_less_step_ms_median=statistics.median(plain_ms[1:]),
+                      gru_fwd_launches=fwd, gru_bwd_launches=bwd, graphs=graphs,
+                      collective_counts=counts, cost_rel_err=cost_err,
+                      costs_bitwise=cost_bitwise, param_rel_l2_max=param_err,
+                      params_bitwise=bitwise,
+                      collective_bytes_detail=dp.updater.collective_bytes_detail(1))
+    print("dp_seq2seq_replicated", json.dumps(replicated), flush=True)
+    if fwd != 2 * steps or bwd != 2 * steps:
+        fail(f"dp_seq2seq replicated: GRU launches fwd {fwd} / bwd {bwd} in {steps} steps, "
+             f"want 2 + 2 a step")
+    if graphs != 1:
+        fail(f"dp_seq2seq replicated: {graphs} step graphs, want one")
+    if counts != {**dp_pins(False, 0, 0), "all_reduce": steps}:
+        fail(f"dp_seq2seq replicated: collectives {counts}, want one all-reduce a step")
+    if not ((cost_bitwise and bitwise)
+            or (cost_err <= REPLAY_RTOL and param_err <= REPLAY_RTOL)):
+        fail(f"dp_seq2seq replicated vs mesh-less: costs {cost_err}, parameters "
+             f"{param_err} relative (bitwise {cost_bitwise}/{bitwise})")
+    del dp, plain
+    torch.cuda.empty_cache()
+
+    k = cfg["zero2_k"]
+    z2 = s2s_trainer("cuda", parallel=DataParallel(mesh), shard_update="zero2",
+                     grad_compression="int8")
+    z2.init_state(batch)
+    z2.load_params(init)
+    window = [s2s_batch(np, seed, S2S["batch"], ragged=False) for seed in range(k)]
+    stacked = {key: torch.as_tensor(np.stack([b[key] for b in window])).to("cuda")
+               for key in window[0]}
+    K.FWD_LAUNCHES = K.BWD_LAUNCHES = 0
+    mesh.reset_counts()
+    first, first_ms = timed_calls(torch, lambda: z2.multi_step(stacked), 1)
+    ef_max = max(float(e.abs().max()) for e in z2.state["opt"]["ef"].values())
+    rest, rest_ms = timed_calls(torch, lambda: z2.multi_step(stacked),
+                                cfg["zero2_dispatches"] - 1)
+    dispatches = cfg["zero2_dispatches"]
+    fwd, bwd = K.FWD_LAUNCHES, K.BWD_LAUNCHES
+    counts = mesh.counts()
+    costs = first + rest
+    zero2 = dict(k=k, dispatches=dispatches, costs=costs, dispatch_ms=first_ms + rest_ms,
+                 ms_per_step=statistics.median(rest_ms) / k,
+                 ms_per_dispatch=statistics.median(rest_ms),
+                 gru_fwd_launches=fwd, gru_bwd_launches=bwd, graphs=len(z2.graphs),
+                 collective_counts=counts, ef_abs_max_after_first_dispatch=ef_max,
+                 collective_bytes_detail=z2.updater.collective_bytes_detail(k))
+    print("dp_seq2seq_zero2_int8", json.dumps(zero2), flush=True)
+    if fwd != 2 * dispatches or bwd != 2 * dispatches:
+        fail(f"dp_seq2seq zero2: GRU launches fwd {fwd} / bwd {bwd} in {dispatches} merged "
+             f"updates, want 2 + 2 an update")
+    want = {**dp_pins("zero2", 0, 0, "int8")}
+    want = {key: v * dispatches for key, v in want.items()}
+    if counts != want:
+        fail(f"dp_seq2seq zero2: collectives {counts}, want {want} (one gradient all-to-all "
+             f"and one all-gather a dispatch)")
+    if not ef_max > 0:
+        fail("dp_seq2seq zero2: the int8 error-feedback residual is zero after the first "
+             "dispatch")
+    if len(z2.graphs) != 1:
+        fail(f"dp_seq2seq zero2: {len(z2.graphs)} graphs, want one")
+    if not (all(np.isfinite(costs)) and costs[-1] < costs[0]):
+        fail(f"dp_seq2seq zero2: the cost did not fall: {costs}")
+    del z2
+    torch.cuda.empty_cache()
+    return {"replicated": replicated, "zero2_int8": zero2}
+
+
 def train_of(torch, tree: str) -> int:
     """`--train-of TREE`: the training phases (5, 7 and 10) of the
     chip_smoke.py in TREE, a checkout of this repository (an earlier
@@ -9052,7 +9358,15 @@ def main() -> int:
     autoscale = autoscale_phase(torch, fleet)
     del fleet["reqs"]
 
-    # 49. lines
+    # 49. ResNet-50 through DataParallel over a one-rank NCCL group for the
+    # replicated, zero1 and zero3 updaters, 50. seq2seq through it, replicated
+    # and zero2 + int8 (collective and GRU counters from 0 in each run)
+    release(torch)
+    dp_resnet, dp_mesh = dp_resnet_phase(torch, resnet)
+    release(torch)
+    dp_seq2seq = dp_seq2seq_phase(torch, dp_mesh)
+
+    # 51. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -9118,6 +9432,9 @@ def main() -> int:
             "launches_cluster_trainers": [cluster[n][f"gru_{leg}_launches"]
                                           for n in ("trainer_a", "trainer_b")],
             "launches_autoscale_trainer": autoscale["trainer"]["launches"][v1_key],
+            "launches_dp_seq2seq": {
+                run: dp_seq2seq[run][f"gru_{leg}_launches"]
+                for run in ("replicated", "zero2_int8")},
             **({"launches_deploy": deploy["forward_launches"]["FWD_LAUNCHES"]
                 + deploy["get_layer_output_launches"]["FWD_LAUNCHES"],
                 "launches_v2_infer": v2_api["infer_launches"]["FWD_LAUNCHES"],
@@ -9215,7 +9532,8 @@ def main() -> int:
                    "ssd": ssd, "struct_costs": struct_costs, "rnn_extra": rnn_extra,
                    "layers3d": layers3d, "runtime": runtime, "fleet": fleet,
                    "fleet_processes": fleet_proc, "cluster": cluster,
-                   "autoscale": autoscale},
+                   "autoscale": autoscale, "dp_resnet": dp_resnet,
+                   "dp_seq2seq": dp_seq2seq},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -44,10 +44,20 @@ ignored). `--profile=pass:N` captures pass N as a torch.profiler trace
 and writes `profile.json` (the step's FLOP and byte buckets,
 `obs/profile.py`) under `--profile_dir`, printing `{"profile_json",
 "trace_dir"}`; with `--job=time` the buckets join the timing line as
-`hlo_cost`. Flags whose subsystem the port does not have yet raise a named
-NotImplementedError (exit code 2): `--trainer_count > 1` (data
-parallelism, ROADMAP.md §1 item 8) and `--compile_cache` (jax's cache, no
-counterpart). `--shard_update` and `--grad_compression` at
+`hlo_cost`. `--compile_cache` (jax's cache) has no counterpart and exits
+2 naming it.
+
+`--trainer_count=N` (N > 1) trains data-parallel over N ranks
+(`parallel/`), with `--shard_update` (zero1 / zero2 / zero3) and
+`--grad_compression` (none / bf16 / int8). The JAX package runs one process
+over N local devices; the port runs one process per rank, so the command
+starts N copies of itself (`python -m paddle_tpu_torch` with the same
+arguments), joined through a store on 127.0.0.1 (`parallel.distributed`):
+NCCL with rank r on `cuda:r` on the card, gloo with `--device=cpu`. Each
+rank reads the same data, pads each batch to a multiple of N and trains on
+its own rows; rank 0 prints the lines a single trainer prints and writes
+the checkpoints, the others print nothing. N larger than the visible GPUs
+raises, naming both counts. `--shard_update` and `--grad_compression` at
 `--trainer_count=1` warn and are ignored, as in the reference.
 
 `merge_model` folds the config and a pass of `--model_dir` (the newest,
@@ -195,9 +205,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     def refuse(what: str, item: str) -> None:
         raise NotPorted(_NOT_PORTED.format(what=what, item=item))
 
-    if args.trainer_count > 1:
-        refuse("data-parallel training (--trainer_count > 1, --shard_update, "
-               "--grad_compression)", "8, parallelism")
     if args.compile_cache:
         raise NotPorted(
             "--compile_cache is the JAX package's persistent XLA compilation "
@@ -372,18 +379,21 @@ class TrainJob:
         if profiler is not None:
             handler = profiler.wrap(handler)
         profile_reader = reader  # the cost report's batch, before the prefetcher
-        if args.elastic:
-            # the port's trainer has no mesh (--trainer_count > 1 is item 8):
-            # the reference's message for a trainer without one, and train on
+        if args.elastic and trainer.parallel is None:
+            # the reference's message for a trainer without a mesh; train on
             print("--elastic needs --master_endpoints (the resize plane rides "
                   "the master heartbeats) and --trainer_count > 1 (a mesh to "
                   "re-shape); continuing without elastic resize", file=sys.stderr)
+        elif args.elastic:
+            print("--elastic: the re-shard of a data-parallel trainer is not ported "
+                  "(ROADMAP.md §1 item 8c); continuing without elastic resize",
+                  file=sys.stderr)
         if args.prefetch_depth > 0:
             # feed and host-to-device copy on a worker thread, ahead of the step
             from paddle_tpu_torch.data.pipeline import DevicePrefetcher
 
             reader = DevicePrefetcher(reader, feeder, prefetch_depth=args.prefetch_depth,
-                                      device=trainer.device,
+                                      device=trainer.device, parallel=trainer.parallel,
                                       stack_k=args.steps_per_dispatch)
         preempt.install(grace_s=args.preempt_grace_s)
         try:
@@ -439,11 +449,29 @@ def prepare_train(args: argparse.Namespace) -> TrainJob:
     from paddle_tpu_torch.trainer.trainer import SGDTrainer
 
     _refuse_unported(args)
-    device = resolve_device(_train_device(args))
+    parallel = None
+    rank = _rank_env()
+    if args.trainer_count > 1:
+        if rank is None:
+            raise ValueError("--trainer_count > 1 runs one process per rank: start it "
+                             "through `python -m paddle_tpu_torch train` (cmd_train "
+                             "launches the ranks)")
+        from paddle_tpu_torch.parallel import DataParallel, distributed, make_mesh
+
+        dev_name = _train_device(args)
+        on_card = resolve_device(dev_name).type == "cuda"
+        if on_card:
+            dev_name = f"cuda:{rank}"
+        distributed.initialize(os.environ[_COORD_ENV], args.trainer_count, rank,
+                               backend="nccl" if on_card else "gloo")
+        device = resolve_device(dev_name)
+        parallel = DataParallel(make_mesh({"data": args.trainer_count}, device=device))
+    else:
+        device = resolve_device(_train_device(args))
     init_ctx.init(device=device.type, trainer_count=args.trainer_count,
                   log_period=args.log_period, seed=args.seed,
                   **({"dtype_policy": args.dtype} if args.dtype else {}))
-    if args.shard_update or args.grad_compression != "none":
+    if parallel is None and (args.shard_update or args.grad_compression != "none"):
         log.warning("--shard_update/--grad_compression need --trainer_count > 1 "
                     "(no data axis to shard over); ignoring them")
         args.shard_update, args.grad_compression = False, "none"
@@ -477,7 +505,9 @@ def prepare_train(args: argparse.Namespace) -> TrainJob:
         precision=args.precision, extra_outputs=extra_layers,
         schedule=bundle.schedule, model_average=bundle.model_average,
         remat=args.remat, divergence_policy=args.divergence_policy,
-        guard_check_every=args.guard_check_every)
+        guard_check_every=args.guard_check_every, parallel=parallel,
+        shard_update=args.shard_update if parallel is not None else False,
+        grad_compression=args.grad_compression if parallel is not None else None)
     batch_size = oc.batch_size or 32
     data_config = pc.trainer_config.data_config
     test_config = pc.trainer_config.test_data_config
@@ -510,8 +540,88 @@ def prepare_train(args: argparse.Namespace) -> TrainJob:
     return TrainJob(args, trainer, feeder, reader, test_reader, evaluators)
 
 
+_RANK_ENV = "PADDLE_TPU_TORCH_RANK"
+_COORD_ENV = "PADDLE_TPU_TORCH_COORDINATOR"
+
+
+def _rank_env() -> Optional[int]:
+    """This process's rank when a `--trainer_count` launcher started it."""
+    v = os.environ.get(_RANK_ENV)
+    return None if v is None else int(v)
+
+
 def cmd_train(args: argparse.Namespace) -> int:
+    if args.trainer_count > 1 and _rank_env() is None:
+        return _launch_ranks(args)
     return prepare_train(args).run()
+
+
+def _launch_ranks(args: argparse.Namespace) -> int:
+    """Start `--trainer_count` copies of this command, one a rank, and wait
+    for them: rank 0's output is this command's; another rank's stderr is
+    shown only if it fails. Returns the first failing rank's exit code, else
+    rank 0's."""
+    import signal
+    import socket
+    import subprocess
+
+    from paddle_tpu_torch.device import resolve_device
+
+    n = args.trainer_count
+    if resolve_device(_train_device(args)).type == "cuda":
+        visible = torch_cuda_device_count()
+        if n > visible:
+            raise RuntimeError(f"--trainer_count={n} needs {n} GPUs, one a rank, but "
+                               f"{visible} are visible")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    # the ranks import this package from where this process did
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join([pkg_root] + [p for p in os.environ.get("PYTHONPATH", "")
+                                         .split(os.pathsep) if p])
+    procs, logs, codes = [], [], [None] * n
+    try:
+        for r in range(n):
+            env = {**os.environ, _RANK_ENV: str(r), _COORD_ENV: f"127.0.0.1:{port}",
+                   "PYTHONPATH": path}
+            err = None if r == 0 else tempfile.TemporaryFile()
+            logs.append(err)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch"]
+                + list(getattr(args, "argv", sys.argv[1:])), env=env,
+                stdout=None if r == 0 else subprocess.DEVNULL,
+                stderr=None if r == 0 else err))
+        while any(c is None for c in codes):
+            for r, p in enumerate(procs):
+                if codes[r] is None:
+                    codes[r] = p.poll()
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed and any(c is None for c in codes):
+                for p in procs:  # one rank died: the others would wait forever
+                    if p.poll() is None:
+                        p.send_signal(signal.SIGTERM)
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (code, err) in enumerate(zip(codes, logs)):
+        if code and err is not None:
+            err.seek(0)
+            tail = err.read()[-4000:].decode(errors="replace")
+            print(f"rank {r} exited {code}:\n{tail}", file=sys.stderr)
+        if err is not None:
+            err.close()
+    failed = [c for c in codes if c]
+    return failed[0] if failed else codes[0]
+
+
+def torch_cuda_device_count() -> int:
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 def _job_time(trainer, reader, feeder, num_batches: int,
@@ -838,6 +948,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     try:
         return args.fn(args)
     except NotPorted as e:

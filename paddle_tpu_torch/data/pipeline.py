@@ -14,7 +14,13 @@ stream early. On the CPU the worker only feeds and converts.
 
 `SGDTrainer.train` and `test` take such batches as they are
 (`is_device_batch`), and a `StackedBatch` of K as one K-step dispatch.
-There is no sharded placement yet (ROADMAP.md item 8)."""
+
+With `parallel` (a `parallel.DataParallel`), each batch pads on the worker
+through `maybe_pad_batch` (an indivisible trailing batch gains repeated
+rows and a row mask instead of dropping) and the rank copies only its own
+rows to its device (`shard_batch` / `shard_batches`); the trainer takes
+those batches as its cut. `rebind_parallel` points later batches at
+another plan."""
 
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ class StackedBatch(dict):
     Still a plain dict of tensors; `k` is the stack's width."""
 
     k: int = 1
+    plan = None  # the DataParallel whose rank's rows these are, if any
 
 
 class _Group(list):
@@ -129,6 +136,17 @@ def iter_async(reader: Callable, prepare: Callable[[Any], Any], capacity: int,
         stop.set()
 
 
+def _retag(values: Dict[str, Any], like: Any) -> Dict[str, Any]:
+    """`values` in a dict of `like`'s class, keeping its `k` and `plan`."""
+    if type(like) is dict:
+        return values
+    out = type(like)(values)
+    for attr in ("k", "plan"):
+        if hasattr(like, attr):
+            setattr(out, attr, getattr(like, attr))
+    return out
+
+
 def is_device_batch(batch: Any) -> bool:
     """True when `batch` is a non-empty dict whose every slot is already a
     torch tensor (the trainer feeds it as it is)."""
@@ -165,13 +183,15 @@ class DevicePrefetcher:
     stack_k: > 1 stacks K consecutive batches into one StackedBatch
         ([K, B, ...] a slot, one copy); a trailing remainder, or a group
         whose shapes differ, comes out as single batches.
+    parallel: a `parallel.DataParallel`: batches pad to its data axis and
+        only this rank's rows are copied (to the mesh's device).
 
     One iteration is one pass. Worker errors surface in the consumer;
     abandoning the iterator retires the worker."""
 
     def __init__(self, reader: Callable, feeder: Optional[Callable] = None,
                  prefetch_depth: int = 2, device: DeviceLike = None,
-                 feed_retries: int = 2, stack_k: int = 1):
+                 feed_retries: int = 2, stack_k: int = 1, parallel: Any = None):
         if prefetch_depth < 1:
             raise ValueError(f"prefetch_depth must be >= 1, got {prefetch_depth}")
         if stack_k < 1:
@@ -179,7 +199,9 @@ class DevicePrefetcher:
         self.reader = reader
         self.feeder = feeder
         self.prefetch_depth = prefetch_depth
-        self.device = resolve_device(device)
+        self.parallel = parallel
+        self.device = (parallel.device if parallel is not None and device is None
+                       else resolve_device(device))
         self.feed_retries = feed_retries
         self.stack_k = stack_k
         self._stream: Optional[torch.cuda.Stream] = None
@@ -187,19 +209,26 @@ class DevicePrefetcher:
     def __call__(self):
         return iter(self)
 
+    def rebind_parallel(self, parallel: Any) -> None:
+        """Point later batches at another DataParallel plan; each batch reads
+        the plan once, so none is padded for one plan and cut for another."""
+        self.parallel = parallel
+
     def _feed(self, raw: Any) -> Dict[str, Any]:
         return (self.feeder(raw) if self.feeder is not None and not isinstance(raw, dict)
                 else coerce_batch(raw))
 
+
     def _to_device(self, batch: Dict[str, Any]):
         """A feed-ready host batch -> (tensors on the device, the copies'
-        CUDA event or None). The `h2d_delay` fault site sleeps here, once a
-        copy."""
+        CUDA event or None), in a dict of the batch's type with its tags.
+        The `h2d_delay` fault site sleeps here, once a copy."""
         faults.get().sleep("h2d_delay")
         host = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
                 for k, v in batch.items()}
         if self.device.type != "cuda":
-            return {k: v.to(self.device) for k, v in host.items()}, None
+            out = {k: v.to(self.device) for k, v in host.items()}
+            return _retag(out, batch), None
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(self._stream):
@@ -207,10 +236,19 @@ class DevicePrefetcher:
                    for k, v in host.items()}
             done = torch.cuda.Event()
             done.record(self._stream)
-        return out, done
+        return _retag(out, batch), done
+
+    def _pad(self, batch: Dict[str, Any], plan: Any) -> Optional[Dict[str, Any]]:
+        return batch if plan is None else plan.maybe_pad_batch(batch, where="prefetch")
 
     def _prepare(self, raw: Any):
-        return self._to_device(self._feed(raw))
+        plan = self.parallel  # read once: a rebind never splits a batch
+        batch = self._pad(self._feed(raw), plan)
+        if batch is None:
+            return None
+        if plan is not None:
+            batch = plan.shard_batch(batch)
+        return self._to_device(batch)
 
     def _grouped_reader(self):
         buf: List[Any] = []
@@ -223,14 +261,17 @@ class DevicePrefetcher:
             yield _Group(buf)
 
     def _prepare_group(self, group: _Group):
-        batches = [self._feed(raw) for raw in group]
+        plan = self.parallel
+        batches = [b for b in (self._pad(self._feed(raw), plan) for raw in group)
+                   if b is not None]
         if (len(batches) != self.stack_k
                 or len({stats.batch_signature(b) for b in batches}) != 1):
-            return _Singles(self._to_device(b) for b in batches)
-        stacked, done = self._to_device({
-            k: np.stack([np.asarray(b[k]) for b in batches]) for k in batches[0]})
-        sb = StackedBatch(stacked)
-        sb.k = self.stack_k
+            return _Singles(self._to_device(b if plan is None else plan.shard_batch(b))
+                            for b in batches)
+        stacked = {k: np.stack([np.asarray(b[k]) for b in batches]) for k in batches[0]}
+        out, done = self._to_device(stacked if plan is None else plan.shard_batches(stacked))
+        sb = StackedBatch(out)
+        sb.k, sb.plan = self.stack_k, plan
         return sb, done
 
     def _ready(self, item):
@@ -254,6 +295,8 @@ class DevicePrefetcher:
                                retries=self.feed_retries)
         try:
             for item in items:
+                if item is None:  # a ragged batch the plan could not pad
+                    continue
                 for one in (item if isinstance(item, _Singles) else [item]):
                     yield self._ready(one)
         finally:

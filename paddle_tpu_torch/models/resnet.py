@@ -6,8 +6,10 @@ Bottleneck blocks of conv -> batch norm -> relu (`conv_bn`, conv without
 bias), a projection shortcut where the shape changes, and the residual
 join as an `Addto` with relu. NHWC input [B, S, S, 3]. Layer names are the
 reference's (`stem.conv`, `s0b0.a.bn`, `s0b0.proj.conv`, `gap`,
-`logits`), so parameters and states move across by name; the reference's
-logical sharding axes have no counterpart on one card."""
+`logits`), so parameters and states move across by name. The conv
+filters, batch norms and the head declare the reference's logical sharding
+axes (`CONV_W_AXES`, `BN_AXES`, ("embed", "vocab")); the rules table
+(`parallel/rules.py`) resolves them to replicated on the data-only mesh."""
 
 from __future__ import annotations
 
@@ -15,7 +17,13 @@ from typing import Optional, Tuple
 
 from paddle_tpu_torch.nn import costs as C
 from paddle_tpu_torch.nn import layers as L
-from paddle_tpu_torch.nn.graph import Layer
+from paddle_tpu_torch.nn.graph import Layer, ParamAttr
+
+# logical axes: conv filters (HWIO) name their out-channel axis "mlp"; the
+# rules table maps it to a 'model' axis on a tensor-parallel mesh and to
+# replicated on the data-only one
+CONV_W_AXES = (None, None, None, "mlp")
+BN_AXES = ("mlp",)
 
 
 def conv_bn(x: Layer, num_filters: int, filter_size: int, stride: int = 1,
@@ -26,8 +34,9 @@ def conv_bn(x: Layer, num_filters: int, filter_size: int, stride: int = 1,
         padding = (filter_size - 1) // 2
     conv = L.Conv2D(x, num_filters=num_filters, filter_size=filter_size,
                     stride=stride, padding=padding, act=None, bias=False,
-                    name=f"{name}.conv")
-    return L.BatchNorm(conv, act=act, name=f"{name}.bn")
+                    param_attr=ParamAttr(logical_axes=CONV_W_AXES), name=f"{name}.conv")
+    return L.BatchNorm(conv, act=act, param_attr=ParamAttr(logical_axes=BN_AXES),
+                       bias_attr=ParamAttr(logical_axes=BN_AXES), name=f"{name}.bn")
 
 
 def bottleneck(x: Layer, mid: int, out: int, stride: int, name: str) -> Layer:
@@ -73,7 +82,9 @@ def resnet(depth: int = 50, num_classes: int = 1000,
             stride = 2 if (stage > 0 and blk == 0) else 1
             x = bottleneck(x, mid, out, stride, f"s{stage}b{blk}")
     pooled = L.GlobalPool(x, "avg", name="gap")
-    logits = L.Fc(pooled, num_classes, act=None, name="logits")
+    logits = L.Fc(pooled, num_classes, act=None,
+                  param_attr=ParamAttr(logical_axes=("embed", "vocab")),
+                  bias_attr=ParamAttr(logical_axes=("vocab",)), name="logits")
     cost = C.ClassificationCost(logits, label, name="cost")
     return img, label, logits, cost
 

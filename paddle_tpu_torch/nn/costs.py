@@ -7,10 +7,15 @@ A cost layer computes a per-example cost, times the optional per-example
 `weight` input, and returns `coeff` times its sum over the batch divided by
 the batch size B. A sequence cost sums the per-step costs over the valid
 steps and divides by B too (not by the number of valid steps), exactly as
-the JAX package's `_masked_mean` does without a sample mask; a sequence
-prediction against one label per sequence applies that label to every
-step. The padded-batch sample mask of the JAX package's DataParallel path
-waits with the parallel updaters (ROADMAP.md §1 item 8)."""
+the JAX package's `_masked_mean` does; a sequence prediction against one
+label per sequence applies that label to every step.
+
+`_masked_mean` honours the padded batch's row mask (`Context.sample_mask`):
+padded rows weigh 0 and the denominator is the global real row count
+(`Context.sample_count`). Under a mesh the batch is this rank's rows, and
+the denominator is the global batch's, so the ranks' costs (and
+gradients) sum to the unsharded batch's. An unpadded batch on one rank
+keeps the plain sum / B, bit for bit."""
 
 from __future__ import annotations
 
@@ -31,6 +36,23 @@ def _flatten_seq(value: torch.Tensor, lengths: Optional[torch.Tensor]):
     b, t = value.shape[0], value.shape[1]
     mask = seq_ops.mask_from_lengths(lengths, t).reshape(-1)
     return value.reshape((b * t,) + tuple(value.shape[2:])), mask
+
+
+def _masked_mean(ctx: Context, cost: torch.Tensor, batch_rows: int,
+                 timesteps: Optional[int] = None) -> torch.Tensor:
+    """Sum of a per-example cost over the global batch's real rows: the
+    counterpart of `paddle_tpu/nn/costs.py` `_masked_mean`. Without a mask,
+    sum / (B x world); with one, padded rows weigh 0 and the denominator is
+    the real row count."""
+    smask = getattr(ctx, "sample_mask", None)
+    if smask is None:
+        return cost.sum() / (batch_rows * getattr(ctx, "world", 1))
+    w = smask.to(cost.dtype).reshape(-1)
+    if timesteps is not None:  # sequence costs flatten to [(B*T)]
+        w = w.repeat_interleave(timesteps)
+    count = getattr(ctx, "sample_count", None)
+    count = count if count is not None else smask.float().sum()
+    return (cost * w).sum() / torch.clamp(count, min=1.0)
 
 
 def _dense_label(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -75,7 +97,8 @@ class CostLayer(Layer):
             cost = cost * pmask
         if self.has_weight:
             cost = cost * ins[2].value.reshape(-1)
-        return Argument(self.coeff * (cost.sum() / pred_arg.value.shape[0]))
+        t = pred_arg.value.shape[1] if pred_arg.lengths is not None else None
+        return Argument(self.coeff * _masked_mean(ctx, cost, pred_arg.value.shape[0], t))
 
 
 class ClassificationCost(CostLayer):
@@ -187,7 +210,7 @@ class RankCost(Layer):
         cost = torch.logaddexp(o, torch.zeros_like(o)) - t * o
         if self.has_weight:
             cost = cost * ins[3].value.reshape(-1)
-        return Argument(self.coeff * (cost.sum() / cost.shape[0]))
+        return Argument(self.coeff * _masked_mean(ctx, cost, cost.shape[0]))
 
 
 class MultiBinaryLabelCrossEntropy(CostLayer):
@@ -213,7 +236,10 @@ class SumCost(Layer):
 
     def forward(self, ctx: Context, ins: List[Argument]) -> Argument:
         v = ins[0].value
-        return Argument(self.coeff * v.sum() / v.shape[0])
+        if getattr(ctx, "sample_mask", None) is None:
+            return Argument(self.coeff * v.sum() / (v.shape[0] * getattr(ctx, "world", 1)))
+        per_row = v.reshape(v.shape[0], -1).sum(-1)
+        return Argument(self.coeff * _masked_mean(ctx, per_row, v.shape[0]))
 
 
 class SmoothL1(CostLayer):

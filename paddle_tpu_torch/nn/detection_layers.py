@@ -25,6 +25,16 @@ from paddle_tpu_torch.nn.graph import Argument, Context, Layer
 from paddle_tpu_torch.ops import detection as det_ops
 
 
+
+def _batch_mean(ctx: Context, cost: torch.Tensor) -> torch.Tensor:
+    """The mean of a per-image cost over the global batch (the JAX
+    package's `jnp.mean`, which takes no row mask); under a mesh this rank's
+    share of it, so the ranks' costs add up to the mean."""
+    world = getattr(ctx, "world", 1)
+    if world == 1:
+        return cost.mean()
+    return cost.sum() / (cost.shape[0] * world)
+
 class PriorBox(Layer):
     """Anchor generator bound to a conv feature map (PriorBox.cpp). Output:
     the [P, 8] block of 4 box coordinates and 4 variances, one row a prior,
@@ -125,7 +135,7 @@ class MultiBoxLoss(Layer):
             loc, conf, priors, variances, gtb, gtl_arg.value.long(), valid,
             overlap_threshold=self.overlap_threshold, neg_pos_ratio=self.neg_pos_ratio,
             background_id=self.background_id)
-        return Argument(cost.mean())
+        return Argument(_batch_mean(ctx, cost))
 
 
 class DetectionOutput(Layer):
@@ -204,7 +214,7 @@ class MultiBoxLossV1(Layer):
             lab[:, :, 0].long(), (lab != 0).any(dim=-1),
             overlap_threshold=self.overlap_threshold, neg_pos_ratio=self.neg_pos_ratio,
             background_id=self.background_id)
-        return Argument(cost.mean())
+        return Argument(_batch_mean(ctx, cost))
 
 
 class DetectionOutputV1(DetectionOutput):

@@ -26,7 +26,16 @@ stable hash and a per-apply draw count, as `paddle_tpu/nn/graph.py` does,
 so Dropout draws the reference's masks bit for bit. `apply(...,
 remat=policy)` runs the layers in segments that end at a conv or fc, each
 under `core/remat.py`'s checkpoint, with the draw count rewound for the
-recompute. A layer's output is dropped once its last consumer has run."""
+recompute. A layer's output is dropped once its last consumer has run.
+
+Data parallelism (`parallel/`): `apply(..., mesh=m)` runs the forward on
+this rank's rows of the global batch. Batch norm then reduces its sums over
+the mesh, the cost layers divide by the global row count, and every random
+draw over the batch draws the global shape's bits and keeps this rank's
+rows (`batch_rows`), so the masks equal the JAX package's at any
+world size. A padded batch (`DataParallel.pad_batch`) carries the [B] row
+mask under `SAMPLE_MASK_KEY` and the global real row count under
+`SAMPLE_COUNT_KEY`; `Network._run` strips both into the context."""
 
 from __future__ import annotations
 
@@ -44,6 +53,17 @@ from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.nn import init as init_mod
 
 Params = Dict[str, torch.Tensor]
+
+# Reserved batch slot: [B] float 0/1 row-validity mask attached when a
+# trailing batch is padded up to the mesh data-axis multiple
+# (DataParallel.pad_batch). Network._run strips it into Context.sample_mask;
+# cost layers weight per-example costs by it and normalize by the real row
+# count, so padded rows contribute nothing to cost or gradients.
+SAMPLE_MASK_KEY = "__sample_mask__"
+# The port's second reserved slot beside the mask: the global batch's real
+# row count as a [1] f32 tensor (a rank holds only its rows of the mask; the
+# denominator is the whole batch's). Stripped into Context.sample_count.
+SAMPLE_COUNT_KEY = "__sample_count__"
 
 
 @dataclasses.dataclass
@@ -104,6 +124,8 @@ class ParamAttr:
     initial_min: Optional[float] = None
     initial_max: Optional[float] = None
     sharding: Optional[Tuple[Optional[str], ...]] = None
+    # logical axis names resolved through parallel/rules.py's table
+    logical_axes: Optional[Tuple[Optional[str], ...]] = None
 
 
 class Context:
@@ -119,7 +141,13 @@ class Context:
     the first draw (a graph without Dropout computes no key). `cache`
     holds what one run shares between layers: a recurrent group's unroll,
     which every output of the group reads, and a step layer's auxiliary
-    outputs."""
+    outputs.
+
+    Under a mesh (`mesh`, with this rank's `rank` of `world`) the batch is
+    this rank's rows of the global batch: `sample_mask` holds a padded
+    batch's [B] row weights and `sample_count` the global real row count;
+    `param_resolver(name, stored)` turns a stored parameter into the full
+    view a layer reads (ZeRO-3's on-demand gather), once per run."""
 
     def __init__(self, mode: str, params: Params, seed: int = 0,
                  device: Optional[torch.device] = None,
@@ -142,6 +170,13 @@ class Context:
         # (layer name, slot) -> parameter name; a shared name binds to every
         # layer that uses it (the config dump reads this)
         self.param_owners: Dict[tuple, str] = {}
+        self.sample_mask: Optional[torch.Tensor] = None
+        self.sample_count: Optional[torch.Tensor] = None
+        self.mesh: Any = None
+        self.rank = 0
+        self.world = 1
+        self.param_resolver: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+        self._resolved: Params = {}
 
     def next_rng(self, tag: str) -> torch.Tensor:
         """A fresh key for one draw: fold_in(fold_in(rng, hash(tag)), n),
@@ -175,11 +210,16 @@ class Context:
             self.param_attrs[full] = attr
         if full not in self.params:
             raise KeyError(f"parameter {full!r} of layer {layer.name!r} missing")
-        got = tuple(self.params[full].shape)
+        value = self.params[full]
+        if self.param_resolver is not None:
+            if full not in self._resolved:  # a shared parameter resolves once
+                self._resolved[full] = self.param_resolver(full, value)
+            value = self._resolved[full]
+        got = tuple(value.shape)
         if got != tuple(shape):
             raise ValueError(
                 f"parameter {full!r} shape mismatch: {got} vs {tuple(shape)}")
-        return self.params[full]
+        return value
 
     def state(self, layer: "Layer", sname: str, shape: Sequence[int],
               init_value: float = 0.0) -> torch.Tensor:
@@ -195,6 +235,19 @@ class Context:
 
     def update_state(self, layer: "Layer", sname: str, value: torch.Tensor) -> None:
         self.state_updates[f"{layer.name}.{sname}"] = value
+
+
+def batch_rows(ctx: Any, draw: Callable[[Tuple[int, ...]], torch.Tensor],
+               shape: Sequence[int]) -> torch.Tensor:
+    """`draw(shape)` for a draw whose leading axis is the batch: under a mesh
+    of `ctx.world` ranks it draws the global batch's shape and keeps this
+    rank's rows, so every rank's bits are the unsharded batch's."""
+    shape = tuple(shape)
+    world = getattr(ctx, "world", 1)
+    if world == 1:
+        return draw(shape)
+    b, r = shape[0], ctx.rank
+    return draw((b * world,) + shape[1:])[r * b:(r + 1) * b]
 
 
 def _stable_hash(s: str) -> int:
@@ -311,7 +364,8 @@ class Network:
               states: Optional[Params] = None, *, train: bool = False,
               policy: Optional[dtypes.Policy] = None,
               rng: Union[None, torch.Tensor, Callable[[], torch.Tensor]] = None,
-              remat: Optional[str] = None):
+              remat: Optional[str] = None, mesh: Any = None,
+              param_resolver: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None):
         """Forward over `batch` (moved to the parameters' device) ->
         {output layer name: Argument}; with `states` given, ->
         (outputs, new states), the updated ones replacing their entries in
@@ -319,7 +373,10 @@ class Network:
         over the moving ones; `rng` is the key Dropout draws from (or a
         function giving it at the first draw); `remat`
         ("dots" | "conv_only" | "full") checkpoints segments of layers
-        under that policy (`core/remat.py`)."""
+        under that policy (`core/remat.py`). `mesh` (a `parallel.Mesh`):
+        `batch` is this rank's rows of the global batch (see the module
+        docstring); `param_resolver(name, stored)` gives the full view of a
+        stored parameter (ZeRO-3)."""
         known = next(iter(params.values()), None)
         if known is None and states:
             known = next(iter(states.values()))
@@ -331,6 +388,9 @@ class Network:
         ctx = Context("apply", params, device=dev,
                       states={} if states is None else states, train=train,
                       policy=policy, rng=rng)
+        if mesh is not None:
+            ctx.mesh, ctx.rank, ctx.world = mesh, mesh.rank, mesh.size
+        ctx.param_resolver = param_resolver
         with dtypes.policy_scope(policy):
             values = self._run(ctx, batch, dev, remat_mod.resolve(remat))
         outs = {l.name: values[l.name] for l in self.outputs}
@@ -348,6 +408,15 @@ class Network:
         conv's or fc's output, a residual branch) stays for the backward,
         everything inside it is recomputed there unless the policy saves
         it."""
+        if SAMPLE_MASK_KEY in batch or SAMPLE_COUNT_KEY in batch:
+            # the padded batch's reserved slots feed the cost layers'
+            # masking through the context, never a data layer
+            if SAMPLE_MASK_KEY in batch:
+                ctx.sample_mask = _to_tensor(batch[SAMPLE_MASK_KEY], device)
+            if SAMPLE_COUNT_KEY in batch:
+                ctx.sample_count = _to_tensor(batch[SAMPLE_COUNT_KEY], device).reshape(())
+            batch = {k: v for k, v in batch.items()
+                     if k not in (SAMPLE_MASK_KEY, SAMPLE_COUNT_KEY)}
         values: Dict[str, Argument] = {}
         order = [layer for layer in self.layer_order if layer.type_name != "data"]
         last_use: Dict[str, int] = {}  # name -> position of its last consumer

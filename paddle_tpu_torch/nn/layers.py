@@ -24,7 +24,7 @@ import torch
 from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.nn import activations as act_mod
 from paddle_tpu_torch.nn import init as init_mod
-from paddle_tpu_torch.nn.graph import Argument, Context, Layer, ParamAttr
+from paddle_tpu_torch.nn.graph import Argument, Context, Layer, ParamAttr, batch_rows
 from paddle_tpu_torch.ops import conv as conv_ops
 from paddle_tpu_torch.ops import linalg
 from paddle_tpu_torch.ops import normalization as norm_ops
@@ -280,7 +280,8 @@ class BatchNorm(Layer):
             out = norm_ops.batch_norm_inference(x, gamma, beta, moving_mean,
                                                 moving_var, self.epsilon)
         else:
-            out, mean, var = norm_ops.batch_norm_train(x, gamma, beta, self.epsilon)
+            out, mean, var = norm_ops.batch_norm_train(x, gamma, beta, self.epsilon,
+                                                       mesh=getattr(ctx, "mesh", None))
             ctx.update_state(self, "moving_mean",
                              self.maf * moving_mean + (1 - self.maf) * mean)
             ctx.update_state(self, "moving_var",
@@ -334,7 +335,8 @@ class Dropout(Layer):
         if not ctx.train or self.rate <= 0.0:
             return ins[0]
         keep = 1.0 - self.rate
-        mask = prng.bernoulli(ctx.next_rng(self.name), keep, x.shape)
+        key = ctx.next_rng(self.name)
+        mask = batch_rows(ctx, lambda shape: prng.bernoulli(key, keep, shape), x.shape)
         # divide by keep rounded to x's dtype, as jax's weak-typed scalar is
         keep_x = torch.tensor(keep, dtype=x.dtype).item()
         return ins[0].with_value(torch.where(mask, x / keep_x, 0.0).to(x.dtype))
@@ -1237,7 +1239,8 @@ class SamplingId(Layer):
         x = ins[0].value
         logits = torch.log(torch.clamp_min(x, 1e-30))
         tiny = torch.finfo(torch.float32).tiny
-        u = prng.uniform(ctx.next_rng(self.name), tuple(x.shape), tiny, 1.0)
+        key = ctx.next_rng(self.name)
+        u = batch_rows(ctx, lambda shape: prng.uniform(key, shape, tiny, 1.0), x.shape)
         gumbel = -torch.log(-torch.log(u))
         ids = torch.argmax(gumbel.to(logits.dtype) + logits, dim=-1)
         return ins[0].with_value(ids.to(torch.int32))

@@ -4,8 +4,10 @@
 `LambdaCost` (LambdaRank) and `CrossEntropyOverBeam` with its `BeamInput`.
 
 Each cost is the mean of its per-example vector over the batch, as the JAX
-package's `_mean_over_examples` is without a sample mask; the padded-batch
-sample mask waits with the parallel updaters (ROADMAP.md §1 item 8).
+package's `_mean_over_examples` computes it: a padded batch's rows weigh
+their sample mask and the denominator is the global real row count; under
+a mesh the batch is this rank's rows and the denominator the global
+batch's.
 
 NCE draws its noise classes from `ctx.next_rng(name)` with
 `core/prng.randint` / `prng.categorical`, jax's threefry bits, so the port
@@ -23,14 +25,41 @@ import torch
 
 from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.nn import init as init_mod
-from paddle_tpu_torch.nn.graph import Argument, Context, Layer
+from paddle_tpu_torch.nn.graph import Argument, Context, Layer, batch_rows
 from paddle_tpu_torch.nn.layers import _attr
 from paddle_tpu_torch.ops import crf as crf_ops
 from paddle_tpu_torch.ops import ctc as ctc_ops
 
 
-def _mean_over_examples(per_sample: torch.Tensor) -> torch.Tensor:
-    return per_sample.mean()
+def _mean_over_examples(ctx: Context, per_sample: torch.Tensor) -> torch.Tensor:
+    """Mean over a per-example cost vector honouring `ctx.sample_mask`
+    (`paddle_tpu/nn/struct_costs.py` `_mean_over_examples`): a vector that
+    flattens [B] rows per timestep repeats the mask per step; a layout that
+    does not divide the mask keeps the unmasked mean, with the reference's
+    warning. Unmasked on one rank it is the plain mean, bit for bit."""
+    smask = getattr(ctx, "sample_mask", None)
+    world = getattr(ctx, "world", 1)
+    if smask is None:
+        if world == 1:
+            return per_sample.mean()
+        return per_sample.sum() / (per_sample.shape[0] * world)
+    n, b = per_sample.shape[0], smask.shape[0]
+    if not b or n % b != 0:
+        import logging
+
+        logging.getLogger("paddle_tpu_torch.costs").warning(
+            "struct cost cannot apply the pad-row mask: per-sample vector of %d rows "
+            "does not divide the [%d] sample mask — the padded rows join this batch's "
+            "mean unmasked (duplicates of the last real row). Size batches divisibly "
+            "by the mesh data axis to avoid the bias.", n, b)
+        return per_sample.mean()
+    reps = n // b
+    w = smask.to(per_sample.dtype)
+    if reps > 1:
+        w = w.repeat_interleave(reps)
+    count = getattr(ctx, "sample_count", None)
+    count = count if count is not None else smask.float().sum()
+    return (per_sample * w).sum() / torch.clamp(count * reps, min=1.0)
 
 
 class CTCCost(Layer):
@@ -58,7 +87,7 @@ class CTCCost(Layer):
         nll = ctc_ops.ctc_loss(logits.value, logits.lengths, labels.value,
                                labels.lengths, blank=self.blank,
                                norm_by_times=self.norm_by_times)
-        return Argument(self.coeff * _mean_over_examples(nll))
+        return Argument(self.coeff * _mean_over_examples(ctx, nll))
 
 
 class CRFCost(Layer):
@@ -82,7 +111,7 @@ class CRFCost(Layer):
         c = self.size or emit.value.shape[-1]
         w = ctx.param(self, "w", (c + 2, c), init_mod.smart_normal, self.param_attr)
         nll = crf_ops.crf_nll(emit.value, emit.lengths, labels.value, w)
-        return Argument(self.coeff * _mean_over_examples(nll))
+        return Argument(self.coeff * _mean_over_examples(ctx, nll))
 
 
 class CRFDecoding(Layer):
@@ -165,7 +194,7 @@ class NCECost(Layer):
         def reduce(per_sample):
             if sample_w is not None:
                 per_sample = per_sample * sample_w
-            return _mean_over_examples(per_sample)
+            return _mean_over_examples(ctx, per_sample)
 
         if not ctx.train:
             logits = x @ w.t() + (b if b is not None else 0.0)
@@ -175,13 +204,15 @@ class NCECost(Layer):
         k = self.num_neg_samples
         key = ctx.next_rng(self.name)
         if self.neg_distribution is None:
-            samples = prng.randint(key, (bsz, k), 0, self.num_classes)
+            samples = batch_rows(
+                ctx, lambda shape: prng.randint(key, shape, 0, self.num_classes), (bsz, k))
             logq_pos = logq_neg = torch.full((), -math.log(self.num_classes),
                                              dtype=x.dtype, device=x.device)
         else:
             noise = self._noise(x.device)
             dist = noise / noise.sum()
-            samples = prng.categorical(key, torch.log(dist), (bsz, k))
+            samples = batch_rows(
+                ctx, lambda shape: prng.categorical(key, torch.log(dist), shape), (bsz, k))
             logq_pos = torch.log(dist[label])
             logq_neg = torch.log(dist[samples])
         ids = torch.cat([label[:, None], samples], dim=1)  # [B, 1+k]
@@ -235,7 +266,7 @@ class HierarchicalSigmoid(Layer):
             s = s + b[rows]
         loss = _bce_logits(s, bits.to(s.dtype))
         loss = torch.where(parents >= 1, loss, torch.zeros_like(loss))
-        return Argument(_mean_over_examples(loss.sum(dim=1)))
+        return Argument(_mean_over_examples(ctx, loss.sum(dim=1)))
 
 
 class LambdaCost(Layer):
@@ -289,7 +320,7 @@ class LambdaCost(Layer):
         rel_gt = (g[:, :, None] > g[:, None, :]).to(s.dtype)
         pmask = mask[:, :, None] * mask[:, None, :]
         loss = (dndcg * pair_loss * rel_gt * pmask).sum(dim=(1, 2))
-        return Argument(self.coeff * _mean_over_examples(loss))
+        return Argument(self.coeff * _mean_over_examples(ctx, loss))
 
 
 class BeamInput:
@@ -365,4 +396,4 @@ class CrossEntropyOverBeam(Layer):
             sel_prefix = sel_scores
         cost_mat = torch.stack(costs, dim=1)
         per_sample = torch.gather(cost_mat, 1, first_off[:, None])[:, 0]
-        return Argument(_mean_over_examples(per_sample))
+        return Argument(_mean_over_examples(ctx, per_sample))

@@ -19,7 +19,16 @@ Not `F.batch_norm` / cuDNN's: its running variance is the unbiased one
 and it computes the variance by another algorithm. bf16 input is reduced
 in f32 without an f32 copy of the activation where torch has such a
 reduction (`sum(dtype=float32)`, `linalg.vector_norm(dtype=float32)`);
-sum(dy * x) needs the product in f32, so it writes one f32 temporary."""
+sum(dy * x) needs the product in f32, so it writes one f32 temporary.
+
+Under a data-parallel mesh (`mesh=`, a `parallel.Mesh`) the statistics
+cover the global batch, as the JAX package's do when jit reduces a
+batch-sharded array: the forward all-reduces [s1, s2] (2 x C floats) and
+divides by the global n, the backward all-reduces [sum dy, sum dy * x]
+before it forms dx. dgamma and dbeta are returned from this rank's own
+sums, so the updater's gradient reduction adds them up once. On one rank
+the all-reduce is an exact copy and the result is bitwise the mesh-less
+one's."""
 
 from __future__ import annotations
 
@@ -47,13 +56,24 @@ def _row(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return c.reshape((1,) * (x.dim() - 1) + (-1,))
 
 
+def _all_sum(mesh, a: torch.Tensor, b: torch.Tensor):
+    """(a, b) summed over the mesh's ranks in one all-reduce of [2, C]."""
+    both = torch.stack([a, b])
+    mesh.all_reduce_(both)
+    return both[0], both[1]
+
+
 class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
+    def forward(ctx, x, gamma, beta, eps, mesh=None):
         axes, n, acc = _axes(x), _count(x), _acc(x)
         s1 = x.sum(dim=axes, dtype=acc)
         s2 = torch.linalg.vector_norm(x, 2, dim=axes, dtype=acc).square()
+        if mesh is not None:
+            s1, s2 = _all_sum(mesh, s1, s2)
+            n = n * mesh.size
+        ctx.mesh = mesh
         mean = s1 / n
         var = torch.clamp(s2 / n - mean.square(), min=0.0)
         inv = torch.rsqrt(var + eps)
@@ -73,19 +93,28 @@ class _BatchNormTrain(torch.autograd.Function):
         zero = x.new_zeros((1,) * x.dim(), dtype=acc)
         dgx = torch.addcmul(zero, dy, x).sum(dim=axes)  # products in acc
         dgamma = inv * (dgx - mean * dbeta)
+        dgamma_own, dbeta_own = dgamma, dbeta
+        if ctx.mesh is not None:
+            # dx needs the global sums; the parameters' gradients stay this
+            # rank's, which the updater's reduction adds up
+            dbeta, dgx = _all_sum(ctx.mesh, dbeta, dgx)
+            dgamma = inv * (dgx - mean * dbeta)
+            n = n * ctx.mesh.size
         gi = gamma.to(acc) * inv
         c = gi * (dbeta + mean * inv * -dgamma) / -n
         bx = gi * inv * dgamma / -n
         dx = torch.addcmul(_row(c, x), dy, _row(gi, x))
         dx = dx.addcmul_(x, _row(bx, x)).to(x.dtype)
-        return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None
+        return (dx, dgamma_own.to(gamma.dtype), dbeta_own.to(gamma.dtype), None,
+                None)
 
 
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                     eps: float):
+                     eps: float, mesh=None):
     """Training-mode batch norm over every axis but the last -> (y in x's
-    dtype, mean f32 [C], biased var f32 [C])."""
-    return _BatchNormTrain.apply(x, gamma, beta, float(eps))
+    dtype, mean f32 [C], biased var f32 [C]); with `mesh`, over the global
+    batch."""
+    return _BatchNormTrain.apply(x, gamma, beta, float(eps), mesh)
 
 
 def batch_norm_inference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

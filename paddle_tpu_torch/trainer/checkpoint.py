@@ -67,6 +67,46 @@ def flatten_tree(tree: Any, leaf: Callable[[Any], Any] = np.asarray,
     return {prefix[:-1]: leaf(tree)}
 
 
+def tree_shape_mismatches(template: Any, flat: Flat) -> List[Tuple[str, Tuple[int, ...],
+                                                                     Tuple[int, ...]]]:
+    """(key, expected shape, found shape) for every `flat` entry whose shape
+    disagrees with the matching `template` leaf. `restore_tree` keeps the
+    template's value for those; a caller that must not lose state (the
+    trainer's optimizer resume) turns a non-empty result into an error."""
+    leaves = flatten_tree(template, leaf=lambda v: v)
+    return [(k, tuple(np.shape(v)), tuple(np.shape(flat[k]))) for k, v in leaves.items()
+            if k in flat and tuple(np.shape(flat[k])) != tuple(np.shape(v))]
+
+
+def tree_missing_keys(template: Any, flat: Flat) -> List[str]:
+    """Template leaf paths with no entry in `flat` at all (invisible to
+    `tree_shape_mismatches`, which compares keys present in both)."""
+    return [k for k in flatten_tree(template, leaf=lambda v: v) if k not in flat]
+
+
+def restore_tree(template: Any, flat: Flat) -> Any:
+    """A tree shaped like `template` (nested dicts / tuples / lists of
+    tensors) from a flat path -> array dict (the inverse of
+    `flatten_tree`): each leaf takes its entry, as a tensor of the
+    template leaf's dtype and device; leaves missing from `flat`, or with
+    another shape, keep the template's value."""
+    import torch
+
+    def rebuild(tree: Any, prefix: str) -> Any:
+        if isinstance(tree, dict):
+            return {k: rebuild(v, f"{prefix}{k}/") for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(rebuild(v, f"{prefix}{i}/") for i, v in enumerate(tree))
+        key = prefix[:-1]
+        if key in flat and tuple(np.shape(flat[key])) == tuple(np.shape(tree)):
+            if isinstance(tree, torch.Tensor):
+                return torch.as_tensor(np.asarray(flat[key])).to(tree.device, tree.dtype)
+            return np.asarray(flat[key], dtype=np.asarray(tree).dtype)
+        return tree
+
+    return rebuild(template, "")
+
+
 def _save_npz_atomic(path: str, arrays: Flat) -> int:
     d = os.path.dirname(path)
     os.makedirs(d, exist_ok=True)

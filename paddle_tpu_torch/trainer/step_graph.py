@@ -36,7 +36,11 @@ What makes the capture legal:
 Launch counts: the recurrent and attention wrappers count a call made
 under capture in `rnn_kernels.CAPTURED`; each replay adds the calls its
 capture recorded (`rnn_kernels.note_replay`), so "2 forward + 2 backward
-GRU launches a step" reads the same under replay as eagerly.
+GRU launches a step" reads the same under replay as eagerly. A
+data-parallel step's collectives (NCCL, on the mesh's group) are captured
+with it and counted the same way (`parallel/mesh.py` `CAPTURED`,
+`note_replay`); the signature's first, eager dispatch has already created
+the NCCL communicator.
 
 CUDA only: the CPU has no graphs and the trainer runs the step eagerly
 there. A failed capture raises; nothing drops back to eager on the card."""
@@ -50,6 +54,7 @@ import torch
 
 from paddle_tpu_torch.nn import layers
 from paddle_tpu_torch.ops import rnn_kernels
+from paddle_tpu_torch.parallel import mesh as mesh_mod
 
 
 class StepGraph:
@@ -76,6 +81,7 @@ class StepGraph:
                    [{name: v[i] for name, v in self.inputs.items()} for i in range(k)])
         self.graph = torch.cuda.CUDAGraph()
         before = dict(rnn_kernels.CAPTURED)
+        collectives_before = dict(mesh_mod.CAPTURED)
         # thread_local: the checkpoint writer thread may wait on a CUDA
         # event meanwhile; the autograd thread's backward still records
         # into the capture stream
@@ -88,6 +94,7 @@ class StepGraph:
         self.kernel_calls = {name: n - before[name]
                              for name, n in rnn_kernels.CAPTURED.items()
                              if n != before[name]}
+        self.collective_calls = mesh_mod.captured_since(collectives_before)
 
     def replay(self, batch: Mapping[str, Any]):
         """K steps on `batch` (the slots as `example` laid them out) ->
@@ -107,6 +114,7 @@ class StepGraph:
         self.graph.replay()
         self.replays += 1
         rnn_kernels.note_replay(self.kernel_calls)
+        mesh_mod.note_replay(self.collective_calls)
         layers.emit_prints(self.prints)
         return self.costs.clone(), {k: v.clone() for k, v in self.extras.items()}
 

@@ -57,18 +57,32 @@ TF32 off for cuBLAS and cuDNN, process-wide: the reference's f32 is
 `Precision.HIGHEST`, and autograd runs the backward's convs and matmuls
 outside any context manager around the forward.
 
+Data parallelism (`parallel=DataParallel(make_mesh({"data": n}))`, one
+rank per process or, in the tests, per thread): every rank reads the same
+global batch, pads it to a multiple of n (a row mask and the global real
+row count ride beside it) and keeps its own rows; the forward runs on them
+under the mesh (synchronized batch norm, costs over the global row count,
+the global batch's random bits); the updater (`updater=`, or the one
+`shard_update` / `grad_compression` select: replicated, zero1, zero2,
+zero3) reduces the gradients and the cost over the mesh inside the step,
+so on the card the collectives are captured in the step's graph. The
+divergence guard reads the global cost, so a diverged step reverts on
+every rank; zero2's `multi_step` merges the K batches into one accumulated
+update. Checkpoints hold the canonical layout (the updater's seams),
+written by rank 0, and record the world size; they load under any mode
+and world size.
+
 An elastic-resize request (`core/preempt.request_resize`, set by a
 master's resize epoch through `runtime/master.ResizeClient`) is taken at
-the next dispatch boundary and ignored with the JAX package's warning: the
-port's trainer has no DataParallel mesh to re-shape, as the JAX package's
-single-device trainer has none.
-
-Not ported yet (ROADMAP.md item 8): the parallel updaters, the padded
-batch's sample mask and the re-shard of a resize (`resize_to`)."""
+the next dispatch boundary: a mesh-less trainer ignores it with the JAX
+package's warning, as the JAX package's single-device trainer does; the
+re-shard of a mesh trainer (`resize_to`) is ROADMAP.md §1 item 8c and
+raises."""
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
@@ -79,7 +93,7 @@ from paddle_tpu_torch.core import dtypes, faults, preempt, prng, stats
 from paddle_tpu_torch.core import remat as remat_mod
 from paddle_tpu_torch.data.pipeline import StackedBatch
 from paddle_tpu_torch.device import DeviceLike, resolve_device
-from paddle_tpu_torch.nn.graph import Layer, Network
+from paddle_tpu_torch.nn.graph import SAMPLE_COUNT_KEY, SAMPLE_MASK_KEY, Layer, Network
 from paddle_tpu_torch.optim import schedules
 from paddle_tpu_torch.optim.average import ModelAverage
 from paddle_tpu_torch.optim.optimizers import Optimizer, write_into
@@ -93,6 +107,21 @@ TrainState = Dict[str, Any]  # params / opt / states / avg / samples / lr_scale 
 Batch = Mapping[str, Any]
 
 DIVERGENCE_POLICIES = ("skip_batch", "rollback", "raise")
+SHARD_UPDATE_MODES = ("zero1", "zero2", "zero3")
+_RESERVED = (SAMPLE_MASK_KEY, SAMPLE_COUNT_KEY)
+
+
+def _resolve_shard_mode(shard_update) -> Optional[str]:
+    """SGDTrainer(shard_update=...): booleans are the zero1 alias, or one of
+    SHARD_UPDATE_MODES."""
+    if shard_update in (False, None, "none", "0", "false"):
+        return None
+    if shard_update in (True, "true", "1"):
+        return "zero1"
+    if shard_update in SHARD_UPDATE_MODES:
+        return shard_update
+    raise ValueError(f"shard_update must be a bool or one of {SHARD_UPDATE_MODES}, got "
+                     f"{shard_update!r}")
 REMAT_POLICIES = remat_mod.POLICIES
 
 
@@ -127,7 +156,10 @@ class SGDTrainer:
     averages `test()` evaluates. remat: "none" | "dots" | "conv_only" |
     "full" (`core/remat.py`). divergence_policy: None (no guard) |
     "skip_batch" | "rollback" | "raise", polled every guard_check_every
-    steps."""
+    steps. parallel: a `parallel.DataParallel` (its mesh's device is the
+    trainer's); updater: a `parallel.ParameterUpdater`, else the one
+    `shard_update` (False | True = "zero1" | "zero1" | "zero2" | "zero3")
+    and `grad_compression` ("none" | "bf16" | "int8") select."""
 
     def __init__(self, cost: Union[Layer, Sequence[Layer]], optimizer: Optimizer,
                  seed: int = 0, device: DeviceLike = None,
@@ -137,7 +169,11 @@ class SGDTrainer:
                  model_average: Optional[ModelAverage] = None,
                  remat: Optional[str] = None,
                  divergence_policy: Optional[str] = None,
-                 guard_check_every: int = 16):
+                 guard_check_every: int = 16,
+                 parallel: Optional[Any] = None,
+                 updater: Optional[Any] = None,
+                 shard_update: Union[bool, str, None] = False,
+                 grad_compression: Optional[str] = None):
         costs = [cost] if isinstance(cost, Layer) else list(cost)
         self.cost_names = [c.name for c in costs]
         self.extra_names = [e.name for e in extra_outputs]
@@ -154,7 +190,47 @@ class SGDTrainer:
         self.divergence_policy = divergence_policy
         self.guard_check_every = guard_check_every
         self.seed = seed
+        self.shard_update = _resolve_shard_mode(shard_update)
+        compressed = grad_compression not in (None, "none")
+        if (self.shard_update or compressed) and parallel is None and updater is None:
+            raise ValueError("shard_update/grad_compression need a DataParallel mesh "
+                             "(SGDTrainer(parallel=...)): there is no data axis to shard "
+                             "the update over")
+        if compressed and not self.shard_update:
+            raise ValueError("grad_compression wraps the sharded update's reduce-scatter "
+                             "— pass shard_update=True with it")
+        if updater is not None and (self.shard_update or compressed):
+            raise ValueError("shard_update/grad_compression select the built-in "
+                             "ShardedUpdater and cannot combine with an explicit updater= "
+                             "— construct ShardedUpdater(optimizer, parallel, "
+                             "compression=...) yourself instead")
+        if updater is None:
+            from paddle_tpu_torch.parallel import updaters as upd
+
+            if parallel is not None and self.shard_update:
+                cls = {"zero1": upd.ShardedUpdater, "zero2": upd.Zero2Updater,
+                       "zero3": upd.Zero3Updater}[self.shard_update]
+                updater = cls(optimizer, parallel, compression=grad_compression or "none")
+            elif parallel is not None:
+                updater = upd.IciAllReduceUpdater(optimizer, parallel)
+            else:
+                updater = upd.SgdLocalUpdater(optimizer)
+        self.updater = updater
+        self.parallel = parallel
+        self.mesh = parallel.mesh if parallel is not None else None
+        if self.mesh is not None:
+            if device is None:
+                device = self.mesh.device
+            elif resolve_device(device) != self.mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {self.mesh.device}")
         self.device = resolve_device(device)
+        if self.mesh is not None and self.device.type == "cuda" and self.mesh.backend != "nccl":
+            from paddle_tpu_torch.parallel.mesh import UncapturableGroupError
+
+            raise UncapturableGroupError(
+                f"the mesh's {self.mesh.backend} group holds CUDA tensors: its "
+                "collectives cannot join the training step's CUDA graph; build the mesh "
+                "over NCCL on the card (gloo is the CPU's)")
         self.policy = dtypes.get(precision) if precision is not None else dtypes.current()
         if self.policy.compute_dtype == torch.float32 and self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -185,8 +261,14 @@ class SGDTrainer:
                                             with_states=True)
         self.optimizer.param_attrs = self.network.param_attrs
         dev = self.device
+        if self.parallel is not None and not self.parallel.param_attrs:
+            self.parallel.param_attrs = self.network.param_attrs
+        # the updater owns the layouts: canonical by default, [1, chunk]
+        # rows of the flat view under ZeRO (the slots; zero3's parameters)
+        opt_state = self.updater.init_opt_state(params)
+        params = self.updater.params_from_canonical(params)
         self.state = {
-            "params": params, "opt": self.optimizer.init_state(params), "states": states,
+            "params": params, "opt": opt_state, "states": states,
             "avg": self.model_average.init_state(params),
             # int32: f32 would stop counting past 2^24 samples
             "samples": torch.zeros((), dtype=torch.int32, device=dev),
@@ -208,21 +290,40 @@ class SGDTrainer:
     def load_params(self, params: Mapping[str, Any]) -> None:
         """Replace the parameters' values (tensors or arrays, e.g. from
         `nn/convert.params_from_jax`); names and shapes must match. The
-        values are copied into the parameters' own storage."""
-        self._load("params", params)
+        values are copied into the parameters' own storage (under zero3,
+        this rank's rows of them)."""
+        self._check_names("params", params)
+        values = {k: (v if isinstance(v, torch.Tensor)
+                      else torch.from_numpy(np.array(v, dtype=np.float32))).float()
+                  .to(self.device) for k, v in params.items()}
+        geom = getattr(self.updater, "_geom", {}) if self.updater.mode == "zero3" else {}
+        for name, v in values.items():  # shapes checked in the canonical layout
+            want = geom[name].shape if name in geom else tuple(self.state["params"][name].shape)
+            if tuple(v.shape) != want:
+                raise ValueError(f"{name}: shape {tuple(v.shape)} != {want}")
+        self._load("params", self.updater.params_from_canonical(values))
+
+    def canonical_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters in their canonical shapes (zero3 gathers its rows:
+        a collective on every rank)."""
+        return self.updater.params_to_canonical(self.state["params"])
 
     def load_states(self, states: Mapping[str, Any]) -> None:
         """Replace the states' values (e.g. a JAX state dict through
         `nn/convert.params_from_jax`), in their own storage."""
         self._load("states", states)
 
-    def _load(self, kind: str, values: Mapping[str, Any]) -> None:
+    def _check_names(self, kind: str, values: Mapping[str, Any]) -> None:
         assert self.state is not None, "call init_state() first"
         own = self.state[kind]
         if set(values) != set(own):
             raise KeyError(
                 f"{kind} names differ: missing {sorted(set(own) - set(values))}, "
                 f"unknown {sorted(set(values) - set(own))}")
+
+    def _load(self, kind: str, values: Mapping[str, Any]) -> None:
+        self._check_names(kind, values)
+        own = self.state[kind]
         new = {}
         for name, value in values.items():
             v = (value.float() if isinstance(value, torch.Tensor)
@@ -236,11 +337,13 @@ class SGDTrainer:
 
     # -- one step ------------------------------------------------------------
     def _cost(self, params: Dict[str, torch.Tensor], batch: Batch, train: bool,
-              rng: Optional[Callable[[], torch.Tensor]] = None):
-        """(summed f32 cost, outputs, new states) of a forward at `params`."""
+              rng: Optional[Callable[[], torch.Tensor]] = None, resolver=None):
+        """(summed f32 cost, outputs, new states) of a forward at `params`
+        (under a mesh: this rank's share of the global batch's cost)."""
         outs, states = self.network.apply(params, batch, self.state["states"],
                                           train=train, policy=self.policy, rng=rng,
-                                          remat=self.remat if train else None)
+                                          remat=self.remat if train else None,
+                                          mesh=self.mesh, param_resolver=resolver)
         return sum(outs[c].value for c in self.cost_names).float(), outs, states
 
     def step_rng(self) -> torch.Tensor:
@@ -248,11 +351,12 @@ class SGDTrainer:
         return prng.fold_in(self.state["rng"], self.state["samples"])
 
     def _forward_backward(self, batch: Batch, rng: Callable[[], torch.Tensor]):
-        names = list(self.state["params"])
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in self.state["params"].items()}
-        cost, outs, states = self._cost(params, batch, train=True, rng=rng)
-        grads = torch.autograd.grad(cost, [params[k] for k in names],
+        params, leaves, resolver = self.updater.forward_inputs(self.state["params"],
+                                                               self.state["opt"])
+        names = list(leaves)
+        cost, outs, states = self._cost(params, batch, train=True, rng=rng,
+                                        resolver=resolver)
+        grads = torch.autograd.grad(cost, [leaves[k] for k in names],
                                     allow_unused=True, materialize_grads=True)
         extras = {n: outs[n].value.detach() for n in self.extra_names}
         return cost.detach(), dict(zip(names, grads)), states, extras
@@ -271,10 +375,13 @@ class SGDTrainer:
         cost, grads, _ = self.cost_grads_and_states(batch)
         return cost, grads
 
-    def _step_body(self, batch: Batch):
+    def _step_body(self, batch: Batch, weight: int = 1):
         """One step in place -> (its cost, {extra name: value}). The body a
         CUDA graph captures: it reads no device value on the host and
-        writes only into the state's own storage."""
+        writes only into the state's own storage. Under a mesh the updater
+        reduces the gradients and the cost over it and returns the global
+        cost. `weight`: how many batches the step stands for (zero2's
+        window), for the guard's per-batch bookkeeping."""
         st = self.state
         samples = st["samples"]
         lr = self.schedule(samples.float()) * st["lr_scale"]
@@ -282,44 +389,80 @@ class SGDTrainer:
         # a model without Dropout runs no threefry at all
         cost, grads, states, extras = self._forward_backward(
             batch, lambda: prng.fold_in(st["rng"], samples))
-        ok = torch.isfinite(cost) if self.divergence_policy is not None else None
-        self.optimizer.update(grads, st["opt"], st["params"], lr, ok=ok)
+        cost, ok = self.updater.apply(grads, st["opt"], st["params"], lr, cost,
+                                      guard=self.divergence_policy is not None)
         self.model_average.update(st["avg"], st["params"], ok=ok)
         with torch.no_grad():
             own = st["states"]
             for k, v in states.items():
                 write_into(own[k], v, ok)
-            write_into(samples, samples + _batch_size(batch), ok)
+            write_into(samples, samples + self._rows(batch), ok)
             if ok is not None:
-                write_into(st["cost_acc"], st["cost_acc"] + cost, ok)
-                st["diverged"].add_(torch.logical_not(ok).to(torch.int32))
+                write_into(st["cost_acc"], st["cost_acc"] + (cost if weight == 1
+                                                             else cost * weight), ok)
+                bad = torch.logical_not(ok).to(torch.int32)
+                st["diverged"].add_(bad if weight == 1 else bad * weight)
         return cost, extras
+
+    def _rows(self, batch: Batch):
+        """The samples counter's step: the batch size; under a mesh the
+        global batch's real row count (the same on every rank)."""
+        if self.mesh is None:
+            return _batch_size(batch)
+        if SAMPLE_COUNT_KEY in batch:
+            count = batch[SAMPLE_COUNT_KEY]
+            count = (count if isinstance(count, torch.Tensor)
+                     else torch.from_numpy(np.asarray(count, np.float32)))
+            return count.to(self.device).reshape(()).to(torch.int32)
+        return _batch_size(batch) * self.mesh.size
 
     def _dispatch(self, batch: Batch, k: int):
         """k steps on `batch` (one batch, or k stacked on a leading axis) ->
         (their k costs, the extras of a single step). On the card: replay
-        the signature's graph, or run the steps eagerly and capture them."""
+        the signature's graph, or run the steps eagerly and capture them.
+        Under a mesh a global batch is cut to this rank's rows first, and
+        zero2 runs a stack of k as one merged step (its window)."""
+        if self.parallel is not None and not self.parallel.is_sharded_batch(batch):
+            batch = (self.parallel.shard_batch(batch) if k == 1
+                     else self.parallel.shard_batches(batch))
+        window = k > 1 and self.updater.mode == "zero2"
+        if window:
+            batch = _merge_window(batch)
+        steps = 1 if window else k
+
+        def body(b):
+            return self._step_body(b, k if window else 1)
+
         if self.device.type == "cuda":
             key = (k, _signature(batch))
             graph = self.graphs.get(key)
             if graph is not None:
                 costs, extras = graph.replay(batch)
-                return list(costs), extras
-            out = self._eager(batch, k)
-            self.graphs[key] = StepGraph(self._step_body, batch, k, self.device)
-            return out
-        return self._eager(batch, k)
+            else:
+                costs, extras = self._eager(batch, steps, body)
+                self.graphs[key] = StepGraph(body, batch, steps, self.device)
+        else:
+            costs, extras = self._eager(batch, steps, body)
+        if window:  # one update stands for the k batches
+            return [costs[0]] * k, {}
+        if extras and self.mesh is not None and self.mesh.size > 1:
+            # the evaluators read the global batch's outputs, as the JAX
+            # package's step returns them
+            extras = {name: _gather_rows(self.mesh, v) for name, v in extras.items()}
+        return list(costs), extras
 
-    def _eager(self, batch: Batch, k: int):
+    def _eager(self, batch: Batch, k: int, body: Optional[Callable] = None):
+        body = body or self._step_body
         costs, extras = [], {}
         for i in range(k):
-            cost, extras = self._step_body(batch if k == 1 else _unstack(batch, i))
+            cost, extras = body(batch if k == 1 else _unstack(batch, i))
             costs.append(cost)
         return costs, (extras if k == 1 else {})
 
     def step(self, batch: Batch) -> torch.Tensor:
-        """One training step on `batch`; returns the step's cost (a device
-        scalar of its own, no host sync)."""
+        """One training step on `batch` (under a mesh: the global batch,
+        divisible by the data axis, or this rank's cut of one); returns the
+        step's cost (a device scalar of its own, no host sync)."""
         if self.state is None:
             self.init_state(batch)
         return self._dispatch(batch, 1)[0][0]
@@ -328,7 +471,8 @@ class SGDTrainer:
         """K training steps in one dispatch: every slot of `batches` is
         stacked on a leading K axis. Returns the K costs as one device
         tensor [K]. The same updates as K calls of `step`, bit for bit on
-        the CPU."""
+        the CPU; under zero2, one accumulated update for the K batches (its
+        cost repeated K times)."""
         k = _stack_size(batches)
         if self.state is None:
             self.init_state(_unstack(batches, 0))
@@ -463,6 +607,8 @@ class SGDTrainer:
         checkpoint already holds; the reader is consumed past them."""
         inj = faults.get()
         guard_on = self.divergence_policy is not None
+        pad0 = stats.DATA_EVENTS.get("padded_batches")
+        self.updater.start_pass()
         event_handler(BeginPass(pass_id))
         t0 = time.time()
         if guard_on and self.state is not None:
@@ -497,7 +643,7 @@ class SGDTrainer:
                     preempt.get().request(f"injected preempt at pass {pass_id} "
                                           f"batch {first}")
                 if inj.fire("nan_loss"):
-                    batch = _poison_batch(batch)
+                    batch = _same_plan(_poison_batch(batch), batch, k=getattr(batch, "k", 1))
             event_handler(BeginIteration(pass_id, first))
             costs, extras = self._dispatch(batch, k)
             if not guard_on:
@@ -547,10 +693,17 @@ class SGDTrainer:
                     for j in range(skip, k_item):
                         dispatch(idx0 + j, idx0 + j, _unstack(raw, j), 1)
                 else:
-                    dispatch(idx0, idx0 + k_item - 1, dict(raw), k_item)
+                    dispatch(idx0, idx0 + k_item - 1, raw, k_item)
                 boundary = logical
                 continue
             batch = _feed(raw, feeder)
+            if self.parallel is not None and not self.parallel.is_sharded_batch(batch):
+                # an indivisible trailing batch pads (its row mask keeps the
+                # cost the unpadded one's) instead of dropping
+                batch = self.parallel.maybe_pad_batch(batch)
+                if batch is None:
+                    boundary = logical
+                    continue
             self._ensure_state(batch)
             if steps_per_dispatch == 1:
                 dispatch(idx0, idx0, batch, 1)
@@ -580,6 +733,20 @@ class SGDTrainer:
             "batches": n_batches, "pass_seconds": time.time() - t0,
             "divergence_events": n_diverged,
         }
+        if self.parallel is not None and self.state is not None:
+            # per-rank resident bytes and the updater's modeled collective
+            # bytes (pass-end bookkeeping, no device sync)
+            metrics["padded_batches"] = stats.DATA_EVENTS.get("padded_batches") - pad0
+            metrics["param_bytes"] = _tree_bytes(self.state["params"])
+            metrics["opt_state_bytes"] = _tree_bytes(self.state["opt"])
+            metrics["collective_bytes_per_step"] = \
+                self.updater.collective_bytes_per_step(steps_per_dispatch)
+            detail = self.updater.collective_bytes_detail(steps_per_dispatch)
+            if detail:
+                metrics["collective_bytes_detail"] = detail
+            if self.device.type == "cuda":
+                metrics["peak_hbm_bytes"] = torch.cuda.max_memory_allocated(self.device)
+        self.updater.finish_pass()
         if test_reader is not None:
             metrics["test_cost"] = self.test(test_reader, feeder)["cost"]
         if save_dir is not None and self.state is not None:
@@ -661,14 +828,28 @@ class SGDTrainer:
                     float(self.state["lr_scale"]))
 
     def _drain_resize(self) -> None:
-        """Take a pending resize request at a dispatch boundary and ignore
-        it: there is no DataParallel mesh to re-shape (the JAX package's
-        `_drain_resize` does the same for a trainer without one)."""
+        """Take a pending resize request at a dispatch boundary. Without a
+        mesh it is ignored (the JAX package's `_drain_resize` does the same
+        for a trainer without one); a mesh trainer re-shards (`resize_to`)."""
         req = preempt.get().take_resize()
         if req is None:
             return  # another poller claimed it
-        log.warning("resize request (%s) ignored: this trainer has no "
-                    "DataParallel mesh to re-shape", req.reason)
+        if self.parallel is None:
+            log.warning("resize request (%s) ignored: this trainer has no "
+                        "DataParallel mesh to re-shape", req.reason)
+            return
+        self.resize_to(req.world)
+
+    def resize_to(self, new_world: int) -> None:
+        """Re-shard a mesh trainer onto `new_world` ranks: processes leaving
+        and joining a new group is ROADMAP.md §1 item 8c, not ported yet."""
+        if self.parallel is None:
+            raise ValueError("resize_to needs a DataParallel mesh "
+                             "(SGDTrainer(parallel=...)): there is no mesh to re-shape")
+        raise NotImplementedError(
+            f"resize_to({new_world}): the elastic re-shard of a data-parallel trainer "
+            "(ranks leaving and joining a new torch.distributed group) is not ported to "
+            "paddle_tpu_torch yet (ROADMAP.md §1 item 8, item 8c)")
 
     def _drain_preempt(self, save_dir: Optional[str], pass_id: int, batches_done: int,
                        keep_last_n: Optional[int], async_checkpoint: bool = False) -> None:
@@ -702,12 +883,27 @@ class SGDTrainer:
         assert self.state is not None, "call train() or init_state() first"
         params = self.model_average.averaged_params(self.state["avg"],
                                                     self.state["params"])
+        resolver = self.updater.eval_resolver(self.state["opt"])
         total, n = 0.0, 0
         with torch.no_grad():
             for raw in reader():
                 batch = _feed(raw, feeder)
-                bs = _batch_size(batch)
-                total += float(self._cost(params, batch, train=False)[0]) * bs
+                if self.parallel is None:
+                    bs = _batch_size(batch)
+                    total += float(self._cost(params, batch, train=False)[0]) * bs
+                    n += bs
+                    continue
+                if not self.parallel.is_sharded_batch(batch):
+                    # the training path's pad and mask: the masked cost is
+                    # the mean over the real rows
+                    batch = self.parallel.maybe_pad_batch(batch, where="test batch")
+                    if batch is None:
+                        continue
+                    batch = self.parallel.shard_batch(batch)
+                cost = self._cost(params, batch, train=False, resolver=resolver)[0]
+                cost = self.mesh.all_reduce_(cost.reshape(1).clone())[0]
+                bs = int(self._rows(batch))
+                total += float(cost) * bs
                 n += bs
         return {"cost": total / max(n, 1), "samples": n}
 
@@ -724,10 +920,37 @@ class SGDTrainer:
             "opt": ckpt.flatten_tree(opt_tree, leaf=_leaf),
         }
 
+    def _canonical_trees(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """`_trees` in the canonical layout a checkpoint holds: the
+        updater's seams turn ZeRO's flat rows back into parameter shapes
+        (all-gathers, so every rank calls it)."""
+        up = self.updater
+        opt_tree = {"opt": up.to_canonical(self.state["opt"])}
+        if self.state["avg"]:
+            opt_tree["avg"] = {**self.state["avg"],
+                               "avg": up.params_to_canonical(self.state["avg"]["avg"])}
+        return {
+            "params": ckpt.flatten_tree(up.params_to_canonical(self.state["params"]),
+                                        leaf=_leaf),
+            "states": ckpt.flatten_tree(self.state["states"], leaf=_leaf),
+            "opt": ckpt.flatten_tree(opt_tree, leaf=_leaf),
+        }
+
+    def _world(self) -> int:
+        return self.parallel.data_axis_size if self.parallel is not None else 1
+
+    def _mesh_barrier(self) -> None:
+        """Every rank waits here for the others (a one-float all-reduce):
+        rank 0's checkpoint write lands before anyone reads it."""
+        if self.mesh is not None and self.mesh.size > 1:
+            self.mesh.all_reduce_(torch.zeros(1, device=self.device))
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+
     def _meta(self, mid_pass_batches: Optional[int] = None) -> Dict[str, Any]:
         st = self.state
         meta = {"samples": int(st["samples"]), "lr_scale": float(st["lr_scale"]),
-                "world_size": 1, "rng": [int(v) for v in st["rng"].tolist()],
+                "world_size": self._world(), "rng": [int(v) for v in st["rng"].tolist()],
                 "diverged": int(st["diverged"])}
         if mid_pass_batches is not None:
             meta["mid_pass"] = True
@@ -750,8 +973,11 @@ class SGDTrainer:
         thread, which waits for the copies' event first. The returned path
         is durable after `checkpoint_wait()`; train() and load() call it."""
         assert self.state is not None
-        trees = self._trees()
+        trees = self._canonical_trees()
         meta = self._meta(mid_pass_batches)
+        if self.mesh is not None and self.mesh.rank != 0:
+            # rank 0 writes the one canonical copy
+            return os.path.join(save_dir, f"pass-{pass_id:05d}")
         if not async_:
             host = {name: {k: v.detach().cpu().numpy() for k, v in flat.items()}
                     for name, flat in trees.items()}
@@ -788,9 +1014,11 @@ class SGDTrainer:
 
     def checkpoint_wait(self) -> None:
         """Durability barrier for async saves: returns once no checkpoint
-        write is in flight, re-raising any writer failure."""
+        write is in flight, re-raising any writer failure (under a mesh,
+        once rank 0's write landed, on every rank)."""
         if self._ckpt_writer is not None:
             self._ckpt_writer.wait()
+        self._mesh_barrier()
 
     def load(self, save_dir: str, pass_id: Optional[int] = None) -> None:
         """Restore the parameters, states, optimizer slots and `t`, the
@@ -798,36 +1026,22 @@ class SGDTrainer:
         the JAX package's, which holds no rng or diverged: those stay;
         pass_id=None takes the newest), copying every value into the state's
         own storage, so captured step graphs stay valid. A reference v1
-        model directory restores the parameters only."""
+        model directory restores the parameters only. The optimizer tree is
+        read in the canonical layout and re-laid by the updater, so a
+        checkpoint loads under any ZeRO mode and world size; one whose
+        shapes or keys do not match that layout at all (a raw per-rank
+        tree) raises, naming both world sizes."""
         assert self.state is not None, "init_state() with a sample batch first"
         self.checkpoint_wait()  # never read a checkpoint that is mid-write
+        canon = self._canonical_trees()
         params, states, opt, manifest = ckpt.load_pass(
             save_dir, pass_id, params_template=lambda: {
-                k: np.empty(tuple(v.shape), np.float32)
-                for k, v in self.state["params"].items()})
-        self._load("params", params)
+                k: np.empty(tuple(v.shape), np.float32) for k, v in canon["params"].items()})
+        self.load_params(params)
         if states:
             self._load("states", states)
         if opt:
-            own = self._trees()["opt"]
-            bad = [(k, tuple(opt[k].shape), tuple(v.shape)) for k, v in own.items()
-                   if k in opt and tuple(opt[k].shape) != tuple(v.shape)]
-            if bad:
-                raise ValueError(f"checkpoint under {save_dir!r}: optimizer state shapes "
-                                 f"differ (key, found, expected): {bad[:4]}")
-            own_opt = [k for k in own if k.startswith("opt/")]
-            missing = [k for k in own_opt if k not in opt]
-            if missing and len(missing) == len(own_opt):
-                raise ValueError(f"checkpoint under {save_dir!r} holds no entry of this "
-                                 f"optimizer's state (e.g. {missing[:4]})")
-            if missing:
-                log.warning("checkpoint %s: optimizer state has no entry for %s; those "
-                            "slots start fresh, everything else resumes",
-                            save_dir, missing[:4])
-            with torch.no_grad():
-                for k, v in own.items():
-                    if k in opt:
-                        v.copy_(torch.from_numpy(np.asarray(opt[k])))
+            self._load_opt(save_dir, opt, manifest)
         extra = manifest.get("extra", {})
         st = self.state
         if extra.get("samples") is not None:
@@ -839,6 +1053,48 @@ class SGDTrainer:
         if extra.get("diverged") is not None:
             st["diverged"].fill_(int(extra["diverged"]))
             self._diverged_seen = int(extra["diverged"])
+
+    def _load_opt(self, save_dir: str, opt: Mapping[str, Any], manifest) -> None:
+        up = self.updater
+        template = {"opt": up.to_canonical(self.state["opt"])}
+        if self.state["avg"]:
+            template["avg"] = {**self.state["avg"],
+                               "avg": up.params_to_canonical(self.state["avg"]["avg"])}
+
+        def raw_shard_error(reason: str) -> ValueError:
+            found = manifest.get("extra", {}).get("world_size")
+            return ValueError(
+                f"checkpoint under {save_dir!r} holds optimizer state that does not match "
+                f"this trainer's canonical layout: {reason}. The checkpoint records "
+                f"world_size={found}, this trainer runs world_size={self._world()}; "
+                "canonical checkpoints are world-size-portable, so the opt tree was saved "
+                "as raw per-shard state — re-export it through the updater's "
+                "to_canonical seam before resuming")
+
+        mism = ckpt.tree_shape_mismatches(template, opt)
+        if mism:
+            more = f" (+{len(mism) - 4} more)" if len(mism) > 4 else ""
+            raise raw_shard_error("optimizer state shapes differ: " + "; ".join(
+                f"{k}: expected {e} found {g}" for k, e, g in mism[:4]) + more)
+        missing = [k for k in ckpt.tree_missing_keys(template, opt) if k.startswith("opt")]
+        if missing:
+            more = f" (+{len(missing) - 4} more)" if len(missing) > 4 else ""
+            names = ", ".join(missing[:4]) + more
+            if len(missing) == len(ckpt.tree_missing_keys({"opt": template["opt"]}, {})):
+                raise raw_shard_error(f"no entry for {names}, so restore_tree would "
+                                      "silently keep freshly-initialized slots")
+            log.warning("checkpoint %s: optimizer state has no entry for %s; those slots "
+                        "start fresh, everything else resumes", save_dir, names)
+        restored = ckpt.restore_tree(template, opt)
+        new = {"opt": up.from_canonical(restored["opt"])}
+        if "avg" in restored:
+            new["avg"] = {**restored["avg"],
+                          "avg": up.params_from_canonical(restored["avg"]["avg"])}
+        own = ckpt.flatten_tree({k: self.state[k] if k == "avg" else self.state["opt"]
+                                 for k in new}, leaf=_leaf)
+        with torch.no_grad():
+            for k, v in ckpt.flatten_tree(new, leaf=_leaf).items():
+                own[k].copy_(v)
 
 
 def _leaf(x: Any) -> Any:
@@ -874,13 +1130,26 @@ def _signature(batch: Batch) -> tuple:
 
 def _stack(batches: List[Batch]) -> Dict[str, Any]:
     """Same-signature batches stacked on a new leading axis (torch tensors
-    with torch, anything else with numpy)."""
-    return {k: (torch.stack if isinstance(v, torch.Tensor) else np.stack)(
+    with torch, anything else with numpy); a rank's cuts stay its cut."""
+    out = {k: (torch.stack if isinstance(v, torch.Tensor) else np.stack)(
         [b[k] for b in batches]) for k, v in batches[0].items()}
+    return _same_plan(out, batches[0], k=len(batches))
 
 
 def _unstack(batches: Batch, i: int) -> Dict[str, Any]:
-    return {k: v[i] for k, v in batches.items()}
+    return _same_plan({k: v[i] for k, v in batches.items()}, batches)
+
+
+def _same_plan(values: Dict[str, Any], src: Batch, k: int = 1) -> Dict[str, Any]:
+    """`values` tagged as the cut of `src`'s DataParallel plan, if it has one."""
+    plan = getattr(src, "plan", None)
+    if plan is None:
+        return values
+    from paddle_tpu_torch.parallel.data_parallel import ShardedBatch
+
+    out = ShardedBatch(values)
+    out.plan, out.k = plan, k
+    return out
 
 
 def _stack_size(batches: Batch) -> int:
@@ -889,9 +1158,33 @@ def _stack_size(batches: Batch) -> int:
 
 def _batch_size(batch: Mapping[str, Any]) -> int:
     for k, v in batch.items():
-        if not k.endswith(".lengths"):
+        if not k.endswith(".lengths") and k not in _RESERVED:
             return int(np.shape(v)[0])
     raise ValueError("empty batch")
+
+
+def _merge_window(batches: Batch) -> Dict[str, Any]:
+    """zero2's window: a rank's K stacked batches ([K, b, ...] a slot) as
+    one [K*b] batch of its rows (the rows never leave the rank); the masks
+    concatenate and the real row counts add up."""
+    out: Dict[str, Any] = {}
+    for k, v in batches.items():
+        shape = tuple(np.shape(v))
+        if k == SAMPLE_COUNT_KEY:
+            out[k] = v.sum(0) if isinstance(v, torch.Tensor) else np.asarray(v).sum(0)
+        else:
+            out[k] = v.reshape((shape[0] * shape[1],) + shape[2:])
+    return out
+
+
+def _gather_rows(mesh, v: torch.Tensor) -> torch.Tensor:
+    """Every rank's [b, ...] rows of `v`, rank by rank: [n*b, ...]."""
+    full = mesh.all_gather(v.reshape(1, -1))
+    return full.reshape((mesh.size * v.shape[0],) + tuple(v.shape[1:]))
+
+
+def _tree_bytes(tree: Any) -> int:
+    return stats.tensor_bytes(ckpt.flatten_tree(tree, leaf=_leaf).values())
 
 
 def _poison_batch(batch: Batch) -> Dict[str, Any]:
@@ -900,7 +1193,8 @@ def _poison_batch(batch: Batch) -> Dict[str, Any]:
     gets its first id slot set past every vocabulary instead: the embedding
     reads such an id as a NaN row (jnp.take's fill mode, `layers.take_rows`);
     the JAX package's fault refuses such a batch."""
-    slots = [(k, v) for k, v in batch.items() if not k.endswith((".lengths", ".sub_lengths"))]
+    slots = [(k, v) for k, v in batch.items()
+             if not k.endswith((".lengths", ".sub_lengths")) and k not in _RESERVED]
     for k, v in slots:
         if isinstance(v, torch.Tensor) and v.is_floating_point():
             return {**batch, k: v * float("nan")}

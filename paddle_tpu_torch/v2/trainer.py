@@ -11,7 +11,15 @@ state is built from the first batch and then takes their values by name
 trained values come back to the host once, at the end of `train`.
 
 The device is `device=`, else `paddle.init`'s (CUDA unless use_gpu=False).
-`trainer_count > 1` is data parallelism, ROADMAP.md §1 item 8: it raises."""
+
+`paddle.init(trainer_count=N)` with N > 1 is data parallelism
+(`parallel/`). The JAX package runs N devices in one process; the port
+runs one process (or thread) per rank, so `SGD` must be built in each rank
+of an N-rank group: the default group `parallel.distributed.initialize`
+brought up, or `group=` (e.g. a gloo group of N threads). It then trains
+through `DataParallel(make_mesh({"data": N}))`, every rank reading the
+same reader and keeping its own rows; without such a group it raises and
+says how to launch the ranks."""
 
 from __future__ import annotations
 
@@ -28,24 +36,24 @@ from paddle_tpu_torch.v2.topology import Topology
 class SGD:
     def __init__(self, cost, parameters: Optional[Parameters] = None,
                  update_equation=None, extra_layers: Sequence = (),
-                 is_local: bool = True, device: DeviceLike = None, **_compat):
+                 is_local: bool = True, device: DeviceLike = None, group=None,
+                 **_compat):
         from paddle_tpu_torch.v2 import optimizer as v2opt
 
         if update_equation is None:
             update_equation = v2opt.Momentum(learning_rate=0.01)
-        if flags().trainer_count > 1:
-            raise NotImplementedError(
-                f"paddle.init(trainer_count={flags().trainer_count}): data-parallel "
-                "training is not ported to paddle_tpu_torch yet (ROADMAP.md §1 item 8, "
-                "parallelism on torch.distributed)")
+        device = device or flags().device
+        parallel = _data_parallel(flags().trainer_count, group, device)
+        if parallel is not None:
+            device = parallel.device
         self.topology = Topology(cost, extra_layers=extra_layers)
         self.parameters = parameters
         costs = cost if isinstance(cost, (list, tuple)) else [cost]
         self._trainer = SGDTrainer(
             list(costs), update_equation.optimizer, seed=flags().seed,
-            device=device or flags().device, extra_outputs=list(extra_layers),
+            device=device, extra_outputs=list(extra_layers),
             schedule=update_equation.schedule,
-            model_average=update_equation.model_average)
+            model_average=update_equation.model_average, parallel=parallel)
 
     @property
     def trainer(self) -> SGDTrainer:
@@ -84,7 +92,7 @@ class SGD:
         """Build the trainer's state from the first batch, then copy the
         given Parameters' values over it by name."""
         self._trainer.init_state(feeder(next(iter(reader()))))
-        own = self._trainer.state["params"]
+        own = self._trainer.canonical_params()
         self._trainer.load_params({k: self.parameters.get(k) if k in self.parameters
                                    else v for k, v in own.items()})
 
@@ -93,5 +101,26 @@ class SGD:
             return
         if self.parameters is None:
             self.parameters = Parameters()
-        for k, v in self._trainer.state["params"].items():
+        for k, v in self._trainer.canonical_params().items():
             self.parameters.set(k, v.detach().cpu().numpy())
+
+
+def _data_parallel(trainer_count: int, group, device):
+    """The DataParallel plan of `paddle.init(trainer_count=N)`, or None for
+    one trainer."""
+    n = int(trainer_count or 1)
+    if n <= 1:
+        return None
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import DataParallel, make_mesh
+
+    if group is None and not (dist.is_initialized() and dist.get_world_size() == n):
+        raise RuntimeError(
+            f"paddle.init(trainer_count={n}): the port runs one process per rank (the JAX "
+            f"package runs {n} devices in one process). Start {n} processes and call "
+            "paddle_tpu_torch.parallel.distributed.initialize(coordinator_address, "
+            f"{n}, rank) in each before building SGD (or pass group=, a process group "
+            f"of {n} ranks), or train with `python -m paddle_tpu_torch train "
+            f"--trainer_count={n}`, which starts the ranks itself")
+    return DataParallel(make_mesh({"data": n}, group=group, device=device))

@@ -10,7 +10,9 @@ small v1 bi-GRU text config, on the CPU.
   * In process: `--job=time` prints {"ms_per_batch", "batches"},
     `--job=test` (after `--init_model_path`) {"test_cost", "samples"};
     `--use_gpu=0` means the CPU; with no card and no `--device=cpu` train
-    raises; each unported flag exits 2 naming its ROADMAP item; evaluators
+    raises; `--trainer_count=2` trains over two rank processes and exits
+    0 (while `serve --tp 2` still names ROADMAP.md §1 item 8), and
+    `--compile_cache` exits 2 naming its missing counterpart; evaluators
     turn `--steps_per_dispatch > 1` back to 1, loudly;
     `--master_endpoints` trains on a task master's shards exactly as on the
     provider; `--elastic` at one trainer prints the reference's message and
@@ -201,9 +203,21 @@ def test_train_without_a_card_or_device_cpu_raises(in_conf_dir, no_cuda):
 @pytest.mark.parametrize("flag,item", [
     ("--trainer_count=2", r"item 8"), ("--compile_cache=cache", r"no counterpart"),
 ])
-def test_unported_flags_exit_2_naming_their_item(flag, item, in_conf_dir, capsys):
-    assert cli.main(["train", "--config=conf.py", "--device=cpu", flag]) == 2
-    err = capsys.readouterr().err
+def test_unported_flags_exit_2_naming_their_item(flag, item, in_conf_dir, capfd):
+    """--compile_cache exits 2 naming what it lacks. --trainer_count=2 is
+    ported: it trains over two rank processes, rank 0 printing the pass
+    line, and exits 0; what stays unported of ROADMAP item 8 (`serve
+    --tp 2`) still names it."""
+    argv = ["train", "--config=conf.py", "--device=cpu", "--num_passes=1", flag]
+    if flag.startswith("--trainer_count"):
+        assert cli.main(argv) == 0
+        out = capfd.readouterr().out
+        assert sum(line.startswith("pass 0:") for line in out.splitlines()) == 1
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 " + item):
+            cli.main(["serve", "--device", "cpu", "--demo", "--tp", "2"])
+        return
+    assert cli.main(argv) == 2
+    err = capfd.readouterr().err
     assert "NotPorted" in err
     assert __import__("re").search(item, err), err
 

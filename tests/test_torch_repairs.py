@@ -243,14 +243,30 @@ def test_not_ported_messages_name_the_roadmap_items():
     for argv in (["--tp", "2"], ["--tp", "2", "--config", "c.py"]):
         with pytest.raises(NotImplementedError, match="§1 item 8"):
             cli.main(serve + argv)
-    # item 7b is ported: --master_endpoints is no longer a named error, and
-    # only item 8's --trainer_count > 1 still refuses
+    # items 7b and 8a are ported: neither --master_endpoints nor
+    # --trainer_count > 1 is a named error; what stays of item 8 (the model
+    # axis, CTR's embedding sharding, a mesh trainer's resize) names it
     args = cli.parse_args(["train", "--device", "cpu", "--config", "c.py",
                            "--master_endpoints", "127.0.0.1:1", "--trainer_count", "2"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
-        cli.prepare_train(args)
-    args.trainer_count = 1
     assert cli._refuse_unported(args) is None
+    from paddle_tpu_torch.models.ctr import ctr_wide_deep
+    from paddle_tpu_torch.nn import costs as C
+    from paddle_tpu_torch.nn import layers as L
+    from paddle_tpu_torch.optim.optimizers import SGD
+    from paddle_tpu_torch.parallel import DataParallel, make_mesh
+    from paddle_tpu_torch.trainer.trainer import SGDTrainer
+
+    for axes in ({"data": 1, "model": 2}, {"seq": 2}):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+            make_mesh(axes, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+        ctr_wide_deep(embedding_sharding=("expert", None))
+    x = L.Data("x", shape=(4,))
+    cost = C.SquareError(L.Fc(x, 1, act=None, name="o"), L.Data("y", shape=(1,)))
+    tr = SGDTrainer(cost, SGD(), device="cpu",
+                    parallel=DataParallel(make_mesh({"data": 1}, device="cpu")))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+        tr.resize_to(2)
     stale = re.compile(r"queue 1|item 3\.3|item 6, TP|pipeline of item 7")
     for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
         assert not stale.search(path.read_text()), path

@@ -17,7 +17,10 @@ event,inference,plot,minibatch}.py`, `v2.init`) and the py_paddle surface
     numbers in tests/test_torch_generation_serving.py), with the JAX
     package's numbers where they exist:
     `forwardBackward`'s cost and gradients within 1e-5.
-  * `trainer_count > 1` raises a named error; `paddle.dataset` and
+  * `trainer_count > 1` builds `DataParallel` over a group of that many
+    ranks (two threads over gloo here) and trains on it; without a group
+    it says how to launch the ranks; a model axis and `resize_to` on a
+    mesh still name ROADMAP.md §1 item 8; `paddle.dataset` and
     `paddle.image` are the port's modules; `plot` and `minibatch.batch`
     work.
   * On a card (marked `cuda`, skipped here): the script launches the fused
@@ -300,8 +303,28 @@ def test_named_errors_plot_and_minibatch(tmp_path):
     assert tpaddle.dataset is datasets and tpaddle.image is image
     _, _, out, cost = _mlp(tpaddle)
     tpaddle.init(trainer_count=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+    with pytest.raises(RuntimeError, match=r"one process per rank.*initialize"):
         tpaddle.trainer.SGD(cost=cost, update_equation=tpaddle.optimizer.Adam(), device="cpu")
+    from test_torch_parallel import run_ranks
+
+    from paddle_tpu_torch.parallel import DataParallel, make_mesh
+
+    samples = _mnist_like(16, 3)
+
+    def rank(r, mesh):
+        sgd = tpaddle.trainer.SGD(cost=cost, update_equation=tpaddle.optimizer.Adam(),
+                                  device="cpu", group=mesh.group)
+        tr = sgd.trainer
+        assert isinstance(tr.parallel, DataParallel) and tr.mesh.size == 2
+        sgd.train(reader=tpaddle.batch(_reader(samples), 8), num_passes=1)
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+            tr.resize_to(4)
+        return np.array(sgd.parameters.get("output.w"))
+
+    trained = run_ranks(2, rank)
+    np.testing.assert_array_equal(trained[0], trained[1])  # replicated
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+        make_mesh({"data": 1, "model": 2}, device="cpu")
     p = tpaddle.plot.Ploter("train", "test")
     p.append("train", 0, 1.5)
     p.append("train", 1, 1.0)
