@@ -579,10 +579,31 @@ Phases (any failure exits non-zero and prints no result line):
                all-to-all and one all-gather a zero2 dispatch; the int8
                residual non-zero after the first dispatch; the cost falls;
                one graph each.
- 51. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 51. tp_serve — tensor-parallel serving at GPT-2-small widths with the
+               padded vocab of 50 304 (50 257 does not divide by 2): two
+               rank threads on cuda:0 over one gloo group
+               (`make_demo_session(tp=2, group=...)`: rank 0's session
+               leads, rank 1's TPWorker repeats its calls), 8 prompts of
+               PROMPT_LENS x 32 new tokens greedy and one SAMPLED request,
+               against a tp 0 session on the same seeded weights. Gates:
+               tokens identical (where one differs: the step and the tp 0
+               top-2 logit gap there are printed, and the phase fails);
+               paged_attention_decode launched decode steps x 12 on each
+               rank, at 6 heads; the kernel at H = 6 vs its plain version
+               (1e-4); per decode step 2 x 12 + 1 all-reduces and 1
+               all-gather on the model axis; pool bytes a rank half of tp
+               0's and parameter bytes within 52 %; the decode step eager
+               ("eager: gloo group": gloo cannot be captured). Printed: ms
+               a decoded token and a decode step at tp 2 (eager, gloo)
+               beside tp 0 (the decode graph), a finding and not a claim.
+ 52. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
+
+    python3 chip_smoke.py --tp-serve
+
+runs only phase 51 after the build.
 
     python3 chip_smoke.py --train-of DIR
 
@@ -9113,6 +9134,235 @@ def dp_seq2seq_phase(torch, mesh):
     return {"replicated": replicated, "zero2_int8": zero2}
 
 
+TP_VOCAB = 50304  # nanoGPT's padded GPT-2 vocabulary (GPTConfig.vocab_size)
+TP_SERVE = dict(SERVE, vocab=TP_VOCAB)
+
+
+def tp_top2_gap(torch, model, prompt, tokens, step):
+    """The tp 0 model's gap between its two largest logits where token
+    `step` of `tokens` was chosen (a near-tie the row-parallel sums'
+    order can flip)."""
+    seq = torch.tensor([list(prompt) + list(tokens[:step])], device=model.device)
+    with torch.no_grad():
+        top = model.forward_logits(seq)[0, -1].topk(2).values
+    return float(top[0] - top[1])
+
+
+def tp_serve_phase(torch, bw, f32_flops):
+    """Phase 51: GPT-2-small widths (vocab 50 304) served at tp 2 by two
+    rank threads on cuda:0 over one gloo group, against tp 0 on the same
+    seeded weights."""
+    from torch.distributed import HashStore, PrefixStore
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.parallel import mesh as pmesh
+    from paddle_tpu_torch.serving import make_demo_session
+    from paddle_tpu_torch.serving import model as smodel
+    from paddle_tpu_torch.serving.tp import TPWorker
+
+    t_phase = time.perf_counter()
+    rng = torch.Generator().manual_seed(1)
+    prompts = [[1] + torch.randint(3, TP_VOCAB, (n - 1,), generator=rng).tolist()
+               for n in PROMPT_LENS]
+
+    def serve(sess, res):
+        step_ms = []
+        orig = sess._decode_once
+
+        def timed(skip=frozenset()):
+            before = sess.decode_steps
+            t = time.perf_counter()
+            orig(skip)  # ends in the step's token fetch: synchronised
+            if sess.decode_steps != before:
+                step_ms.append((time.perf_counter() - t) * 1e3)
+
+        sess._decode_once = timed
+        t0 = time.perf_counter()
+        handles = [sess.submit(p, NEW_TOKENS) for p in prompts]
+        sess.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sampled = sess.submit(prompts[0], NEW_TOKENS, **SAMPLED)
+        sess.run_until_idle()
+        del sess._decode_once
+        st = sess.stats()
+        n_tok = sum(len(h.tokens) for h in handles)
+        res.update(tokens=[h.tokens for h in handles], sampled=sampled.tokens,
+                   finish=[h.finish_reason for h in handles], wall_s=wall,
+                   ms_per_token=wall * 1e3 / n_tok,
+                   decode_steps=st["decode_steps"],
+                   decode_step_ms_median=statistics.median(step_ms),
+                   decode_step_ms_median_after_first=statistics.median(step_ms[1:]),
+                   decode_graph=st["decode_graph"], tp=st["tp"],
+                   param_bytes_per_chip=st["param_bytes_per_chip"],
+                   pool_bytes_per_chip=st["pool_bytes_per_chip"],
+                   pages_in_use=st["pages_in_use"])
+
+    # tp 0: the single-card program (the decode graph)
+    base = {}
+    t0 = time.perf_counter()
+    ref = make_demo_session(**TP_SERVE, device="cuda")
+    base["setup_s"] = time.perf_counter() - t0
+    serve(ref, base)
+
+    # which rank launched the kernel, at how many heads
+    spy = {}
+    orig_kernel = smodel.paged_attention_decode
+
+    def counted(*a, **kw):
+        key = (threading.current_thread().name, kw["n_heads"])
+        spy[key] = spy.get(key, 0) + 1
+        return orig_kernel(*a, **kw)
+
+    store = HashStore()
+    tp, errors = {}, []
+
+    def rank(r):
+        try:
+            torch.cuda.set_device(0)
+            group = pmesh.new_gloo_group(PrefixStore("tp51", store), r, 2, timeout_s=300)
+            t0 = time.perf_counter()
+            s = make_demo_session(**TP_SERVE, device="cuda", tp=2, group=group)
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t0
+            if isinstance(s, TPWorker):
+                s.run()
+                tp["worker_calls"] = s.calls
+                return
+            tp["setup_s"] = setup
+            tp["local_heads"] = s.model.local_heads
+            serve(s, tp)
+            # one pure decode step's collectives, after a short admission
+            m = s.model.mesh
+            s.submit([1, 5, 9], 4)
+            s.step()
+            m.reset_counts()
+            steps = s.decode_steps
+            s.step()
+            tp["one_step"] = dict(decode_steps=s.decode_steps - steps,
+                                  model=m.counts("model"), data=m.counts("data"))
+            s.run_until_idle()
+            tp["decode_steps_total"] = s.decode_steps
+            s.stop()
+        except BaseException as e:  # the phase fails below
+            import traceback
+
+            errors.append(traceback.format_exc())
+
+    smodel.paged_attention_decode = counted
+    pa.LAUNCHES = 0
+    try:
+        threads = [threading.Thread(target=rank, args=(r,), name=f"tp-rank{r}")
+                   for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    finally:
+        smodel.paged_attention_decode = orig_kernel
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"tp serve: a rank failed or hung: {errors[:1]}")
+    launches_total = pa.LAUNCHES
+    # the worker decodes in lockstep with the lead: both ran the lead's
+    # decode steps (the main run, the sampled request, the pin's steps)
+    per_rank = {f"rank{r}": {str(h): n for (th, h), n in spy.items() if th == f"tp-rank{r}"}
+                for r in range(2)}
+
+    # the kernel at H = 6 against its plain version, at phase 3's timing
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    s_, h_, hd, ps, pmax = 8, 6, 64, 16, 64
+    q, kp, vp, bt, pos = paged_inputs(torch, 51, s_, h_, hd, ps, pmax, 0, 1023, False)
+    kw = dict(scale=1.0 / hd ** 0.5, n_heads=h_)
+    got = pa.paged_attention_decode(q, kp, vp, bt, pos, **kw)
+    want = pa.paged_attention_decode_ref(q, kp, vp, bt, pos, **kw)
+    h6_err = float((got - want).abs().max())
+    tokens = int((pos.long() + 1).clamp(max=pmax * ps).sum())
+    kd = h_ * hd
+    nbytes = 2 * 4 * tokens * kd + 2 * 4 * s_ * kd + 4 * s_ * pmax + 4 * s_
+    t_bytes, t_ops = nbytes / bw * 1e3, 4 * tokens * kd / f32_flops * 1e3
+
+    def library():
+        import torch.nn.functional as F
+
+        t_ctx = pmax * ps
+        k = kp[bt.long()].reshape(s_, t_ctx, h_, hd).transpose(1, 2)
+        v = vp[bt.long()].reshape(s_, t_ctx, h_, hd).transpose(1, 2)
+        mask = (torch.arange(t_ctx, device="cuda")[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(q.view(s_, h_, 1, hd), k, v,
+                                              attn_mask=mask, scale=kw["scale"])
+
+    launches_before = pa.LAUNCHES
+    kernel_h6 = dict(
+        shape="gpt2_small_s8_h6", S=s_, H=h_, hd=hd, PS=ps, P=pmax, max_abs_err=h6_err,
+        kernel_ms=time_ms(torch, lambda: pa.paged_attention_decode(q, kp, vp, bt, pos, **kw),
+                          flush),
+        plain_ms=time_ms(torch, lambda: pa.paged_attention_decode_ref(q, kp, vp, bt, pos,
+                                                                      **kw), flush),
+        library_ms=time_ms(torch, library, flush),
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    pa.LAUNCHES = launches_before  # the comparison's launches do not count
+    del flush, q, kp, vp, bt, pos, got, want
+
+    res = dict(config=dict(TP_SERVE, prefill_buckets=list(TP_SERVE["prefill_buckets"]),
+                           prompt_lens=list(PROMPT_LENS), new_tokens=NEW_TOKENS, tp=2,
+                           group="gloo, two rank threads on cuda:0"),
+               tp0={k: v for k, v in base.items() if k not in ("tokens", "sampled")},
+               tp2={k: v for k, v in tp.items() if k not in ("tokens", "sampled")},
+               launches_total=launches_total, launches_per_rank=per_rank,
+               kernel_h6=kernel_h6, tokens_equal=tp.get("tokens") == base["tokens"],
+               sampled_equal=tp.get("sampled") == base["sampled"],
+               sampled_differs_from_greedy=base["sampled"] != base["tokens"][0])
+    res["pool_ratio"] = tp["pool_bytes_per_chip"] / base["pool_bytes_per_chip"]
+    res["param_ratio"] = tp["param_bytes_per_chip"] / base["param_bytes_per_chip"]
+    # the first token that differs, with the tp 0 model's top-2 gap there
+    diffs = []
+    for i, (a, b) in enumerate(zip(tp["tokens"] + [tp["sampled"]],
+                                   base["tokens"] + [base["sampled"]])):
+        if a != b:
+            j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            prompt = prompts[i] if i < len(prompts) else prompts[0]
+            diffs.append(dict(request=i, step=j, tp0=b[j:j + 1], tp2=a[j:j + 1],
+                              tp0_top2_gap=tp_top2_gap(torch, ref.model, prompt, b, j)))
+    res["token_diffs"] = diffs
+    res["phase_s"] = time.perf_counter() - t_phase
+    print("tp_serve", json.dumps(res), flush=True)
+    steps_run = tp["one_step"]
+    want_launches = tp["decode_steps_total"] * 12
+    if diffs:
+        fail(f"tp serve: tokens differ from tp 0 at {diffs}")
+    if not all(f in ("length", "eos") for f in tp["finish"]):
+        fail(f"tp serve: not every request finished: {tp['finish']}")
+    if tp["local_heads"] != 6 or set(per_rank["rank0"]) != {"6"} or \
+            set(per_rank["rank1"]) != {"6"}:
+        fail(f"tp serve: the kernel ran at {per_rank}, want 6 heads on each rank")
+    n0, n1 = per_rank["rank0"]["6"], per_rank["rank1"]["6"]
+    if n0 != want_launches or n1 != want_launches or launches_total != n0 + n1:
+        fail(f"tp serve: paged_attention_decode launches {per_rank} (total "
+             f"{launches_total}); want decode steps x 12 on each rank")
+    if not h6_err <= KERNEL_TOL:
+        fail(f"paged_attention_decode at H = 6 vs plain: max_abs_err {h6_err}")
+    pins = {"all_reduce": 2 * 12 + 1, "reduce_scatter": 0, "all_gather": 1,
+            "all_to_all": 0}
+    if steps_run["decode_steps"] != 1 or steps_run["model"] != pins or \
+            any(steps_run["data"].values()):
+        fail(f"tp serve: one decode step's collectives {steps_run}, want {pins} on the "
+             "model axis and none on the data axis")
+    if res["pool_ratio"] != 0.5 or not 0.5 <= res["param_ratio"] <= 0.52:
+        fail(f"tp serve: bytes a rank vs tp 0: pool {res['pool_ratio']}, params "
+             f"{res['param_ratio']}")
+    if tp["decode_graph"] != "eager: gloo group" or base["decode_graph"] != "captured":
+        fail(f"tp serve: decode modes tp 2 {tp['decode_graph']!r}, tp 0 "
+             f"{base['decode_graph']!r}")
+    if tp["pages_in_use"] or base["pages_in_use"]:
+        fail("tp serve: KV pages leaked")
+    if not res["sampled_differs_from_greedy"]:
+        fail("tp serve: the sampled request's tokens equal the greedy ones")
+    del ref
+    release(torch)
+    return res
+
+
 def train_of(torch, tree: str) -> int:
     """`--train-of TREE`: the training phases (5, 7 and 10) of the
     chip_smoke.py in TREE, a checkout of this repository (an earlier
@@ -9165,6 +9415,15 @@ def main() -> int:
         return cluster_trainer(torch, sys.argv[2], sys.argv[3:])
     sys.path.insert(0, REPO)
     from paddle_tpu_torch.ops import build
+
+    if sys.argv[1:2] == ["--tp-serve"]:
+        # phase 51 alone, after the build: a quick check of TP serving
+        print(nvidia_smi_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()
+        tp_serve_phase(torch, *peaks(torch.cuda.get_device_name(0))[:2])
+        return 0
 
     # 1. card
     smi = nvidia_smi_line()
@@ -9365,8 +9624,14 @@ def main() -> int:
     dp_resnet, dp_mesh = dp_resnet_phase(torch, resnet)
     release(torch)
     dp_seq2seq = dp_seq2seq_phase(torch, dp_mesh)
+    del dp_mesh
 
-    # 51. lines
+    # 51. tensor-parallel serving at GPT-2-small widths: two rank threads on
+    # the card over gloo against tp 0 (launch and collective counters from 0)
+    release(torch)
+    tp_serve = tp_serve_phase(torch, bw, f32_flops)
+
+    # 52. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -9381,7 +9646,9 @@ def main() -> int:
         "launches_fleet_processes_survivor": fleet_proc["survivor"]["launches"],
         "launches_autoscale_replicas": {
             n: r["launches"] for n, r in autoscale["replicas"].items()},
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "launches_tp2_per_rank": tp_serve["launches_per_rank"],
+        "max_abs_err": max([r["max_abs_err"] for r in rows]
+                           + [tp_serve["kernel_h6"]["max_abs_err"]]),
         "ms": main_row["kernel_ms"],
         "kernel_ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -9394,7 +9661,7 @@ def main() -> int:
             *(main_row[k] for k in ("S", "H", "hd", "PS", "P")),
             torch.cuda.get_device_properties(0).multi_processor_count)._asdict(),
         "shape": main_row["shape"],
-        "shapes": rows,
+        "shapes": rows + [tp_serve["kernel_h6"]],
     }]
     g_main = next(r for r in gru_rows if r["shape"] == "s2s_encoder")
     g_v1 = next(r for r in gru_rows if r["shape"] == "v1_bigru")
@@ -9533,7 +9800,7 @@ def main() -> int:
                    "layers3d": layers3d, "runtime": runtime, "fleet": fleet,
                    "fleet_processes": fleet_proc, "cluster": cluster,
                    "autoscale": autoscale, "dp_resnet": dp_resnet,
-                   "dp_seq2seq": dp_seq2seq},
+                   "dp_seq2seq": dp_seq2seq, "tp_serve": tp_serve},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -72,8 +72,13 @@ before it exits 0. `--config` serves a v1 generating config's
 or alone. `--router_endpoints` joins a router's fleet as a replica
 (`serving/fleet.ReplicaAgent`; a primary,standby list rotates to the
 standby when the primary dies); the router itself is `python -m
-paddle_tpu_torch.serving.router serve|standby`. Not ported yet: `--tp > 1`
-(TP serving, ROADMAP.md §1 item 8) raises a named NotImplementedError."""
+paddle_tpu_torch.serving.router serve|standby`. `--tp N` (N > 1) with
+`--demo` or `--load` serves tensor-parallel over N ranks: the command
+starts its N rank processes itself, as `train --trainer_count` does; rank
+0 listens and leads the session, the others repeat its device calls
+(`serving/tp.py`). Each rank needs a card of its own (NCCL refuses two
+ranks on one); on the CPU they run over gloo. With `--config` alone,
+`--tp` is ignored, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -552,26 +557,26 @@ def _rank_env() -> Optional[int]:
 
 def cmd_train(args: argparse.Namespace) -> int:
     if args.trainer_count > 1 and _rank_env() is None:
-        return _launch_ranks(args)
+        return _launch_ranks(args, args.trainer_count, _train_device(args),
+                             "--trainer_count")
     return prepare_train(args).run()
 
 
-def _launch_ranks(args: argparse.Namespace) -> int:
-    """Start `--trainer_count` copies of this command, one a rank, and wait
-    for them: rank 0's output is this command's; another rank's stderr is
-    shown only if it fails. Returns the first failing rank's exit code, else
-    rank 0's."""
+def _launch_ranks(args: argparse.Namespace, n: int, device, flag: str) -> int:
+    """Start `n` copies of this command, one a rank, and wait for them:
+    rank 0's output is this command's; another rank's stderr is shown only
+    if it fails. A SIGTERM or SIGINT to this process goes on to rank 0.
+    Returns the first failing rank's exit code, else rank 0's."""
     import signal
     import socket
     import subprocess
 
     from paddle_tpu_torch.device import resolve_device
 
-    n = args.trainer_count
-    if resolve_device(_train_device(args)).type == "cuda":
+    if resolve_device(device).type == "cuda":
         visible = torch_cuda_device_count()
         if n > visible:
-            raise RuntimeError(f"--trainer_count={n} needs {n} GPUs, one a rank, but "
+            raise RuntimeError(f"{flag}={n} needs {n} GPUs, one a rank, but "
                                f"{visible} are visible")
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -592,6 +597,10 @@ def _launch_ranks(args: argparse.Namespace) -> int:
                 + list(getattr(args, "argv", sys.argv[1:])), env=env,
                 stdout=None if r == 0 else subprocess.DEVNULL,
                 stderr=None if r == 0 else err))
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                signal.signal(sig, lambda *_: procs[0].poll() is None
+                              and procs[0].send_signal(signal.SIGTERM))
         while any(c is None for c in codes):
             for r, p in enumerate(procs):
                 if codes[r] is None:
@@ -734,7 +743,8 @@ def _serve_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--top_k", type=int, default=0,
                    help="default top-k truncation (0 = off)")
     p.add_argument("--tp", type=int, default=0,
-                   help="tensor-parallel size (not ported yet: > 1 raises)")
+                   help="tensor-parallel size: > 1 serves --demo / --load over "
+                        "that many rank processes (one card each)")
     p.add_argument("--max_new_limit", type=int, default=64)
     p.add_argument("--max_queue", type=int, default=256)
     p.add_argument("--tenant_tokens", type=float, default=0.0,
@@ -804,9 +814,21 @@ def cmd_serve(args: argparse.Namespace) -> int:
     from paddle_tpu_torch.serving.quota import TenantQuotas
     from paddle_tpu_torch.serving.server import ServingServer
 
-    if args.tp and args.tp > 1:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="tensor-parallel serving (--tp > 1)", item="8, TP serving"))
+    tp = args.tp if args.tp and args.tp > 1 and (args.demo or args.load) else 0
+    if tp and _rank_env() is None:
+        return _launch_ranks(args, tp, args.device, "--tp")
+    if tp:
+        # this rank's process group; the model's mesh is built over it below
+        from paddle_tpu_torch.device import resolve_device
+        from paddle_tpu_torch.parallel import distributed
+
+        rank = _rank_env()
+        dev = resolve_device(args.device)
+        if dev.type == "cuda":
+            dev = resolve_device(f"cuda:{rank}")
+        distributed.initialize(os.environ[_COORD_ENV], tp, rank,
+                               backend="nccl" if dev.type == "cuda" else "gloo")
+        args.device = str(dev)
     quotas = None
     if args.tenant_tokens_per_s > 0 and args.tenant_tokens <= 0:
         # a refill rate without a bucket capacity is a no-op; saying nothing
@@ -832,7 +854,9 @@ def cmd_serve(args: argparse.Namespace) -> int:
     session = None
     if args.demo or args.load:
         from paddle_tpu_torch.serving.model import ServableLM
-        from paddle_tpu_torch.serving.session import ServingSession, make_demo_session
+        from paddle_tpu_torch.serving.session import (
+            ServingSession, make_demo_session, tp_mesh)
+        from paddle_tpu_torch.serving.tp import TPWorker
 
         buckets = tuple(
             int(b) for b in args.prefill_buckets.split(",") if b.strip()
@@ -857,14 +881,21 @@ def cmd_serve(args: argparse.Namespace) -> int:
             engine_stall_timeout_s=args.engine_stall_timeout_s,
         )
         if args.load:
-            model = ServableLM.load(args.load, device=args.device)
-            session = ServingSession(model, device=args.device, **session_kw)
+            mesh = tp_mesh(tp, None, args.device) if tp else None
+            model = ServableLM.load(args.load, device=args.device, mesh=mesh)
+            session = (ServingSession(model, device=args.device, **session_kw)
+                       if mesh is None or mesh.index("model") == 0 else TPWorker(model))
         else:
             session = make_demo_session(
                 vocab=args.vocab, n_layers=args.n_layers, d_model=args.d_model,
                 n_heads=args.n_heads, seed=args.seed,
-                max_len=args.max_len or None, device=args.device, **session_kw,
+                max_len=args.max_len or None, device=args.device,
+                tp=tp, **session_kw,
             )
+        if isinstance(session, TPWorker):
+            # a rank > 0: repeat the leading rank's device calls until it stops
+            session.run()
+            return 0
 
     gen_session = None
     if args.config:

@@ -14,6 +14,7 @@ from typing import Optional, Sequence, Tuple
 
 from paddle_tpu_torch.nn import costs as C
 from paddle_tpu_torch.nn import layers as L
+from paddle_tpu_torch.nn.graph import ParamAttr
 
 
 def ctr_wide_deep(
@@ -24,20 +25,22 @@ def ctr_wide_deep(
     embedding_sharding: Optional[Tuple] = None,
 ):
     """Returns (inputs, label, prediction, cost); inputs = [wide_input,
-    slot0_ids, slot1_ids, ...]. `embedding_sharding` (the JAX package's
-    logical axes for the tables' rows) needs the parallel layer and raises
-    until it is ported."""
-    if embedding_sharding is not None:
-        raise NotImplementedError(
-            "ctr_wide_deep(embedding_sharding=...) is not ported to "
-            "paddle_tpu_torch yet: sharded embedding tables wait for the "
-            "parallel layer (ROADMAP.md §1 item 8)")
+    slot0_ids, slot1_ids, ...]. `embedding_sharding` is a LOGICAL-axes
+    tuple, e.g. ("expert", None): every deep table's rows declare it, and
+    the deployment's rules table decides whether that splits them (a mesh
+    with an "expert" axis: each rank stores its rows, gathered for the
+    step, `parallel/updaters.py`) or keeps them whole (a data-only mesh)."""
     wide_in = L.Data("wide_features", shape=(wide_dim,))
     slot_ids = [L.Data(f"slot{i}_id", shape=()) for i in range(len(slot_vocab_sizes))]
     label = L.Data("click", shape=(1,))
 
     wide = L.Fc(wide_in, 1, act=None, name="wide_lr")
-    embeds = [L.Embedding(ids, embed_dim, vocab_size=vocab, name=f"slot{i}_emb")
+    def attr():
+        return (ParamAttr(logical_axes=tuple(embedding_sharding))
+                if embedding_sharding is not None else None)
+
+    embeds = [L.Embedding(ids, embed_dim, vocab_size=vocab, param_attr=attr(),
+                          name=f"slot{i}_emb")
               for i, (ids, vocab) in enumerate(zip(slot_ids, slot_vocab_sizes))]
     deep = L.Concat(embeds, name="deep_concat")
     for j, h in enumerate(hidden_dims):

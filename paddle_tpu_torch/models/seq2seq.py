@@ -35,17 +35,24 @@ class Seq2SeqModel:
         self.src = L.Data("source_ids", shape=(self.src_vocab,), is_seq=True)
         self.trg = L.Data("target_ids", shape=(self.trg_vocab,), is_seq=True)
         self.label = L.Data("label_ids", shape=(self.trg_vocab,), is_seq=True)
+        # the vocab-sized tables declare LOGICAL axes, as the JAX package's:
+        # the rules table splits them over a mesh's model axis, or keeps
+        # them whole on a data-only mesh
         src_emb = L.Embedding(self.src, self.embed_dim, vocab_size=self.src_vocab,
+                              param_attr=ParamAttr(logical_axes=("vocab", "embed")),
                               name="src_emb")
         self.encoder = bidirectional_gru(src_emb, self.hidden_dim, name="enc")
         self.trg_emb_layer = L.Embedding(
             self.trg, self.embed_dim, vocab_size=self.trg_vocab,
-            param_attr=ParamAttr(name="trg_emb_table"), name="trg_emb")
+            param_attr=ParamAttr(name="trg_emb_table", logical_axes=("vocab", "embed")),
+            name="trg_emb")
         self.decoder = AttentionDecoder(self.encoder, self.trg_emb_layer,
                                         self.hidden_dim, name="decoder")
         self.logits = L.Fc(self.decoder, self.trg_vocab, act=None,
-                           param_attr=ParamAttr(name="out_w"),
-                           bias_attr=ParamAttr(name="out_b"), name="out")
+                           param_attr=ParamAttr(name="out_w",
+                                                logical_axes=("embed", "vocab")),
+                           bias_attr=ParamAttr(name="out_b", logical_axes=("vocab",)),
+                           name="out")
         self.cost = C.ClassificationCost(self.logits, self.label, name="cost")
 
     # -- generation ----------------------------------------------------------

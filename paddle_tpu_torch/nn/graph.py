@@ -389,7 +389,7 @@ class Network:
                       states={} if states is None else states, train=train,
                       policy=policy, rng=rng)
         if mesh is not None:
-            ctx.mesh, ctx.rank, ctx.world = mesh, mesh.rank, mesh.size
+            ctx.mesh, ctx.rank, ctx.world = mesh, mesh.index("data"), mesh.extent("data")
         ctx.param_resolver = param_resolver
         with dtypes.policy_scope(policy):
             values = self._run(ctx, batch, dev, remat_mod.resolve(remat))

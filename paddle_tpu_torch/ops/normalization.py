@@ -57,7 +57,7 @@ def _row(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _all_sum(mesh, a: torch.Tensor, b: torch.Tensor):
-    """(a, b) summed over the mesh's ranks in one all-reduce of [2, C]."""
+    """(a, b) summed over the mesh's data ranks in one all-reduce of [2, C]."""
     both = torch.stack([a, b])
     mesh.all_reduce_(both)
     return both[0], both[1]
@@ -72,7 +72,7 @@ class _BatchNormTrain(torch.autograd.Function):
         s2 = torch.linalg.vector_norm(x, 2, dim=axes, dtype=acc).square()
         if mesh is not None:
             s1, s2 = _all_sum(mesh, s1, s2)
-            n = n * mesh.size
+            n = n * mesh.extent("data")
         ctx.mesh = mesh
         mean = s1 / n
         var = torch.clamp(s2 / n - mean.square(), min=0.0)
@@ -99,7 +99,7 @@ class _BatchNormTrain(torch.autograd.Function):
             # rank's, which the updater's reduction adds up
             dbeta, dgx = _all_sum(ctx.mesh, dbeta, dgx)
             dgamma = inv * (dgx - mean * dbeta)
-            n = n * ctx.mesh.size
+            n = n * ctx.mesh.extent("data")
         gi = gamma.to(acc) * inv
         c = gi * (dbeta + mean * inv * -dgamma) / -n
         bx = gi * inv * dgamma / -n

@@ -14,7 +14,13 @@ ranks by the updater (`updaters.py`): in one flat all-reduce for the
 replicated updater (`reduce_grads`), in a reduce-scatter for the ZeRO ones.
 
 Parameters resolve through the rules table (`rules.py`); on the data-only
-mesh every parameter is replicated."""
+mesh every parameter is replicated. On a mesh with a `model` (or `expert`)
+axis, a parameter whose logical axes resolve to it is stored as this
+rank's slice, gathered over that axis for the step's compute, and its
+gradient summed over the data axis only (`updaters.py`): storage-sharded,
+compute-gathered, where the JAX package's GSPMD partitions the compute
+(ROADMAP.md §3 difference 26). Every collective here runs on the data
+axis' group."""
 
 from __future__ import annotations
 
@@ -83,7 +89,8 @@ class DataParallel:
 
     @property
     def rank(self) -> int:
-        return self.mesh.rank
+        """This rank's index on the data axis: whose rows it keeps."""
+        return self.mesh.index(self.batch_axis)
 
     @property
     def device(self) -> torch.device:
@@ -211,7 +218,7 @@ class DataParallel:
         names = list(grads)
         flat = torch.cat([grads[k].reshape(-1).float() for k in names]
                          + [cost.reshape(1).float()])
-        self.mesh.all_reduce_(flat)
+        self.mesh.all_reduce_(flat, self.batch_axis)
         out, off = {}, 0
         for k in names:
             g = grads[k]

@@ -21,15 +21,16 @@ Resolution, as in the JAX package:
     per process.
 
 A resolved spec is a tuple of mesh-axis names or None, one per array
-dimension: the port has no `PartitionSpec`. `make_tp_mesh` (the 2-D data
-x model mesh) is ROADMAP.md §1 item 8b and raises."""
+dimension: the port has no `PartitionSpec`. `make_tp_mesh` builds the 2-D
+data x model mesh of tensor-parallel serving and training over a process
+group."""
 
 from __future__ import annotations
 
 import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
-from paddle_tpu_torch.parallel.mesh import _ITEM8B, AXES, Mesh
+from paddle_tpu_torch.parallel.mesh import AXES, Mesh, make_mesh
 
 Spec = Tuple[Optional[str], ...]
 
@@ -113,10 +114,13 @@ class ShardingRules:
         return tuple(self.mesh_axis(a, mesh, param) for a in axes)
 
 
-def make_tp_mesh(tp: int, data: int = 1, group=None):
-    """The 2-D ("data", "model") mesh of tensor-parallel serving and
-    training: ROADMAP.md §1 item 8b, not ported yet."""
+def make_tp_mesh(tp: int, data: int = 1, group=None, device=None) -> Mesh:
+    """The 2-D ("data", "model") mesh the rules table targets: `tp` ranks on
+    the model axis, `data` replicas on the data axis (serving uses data=1:
+    replica scale-out is the router's job), over `group` (data * tp ranks;
+    see `make_mesh`). The data axis stays the outermost, the layout every
+    trainer and updater assumes."""
     tp = int(tp)
     if tp < 1:
         raise ValueError(f"tensor-parallel size must be >= 1, got {tp}")
-    raise NotImplementedError(_ITEM8B.format(axis="model"))
+    return make_mesh({"data": int(data), "model": tp}, group=group, device=device)

@@ -31,10 +31,22 @@ so a diverged step reverts on every rank.
     differentiates), and `apply` reduce-scatters the concatenated gradients
     once and steps the owned rows; there is no trailing gather.
 
+On a mesh with a `model` (or `expert`) axis, a parameter whose declared
+axes resolve to that axis is stored as this rank's slice along the
+resolved dimension (`_TPGeom`): storage-sharded, compute-gathered. Each
+step's forward gathers it over the axis (`_AxisGather`, whose backward
+keeps this rank's slice of the full gradient: every rank of the axis
+computed the same one on the same rows), its gradient is summed over the
+data axis only, and the optimizer updates the slice with slots of the
+slice's shape. As in the JAX package (`_resolves_replicated`) such a
+parameter stays out of ZeRO's flat buffers and takes the per-parameter
+update.
+
 The canonical seams (`to_canonical` / `from_canonical`,
-`params_to_canonical` / `params_from_canonical`) turn the flat rows back
-into parameter shapes (all-gathers outside the step) and back, so a
-checkpoint holds one layout that loads under any mode and world size.
+`params_to_canonical` / `params_from_canonical`) turn the flat rows and
+the model-axis slices back into parameter shapes (all-gathers outside the
+step) and back, so a checkpoint holds one layout that loads under any mode,
+world size and mesh.
 `collective_bytes_per_step` / `collective_bytes_detail` keep the JAX
 package's ring-convention byte model. Static parameters keep the
 canonical per-parameter update (which leaves them as they are)."""
@@ -127,6 +139,10 @@ class ParameterUpdater:
     def rebind(self, parallel, params: Params) -> "ParameterUpdater":
         return self
 
+    def canonical_shape(self, name: str, stored: torch.Tensor) -> Tuple[int, ...]:
+        """The canonical (checkpoint) shape of a stored parameter."""
+        return tuple(stored.shape)
+
 
 class SgdLocalUpdater(ParameterUpdater):
     """Single-replica updater: the optimizer update in the step, no
@@ -141,15 +157,57 @@ class SgdLocalUpdater(ParameterUpdater):
         return cost, ok
 
 
+@dataclasses.dataclass
+class _TPGeom:
+    """A model-axis parameter: canonical `shape`, split along `dim` over
+    the mesh axis `axis` into `n` slices; this rank keeps slice `index`."""
+
+    shape: Tuple[int, ...]
+    dim: int
+    axis: str
+    n: int
+    index: int
+
+    def slice(self, full: torch.Tensor) -> torch.Tensor:
+        w = self.shape[self.dim] // self.n
+        return full.narrow(self.dim, self.index * w, w).clone()
+
+
+def axis_gather(mesh, local: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """Every rank of `axis`'s slice of a tensor split along `dim`,
+    concatenated by index: the canonical tensor (one all-gather)."""
+    moved = local.movedim(dim, 0).contiguous()
+    full = mesh.all_gather(moved.reshape(1, -1), axis)
+    full = full.reshape((mesh.extent(axis) * moved.shape[0],) + tuple(moved.shape[1:]))
+    return full.movedim(0, dim)
+
+
+class _AxisGather(torch.autograd.Function):
+    """A model-axis parameter's full view for the step: forward gathers the
+    slices over the axis; backward keeps this rank's slice of the full
+    gradient (every rank of the axis computed the same one)."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, geom):
+        ctx.geom = geom
+        return axis_gather(mesh, local, geom.dim, geom.axis)
+
+    @staticmethod
+    def backward(ctx, d_full):
+        return ctx.geom.slice(d_full), None, None
+
+
 class IciAllReduceUpdater(SgdLocalUpdater):
     """The pserver / ring replacement: the gradients and the cost are
-    summed over the mesh in one flat all-reduce, then every rank applies
-    the same update."""
+    summed over the mesh's data axis in one flat all-reduce, then every
+    rank applies the same update (to its slice, for a model-axis
+    parameter)."""
 
     def __init__(self, optimizer: Optimizer, parallel):
         super().__init__(optimizer)
         self.parallel = parallel
         self._grad_bytes = 0
+        self._tp: Dict[str, _TPGeom] = {}
 
     @property
     def mesh(self):
@@ -163,9 +221,83 @@ class IciAllReduceUpdater(SgdLocalUpdater):
         if distributed.process_count() > 1:
             distributed.barrier("finish_pass")
 
+    # -- the model-axis layout -------------------------------------------------
+    def bind_tp(self, params: Params) -> None:
+        """Find the parameters (canonical shapes) whose declared axes
+        resolve to a mesh axis other than the batch axis."""
+        mesh, dp = self.parallel.mesh, self.parallel
+        self._tp = {}
+        for k, p in params.items():
+            spec = dp.param_sharding(k, p.dim())
+            split = [(d, a) for d, a in enumerate(spec) if a is not None]
+            if not split:
+                continue
+            if len(split) > 1 or split[0][1] == dp.batch_axis:
+                raise ValueError(
+                    f"parameter {k!r} resolves to {spec}: the port stores a parameter "
+                    f"split along one non-{dp.batch_axis} mesh axis only")
+            d, a = split[0]
+            n = mesh.extent(a)
+            if p.shape[d] % n:
+                raise ValueError(f"parameter {k!r} dimension {d} ({p.shape[d]}) is not "
+                                 f"divisible by mesh axis {a!r} ({n})")
+            self._tp[k] = _TPGeom(tuple(p.shape), d, a, n, mesh.index(a))
+
+    def _tp_slices(self, tree: Params) -> Params:
+        return {k: self._tp[k].slice(v) if k in self._tp else v for k, v in tree.items()}
+
+    def _tp_fulls(self, tree: Params) -> Params:
+        mesh = self.parallel.mesh
+        return {k: (axis_gather(mesh, v, self._tp[k].dim, self._tp[k].axis)
+                    if k in self._tp else v) for k, v in tree.items()}
+
+    def params_to_canonical(self, params: Params) -> Params:
+        return self._tp_fulls(params)
+
+    def params_from_canonical(self, params: Params) -> Params:
+        return self._tp_slices(params)
+
+    def to_canonical(self, opt_state: Dict[str, Any]) -> Dict[str, Any]:
+        if not self._tp:
+            return opt_state
+        out = dict(opt_state)
+        out["slots"] = {k: tuple(self._tp_fulls({k: s})[k] for s in ss)
+                        for k, ss in opt_state["slots"].items()}
+        return out
+
+    def from_canonical(self, opt_canonical: Dict[str, Any]) -> Dict[str, Any]:
+        if not self._tp:
+            return opt_canonical
+        out = dict(opt_canonical)
+        out["slots"] = {k: tuple(self._tp_slices({k: s})[k] for s in ss)
+                        for k, ss in opt_canonical["slots"].items()}
+        return out
+
+    def canonical_shape(self, name: str, stored: torch.Tensor) -> Tuple[int, ...]:
+        return self._tp[name].shape if name in self._tp else tuple(stored.shape)
+
+    def _tp_resolver(self) -> Optional[Callable]:
+        if not self._tp:
+            return None
+        mesh, tp = self.parallel.mesh, self._tp
+
+        def resolve(name: str, stored: torch.Tensor) -> torch.Tensor:
+            g = tp.get(name)
+            return stored if g is None else _AxisGather.apply(stored, mesh, g)
+
+        return resolve
+
+    def forward_inputs(self, params, opt_state):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        return leaves, leaves, self._tp_resolver()
+
+    def eval_resolver(self, opt_state):
+        return self._tp_resolver()
+
     def init_opt_state(self, params: Params) -> Dict[str, Any]:
         self._record_grad_bytes(params)
-        return super().init_opt_state(params)
+        self.bind_tp(params)
+        return super().init_opt_state(self._tp_slices(params))
 
     def _record_grad_bytes(self, params: Params) -> None:
         self._grad_bytes = sum(
@@ -192,6 +324,7 @@ class IciAllReduceUpdater(SgdLocalUpdater):
     def rebind(self, parallel, params: Params) -> "IciAllReduceUpdater":
         new = type(self)(self.optimizer, parallel)
         new._record_grad_bytes(params)
+        new.bind_tp(params)
         return new
 
 
@@ -252,7 +385,8 @@ class ShardedUpdater(IciAllReduceUpdater):
 
     @property
     def rank(self) -> int:
-        return self.parallel.mesh.rank
+        """This rank's index on the data axis: the flat row it owns."""
+        return self.parallel.rank
 
     # -- layout ---------------------------------------------------------------
     def _param_geom(self, k: str, p: torch.Tensor) -> _FlatGeom:
@@ -276,6 +410,7 @@ class ShardedUpdater(IciAllReduceUpdater):
 
     def bind_geometry(self, params: Params) -> None:
         self._geom = {k: self._param_geom(k, p) for k, p in params.items()}
+        self.bind_tp(params)
 
     def rebind(self, parallel, params: Params) -> "ShardedUpdater":
         new = type(self)(self.optimizer, parallel, compression=self.compression.name)
@@ -306,7 +441,8 @@ class ShardedUpdater(IciAllReduceUpdater):
         opt = self.optimizer
         dev = next(iter(params.values())).device
         slots = {}
-        for k, p in params.items():
+        local = self._tp_slices(params)
+        for k, p in local.items():
             g = self._geom[k]
             slots[k] = (opt.init_param_state(p) if not g.flat
                         else opt.init_param_state(p.new_zeros((1, g.chunk))))
@@ -317,10 +453,10 @@ class ShardedUpdater(IciAllReduceUpdater):
         return state
 
     def to_canonical(self, opt_state: Dict[str, Any]) -> Dict[str, Any]:
-        out = dict(opt_state)
+        out = dict(super().to_canonical(opt_state))
         out["slots"] = {k: ss if not self._geom[k].flat
                         else tuple(self._gather_rows(s, k) for s in ss)
-                        for k, ss in opt_state["slots"].items()}
+                        for k, ss in out["slots"].items()}
         if "ef" in opt_state:
             out["ef"] = {k: self._ef_to_canonical(e, k) for k, e in opt_state["ef"].items()}
         return out
@@ -339,10 +475,10 @@ class ShardedUpdater(IciAllReduceUpdater):
         return full2 if self.rank == 0 else torch.zeros_like(full2)
 
     def from_canonical(self, opt_canonical: Dict[str, Any]) -> Dict[str, Any]:
-        out = dict(opt_canonical)
+        out = dict(super().from_canonical(opt_canonical))
         out["slots"] = {k: ss if not self._geom[k].flat
                         else tuple(self._row(s, k) for s in ss)
-                        for k, ss in opt_canonical["slots"].items()}
+                        for k, ss in out["slots"].items()}
         if "ef" in opt_canonical:
             out["ef"] = {k: self._ef_from_canonical(e, k)
                          for k, e in opt_canonical["ef"].items()}
@@ -377,6 +513,7 @@ class ShardedUpdater(IciAllReduceUpdater):
         flat_keys = [k for k in params if self._geom[k].flat]
         opt._step_constants = opt.step_constants(t_new)
         try:
+            tp_grads = self._reduce_tp_grads(grads)
             payloads, new_ef = [], {}
             for k in flat_keys:
                 g2 = _to_flat(grads[k].float(), n, self._geom[k].chunk)
@@ -390,6 +527,7 @@ class ShardedUpdater(IciAllReduceUpdater):
             cats = tuple(torch.cat(arrs, dim=1) for arrs in zip(*payloads))
             parts, cost = self._scatter(cats, cost, comp.reduces_in_collective)
             ok = torch.isfinite(cost) if guard else None
+            self._update_tp(tp_grads, opt_state, params, lr, t_new, ok)
             gathers, offs = [], [0] * len(parts)
             fulls = {}
             for i, k in enumerate(flat_keys):
@@ -423,6 +561,30 @@ class ShardedUpdater(IciAllReduceUpdater):
         finally:
             opt._step_constants = None
         return cost, ok
+
+    def _reduce_tp_grads(self, grads: Params) -> Params:
+        """The model-axis parameters' slice gradients, summed over the data
+        axis in one flat all-reduce (none without such parameters)."""
+        keys = [k for k in self._tp
+                if not (self.optimizer.param_attrs.get(k) or ParamAttr()).is_static]
+        if not keys:
+            return {}
+        flat = torch.cat([grads[k].reshape(-1).float() for k in keys])
+        self.parallel.mesh.all_reduce_(flat, self.parallel.batch_axis)
+        out, off = {}, 0
+        for k in keys:
+            out[k] = flat[off:off + grads[k].numel()].view(grads[k].shape)
+            off += grads[k].numel()
+        return out
+
+    def _update_tp(self, tp_grads: Params, opt_state, params, lr, t_new, ok) -> None:
+        """The per-parameter update of each model-axis slice."""
+        for k, g in tp_grads.items():
+            new_p, new_s = self.optimizer.update_one(k, g, opt_state["slots"][k],
+                                                     params[k], lr, t_new)
+            for own, new in zip(opt_state["slots"][k], new_s):
+                write_into(own, new, ok)
+            write_into(params[k], new_p, ok)
 
     # -- the collective-bytes model (ring convention, per leg) ------------------
     def _flat_payload_elems(self) -> int:
@@ -511,11 +673,15 @@ class Zero3Updater(ShardedUpdater):
     # -- parameter layout seams ----------------------------------------------
     def params_to_canonical(self, params: Params) -> Params:
         return {k: p if not self._geom[k].flat else self._gather_rows(p, k)
-                for k, p in params.items()}
+                for k, p in self._tp_fulls(params).items()}
 
     def params_from_canonical(self, params: Params) -> Params:
         return {k: p if not self._geom[k].flat else self._row(p, k)
-                for k, p in params.items()}
+                for k, p in self._tp_slices(params).items()}
+
+    def canonical_shape(self, name: str, stored: torch.Tensor) -> Tuple[int, ...]:
+        g = self._geom.get(name)
+        return g.shape if g is not None and g.flat else super().canonical_shape(name, stored)
 
     # -- the on-demand gather ---------------------------------------------------
     def _gather_param(self, row: torch.Tensor, ef: Optional[torch.Tensor]) -> torch.Tensor:
@@ -528,11 +694,12 @@ class Zero3Updater(ShardedUpdater):
 
     def _resolver(self, opt_state: Dict[str, Any], anchors: Optional[Params]):
         ef = opt_state.get("ef")
+        tp = self._tp_resolver()
 
         def resolve(name: str, stored: torch.Tensor) -> torch.Tensor:
             g = self._geom.get(name)
             if g is None or not g.flat:
-                return stored
+                return stored if tp is None else tp(name, stored)
             anchor = None if anchors is None else anchors[name]
             full2 = _Z3Gather.apply(stored, anchor, self, None if ef is None else ef[name])
             return _from_flat(full2, g.shape, g.size)
@@ -564,6 +731,7 @@ class Zero3Updater(ShardedUpdater):
         flat_keys = [k for k in params if self._geom[k].flat]
         opt._step_constants = opt.step_constants(t_new)
         try:
+            tp_grads = self._reduce_tp_grads(grads)
             enc = [comp.encode_z3_scatter(grads[k].float()) for k in flat_keys]
             if not enc:
                 enc = [cost.new_zeros((self.n, 0))]
@@ -571,6 +739,7 @@ class Zero3Updater(ShardedUpdater):
                                         comp.z3_reduces_in_collective)
             (part,) = parts
             ok = torch.isfinite(cost) if guard else None
+            self._update_tp(tp_grads, opt_state, params, lr, t_new, ok)
             off = 0
             for k in flat_keys:
                 g = self._geom[k]

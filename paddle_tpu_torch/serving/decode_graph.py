@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.ops import paged_attention as _paged_attention
+from paddle_tpu_torch.parallel import mesh as _mesh
 
 
 class DecodeGraph:
@@ -40,7 +41,8 @@ class DecodeGraph:
     cuBLAS's handle and workspace), so the capture records kernels only.
     `kernel_calls` is the number of paged-attention calls recorded (one per
     layer); each `replay` adds it to the wrapper's launch count, since a
-    replay runs no Python."""
+    replay runs no Python, and adds the mesh collectives a tensor-parallel
+    step captured (`collective_calls`) to the mesh's counts."""
 
     def __init__(self, model, k_pages: torch.Tensor, v_pages: torch.Tensor,
                  max_slots: int, pages_per_seq: int):
@@ -66,12 +68,14 @@ class DecodeGraph:
         self._host = tuple(t.numpy() for t in self._pinned)
         self.graph = torch.cuda.CUDAGraph()
         before = _paged_attention.CAPTURED
+        collectives_before = dict(_mesh.CAPTURED)
         # thread_local: the engine thread captures while the server's other
         # threads run (they never touch CUDA)
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.logits = model.decode_logits(k_pages, v_pages, *self.inputs)
             self.greedy = self.logits.argmax(-1)
         self.kernel_calls = _paged_attention.CAPTURED - before
+        self.collective_calls = _mesh.captured_since(collectives_before)
 
     def replay(self, tokens: np.ndarray, positions: np.ndarray,
                active: np.ndarray, block_table: np.ndarray):
@@ -86,4 +90,5 @@ class DecodeGraph:
             dst.copy_(src, non_blocking=True)
         self.graph.replay()
         _paged_attention.note_replay(self.kernel_calls)
+        _mesh.note_replay(self.collective_calls)
         return self.logits, self.greedy

@@ -3,7 +3,10 @@
 The port's counterpart of `paddle_tpu/serving/kv_cache.py`: the host-side
 free list, refcounts, block tables and prefix index are the JAX package's,
 unchanged; `make_pools` allocates the zeroed f32 pools as torch tensors on
-the session's device.
+the session's device. Under tensor parallelism each rank's pools hold its
+heads' kv_dim / tp columns (`ServableLM.kv_dim`), while the block tables,
+the allocator and the prefix index stay one host copy on the leading rank
+that drives every rank.
 
 The device layout follows the paged-attention kernel convention ("Ragged
 Paged Attention", PAPERS.md): every sequence shares ONE pool

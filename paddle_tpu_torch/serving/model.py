@@ -45,13 +45,34 @@ Differences from the JAX package, each on purpose:
     `uniform(key, (V,), 1e-20, 1.0)`, as the JAX package draws them, so
     sampled tokens match the JAX package's as greedy ones do.
 
-Parameters and pools are f32. Tensor parallelism (the JAX package's mesh,
-`shard_params` and `shard_map` seam) is not ported yet (ROADMAP.md)."""
+Parameters and pools are f32.
+
+Tensor parallelism over a mesh's `model` axis (`parallel.make_tp_mesh`):
+every parameter declares LOGICAL axes once (`param_logical_axes`, the
+Megatron layout of the JAX package), and the rules table maps them to the
+mesh. Each rank then holds its slices of the canonical tensors
+(`shard_params`): q/k/v and w1/b1 column slices (its heads, its MLP
+columns), wo and w2 row slices, the embed table's rows and the unembed's
+columns of its vocab range; norms, positions and b2 replicated. Each method
+the session calls runs on the rank's shards, with the JAX package's
+collectives placed by hand: one all-reduce over the model axis after each
+row-parallel product (wo, w2; b2 is added once, after it), one all-reduce
+combining the embed gather (each rank gathers the ids of its vocab rows and
+writes zero rows for the others, so the sum is exact), and one all-gather
+making the logits full, so sampling runs on the full logits on every rank.
+Per decode step that is 2 L + 1 all-reduces and 1 all-gather. Paged
+attention runs per rank over its heads (`_paged_attention_local` at
+n_heads / tp) on a pool of kv_dim / tp columns. A mesh whose model axis is
+1 is dropped, as in the JAX package: the single-card program is unchanged.
+The ranks run in lockstep: the serving session leads on one rank and the
+others replay its calls (`serving/session.py`). Checkpoints are canonical
+full arrays both ways (`save` gathers, `load(mesh=)` slices)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import re
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,9 +82,27 @@ import torch.nn.functional as F
 from paddle_tpu_torch.core import prng
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.ops.paged_attention import paged_attention_decode
-from paddle_tpu_torch.serving.convert import params_from_jax, params_to_jax
+from paddle_tpu_torch.parallel.rules import ShardingRules
+from paddle_tpu_torch.serving.convert import params_from_jax
 
 NEG_INF = -1e9
+
+# the paged KV pools' logical axes [n_layers, num_pages, page_size, kv_dim]:
+# only the flattened (kv_heads * head_dim) dim shards, over the model axis
+POOL_LOGICAL_AXES = (None, None, None, "kv_heads")
+
+_PORT_LAYER = re.compile(r"^layers\.(\d+)\.(\w+)$")
+_JAX_LAYER = re.compile(r"^l(\d+)\.(\w+)$")
+
+
+def _jax_name(key: str) -> str:
+    m = _PORT_LAYER.match(key)
+    return f"l{m.group(1)}.{m.group(2)}" if m else key
+
+
+def _port_name(name: str) -> str:
+    m = _JAX_LAYER.match(name)
+    return f"layers.{m.group(1)}.{m.group(2)}" if m else name
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,36 +134,225 @@ def _param(*shape: int, device, fill: float = 0.0) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One transformer layer's parameters (JAX keys `l{i}.<name>`)."""
+    """One transformer layer's parameters (JAX keys `l{i}.<name>`), at the
+    shapes `shape(name, canonical shape)` gives (this rank's slices under
+    tensor parallelism)."""
 
     MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")
 
-    def __init__(self, d: int, device):
+    def __init__(self, d: int, device, shape=lambda name, s: s):
         super().__init__()
-        self.wq = _param(d, d, device=device)
-        self.wk = _param(d, d, device=device)
-        self.wv = _param(d, d, device=device)
-        self.wo = _param(d, d, device=device)
-        self.w1 = _param(d, 4 * d, device=device)
-        self.w2 = _param(4 * d, d, device=device)
-        self.b1 = _param(4 * d, device=device)
-        self.b2 = _param(d, device=device)
-        self.ln1 = _param(d, device=device, fill=1.0)
-        self.ln2 = _param(d, device=device, fill=1.0)
+        canon = {"wq": (d, d), "wk": (d, d), "wv": (d, d), "wo": (d, d),
+                 "w1": (d, 4 * d), "w2": (4 * d, d), "b1": (4 * d,), "b2": (d,),
+                 "ln1": (d,), "ln2": (d,)}
+        for name, c in canon.items():
+            fill = 1.0 if name.startswith("ln") else 0.0
+            setattr(self, name, _param(*shape(name, c), device=device, fill=fill))
 
 
 class ServableLM(nn.Module):
-    def __init__(self, cfg: LMConfig, device: DeviceLike = None):
+    def __init__(self, cfg: LMConfig, device: DeviceLike = None, *, mesh=None,
+                 rules: Optional[ShardingRules] = None):
         super().__init__()
-        dev = resolve_device(device)
         self.cfg = cfg
         self.scale = 1.0 / float(np.sqrt(cfg.head_dim))
+        self.rules = rules if rules is not None else ShardingRules()
+        self._axes_cache: Optional[Dict[str, Tuple[Optional[str], ...]]] = None
+        # a mesh whose model axis is 1 (or absent) is the single-card path:
+        # drop it so every program stays the unsharded one
+        tp = mesh.extent("model") if mesh is not None else 1
+        self.mesh = mesh if tp > 1 else None
+        if self.mesh is not None:
+            for what, n in (("n_heads", cfg.n_heads), ("vocab", cfg.vocab)):
+                if n % tp:
+                    raise ValueError(
+                        f"tensor parallelism over {tp} chips needs {what} % {tp} == 0 "
+                        f"(got {what}={n}): heads and vocab split over the mesh "
+                        "'model' axis")
+            if device is None:
+                device = mesh.device
+        dev = resolve_device(device)
+        # {JAX name: the dimension split over the model axis}, from the rules
+        self._split: Dict[str, int] = {}
+        if self.mesh is not None:
+            for name, axes in self.param_logical_axes().items():
+                spec = self.rules.spec_for(axes, self.mesh, param=name)
+                dims = [i for i, a in enumerate(spec) if a is not None]
+                if any(spec[i] != "model" for i in dims) or len(dims) > 1:
+                    raise ValueError(f"{name!r} resolves to {spec}: the port splits a "
+                                     "serving parameter along the 'model' axis only")
+                if dims:
+                    self._split[name] = dims[0]
+            self._check_layout()
+        self.heads_split = "l0.wq" in self._split
+        self.mlp_split = "l0.w1" in self._split
+        self.vocab_split = "embed" in self._split
+        self.local_heads = cfg.n_heads // self.tp_size if self.heads_split else cfg.n_heads
         d, v = cfg.d_model, cfg.vocab
-        self.embed = _param(v, d, device=dev)
-        self.pos = _param(cfg.max_len, d, device=dev)
-        self.lnf = _param(d, device=dev, fill=1.0)
-        self.unembed = _param(d, v, device=dev)
-        self.layers = nn.ModuleList(Block(d, dev) for _ in range(cfg.n_layers))
+        shape = self._local_shape
+        self.embed = _param(*shape("embed", (v, d)), device=dev)
+        self.pos = _param(*shape("pos", (cfg.max_len, d)), device=dev)
+        self.lnf = _param(*shape("lnf", (d,)), device=dev, fill=1.0)
+        self.unembed = _param(*shape("unembed", (d, v)), device=dev)
+        self.layers = nn.ModuleList(
+            Block(d, dev, shape=lambda n, c, i=i: shape(f"l{i}.{n}", c))
+            for i in range(cfg.n_layers))
+
+    # -- tensor parallelism -----------------------------------------------------
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.extent("model") if self.mesh is not None else 1
+
+    def _check_layout(self) -> None:
+        """The layouts the forward knows: heads (q/k/v columns, wo rows),
+        the MLP (w1/b1 columns, w2 rows) and the vocab (embed rows, unembed
+        columns) each split as a group, or not at all; d_model never."""
+        groups = {
+            "heads": {"wq": 1, "wk": 1, "wv": 1, "wo": 0},
+            "mlp": {"w1": 1, "b1": 0, "w2": 0},
+        }
+        for group, members in groups.items():
+            for i in range(self.cfg.n_layers):
+                got = {n: self._split.get(f"l{i}.{n}") for n in members}
+                if set(got.values()) != {None} and got != members:
+                    raise ValueError(f"the rules split the {group} parameters of layer "
+                                     f"{i} as {got}: the port splits {members} or none")
+        vocab = {"embed": self._split.get("embed"), "unembed": self._split.get("unembed")}
+        if set(vocab.values()) != {None} and vocab != {"embed": 0, "unembed": 1}:
+            raise ValueError(f"the rules split the vocab as {vocab}: the port splits "
+                             "the embed rows and the unembed columns together or neither")
+        for name in self._split:
+            tail = name.split(".")[-1]
+            if tail in ("pos", "lnf", "b2", "ln1", "ln2"):
+                raise ValueError(f"{name!r} is split over 'model': the port keeps d_model "
+                                 "replicated")
+
+    def _local_shape(self, name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        dim = self._split.get(name)
+        if dim is None:
+            return shape
+        out = list(shape)
+        out[dim] //= self.tp_size
+        return tuple(out)
+
+    def param_logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Every parameter's LOGICAL axes, under its JAX name, resolved
+        through the rules table: q/k/v and w1 column-parallel (heads, mlp),
+        wo and w2 row-parallel, embed rows and unembed columns over vocab;
+        norms, biases b2 and positions replicated."""
+        if self._axes_cache is not None:
+            return self._axes_cache
+        axes: Dict[str, Tuple[Optional[str], ...]] = {
+            "embed": ("vocab", "embed"),
+            "pos": ("length", "embed"),
+            "lnf": ("embed",),
+            "unembed": ("embed", "vocab"),
+        }
+        for i in range(self.cfg.n_layers):
+            axes.update({
+                f"l{i}.wq": ("embed", "heads"),
+                f"l{i}.wk": ("embed", "kv_heads"),
+                f"l{i}.wv": ("embed", "kv_heads"),
+                f"l{i}.wo": ("heads", "embed"),
+                f"l{i}.w1": ("embed", "mlp"),
+                f"l{i}.w2": ("mlp", "embed"),
+                f"l{i}.b1": ("mlp",),
+                f"l{i}.b2": ("embed",),
+                f"l{i}.ln1": ("embed",),
+                f"l{i}.ln2": ("embed",),
+            })
+        self._axes_cache = axes
+        return axes
+
+    def param_sharding(self, name: str, ndim: int):
+        """One parameter's spec (a mesh axis or None a dimension) through
+        the rules table, or None when there is no TP mesh. A parameter
+        missing from param_logical_axes raises: replicating it silently
+        would erode the per-rank memory the table exists to save."""
+        if self.mesh is None:
+            return None
+        axes = self.param_logical_axes().get(name)
+        if axes is None:
+            raise KeyError(
+                f"param {name!r} has no entry in param_logical_axes — every tensor must "
+                "declare its logical axes (use ('embed',)-style replicated entries "
+                "explicitly, never by omission)")
+        return self.rules.spec_for(axes, self.mesh, ndim=ndim, param=name)
+
+    def shard_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Canonical tensors under their JAX names -> this rank's slices
+        (the same tensors on one card)."""
+        out = {}
+        for name, value in params.items():
+            value = torch.as_tensor(np.asarray(value, np.float32)
+                                    if not isinstance(value, torch.Tensor) else value)
+            self.param_sharding(name, value.dim())  # an unknown name raises
+            dim = self._split.get(name)
+            if dim is not None:
+                w = value.shape[dim] // self.tp_size
+                value = value.narrow(dim, self.mesh.index("model") * w, w)
+            out[name] = value
+        return out
+
+    def pool_sharding(self):
+        """The paged KV pools' spec: kv_heads (inside the flattened KD dim)
+        over the model axis; None on one card."""
+        if self.mesh is None:
+            return None
+        return self.rules.spec_for(POOL_LOGICAL_AXES, self.mesh, param="k_pages")
+
+    @property
+    def kv_dim(self) -> int:
+        """This rank's pool width: its heads' K (or V) columns."""
+        return self.local_heads * self.cfg.head_dim
+
+    @torch.no_grad()
+    def load_canonical(self, params) -> "ServableLM":
+        """Copy canonical tensors (JAX names, or the port's state-dict keys)
+        into this rank's parameters, slicing them under TP."""
+        jax_named = {_jax_name(k): v for k, v in params.items()}
+        own = {_jax_name(k): p for k, p in self.state_dict(keep_vars=True).items()}
+        if set(jax_named) != set(own):
+            raise KeyError(f"parameter names differ: missing "
+                           f"{sorted(set(own) - set(jax_named))}, unknown "
+                           f"{sorted(set(jax_named) - set(own))}")
+        for name, value in self.shard_params(jax_named).items():
+            own[name].copy_(value.to(own[name].device, torch.float32))
+        return self
+
+    @torch.no_grad()
+    def canonical_params(self) -> Dict[str, torch.Tensor]:
+        """Every parameter as its canonical full tensor under its JAX name:
+        under TP the slices are gathered over the model axis (a collective:
+        every rank calls it)."""
+        from paddle_tpu_torch.parallel.updaters import axis_gather
+
+        out = {}
+        for key, p in self.state_dict().items():
+            name = _jax_name(key)
+            dim = self._split.get(name)
+            out[name] = p if dim is None else axis_gather(self.mesh, p, dim, "model")
+        return out
+
+    def _reduce(self, t: torch.Tensor, split: bool) -> torch.Tensor:
+        """The row-parallel partial sums of a split group, summed over the
+        model axis (one all-reduce); t itself when the group is whole."""
+        if split:
+            self.mesh.all_reduce_(t, "model")
+        return t
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (long) -> their embedding rows; under a vocab split each
+        rank gathers the ids in its rows and one all-reduce combines them
+        (exact: one rank adds each nonzero row)."""
+        if not self.vocab_split:
+            return self.embed[tokens]
+        rows = self.embed.shape[0]
+        off = tokens - self.mesh.index("model") * rows
+        mine = (off >= 0) & (off < rows)
+        part = torch.where(mine[..., None], self.embed[off.clamp(0, rows - 1)],
+                           self.embed.new_zeros(()))
+        return self._reduce(part.contiguous(), True)
 
     @property
     def device(self) -> torch.device:
@@ -144,17 +372,26 @@ class ServableLM(nn.Module):
         reproduced in torch — so parity with the JAX package comes from
         moving its weights across (`convert.params_from_jax`)."""
         g = generator if generator is not None else torch.Generator().manual_seed(0)
+        cfg = self.cfg
+        d = cfg.d_model
+        canon = {"embed": (cfg.vocab, d), "pos": (cfg.max_len, d), "unembed": (d, cfg.vocab),
+                 "wq": (d, d), "wk": (d, d), "wv": (d, d), "wo": (d, d),
+                 "w1": (d, 4 * d), "w2": (4 * d, d)}
 
-        def draw(p: torch.Tensor, std: float) -> None:
-            p.copy_(std * torch.randn(p.shape, generator=g, device=g.device))
+        def draw(p: torch.Tensor, name: str, std: float) -> None:
+            # the canonical tensor's draw (the same under any layout), then
+            # this rank's slice of it
+            full = std * torch.randn(canon[name.split(".")[-1]], generator=g,
+                                     device=g.device)
+            p.copy_(self.shard_params({name: full})[name])
 
-        draw(self.embed, 0.1)
-        draw(self.pos, 0.02)
+        draw(self.embed, "embed", 0.1)
+        draw(self.pos, "pos", 0.02)
         self.lnf.fill_(1.0)
-        draw(self.unembed, 0.1)
-        for blk in self.layers:
+        draw(self.unembed, "unembed", 0.1)
+        for i, blk in enumerate(self.layers):
             for name in Block.MATRICES:
-                draw(getattr(blk, name), 0.1)
+                draw(getattr(blk, name), f"l{i}.{name}", 0.1)
             blk.b1.zero_()
             blk.b2.zero_()
             blk.ln1.fill_(1.0)
@@ -163,16 +400,24 @@ class ServableLM(nn.Module):
 
     def save(self, path: str) -> None:
         """The JAX package's .npz checkpoint: config scalars + every
-        parameter under its JAX name, [in, out] layouts unchanged."""
+        parameter under its JAX name, [in, out] layouts unchanged. Under TP
+        the slices are gathered into canonical full arrays (every rank of
+        the model axis calls it; its rank 0 writes)."""
         c = self.cfg
+        params = {k: v.detach().to("cpu", torch.float32).numpy()
+                  for k, v in self.canonical_params().items()}
+        if self.mesh is not None and self.mesh.index("model") != 0:
+            return
         np.savez(path, __vocab__=c.vocab, __n_layers__=c.n_layers,
                  __d_model__=c.d_model, __n_heads__=c.n_heads,
                  __max_len__=c.max_len, __bos__=c.bos_id, __eos__=c.eos_id,
-                 **params_to_jax(self))
+                 **params)
 
     @classmethod
-    def load(cls, path: str, device: DeviceLike = None) -> "ServableLM":
-        """A model from a .npz checkpoint written by either package."""
+    def load(cls, path: str, device: DeviceLike = None, *, mesh=None,
+             rules: Optional[ShardingRules] = None) -> "ServableLM":
+        """A model from a .npz checkpoint written by either package, on
+        any layout: one card, or this rank's slices on a TP mesh."""
         with np.load(path) as z:
             cfg = LMConfig(
                 vocab=int(z["__vocab__"]), n_layers=int(z["__n_layers__"]),
@@ -181,8 +426,8 @@ class ServableLM(nn.Module):
                 eos_id=int(z["__eos__"]),
             )
             params = {k: z[k] for k in z.files if not k.startswith("__")}
-        model = cls(cfg, device=device)
-        model.load_state_dict(params_from_jax(params))
+        model = cls(cfg, device=device, mesh=mesh, rules=rules)
+        model.load_canonical(params_from_jax(params))
         return model
 
     # -- sampling -----------------------------------------------------------
@@ -230,16 +475,29 @@ class ServableLM(nn.Module):
         return out
 
     # -- shared block body --------------------------------------------------
-    @staticmethod
-    def _mlp(blk: Block, x: torch.Tensor) -> torch.Tensor:
+    def _mlp(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
         h = _rms(x, blk.ln2)
         # tanh GELU: jax.nn.gelu's default (torch's default is exact erf)
-        return x + (
-            F.gelu(h @ blk.w1 + blk.b1, approximate="tanh") @ blk.w2 + blk.b2
-        )
+        a = F.gelu(h @ blk.w1 + blk.b1, approximate="tanh")
+        if not self.mlp_split:
+            return x + (a @ blk.w2 + blk.b2)
+        # row-parallel w2: sum the partial products, then b2 once
+        return x + (self._reduce(a @ blk.w2, True) + blk.b2)
+
+    def _attn_out(self, blk: Block, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+        """x + ctx @ wo; row-parallel under a heads split."""
+        return x + self._reduce(ctx @ blk.wo, self.heads_split)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return _rms(x, self.lnf) @ self.unembed
+        logits = _rms(x, self.lnf) @ self.unembed
+        if not self.vocab_split:
+            return logits
+        # column-parallel unembed: one all-gather makes the logits full
+        tp = self.tp_size
+        lead, vl = logits.shape[:-1], logits.shape[-1]
+        full = self.mesh.all_gather(logits.reshape(1, -1), "model")
+        return full.reshape((tp,) + tuple(lead) + (vl,)).movedim(0, -2).reshape(
+            tuple(lead) + (tp * vl,))
 
     # -- full-context forward (prefill + the sequential reference path) -----
     def _context_forward(
@@ -250,8 +508,8 @@ class ServableLM(nn.Module):
         f32 softmax with NEG_INF masking, as the JAX package computes it."""
         cfg = self.cfg
         b, t = tokens.shape
-        nh, hd = cfg.n_heads, cfg.head_dim
-        x = self.embed[tokens.long()] + self.pos[:t][None]
+        nh, hd = self.local_heads, cfg.head_dim
+        x = self._embed(tokens.long()) + self.pos[:t][None]
         causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
         kcs, vcs = [], []
         for blk in self.layers:
@@ -267,7 +525,7 @@ class ServableLM(nn.Module):
             s = torch.where(causal, s, NEG_INF)
             w = torch.softmax(s.float(), -1).to(x.dtype)
             ctx = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, t, -1)
-            x = x + ctx @ blk.wo
+            x = self._attn_out(blk, x, ctx)
             x = self._mlp(blk, x)
         return x, torch.stack(kcs), torch.stack(vcs)
 
@@ -346,13 +604,13 @@ class ServableLM(nn.Module):
         kc, vc [L, 1, C, KD]); the pools are only read here."""
         cfg = self.cfg
         b, c = tokens.shape
-        nh, hd = cfg.n_heads, cfg.head_dim
+        nh, hd = self.local_heads, cfg.head_dim
         ps = k_pages.shape[2]
         dev = k_pages.device
         pos = starts.long()[:, None] + torch.arange(c, device=dev)[None, :]
         # the padded tail may run past max_len; clamp the INDEX only (those
         # positions are causally invisible to every valid one)
-        x = self.embed[tokens.long()] + self.pos[pos.clamp(max=cfg.max_len - 1)]
+        x = self._embed(tokens.long()) + self.pos[pos.clamp(max=cfg.max_len - 1)]
         rows = block_rows.long()
         t_ctx = rows.shape[1] * ps
         ctx_idx = torch.arange(t_ctx, device=dev)
@@ -381,7 +639,7 @@ class ServableLM(nn.Module):
                 torch.einsum("bhqk,bkhd->bqhd", w[..., :t_ctx], v_past)
                 + torch.einsum("bhqk,bkhd->bqhd", w[..., t_ctx:], v_self)
             ).reshape(b, c, -1)
-            x = x + ctx @ blk.wo
+            x = self._attn_out(blk, x, ctx)
             x = self._mlp(blk, x)
         return x, torch.stack(kcs), torch.stack(vcs)
 
@@ -475,9 +733,11 @@ class ServableLM(nn.Module):
         positions: torch.Tensor,    # [S] int32
         n_heads: int,
     ) -> torch.Tensor:
-        """Ragged paged attention over `n_heads` heads: the CUDA kernel for
-        tensors on the card, its plain version (the JAX package's dense
-        gather oracle) for tensors on the CPU."""
+        """Ragged paged attention over `n_heads` heads (this rank's head
+        slice under TP: heads never mix, so the per-rank math is the
+        single-card math for those heads): the CUDA kernel for tensors on
+        the card, its plain version (the JAX package's dense gather oracle)
+        for tensors on the CPU."""
         return paged_attention_decode(
             q, k_pages_i, v_pages_i, block_table, positions,
             scale=self.scale, n_heads=n_heads,
@@ -505,7 +765,7 @@ class ServableLM(nn.Module):
         # admission keeps live positions < max_len and inside the slot's
         # pages; the clamps keep the inactive lanes' gathers in range on a
         # device that asserts where XLA clamped
-        x = self.embed[tokens.long()] + self.pos[pos.clamp(0, cfg.max_len - 1)]
+        x = self._embed(tokens.long()) + self.pos[pos.clamp(0, cfg.max_len - 1)]
         logical = (pos // ps).clamp(0, bt32.shape[1] - 1)
         cur_page = bt32.long().gather(1, logical[:, None])[:, 0]
         # inactive slots all write (page 0, offset): duplicate targets, one
@@ -518,10 +778,11 @@ class ServableLM(nn.Module):
             # in place where the JAX package donated the pools
             k_pages[i, cur_page, offs] = h @ blk.wk
             v_pages[i, cur_page, offs] = h @ blk.wv
+            # this rank's heads (all of them on one card)
             ctx = self._paged_attention_local(
-                q, k_pages[i], v_pages[i], bt32, pos32, cfg.n_heads,
+                q, k_pages[i], v_pages[i], bt32, pos32, self.local_heads,
             )
-            x = x + ctx @ blk.wo
+            x = self._attn_out(blk, x, ctx)
             x = self._mlp(blk, x)
         return self._logits(x)
 

@@ -38,7 +38,11 @@ re-captures the decode graph. Past `engine_restart_max` restarts every
 outstanding request fails `engine_error`. Push streaming: the engine bumps a
 step sequence (`stream_wait`) that the server's pusher threads wait on.
 
-Not ported yet (ROADMAP.md): tensor parallelism."""
+Tensor parallelism (`make_demo_session(tp=N, group=...)`, or a
+`ServableLM(mesh=)` split over a model axis): the session runs on the model
+axis' rank 0 and leads; each device call of an engine step sends its header
+first, and the other ranks repeat it (`serving/tp.py`). Over a gloo group
+holding CUDA tensors the decode step runs eagerly (`stats()["decode_graph"]`)."""
 
 from __future__ import annotations
 
@@ -62,6 +66,7 @@ from paddle_tpu_torch.serving.model import LMConfig, ServableLM
 from paddle_tpu_torch.serving.quota import TenantQuotas
 from paddle_tpu_torch.serving.scheduler import RequestHandle, Scheduler
 from paddle_tpu_torch.serving.speculation import PromptLookupDrafter, next_draft_k
+from paddle_tpu_torch.serving.tp import DeviceHalf, HeaderChannel, TPWorker, decode_mode
 
 # serving-side counters: admissions, retirements, decode steps — the
 # "serving" name registers the group with the metrics exporter
@@ -72,10 +77,6 @@ TTFT_HISTOGRAM = obs_metrics.REGISTRY.histogram(
     "submit → first sampled token, per request",
 )
 
-_NOT_PORTED = (
-    "{what} is not ported to paddle_tpu_torch yet (ROADMAP.md §1 {item})"
-)
-
 
 def _bucket_for(buckets: Sequence[int], n: int) -> int:
     for b in buckets:
@@ -84,7 +85,7 @@ def _bucket_for(buckets: Sequence[int], n: int) -> int:
     raise ValueError(f"prompt of {n} tokens exceeds largest bucket {buckets[-1]}")
 
 
-class ServingSession:
+class ServingSession(DeviceHalf):
     def __init__(
         self,
         model: ServableLM,
@@ -145,7 +146,7 @@ class ServingSession:
             num_pages = max_slots * pages_per_seq + 1
         self.cache = PagedKVCache(
             n_layers=self.cfg.n_layers,
-            kv_dim=self.cfg.d_model,
+            kv_dim=model.kv_dim,
             num_pages=num_pages,
             page_size=page_size,
             max_slots=max_slots,
@@ -159,6 +160,24 @@ class ServingSession:
             speculate_k=self.speculate_k,
         )
         self.k_pages, self.v_pages = self.cache.make_pools(self.device)
+        # what this rank holds (its shards under TP); the pools are reset in
+        # place, never re-allocated, so the sizes are fixed
+        self._param_bytes = stats.tensor_bytes(self.model.parameters())
+        self._pool_bytes = stats.tensor_bytes([self.k_pages, self.v_pages])
+        self.max_slots = self.cache.max_slots
+        self.pages_per_seq = self.cache.max_pages_per_seq
+        self.mesh = model.mesh
+        self.tp = model.tp_size
+        self.decode_mode = decode_mode(self.device, self.mesh)
+        self._lead_closed = False
+        if self.mesh is not None:
+            if self.mesh.index("model") != 0:
+                raise ValueError("a tensor-parallel session runs on the model axis' "
+                                 "rank 0; the other ranks run serving.tp.TPWorker")
+            self._lead = HeaderChannel(self.mesh)
+            self._device_lock = threading.Lock()
+            self._send("init", self.cfg.n_layers, self.cache.num_pages, page_size,
+                       self.max_slots, self.pages_per_seq)
         if self.device.type == "cuda":
             # build + load the decode kernel now, so the first engine step
             # (and the load estimator's first service time) carries no nvcc
@@ -223,10 +242,6 @@ class ServingSession:
         self._stop = threading.Event()
         self._work = threading.Condition()
         self._thread: Optional[threading.Thread] = None
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        # a copy: block-table rows are live host views the engine mutates
-        return torch.tensor(a, device=self.device)
 
     # -- intake -------------------------------------------------------------
     def submit(
@@ -378,16 +393,9 @@ class ServingSession:
                 ):
                     toks = np.zeros((1, bucket), np.int32)
                     toks[0, : len(act.prompt)] = act.prompt
-                    lengths = self._to_device(
-                        np.array([len(act.prompt)], np.int32)
-                    )
-                    first_tok, kc, vc = self.model.prefill(
-                        self._to_device(toks), lengths, seeds, temps, top_ks
-                    )
-                    self.model.commit_prefill(
-                        self.k_pages, self.v_pages, kc, vc, lengths,
-                        self._to_device(self.cache.slot_row(slot)),
-                        self._to_device(np.zeros(1, np.int32)),
+                    first_tok = self._dev_prefill(
+                        toks, np.array([len(act.prompt)], np.int32),
+                        self.cache.slot_row(slot), seeds, temps, top_ks,
                     )
                     # one tiny host fetch per ADMISSION: the first token
                     act.append(int(first_tok[0]))
@@ -430,12 +438,10 @@ class ServingSession:
             with trace.span(
                 "serving.prefill_chunk", request_id=h.request_id, start=start,
             ):
-                tok = self.model.prefill_chunk(
-                    self.k_pages, self.v_pages, self._to_device(toks),
-                    self._to_device(np.array([start], np.int32)),
-                    self._to_device(np.array([len(act.prompt)], np.int32)),
-                    self._to_device(self.cache.slot_row(slot)),
-                    seeds, temps, top_ks,
+                tok = self._dev_prefill_chunk(
+                    toks, np.array([start], np.int32),
+                    np.array([len(act.prompt)], np.int32),
+                    self.cache.slot_row(slot), seeds, temps, top_ks,
                 )
         act.prefill_pos = min(start + c, len(act.prompt))
         # incremental registration of the pages this chunk completed
@@ -525,10 +531,8 @@ class ServingSession:
                 "serving.verify_chunk", request_id=h.request_id,
                 drafted=len(draft),
             ):
-                sampled = self.model.verify_chunk(
-                    self.k_pages, self.v_pages, self._to_device(toks),
-                    self._to_device(starts), self._to_device(rows),
-                    seeds, steps0, temps, top_ks,
+                sampled = self._dev_verify(
+                    toks, starts, rows, seeds, steps0, temps, top_ks,
                 )
                 # sync-ok: ONE fetch per verify round — the K+1 sampled
                 # tokens the host needs to run acceptance
@@ -562,32 +566,6 @@ class ServingSession:
                 self._drafters.pop(slot, None)
                 self.scheduler.retire(slot, reason)
         return advanced
-
-    def _decode_forward(self, tokens, positions, act_mask, bt, seeds, steps,
-                        temps, top_ks) -> torch.Tensor:
-        """The decode step's device work -> next_tok [S] on the device. On
-        the card: the engine's first decode step runs eagerly and is the
-        capture's warm-up, then the step is captured as a CUDA graph and
-        every later step replays it (a failed capture raises). On the CPU:
-        eager, every step."""
-        if self.device.type == "cuda" and self._decode_graph is not None:
-            logits, greedy = self._decode_graph.replay(
-                tokens, positions, act_mask, bt
-            )
-            return self.model._sample(logits, seeds, steps, temps, top_ks,
-                                      greedy=greedy)
-        next_tok = self.model.decode_step(
-            self.k_pages, self.v_pages, self._to_device(tokens),
-            self._to_device(positions), self._to_device(act_mask),
-            self._to_device(bt), seeds, steps, temps, top_ks,
-        )
-        if self.device.type == "cuda":
-            self._decode_graph = DecodeGraph(
-                self.model, self.k_pages, self.v_pages,
-                self.cache.max_slots, self.cache.max_pages_per_seq,
-            )
-            self.decode_graph_captures += 1
-        return next_tok
 
     def _decode_once(self, skip: frozenset = frozenset()) -> None:
         """One continuous-batching decode step: every active, fully
@@ -654,6 +632,14 @@ class ServingSession:
         admit at the boundary, one prefill chunk, one speculation round,
         then one decode step for the slots it did not advance. Returns True
         when any work was done."""
+        if self._device_lock is None:
+            return self._step(now)
+        with self._device_lock:
+            if self._lead_closed:
+                raise RuntimeError("this tensor-parallel session was stopped")
+            return self._step(now)
+
+    def _step(self, now: Optional[float]) -> bool:
         if now is None:
             # clock-ok: the ONE wall-clock read per engine step
             now = time.monotonic()
@@ -726,9 +712,7 @@ class ServingSession:
         allocator behind them was reset — and the graph is dropped, so this
         engine's first decode step warms up and re-captures it."""
         self._device_reset_pending = False
-        self.k_pages.zero_()
-        self.v_pages.zero_()
-        self._decode_graph = None
+        self._dev_reset()
 
     def _engine_loop(self, gen: int) -> None:
         """The engine proper, pinned to generation `gen`: superseded threads
@@ -892,6 +876,12 @@ class ServingSession:
             self._work.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=10.0)
+        if self._device_lock is not None:
+            # the workers leave their loops once no step is in flight
+            with self._device_lock:
+                if not self._lead_closed:
+                    self._lead_closed = True
+                    self._send("stop")
 
     def cancel_tenant(self, tenant: str) -> int:
         return self.scheduler.cancel_tenant(tenant)
@@ -928,8 +918,12 @@ class ServingSession:
             "device": str(self.device),
             "decode_steps": self.decode_steps,
             "decode_graph_captures": self.decode_graph_captures,
-            "param_bytes": stats.tensor_bytes(self.model.parameters()),
-            "pool_bytes": stats.tensor_bytes([self.k_pages, self.v_pages]),
+            "decode_graph": self.decode_mode,
+            "param_bytes": self._param_bytes,
+            "pool_bytes": self._pool_bytes,
+            "tp": self.tp,
+            "param_bytes_per_chip": self._param_bytes,
+            "pool_bytes_per_chip": self._pool_bytes,
             "tokens_generated": self.tokens_generated,
             "decode_shape_signatures": self.decode_shape_signatures(),
             "queue_depth": sch.queue_depth(),
@@ -966,6 +960,25 @@ class ServingSession:
         }
 
 
+def tp_mesh(tp: int, group=None, device: DeviceLike = None):
+    """The {"data": 1, "model": tp} mesh of a tensor-parallel serving
+    engine over `group` (tp ranks), or over the initialized default group.
+    Without either it raises, saying how to launch the ranks."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel.rules import make_tp_mesh
+
+    if group is None and not (dist.is_initialized() and dist.get_world_size() == tp):
+        raise RuntimeError(
+            f"tensor-parallel serving over {tp} ranks runs one process (or thread) per "
+            "rank, each holding its shards: call make_demo_session(tp=N, group=...) in "
+            f"every rank of a {tp}-rank process group (parallel.mesh.new_gloo_group "
+            "over one store, or parallel.distributed.initialize(coordinator_address, "
+            f"{tp}, rank) first), or start `python -m paddle_tpu_torch serve --tp {tp}`, "
+            "which launches the ranks itself")
+    return make_tp_mesh(tp, group=group, device=device)
+
+
 def make_demo_session(
     vocab: int = 128,
     n_layers: int = 2,
@@ -974,17 +987,22 @@ def make_demo_session(
     seed: int = 0,
     tp: int = 0,
     device: DeviceLike = None,
+    group=None,
     **session_kw,
-) -> ServingSession:
+):
     """A seeded random model + session (chip_smoke.py, tests). The weights
     come from a CPU generator seeded `seed`, so they are the same on every
-    device (and differ from the JAX package's for the same seed). `device`
-    None means CUDA and raises without it."""
-    if tp and int(tp) > 1:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="tensor-parallel serving (tp > 1)", item="item 8, TP serving",
-        ))
+    device and layout (and differ from the JAX package's for the same
+    seed). `device` None means CUDA and raises without it.
+
+    tp > 1 serves tensor-parallel over a {"data": 1, "model": tp} mesh of
+    `group`'s tp ranks (or the initialized default group): call it on every
+    rank. Rank 0 gets the ServingSession; every other rank gets a
+    `serving.tp.TPWorker`, whose `run()` serves until the session stops."""
     dev = resolve_device(device)
+    mesh = None
+    if tp and int(tp) > 1:
+        mesh = tp_mesh(int(tp), group, dev)
     buckets = session_kw.pop("prefill_buckets", (16, 32, 64))
     max_new = session_kw.pop("max_new_limit", 64)
     # chunked prefill serves prompts beyond the largest bucket, so callers
@@ -993,7 +1011,9 @@ def make_demo_session(
     model = ServableLM(LMConfig(
         vocab=vocab, n_layers=n_layers, d_model=d_model, n_heads=n_heads,
         max_len=max_len,
-    ), device=dev).init_params(torch.Generator().manual_seed(seed))
+    ), device=dev, mesh=mesh).init_params(torch.Generator().manual_seed(seed))
+    if mesh is not None and mesh.index("model") != 0:
+        return TPWorker(model)
     return ServingSession(
         model, device=dev, prefill_buckets=buckets, max_new_limit=max_new,
         **session_kw,

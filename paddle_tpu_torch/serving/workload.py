@@ -1,12 +1,12 @@
-"""Closed-loop serving workloads: N concurrent streams vs sequential.
+"""Serving workloads: closed-loop streams, the open loop, prompt sets.
 
-The port's slice of `paddle_tpu/serving/workload.py` (numpy only): the
-mixed-length and repetitive prompt generators and the in-process closed
-loop, plus `run_closed_loop_rpc`, the same closed loop driven through a
-server by `ServingClient` push streams (one client thread a stream), which
-also times each request's first token as the client sees it. The open
-loop and the chunked-prefill / shared-prefix workloads wait for the port's
-benchmark.
+The port's copy of `paddle_tpu/serving/workload.py` (numpy only): the
+mixed-length, repetitive, shared-prefix and chunked-prefill (mixed) prompt
+generators, the in-process closed loop, `run_closed_loop_rpc` (the same
+closed loop driven through a server by `ServingClient` push streams, one
+client thread a stream, which also times each request's first token as the
+client sees it), and the open loop (`run_open_loop` over `expand_schedule`'s
+arrivals), the offered-load driver a benchmark's overload legs use.
 
 A "stream" models one user connection: it keeps exactly one request in
 flight, submitting its next request the moment the previous one completes —
@@ -62,6 +62,55 @@ def make_repetitive_prompts(
         motif = [int(t) for t in rs.randint(3, vocab, size=motif_len)]
         out.append([bos_id] + motif * repeats)
     return out
+
+
+def make_shared_prefix_prompts(
+    n: int,
+    n_prefixes: int,
+    prefix_len: int,
+    suffix_len: int,
+    vocab: int,
+    bos_id: int,
+    seed: int = 0,
+) -> List[List[int]]:
+    """The prefix-cache workload: `n_prefixes` distinct system prompts,
+    each shared by user turns that differ only in a short random suffix.
+    Prompts cycle round-robin over the prefixes, so consecutive requests hit
+    different chains; every suffix is unique, so past the shared pages each
+    request still pays its own prefill."""
+    rs = np.random.RandomState(seed)
+    prefixes = [
+        [bos_id] + [int(t) for t in rs.randint(3, vocab, size=prefix_len - 1)]
+        for _ in range(n_prefixes)
+    ]
+    out = []
+    for i in range(n):
+        suffix = [int(t) for t in rs.randint(3, vocab, size=suffix_len)]
+        out.append(prefixes[i % n_prefixes] + suffix)
+    return out
+
+
+def make_mixed_prompts(
+    n: int,
+    short_lengths: Sequence[int],
+    long_len: int,
+    long_every: int,
+    vocab: int,
+    bos_id: int,
+    seed: int = 0,
+    burst: int = 3,
+) -> List[List[int]]:
+    """The chunked-prefill workload: a steady short-prompt stream with a
+    burst of `burst` long prompts joining every `long_every` requests
+    mid-stream, the arrival pattern whole-prompt prefill stalls on."""
+    base = make_prompts(n, lengths=short_lengths, vocab=vocab, bos_id=bos_id,
+                        seed=seed)
+    rs = np.random.RandomState(seed + 1)
+    for i in range(long_every // 2, n, long_every):
+        for j in range(i, min(i + burst, n)):
+            body = rs.randint(3, vocab, size=long_len - 1)
+            base[j] = [bos_id] + [int(t) for t in body]
+    return base
 
 
 def run_closed_loop(
@@ -251,3 +300,123 @@ def run_closed_loop_rpc(
         "p99_inter_token_ms": pct(itl_ms, 99),
         "results": results,
     }
+
+
+def expand_schedule(
+    n: int,
+    schedule: Sequence,  # [(duration_s, rate_rps), ...]
+) -> List:
+    """Flatten a time-varying load schedule into absolute arrival offsets:
+    each `(duration_s, rate_rps)` phase contributes evenly spaced arrivals
+    for its duration (rate 0: an idle phase). Returns `[(offset_s,
+    phase_idx), ...]`, at most `n` entries."""
+    arrivals = []
+    t = 0.0
+    for p, (dur, rate) in enumerate(schedule):
+        dur = float(dur)
+        rate = float(rate)
+        if rate > 0:
+            interval = 1.0 / rate
+            k = 0
+            while k * interval < dur and len(arrivals) < n:
+                arrivals.append((t + k * interval, p))
+                k += 1
+        t += dur
+    return arrivals
+
+
+def run_open_loop(
+    session,
+    prompts: List[List[int]],
+    max_new_tokens: int,
+    rate_rps: Optional[float] = None,
+    tenants: Sequence[str] = ("default",),
+    deadline_s: Optional[float] = None,
+    ttft_deadline_s: Optional[float] = None,
+    schedule: Optional[Sequence] = None,
+) -> Dict:
+    """Open-loop (offered-load) driver: arrivals land on a fixed schedule
+    whatever the completions, so offered load above capacity builds a queue
+    (and sheds) instead of throttling itself. The engine runs inline on
+    this thread, one step an iteration. Offered load is a constant
+    `rate_rps` or a `schedule` of `(duration_s, rate_rps)` phases; with a
+    schedule the report gains per-phase `phases`. Goodput = requests that
+    completed within their deadline per second of wall clock."""
+    from paddle_tpu_torch.serving.quota import QuotaExceeded
+
+    n = len(prompts)
+    if schedule is not None:
+        arrivals = expand_schedule(n, schedule)
+        phase_specs = [(float(d), float(r)) for d, r in schedule]
+    else:
+        if rate_rps is None:
+            raise ValueError("run_open_loop needs rate_rps or schedule")
+        interval = 1.0 / float(rate_rps)
+        arrivals = [(i * interval, 0) for i in range(n)]
+        phase_specs = None
+    handles = []
+    handle_phase = []  # parallel to handles: arrival phase index
+    shed = 0
+    shed_by_phase: Dict[int, int] = {}
+    offered_by_phase: Dict[int, int] = {}
+    i = 0
+    t0 = time.monotonic()
+    while i < len(arrivals) or session.scheduler.has_work():
+        now = time.monotonic()
+        while i < len(arrivals) and t0 + arrivals[i][0] <= now:
+            phase = arrivals[i][1]
+            offered_by_phase[phase] = offered_by_phase.get(phase, 0) + 1
+            try:
+                handles.append(session.submit(
+                    prompts[i], max_new_tokens,
+                    tenant=tenants[i % len(tenants)],
+                    deadline_s=deadline_s, ttft_deadline_s=ttft_deadline_s,
+                ))
+                handle_phase.append(phase)
+            except QuotaExceeded:
+                shed += 1
+                shed_by_phase[phase] = shed_by_phase.get(phase, 0) + 1
+            i += 1
+        if session.scheduler.has_work():
+            session.step(now)
+        elif i < len(arrivals):
+            time.sleep(max(0.0, min(0.002, t0 + arrivals[i][0] - now)))
+    dt = time.monotonic() - t0
+
+    completed_ok = sum(1 for h in handles if h.status == h.DONE)
+    missed = sum(1 for h in handles if h.finish_reason == "deadline")
+    offered_rps = (
+        rate_rps if schedule is None
+        else n / sum(d for d, _ in phase_specs)
+        if phase_specs and sum(d for d, _ in phase_specs) > 0 else 0.0
+    )
+    report = {
+        "offered_rps": round(float(offered_rps), 2),
+        "requests_offered": len(arrivals),
+        "accepted": len(handles),
+        "shed": shed,
+        "completed_ok": completed_ok,
+        "deadline_misses": missed,
+        "deadline_miss_ratio": round(missed / len(handles), 4)
+        if handles else 0.0,
+        "goodput_rps": round(completed_ok / dt, 2) if dt > 0 else 0.0,
+        "wall_s": round(dt, 4),
+    }
+    if phase_specs is not None:
+        phases = []
+        for p, (dur, rate) in enumerate(phase_specs):
+            ok = sum(
+                1 for h, hp in zip(handles, handle_phase)
+                if hp == p and h.status == h.DONE
+            )
+            phases.append({
+                "phase": p,
+                "duration_s": dur,
+                "rate_rps": rate,
+                "offered": offered_by_phase.get(p, 0),
+                "shed": shed_by_phase.get(p, 0),
+                "completed_ok": ok,
+                "goodput_rps": round(ok / dur, 2) if dur > 0 else 0.0,
+            })
+        report["phases"] = phases
+    return report

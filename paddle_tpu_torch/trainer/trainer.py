@@ -68,9 +68,11 @@ zero3) reduces the gradients and the cost over the mesh inside the step,
 so on the card the collectives are captured in the step's graph. The
 divergence guard reads the global cost, so a diverged step reverts on
 every rank; zero2's `multi_step` merges the K batches into one accumulated
-update. Checkpoints hold the canonical layout (the updater's seams),
-written by rank 0, and record the world size; they load under any mode
-and world size.
+update. On a mesh with a `model` axis (`make_tp_mesh`), a parameter whose
+logical axes resolve to it is stored as this rank's slice and gathered over
+the axis for the step's compute (`parallel/updaters.py`). Checkpoints hold
+the canonical layout (the updater's seams), written by rank 0, and record
+the world size; they load under any mode, world size and mesh.
 
 An elastic-resize request (`core/preempt.request_resize`, set by a
 master's resize epoch through `runtime/master.ResizeClient`) is taken at
@@ -291,14 +293,13 @@ class SGDTrainer:
         """Replace the parameters' values (tensors or arrays, e.g. from
         `nn/convert.params_from_jax`); names and shapes must match. The
         values are copied into the parameters' own storage (under zero3,
-        this rank's rows of them)."""
+        this rank's rows of them; on a model axis, this rank's slice)."""
         self._check_names("params", params)
         values = {k: (v if isinstance(v, torch.Tensor)
                       else torch.from_numpy(np.array(v, dtype=np.float32))).float()
                   .to(self.device) for k, v in params.items()}
-        geom = getattr(self.updater, "_geom", {}) if self.updater.mode == "zero3" else {}
         for name, v in values.items():  # shapes checked in the canonical layout
-            want = geom[name].shape if name in geom else tuple(self.state["params"][name].shape)
+            want = self.updater.canonical_shape(name, self.state["params"][name])
             if tuple(v.shape) != want:
                 raise ValueError(f"{name}: shape {tuple(v.shape)} != {want}")
         self._load("params", self.updater.params_from_canonical(values))
@@ -414,7 +415,7 @@ class SGDTrainer:
             count = (count if isinstance(count, torch.Tensor)
                      else torch.from_numpy(np.asarray(count, np.float32)))
             return count.to(self.device).reshape(()).to(torch.int32)
-        return _batch_size(batch) * self.mesh.size
+        return _batch_size(batch) * self.mesh.extent("data")
 
     def _dispatch(self, batch: Batch, k: int):
         """k steps on `batch` (one batch, or k stacked on a leading axis) ->
@@ -445,7 +446,7 @@ class SGDTrainer:
             costs, extras = self._eager(batch, steps, body)
         if window:  # one update stands for the k batches
             return [costs[0]] * k, {}
-        if extras and self.mesh is not None and self.mesh.size > 1:
+        if extras and self.mesh is not None and self.mesh.extent("data") > 1:
             # the evaluators read the global batch's outputs, as the JAX
             # package's step returns them
             extras = {name: _gather_rows(self.mesh, v) for name, v in extras.items()}
@@ -943,7 +944,7 @@ class SGDTrainer:
         """Every rank waits here for the others (a one-float all-reduce):
         rank 0's checkpoint write lands before anyone reads it."""
         if self.mesh is not None and self.mesh.size > 1:
-            self.mesh.all_reduce_(torch.zeros(1, device=self.device))
+            self.mesh.all_reduce_(torch.zeros(1, device=self.device), axis=None)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
 
@@ -1180,7 +1181,7 @@ def _merge_window(batches: Batch) -> Dict[str, Any]:
 def _gather_rows(mesh, v: torch.Tensor) -> torch.Tensor:
     """Every rank's [b, ...] rows of `v`, rank by rank: [n*b, ...]."""
     full = mesh.all_gather(v.reshape(1, -1))
-    return full.reshape((mesh.size * v.shape[0],) + tuple(v.shape[1:]))
+    return full.reshape((mesh.extent("data") * v.shape[0],) + tuple(v.shape[1:]))
 
 
 def _tree_bytes(tree: Any) -> int:

@@ -5,9 +5,8 @@
     gives in process;
   * SIGTERM ends it with exit code 0 after a `{"final_stats": ...}` line;
   * the two quota-flag warnings of the reference CLI;
-  * `--tp 2` raises NotImplementedError naming ROADMAP.md's item, with or
-    without `--config` (serving a v1 config is ported:
-    tests/test_torch_generation_serving.py).
+  * `--tp 2` serves from two rank processes, token-identical to `--tp 0`
+    (greedy and seeded sampled).
 
 Each subprocess serves on 127.0.0.1 port 0 and is killed if a test fails."""
 
@@ -85,14 +84,27 @@ def test_cli_serve_quota_flag_warnings(flags, warning):
     assert warning in err
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--tp", "2"], "§1 item 8"),
-    (["--config", "conf.py", "--tp", "2"], "§1 item 8"),
-])
-def test_cli_serve_unported_flags_raise_named(argv, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as ei:
-        cli.main(SERVE + argv)
-    assert item in str(ei.value)
+@pytest.mark.parametrize("sampling", [{}, {"temperature": 0.8, "top_k": 20,
+                                           "seed": 2 ** 31 + 5}])
+def test_cli_serve_tp_2_answers_as_tp_0(sampling):
+    """`serve --tp 2` starts its two rank processes (gloo on the CPU): rank
+    0 listens and leads, rank 1 repeats its device calls; greedy and seeded
+    sampled tokens equal `--tp 0`'s, and SIGTERM ends both with code 0."""
+    got = {}
+    for tp in ("0", "2"):
+        proc = _start("--n_heads=4", "--tp", tp)
+        try:
+            host, port = json.loads(proc.stdout.readline())["address"]
+            c = ServingClient((host, int(port)))
+            r = c.generate([1, 5, 9, 7], max_new_tokens=6, timeout_s=30.0, **sampling)
+            got[tp] = (r["tokens"], c.stats()["tp"])
+            c.close()
+        finally:
+            out, _ = _stop(proc)
+        assert proc.returncode == 0
+        assert json.loads(out.strip().splitlines()[-1])["final_stats"]["tp"] == max(1, int(tp))
+    assert got["2"][0] == got["0"][0] and len(got["0"][0]) == 6
+    assert (got["0"][1], got["2"][1]) == (1, 2)
 
 
 def test_cli_serve_without_a_model_exits_2():

@@ -206,15 +206,25 @@ def test_train_without_a_card_or_device_cpu_raises(in_conf_dir, no_cuda):
 def test_unported_flags_exit_2_naming_their_item(flag, item, in_conf_dir, capfd):
     """--compile_cache exits 2 naming what it lacks. --trainer_count=2 is
     ported: it trains over two rank processes, rank 0 printing the pass
-    line, and exits 0; what stays unported of ROADMAP item 8 (`serve
-    --tp 2`) still names it."""
+    line, and exits 0; what stays unported of ROADMAP item 8 (a mesh
+    trainer's re-shard, item 8c; `serve --tp 2` is ported) still names it."""
     argv = ["train", "--config=conf.py", "--device=cpu", "--num_passes=1", flag]
     if flag.startswith("--trainer_count"):
         assert cli.main(argv) == 0
         out = capfd.readouterr().out
         assert sum(line.startswith("pass 0:") for line in out.splitlines()) == 1
+        from paddle_tpu_torch.nn import costs as C
+        from paddle_tpu_torch.nn import layers as L
+        from paddle_tpu_torch.optim.optimizers import SGD
+        from paddle_tpu_torch.parallel import DataParallel, make_mesh
+        from paddle_tpu_torch.trainer.trainer import SGDTrainer
+
+        cost = C.SquareError(L.Fc(L.Data("x", shape=(4,)), 1, act=None, name="o"),
+                             L.Data("y", shape=(1,)))
+        tr = SGDTrainer(cost, SGD(), device="cpu",
+                        parallel=DataParallel(make_mesh({"data": 1}, device="cpu")))
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 " + item):
-            cli.main(["serve", "--device", "cpu", "--demo", "--tp", "2"])
+            tr.resize_to(2)
         return
     assert cli.main(argv) == 2
     err = capfd.readouterr().err

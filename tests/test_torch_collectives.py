@@ -153,6 +153,7 @@ STEP_PINS = {False: _pins(all_reduce=1), "zero1": _pins(reduce_scatter=1, all_ga
 def test_cuda_world1_nccl_step_graph_bitwise_and_counted(cuda, shard):
     mesh = make_mesh({"data": 1})
     assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+    assert mesh.axis_group("data") is mesh.group  # the step graph holds NCCL calls
     cost = _net()
     batches = [_batch(32, seed) for seed in range(4)]
     plain = SGDTrainer(cost, topt.SGD(learning_rate=0.1, momentum=0.9), seed=0)
@@ -179,3 +180,59 @@ def test_cuda_gloo_group_holding_cuda_tensors_raises(cuda):
     mesh = make_mesh({"data": 1}, group=group, device="cuda")
     with pytest.raises(tmesh.UncapturableGroupError, match="gloo"):
         SGDTrainer(_net(), topt.SGD(learning_rate=0.1), parallel=DataParallel(mesh))
+
+
+# -- the model and seq axes ------------------------------------------------------
+
+
+def test_tp_decode_step_pins():
+    """A tensor-parallel decode step on {"data": 1, "model": 2} (2 layers):
+    2 L + 1 all-reduces (wo and w2 a layer, the embed gather) and 1
+    all-gather (the logits) on the model axis, none on the data axis."""
+    from paddle_tpu_torch.serving.session import make_demo_session
+    from paddle_tpu_torch.serving.tp import TPWorker
+
+    kw = dict(vocab=64, n_layers=2, d_model=32, n_heads=4, max_slots=2, page_size=8,
+              prefill_buckets=(8,), max_new_limit=8, device="cpu")
+
+    def fn(r, mesh):
+        s = make_demo_session(tp=2, group=mesh.group, **kw)
+        if isinstance(s, TPWorker):
+            s.run()
+            return None
+        s.submit([1, 5, 9], 8)
+        s.step()  # admission: the prefill and the first decode step
+        m = s.model.mesh
+        m.reset_counts()
+        steps = s.decode_steps
+        s.step()
+        got = (s.decode_steps - steps, m.counts("model"), m.counts("data"))
+        s.run_until_idle()
+        s.stop()
+        return got
+
+    steps, model, data = run_ranks(2, fn, axes={"data": 1, "model": 2})[0]
+    assert steps == 1
+    assert model == _pins(all_reduce=2 * 2 + 1, all_gather=1)
+    assert data == _pins()
+
+
+def test_sequence_parallel_pins():
+    """A ring call: n - 1 send/recv pairs (the packed K/V rotating), no
+    other collective; a Ulysses call: 2 all-to-alls (q, k, v stacked in
+    one, the output back)."""
+    from paddle_tpu_torch.parallel.sequence_parallel import ring_attention, ulysses_attention
+
+    q = torch.randn(1, 4, 4, 8)
+
+    def fn(r, mesh):
+        out = {}
+        for name, f in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+            mesh.reset_counts()
+            f(q, q, q, mesh)
+            out[name] = mesh.counts("seq")
+        return out
+
+    got = run_ranks(4, fn, axes={"seq": 4})[0]
+    assert got["ring"] == {**_pins(), "send_recv": 3}
+    assert got["ulysses"] == _pins(all_to_all=2)

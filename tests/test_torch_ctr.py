@@ -11,7 +11,8 @@ embed 8, hidden (16,), batch 32, click <=> an even slot-0 id.
   * The port learns the click pattern through its SGDTrainer on the CPU,
     as tests/test_models.py holds the JAX package to: 60 steps, the cost
     falls more than 2x and more than 90 % of the clicks are predicted.
-  * `embedding_sharding` raises a named NotImplementedError.
+  * `embedding_sharding=("expert", None)` on four thread ranks trains as
+    the unsharded model.
   * On a card (marked `cuda`, skipped here): the step on the card through
     the step graph (one capture, then replays) against the CPU: step-1
     cost 1e-5 relative, gradients rtol 1e-4 / atol 1e-5, parameters after
@@ -130,9 +131,38 @@ def test_ctr_learns_the_click_pattern():
     assert (pred == batch["click"]).mean() > 0.9
 
 
-def test_embedding_sharding_raises_named():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmodels.ctr_wide_deep(embedding_sharding=("expert", None))
+def test_embedding_sharding_trains_as_the_unsharded_model():
+    """embedding_sharding=("expert", None) on a {"data": 1, "expert": 4}
+    mesh of four thread ranks: each rank stores 4 of a table's 16 rows,
+    and two SGD(0.5) steps give the unsharded trainer's costs and
+    parameters (rtol 1e-5, atol 1e-6)."""
+    from paddle_tpu_torch.parallel import DataParallel
+    from test_torch_parallel import run_ranks
+
+    batches = [make_batch(0), make_batch(1)]
+    plain = TorchTrainer(_torch_model()[3], TorchSGD(0.5), device="cpu")
+    plain.init_state(batches[0])
+    want = [float(plain.step(b)) for b in batches]
+    init = TorchTrainer(_torch_model()[3], TorchSGD(0.5), device="cpu")
+    init.init_state(batches[0])
+    start = {k: v.clone() for k, v in init.state["params"].items()}
+
+    def rank(r, mesh):
+        tgraph.reset_name_scope()
+        cost = tmodels.ctr_wide_deep(embedding_sharding=("expert", None), **CONFIG)[3]
+        tr = TorchTrainer(cost, TorchSGD(0.5), parallel=DataParallel(mesh))
+        tr.init_state(batches[0])
+        tr.load_params(start)
+        rows = tuple(tr.state["params"]["slot0_emb.w"].shape)
+        costs = [float(tr.step(b)) for b in batches]
+        return rows, costs, tr.canonical_params()
+
+    got = run_ranks(4, rank, axes={"data": 1, "expert": 4})
+    for rows, costs, params in got:
+        assert rows == (4, 8)
+        np.testing.assert_allclose(costs, want, rtol=1e-5)
+        for k, v in plain.state["params"].items():
+            torch.testing.assert_close(params[k], v, rtol=1e-5, atol=1e-6, msg=k)
 
 
 # -- on the card -------------------------------------------------------------

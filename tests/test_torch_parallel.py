@@ -47,16 +47,17 @@ RTOL, ATOL = 1e-5, 1e-6
 # -- the harness ---------------------------------------------------------------
 
 
-def run_ranks(n, fn, timeout=120):
+def run_ranks(n, fn, timeout=120, axes=None):
     """fn(rank, mesh) in n threads, each rank with its own gloo group over
-    one HashStore -> the n results; a rank's exception re-raises here."""
+    one HashStore -> the n results; a rank's exception re-raises here. The
+    mesh is {"data": n}, or `axes` over the n ranks."""
     store = HashStore()
     results, errors = [None] * n, []
 
     def main(r):
         try:
             group = tmesh.new_gloo_group(PrefixStore("dp", store), r, n, timeout_s=60)
-            results[r] = fn(r, t_make_mesh({"data": n}, group=group, device="cpu"))
+            results[r] = fn(r, t_make_mesh(axes or {"data": n}, group=group, device="cpu"))
         except BaseException as e:  # handed to the test thread
             errors.append((r, e, traceback.format_exc()))
 
@@ -230,15 +231,59 @@ def test_mesh_shapes_and_named_errors():
     assert t.tolist() == [1.0, 1.0, 1.0] and one.counts()["all_reduce"] == 1
     with pytest.raises(RuntimeError, match=r"parallel\.distributed\.initialize"):
         t_make_mesh({"data": 2}, device="cpu")
+    # the model, seq and expert axes are ported: without a group they need
+    # ranks, as a data axis of 2 does; over one they build (below)
     for axes in ({"data": 2, "model": 2}, {"data": 1, "seq": 2}, {"expert": 4}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+        with pytest.raises(RuntimeError, match=r"parallel\.distributed\.initialize"):
             t_make_mesh(axes, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+    with pytest.raises(RuntimeError, match=r"parallel\.distributed\.initialize"):
         trules.make_tp_mesh(2)
+    with pytest.raises(AssertionError, match="spans 4 ranks"):  # a rank's ValueError
+        run_ranks(2, lambda r, m: m, axes={"data": 2, "model": 2})
+    # {"data": 4, "model": 2} over 8 ranks: data outermost, as the JAX
+    # package reshapes its devices; each axis' line of ranks is its group
+    got = run_ranks(8, lambda r, m: (m.coords, m.axis_ranks("data"), m.axis_ranks("model"),
+                                     m.all_reduce_(torch.ones(1), "model").item(),
+                                     m.all_reduce_(torch.ones(1), "data").item(),
+                                     m.counts("model")["all_reduce"]),
+                    axes={"data": 4, "model": 2})
+    for r, (coords, data_line, model_line, m_sum, d_sum, n_model) in enumerate(got):
+        assert coords == {"data": r // 2, "model": r % 2}
+        assert data_line == [r % 2 + 2 * i for i in range(4)]
+        assert model_line == [r // 2 * 2, r // 2 * 2 + 1]
+        assert (m_sum, d_sum, n_model) == (2.0, 4.0, 1)
+    tp = run_ranks(2, lambda r, m: (trules.make_tp_mesh(2, group=m.group, device="cpu").shape))
+    assert tp == [{"data": 1, "model": 2}] * 2
     with pytest.raises(ValueError, match="no axis"):
         tmesh.resize_mesh(one, "model", 2)
     with pytest.raises(ValueError, match="2 rank"):
         tmesh.resize_mesh(one, "data", 2)
+
+
+def test_one_rank_mesh_collectives_run_on_its_group():
+    """On a one-rank world every named axis is the whole group, so its
+    collectives are issued (the card's world-1 NCCL step graph holds them);
+    an axis of extent 1 inside a larger world has no group and issues
+    none."""
+    one = t_make_mesh({"data": 1}, device="cpu")
+    assert one.axis_group("data") is one.group and one.axis_group("model") is None
+    issued = []
+
+    class Spy:
+        def __getattr__(self, name):
+            issued.append(name)
+            return getattr(one.group, name)
+
+    one._axis_groups["data"] = Spy()
+    x = torch.arange(6.0).reshape(1, 6)
+    one.all_reduce_(x.clone())
+    assert one.reduce_scatter(x).tolist() == x.tolist()
+    assert one.all_gather(x).tolist() == x.tolist()
+    assert issued == ["allreduce", "_reduce_scatter_base", "_allgather_base"]
+    got = run_ranks(2, lambda r, m: (m.axis_group("data") is None,
+                                     m.axis_group("model") is m.group),
+                    axes={"data": 1, "model": 2})
+    assert got == [(True, True)] * 2
 
 
 # -- DataParallel against single-device training ------------------------------

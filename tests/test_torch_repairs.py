@@ -240,12 +240,14 @@ def test_not_ported_messages_name_the_roadmap_items():
     assert "v1 config pipeline" in _roadmap_item(5)
     assert "TP serving" in _roadmap_item(8)
     serve = ["serve", "--device", "cpu", "--demo"]
+    # item 8b is ported: `serve --tp 2` launches its ranks
+    # (tests/test_torch_cli_serve.py), with or without --config
     for argv in (["--tp", "2"], ["--tp", "2", "--config", "c.py"]):
-        with pytest.raises(NotImplementedError, match="§1 item 8"):
-            cli.main(serve + argv)
+        args = cli.parse_args(serve + argv)
+        assert args.tp == 2 and args.fn is cli.cmd_serve
     # items 7b and 8a are ported: neither --master_endpoints nor
-    # --trainer_count > 1 is a named error; what stays of item 8 (the model
-    # axis, CTR's embedding sharding, a mesh trainer's resize) names it
+    # --trainer_count > 1 is a named error; what stays of item 8 (a mesh
+    # trainer's resize, item 8c) names it
     args = cli.parse_args(["train", "--device", "cpu", "--config", "c.py",
                            "--master_endpoints", "127.0.0.1:1", "--trainer_count", "2"])
     assert cli._refuse_unported(args) is None
@@ -257,10 +259,11 @@ def test_not_ported_messages_name_the_roadmap_items():
     from paddle_tpu_torch.trainer.trainer import SGDTrainer
 
     for axes in ({"data": 1, "model": 2}, {"seq": 2}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+        # the model and seq axes are ported: two ranks need a group
+        with pytest.raises(RuntimeError, match=r"parallel\.distributed\.initialize"):
             make_mesh(axes, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
-        ctr_wide_deep(embedding_sharding=("expert", None))
+    *_, ctr_cost = ctr_wide_deep(embedding_sharding=("expert", None))
+    assert ctr_cost.name == "cost"
     x = L.Data("x", shape=(4,))
     cost = C.SquareError(L.Fc(x, 1, act=None, name="o"), L.Data("y", shape=(1,)))
     tr = SGDTrainer(cost, SGD(), device="cpu",

@@ -231,10 +231,12 @@ def test_front_door_rejections(port_model):
 
 
 def test_unported_features_raise_naming_the_roadmap(port_model):
-    # speculation and serve_forever are ported (test_torch_speculative.py,
-    # test_torch_serving_resilience.py); tensor parallelism is not
+    # speculation, serve_forever and tensor parallelism are ported
+    # (test_torch_speculative.py, test_torch_serving_resilience.py,
+    # test_torch_tp_serving.py); tp 2 runs a rank per thread or process and
+    # without a 2-rank group says how to launch them
     assert _port_session(port_model, speculate_k=2).speculate_k == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match=r"every rank.*serve --tp 2"):
         make_demo_session(tp=2, device="cpu")
 
 

@@ -323,7 +323,8 @@ def test_named_errors_plot_and_minibatch(tmp_path):
 
     trained = run_ranks(2, rank)
     np.testing.assert_array_equal(trained[0], trained[1])  # replicated
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
+    # the model axis is ported: two ranks need a group, as two data ranks do
+    with pytest.raises(RuntimeError, match=r"parallel\.distributed\.initialize"):
         make_mesh({"data": 1, "model": 2}, device="cpu")
     p = tpaddle.plot.Ploter("train", "test")
     p.append("train", 0, 1.5)
