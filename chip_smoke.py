@@ -596,14 +596,39 @@ Phases (any failure exits non-zero and prints no result line):
                ("eager: gloo group": gloo cannot be captured). Printed: ms
                a decoded token and a decode step at tp 2 (eager, gloo)
                beside tp 0 (the decode graph), a finding and not a claim.
- 52. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
+ 52. elastic — phase 50's seq2seq (batch 128) through DataParallel over a
+               one-rank NCCL group, replicated, `train()` over 8 steps of
+               one batch, from the same parameters: (a) fixed; (b)
+               `resize_to(1)` after step 3, the full seam onto a new NCCL
+               group; (c) a local `request_resize(1)` after step 3, a
+               drain-only epoch; (d) the drain's checkpoint after step 3,
+               `resize_to(1)` under `reshard_kill:step=0`, then a new
+               trainer's `auto_resume`; (e) a master subprocess announcing
+               `resize` world=1 to the trainer's `ResizeClient`, through the
+               fleet barrier. Gates: (c) and (e) bitwise (a); (b) and the
+               resumed (d) bitwise or within REPLAY_RTOL (an eager step and
+               a new capture after the seam; bitwise printed); (b) captured
+               once on each group, the old group closed before the first
+               step on the new one; (c) one capture and resize_epochs 1;
+               (d) the kill fired after a mid-pass checkpoint at batch 3;
+               (e) the master's epoch idle with completed 1; gru_seq_fused
+               fwd and bwd 2 x steps in each run (counters from 0 after the
+               init); the cost falls. Printed: (b)'s reshard and resume
+               seconds and ms a step before and after, (e)'s drain /
+               reshard / resume split.
+ 53. lines   — nvidia-smi line, {"kernels": [...]}, then the last line
                {"ok": true, "device": {...}}.
 
 Details also go to build/chip_smoke.json (ignored by git).
 
     python3 chip_smoke.py --tp-serve
 
-runs only phase 51 after the build.
+runs only phase 51 after the build,
+
+    python3 chip_smoke.py --elastic
+
+only phase 52, and `--autoscale` only phase 48 (against a direct
+session's tokens).
 
     python3 chip_smoke.py --train-of DIR
 
@@ -7757,9 +7782,14 @@ def runtime_phase(torch):
 
 # -- 45-46: the serving fleet ---------------------------------------------------
 
+# tenant_lease_s: each replica's tenant lease, renewed only by a submit that
+# bears the tenant (as in the JAX package). Three replicas on one card queue
+# 20-40 s of work, so the default 30 s left a queued request too little
+# margin before its tenant expired; the phase tests failover, not tenant
+# eviction, and prints the backlog it saw (tenant_backlog_s)
 FLEET = dict(replicas=3, requests=48, gap_s=0.05, lease_s=0.8, poll_s=0.01,
              stall_fence_s=0.2, wedge_s=2.0, late_grace_s=30.0, retention_min=0.7,
-             recapture_requests=12, recapture_step=10)
+             recapture_requests=12, recapture_step=10, tenant_lease_s=120.0)
 FLEET_SAMPLED = dict(temperature=0.8, top_k=20)
 FLEET_PROC = dict(lease_s=2.0, batch=16, standby_poll_s=0.1)
 WARM_PROMPT = [1, 5, 9, 11]
@@ -7865,7 +7895,8 @@ class Fleet:
         for _ in range(n):
             sess = warmed_session()
             srv = ServingServer(sess, router_endpoints=self.server.address,
-                                stall_fence_s=FLEET["stall_fence_s"]).start()
+                                stall_fence_s=FLEET["stall_fence_s"],
+                                lease_s=FLEET["tenant_lease_s"]).start()
             self.replicas.append((srv, sess))
             deadline = time.monotonic() + 30
             while len(self.server.fleet.live()) < len(self.replicas):
@@ -7926,12 +7957,21 @@ def fleet_run_stats(handles, shed, wall):
     reasons = {}
     for h in handles.values():
         reasons[h.finish_reason] = reasons.get(h.finish_reason, 0) + 1
+    # the backlog a tenant lease must outlast: a tenant's last request done
+    # after its last submit (the submit renews the lease)
+    last_submit, last_done = {}, {}
+    for h in handles.values():
+        last_submit[h.tenant] = max(last_submit.get(h.tenant, 0.0), h.t_submit or 0.0)
+        if h.t_done:
+            last_done[h.tenant] = max(last_done.get(h.tenant, 0.0), h.t_done)
+    backlog = max((last_done[t] - last_submit[t] for t in last_done), default=0.0)
     return dict(
         accepted=len(handles), shed=shed, completed=len(done), wall_s=wall,
         goodput_rps=len(done) / wall, tokens_per_s=sum(map(len, done.values())) / wall,
         finish_reasons=reasons, ttft_ms=ttft_ms(handles.values()),
         all_named=all(h.done for h in handles.values())
         and all(h.finish_reason in named_reasons() for h in handles.values()),
+        tenant_backlog_s=backlog, tenant_lease_s=FLEET["tenant_lease_s"],
     ), done
 
 
@@ -8387,7 +8427,10 @@ CLUSTER = dict(tasks=24, kill_step=11, lease_s=30.0, standby_poll_s=0.05,
 # spawn from being ordered before the first one is seen; the router's
 # queue-wait estimate reads 0.8-1.3 s idle after a burst and tens of s in
 # one. The module's defaults stay the JAX package's
+# tenant_lease_s: the replicas' tenant lease (`serve --lease_s`), as phase
+# 45's: a burst queues ~31 s of work on one replica, past the 30 s default
 AUTOSCALE = dict(chips=3, min_replicas=1, max_replicas=2, initial_world=1,
+                 tenant_lease_s=120.0,
                  tick_s=0.25, router_lease_s=1.5, master_lease_s=2.0,
                  burst_repeat=4, h2d_delay_ms=100, repeat_tasks=60,
                  config=dict(high_wait_s=10.0, low_wait_s=2.0, high_ticks=2, low_ticks=4,
@@ -8662,7 +8705,7 @@ def autoscale_phase(torch, fleet):
                  "--prefill_buckets", ",".join(map(str, SERVE["prefill_buckets"])),
                  "--prefill_chunk", str(SERVE["prefill_chunk"]),
                  "--max_new_limit", str(SERVE["max_new_limit"]), "--seed", str(SERVE["seed"]),
-                 "--device", "cuda"]
+                 "--lease_s", str(cfg["tenant_lease_s"]), "--device", "cuda"]
         procs["replica_a"] = spawn(["paddle_tpu_torch", "serve", "--demo", *flags,
                                     "--router_endpoints", "%s:%d" % router,
                                     "--exit_on_drain"], "as_replica_a", env)
@@ -9134,6 +9177,228 @@ def dp_seq2seq_phase(torch, mesh):
     return {"replicated": replicated, "zero2_int8": zero2}
 
 
+# phase 52: 8 steps of phase 50's seq2seq, the resize after step 3 (batch 2)
+ELASTIC = dict(steps=8, at_batch=2, master_lease_s=1.0, poll_s=0.05)
+
+
+def elastic_phase(torch):
+    """Phase 52 (see the module docstring): phase 5's seq2seq through
+    DataParallel over a one-rank NCCL group, replicated, `train()` over 8
+    steps of one bench.py batch, five runs from the same parameters: (a)
+    fixed; (b) `resize_to(1)` after step 3, the full seam onto a new NCCL
+    group; (c) a local `request_resize(1)` after step 3, a drain-only
+    epoch; (d) the drain's checkpoint after step 3, then `resize_to(1)`
+    under `reshard_kill:step=0`, and a new trainer's `auto_resume`; (e) a
+    master subprocess announcing `resize` world=1 to this trainer's
+    `ResizeClient` (rank 0's, the job's one member), through the fleet
+    barrier. Launch counters are set to 0 after each trainer's init and read
+    after its run."""
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.core import faults, preempt
+    from paddle_tpu_torch.ops import rnn_kernels as K
+    from paddle_tpu_torch.parallel import DataParallel, make_mesh
+    from paddle_tpu_torch.runtime.master import MasterClient, ResizeClient
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+    from paddle_tpu_torch.trainer import trainer as trainer_mod
+    from paddle_tpu_torch.trainer.events import EndIteration, EndPass
+
+    cfg = ELASTIC
+    batch = s2s_batch(np, 0, S2S["batch"], ragged=False)
+    captures = []
+
+    class CountedGraph(trainer_mod.StepGraph):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            captures.append(time.perf_counter())
+
+    def reader():
+        return lambda: iter([batch] * cfg["steps"])
+
+    init = None
+
+    def run(name, on_batch=None, steps_ms=None, **train_kw):
+        """One run -> its record: costs, parameters, EndPass metrics,
+        captures, GRU launches."""
+        nonlocal init
+        preempt.reset()
+        tr = s2s_trainer("cuda", parallel=DataParallel(make_mesh({"data": 1})))
+        tr.init_state(batch)
+        if init is None:
+            init = {k: v.clone() for k, v in tr.state["params"].items()}
+        tr.load_params(init)
+        rec = dict(costs=[], metrics=[], step_ms=[], t_step=[])
+        del captures[:]
+        last = [time.perf_counter()]
+
+        def handler(ev):
+            if isinstance(ev, EndIteration):
+                rec["costs"].append(ev.cost)
+                now = time.perf_counter()
+                rec["step_ms"].append((now - last[0]) * 1e3)
+                rec["t_step"].append(now)
+                if on_batch is not None:
+                    on_batch(tr, ev.batch_id, rec)
+                last[0] = time.perf_counter()
+            elif isinstance(ev, EndPass):
+                rec["metrics"].append(ev.metrics)
+
+        torch.cuda.synchronize()
+        K.FWD_LAUNCHES = K.BWD_LAUNCHES = 0
+        try:
+            tr.train(reader(), num_passes=1, event_handler=handler, log_period=0,
+                     **train_kw)
+        except faults.InjectedKill as e:
+            rec["killed"] = str(e)
+        torch.cuda.synchronize()
+        rec.update(trainer=tr, fwd=K.FWD_LAUNCHES, bwd=K.BWD_LAUNCHES,
+                   captures=list(captures), graphs=len(tr.graphs),
+                   costs=[float(c) for c in rec["costs"]],
+                   params={k: v.clone() for k, v in tr.canonical_params().items()})
+        return rec
+
+    trainer_mod.StepGraph, plain_graph = CountedGraph, trainer_mod.StepGraph
+    out, master = {}, None
+    save_dir = tempfile.mkdtemp(prefix="elastic_", dir=os.path.join(REPO, "build"))
+    try:
+        fixed = run("fixed")
+
+        def seam(tr, batch_id, rec):
+            if batch_id == cfg["at_batch"]:
+                torch.cuda.synchronize()
+                old = tr.mesh
+                t0 = time.perf_counter()
+                tr.resize_to(1)
+                rec["reshard_s"] = time.perf_counter() - t0
+                rec["t_resharded"] = time.perf_counter()
+                rec["old_closed_before_next_step"] = old.closed
+                rec["new_group"] = tr.mesh.group is not old.group
+                rec["captures_before"] = len(captures)
+
+        seamed = run("resize_to", seam)
+
+        def local(tr, batch_id, rec):
+            if batch_id == cfg["at_batch"]:
+                preempt.get().request_resize(1, reason="phase 52")
+
+        drained = run("drain_only", local)
+
+        def kill(tr, batch_id, rec):
+            if batch_id == cfg["at_batch"]:
+                # what the drain writes before it re-shards, then the seam
+                tr.save(save_dir, 0, mid_pass_batches=batch_id + 1)
+                tr.checkpoint_wait()
+                with faults.inject("reshard_kill:step=0") as inj:
+                    try:
+                        tr.resize_to(1)
+                    finally:
+                        rec["kill_fired"] = inj.fired.get("reshard_kill", 0)
+
+        killed = run("reshard_kill", kill)
+        extra = ckpt.pass_manifest(save_dir, 0)["extra"]
+        resumed = run("auto_resume", save_dir=save_dir, auto_resume=True)
+
+        env = dict(os.environ, PYTHONPATH=REPO)
+        port = free_port()
+        master = spawn(["paddle_tpu_torch.runtime.master", "serve", "--port", str(port),
+                        "--lease_s", str(cfg["master_lease_s"])], "elastic_master", env)
+        first_json(master, "elastic_master")
+        boot = MasterClient(("127.0.0.1", port))
+        rc = ResizeClient(("127.0.0.1", port), poll_s=cfg["poll_s"])
+        announced = []
+
+        def fleet(tr, batch_id, rec):
+            if batch_id == cfg["at_batch"]:
+                announced.append(boot.call("resize", world=1))
+                # hold this boundary until the heartbeat parked the order
+                deadline = time.monotonic() + 10
+                while not preempt.resize_requested() and time.monotonic() < deadline:
+                    time.sleep(0.01)
+
+        try:
+            fleet_run = run("master", fleet, resize_barrier=rc.barrier)
+            master_state = boot.call("stats")["resize"]
+        finally:
+            rc.close()
+            boot.close()
+    finally:
+        trainer_mod.StepGraph = plain_graph
+        if master is not None:
+            master.terminate()
+            master.wait(30)
+
+    steps = cfg["steps"]
+    after = cfg["at_batch"] + 1
+    runs = dict(fixed=fixed, resize_to=seamed, drain_only=drained, reshard_kill=killed,
+                auto_resume=resumed, master=fleet_run)
+    for name, rec in runs.items():
+        rec["rel_l2_vs_fixed"], rec["bitwise_vs_fixed"] = rel_l2_max(
+            torch, rec["params"], fixed["params"])
+    split_b = dict(drain_s=None, reshard_s=seamed.get("reshard_s"),
+                   resume_s=(seamed["t_step"][after] - seamed["t_resharded"]
+                             if "t_resharded" in seamed else None))
+    fleet_split = (fleet_run["metrics"][0].get("resizes") or [{}])[0]
+    out = dict(
+        steps=steps, at_batch=cfg["at_batch"],
+        runs={name: dict(costs=rec["costs"], captures=len(rec["captures"]),
+                         graphs=rec["graphs"], gru_fwd_launches=rec["fwd"],
+                         gru_bwd_launches=rec["bwd"],
+                         bitwise_vs_fixed=rec["bitwise_vs_fixed"],
+                         rel_l2_vs_fixed=rec["rel_l2_vs_fixed"],
+                         resize_epochs=rec["metrics"][0].get("resize_epochs", 0)
+                         if rec["metrics"] else None)
+              for name, rec in runs.items()},
+        resize_to_split=split_b, master_split=fleet_split,
+        step_ms_before=statistics.median(seamed["step_ms"][1:after]),
+        step_ms_after=statistics.median(seamed["step_ms"][after + 1:]),
+        old_group_closed_before_next_step=seamed.get("old_closed_before_next_step"),
+        captures_before_resize=seamed.get("captures_before"),
+        kill=dict(fired=killed.get("kill_fired"), raised=killed.get("killed"),
+                  checkpoint=extra), master_state=master_state,
+        master_announce=announced[0] if announced else None)
+    print("elastic", json.dumps(out, default=str), flush=True)
+    # (c) and (e) replay one graph throughout, as (a) does: bitwise. (b) and
+    # (d) run an eager step and capture anew after the seam: bitwise, or
+    # within phase 5's graph-vs-eager bound (REPLAY_RTOL), bitwise printed
+    for name in ("drain_only", "master"):
+        if not runs[name]["bitwise_vs_fixed"]:
+            fail(f"elastic: run ({name}) is not bitwise the fixed run "
+                 f"({runs[name]['rel_l2_vs_fixed']} relative L2)")
+    for name in ("resize_to", "auto_resume"):
+        if not (runs[name]["bitwise_vs_fixed"]
+                or runs[name]["rel_l2_vs_fixed"] <= REPLAY_RTOL):
+            fail(f"elastic: run ({name}) vs the fixed run: "
+                 f"{runs[name]['rel_l2_vs_fixed']} relative L2")
+    if len(seamed["captures"]) != 2 or out["captures_before_resize"] != 1:
+        fail(f"elastic: resize_to run captured {len(seamed['captures'])} graphs "
+             f"({out['captures_before_resize']} before the seam), want one on each group")
+    if not (out["old_group_closed_before_next_step"] and seamed.get("new_group")):
+        fail("elastic: the old group was not destroyed before the first step on the new one")
+    if len(drained["captures"]) != 1 or out["runs"]["drain_only"]["resize_epochs"] != 1:
+        fail(f"elastic: drain-only run: {out['runs']['drain_only']}")
+    if not (killed.get("kill_fired") == 1 and killed.get("killed")
+            and extra.get("mid_pass") and extra.get("batches_done") == after):
+        fail(f"elastic: reshard_kill: {out['kill']}")
+    if resumed["metrics"][0]["batches"] != steps - after:
+        fail(f"elastic: the auto-resume ran {resumed['metrics'][0]['batches']} batches")
+    if not (master_state["state"] == "idle" and master_state["completed"] == 1
+            and out["runs"]["master"]["resize_epochs"] == 1):
+        fail(f"elastic: master epoch {master_state}")
+    for name, rec in runs.items():
+        n = len(rec["costs"])
+        if n and (rec["fwd"] != 2 * n or rec["bwd"] != 2 * n):
+            fail(f"elastic ({name}): GRU launches fwd {rec['fwd']} / bwd {rec['bwd']} in "
+                 f"{n} steps, want 2 + 2 a step")
+    if not (np.isfinite(fixed["costs"]).all() and fixed["costs"][-1] < fixed["costs"][0]):
+        fail(f"elastic: the cost did not fall: {fixed['costs']}")
+    for rec in runs.values():
+        rec.pop("trainer", None)
+    release(torch)
+    return out
+
+
 TP_VOCAB = 50304  # nanoGPT's padded GPT-2 vocabulary (GPTConfig.vocab_size)
 TP_SERVE = dict(SERVE, vocab=TP_VOCAB)
 
@@ -9424,6 +9689,31 @@ def main() -> int:
         build.build()
         tp_serve_phase(torch, *peaks(torch.cuda.get_device_name(0))[:2])
         return 0
+    if sys.argv[1:2] == ["--autoscale"]:
+        # phase 48 alone, after the build, against a direct session's tokens
+        # for phase 45's requests (what phase 45's fleet must reproduce)
+        print(nvidia_smi_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()
+        direct = warmed_session()
+        reqs = fleet_requests(torch, direct.cfg.bos_id)
+        hs, _, _ = open_loop(lambda i, p, s: direct.submit(p, NEW_TOKENS, **s), reqs,
+                             FLEET["gap_s"])
+        want = {i: list(h.tokens) for i, h in hs.items()}
+        direct.stop()
+        del direct, hs
+        release(torch)
+        autoscale_phase(torch, {"reqs": reqs, "tokens": want})
+        return 0
+    if sys.argv[1:2] == ["--elastic"]:
+        # phase 52 alone, after the build
+        print(nvidia_smi_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()
+        elastic_phase(torch)
+        return 0
 
     # 1. card
     smi = nvidia_smi_line()
@@ -9631,7 +9921,13 @@ def main() -> int:
     release(torch)
     tp_serve = tp_serve_phase(torch, bw, f32_flops)
 
-    # 52. lines
+    # 52. the elastic re-shard on a one-rank NCCL group: resize_to, a
+    # drain-only epoch, reshard_kill + auto_resume, a master's epoch (GRU
+    # counters from 0 in each run)
+    release(torch)
+    elastic = elastic_phase(torch)
+
+    # 53. lines
     from paddle_tpu_torch.ops import paged_attention as pa
 
     main_row = next(r for r in rows if r["shape"] == "gpt2_small_s8")
@@ -9702,6 +9998,8 @@ def main() -> int:
             "launches_dp_seq2seq": {
                 run: dp_seq2seq[run][f"gru_{leg}_launches"]
                 for run in ("replicated", "zero2_int8")},
+            "launches_elastic": {run: r[f"gru_{leg}_launches"]
+                                 for run, r in elastic["runs"].items()},
             **({"launches_deploy": deploy["forward_launches"]["FWD_LAUNCHES"]
                 + deploy["get_layer_output_launches"]["FWD_LAUNCHES"],
                 "launches_v2_infer": v2_api["infer_launches"]["FWD_LAUNCHES"],
@@ -9800,7 +10098,7 @@ def main() -> int:
                    "layers3d": layers3d, "runtime": runtime, "fleet": fleet,
                    "fleet_processes": fleet_proc, "cluster": cluster,
                    "autoscale": autoscale, "dp_resnet": dp_resnet,
-                   "dp_seq2seq": dp_seq2seq, "tp_serve": tp_serve},
+                   "dp_seq2seq": dp_seq2seq, "tp_serve": tp_serve, "elastic": elastic},
                   f, indent=1)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

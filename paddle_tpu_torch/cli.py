@@ -40,7 +40,8 @@ provider-format samples in recordio shards; a primary,standby list fails
 over) in place of the config's provider, so a config without data sources
 trains there. `--elastic` at `--trainer_count=1` says it needs a mesh and
 trains on, as in the reference (a resize epoch reaching the trainer is
-ignored). `--profile=pass:N` captures pass N as a torch.profiler trace
+ignored); at `--trainer_count > 1` with `--master_endpoints` the job joins
+the master's resize plane (below). `--profile=pass:N` captures pass N as a torch.profiler trace
 and writes `profile.json` (the step's FLOP and byte buckets,
 `obs/profile.py`) under `--profile_dir`, printing `{"profile_json",
 "trace_dir"}`; with `--job=time` the buckets join the timing line as
@@ -58,7 +59,21 @@ rank reads the same data, pads each batch to a multiple of N and trains on
 its own rows; rank 0 prints the lines a single trainer prints and writes
 the checkpoints, the others print nothing. N larger than the visible GPUs
 raises, naming both counts. `--shard_update` and `--grad_compression` at
-`--trainer_count=1` warn and are ignored, as in the reference.
+`--trainer_count=1` warn and are ignored, as in the reference. The launcher
+hosts the job's store (a `TCPStore` it opens on a free port) and the ranks
+join it as clients.
+
+`--elastic=1 --trainer_count=N --master_endpoints=...`: rank 0 holds the
+job's one `runtime.master.ResizeClient` (the master counts one trainer a
+job, as for the JAX package's one process) and every rank follows its
+resize epochs (`SGDTrainer.train(elastic=True)`). The ranks read the
+config's provider, each the same global batches; the master carries the
+resize plane only (a task queue cannot be replayed by a joiner). On a grow
+the launcher, which watches the store for rank 0's announcement, starts
+the joining rank processes (`parallel.distributed.join`); a rank that a
+shrink leaves out exits 0, which the launcher takes as normal. On the card
+a world above the visible GPUs is rejected after the drain and training
+goes on at the old size.
 
 `merge_model` folds the config and a pass of `--model_dir` (the newest,
 or a pass directory itself) into one .npz (`capi/merge_model.py`) and
@@ -92,17 +107,12 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
-_NOT_PORTED = (
-    "{what} is not ported to paddle_tpu_torch yet (ROADMAP.md §1 item {item})"
-)
-
-
 log = logging.getLogger("paddle_tpu_torch.cli")
 
 
 class NotPorted(NotImplementedError):
-    """A flag or data source whose subsystem the port does not have yet;
-    `main` prints it and exits with code 2."""
+    """A flag whose subsystem the port has no counterpart of; `main` prints
+    it and exits with code 2."""
 
 
 def _str2bool(v: str) -> bool:
@@ -162,12 +172,10 @@ def _train_args(p: argparse.ArgumentParser) -> None:
                    help="train steps stacked into one dispatch (one graph "
                         "replay); events and the log line fire per dispatch")
     p.add_argument("--shard_update", type=_shard_update_mode, default=False,
-                   help="ZeRO-sharded update (needs --trainer_count > 1, not "
-                        "ported yet)")
+                   help="ZeRO-sharded update (needs --trainer_count > 1)")
     p.add_argument("--grad_compression", default="none",
                    choices=["none", "bf16", "int8"],
-                   help="compressed collectives (needs --trainer_count > 1, "
-                        "not ported yet)")
+                   help="compressed collectives (needs --trainer_count > 1)")
     p.add_argument("--guard_check_every", type=int, default=16,
                    help="steps between divergence-guard polls")
     p.add_argument("--async_checkpoint", type=_str2bool, default=True,
@@ -202,14 +210,11 @@ def _train_args(p: argparse.ArgumentParser) -> None:
                    help="join the master's elastic-resize plane (needs "
                         "--master_endpoints and --trainer_count > 1, a mesh "
                         "to re-shape; without them training goes on without "
-                        "elastic resize)")
+                        "elastic resize); the launcher starts joining ranks")
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise NotPorted for a flag whose subsystem the port lacks."""
-    def refuse(what: str, item: str) -> None:
-        raise NotPorted(_NOT_PORTED.format(what=what, item=item))
-
     if args.compile_cache:
         raise NotPorted(
             "--compile_cache is the JAX package's persistent XLA compilation "
@@ -315,8 +320,10 @@ class TrainJob:
     `run` runs the job; a caller in process keeps it to read the trainer
     and the evaluators afterwards."""
 
-    def __init__(self, args, trainer, feeder, reader, test_reader, evaluators):
+    def __init__(self, args, trainer, feeder, reader, test_reader, evaluators,
+                 join=None):
         self.args = args
+        self.join = join  # a joining rank's plan (parallel.distributed.ElasticPlan)
         self.trainer = trainer
         self.feeder = feeder
         self.reader = reader
@@ -384,15 +391,25 @@ class TrainJob:
         if profiler is not None:
             handler = profiler.wrap(handler)
         profile_reader = reader  # the cost report's batch, before the prefetcher
-        if args.elastic and trainer.parallel is None:
+        elastic = bool(args.elastic and args.master_endpoints
+                       and trainer.parallel is not None)
+        resize_client = None
+        if args.elastic and not elastic:
             # the reference's message for a trainer without a mesh; train on
             print("--elastic needs --master_endpoints (the resize plane rides "
                   "the master heartbeats) and --trainer_count > 1 (a mesh to "
                   "re-shape); continuing without elastic resize", file=sys.stderr)
-        elif args.elastic:
-            print("--elastic: the re-shard of a data-parallel trainer is not ported "
-                  "(ROADMAP.md §1 item 8c); continuing without elastic resize",
-                  file=sys.stderr)
+        elif elastic and self.join is None and trainer.mesh.rank == 0:
+            # one member a job: rank 0 acks the epochs for every rank
+            from paddle_tpu_torch.runtime.master import ResizeClient
+
+            try:
+                resize_client = ResizeClient(args.master_endpoints)
+            except ConnectionError as e:
+                # an unreachable master must not abort training, as in the
+                # reference: the other ranks still agree on every boundary
+                print(f"--elastic: master unreachable ({e}); continuing without "
+                      "elastic resize", file=sys.stderr)
         if args.prefetch_depth > 0:
             # feed and host-to-device copy on a worker thread, ahead of the step
             from paddle_tpu_torch.data.pipeline import DevicePrefetcher
@@ -408,7 +425,9 @@ class TrainJob:
                 log_period=args.log_period, auto_resume=args.auto_resume,
                 keep_last_n=args.keep_last_n or None,
                 steps_per_dispatch=args.steps_per_dispatch,
-                async_checkpoint=args.async_checkpoint)
+                async_checkpoint=args.async_checkpoint,
+                resize_barrier=resize_client.barrier if resize_client else None,
+                elastic=elastic, join=self.join)
         except Preempted as p:
             where = (f"checkpoint saved to {p.checkpoint_dir}" if p.checkpoint_dir
                      else "no mid-pass checkpoint (no --save_dir or grace expired)")
@@ -418,6 +437,12 @@ class TrainJob:
             return preempt.EXIT_PREEMPTED
         finally:
             preempt.reset()
+            if resize_client is not None:
+                resize_client.close()
+        if trainer.left is not None:
+            print(f"rank {trainer.left['rank']} left the job at the resize to "
+                  f"{trainer.left['world']}", file=sys.stderr)
+            return 0
         if profiler is not None:
             self._profile_report(profiler, profile_dir, profile_reader)
         return 0
@@ -454,7 +479,7 @@ def prepare_train(args: argparse.Namespace) -> TrainJob:
     from paddle_tpu_torch.trainer.trainer import SGDTrainer
 
     _refuse_unported(args)
-    parallel = None
+    parallel = join = None
     rank = _rank_env()
     if args.trainer_count > 1:
         if rank is None:
@@ -467,10 +492,22 @@ def prepare_train(args: argparse.Namespace) -> TrainJob:
         on_card = resolve_device(dev_name).type == "cuda"
         if on_card:
             dev_name = f"cuda:{rank}"
-        distributed.initialize(os.environ[_COORD_ENV], args.trainer_count, rank,
-                               backend="nccl" if on_card else "gloo")
         device = resolve_device(dev_name)
-        parallel = DataParallel(make_mesh({"data": args.trainer_count}, device=device))
+        if _JOIN_ENV in os.environ:
+            # a rank the launcher started for a grown resize epoch
+            store = distributed.connect(os.environ[_COORD_ENV])
+            try:
+                group, join = distributed.join(store, int(os.environ[_JOIN_ENV]), rank,
+                                               device)
+            except ValueError as e:  # the job went on at its old size
+                print(f"rank {rank}: {e}", file=sys.stderr)
+                raise SystemExit(0)
+            mesh = make_mesh(join.axes, group=group, device=device)
+        else:
+            distributed.initialize(os.environ[_COORD_ENV], args.trainer_count, rank,
+                                   backend="nccl" if on_card else "gloo", host_store=False)
+            mesh = make_mesh({"data": args.trainer_count}, device=device)
+        parallel = DataParallel(mesh)
     else:
         device = resolve_device(_train_device(args))
     init_ctx.init(device=device.type, trainer_count=args.trainer_count,
@@ -522,10 +559,11 @@ def prepare_train(args: argparse.Namespace) -> TrainJob:
     feeding = bind_provider_types(pc.topology, bind_dc) if bind_dc is not None else None
     feeder = pc.topology.make_feeder(feeding)
     reader = make_reader(data_config, batch_size) if data_config else None
-    if args.master_endpoints:
+    if args.master_endpoints and parallel is None:
         # the cluster data path: this trainer is a stateless consumer of the
         # master's task queue; the endpoint list gives it a standby to fail
-        # over to when the primary dies mid-pass
+        # over to when the primary dies mid-pass. Ranks of a mesh read the
+        # provider instead: each needs the same global batches
         from paddle_tpu_torch.data import reader as rd
         from paddle_tpu_torch.runtime.master import cluster_reader
 
@@ -542,11 +580,12 @@ def prepare_train(args: argparse.Namespace) -> TrainJob:
                     "outputs — --steps_per_dispatch=%d would starve them; falling "
                     "back to steps_per_dispatch=1", len(evaluators), args.steps_per_dispatch)
         args.steps_per_dispatch = 1
-    return TrainJob(args, trainer, feeder, reader, test_reader, evaluators)
+    return TrainJob(args, trainer, feeder, reader, test_reader, evaluators, join=join)
 
 
 _RANK_ENV = "PADDLE_TPU_TORCH_RANK"
 _COORD_ENV = "PADDLE_TPU_TORCH_COORDINATOR"
+_JOIN_ENV = "PADDLE_TPU_TORCH_JOIN_ATTEMPT"
 
 
 def _rank_env() -> Optional[int]:
@@ -558,73 +597,98 @@ def _rank_env() -> Optional[int]:
 def cmd_train(args: argparse.Namespace) -> int:
     if args.trainer_count > 1 and _rank_env() is None:
         return _launch_ranks(args, args.trainer_count, _train_device(args),
-                             "--trainer_count")
-    return prepare_train(args).run()
+                             "--trainer_count",
+                             elastic=bool(args.elastic and args.master_endpoints))
+    job = prepare_train(args)
+    code = job.run()
+    if job.trainer.mesh is not None and code == 0:
+        job.trainer.close()  # every rank ends here together
+    return code
 
 
-def _launch_ranks(args: argparse.Namespace, n: int, device, flag: str) -> int:
+def _launch_ranks(args: argparse.Namespace, n: int, device, flag: str,
+                  elastic: bool = False) -> int:
     """Start `n` copies of this command, one a rank, and wait for them:
     rank 0's output is this command's; another rank's stderr is shown only
-    if it fails. A SIGTERM or SIGINT to this process goes on to rank 0.
-    Returns the first failing rank's exit code, else rank 0's."""
+    if it fails. The launcher hosts the job's store (a TCPStore on a free
+    port of 127.0.0.1) and hands its address to the ranks. A SIGTERM or
+    SIGINT to this process goes on to rank 0. `elastic`: watch the store
+    for rank 0's resize announcements and start the joining ranks of a
+    grown world; a rank's exit 0 (a leaver's) is normal. Returns the first
+    failing rank's exit code, else rank 0's."""
+    import datetime
     import signal
-    import socket
     import subprocess
 
-    from paddle_tpu_torch.device import resolve_device
+    import torch.distributed as dist
 
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.parallel import distributed
+
+    visible = None
     if resolve_device(device).type == "cuda":
         visible = torch_cuda_device_count()
         if n > visible:
             raise RuntimeError(f"{flag}={n} needs {n} GPUs, one a rank, but "
                                f"{visible} are visible")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    store = dist.TCPStore("127.0.0.1", 0, None, True,
+                          timeout=datetime.timedelta(seconds=300), wait_for_workers=False)
     # the ranks import this package from where this process did
     pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     path = os.pathsep.join([pkg_root] + [p for p in os.environ.get("PYTHONPATH", "")
                                          .split(os.pathsep) if p])
-    procs, logs, codes = [], [], [None] * n
+    procs: List[Any] = []  # [rank, process, stderr file or None, exit code]
+
+    def start(r: int, extra: Dict[str, str]) -> None:
+        env = {**os.environ, _RANK_ENV: str(r), _COORD_ENV: f"127.0.0.1:{store.port}",
+               "PYTHONPATH": path, **extra}
+        err = None if r == 0 else tempfile.TemporaryFile()
+        procs.append([r, subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch"]
+            + list(getattr(args, "argv", sys.argv[1:])), env=env,
+            stdout=None if r == 0 else subprocess.DEVNULL,
+            stderr=None if r == 0 else err), err, None])
+
+    seen = 0  # the newest resize attempt handled
     try:
         for r in range(n):
-            env = {**os.environ, _RANK_ENV: str(r), _COORD_ENV: f"127.0.0.1:{port}",
-                   "PYTHONPATH": path}
-            err = None if r == 0 else tempfile.TemporaryFile()
-            logs.append(err)
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "paddle_tpu_torch"]
-                + list(getattr(args, "argv", sys.argv[1:])), env=env,
-                stdout=None if r == 0 else subprocess.DEVNULL,
-                stderr=None if r == 0 else err))
+            start(r, {})
         if threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGTERM, signal.SIGINT):
-                signal.signal(sig, lambda *_: procs[0].poll() is None
-                              and procs[0].send_signal(signal.SIGTERM))
-        while any(c is None for c in codes):
-            for r, p in enumerate(procs):
-                if codes[r] is None:
-                    codes[r] = p.poll()
-            failed = [c for c in codes if c not in (None, 0)]
-            if failed and any(c is None for c in codes):
-                for p in procs:  # one rank died: the others would wait forever
-                    if p.poll() is None:
-                        p.send_signal(signal.SIGTERM)
+                signal.signal(sig, lambda *_: procs[0][1].poll() is None
+                              and procs[0][1].send_signal(signal.SIGTERM))
+        while any(e[3] is None for e in procs):
+            for e in procs:
+                if e[3] is None:
+                    e[3] = e[1].poll()
+            failed = [e[3] for e in procs if e[3] not in (None, 0)]
+            if failed and any(e[3] is None for e in procs):
+                for e in procs:  # one rank died: the others would wait forever
+                    if e[1].poll() is None:
+                        e[1].send_signal(signal.SIGTERM)
+            if elastic and not failed:
+                plan = distributed.latest_plan(store)
+                if plan is not None and plan.attempt > seen:
+                    seen = plan.attempt
+                    if plan.world > plan.old_world and (visible is None
+                                                        or plan.world <= visible):
+                        for r in range(plan.old_world, plan.world):
+                            start(r, {_JOIN_ENV: str(plan.attempt)})
             time.sleep(0.05)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (code, err) in enumerate(zip(codes, logs)):
+        for e in procs:
+            if e[1].poll() is None:
+                e[1].kill()
+                e[1].wait()
+    for r, _, err, code in procs:
         if code and err is not None:
             err.seek(0)
             tail = err.read()[-4000:].decode(errors="replace")
             print(f"rank {r} exited {code}:\n{tail}", file=sys.stderr)
         if err is not None:
             err.close()
-    failed = [c for c in codes if c]
-    return failed[0] if failed else codes[0]
+    failed = [e[3] for e in procs if e[3]]
+    return failed[0] if failed else procs[0][3]
 
 
 def torch_cuda_device_count() -> int:
@@ -827,7 +891,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
         if dev.type == "cuda":
             dev = resolve_device(f"cuda:{rank}")
         distributed.initialize(os.environ[_COORD_ENV], tp, rank,
-                               backend="nccl" if dev.type == "cuda" else "gloo")
+                               backend="nccl" if dev.type == "cuda" else "gloo",
+                               host_store=False)
         args.device = str(dev)
     quotas = None
     if args.tenant_tokens_per_s > 0 and args.tenant_tokens <= 0:

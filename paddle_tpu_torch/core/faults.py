@@ -44,7 +44,14 @@ Sites the ported code polls (hooks live next to the code they sabotage):
                    drain barrier and never acks, so the       cluster_reader's drain)
                    master must time it out or evict it;
                    stall length via PADDLE_TPU_RESIZE_STALL_S
-                   (default 300)
+                   (default 300); a trainer without a fleet   (trainer.SGDTrainer._drain_resize)
+                   barrier stalls in its own drain
+    reshard_kill   the process dies mid-re-shard, after the  (trainer.SGDTrainer.resize_to)
+                   drain checkpoint and the canonical gather,
+                   before the new group is built; auto_resume
+                   replays the pass from the drained boundary
+                   on the new world (rank 0 fires it, every
+                   rank of the job dies with it)
     controller_kill  the autoscaler controller dies at the   (runtime.autoscaler
                    top of a tick; the fleet it steered         .AutoscalerController.tick)
                    degrades to a static fleet

@@ -20,9 +20,9 @@ directly, so the drain is a deterministic, tested path without signals.
 
 `request_resize(world)` parks an elastic-resize order (a cooperative drain
 that re-shards the state and continues) exactly as the JAX package does;
-the port's trainer has no mesh to re-shard yet (ROADMAP item 8), so it
-takes a pending order and ignores it, as the JAX package's trainer without
-a mesh does."""
+a trainer with a mesh drains and re-shards at its next dispatch boundary
+(on several ranks, rank 0 takes the order for all), and one without a
+mesh takes it and ignores it, as the JAX package's does."""
 
 from __future__ import annotations
 

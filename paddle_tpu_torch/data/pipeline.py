@@ -19,8 +19,12 @@ With `parallel` (a `parallel.DataParallel`), each batch pads on the worker
 through `maybe_pad_batch` (an indivisible trailing batch gains repeated
 rows and a row mask instead of dropping) and the rank copies only its own
 rows to its device (`shard_batch` / `shard_batches`); the trainer takes
-those batches as its cut. `rebind_parallel` points later batches at
-another plan."""
+those batches as its cut. Each such batch keeps the feed-ready global batch
+it was cut from on the host (`host`; a list of them for a stack) while it
+is in flight: after an elastic resize the trainer re-pads and re-cuts the
+batches prepared for the old plan from there, since a rank's rows cannot
+be cut again for another rank index. `rebind_parallel` points later
+batches at another plan."""
 
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ class StackedBatch(dict):
 
     k: int = 1
     plan = None  # the DataParallel whose rank's rows these are, if any
+    host = None  # under a plan: the K feed-ready global batches, on the host
 
 
 class _Group(list):
@@ -137,14 +142,20 @@ def iter_async(reader: Callable, prepare: Callable[[Any], Any], capacity: int,
 
 
 def _retag(values: Dict[str, Any], like: Any) -> Dict[str, Any]:
-    """`values` in a dict of `like`'s class, keeping its `k` and `plan`."""
+    """`values` in a dict of `like`'s class, keeping its `k`, `plan` and
+    `host`."""
     if type(like) is dict:
         return values
     out = type(like)(values)
-    for attr in ("k", "plan"):
+    for attr in ("k", "plan", "host"):
         if hasattr(like, attr):
             setattr(out, attr, getattr(like, attr))
     return out
+
+
+def _with_host(batch: Any, host: Dict[str, Any]) -> Any:
+    batch.host = host
+    return batch
 
 
 def is_device_batch(batch: Any) -> bool:
@@ -243,11 +254,13 @@ class DevicePrefetcher:
 
     def _prepare(self, raw: Any):
         plan = self.parallel  # read once: a rebind never splits a batch
-        batch = self._pad(self._feed(raw), plan)
+        fed = self._feed(raw)
+        batch = self._pad(fed, plan)
         if batch is None:
             return None
         if plan is not None:
             batch = plan.shard_batch(batch)
+            batch.host = fed
         return self._to_device(batch)
 
     def _grouped_reader(self):
@@ -262,16 +275,19 @@ class DevicePrefetcher:
 
     def _prepare_group(self, group: _Group):
         plan = self.parallel
-        batches = [b for b in (self._pad(self._feed(raw), plan) for raw in group)
-                   if b is not None]
+        fed = [self._feed(raw) for raw in group]
+        pairs = [(f, b) for f, b in ((f, self._pad(f, plan)) for f in fed) if b is not None]
+        batches = [b for _, b in pairs]
         if (len(batches) != self.stack_k
                 or len({stats.batch_signature(b) for b in batches}) != 1):
-            return _Singles(self._to_device(b if plan is None else plan.shard_batch(b))
-                            for b in batches)
+            return _Singles(self._to_device(b if plan is None else _with_host(
+                plan.shard_batch(b), f)) for f, b in pairs)
         stacked = {k: np.stack([np.asarray(b[k]) for b in batches]) for k in batches[0]}
         out, done = self._to_device(stacked if plan is None else plan.shard_batches(stacked))
         sb = StackedBatch(out)
         sb.k, sb.plan = self.stack_k, plan
+        if plan is not None:
+            sb.host = [f for f, _ in pairs]
         return sb, done
 
     def _ready(self, item):

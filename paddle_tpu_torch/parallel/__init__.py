@@ -6,9 +6,9 @@ axes over one process group, a sub-group per axis), the rules table and
 replicated and ZeRO-1/2/3 updaters with model-axis parameters
 (`updaters.py`), compressed collectives (`compression.py`), ring / Ulysses
 attention over the seq axis (`sequence_parallel.py`), the expert-sharded
-embedding (`embedding.py`) and the multi-process bring-up
-(`distributed.py`). The elastic re-shard of a live trainer is ROADMAP.md §1
-item 8c."""
+embedding (`embedding.py`) and the multi-process bring-up with the elastic
+rendezvous a live trainer re-shards over (`distributed.py`,
+`SGDTrainer.resize_to`)."""
 
 from paddle_tpu_torch.parallel.mesh import Mesh, make_mesh, resize_mesh  # noqa: F401
 from paddle_tpu_torch.parallel.rules import (  # noqa: F401

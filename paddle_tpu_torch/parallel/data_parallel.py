@@ -44,6 +44,7 @@ class ShardedBatch(dict):
 
     plan: Any = None
     k: int = 1
+    host: Any = None  # a prefetched cut: the feed-ready global batch, on the host
 
 
 def _rows(v: Any) -> int:

@@ -21,6 +21,10 @@ each over a `PrefixStore` of the store the whole group was built on (the
 store `new_gloo_group` registered, or the default group's), so
 every rank builds its own axes' groups and no two share a prefix.
 
+A resize builds the new world's group first (`distributed.rendezvous`),
+then `close()`s the old mesh: its axes' sub-groups and its group are shut
+down, and a collective on a closed mesh raises.
+
 Each collective call is counted by axis and kind in `CALLS[(mesh.uid, axis,
 kind)]`; a call made while the current stream captures a CUDA graph is
 counted in `CAPTURED` instead, and whoever replays the graph adds what it
@@ -89,6 +93,7 @@ class Mesh:
         for a in self.axis_names:
             if self.shape[a] == self.size:
                 self._axis_groups[a] = group
+        self.closed = False
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}/{self.size}, {self.backend}, "
@@ -107,6 +112,8 @@ class Mesh:
         """The process group of `axis` (None: the whole group). An axis of
         extent 1 inside a larger world has none; on a one-rank world every
         named axis is the whole group, so its collectives still run."""
+        if self.closed:
+            raise RuntimeError(f"{self!r} is closed: a resize replaced its group")
         if axis is None:
             return self.group
         return self._axis_groups.get(axis)
@@ -221,6 +228,21 @@ class Mesh:
         for key in [k for k in CALLS if k[0] == self.uid]:
             CALLS[key] = 0
 
+    def close(self) -> None:
+        """Shut down the axes' sub-groups and the group (a resize, once the
+        new world's group is built). Every rank of the group closes its
+        mesh at the same point; later collectives on it raise."""
+        if self.closed:
+            return
+        from paddle_tpu_torch.parallel import distributed
+
+        subs = {id(g): g for g in self._axis_groups.values() if g is not self.group}
+        for g in subs.values():
+            distributed.destroy_group(g)
+        distributed.destroy_group(self.group)
+        self._axis_groups = {}
+        self.closed = True
+
 
 def note_replay(captured: Dict[Tuple, int]) -> None:
     """A CUDA graph holding `captured` ({(mesh uid, axis, kind): calls}, the
@@ -238,6 +260,29 @@ def _register(group: Any, store: Any, replace: bool = True) -> None:
     with _stores_lock:
         if replace or group not in _stores:
             _stores[group] = (store, itertools.count())
+
+
+def _unregister(group: Any) -> None:
+    with _stores_lock:
+        _stores.pop(group, None)
+
+
+def group_store(group: Any):
+    """The store `group` was built on: the one `new_gloo_group` or a
+    resize's rendezvous registered, or, for the default group,
+    `distributed.initialize`'s."""
+    with _stores_lock:
+        entry = _stores.get(group)
+    if entry is not None:
+        return entry[0]
+    from paddle_tpu_torch.parallel import distributed
+
+    if distributed._store is None:
+        raise ValueError(
+            "the store this process group was built on is unknown: build the group "
+            "with parallel.mesh.new_gloo_group or parallel.distributed.initialize")
+    _register(group, distributed._store, replace=False)
+    return distributed._store
 
 
 def _one_rank_group(device: torch.device):
@@ -289,20 +334,13 @@ def _axis_groups(sizes: Dict[str, int], names: Tuple[str, ...], group: Any, rank
     need = [a for a in names if 1 < sizes[a] < world]
     if not need:
         return {}
+    try:
+        group_store(group)
+    except ValueError as e:
+        raise ValueError(f"make_mesh({sizes}) builds a sub-group per axis over the store "
+                         f"the process group was built on: {e}") from None
     with _stores_lock:
-        entry = _stores.get(group)
-    if entry is None:
-        from paddle_tpu_torch.parallel import distributed
-
-        if distributed._store is None:
-            raise ValueError(
-                f"make_mesh({sizes}) builds a sub-group per axis over the store the "
-                "process group was built on; this group's is unknown: build it with "
-                "parallel.mesh.new_gloo_group or parallel.distributed.initialize")
-        _register(group, distributed._store, replace=False)
-        with _stores_lock:
-            entry = _stores[group]
-    store, seq = entry
+        store, seq = _stores[group]
     # every rank builds its meshes over a group in the same order
     mesh_no = next(seq)
     extents = [sizes[a] for a in names]
@@ -380,8 +418,9 @@ def make_mesh(axis_sizes: Optional[Dict[str, int]] = None, group: Any = None,
 
 def resize_mesh(mesh: Mesh, axis: str, new_size: int, group: Any = None) -> Mesh:
     """The same mesh with `axis` re-shaped to `new_size`, over `group` (a
-    group of the new world size). Re-sharding a live trainer onto it is
-    ROADMAP.md §1 item 8c."""
+    group of the new world size, which a resize builds with
+    `distributed.rendezvous`); the other axes keep their extents. A live
+    trainer re-shards onto it with `SGDTrainer.resize_to`."""
     if axis not in mesh.axis_names:
         raise ValueError(f"mesh has no axis {axis!r} to resize (axes: {mesh.axis_names})")
     new_size = int(new_size)

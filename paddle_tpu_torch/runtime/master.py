@@ -1871,6 +1871,15 @@ class ResizeClient:
         trainer.train(reader, resize_barrier=rc.barrier, ...)
         rc.close()
 
+    A data-parallel job of several rank processes holds one, on rank 0:
+    the master counts one trainer a job, as it does for the JAX package's
+    one process. Rank 0 alone reads the parked order and walks the barrier;
+    every rank passes `train(elastic=True)`, reads rank 0's decision for
+    each dispatch boundary from the job's store, and receives the world the
+    barrier returned by a broadcast over the old group (`SGDTrainer.
+    _drain_resize`). CLI: `train --trainer_count=N --elastic=1
+    --master_endpoints=...`.
+
     A trainer that ALSO consumes tasks via cluster_reader holds two
     membership leases (the reader's and this one); both join the drain
     barrier and both ack — the reader between tasks (without blocking for

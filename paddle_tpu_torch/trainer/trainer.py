@@ -76,13 +76,39 @@ the world size; they load under any mode, world size and mesh.
 
 An elastic-resize request (`core/preempt.request_resize`, set by a
 master's resize epoch through `runtime/master.ResizeClient`) is taken at
-the next dispatch boundary: a mesh-less trainer ignores it with the JAX
-package's warning, as the JAX package's single-device trainer does; the
-re-shard of a mesh trainer (`resize_to`) is ROADMAP.md §1 item 8c and
-raises."""
+the next dispatch boundary, as the JAX package takes it: the buffered K-step
+batches flush on the old mesh, a durable mid-pass checkpoint is written
+(with `save_dir`), the fleet barrier (`resize_barrier`) decides the world,
+the state re-shards onto it (`resize_to`) and the interrupted pass goes on
+with the very next batch; a mesh-less trainer ignores the request with the
+JAX package's warning. The JAX package re-meshes one process's devices;
+here ranks leave and join a new group (ROADMAP.md §3 difference 27). Only
+rank 0 reads the request and calls the barrier (one member a job): with
+`train(elastic=True)` it publishes its decision for every boundary in the
+job's store, and every other rank reads it there before it dispatches, so
+all drain at the same boundary with no collective or host sync added to
+the step; the barrier's world reaches them by a broadcast over the old
+group. `resize_to` gathers the canonical state on the old group, fires
+`reshard_kill`, brings the new world together (`distributed.rendezvous`:
+rank 0 announces the attempt, joiners count in; a world that cannot be
+built is rejected there on every rank and training goes on, bitwise, on
+the old group), then drops the captured graphs, closes the old mesh,
+re-lays the state for the new one and, on a grow, broadcasts it from rank 0
+to the joiners. A rank outside the new world leaves: its `train()` returns
+with `left` set. A joiner (`train(join=plan)`, the plan from
+`distributed.join`) receives the state, replays the reader past the
+interrupted batch, as auto-resume does, and trains on. EndPass carries
+`resize_epochs` and `resizes` (each epoch's drain / reshard / resume
+seconds).
+
+Run it on the CPU: `JAX_PLATFORMS=cpu python -m pytest
+tests/test_torch_resize.py` (gloo rank threads, joiners started at the
+epoch, against the JAX package's `tests/test_resize.py` runs); on one card
+`chip_smoke.py` phase 52; across four cards `tools/elastic_nccl_train.py`."""
 
 from __future__ import annotations
 
+import gc
 import logging
 import os
 import time
@@ -93,6 +119,8 @@ import torch
 
 from paddle_tpu_torch.core import dtypes, faults, preempt, prng, stats
 from paddle_tpu_torch.core import remat as remat_mod
+from paddle_tpu_torch.obs import metrics as obs_metrics
+from paddle_tpu_torch.obs import trace
 from paddle_tpu_torch.data.pipeline import StackedBatch
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.nn.graph import SAMPLE_COUNT_KEY, SAMPLE_MASK_KEY, Layer, Network
@@ -146,6 +174,17 @@ class Preempted(RuntimeError):
         where = f"checkpoint {checkpoint_dir}" if checkpoint_dir else "no checkpoint written"
         super().__init__(f"preempted ({reason or 'signal'}) at pass {pass_id} after "
                          f"{batches_done} batch(es); {where}")
+
+
+class _LeftJob(Exception):
+    """Unwinds the train loop of a rank that a shrinking resize left out."""
+
+
+# boundary decisions an elastic trainer's rank 0 publishes ("go": dispatch)
+_GO, _RESIZE, _PREEMPT = "go", "resize", "preempt"
+# boundaries whose decisions stay in the job's store: ranks' hosts are never
+# this many dispatches apart (a launch queue is far shorter)
+_KEEP_BOUNDARIES = 4096
 
 
 class SGDTrainer:
@@ -248,6 +287,19 @@ class SGDTrainer:
         # (save_dir, pass_id) of the newest checkpoint written or loaded:
         # a rollback needs no CRC scan to find it
         self._known_good_pass: Optional[tuple] = None
+        # elastic resize: the job's store (resolved once), the attempt that
+        # built the current group and the boundary count on it; the epochs
+        # completed, the one awaiting its first dispatch, where a rank left
+        self._job_store: Optional[Any] = None
+        self._attempt = 0
+        self._bseq = 0
+        self._position = (-1, -1)
+        self._resized = False
+        self._resize_log: List[Dict[str, Any]] = []
+        self._resize_mark: Optional[Dict[str, Any]] = None
+        self.left: Optional[Dict[str, Any]] = None
+        # what the boundary agreement cost: boundaries, host seconds
+        self.agreement = {"boundaries": 0, "seconds": 0.0}
 
     @property
     def precision(self) -> str:
@@ -498,7 +550,8 @@ class SGDTrainer:
               auto_resume: bool = False,
               keep_last_n: Optional[int] = None, steps_per_dispatch: int = 1,
               async_checkpoint: bool = True, remat: Optional[str] = None,
-              resize_barrier: Optional[Callable] = None) -> TrainState:
+              resize_barrier: Optional[Callable] = None, elastic: bool = False,
+              join: Optional[Any] = None) -> TrainState:
         """`num_passes` passes over `reader()`, whose items are batch dicts,
         `StackedBatch`es or, with `feeder`, lists of samples. EndPass metrics
         carry avg_cost (one host sync per pass), batches, pass_seconds,
@@ -532,10 +585,20 @@ class SGDTrainer:
         the current one.
 
         resize_barrier: the fleet hook of elastic resize
-        (`runtime.master.ResizeClient.barrier`). A trainer with a mesh
-        passes it after its drain checkpoint; this one has no mesh, so a
-        pending resize is taken and ignored at the next dispatch boundary
-        and the barrier is never called, as in the JAX package."""
+        (`runtime.master.ResizeClient.barrier`), rank 0's: after the drain
+        checkpoint it acks the master's epoch and returns the world to
+        re-shard to. Without one, the request's own world is taken. A
+        mesh-less trainer takes a pending request and ignores it, as in the
+        JAX package.
+
+        elastic: on a mesh of more than one rank, every rank passes it to
+        follow resize epochs (rank 0 publishes each boundary's decision in
+        the job's store, the others read it there); without it such a
+        trainer drops a request with a warning. join: this rank joins a
+        running job (`parallel.distributed.join`'s plan, whose group the
+        trainer's mesh spans): it receives the state from rank 0 and
+        continues the interrupted pass after the plan's batch. A rank that
+        a shrink leaves out returns early, with `left` set."""
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
         if remat is not None:
@@ -546,7 +609,12 @@ class SGDTrainer:
         event_handler = event_handler or (lambda e: None)
         resume_pass: Optional[int] = None
         resume_mid, resume_skip = False, 0
-        if auto_resume and save_dir is not None:
+        quiet: Optional[tuple] = None  # a joiner's (pass, batch): no boundary through it
+        if join is not None:
+            self._join_job(join, reader, feeder)
+            resume_pass, resume_mid, resume_skip = join.pass_id, True, join.batch
+            quiet = (join.pass_id, join.batch)
+        elif auto_resume and save_dir is not None:
             self.checkpoint_wait()  # the scan must see completed writes
             resume_pass = ckpt.find_latest_valid_pass(save_dir)
             if resume_pass is not None:
@@ -573,7 +641,9 @@ class SGDTrainer:
                 self._train_one_pass(
                     reader, pass_id, event_handler, feeder, test_reader, save_dir,
                     log_period, keep_last_n, steps_per_dispatch, async_checkpoint,
-                    resume_skip if (resume_mid and pass_id == resume_pass) else 0)
+                    resume_skip if (resume_mid and pass_id == resume_pass) else 0,
+                    resize_barrier, elastic,
+                    quiet[1] if quiet is not None and pass_id == quiet[0] else -1)
             if self._pending_load is not None:
                 # every pass was checkpointed already: nothing ran, so build
                 # the state from one batch and load the last checkpoint
@@ -584,6 +654,15 @@ class SGDTrainer:
                     self._ensure_state(_feed(raw, feeder))
             self.checkpoint_wait()
             flushed = True
+            if self.agreement["boundaries"]:
+                a = self.agreement
+                log.info("boundary agreement on rank %d: %d boundaries, %.1f us each",
+                         self.mesh.rank, a["boundaries"], 1e6 * a["seconds"] / a["boundaries"])
+        except _LeftJob:
+            flushed = True
+            log.warning("rank %d left the job at the resize to %d (pass %d batch %d)",
+                        self.left["rank"], self.left["world"], self.left["pass"],
+                        self.left["batch"])
         finally:
             self._pending_load = None
             if not flushed and self._ckpt_writer is not None:
@@ -600,13 +679,17 @@ class SGDTrainer:
                         save_dir: Optional[str], log_period: int,
                         keep_last_n: Optional[int],
                         steps_per_dispatch: int, async_checkpoint: bool,
-                        resume_skip: int) -> None:
+                        resume_skip: int, resize_barrier: Optional[Callable] = None,
+                        elastic: bool = False, quiet_through: int = -1) -> None:
         """One pass. Nothing here reads a device value per step: the pass
         cost is a device sum (or, with the guard, the step's own masked
         accumulator) read once at pass end, and `diverged` is read only at
         guard polls. resume_skip: the batches of this pass a drained
-        checkpoint already holds; the reader is consumed past them."""
+        checkpoint already holds; the reader is consumed past them.
+        quiet_through: a joiner's first batch; it takes no boundary decision
+        up to it (the old ranks took that one before the resize)."""
         inj = faults.get()
+        pass_rz0 = len(self._resize_log)
         guard_on = self.divergence_policy is not None
         pad0 = stats.DATA_EVENTS.get("padded_batches")
         self.updater.start_pass()
@@ -647,6 +730,10 @@ class SGDTrainer:
                     batch = _same_plan(_poison_batch(batch), batch, k=getattr(batch, "k", 1))
             event_handler(BeginIteration(pass_id, first))
             costs, extras = self._dispatch(batch, k)
+            if self._resize_mark is not None:
+                # the first dispatch on the new mesh returned (its eager run
+                # and capture included): the resume leg ends here
+                self._note_resize_resumed()
             if not guard_on:
                 for cost in costs:
                     cost_sum = cost if cost_sum is None else cost_sum + cost
@@ -676,28 +763,45 @@ class SGDTrainer:
             k_item = raw.k if isinstance(raw, StackedBatch) else 1
             idx0 = logical
             logical += k_item
-            if preempt.requested():
+            decision, req = (_GO, None) if idx0 <= quiet_through else \
+                self._boundary_decision(elastic)
+            if decision == _PREEMPT:
                 # a dispatch boundary: the previous step completed; the
                 # current batch and any buffered ones replay after resume
                 self._drain_preempt(save_dir, pass_id, max(boundary, resume_skip),
                                     keep_last_n, async_checkpoint)
-            if self.state is not None and preempt.resize_requested():
-                self._drain_resize()
+            if decision == _RESIZE:
+                # cooperative: the buffered batches (padded for the old
+                # mesh) flush on it first; the current batch runs on the new
+                flush()
+                self._drain_resize(req, save_dir, pass_id, max(boundary, resume_skip),
+                                   keep_last_n, async_checkpoint, resize_barrier)
+                rebind = getattr(reader, "rebind_parallel", None)
+                if rebind is not None and self.parallel is not None:
+                    # a prefetcher cuts for the plan it was given: only its
+                    # in-flight batches take the straggler path below
+                    rebind(self.parallel)
             if idx0 + k_item <= resume_skip:
                 boundary = logical  # already in the restored state
                 continue
+            stale = self._stale_cut(raw)
             if isinstance(raw, StackedBatch):
                 self._ensure_state(_unstack(raw, 0))
                 flush()  # keep the update order the reader's
                 skip = max(resume_skip - idx0, 0)  # a group across the boundary
-                if skip:
+                if skip or stale:
                     for j in range(skip, k_item):
-                        dispatch(idx0 + j, idx0 + j, _unstack(raw, j), 1)
+                        # a straggler's global batch padded for the current
+                        # plan (the dispatch cuts this rank's rows)
+                        b = (self.parallel.maybe_pad_batch(raw.host[j]) if stale
+                             else _unstack(raw, j))
+                        if b is not None:
+                            dispatch(idx0 + j, idx0 + j, b, 1)
                 else:
                     dispatch(idx0, idx0 + k_item - 1, raw, k_item)
                 boundary = logical
                 continue
-            batch = _feed(raw, feeder)
+            batch = raw.host if stale else _feed(raw, feeder)
             if self.parallel is not None and not self.parallel.is_sharded_batch(batch):
                 # an indivisible trailing batch pads (its row mask keeps the
                 # cost the unpadded one's) instead of dropping
@@ -720,6 +824,9 @@ class SGDTrainer:
                 pending.clear()
         flush()
         flush_log()
+        if self._resize_mark is not None:
+            # the resize came at the pass's last boundary: no dispatch after it
+            self._note_resize_resumed()
         if guard_on and self.state is not None:
             # the reaction window never crosses a pass boundary: the pass
             # checkpoint must not absorb an unexamined divergence
@@ -734,6 +841,12 @@ class SGDTrainer:
             "batches": n_batches, "pass_seconds": time.time() - t0,
             "divergence_events": n_diverged,
         }
+        pass_resizes = self._resize_log[pass_rz0:]
+        if pass_resizes:
+            # the epochs completed this pass and their drain / reshard /
+            # resume split (obs_metrics.observe_resize has the same numbers)
+            metrics["resize_epochs"] = len(pass_resizes)
+            metrics["resizes"] = pass_resizes
         if self.parallel is not None and self.state is not None:
             # per-rank resident bytes and the updater's modeled collective
             # bytes (pass-end bookkeeping, no device sync)
@@ -828,29 +941,335 @@ class SGDTrainer:
                     "lr_scale now %g", pass_id, batch_id, latest,
                     float(self.state["lr_scale"]))
 
-    def _drain_resize(self) -> None:
-        """Take a pending resize request at a dispatch boundary. Without a
-        mesh it is ignored (the JAX package's `_drain_resize` does the same
-        for a trainer without one); a mesh trainer re-shards (`resize_to`)."""
-        req = preempt.get().take_resize()
-        if req is None:
-            return  # another poller claimed it
+    # -- elastic resize ----------------------------------------------------------
+    def _stale_cut(self, raw: Any) -> bool:
+        """True for a prefetched batch cut for a plan a resize replaced (a
+        straggler in flight across it): it is re-cut from its host copy."""
+        plan = getattr(raw, "plan", None)
+        if not (self._resized and plan is not None and plan is not self.parallel):
+            return False
+        if getattr(raw, "host", None) is None:
+            raise ValueError("a batch cut for the data-parallel plan before the resize "
+                             "carries no host copy of its global batch to re-cut")
+        return True
+
+    def _boundary_decision(self, elastic: bool):
+        """(go | resize | preempt, the resize request or None) at a dispatch
+        boundary. An elastic trainer on several ranks takes rank 0's
+        decision from the job's store; without `elastic` such a trainer
+        cannot drain in step and drops a resize request."""
+        agree = (elastic and self.mesh is not None and self.mesh.size > 1
+                 and self.state is not None)
+        if not agree:
+            if preempt.requested():
+                return _PREEMPT, None
+            if self.state is None or not preempt.resize_requested():
+                return _GO, None
+            if self.mesh is not None and self.mesh.size > 1:
+                req = preempt.get().take_resize()
+                if req is not None:
+                    log.warning("resize request (%s) dropped: a trainer of %d ranks "
+                                "follows resize epochs with train(elastic=True) on every "
+                                "rank", req.reason, self.mesh.size)
+                return _GO, None
+            return _RESIZE, None
+        decision, req = _GO, None
+        if self.mesh.rank == 0:
+            if preempt.requested():
+                decision = _PREEMPT
+            elif preempt.resize_requested():
+                req = preempt.get().take_resize()
+                decision = _RESIZE if req is not None else _GO
+        return self._agree(decision), req
+
+    def _agree(self, decision: str) -> str:
+        """Rank 0 writes its decision for this boundary into the job's
+        store; every other rank reads it there (blocking until it is
+        written) before it dispatches. Host work only, no collective."""
+        t0 = time.perf_counter()
+        store = self._job()
+        key = f"elastic/{self._attempt}/b/"
+        seq, self._bseq = self._bseq, self._bseq + 1
+        if self.mesh.rank == 0:
+            store.set(f"{key}{seq}", decision)
+            if seq >= _KEEP_BOUNDARIES:
+                store.delete_key(f"{key}{seq - _KEEP_BOUNDARIES}")
+        else:
+            decision = store.get(f"{key}{seq}").decode()
+        self.agreement["boundaries"] += 1
+        self.agreement["seconds"] += time.perf_counter() - t0
+        return decision
+
+    def _job(self):
+        """The job's store: the one the trainer's first group was built on
+        (a joiner's plan brings it)."""
+        if self._job_store is None:
+            from paddle_tpu_torch.parallel.mesh import group_store
+
+            self._job_store = group_store(self.mesh.group)
+        return self._job_store
+
+    def _from_lead(self, *values: int) -> List[int]:
+        """Rank 0's integers on every rank of the mesh (a broadcast over its
+        group; nothing on one rank)."""
+        if self.mesh.size == 1:
+            return [int(v) for v in values]
+        t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=self.device)
+        self.mesh.broadcast_(t, None)
+        return [int(v) for v in t.tolist()]
+
+    def _drain_resize(self, req: Optional[preempt.ResizeRequest], save_dir: Optional[str],
+                      pass_id: int, batches_done: int, keep_last_n: Optional[int],
+                      async_checkpoint: bool, barrier: Optional[Callable] = None) -> None:
+        """The cooperative resize drain at a dispatch boundary, on every rank
+        of the mesh together (`req` is rank 0's; the others hold None): fold
+        an open guard window, write a durable mid-pass checkpoint (a crash
+        in the re-shard resumes from exactly here), pass the fleet barrier
+        (rank 0; its world reaches the others by broadcast), re-shard, and
+        return to the loop, whose next batch runs on the new mesh. Without
+        a mesh the request is ignored, as in the JAX package."""
+        lead = self.mesh is None or self.mesh.rank == 0
+        if req is None and lead:
+            req = preempt.get().take_resize()
+            if req is None:
+                return  # another poller claimed it
         if self.parallel is None:
             log.warning("resize request (%s) ignored: this trainer has no "
                         "DataParallel mesh to re-shape", req.reason)
             return
-        self.resize_to(req.world)
+        t_req = req.requested_at if req is not None else time.monotonic()
+        if self.divergence_policy is not None:
+            # fold an unexamined guard window in before the state moves
+            self._poll_guard(pass_id, batches_done, save_dir, react=False)
+        saved: Optional[str] = None
+        if save_dir is not None:
+            saved = self.save(save_dir, pass_id, keep_last_n=keep_last_n,
+                              mid_pass_batches=batches_done, async_=async_checkpoint)
+            self.checkpoint_wait()  # durable before the mesh moves
+            self._known_good_pass = (save_dir, pass_id)
+        world = epoch = 0
+        if lead:
+            if barrier is None:
+                # local mode: the stall site hooks here (the fleet barrier
+                # has its own), one hook a drain
+                faults.maybe_stall("resize_drain_stall", env="PADDLE_TPU_RESIZE_STALL_S")
+                world = req.world
+            else:
+                # ack the master's epoch and block until its go; the world
+                # it returns supersedes the announced one
+                world = int(barrier(req, pass_id, batches_done))
+            epoch = req.epoch
+        world, epoch = self._from_lead(world, epoch)
+        t_drained = time.monotonic()
+        trace.span_from_monotonic("train.resize.drain", t_req,
+                                  attrs={"epoch": epoch, "pass": pass_id,
+                                         "batch": batches_done})
+        if lead:
+            stats.FT_EVENTS.incr("resize_drain")
+        if world == self.parallel.data_axis_size:
+            # drain-only: nothing to re-shard, nothing to recapture
+            log.info("resize epoch %d: already at world %d; drain-only, no re-shard",
+                     epoch, world)
+        else:
+            self._position = (pass_id, batches_done)
+            try:
+                self.resize_to(world)
+            except ValueError as e:
+                # every rank got the same verdict: the pass goes on, bitwise,
+                # on the old mesh
+                if lead:
+                    stats.FT_EVENTS.incr("resize_rejected")
+                log.error("resize epoch %d to world=%d rejected: %s; continuing the pass "
+                          "on the current %d-rank mesh", epoch, world, e,
+                          self.parallel.data_axis_size)
+                return
+            finally:
+                self._position = (-1, -1)
+            if self.left is not None:
+                raise _LeftJob()
+        t_resharded = time.monotonic()
+        trace.span_from_monotonic("train.resize.reshard", t_drained, attrs={"world": world})
+        log.warning("resize drain at pass %d batch %d: %s; data axis now %d (epoch %d), "
+                    "resuming the interrupted pass", pass_id, batches_done,
+                    f"checkpointed to {saved}" if saved else "no checkpoint", world, epoch)
+        self._resize_mark = {"epoch": epoch, "world": world, "pass": pass_id,
+                             "batch": batches_done, "drain_s": t_drained - t_req,
+                             "reshard_s": t_resharded - t_drained,
+                             "t_resharded": t_resharded}
+
+    def _note_resize_resumed(self) -> None:
+        """Close an epoch once the first dispatch after it returned (or at
+        pass end): the resume leg of the latency split, the span, the
+        metrics and the pass's log entry."""
+        m, self._resize_mark = self._resize_mark, None
+        resume_s = time.monotonic() - m["t_resharded"]
+        trace.span_from_monotonic("train.resize.resume", m["t_resharded"],
+                                  attrs={"epoch": m["epoch"], "world": m["world"]})
+        split = {"drain": m["drain_s"], "reshard": m["reshard_s"], "resume": resume_s}
+        if self.mesh is None or self.mesh.rank == 0:  # one member a job
+            obs_metrics.observe_resize(split)
+            stats.FT_EVENTS.incr("resize_epoch")
+        self._resize_log.append({
+            "epoch": m["epoch"], "world": m["world"], "pass": m["pass"],
+            "batch": m["batch"], "drain_s": round(split["drain"], 6),
+            "reshard_s": round(split["reshard"], 6), "resume_s": round(split["resume"], 6)})
+        log.info("resize epoch %d complete: world=%d drain=%.3fs reshard=%.3fs "
+                 "resume=%.3fs", m["epoch"], m["world"], split["drain"], split["reshard"],
+                 split["resume"])
 
     def resize_to(self, new_world: int) -> None:
-        """Re-shard a mesh trainer onto `new_world` ranks: processes leaving
-        and joining a new group is ROADMAP.md §1 item 8c, not ported yet."""
+        """Re-shard the live train state onto a mesh whose data axis spans
+        `new_world` (the other axes keep their extents). Every rank of the
+        current mesh calls it together; joiners of a grow take part through
+        `train(join=...)`. In order: the optimizer slots, parameters and
+        averages in their canonical layout, gathered on the old group; the
+        `reshard_kill` site (rank 0's); the new world's rendezvous over the
+        job's store (ValueError on every rank when it cannot be built: a
+        joiner missing, or on CUDA more ranks than visible cards; the old
+        group is still whole then). Only then: the captured graphs go (they
+        hold the old communicator), the old mesh closes, the updater
+        rebinds to the new plan, the state is re-laid for it (values exact:
+        the canonical round trip a checkpoint takes) and, on a grow, rank
+        0 broadcasts it to the joiners. The next dispatch of each signature
+        runs eagerly, then captures. A rank outside the new world leaves:
+        `left` says where."""
         if self.parallel is None:
             raise ValueError("resize_to needs a DataParallel mesh "
                              "(SGDTrainer(parallel=...)): there is no mesh to re-shape")
-        raise NotImplementedError(
-            f"resize_to({new_world}): the elastic re-shard of a data-parallel trainer "
-            "(ranks leaving and joining a new torch.distributed group) is not ported to "
-            "paddle_tpu_torch yet (ROADMAP.md §1 item 8, item 8c)")
+        assert self.state is not None, "resize_to needs a live state"
+        from paddle_tpu_torch.parallel import distributed
+        from paddle_tpu_torch.parallel.data_parallel import DataParallel
+        from paddle_tpu_torch.parallel.mesh import resize_mesh
+
+        old, mesh = self.parallel, self.mesh
+        new_world = int(new_world)
+        if new_world < 1:
+            raise ValueError(f"resize target for axis {old.batch_axis!r} must be >= 1")
+        axes = dict(mesh.shape)
+        axes[old.batch_axis] = new_world
+        total = int(np.prod(list(axes.values())))
+        # the portable waypoint, gathered on the old group
+        canonical = self.updater.to_canonical(self.state["opt"])
+        params_c = self.updater.params_to_canonical(self.state["params"])
+        avg_c = (self.updater.params_to_canonical(self.state["avg"]["avg"])
+                 if self.state["avg"] else None)
+        lead = mesh.rank == 0
+        kill = lead and faults.get().fire("reshard_kill")
+        attempt = self._job().add("elastic/attempts", 1) if lead else 0
+        attempt, kill = self._from_lead(attempt, kill)
+        if kill:
+            # the process dies mid-re-shard, after the drain checkpoint:
+            # auto_resume replays the pass from the drained boundary
+            raise faults.InjectedKill("injected reshard_kill (chaos)")
+        plan = distributed.ElasticPlan(
+            attempt, axes, total, mesh.size, mesh.backend, *self._position,
+            store=self._job())
+        if lead:
+            distributed.announce(plan)
+        group = distributed.rendezvous(plan, lead, mesh.rank if mesh.rank < total else None,
+                                       self.device)
+        self._drop_graphs()
+        mesh.close()
+        if group is None:
+            self.left = {"rank": mesh.rank, "world": new_world, "pass": self._position[0],
+                         "batch": self._position[1]}
+            return
+        new_mesh = resize_mesh(mesh, old.batch_axis, new_world, group=group)
+        new_parallel = DataParallel(new_mesh, batch_axis=old.batch_axis,
+                                    param_attrs=old.param_attrs, rules=old.rules)
+        new_updater = self.updater.rebind(new_parallel, params_c)
+        state = dict(self.state)
+        state["opt"] = new_updater.from_canonical(canonical)
+        state["params"] = new_updater.params_from_canonical(params_c)
+        if avg_c is not None:
+            state["avg"] = {**state["avg"], "avg": new_updater.params_from_canonical(avg_c)}
+        self.parallel, self.updater, self.mesh = new_parallel, new_updater, new_mesh
+        self.state = new_parallel.shard_state(state)
+        self._attempt, self._bseq, self._resized = attempt, 0, True
+        if total > mesh.size:
+            canon = {"params": params_c, "opt": canonical}
+            if avg_c is not None:
+                canon["avg"] = {**self.state["avg"], "avg": avg_c}
+            self._share_state(canon)
+
+    def _drop_graphs(self) -> None:
+        """Free every captured step graph. NCCL does not destroy a
+        communicator while a live CUDA graph holds its work, so this comes
+        before a group is shut down."""
+        self.graphs.clear()
+        if self.device.type == "cuda":
+            gc.collect()
+            torch.cuda.synchronize(self.device)
+
+    def close(self) -> None:
+        """The end of a rank's run: free the step graphs, then shut the
+        mesh's groups down (every rank of the mesh together)."""
+        self._drop_graphs()
+        if self.mesh is not None and not self.mesh.closed:
+            self.mesh.close()
+
+    def _share_state(self, trees: Optional[Dict[str, Any]] = None) -> None:
+        """Rank 0's state on every rank of the new mesh after a grow. The
+        old ranks pass the canonical trees they gathered on the old group
+        (whole on each of them); a joiner builds empty ones of the same
+        shapes from its own state, with no collective. Every leaf is
+        broadcast from rank 0, in key order, then laid out for the new mesh
+        as a checkpoint loads it, and the counters follow."""
+        st, up = self.state, self.updater
+        if trees is None:  # a joiner: the canonical shapes, no values yet
+            params = {k: torch.empty(up.canonical_shape(k, v), dtype=v.dtype,
+                                     device=self.device) for k, v in st["params"].items()}
+            opt = self.optimizer.init_state(params)
+            if "ef" in st["opt"]:
+                opt["ef"] = {k: torch.empty(params[k].shape, dtype=torch.float32,
+                                            device=self.device) for k in st["opt"]["ef"]}
+            trees = {"params": params, "opt": opt}
+            if st["avg"]:
+                trees["avg"] = self.model_average.init_state(params)
+        trees = {**trees, "states": st["states"]}
+        flat = ckpt.flatten_tree(trees, leaf=_leaf)
+        with torch.no_grad():
+            for k in sorted(flat):
+                self.mesh.broadcast_(flat[k], None)
+            for k in ("samples", "lr_scale", "diverged", "cost_acc", "rng"):
+                self.mesh.broadcast_(st[k], None)
+        self.load_params(trees["params"])
+        new = {"opt": up.from_canonical(trees["opt"])}
+        if "avg" in trees:
+            new["avg"] = {**trees["avg"], "avg": up.params_from_canonical(trees["avg"]["avg"])}
+        own = ckpt.flatten_tree({k: st[k] if k == "avg" else st["opt"] for k in new},
+                                leaf=_leaf)
+        with torch.no_grad():
+            for k, v in ckpt.flatten_tree(new, leaf=_leaf).items():
+                own[k].copy_(v)
+        self._diverged_seen = int(st["diverged"])
+
+    def _join_job(self, plan: Any, reader: Callable, feeder: Optional[Callable]) -> None:
+        """A joiner's entry into a running job: the state's shapes from the
+        reader's first batch, then rank 0's values (`_share_state`, in step
+        with the old ranks' resize), and the attempt's boundary count."""
+        if self.mesh is None:
+            raise ValueError("train(join=...) needs the trainer's mesh over the "
+                             "plan's group (SGDTrainer(parallel=...))")
+        if plan.pass_id < 0:
+            raise ValueError(f"resize attempt {plan.attempt} was made outside train(): "
+                             "a joiner has no batch to continue from")
+        self._job_store = plan.store
+        it = iter(reader())
+        try:
+            raw = next(it)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+        if isinstance(raw, StackedBatch):
+            raw = _unstack(raw, 0)
+        self.init_state(_feed(raw, feeder))
+        self._share_state()
+        self._attempt, self._bseq, self._resized = plan.attempt, 0, True
+        log.info("rank %d joined the job at resize attempt %d (pass %d batch %d, %d "
+                 "ranks)", self.mesh.rank, plan.attempt, plan.pass_id, plan.batch,
+                 plan.world)
 
     def _drain_preempt(self, save_dir: Optional[str], pass_id: int, batches_done: int,
                        keep_last_n: Optional[int], async_checkpoint: bool = False) -> None:

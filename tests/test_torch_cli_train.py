@@ -16,7 +16,9 @@ small v1 bi-GRU text config, on the CPU.
     turn `--steps_per_dispatch > 1` back to 1, loudly;
     `--master_endpoints` trains on a task master's shards exactly as on the
     provider; `--elastic` at one trainer prints the reference's message and
-    trains; `--profile=pass:N` writes profile.json (and with `--job=time`
+    trains, and at `--trainer_count=2` with `--master_endpoints` follows
+    the master's resize epochs (grown to 3 ranks, a joining rank process,
+    then shrunk to 2, a leaving one); `--profile=pass:N` writes profile.json (and with `--job=time`
     joins the timing line).
   * On a card (marked `cuda`, skipped here): the config trains through the
     step graph and reaches both GRU kernels for both directions on every
@@ -206,8 +208,9 @@ def test_train_without_a_card_or_device_cpu_raises(in_conf_dir, no_cuda):
 def test_unported_flags_exit_2_naming_their_item(flag, item, in_conf_dir, capfd):
     """--compile_cache exits 2 naming what it lacks. --trainer_count=2 is
     ported: it trains over two rank processes, rank 0 printing the pass
-    line, and exits 0; what stays unported of ROADMAP item 8 (a mesh
-    trainer's re-shard, item 8c; `serve --tp 2` is ported) still names it."""
+    line, and exits 0; so is the rest of ROADMAP item 8 (a mesh trainer's
+    re-shard, item 8c): a one-rank same-size resize_to builds a new group
+    and leaves the parameters bitwise as they were."""
     argv = ["train", "--config=conf.py", "--device=cpu", "--num_passes=1", flag]
     if flag.startswith("--trainer_count"):
         assert cli.main(argv) == 0
@@ -223,8 +226,12 @@ def test_unported_flags_exit_2_naming_their_item(flag, item, in_conf_dir, capfd)
                              L.Data("y", shape=(1,)))
         tr = SGDTrainer(cost, SGD(), device="cpu",
                         parallel=DataParallel(make_mesh({"data": 1}, device="cpu")))
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 " + item):
-            tr.resize_to(2)
+        tr.init_state({"x": np.ones((2, 4), np.float32), "y": np.ones((2, 1), np.float32)})
+        before, old = {k: v.clone() for k, v in tr.state["params"].items()}, tr.mesh
+        tr.resize_to(1)
+        assert tr.mesh is not old and old.closed and tr.parallel.data_axis_size == 1
+        for k, v in tr.state["params"].items():
+            assert torch.equal(v, before[k]), k
         return
     assert cli.main(argv) == 2
     err = capfd.readouterr().err
@@ -302,6 +309,65 @@ def test_elastic_and_profile_flags_train(argv, in_conf_dir, tmp_path, capsys):
     step = report["executables"]["train_step"]
     assert step["flops"] > 0 and 0 < len(step["top_buckets"]) <= report["top_k"] == 3
     assert {"generated_unix_s", "top_k", "executables"} <= set(report)
+
+
+@pytest.mark.timeout(240)
+def test_elastic_trainer_count_follows_the_masters_resize_epochs(in_conf_dir, capfd):
+    """--elastic=1 --trainer_count=2 --master_endpoints: rank 0 holds the
+    job's one ResizeClient; the master grows the job to 3 (the launcher
+    starts the joining rank process, which receives the state and trains
+    on) and then shrinks it to 2 (that rank leaves and exits 0). Both
+    epochs complete on the master, rank 0 prints every pass line, and the
+    command exits 0. Each batch's copy is slowed (h2d_delay) so the passes
+    outlast the epochs."""
+    import threading
+    import time
+
+    from paddle_tpu_torch.runtime.master import MasterClient, MasterServer, TaskMaster
+
+    srv = MasterServer(TaskMaster(), lease_s=2.0).start()
+    boot = MasterClient(srv.address)
+    log_, done = [], threading.Event()
+
+    def wait(pred, what, timeout=90.0):
+        deadline = time.monotonic() + timeout
+        while not done.is_set() and time.monotonic() < deadline:
+            st = boot.call("stats")
+            if pred(st):
+                return True
+            time.sleep(0.05)
+        log_.append(f"timed out waiting for {what}")
+        return False
+
+    def drive():
+        if not wait(lambda st: st["live_trainers"] >= 1, "rank 0's lease"):
+            return
+        for world, n in ((3, 1), (2, 2)):
+            log_.append(boot.call("resize", world=world))
+            if not wait(lambda st: st["resize"]["completed"] >= n, f"epoch {n}"):
+                return
+
+    th = threading.Thread(target=drive, daemon=True)
+    th.start()
+    host, port = srv.address
+    try:
+        rc = cli.main(["train", "--config=conf.py", "--device=cpu", "--num_passes=40",
+                       "--trainer_count=2", "--elastic=1", "--log_period=0",
+                       f"--master_endpoints={host}:{port}", "--prefetch_depth=1",
+                       "--faults=h2d_delay:60ms"])
+        done.set()
+        th.join(5)
+        st = boot.call("stats")["resize"]
+    finally:
+        done.set()
+        boot.close()
+        srv.stop()
+    out = capfd.readouterr().out
+    assert rc == 0
+    assert [d["state"] for d in log_ if isinstance(d, dict)] == ["draining", "draining"], log_
+    assert st["state"] == "idle" and st["completed"] == 2, (st, log_)
+    lines = [l for l in out.splitlines() if l.startswith("pass ")]
+    assert len(lines) == 40 and lines[-1].startswith("pass 39: avg_cost=")
 
 
 def test_shard_update_at_one_trainer_warns_and_trains(in_conf_dir, caplog, capsys):

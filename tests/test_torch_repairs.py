@@ -268,8 +268,14 @@ def test_not_ported_messages_name_the_roadmap_items():
     cost = C.SquareError(L.Fc(x, 1, act=None, name="o"), L.Data("y", shape=(1,)))
     tr = SGDTrainer(cost, SGD(), device="cpu",
                     parallel=DataParallel(make_mesh({"data": 1}, device="cpu")))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
-        tr.resize_to(2)
+    # item 8c is ported: a same-size resize re-shards onto a new group, bitwise
+    tr.init_state({"x": np.ones((2, 4), np.float32), "y": np.ones((2, 1), np.float32)})
+    before, old = {k: v.clone() for k, v in tr.state["params"].items()}, tr.mesh
+    tr.resize_to(1)
+    assert tr.mesh is not old and old.closed
+    assert all(torch.equal(v, before[k]) for k, v in tr.state["params"].items())
+    with pytest.raises(ValueError, match="DataParallel"):
+        SGDTrainer(cost, SGD(), device="cpu").resize_to(2)
     stale = re.compile(r"queue 1|item 3\.3|item 6, TP|pipeline of item 7")
     for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
         assert not stale.search(path.read_text()), path

@@ -609,13 +609,27 @@ def test_zero3_composes_with_bf16_precision():
 
 
 def test_resize_to_names_item_8c():
+    """Item 8c is ported: a same-size resize_to of a trained zero1 rank
+    pair re-shards onto a new group through the canonical seams, bitwise;
+    a mesh-less trainer still has nothing to re-shape."""
     cost = port_net()
+    x, y = data(96)
 
     def fn(r, mesh):
-        tr = TTrainer(cost, PORT_OPT["sgd"](), device="cpu", parallel=TDataParallel(mesh))
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8.*8c"):
-            tr.resize_to(4)
-        return True
+        tr = TTrainer(cost, PORT_OPT["sgd"](), device="cpu", parallel=TDataParallel(mesh),
+                      shard_update="zero1")
+        tr.train(reader(x, y), num_passes=1, log_period=0)
+        before = {k: v.clone() for k, v in tr.canonical_params().items()}
+        slots = {k: tuple(t.clone() for t in s)
+                 for k, s in tr.updater.to_canonical(tr.state["opt"])["slots"].items()}
+        old = tr.mesh
+        tr.resize_to(2)
+        assert tr.mesh is not old and old.closed and tr.updater.n == 2
+        after = tr.canonical_params()
+        new_slots = tr.updater.to_canonical(tr.state["opt"])["slots"]
+        return (all(torch.equal(after[k], v) for k, v in before.items())
+                and all(torch.equal(a, b) for k, s in slots.items()
+                        for a, b in zip(s, new_slots[k])))
 
     assert run_ranks(2, fn) == [True, True]
     with pytest.raises(ValueError, match="DataParallel"):

@@ -317,9 +317,15 @@ def test_named_errors_plot_and_minibatch(tmp_path):
         tr = sgd.trainer
         assert isinstance(tr.parallel, DataParallel) and tr.mesh.size == 2
         sgd.train(reader=tpaddle.batch(_reader(samples), 8), num_passes=1)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 8"):
-            tr.resize_to(4)
-        return np.array(sgd.parameters.get("output.w"))
+        # item 8c is ported: a same-size resize re-shards onto a new group
+        # and the v2 parameters read back bitwise
+        trained = np.array(sgd.parameters.get("output.w"))
+        old = tr.mesh
+        tr.resize_to(2)
+        assert tr.mesh is not old and old.closed and tr.mesh.size == 2
+        sgd._sync_parameters_out()
+        np.testing.assert_array_equal(np.array(sgd.parameters.get("output.w")), trained)
+        return trained
 
     trained = run_ranks(2, rank)
     np.testing.assert_array_equal(trained[0], trained[1])  # replicated
